@@ -1,0 +1,84 @@
+"""Entry points: build the flagship GraphLAM and run a forecast rollout.
+
+Counterpart of `_build_model` in the repository's `__graft_entry__.py`
+and of the rollout `bench.py` times: a DummyDatastore of the given grid
+and feature counts, the multiscale mesh graph built for it, and a GraphLAM
+with weights drawn from a seeded `torch.Generator`.
+
+    model, datastore = build_model(nx=268, ny=238,
+                                   n_features={"state": 17, "forcing": 6,
+                                               "static": 4})
+    init, forcing, true = make_inputs(model, batch_size=4, steps=4)
+    prediction = forecast(model, init, forcing, true)
+
+Everything defaults to device="cuda" and raises when CUDA is absent;
+pass device="cpu" to run the plain PyTorch versions of the kernels.
+"""
+
+from __future__ import annotations
+
+import tempfile
+
+import numpy as np
+import torch
+
+from .config import DatastoreSelection, NeuralLAMConfig, TrainingConfig
+from .datastore.dummy import DummyDatastore
+from .device import resolve_device
+from .graph.build import create_graph
+from .graph.storage import graph_from_bundle
+from .models.ar_model import ModelArgs
+from .models.graph_lam import GraphLAM
+
+
+def build_model(nx=60, ny=60, hidden_dim=64, processor_layers=4,
+                n_features=None, n_timesteps=20, seed=0, device="cuda",
+                compute_dtype=None):
+    """(GraphLAM, DummyDatastore) on `device`, weights from `seed`."""
+    device = resolve_device(device)
+    datastore = DummyDatastore(
+        grid_shape=(nx, ny), n_timesteps=n_timesteps, n_features=n_features
+    )
+    config = NeuralLAMConfig(
+        datastore=DatastoreSelection(kind="dummydata", config_path=""),
+        training=TrainingConfig(),
+    )
+    with tempfile.TemporaryDirectory() as gdir:
+        bundle = create_graph(gdir, datastore.get_xy("state", stacked=False),
+                              n_max_levels=None, hierarchical=False)
+    graph = graph_from_bundle(bundle, device)
+    args = ModelArgs(hidden_dim=hidden_dim, processor_layers=processor_layers,
+                     compute_dtype=compute_dtype)
+    model = GraphLAM(args, config, datastore, graph, device=device,
+                     generator=torch.Generator().manual_seed(seed))
+    return model, datastore
+
+
+def make_inputs(model, batch_size: int, steps: int, seed: int = 0):
+    """Random (init_states (B, 2, N, d), forcing (B, T, N, d_f),
+    true_states (B, T, N, d)) on the model's device, drawn with numpy from
+    `seed`."""
+    rng = np.random.default_rng(seed)
+    n = model.num_grid_nodes
+    d = model.num_state_vars
+    d_f = model.grid_dim - 2 * d - model.grid_static_dim
+
+    def t(shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=model.device)
+
+    return (t((batch_size, 2, n, d)), t((batch_size, steps, n, d_f)),
+            t((batch_size, steps, n, d)))
+
+
+def forecast(model, init_states, forcing_features, true_states):
+    """Rollout prediction (B, T, N, d) from `model.unroll_prediction`,
+    without autograd. Inputs are moved to the model's device."""
+    dev = model.device
+    with torch.no_grad():
+        prediction, _ = model.unroll_prediction(
+            torch.as_tensor(init_states, device=dev),
+            torch.as_tensor(forcing_features, device=dev),
+            torch.as_tensor(true_states, device=dev),
+        )
+    return prediction

@@ -1,0 +1,5 @@
+"""Forecast models (counterpart of neural_lam_tpu/models)."""
+
+from .graph_lam import GraphLAM  # noqa: F401
+
+MODELS = {"graph_lam": GraphLAM}

@@ -1,0 +1,188 @@
+"""Encode-process-decode skeleton over a loaded graph, flat route.
+
+Counterpart of neural_lam_tpu/models/base_graph_model.py (ref:
+neural_lam/models/base_graph_model.py:12-177): grid/g2m/m2g embedders, the
+g2m encoder GNN, an abstract processor, the m2g decoder GNN fused with the
+residual grid MLP and the output MLP (no LayerNorm), and delta prediction
+with diff-stat rescale and residual over prev_state.
+
+The port runs the JAX package's flat-grid route (`_predict_step_flat_grid`)
+only: the grid side stays in the flat (N, B*h) layout from the embedder
+(K1) through the g2m encoder (K2) to the fused decoder (K4).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..graph.storage import LoadedGraph
+from ..ops import embed, grid_update
+from ..ops.message_passing import (
+    _apply_inet_flat,
+    flatten_nodes,
+    init_interaction_net,
+    node_transform_flat,
+    unflatten_nodes,
+)
+from ..ops.mlp import apply_mlp, init_mlp
+from .ar_model import ARModelBase, ModelArgs
+
+
+def expand_to_batch(x, batch_size):
+    """(N, d) -> (B, N, d) broadcast (ref: ar_model.py:204-209)."""
+    return x[None].expand(batch_size, *x.shape)
+
+
+class BaseGraphModel(ARModelBase):
+    def __init__(self, args: ModelArgs, config, datastore,
+                 graph: LoadedGraph, device="cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__(args, config, datastore, device)
+        if args.hidden_layers != 1:
+            raise NotImplementedError(
+                "the fused flat route needs 2-layer MLPs (hidden_layers=1)"
+            )
+        self.graph = graph
+        assert graph.num_grid_nodes == self.num_grid_nodes, (
+            f"graph has {graph.num_grid_nodes} grid nodes but datastore has "
+            f"{self.num_grid_nodes}"
+        )
+        self.hierarchical = graph.hierarchical
+        # [hidden_dim] * (hidden_layers + 1) (ref: base_graph_model.py:48)
+        self.mlp_blueprint_end = [args.hidden_dim] * (args.hidden_layers + 1)
+        self.num_mesh_nodes, _ = self.get_num_mesh()
+        self._init_params(generator)
+        if not grid_update.grid_update_applicable(self, graph.m2g):
+            raise NotImplementedError(
+                "the fused decoder needs a virt_identity m2g edge set"
+            )
+
+    # --- abstract over mesh structure (ref: base_graph_model.py:82-104) ---
+
+    def get_num_mesh(self):
+        raise NotImplementedError
+
+    def embedd_mesh_nodes(self):
+        raise NotImplementedError
+
+    def process_step(self, mesh_rep, batch_size, ctx):
+        raise NotImplementedError
+
+    def init_extra_params(self, generator):
+        """Subclass parameters (mesh embedders + processor)."""
+        raise NotImplementedError
+
+    # --- parameters (same tree as the JAX package's init_params) ---
+
+    def _init_params(self, generator):
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        g2m_dim = self.graph.g2m.features.shape[1]
+        m2g_dim = self.graph.m2g.features.shape[1]
+        h = self.args.hidden_dim
+        hl = self.args.hidden_layers
+        end = self.mlp_blueprint_end
+        self.grid_embedder = init_mlp([self.grid_dim] + end,
+                                      generator=generator)
+        self.g2m_embedder = init_mlp([g2m_dim] + end, generator=generator)
+        self.m2g_embedder = init_mlp([m2g_dim] + end, generator=generator)
+        self.g2m_gnn = init_interaction_net(h, hidden_layers=hl,
+                                            generator=generator)
+        self.encoding_grid_mlp = init_mlp([h] + end, generator=generator)
+        self.m2g_gnn = init_interaction_net(h, hidden_layers=hl,
+                                            generator=generator)
+        # no output LN (ref: base_graph_model.py:76-80)
+        self.output_map = init_mlp([h] * (hl + 1) + [self.grid_output_dim],
+                                   layer_norm=False, generator=generator)
+        self.init_extra_params(generator)
+        self.to(self.device)
+
+    # --- forward (ref: base_graph_model.py:106-177) ---
+
+    def _static_edge_ctx(self, inet, embedder, edges):
+        """Rollout-invariant edge term of an update_edges=False GNN:
+        ew = emb @ W_e + b0, (M, h)."""
+        emb = apply_mlp(embedder, edges.features)
+        w0 = inet.edge_mlp.layers[0].w
+        d = w0.shape[0] // 3
+        return {"ew": emb @ w0[:d] + inet.edge_mlp.layers[0].b}
+
+    def precompute_rollout_ctx(self):
+        """Embeddings of static graph features, computed once per rollout
+        (the reference recomputes them every step,
+        ref: base_graph_model.py:127-130)."""
+        ctx = {
+            "mesh_emb": self.embedd_mesh_nodes(),
+            "g2m": self._static_edge_ctx(self.g2m_gnn, self.g2m_embedder,
+                                         self.graph.g2m),
+            "m2g": self._static_edge_ctx(self.m2g_gnn, self.m2g_embedder,
+                                         self.graph.m2g),
+        }
+        ctx.update(self.precompute_process_ctx())
+        return ctx
+
+    def precompute_process_ctx(self):
+        """Subclass hook: processor-related rollout-invariant tensors."""
+        return {}
+
+    def _finish_output(self, net_output, prev_state):
+        """Split std head, rescale the delta, residual over prev_state
+        (ref: base_graph_model.py:160-177)."""
+        if self.output_std:
+            pred_delta_mean, pred_std_raw = net_output.chunk(2, dim=-1)
+            pred_std = F.softplus(pred_std_raw)
+        else:
+            pred_delta_mean = net_output
+            pred_std = None
+        rescaled_delta_mean = (
+            pred_delta_mean * self.statics.diff_std + self.statics.diff_mean
+        )
+        return prev_state + rescaled_delta_mean, pred_std
+
+    def _embed_grid_f(self, prev_state, prev_prev_state, forcing, B):
+        """Flat (N, B*h) grid embedding (K1) of concat(prev, prev-prev,
+        forcing, static)."""
+        stat = self.statics.grid_static_features
+        xb = torch.cat([prev_state, prev_prev_state, forcing,
+                        expand_to_batch(stat, B)], dim=-1)
+        emb = self.grid_embedder
+        return embed.embed_grid_flat(
+            flatten_nodes(xb), emb.layers[0].w, emb.layers[0].b,
+            emb.layers[1].w, emb.layers[1].b, emb.ln.scale, emb.ln.bias, B,
+        )
+
+    def _predict_step_flat_grid(self, prev_state, prev_prev_state, forcing,
+                                ctx, batch_size):
+        """Flat-grid predict step: embedder (K1), g2m encoder (K2),
+        processor (subclass), fused m2g decoder (K4)."""
+        B = batch_size
+        h = self.args.hidden_dim
+        ge_f = self._embed_grid_f(prev_state, prev_prev_state, forcing,
+                                  B)  # (N_grid, B*h)
+
+        mesh_rep = _apply_inet_flat(
+            self.g2m_gnn, self.graph.g2m, ge_f,
+            expand_to_batch(ctx["mesh_emb"], B),
+            update_edges=False, aggr="sum", ew=ctx["g2m"]["ew"],
+        )  # (B, N_mesh, h)
+
+        mesh_rep = self.process_step(mesh_rep, B, ctx)
+
+        m2g = self.graph.m2g
+        w0m = self.m2g_gnn.edge_mlp.layers[0].w
+        send_tf = node_transform_flat(mesh_rep, w0m[h:2 * h])
+        net_f = grid_update.grid_update_flat(
+            send_tf, m2g.senders, ctx["m2g"]["ew"], ge_f,
+            m2g.mask.view(m2g.num_virt, m2g.dense_k),
+            grid_update.pack_grid_update_params(self),
+        )  # (num_virt, B*d_out)
+        net_output = unflatten_nodes(net_f[:m2g.num_rec], B)
+        return self._finish_output(net_output, prev_state)
+
+    def predict_step(self, prev_state, prev_prev_state, forcing, ctx=None):
+        if ctx is None:
+            ctx = self.precompute_rollout_ctx()
+        return self._predict_step_flat_grid(
+            prev_state, prev_prev_state, forcing, ctx, prev_state.shape[0],
+        )

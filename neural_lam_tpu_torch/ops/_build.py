@@ -1,0 +1,162 @@
+"""Build the CUDA kernels with nvcc and bind them with ctypes.
+
+Each `csrc/<name>.cu` compiles on its own into a plain-C shared library
+(`nvcc -gencode arch=compute_90a,code=sm_90a -shared`), named after the
+hash of its sources, under `neural_lam_tpu_torch/_kernels/` (listed in
+.gitignore). A library is built at first use and rebuilt when a source's
+hash changes; `build_all` starts one nvcc per source at once. Nothing is
+compiled when the package is imported.
+
+The C entry points take device pointers, sizes and a stream as plain
+values; every launch returns `cudaGetLastError()` and the Python wrapper
+raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+SOURCES = ("embed", "edge_flat", "grid_update")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+LL = ctypes.c_longlong
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libnlt_{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; None when its library is up to date."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    out.with_suffix(".log").write_text(log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Build every stale library, one nvcc per source, all started
+    together. Returns {name: library path}."""
+    jobs = {name: _start(name) for name in names}
+    errors = []
+    for name, job in jobs.items():
+        if job is None:
+            continue
+        try:
+            _finish(name, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {name: _lib_path(name) for name in names}
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (with ptxas register/shared-memory usage) from the
+    build of `name`'s current library."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built if stale, with
+    argtypes/restype set from `signatures` ({function: [argtypes]})."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build_all((name,))[name]
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.nlt_error_string.argtypes = [ctypes.c_int]
+        lib.nlt_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if rc != 0:
+        msg = lib.nlt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg}) at launch")
+
+
+def require_cuda(t):
+    """The CUDA device of `t`; raises for any device but CUDA (the
+    wrappers take their plain versions only for CPU tensors)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"expected a CPU or CUDA tensor, got {t.device}")
+    return t.device
+
+
+def expect(ok: bool, name: str, got) -> None:
+    if not ok:
+        raise ValueError(f"unexpected {name}: {got}")
+
+
+def pointers(device, *specs) -> list[int]:
+    """data_ptr() of each (name, tensor, dtype) after checking that it lies
+    on `device`, has `dtype` and is contiguous."""
+    out = []
+    for name, t, dtype in specs:
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        out.append(t.data_ptr())
+    return out
+
+
+def stream_of(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,172 @@
+"""The whole m2g decoder stage in one pass (K4).
+
+Counterpart of neural_lam_tpu/ops/pallas_grid_update.py. Per grid node of
+a `virt_identity` m2g edge set (one K-slot virtual row per grid node):
+
+    grid_rep = ge + EncMLP(ge)                      (encoding_grid_mlp)
+    rec      = grid_rep @ W_i                       (edge-MLP rec term)
+    x        = silu(table[senders] + ew + rec)      (edge MLP layer 0)
+    msg      = LayerNorm(x @ W2 + b2)
+    agg      = masked K-slot sum
+    rec_out  = grid_rep + AggrMLP(grid_rep, agg)
+    out      = OutMLP(rec_out)                      (no LN)
+
+One function covers the JAX package's pre-gathered kernel and its windowed
+twin (`grid_update_flat` / `grid_update_flat_win`): the sender rows are
+read by index from the (N_send, W) table. The wrapper runs the plain
+version on a CPU tensor and the CUDA kernel (`csrc/grid_update.cu`) on a
+CUDA tensor. `grid_update_flat.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .mlp import layer_norm
+
+HID = 64
+
+_P, _I = _build.P, _build.I
+_SIGNATURES = {"nlt_grid_update": [_P] * 7 + [_I] * 6 + [_P]}
+
+# order of the parameter blob csrc/grid_update.cu reads
+_MATS = ("enc_w0", "enc_w1", "w_i", "w2", "a_w0", "a_w1", "o_w0")
+_VECS = ("enc_b0", "enc_b1", "enc_ls", "enc_lb", "b2", "e_ls", "e_lb",
+         "a_b0", "a_b1", "a_ls", "a_lb", "o_b0")
+
+
+def _lib():
+    return _build.library("grid_update", _SIGNATURES)
+
+
+def pack_grid_update_params(model) -> dict:
+    """The parameters the fused decoder reads, from a model holding the
+    m2g_gnn, encoding_grid_mlp and output_map modules (names as the JAX
+    package's `pack_grid_update_params`)."""
+    m2g = model.m2g_gnn
+    e0 = m2g.edge_mlp.layers[0].w
+    h = e0.shape[0] // 3
+    enc = model.encoding_grid_mlp
+    aggr = m2g.aggr_mlp
+    out = model.output_map
+    return {
+        "w_i": e0[2 * h:],
+        "w2": m2g.edge_mlp.layers[1].w,
+        "b2": m2g.edge_mlp.layers[1].b,
+        "e_ls": m2g.edge_mlp.ln.scale,
+        "e_lb": m2g.edge_mlp.ln.bias,
+        "enc_w0": enc.layers[0].w,
+        "enc_b0": enc.layers[0].b,
+        "enc_w1": enc.layers[1].w,
+        "enc_b1": enc.layers[1].b,
+        "enc_ls": enc.ln.scale,
+        "enc_lb": enc.ln.bias,
+        "a_w0": aggr.layers[0].w,
+        "a_b0": aggr.layers[0].b,
+        "a_w1": aggr.layers[1].w,
+        "a_b1": aggr.layers[1].b,
+        "a_ls": aggr.ln.scale,
+        "a_lb": aggr.ln.bias,
+        "o_w0": out.layers[0].w,
+        "o_b0": out.layers[0].b,
+        "o_w1": out.layers[1].w,
+        "o_b1": out.layers[1].b,
+    }
+
+
+def grid_update_applicable(model, m2g_edges) -> bool:
+    """Structural eligibility for the fused decoder: a virt_identity m2g
+    set and 2-layer MLPs with the reference LayerNorm layout."""
+    def two_layer(mlp, ln):
+        return len(mlp.layers) == 2 and (mlp.ln is not None) == ln
+
+    return (
+        m2g_edges.virt_identity
+        and two_layer(model.m2g_gnn.edge_mlp, True)
+        and two_layer(model.m2g_gnn.aggr_mlp, True)
+        and two_layer(model.encoding_grid_mlp, True)
+        and two_layer(model.output_map, False)
+    )
+
+
+def grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p, pp):
+    """Plain PyTorch version of `grid_update_flat`."""
+    n_virt, K = mask_p.shape
+    h = ew.shape[-1]
+    B = table.shape[-1] // h
+    ge = grid_emb_f.view(grid_emb_f.shape[0], B, h)
+    if ge.shape[0] < n_virt:
+        ge = F.pad(ge, (0, 0, 0, 0, 0, n_virt - ge.shape[0]))
+
+    def mlp2(x, w0, b0, w1, b1):
+        return F.silu(x @ w0 + b0) @ w1 + b1
+
+    gr = ge + layer_norm(
+        mlp2(ge, pp["enc_w0"], pp["enc_b0"], pp["enc_w1"], pp["enc_b1"]),
+        pp["enc_ls"], pp["enc_lb"])
+    rec = gr @ pp["w_i"]
+    g = table.index_select(0, senders).view(n_virt, K, B, h)
+    x = F.silu(g + ew.view(n_virt, K, 1, h) + rec[:, None])
+    msg = layer_norm(x @ pp["w2"] + pp["b2"], pp["e_ls"], pp["e_lb"])
+    agg = (msg * mask_p[:, :, None, None]).sum(dim=1)
+    u = F.silu(gr @ pp["a_w0"][:h] + agg @ pp["a_w0"][h:] + pp["a_b0"]) \
+        @ pp["a_w1"] + pp["a_b1"]
+    rec_out = gr + layer_norm(u, pp["a_ls"], pp["a_lb"])
+    out = mlp2(rec_out, pp["o_w0"], pp["o_b0"], pp["o_w1"], pp["o_b1"])
+    return out.reshape(n_virt, -1)
+
+
+def grid_update_flat(table, senders, ew, grid_emb_f, mask_p, pp):
+    """Fused m2g decoder stage.
+
+    table: (N_send, W) mesh-side sender transforms; senders (M,) int32;
+    ew: (M, h) static edge term emb @ W_e + b0; grid_emb_f: (N_rows, W)
+    flat grid embeddings with N_rows <= N_virt (virtual-row padding reads
+    as zero rows; the caller slices those outputs off); mask_p (N_virt, K);
+    pp: `pack_grid_update_params(model)`.
+    Returns (N_virt, B*d_out).
+
+    Replaces pallas_grid_update.py::_grid_update_kernel (grid_update_flat)
+    and ::_grid_update_win_kernel (grid_update_flat_win). Bound by fp32
+    operations on the card; see csrc/grid_update.cu.
+    """
+    if table.device.type == "cpu":
+        return grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p,
+                                      pp)
+    dev = _build.require_cuda(table)
+    n_virt, K = mask_p.shape
+    W = table.shape[1]
+    B = W // HID
+    d_out = pp["o_w1"].shape[1]
+    _build.expect(W % HID == 0 and ew.shape == (n_virt * K, HID), "ew",
+                  ew.shape)
+    _build.expect(grid_emb_f.dim() == 2 and grid_emb_f.shape[1] == W
+                  and grid_emb_f.shape[0] <= n_virt, "grid_emb_f",
+                  grid_emb_f.shape)
+    _build.expect(senders.shape == (n_virt * K,), "senders", senders.shape)
+    _build.expect(1 <= d_out <= 64, "d_out", d_out)
+    for name in _MATS:
+        rows = 2 * HID if name == "a_w0" else HID
+        _build.expect(pp[name].shape == (rows, HID), name, pp[name].shape)
+    _build.expect(pp["o_w1"].shape[0] == HID, "o_w1", pp["o_w1"].shape)
+    params = torch.cat([pp[n].reshape(-1) for n in _MATS]
+                       + [pp[n] for n in _VECS]
+                       + [pp["o_w1"].reshape(-1), pp["o_b1"]])
+    out = torch.empty((n_virt, B * d_out), device=dev, dtype=torch.float32)
+    f32, i32 = torch.float32, torch.int32
+    ptrs = _build.pointers(dev, ("table", table, f32),
+                           ("senders", senders, i32), ("ew", ew, f32),
+                           ("grid_emb_f", grid_emb_f, f32),
+                           ("mask_p", mask_p, f32), ("params", params, f32),
+                           ("out", out, f32))
+    lib = _lib()
+    rc = lib.nlt_grid_update(*ptrs, n_virt, grid_emb_f.shape[0], K, B,
+                             d_out, dev.index, _build.stream_of(dev))
+    _build.check(lib, rc, "grid_update_flat")
+    grid_update_flat.launches += 1
+    return out
+
+
+grid_update_flat.launches = 0

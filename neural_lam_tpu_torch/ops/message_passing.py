@@ -1,0 +1,320 @@
+"""Interaction network (Battaglia et al. 2016) on the flat node-major layout.
+
+Counterpart of the flat forward route of neural_lam_tpu/ops/message_passing.py.
+Reference behavior (ref: neural_lam/interaction_net.py:10-131):
+
+    messages   = EdgeMLP(concat(edge_rep, send_rep[senders], rec_rep[receivers]))
+    aggregated = sum(messages -> receivers)
+    rec_out    = rec_rep + AggrMLP(concat(rec_rep, aggregated))
+    edge_out   = edge_rep + messages            (if update_edges)
+
+Layouts kept from the JAX package (so the tests compare like with like):
+
+* flat node-major `(rows, B*h)` activations, batch element b in columns
+  [b*h, (b+1)*h) of each row;
+* the dense K-slot virtual-row `EdgeSet` (`EdgeSet.from_local`): every
+  receiver owns ceil(deg/K) contiguous virtual rows of K edge slots, padding
+  slots carry sender 0, zero features and mask 0.
+
+The first EdgeMLP layer is split: concat(e, x_j, x_i) @ W ==
+e @ W_e + x_j @ W_j + x_i @ W_i, with the node terms computed per node and
+read per edge. The fused edge kernels (`edge_flat.py`) read the sender
+term by index straight from the node table. Aggregation is the masked
+K-slot sum inside the kernels, then a deterministic gather fold of virtual
+rows to receivers (`_rec_fold`) -- no atomics, so every run sums in the
+same order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import edge_flat
+from .mlp import MLP, finish_mlp, init_mlp
+from .segment import build_gather_table
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeSet:
+    """A static directed edge set in the dense K-slot virtual-row layout.
+
+    senders: (M,) int32 local sender ids per edge slot (0 at padding).
+    receivers: (M,) int32 receiver id per edge slot.
+    features: (M, d_edge_f) static (normalized) edge features.
+    gather_table: (num_rec, max_deg) int32 padded incoming-slot-id table.
+    mask: (M, 1) 1.0 for real edge slots.
+    virt_to_rec: (num_virt,) int32 virtual-row -> receiver map.
+    rec_slots / rec_mask: (num_rec, R) virtual-row ids of each receiver and
+    their validity, for the gather fold; None when virt_identity.
+    """
+
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    features: torch.Tensor
+    gather_table: torch.Tensor
+    mask: torch.Tensor
+    virt_to_rec: torch.Tensor
+    rec_slots: torch.Tensor | None
+    rec_mask: torch.Tensor | None
+    num_send: int
+    num_rec: int
+    dense_k: int
+    num_virt: int
+    # True when (pre-padding) every receiver had exactly one virtual row in
+    # order: aggregation is then virt[:num_rec]
+    virt_identity: bool
+
+    @staticmethod
+    def from_local(senders: np.ndarray, receivers: np.ndarray,
+                   features: np.ndarray, num_send: int, num_rec: int,
+                   dense_cap: int | None = None, device="cuda"):
+        """Build the dense layout from already-local index arrays.
+
+        Pads the edge list so every receiver owns contiguous K-slot virtual
+        rows (receiver-major). With the default cap K=8, a receiver of
+        degree d owns ceil(d/K) virtual rows. Padding slots have sender 0,
+        zero features and mask 0. The slot order and padding are those of
+        the JAX package's `EdgeSet.from_local(dense=True)`.
+        """
+        senders = np.asarray(senders)
+        receivers = np.asarray(receivers)
+        features = np.asarray(features, dtype=np.float32)
+        K = dense_cap or 8
+        counts = np.bincount(receivers, minlength=num_rec)
+        K = min(K, max(int(counts.max()), 1))
+        n_virt_per_rec = np.maximum(-(-counts // K), 1)
+        virt_start = np.concatenate(([0], np.cumsum(n_virt_per_rec)))[:-1]
+        num_virt = int(n_virt_per_rec.sum())
+        virt_identity = bool(np.all(n_virt_per_rec == 1))
+        # virtual rows padded (all-masked) to a multiple of 256 (64 for
+        # small sets): the JAX package's layout, kept so both packages
+        # agree on every shape
+        tile = 256 if num_virt >= 2048 else 64
+        num_virt_pad = -(-max(num_virt, 1) // tile) * tile
+        order = np.argsort(receivers, kind="stable")
+        starts = np.concatenate(([0], np.cumsum(counts)))[:-1]
+        within = np.arange(len(receivers)) - starts[receivers[order]]
+        r_sorted = receivers[order]
+        slots = (virt_start[r_sorted] + within // K) * K + within % K
+        M_pad = num_virt_pad * K
+        d_feat = features.shape[1]
+        send_p = np.zeros(M_pad, np.int32)
+        feat_p = np.zeros((M_pad, d_feat), np.float32)
+        mask = np.zeros((M_pad, 1), np.float32)
+        send_p[slots] = senders[order]
+        feat_p[slots] = features[order]
+        mask[slots] = 1.0
+        virt_to_rec = np.concatenate([
+            np.repeat(np.arange(num_rec, dtype=np.int32), n_virt_per_rec),
+            np.full(num_virt_pad - num_virt, num_rec - 1, np.int32),
+        ])
+        # gather-based virt->receiver fold layout. The JAX package caps
+        # this at 16 rows per receiver (beyond it a TPU scatter was
+        # cheaper); the port always folds by gather, so it has no cap.
+        rec_slots = rec_mask = None
+        r_fold = int(n_virt_per_rec.max()) if num_rec else 0
+        if not virt_identity and r_fold > 0:
+            jj = np.arange(r_fold)[None, :]
+            cnt = n_virt_per_rec[:, None]
+            rec_slots = torch.as_tensor(
+                (virt_start[:, None]
+                 + np.minimum(jj, np.maximum(cnt - 1, 0))).astype(np.int64),
+                device=device,
+            )
+            rec_mask = torch.as_tensor((jj < cnt).astype(np.float32),
+                                       device=device)
+        recv_p = np.repeat(virt_to_rec, K)
+        table, _ = build_gather_table(recv_p, num_rec)
+
+        def t(a):
+            return torch.as_tensor(a, device=device)
+
+        return EdgeSet(
+            senders=t(send_p),
+            receivers=t(recv_p),
+            features=t(feat_p),
+            gather_table=t(table),
+            mask=t(mask),
+            virt_to_rec=t(virt_to_rec),
+            rec_slots=rec_slots,
+            rec_mask=rec_mask,
+            num_send=int(num_send),
+            num_rec=int(num_rec),
+            dense_k=K,
+            num_virt=num_virt_pad,
+            virt_identity=virt_identity,
+        )
+
+
+class InteractionNet(nn.Module):
+    """Parameters of one interaction net: edge MLP (3h in) + aggr MLP (2h in)
+    (recipes per ref: neural_lam/interaction_net.py:65-66)."""
+
+    def __init__(self, edge_mlp: MLP, aggr_mlp: MLP):
+        super().__init__()
+        self.edge_mlp = edge_mlp
+        self.aggr_mlp = aggr_mlp
+
+
+def init_interaction_net(input_dim: int, *, hidden_layers: int = 1,
+                         hidden_dim: int | None = None,
+                         generator: torch.Generator | None = None
+                         ) -> InteractionNet:
+    if hidden_dim is None:
+        hidden_dim = input_dim
+    edge_recipe = [3 * input_dim] + [hidden_dim] * (hidden_layers + 1)
+    aggr_recipe = [2 * input_dim] + [hidden_dim] * (hidden_layers + 1)
+    return InteractionNet(
+        init_mlp(edge_recipe, layer_norm=True, generator=generator),
+        init_mlp(aggr_recipe, layer_norm=True, generator=generator),
+    )
+
+
+def flatten_nodes(x):
+    """(B, N, h) -> (N, B*h)."""
+    B, N, h = x.shape
+    return x.transpose(0, 1).reshape(N, B * h)
+
+
+def unflatten_nodes(x_f, batch_size: int):
+    """(N, B*h) -> (B, N, h)."""
+    N, W = x_f.shape
+    return x_f.reshape(N, batch_size, W // batch_size).transpose(0, 1)
+
+
+def node_transform_flat(x, w):
+    """(B, N, h_in) @ (h_in, h_out) -> flat (N, B*h_out)."""
+    return flatten_nodes(x @ w)
+
+
+def node_transform_from_flat(x_f, w, batch_size: int):
+    """Flat (N, B*h_in) -> flat (N, B*h_out): the same (h_in, h_out) matmul
+    on every batch group of columns."""
+    N = x_f.shape[0]
+    return (x_f.reshape(N, batch_size, -1) @ w).reshape(N, -1)
+
+
+def apply_mlp_concat_flat(mlp: MLP, parts: list):
+    """apply_mlp_concat emitting flat (N, B*h) node-major output.
+
+    parts: (B, N, d_i) batched or (N, d_i) shared-across-batch tensors."""
+    w0 = mlp.layers[0].w
+    offset = 0
+    acc = None
+    for p in parts:
+        d = p.shape[-1]
+        t = p @ w0[offset:offset + d]
+        t = t.transpose(0, 1) if p.dim() == 3 else t[:, None, :]
+        acc = t if acc is None else acc + t
+        offset += d
+    x = finish_mlp(mlp, acc + mlp.layers[0].b)  # (N, B, h)
+    return x.reshape(x.shape[0], -1)
+
+
+def expand_edge_rep(edges: EdgeSet, emb, batch_size: int):
+    """Initial flat (M, B*h) edge state: the static embedding repeated for
+    every batch element."""
+    return emb.repeat(1, batch_size)
+
+
+def _gather_virt_rows_flat(rec_tf, edges: EdgeSet):
+    """Flat (N_rec, W) -> (N_virt, W) virtual-row receiver transforms;
+    padding rows map to receiver num_rec-1."""
+    if edges.virt_identity:
+        extra = edges.num_virt - edges.num_rec
+        if extra == 0:
+            return rec_tf
+        return torch.cat([rec_tf, rec_tf[-1:].expand(extra, -1)], dim=0)
+    return rec_tf.index_select(0, edges.virt_to_rec)
+
+
+def _rec_fold(virt_f, rec_slots, rec_mask):
+    """Gather-based virt->receiver fold: R masked row gathers summed in a
+    fixed order (deterministic, unlike an atomic scatter-add)."""
+    out = None
+    for j in range(rec_slots.shape[1]):
+        part = virt_f.index_select(0, rec_slots[:, j]) * rec_mask[:, j, None]
+        out = part if out is None else out + part
+    return out
+
+
+def _fold_virt_flat(edges: EdgeSet, virt_f):
+    """(N_virt, W) virtual-row sums -> (N_rec, W) receiver sums."""
+    if edges.virt_identity:
+        return virt_f[:edges.num_rec]
+    return _rec_fold(virt_f, edges.rec_slots, edges.rec_mask)
+
+
+def _virt_counts_flat(edges: EdgeSet):
+    """(N_rec, 1) real in-degree per receiver (min 1)."""
+    per_virt = edges.mask.view(edges.num_virt, edges.dense_k).sum(
+        dim=-1, keepdim=True
+    )
+    return _fold_virt_flat(edges, per_virt).clamp_min(1.0)
+
+
+def _aggr_mlp_mixed(mlp: MLP, rec_rep, aggregated_f):
+    """AggrMLP(concat(rec_rep, aggregated)) with rec_rep in (B, N, h) and
+    aggregated in flat (N, B*h)."""
+    w0 = mlp.layers[0].w
+    B, N, d = rec_rep.shape
+    agg = aggregated_f.reshape(N, B, d).transpose(0, 1)
+    x = rec_rep @ w0[:d] + agg @ w0[d:] + mlp.layers[0].b
+    return finish_mlp(mlp, x)
+
+
+def edge_round_flat(edge_mlp: MLP, edges: EdgeSet, send_rep, rec_rep,
+                    edge_rep_flat=None, *, ew=None):
+    """One flat edge-MLP round: (edge_out_flat | None, virt_flat).
+
+    rec_rep in (B, N, h); send_rep either (B, N, h) batched or already flat
+    (N_send, B*h). Edge state either static `ew` (M, h) = emb @ W_e + b0
+    (rollout-invariant GNNs: K2) or evolving flat `edge_rep_flat` (M, B*h)
+    (processor layers: K3)."""
+    w0 = edge_mlp.layers[0].w
+    b0 = edge_mlp.layers[0].b
+    h = w0.shape[0] // 3
+    w_e, w_j, w_i = w0[:h], w0[h:2 * h], w0[2 * h:]
+    B = rec_rep.shape[0]
+    if send_rep.dim() == 2:
+        send_tf = node_transform_from_flat(send_rep, w_j, B)
+    else:
+        send_tf = node_transform_flat(send_rep, w_j)
+    rec_rows = _gather_virt_rows_flat(node_transform_flat(rec_rep, w_i), edges)
+    mask_p = edges.mask.view(edges.num_virt, edges.dense_k)
+    w2, b2 = edge_mlp.layers[1].w, edge_mlp.layers[1].b
+    ln = edge_mlp.ln
+    if edge_rep_flat is not None:
+        return edge_flat.edge_layer_flat(
+            edge_rep_flat, send_tf, edges.senders, rec_rows, mask_p,
+            w_e, b0, w2, b2, ln.scale, ln.bias,
+        )
+    assert ew is not None, "flat static path requires precomputed ew"
+    virt = edge_flat.edge_tail_sum_flat(
+        send_tf, edges.senders, ew, rec_rows, mask_p, w2, b2,
+        ln.scale, ln.bias,
+    )
+    return None, virt
+
+
+def _apply_inet_flat(inet: InteractionNet, edges: EdgeSet, send_rep,
+                     rec_rep, edge_rep_flat=None, *, update_edges, aggr,
+                     ew=None):
+    """Flat interaction-net round. rec_rep in (B, N, h); returns rec_out
+    (B, N_rec, h) and, when update_edges, the flat edge state."""
+    assert aggr in ("sum", "mean"), f"Unknown aggregation method: {aggr}"
+    edge_out, virt = edge_round_flat(
+        inet.edge_mlp, edges, send_rep, rec_rep, edge_rep_flat, ew=ew,
+    )
+    aggregated = _fold_virt_flat(edges, virt)
+    if aggr == "mean":
+        aggregated = aggregated / _virt_counts_flat(edges)
+    rec_out = rec_rep + _aggr_mlp_mixed(inet.aggr_mlp, rec_rep, aggregated)
+    if update_edges:
+        return rec_out, edge_out
+    return rec_out
+
