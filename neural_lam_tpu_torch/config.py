@@ -1,7 +1,9 @@
 """YAML config system, schema-compatible with the reference's config files.
 
-PyTorch port: the classes the forecast path reads; PyYAML is imported only
-by `NeuralLAMConfig.from_yaml_file`, so the package imports without it.
+PyTorch port: the classes the forecast and training paths read, and
+`load_config_and_datastore` for the datastores the port has; PyYAML is
+imported only when a YAML file is read, so the package imports without
+it.
 
 ref: neural_lam/config.py — a neural-lam config YAML selects a datastore
 (kind + per-datastore config path, resolved relative to the config file) and
@@ -14,6 +16,7 @@ files load unchanged.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Dict, Union
 
 
@@ -104,3 +107,20 @@ class NeuralLAMConfig:
         if not isinstance(d, dict):
             raise InvalidConfigError(f"Config file {path} is not a mapping")
         return cls.from_dict(d)
+
+
+def load_config_and_datastore(config_path):
+    """Load the neural-lam config and construct the datastore it selects
+    (ref: config.py:139-171). The port has the `dummydata` datastore so
+    far; any other kind raises NotImplementedError."""
+    from .datastore.dummy import DummyDatastore
+
+    config = NeuralLAMConfig.from_yaml_file(config_path)
+    kind = config.datastore.kind
+    if kind != DummyDatastore.SHORT_NAME:
+        raise NotImplementedError(
+            f"datastore kind {kind!r} is not ported yet (the port has "
+            f"{DummyDatastore.SHORT_NAME!r})"
+        )
+    ds_path = Path(config_path).parent / config.datastore.config_path
+    return config, DummyDatastore(config_path=ds_path)

@@ -1,0 +1,142 @@
+// Shared device helpers for the backward kernels (hidden width 64).
+//
+// Work split, as in the forward kernels: one warp owns whole 64-wide rows,
+// lane l holds features 2l and 2l+1 of each row as a float2.
+//
+// LayerNorm backward is taken directly in fp32 from the row's mean and
+// rstd: with chat = (y - mean) * rstd and g = dout * scale,
+//   dy = rstd * (g - mean(g) - chat * mean(g * chat)).
+//
+// Weight gradients dW = X^T dY sum over every row a kernel visits. Blocks
+// run in no order, so no sum is carried from one block to the next: a
+// block stages the rows of one step (X and dY, 64 wide) in shared memory,
+// and every thread adds the rows' products into the 4x4 tile of dW it owns
+// (256 threads own the 256 tiles of a 64x64 matrix). At the end each block
+// writes its partial sums to its own row of a (blocks, params) scratch,
+// and the caller sums the rows in a fixed order: no float atomics, so a
+// run repeats itself bit for bit.
+//
+// Each backward library exports two C entries: nlt_<name>_grid(sizes,
+// device, &grid) gives the number of blocks, which is the number of rows
+// of the scratch the caller allocates, and nlt_<name>(..., partial, sizes,
+// grid, device, stream) launches that many.
+#pragma once
+
+#include "common.cuh"
+
+// X(K) for each slot count the K-templated kernels are instantiated for.
+#define NLT_FOR_K(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
+__device__ __forceinline__ float nlt_silu_grad(float x) {
+  const float s = 1.0f / (1.0f + expf(-x));
+  return s * (1.0f + x * (1.0f - s));
+}
+
+__device__ __forceinline__ float2 nlt_mul_silu_grad(float2 d, float2 x) {
+  return make_float2(d.x * nlt_silu_grad(x.x), d.y * nlt_silu_grad(x.y));
+}
+
+__device__ __forceinline__ void nlt_acc2(float2& acc, float2 v) {
+  acc.x += v.x;
+  acc.y += v.y;
+}
+
+// LayerNorm statistics of one 64-wide row: normalised row and rstd.
+struct NltLn {
+  float2 chat;
+  float inv;
+};
+
+__device__ __forceinline__ NltLn nlt_ln_stats(float2 y) {
+  const float mean = nlt_warp_sum(y.x + y.y) * (1.0f / NLT_H);
+  const float cx = y.x - mean, cy = y.y - mean;
+  const float var = nlt_warp_sum(cx * cx + cy * cy) * (1.0f / NLT_H);
+  const float inv = rsqrtf(var + NLT_LN_EPS);
+  return {make_float2(cx * inv, cy * inv), inv};
+}
+
+__device__ __forceinline__ float2 nlt_ln_apply(NltLn s, float2 scale,
+                                               float2 bias) {
+  return make_float2(s.chat.x * scale.x + bias.x, s.chat.y * scale.y + bias.y);
+}
+
+// Gradient wrt the LayerNorm input from the gradient `dout` of its output;
+// adds the scale and bias gradients of this row to d_ls and d_lb.
+__device__ __forceinline__ float2 nlt_ln_grad(NltLn s, float2 scale,
+                                              float2 dout, float2& d_ls,
+                                              float2& d_lb) {
+  d_ls.x = fmaf(dout.x, s.chat.x, d_ls.x);
+  d_ls.y = fmaf(dout.y, s.chat.y, d_ls.y);
+  nlt_acc2(d_lb, dout);
+  const float gx = dout.x * scale.x, gy = dout.y * scale.y;
+  const float mg = nlt_warp_sum(gx + gy) * (1.0f / NLT_H);
+  const float mgc =
+      nlt_warp_sum(gx * s.chat.x + gy * s.chat.y) * (1.0f / NLT_H);
+  return make_float2(s.inv * (gx - mg - s.chat.x * mgc),
+                     s.inv * (gy - mg - s.chat.y * mgc));
+}
+
+// acc[a*4+b] += sum_r X[r*ldx + 4ti + a] * D[r*ldd + 4tj + b] for r < rows.
+// X and D lie in shared memory, 16-byte aligned, ldx and ldd multiples of 4.
+__device__ __forceinline__ void nlt_tile_acc(const float* __restrict__ X,
+                                             int ldx,
+                                             const float* __restrict__ D,
+                                             int ldd, int rows, int ti,
+                                             int tj, float (&acc)[16]) {
+  for (int r = 0; r < rows; ++r) {
+    const float4 xv = *reinterpret_cast<const float4*>(X + r * ldx + 4 * ti);
+    const float4 dv = *reinterpret_cast<const float4*>(D + r * ldd + 4 * tj);
+    const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+    const float da[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        acc[a * 4 + b] = fmaf(xa[a], da[b], acc[a * 4 + b]);
+  }
+}
+
+// Write the 4x4 tile (4ti.., 4tj..) of a (n_rows, n_cols) matrix stored
+// row-major at `dst`, skipping entries outside it.
+__device__ __forceinline__ void nlt_tile_store(float* dst, int n_rows,
+                                               int n_cols, int ti, int tj,
+                                               const float (&acc)[16]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = 4 * ti + a;
+    if (i >= n_rows) continue;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = 4 * tj + b;
+      if (j < n_cols) dst[i * n_cols + j] = acc[a * 4 + b];
+    }
+  }
+}
+
+// Per-block sums of per-lane vector gradients: vals[i] is this lane's
+// float2 share of vector i (64 wide) in this warp. `red` holds
+// n_warps * n_vec * 64 floats of shared memory; out[i*64 + c] receives the
+// sum over the block's warps, in warp order. Whole block; ends synced.
+template <int NV>
+__device__ __forceinline__ void nlt_block_vec_sums(float* red,
+                                                   const float2 (&vals)[NV],
+                                                   int n_warps, float* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    nlt_st2(red + (warp * NV + i) * NLT_H, lane, vals[i]);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < NV * NLT_H; idx += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < n_warps; ++w) s += red[w * NV * NLT_H + idx];
+    out[idx] = s;
+  }
+  __syncthreads();
+}
+
+// dst[j*64 + k] = src[k*64 + j]: a transposed 64x64 copy, whole block.
+__device__ __forceinline__ void nlt_load_transposed(float* dst,
+                                                    const float* src) {
+  for (int i = threadIdx.x; i < NLT_H * NLT_H; i += blockDim.x)
+    dst[(i & (NLT_H - 1)) * NLT_H + (i >> 6)] = src[i];
+}

@@ -89,19 +89,23 @@ __device__ __forceinline__ void nlt_load_params(float* dst,
 
 __host__ __device__ constexpr int nlt_round4(int n) { return (n + 3) & ~3; }
 
+// Raises the dynamic shared-memory limit of `kernel` when a block needs
+// more than the default 48 KB.
+template <typename Kernel>
+static cudaError_t nlt_allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 // Grid size for a grid-stride kernel: enough blocks for `blocks_needed`,
 // capped at what can be resident at once, so each block loads its
-// parameters into shared memory once. Raises the dynamic shared-memory
-// limit when the block needs more than the default 48 KB.
+// parameters into shared memory once. Raises the shared-memory limit too.
 template <typename Kernel>
 static cudaError_t nlt_launch_config(Kernel kernel, int threads, size_t smem,
                                      long long blocks_needed, int* grid) {
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = nlt_allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

@@ -1,4 +1,5 @@
-"""Entry points: build the flagship GraphLAM and run a forecast rollout.
+"""Entry points: build the flagship GraphLAM, run a forecast rollout, and
+train it for a few steps.
 
 Counterpart of `_build_model` in the repository's `__graft_entry__.py`
 and of the rollout `bench.py` times: a DummyDatastore of the given grid
@@ -10,6 +11,8 @@ with weights drawn from a seeded `torch.Generator`.
                                                "static": 4})
     init, forcing, true = make_inputs(model, batch_size=4, steps=4)
     prediction = forecast(model, init, forcing, true)
+    losses = train_steps(model, datastore, batch_size=4, ar_steps=1,
+                         steps=10)
 
 Everything defaults to device="cuda" and raises when CUDA is absent;
 pass device="cpu" to run the plain PyTorch versions of the kernels.
@@ -23,12 +26,14 @@ import numpy as np
 import torch
 
 from .config import DatastoreSelection, NeuralLAMConfig, TrainingConfig
+from .dataset import WeatherDataModule
 from .datastore.dummy import DummyDatastore
 from .device import resolve_device
 from .graph.build import create_graph
 from .graph.storage import graph_from_bundle
 from .models.ar_model import ModelArgs
 from .models.graph_lam import GraphLAM
+from .train import Trainer, TrainFlags
 
 
 def build_model(nx=60, ny=60, hidden_dim=64, processor_layers=4,
@@ -82,3 +87,39 @@ def forecast(model, init_states, forcing_features, true_states):
             torch.as_tensor(true_states, device=dev),
         )
     return prediction
+
+
+def make_trainer(model, datastore, batch_size: int, ar_steps: int,
+                 seed: int = 0, run_dir=None):
+    """(Trainer, WeatherDataModule) for training `model` on `datastore`'s
+    train split with batches of `batch_size` and `ar_steps` unroll steps."""
+    datamodule = WeatherDataModule(datastore, ar_steps_train=ar_steps,
+                                   ar_steps_eval=ar_steps,
+                                   batch_size=batch_size)
+    datamodule.setup("train")
+    flags = TrainFlags(seed=seed)
+    return Trainer(model, flags, run_dir=run_dir), datamodule
+
+
+def train_steps(model, datastore, batch_size: int = 4, ar_steps: int = 1,
+                steps: int = 10, seed: int = 0, device="cuda"):
+    """Run `steps` AdamW steps of the model's training loss over the
+    datastore's train split (shuffled from `seed`, epochs repeated as
+    needed) and return the per-step losses as floats. The model must be
+    on `device`, which defaults to CUDA and raises without it."""
+    device = resolve_device(device)
+    if model.device != device:
+        raise ValueError(f"model is on {model.device}, expected {device}")
+    trainer, datamodule = make_trainer(model, datastore, batch_size,
+                                       ar_steps, seed)
+    if len(datamodule.train_dataloader()) == 0:
+        raise ValueError(f"the train split has fewer than {batch_size} "
+                         "samples")
+    losses, epoch = [], 0
+    while len(losses) < steps:
+        for batch in trainer.train_batches(datamodule, epoch):
+            if len(losses) == steps:
+                break
+            losses.append(float(trainer.train_step(batch)))
+        epoch += 1
+    return losses

@@ -3,8 +3,10 @@
 Counterpart of neural_lam_tpu/models/ar_model.py (ref:
 neural_lam/models/ar_model.py:21-267). `ModelArgs` holds the model
 hyperparameters, `ARStatics` the non-trainable tensors built from a
-datastore, and `ARModelBase.unroll_prediction` the rollout. The loss and
-the evaluation metrics come with the training slice of the port.
+datastore, `ARModelBase.unroll_prediction` the rollout, `training_loss`
+the loss the trainer differentiates (ref: ar_model.py:287-309) and
+`eval_step_metrics` what a validation step computes
+(ref: ar_model.py:324-454).
 
 As in the JAX package, the grid input width counts the two raw states
 (2*num_state_vars) also when `output_std` doubles the output (the
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import metrics
 from ..device import resolve_device
 from ..loss_weighting import get_state_feature_weighting
 
@@ -32,8 +35,11 @@ class ModelArgs:
     processor_layers: int = 4
     mesh_aggr: str = "sum"
     output_std: bool = False
+    loss: str = "wmse"
+    lr: float = 1e-3
     num_past_forcing_steps: int = 1
     num_future_forcing_steps: int = 1
+    val_steps_to_log: tuple = (1, 2, 3, 5, 10, 15, 19)
     # None = fp32 everywhere; "bfloat16" is not ported yet
     compute_dtype: str | None = None
 
@@ -115,6 +121,7 @@ class ARModelBase(nn.Module):
             + self.num_forcing_vars
             * (args.num_past_forcing_steps + args.num_future_forcing_steps + 1)
         )
+        self.loss_fn = metrics.get_metric(args.loss)
 
     def predict_step(self, prev_state, prev_prev_state, forcing, ctx=None):
         """X_{t-1}, X_t -> X_{t+1} (ref: ar_model.py:211-218).
@@ -151,3 +158,47 @@ class ARModelBase(nn.Module):
         if self.output_std:
             return prediction, torch.stack(stds, dim=1)
         return prediction, statics.per_var_std
+
+    def interior_mask_bool(self):
+        return self.statics.interior_mask[:, 0] > 0.5
+
+    def common_step(self, batch):
+        """(prediction, target, pred_std, batch_times) of a batch
+        (init_states, target_states, forcing, batch_times)
+        (ref: ar_model.py:269-285)."""
+        init_states, target_states, forcing_features, batch_times = batch
+        prediction, pred_std = self.unroll_prediction(
+            init_states, forcing_features, target_states
+        )
+        return prediction, target_states, pred_std, batch_times
+
+    def training_loss(self, batch):
+        """Mean loss over batch and unrolled steps, interior nodes only
+        (ref: ar_model.py:287-309)."""
+        prediction, target, pred_std, _ = self.common_step(batch)
+        return torch.mean(self.loss_fn(prediction, target, pred_std,
+                                       mask=self.interior_mask_bool()))
+
+    def eval_step_metrics(self, batch):
+        """Everything a val/test step computes: time_step_loss (B, T),
+        mean_loss (), per-(B, T, d) mse/mae entries and the spatial loss
+        (B, T, N) (ref: ar_model.py:324-454)."""
+        prediction, target, pred_std, _ = self.common_step(batch)
+        mask = self.interior_mask_bool()
+        sample_step_loss = self.loss_fn(prediction, target, pred_std,
+                                        mask=mask)
+        out = {
+            "time_step_loss": sample_step_loss,
+            "mean_loss": torch.mean(sample_step_loss),
+            "mse": metrics.mse(prediction, target, None, mask=mask,
+                               sum_vars=False),
+            "mae": metrics.mae(prediction, target, None, mask=mask,
+                               sum_vars=False),
+            "spatial_loss": self.loss_fn(prediction, target, pred_std,
+                                         average_grid=False),
+        }
+        if self.output_std:
+            w = mask.to(pred_std.dtype)
+            out["output_std"] = (torch.sum(pred_std * w[:, None], dim=-2)
+                                 / torch.sum(w))
+        return out

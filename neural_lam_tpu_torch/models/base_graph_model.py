@@ -176,6 +176,7 @@ class BaseGraphModel(ARModelBase):
             send_tf, m2g.senders, ctx["m2g"]["ew"], ge_f,
             m2g.mask.view(m2g.num_virt, m2g.dense_k),
             grid_update.pack_grid_update_params(self),
+            fold=m2g.fold_senders,
         )  # (num_virt, B*d_out)
         net_output = unflatten_nodes(net_f[:m2g.num_rec], B)
         return self._finish_output(net_output, prev_state)

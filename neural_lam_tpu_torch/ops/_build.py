@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,13 +28,17 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("embed", "edge_flat", "grid_update")
+SOURCES = ("embed", "edge_flat", "grid_update",
+           "embed_bwd", "edge_flat_bwd", "grid_update_bwd")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
+IP = ctypes.POINTER(ctypes.c_int)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_GRIDS: dict[tuple, int] = {}  # (backward entry, *sizes, device) -> blocks
+_INCLUDE = re.compile(r'^\s*#include\s+"([\w.]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -47,9 +52,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin and PATH)")
 
 
+def _headers(name: str) -> list[Path]:
+    """The csrc/ headers `<name>.cu` includes, directly or through other
+    headers, so that a header change rebuilds only what depends on it."""
+    seen, todo = set(), [CSRC / f"{name}.cu"]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC / inc
+            if path.exists() and path not in seen:
+                seen.add(path)
+                todo.append(path)
+    return sorted(seen)
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in _headers(name) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -160,3 +178,29 @@ def stream_of(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def run_bwd(lib: ctypes.CDLL, fn_name: str, ptrs: list, sizes: list,
+            n_params: int, device, what: str):
+    """Launch a backward kernel and return its parameter gradients.
+
+    `<fn_name>_grid(*sizes, device, &grid)` gives the number of blocks
+    the kernel uses for these sizes (asked once per sizes and device);
+    `<fn_name>(*ptrs, partial, *sizes, grid, device, stream)` launches
+    them, each block writing its partial sums to its row of a (grid,
+    n_params) scratch, summed here over blocks in a fixed order (no float
+    atomics). Returns the (n_params,) sum."""
+    import torch
+
+    key = (fn_name, *sizes, device.index)
+    grid = _GRIDS.get(key)
+    if grid is None:
+        out = ctypes.c_int(0)
+        check(lib, getattr(lib, fn_name + "_grid")(
+            *sizes, device.index, ctypes.byref(out)), what)
+        grid = _GRIDS[key] = out.value
+    partial = torch.empty((grid, n_params), device=device,
+                          dtype=torch.float32)
+    check(lib, getattr(lib, fn_name)(*ptrs, partial.data_ptr(), *sizes, grid,
+                                     device.index, stream_of(device)), what)
+    return partial.sum(dim=0)

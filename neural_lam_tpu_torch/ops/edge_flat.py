@@ -1,4 +1,5 @@
-"""Flat-layout edge-MLP tail (K2) and processor edge layer (K3).
+"""Flat-layout edge-MLP tail (K2) and processor edge layer (K3), with
+their backward kernels (B2, and B3/B4).
 
 Counterpart of neural_lam_tpu/ops/pallas_edge_flat.py. Both functions read
 the sender term by index from the node table (`table[senders]`), so one
@@ -8,10 +9,15 @@ twins (`edge_layer_flat` and `edge_layer_flat_win`).
 Layout: node and edge activations are flat (rows, W) with W = B*h; mask_p
 is the (N_virt, K) dense-slot validity of the EdgeSet.
 
-Each wrapper runs its plain PyTorch version (`*_plain`, same module) on a
-CPU tensor and its CUDA kernel (`csrc/edge_flat.cu`) on a CUDA tensor;
-there is no fallback from one to the other. `<wrapper>.launches` counts
-kernel launches.
+`edge_tail_sum_flat` and `edge_layer_flat` are `torch.autograd.Function`s
+on both devices. Forward and backward each run their plain PyTorch
+version (`*_plain`, `*_bwd_plain`, same module) on a CPU tensor and their
+CUDA kernel (`csrc/edge_flat.cu`, `csrc/edge_flat_bwd.cu`) on a CUDA
+tensor; there is no fallback from one to the other. The forward saves only
+its inputs and the backward recomputes it. The backward yields the sender
+cotangent per edge slot, d_x0 (M, W); the `fold` the caller passes
+(`EdgeSet.fold_senders`) sums it onto the node table in a fixed order.
+`<wrapper>.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -20,19 +26,29 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .mlp import layer_norm
+from .mlp import grads_through, layer_norm
 
 HID = 64  # hidden width the CUDA kernels are written for
 
-_P, _I = _build.P, _build.I
+_P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {
     "nlt_edge_tail_sum": [_P] * 7 + [_I] * 4 + [_P],
     "nlt_edge_layer": [_P] * 8 + [_I] * 4 + [_P],
+}
+_BWD_SIGNATURES = {
+    "nlt_edge_tail_sum_bwd": [_P] * 11 + [_I] * 5 + [_P],
+    "nlt_edge_layer_bwd": [_P] * 12 + [_I] * 5 + [_P],
+    "nlt_edge_tail_sum_bwd_grid": [_I] * 4 + [_IP],
+    "nlt_edge_layer_bwd_grid": [_I] * 4 + [_IP],
 }
 
 
 def _lib():
     return _build.library("edge_flat", _SIGNATURES)
+
+
+def _bwd_lib():
+    return _build.library("edge_flat_bwd", _BWD_SIGNATURES)
 
 
 def _masked_slot_sum(msg, mask_p):
@@ -41,44 +57,33 @@ def _masked_slot_sum(msg, mask_p):
     return (msg * mask_p[:, :, None, None]).sum(dim=1).reshape(n_virt, -1)
 
 
-def edge_tail_sum_flat_plain(table, senders, ew, rec_rows, mask_p, w2, b2,
-                             ln_scale, ln_bias):
-    """Plain PyTorch version of `edge_tail_sum_flat`."""
+def _tail_from_gathered(g, ew, rec_rows, mask_p, w2, b2, ln_scale, ln_bias):
+    """K2's math on pre-gathered sender rows g (M, W)."""
     n_virt, K = mask_p.shape
     h = ew.shape[-1]
-    B = table.shape[-1] // h
-    g = table.index_select(0, senders).view(n_virt, K, B, h)
-    x0 = g + ew.view(n_virt, K, 1, h) + rec_rows.view(n_virt, 1, B, h)
+    B = g.shape[-1] // h
+    x0 = (g.view(n_virt, K, B, h) + ew.view(n_virt, K, 1, h)
+          + rec_rows.view(n_virt, 1, B, h))
     msg = layer_norm(F.silu(x0) @ w2 + b2, ln_scale, ln_bias)
     return _masked_slot_sum(msg, mask_p)
 
 
-def edge_tail_sum_flat(table, senders, ew, rec_rows, mask_p, w2, b2,
-                       ln_scale, ln_bias):
-    """Fused edge-MLP tail with a static edge term (g2m encoder).
+def edge_tail_sum_flat_plain(table, senders, ew, rec_rows, mask_p, w2, b2,
+                             ln_scale, ln_bias):
+    """Plain PyTorch version of `edge_tail_sum_flat`'s forward."""
+    return _tail_from_gathered(table.index_select(0, senders), ew, rec_rows,
+                               mask_p, w2, b2, ln_scale, ln_bias)
 
-    table: (N_send, W) sender transforms x_j @ W_j, one row per node.
-    senders: (M,) int32 sender id per edge slot, M = N_virt*K.
-    ew: (M, h) static edge term emb @ W_e + b0, shared across batch.
-    rec_rows: (N_virt, W) receiver transforms per virtual row.
-    Returns virt (N_virt, W): sum_k mask * LN(silu(x0) @ w2 + b2) with
-    x0 = table[senders] + ew + rec_rows.
 
-    Replaces pallas_edge_flat.py::_tail_sum_flat_kernel (via
-    edge_tail_sum_flat). Bound by fp32 operations on the card (the W2
-    product per slot); see csrc/edge_flat.cu.
-    """
+def _tail_fwd(table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale,
+              ln_bias):
     if table.device.type == "cpu":
         return edge_tail_sum_flat_plain(table, senders, ew, rec_rows, mask_p,
                                         w2, b2, ln_scale, ln_bias)
     dev = _build.require_cuda(table)
     n_virt, K = mask_p.shape
     W = table.shape[1]
-    _build.expect(ew.shape == (n_virt * K, HID), "ew", ew.shape)
-    _build.expect(W % HID == 0 and rec_rows.shape == (n_virt, W),
-                  "rec_rows", rec_rows.shape)
-    _build.expect(senders.shape == (n_virt * K,), "senders", senders.shape)
-    _build.expect(w2.shape == (HID, HID), "w2", w2.shape)
+    _check_tail(table, senders, ew, rec_rows, mask_p, w2)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias])
     virt = torch.empty((n_virt, W), device=dev, dtype=torch.float32)
     f32, i32 = torch.float32, torch.int32
@@ -95,42 +100,146 @@ def edge_tail_sum_flat(table, senders, ew, rec_rows, mask_p, w2, b2,
     return virt
 
 
+def _check_tail(table, senders, ew, rec_rows, mask_p, w2):
+    n_virt, K = mask_p.shape
+    W = table.shape[1]
+    _build.expect(ew.shape == (n_virt * K, HID), "ew", ew.shape)
+    _build.expect(W % HID == 0 and rec_rows.shape == (n_virt, W),
+                  "rec_rows", rec_rows.shape)
+    _build.expect(senders.shape == (n_virt * K,), "senders", senders.shape)
+    _build.expect(w2.shape == (HID, HID), "w2", w2.shape)
+
+
+def edge_tail_sum_flat_bwd_plain(table, senders, ew, rec_rows, mask_p, w2,
+                                 b2, ln_scale, ln_bias, d_virt):
+    """Plain PyTorch version of `edge_tail_sum_flat_bwd` (autograd
+    through the plain forward on the gathered rows)."""
+    g = table.index_select(0, senders)
+
+    def fwd(g, ew, rec_rows, w2, b2, ln_scale, ln_bias):
+        return _tail_from_gathered(g, ew, rec_rows, mask_p, w2, b2, ln_scale,
+                                   ln_bias)
+
+    return grads_through(fwd, (g, ew, rec_rows, w2, b2, ln_scale, ln_bias),
+                          (d_virt,))
+
+
+def edge_tail_sum_flat_bwd(table, senders, ew, rec_rows, mask_p, w2, b2,
+                           ln_scale, ln_bias, d_virt):
+    """Backward of `edge_tail_sum_flat` from d_virt (N_virt, W): (d_x0
+    (M, W) per slot, d_ew (M, h), d_rec_rows (N_virt, W), d_w2, d_b2,
+    d_ln_scale, d_ln_bias).
+
+    Replaces pallas_edge_flat.py::_tail_bwd_kernel (via
+    _edge_tail_sum_flat_bwd). Bound by fp32 operations on the card; see
+    csrc/edge_flat_bwd.cu.
+    """
+    if table.device.type == "cpu":
+        return edge_tail_sum_flat_bwd_plain(table, senders, ew, rec_rows,
+                                            mask_p, w2, b2, ln_scale,
+                                            ln_bias, d_virt)
+    dev = _build.require_cuda(table)
+    n_virt, K = mask_p.shape
+    W = table.shape[1]
+    _check_tail(table, senders, ew, rec_rows, mask_p, w2)
+    _build.expect(d_virt.shape == (n_virt, W), "d_virt", d_virt.shape)
+    params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias])
+    d_virt = d_virt.contiguous()
+    M = n_virt * K
+    d_x0 = torch.empty((M, W), device=dev, dtype=torch.float32)
+    d_ew = torch.empty((M, HID), device=dev, dtype=torch.float32)
+    d_rec = torch.empty_like(d_virt)
+    f32, i32 = torch.float32, torch.int32
+    ptrs = _build.pointers(dev, ("table", table, f32),
+                           ("senders", senders, i32), ("ew", ew, f32),
+                           ("rec_rows", rec_rows, f32),
+                           ("mask_p", mask_p, f32), ("params", params, f32),
+                           ("d_virt", d_virt, f32), ("d_x0", d_x0, f32),
+                           ("d_ew", d_ew, f32), ("d_rec", d_rec, f32))
+    g = _build.run_bwd(_bwd_lib(), "nlt_edge_tail_sum_bwd", ptrs,
+                       [n_virt, K, W // HID], params.numel(), dev,
+                       "edge_tail_sum_flat_bwd")
+    edge_tail_sum_flat_bwd.launches += 1
+    v = g[HID * HID:].view(3, HID)
+    return d_x0, d_ew, d_rec, g[:HID * HID].view(HID, HID), v[0], v[1], v[2]
+
+
+def _fold(fold, d_x0, needed):
+    if not needed:
+        return None
+    if fold is None:
+        raise ValueError("the table gradient needs the edge set's sender "
+                         "fold: pass fold=EdgeSet.fold_senders")
+    return fold(d_x0)
+
+
+class _EdgeTailSumFlat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale,
+                ln_bias, fold):
+        ctx.save_for_backward(table, senders, ew, rec_rows, mask_p, w2, b2,
+                              ln_scale, ln_bias)
+        ctx.fold = fold
+        return _tail_fwd(table, senders, ew, rec_rows, mask_p, w2, b2,
+                         ln_scale, ln_bias)
+
+    @staticmethod
+    def backward(ctx, d_virt):
+        need = ctx.needs_input_grad
+        d_x0, d_ew, d_rec, *d_par = edge_tail_sum_flat_bwd(
+            *ctx.saved_tensors, d_virt)
+        return (_fold(ctx.fold, d_x0, need[0]), None, d_ew, d_rec, None,
+                *d_par, None)
+
+
+def edge_tail_sum_flat(table, senders, ew, rec_rows, mask_p, w2, b2,
+                       ln_scale, ln_bias, *, fold=None):
+    """Fused edge-MLP tail with a static edge term (g2m encoder).
+
+    table: (N_send, W) sender transforms x_j @ W_j, one row per node.
+    senders: (M,) int32 sender id per edge slot, M = N_virt*K.
+    ew: (M, h) static edge term emb @ W_e + b0, shared across batch.
+    rec_rows: (N_virt, W) receiver transforms per virtual row.
+    fold: maps the per-slot sender cotangent (M, W) onto the table
+    (`EdgeSet.fold_senders`); needed only for the table's gradient.
+    Returns virt (N_virt, W): sum_k mask * LN(silu(x0) @ w2 + b2) with
+    x0 = table[senders] + ew + rec_rows.
+
+    Replaces pallas_edge_flat.py::_tail_sum_flat_kernel (via
+    edge_tail_sum_flat). Bound by fp32 operations on the card (the W2
+    product per slot); see csrc/edge_flat.cu.
+    """
+    return _EdgeTailSumFlat.apply(table, senders, ew, rec_rows, mask_p, w2,
+                                  b2, ln_scale, ln_bias, fold)
+
+
 edge_tail_sum_flat.launches = 0
+edge_tail_sum_flat_bwd.launches = 0
 
 
-def edge_layer_flat_plain(edge_rep, table, senders, rec_rows, mask_p, w_e,
-                          b0, w2, b2, ln_scale, ln_bias):
-    """Plain PyTorch version of `edge_layer_flat`."""
+def _layer_from_gathered(edge_rep, g, rec_rows, mask_p, w_e, b0, w2, b2,
+                         ln_scale, ln_bias):
+    """K3's math on pre-gathered sender rows g (M, W)."""
     n_virt, K = mask_p.shape
     M, W = edge_rep.shape
     h = w2.shape[0]
     B = W // h
     e = edge_rep.view(n_virt, K, B, h)
-    g = table.index_select(0, senders).view(n_virt, K, B, h)
-    x0 = e @ w_e + b0 + g + rec_rows.view(n_virt, 1, B, h)
+    x0 = (e @ w_e + b0 + g.view(n_virt, K, B, h)
+          + rec_rows.view(n_virt, 1, B, h))
     msg = layer_norm(F.silu(x0) @ w2 + b2, ln_scale, ln_bias)
     return (e + msg).reshape(M, W), _masked_slot_sum(msg, mask_p)
 
 
-def edge_layer_flat(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
-                    b2, ln_scale, ln_bias):
-    """Fused residual edge layer with evolving edge state (m2m processor).
+def edge_layer_flat_plain(edge_rep, table, senders, rec_rows, mask_p, w_e,
+                          b0, w2, b2, ln_scale, ln_bias):
+    """Plain PyTorch version of `edge_layer_flat`'s forward."""
+    return _layer_from_gathered(edge_rep, table.index_select(0, senders),
+                                rec_rows, mask_p, w_e, b0, w2, b2, ln_scale,
+                                ln_bias)
 
-    edge_rep: (M, W) edge state; table/senders/rec_rows/mask_p as in
-    `edge_tail_sum_flat`. Returns (edge_out = edge_rep + msg, virt) with
-    msg = LN(silu(edge_rep @ w_e + b0 + table[senders] + rec_rows) @ w2
-    + b2). edge_out at padding slots is computed the same way.
 
-    Replaces pallas_edge_flat.py::_layer_flat_kernel (edge_layer_flat) and
-    ::_layer_flat_win_kernel (edge_layer_flat_win). Bound by fp32
-    operations on the card (W_e and W2 products per slot); see
-    csrc/edge_flat.cu.
-    """
-    if edge_rep.device.type == "cpu":
-        return edge_layer_flat_plain(edge_rep, table, senders, rec_rows,
-                                     mask_p, w_e, b0, w2, b2, ln_scale,
-                                     ln_bias)
-    dev = _build.require_cuda(edge_rep)
+def _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2):
     n_virt, K = mask_p.shape
     M, W = edge_rep.shape
     _build.expect(M == n_virt * K and W % HID == 0, "edge_rep",
@@ -141,6 +250,18 @@ def edge_layer_flat(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
     _build.expect(senders.shape == (M,), "senders", senders.shape)
     _build.expect(w_e.shape == (HID, HID) and w2.shape == (HID, HID),
                   "w_e/w2", (w_e.shape, w2.shape))
+
+
+def _layer_fwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2, b2,
+               ln_scale, ln_bias):
+    if edge_rep.device.type == "cpu":
+        return edge_layer_flat_plain(edge_rep, table, senders, rec_rows,
+                                     mask_p, w_e, b0, w2, b2, ln_scale,
+                                     ln_bias)
+    dev = _build.require_cuda(edge_rep)
+    n_virt, K = mask_p.shape
+    W = edge_rep.shape[1]
+    _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias,
                         w_e.reshape(-1), b0])
     edge_out = torch.empty_like(edge_rep)
@@ -159,4 +280,115 @@ def edge_layer_flat(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
     return edge_out, virt
 
 
+def edge_layer_flat_bwd_plain(edge_rep, table, senders, rec_rows, mask_p,
+                              w_e, b0, w2, b2, ln_scale, ln_bias, d_edge_out,
+                              d_virt):
+    """Plain PyTorch version of `edge_layer_flat_bwd` (autograd through
+    the plain forward on the gathered rows)."""
+    g = table.index_select(0, senders)
+
+    def fwd(edge_rep, g, rec_rows, w_e, b0, w2, b2, ln_scale, ln_bias):
+        return _layer_from_gathered(edge_rep, g, rec_rows, mask_p, w_e, b0,
+                                    w2, b2, ln_scale, ln_bias)
+
+    return grads_through(
+        fwd, (edge_rep, g, rec_rows, w_e, b0, w2, b2, ln_scale, ln_bias),
+        (d_edge_out, d_virt))
+
+
+def edge_layer_flat_bwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
+                        w2, b2, ln_scale, ln_bias, d_edge_out, d_virt):
+    """Backward of `edge_layer_flat` from d_edge_out (M, W) or None (the
+    last layer's edge state is unused) and d_virt (N_virt, W): (d_edge_rep,
+    d_x0 (M, W) per slot, d_rec_rows, d_w_e, d_b0, d_w2, d_b2, d_ln_scale,
+    d_ln_bias).
+
+    Replaces pallas_edge_flat.py::_layer_bwd_kernel (via
+    _edge_layer_flat_bwd) and ::_layer_bwd_win_kernel (via
+    edge_layer_flat_win_bwd). Bound by fp32 operations on the card; see
+    csrc/edge_flat_bwd.cu.
+    """
+    if edge_rep.device.type == "cpu":
+        return edge_layer_flat_bwd_plain(edge_rep, table, senders, rec_rows,
+                                         mask_p, w_e, b0, w2, b2, ln_scale,
+                                         ln_bias, d_edge_out, d_virt)
+    dev = _build.require_cuda(edge_rep)
+    n_virt, K = mask_p.shape
+    M, W = edge_rep.shape
+    _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
+    _build.expect(d_virt.shape == (n_virt, W), "d_virt", d_virt.shape)
+    params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias,
+                        w_e.reshape(-1), b0])
+    d_virt = d_virt.contiguous()
+    d_x0 = torch.empty_like(edge_rep)
+    d_e = torch.empty_like(edge_rep)
+    d_rec = torch.empty_like(d_virt)
+    f32, i32 = torch.float32, torch.int32
+    ptrs = _build.pointers(dev, ("edge_rep", edge_rep, f32),
+                           ("table", table, f32), ("senders", senders, i32),
+                           ("rec_rows", rec_rows, f32),
+                           ("mask_p", mask_p, f32), ("params", params, f32),
+                           ("d_virt", d_virt, f32))
+    if d_edge_out is None:
+        ptrs.append(None)
+    else:
+        d_edge_out = d_edge_out.contiguous()
+        ptrs += _build.pointers(dev, ("d_edge_out", d_edge_out, f32))
+    ptrs += _build.pointers(dev, ("d_x0", d_x0, f32), ("d_e", d_e, f32),
+                            ("d_rec", d_rec, f32))
+    g = _build.run_bwd(_bwd_lib(), "nlt_edge_layer_bwd", ptrs,
+                       [n_virt, K, W // HID], params.numel(), dev,
+                       "edge_layer_flat_bwd")
+    edge_layer_flat_bwd.launches += 1
+    HH = HID * HID
+    v = g[HH:HH + 3 * HID].view(3, HID)
+    return (d_e, d_x0, d_rec, g[HH + 3 * HID:2 * HH + 3 * HID].view(HID, HID),
+            g[2 * HH + 3 * HID:], g[:HH].view(HID, HID), v[0], v[1], v[2])
+
+
+class _EdgeLayerFlat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
+                b2, ln_scale, ln_bias, fold):
+        ctx.save_for_backward(edge_rep, table, senders, rec_rows, mask_p,
+                              w_e, b0, w2, b2, ln_scale, ln_bias)
+        ctx.fold = fold
+        # the last processor layer's edge state is never read: its
+        # gradient arrives as None instead of a zero (M, W) tensor
+        ctx.set_materialize_grads(False)
+        return _layer_fwd(edge_rep, table, senders, rec_rows, mask_p, w_e,
+                          b0, w2, b2, ln_scale, ln_bias)
+
+    @staticmethod
+    def backward(ctx, d_edge_out, d_virt):
+        need = ctx.needs_input_grad
+        saved = ctx.saved_tensors
+        if d_virt is None:
+            d_virt = torch.zeros((saved[4].shape[0], saved[0].shape[1]),
+                                 device=saved[0].device)
+        d_e, d_x0, d_rec, *d_par = edge_layer_flat_bwd(*saved, d_edge_out,
+                                                       d_virt)
+        return (d_e, _fold(ctx.fold, d_x0, need[1]), None, d_rec, None,
+                *d_par, None)
+
+
+def edge_layer_flat(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
+                    b2, ln_scale, ln_bias, *, fold=None):
+    """Fused residual edge layer with evolving edge state (m2m processor).
+
+    edge_rep: (M, W) edge state; table/senders/rec_rows/mask_p/fold as in
+    `edge_tail_sum_flat`. Returns (edge_out = edge_rep + msg, virt) with
+    msg = LN(silu(edge_rep @ w_e + b0 + table[senders] + rec_rows) @ w2
+    + b2). edge_out at padding slots is computed the same way.
+
+    Replaces pallas_edge_flat.py::_layer_flat_kernel (edge_layer_flat) and
+    ::_layer_flat_win_kernel (edge_layer_flat_win). Bound by fp32
+    operations on the card (W_e and W2 products per slot); see
+    csrc/edge_flat.cu.
+    """
+    return _EdgeLayerFlat.apply(edge_rep, table, senders, rec_rows, mask_p,
+                                w_e, b0, w2, b2, ln_scale, ln_bias, fold)
+
+
 edge_layer_flat.launches = 0
+edge_layer_flat_bwd.launches = 0

@@ -1,4 +1,4 @@
-"""Grid-feature embedder (K1): MLP(concatenated features) + LayerNorm.
+"""Grid-feature embedder (K1) and its backward (B1): MLP + LayerNorm.
 
 Counterpart of neural_lam_tpu/ops/pallas_embed.py. The caller packs the
 concatenated per-node features into the flat layout once, x_f (N, B*d_in),
@@ -7,9 +7,14 @@ and one pass computes per (node, batch element) row
     out = LayerNorm(silu(x @ w0 + b0) @ w1 + b1)          -> (N, B*h)
 
 Unlike the TPU kernel, d_in is not zero-padded to a lane multiple.
-The wrapper runs the plain version on a CPU tensor and the CUDA kernel
-(`csrc/embed.cu`) on a CUDA tensor. `embed_grid_flat.launches` counts
-kernel launches.
+
+`embed_grid_flat` is a `torch.autograd.Function` on both devices. Its
+forward runs the plain version on a CPU tensor and the CUDA kernel
+(`csrc/embed.cu`) on a CUDA tensor; its backward, likewise, runs
+`embed_grid_flat_bwd_plain` or the backward kernel (`csrc/embed_bwd.cu`).
+The forward saves only its inputs: the backward recomputes it, as the JAX
+residuals do. `embed_grid_flat.launches` and `embed_grid_flat_bwd.launches`
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -18,37 +23,35 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .mlp import layer_norm
+from .mlp import grads_through, layer_norm
 
 HID = 64
 
-_P, _I = _build.P, _build.I
-_SIGNATURES = {"nlt_embed": [_P] * 3 + [_build.LL, _I, _I, _P]}
+_P, _I, _LL, _IP = _build.P, _build.I, _build.LL, _build.IP
+_SIGNATURES = {"nlt_embed": [_P] * 3 + [_LL, _I, _I, _P]}
+_BWD_SIGNATURES = {"nlt_embed_bwd": [_P] * 5 + [_LL, _I, _I, _I, _P],
+                   "nlt_embed_bwd_grid": [_LL, _I, _I, _IP]}
+MAX_D_IN = 128  # csrc/embed_bwd.cu: two dW0 tiles per thread
 
 
 def _lib():
     return _build.library("embed", _SIGNATURES)
 
 
+def _bwd_lib():
+    return _build.library("embed_bwd", _BWD_SIGNATURES)
+
+
 def embed_grid_flat_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
                           batch_size: int):
-    """Plain PyTorch version of `embed_grid_flat`."""
+    """Plain PyTorch version of `embed_grid_flat`'s forward."""
     N = x_f.shape[0]
     x = x_f.view(N, batch_size, -1)
     y = F.silu(x @ w0 + b0) @ w1 + b1
     return layer_norm(y, ln_scale, ln_bias).reshape(N, -1)
 
 
-def embed_grid_flat(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
-                    batch_size: int):
-    """Fused flat grid embedder.
-
-    x_f: (N, B*d_in) flat-packed features; w0 (d_in, h), w1 (h, h).
-    Returns (N, B*h).
-
-    Replaces pallas_embed.py::_embed_fwd_kernel (via embed_grid_flat).
-    Bound by fp32 operations on the card; see csrc/embed.cu.
-    """
+def _embed_fwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size):
     if x_f.device.type == "cpu":
         return embed_grid_flat_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
                                      batch_size)
@@ -72,4 +75,82 @@ def embed_grid_flat(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
     return out
 
 
+def embed_grid_flat_bwd_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
+                              batch_size: int, d_out, need_dx: bool = True):
+    """Plain PyTorch version of `embed_grid_flat_bwd`: autograd through
+    the plain forward. Returns (d_x | None, d_w0, d_b0, d_w1, d_b1,
+    d_ln_scale, d_ln_bias)."""
+    grads = grads_through(
+        lambda *t: embed_grid_flat_plain(*t, batch_size),
+        (x_f, w0, b0, w1, b1, ln_scale, ln_bias), (d_out,))
+    return (grads[0] if need_dx else None,) + tuple(grads[1:])
+
+
+def embed_grid_flat_bwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
+                        batch_size: int, d_out, need_dx: bool = True):
+    """Backward of `embed_grid_flat` from d_out (N, B*h): (d_x | None,
+    d_w0, d_b0, d_w1, d_b1, d_ln_scale, d_ln_bias). d_x is computed only
+    when `need_dx` (the first predict step's input needs none).
+
+    Replaces pallas_embed.py::_embed_bwd_kernel (via _embed_bwd). Bound by
+    fp32 operations on the card; see csrc/embed_bwd.cu.
+    """
+    if x_f.device.type == "cpu":
+        return embed_grid_flat_bwd_plain(x_f, w0, b0, w1, b1, ln_scale,
+                                         ln_bias, batch_size, d_out, need_dx)
+    dev = _build.require_cuda(x_f)
+    N, W_in = x_f.shape
+    d_in = w0.shape[0]
+    _build.expect(W_in == batch_size * d_in and d_in <= MAX_D_IN, "x_f",
+                  (x_f.shape, d_in))
+    _build.expect(w0.shape == (d_in, HID) and w1.shape == (HID, HID),
+                  "w0/w1", (w0.shape, w1.shape))
+    _build.expect(d_out.shape == (N, batch_size * HID), "d_out", d_out.shape)
+    params = torch.cat([w0.reshape(-1), w1.reshape(-1), b0, b1, ln_scale,
+                        ln_bias])
+    d_out = d_out.contiguous()
+    d_x = torch.empty_like(x_f) if need_dx else None
+    f32 = torch.float32
+    ptrs = _build.pointers(dev, ("x_f", x_f, f32), ("d_out", d_out, f32),
+                           ("params", params, f32))
+    ptrs.append(None if d_x is None else d_x.data_ptr())
+    g = _build.run_bwd(_bwd_lib(), "nlt_embed_bwd", ptrs,
+                       [N * batch_size, d_in], params.numel(), dev,
+                       "embed_grid_flat_bwd")
+    embed_grid_flat_bwd.launches += 1
+    n0, n1 = d_in * HID, HID * HID
+    v = g[n0 + n1:].view(4, HID)
+    return (d_x, g[:n0].view(d_in, HID), v[0], g[n0:n0 + n1].view(HID, HID),
+            v[1], v[2], v[3])
+
+
+class _EmbedGridFlat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size):
+        ctx.save_for_backward(x_f, w0, b0, w1, b1, ln_scale, ln_bias)
+        ctx.batch_size = batch_size
+        return _embed_fwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        grads = embed_grid_flat_bwd(*ctx.saved_tensors, ctx.batch_size,
+                                    d_out, need_dx=ctx.needs_input_grad[0])
+        return (*grads, None)
+
+
+def embed_grid_flat(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
+                    batch_size: int):
+    """Fused flat grid embedder, differentiable (see module docstring).
+
+    x_f: (N, B*d_in) flat-packed features; w0 (d_in, h), w1 (h, h).
+    Returns (N, B*h).
+
+    Replaces pallas_embed.py::_embed_fwd_kernel (via embed_grid_flat).
+    Bound by fp32 operations on the card; see csrc/embed.cu.
+    """
+    return _EmbedGridFlat.apply(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
+                                batch_size)
+
+
 embed_grid_flat.launches = 0
+embed_grid_flat_bwd.launches = 0

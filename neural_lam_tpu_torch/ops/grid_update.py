@@ -1,4 +1,4 @@
-"""The whole m2g decoder stage in one pass (K4).
+"""The whole m2g decoder stage in one pass (K4) and its backward (B5/B6).
 
 Counterpart of neural_lam_tpu/ops/pallas_grid_update.py. Per grid node of
 a `virt_identity` m2g edge set (one K-slot virtual row per grid node):
@@ -13,9 +13,14 @@ a `virt_identity` m2g edge set (one K-slot virtual row per grid node):
 
 One function covers the JAX package's pre-gathered kernel and its windowed
 twin (`grid_update_flat` / `grid_update_flat_win`): the sender rows are
-read by index from the (N_send, W) table. The wrapper runs the plain
-version on a CPU tensor and the CUDA kernel (`csrc/grid_update.cu`) on a
-CUDA tensor. `grid_update_flat.launches` counts kernel launches.
+read by index from the (N_send, W) table. `grid_update_flat` is a
+`torch.autograd.Function` on both devices: forward and backward run their
+plain versions on a CPU tensor and the CUDA kernels (`csrc/grid_update.cu`,
+`csrc/grid_update_bwd.cu`) on a CUDA tensor. The forward saves only its
+inputs; the backward recomputes it and yields the sender cotangent per
+slot, which the caller's `fold` sums onto the table.
+`grid_update_flat.launches` and `grid_update_flat_bwd.launches` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -24,21 +29,29 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .mlp import layer_norm
+from .mlp import grads_through, layer_norm
 
 HID = 64
 
-_P, _I = _build.P, _build.I
+_P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {"nlt_grid_update": [_P] * 7 + [_I] * 6 + [_P]}
+_BWD_SIGNATURES = {"nlt_grid_update_bwd": [_P] * 12 + [_I] * 7 + [_P],
+                   "nlt_grid_update_bwd_grid": [_I] * 6 + [_IP]}
 
 # order of the parameter blob csrc/grid_update.cu reads
 _MATS = ("enc_w0", "enc_w1", "w_i", "w2", "a_w0", "a_w1", "o_w0")
 _VECS = ("enc_b0", "enc_b1", "enc_ls", "enc_lb", "b2", "e_ls", "e_lb",
          "a_b0", "a_b1", "a_ls", "a_lb", "o_b0")
+# every parameter, in blob order (the autograd.Function's argument order)
+_KEYS = _MATS + _VECS + ("o_w1", "o_b1")
 
 
 def _lib():
     return _build.library("grid_update", _SIGNATURES)
+
+
+def _bwd_lib():
+    return _build.library("grid_update_bwd", _BWD_SIGNATURES)
 
 
 def pack_grid_update_params(model) -> dict:
@@ -91,11 +104,11 @@ def grid_update_applicable(model, m2g_edges) -> bool:
     )
 
 
-def grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p, pp):
-    """Plain PyTorch version of `grid_update_flat`."""
+def _decoder_from_gathered(g, ew, grid_emb_f, mask_p, pp):
+    """K4's math on pre-gathered sender rows g (M, W)."""
     n_virt, K = mask_p.shape
     h = ew.shape[-1]
-    B = table.shape[-1] // h
+    B = g.shape[-1] // h
     ge = grid_emb_f.view(grid_emb_f.shape[0], B, h)
     if ge.shape[0] < n_virt:
         ge = F.pad(ge, (0, 0, 0, 0, 0, n_virt - ge.shape[0]))
@@ -107,8 +120,8 @@ def grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p, pp):
         mlp2(ge, pp["enc_w0"], pp["enc_b0"], pp["enc_w1"], pp["enc_b1"]),
         pp["enc_ls"], pp["enc_lb"])
     rec = gr @ pp["w_i"]
-    g = table.index_select(0, senders).view(n_virt, K, B, h)
-    x = F.silu(g + ew.view(n_virt, K, 1, h) + rec[:, None])
+    x = F.silu(g.view(n_virt, K, B, h) + ew.view(n_virt, K, 1, h)
+               + rec[:, None])
     msg = layer_norm(x @ pp["w2"] + pp["b2"], pp["e_ls"], pp["e_lb"])
     agg = (msg * mask_p[:, :, None, None]).sum(dim=1)
     u = F.silu(gr @ pp["a_w0"][:h] + agg @ pp["a_w0"][h:] + pp["a_b0"]) \
@@ -118,27 +131,15 @@ def grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p, pp):
     return out.reshape(n_virt, -1)
 
 
-def grid_update_flat(table, senders, ew, grid_emb_f, mask_p, pp):
-    """Fused m2g decoder stage.
+def grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p, pp):
+    """Plain PyTorch version of `grid_update_flat`'s forward."""
+    return _decoder_from_gathered(table.index_select(0, senders), ew,
+                                  grid_emb_f, mask_p, pp)
 
-    table: (N_send, W) mesh-side sender transforms; senders (M,) int32;
-    ew: (M, h) static edge term emb @ W_e + b0; grid_emb_f: (N_rows, W)
-    flat grid embeddings with N_rows <= N_virt (virtual-row padding reads
-    as zero rows; the caller slices those outputs off); mask_p (N_virt, K);
-    pp: `pack_grid_update_params(model)`.
-    Returns (N_virt, B*d_out).
 
-    Replaces pallas_grid_update.py::_grid_update_kernel (grid_update_flat)
-    and ::_grid_update_win_kernel (grid_update_flat_win). Bound by fp32
-    operations on the card; see csrc/grid_update.cu.
-    """
-    if table.device.type == "cpu":
-        return grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p,
-                                      pp)
-    dev = _build.require_cuda(table)
+def _check(table, senders, ew, grid_emb_f, mask_p, pp):
     n_virt, K = mask_p.shape
     W = table.shape[1]
-    B = W // HID
     d_out = pp["o_w1"].shape[1]
     _build.expect(W % HID == 0 and ew.shape == (n_virt * K, HID), "ew",
                   ew.shape)
@@ -151,9 +152,23 @@ def grid_update_flat(table, senders, ew, grid_emb_f, mask_p, pp):
         rows = 2 * HID if name == "a_w0" else HID
         _build.expect(pp[name].shape == (rows, HID), name, pp[name].shape)
     _build.expect(pp["o_w1"].shape[0] == HID, "o_w1", pp["o_w1"].shape)
-    params = torch.cat([pp[n].reshape(-1) for n in _MATS]
-                       + [pp[n] for n in _VECS]
-                       + [pp["o_w1"].reshape(-1), pp["o_b1"]])
+
+
+def _blob(pp):
+    """The parameter blob, in the layout both CUDA kernels read."""
+    return torch.cat([pp[n].reshape(-1) for n in _KEYS])
+
+
+def _grid_fwd(table, senders, ew, grid_emb_f, mask_p, pp):
+    if table.device.type == "cpu":
+        return grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p,
+                                      pp)
+    dev = _build.require_cuda(table)
+    _check(table, senders, ew, grid_emb_f, mask_p, pp)
+    n_virt, K = mask_p.shape
+    B = table.shape[1] // HID
+    d_out = pp["o_w1"].shape[1]
+    params = _blob(pp)
     out = torch.empty((n_virt, B * d_out), device=dev, dtype=torch.float32)
     f32, i32 = torch.float32, torch.int32
     ptrs = _build.pointers(dev, ("table", table, f32),
@@ -169,4 +184,116 @@ def grid_update_flat(table, senders, ew, grid_emb_f, mask_p, pp):
     return out
 
 
+def grid_update_flat_bwd_plain(table, senders, ew, grid_emb_f, mask_p, pp,
+                               d_out):
+    """Plain PyTorch version of `grid_update_flat_bwd`: autograd through
+    the plain forward on the gathered rows."""
+    keys = list(pp)
+
+    def fwd(g, ew, grid_emb_f, *params):
+        return _decoder_from_gathered(g, ew, grid_emb_f, mask_p,
+                                      dict(zip(keys, params)))
+
+    grads = grads_through(
+        fwd, [table.index_select(0, senders), ew, grid_emb_f]
+        + [pp[k] for k in keys], (d_out,))
+    return grads[0], grads[1], grads[2], dict(zip(keys, grads[3:]))
+
+
+def grid_update_flat_bwd(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
+    """Backward of `grid_update_flat` from d_out (N_virt, B*d_out):
+    (d_x0 (M, W) per slot, d_ew (M, h), d_grid_emb_f (N_rows, W), {name:
+    gradient} for every parameter of `pp`).
+
+    Replaces pallas_grid_update.py::_grid_update_bwd_kernel (via
+    _grid_update_bwd) and ::_grid_update_win_bwd_kernel (via
+    grid_update_flat_win_bwd). Bound by fp32 operations on the card; see
+    csrc/grid_update_bwd.cu.
+    """
+    if table.device.type == "cpu":
+        return grid_update_flat_bwd_plain(table, senders, ew, grid_emb_f,
+                                          mask_p, pp, d_out)
+    dev = _build.require_cuda(table)
+    _check(table, senders, ew, grid_emb_f, mask_p, pp)
+    n_virt, K = mask_p.shape
+    W = table.shape[1]
+    B = W // HID
+    d_o = pp["o_w1"].shape[1]
+    _build.expect(d_out.shape == (n_virt, B * d_o), "d_out", d_out.shape)
+    params = _blob(pp)
+    aw0 = pp["a_w0"]
+    mats_t = [pp["enc_w0"], pp["enc_w1"], pp["w_i"], pp["w2"], aw0[:HID],
+              aw0[HID:], pp["a_w1"], pp["o_w0"]]
+    tparams = torch.cat([m.t().reshape(-1) for m in mats_t]
+                        + [pp["o_w1"].t().reshape(-1)])
+    d_out = d_out.contiguous()
+    d_x0 = torch.empty((n_virt * K, W), device=dev, dtype=torch.float32)
+    d_ew = torch.empty_like(ew)
+    d_ge = torch.empty_like(grid_emb_f)
+    f32, i32 = torch.float32, torch.int32
+    ptrs = _build.pointers(dev, ("table", table, f32),
+                           ("senders", senders, i32), ("ew", ew, f32),
+                           ("grid_emb_f", grid_emb_f, f32),
+                           ("mask_p", mask_p, f32), ("params", params, f32),
+                           ("tparams", tparams, f32), ("d_out", d_out, f32),
+                           ("d_x0", d_x0, f32), ("d_ew", d_ew, f32),
+                           ("d_ge", d_ge, f32))
+    g = _build.run_bwd(_bwd_lib(), "nlt_grid_update_bwd", ptrs,
+                       [n_virt, grid_emb_f.shape[0], K, B, d_o],
+                       params.numel(), dev, "grid_update_flat_bwd")
+    grid_update_flat_bwd.launches += 1
+    d_pp, at = {}, 0
+    for name in _KEYS:
+        n = pp[name].numel()
+        d_pp[name] = g[at:at + n].view(pp[name].shape)
+        at += n
+    return d_x0, d_ew, d_ge, d_pp
+
+
+class _GridUpdateFlat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, senders, ew, grid_emb_f, mask_p, fold, *params):
+        ctx.save_for_backward(table, senders, ew, grid_emb_f, mask_p,
+                              *params)
+        ctx.fold = fold
+        return _grid_fwd(table, senders, ew, grid_emb_f, mask_p,
+                         dict(zip(_KEYS, params)))
+
+    @staticmethod
+    def backward(ctx, d_out):
+        table, senders, ew, ge, mask_p, *params = ctx.saved_tensors
+        d_x0, d_ew, d_ge, d_pp = grid_update_flat_bwd(
+            table, senders, ew, ge, mask_p, dict(zip(_KEYS, params)), d_out)
+        d_table = None
+        if ctx.needs_input_grad[0]:
+            if ctx.fold is None:
+                raise ValueError("the table gradient needs the edge set's "
+                                 "sender fold: pass fold=EdgeSet.fold_senders")
+            d_table = ctx.fold(d_x0)
+        return (d_table, None, d_ew, d_ge, None, None,
+                *(d_pp[k] for k in _KEYS))
+
+
+def grid_update_flat(table, senders, ew, grid_emb_f, mask_p, pp, *,
+                     fold=None):
+    """Fused m2g decoder stage, differentiable.
+
+    table: (N_send, W) mesh-side sender transforms; senders (M,) int32;
+    ew: (M, h) static edge term emb @ W_e + b0; grid_emb_f: (N_rows, W)
+    flat grid embeddings with N_rows <= N_virt (virtual-row padding reads
+    as zero rows; the caller slices those outputs off); mask_p (N_virt, K);
+    pp: `pack_grid_update_params(model)`; fold: maps the per-slot sender
+    cotangent onto the table (`EdgeSet.fold_senders`), needed only for the
+    table's gradient.
+    Returns (N_virt, B*d_out).
+
+    Replaces pallas_grid_update.py::_grid_update_kernel (grid_update_flat)
+    and ::_grid_update_win_kernel (grid_update_flat_win). Bound by fp32
+    operations on the card; see csrc/grid_update.cu.
+    """
+    return _GridUpdateFlat.apply(table, senders, ew, grid_emb_f, mask_p,
+                                 fold, *(pp[k] for k in _KEYS))
+
+
 grid_update_flat.launches = 0
+grid_update_flat_bwd.launches = 0

@@ -22,7 +22,8 @@ read per edge. The fused edge kernels (`edge_flat.py`) read the sender
 term by index straight from the node table. Aggregation is the masked
 K-slot sum inside the kernels, then a deterministic gather fold of virtual
 rows to receivers (`_rec_fold`) -- no atomics, so every run sums in the
-same order.
+same order. The backward's sender gradient is the same kind of fold over
+the transposed layout (`EdgeSet.fold_senders`).
 """
 
 from __future__ import annotations
@@ -50,6 +51,10 @@ class EdgeSet:
     virt_to_rec: (num_virt,) int32 virtual-row -> receiver map.
     rec_slots / rec_mask: (num_rec, R) virtual-row ids of each receiver and
     their validity, for the gather fold; None when virt_identity.
+    transposed: the same dense layout built over this set's REAL slots as
+    edges and its senders as receivers (the JAX package's
+    `EdgeSet.transposed`), for the scatter-free sender-gradient fold
+    `fold_senders`; None when the set has no real slot.
     """
 
     senders: torch.Tensor
@@ -67,11 +72,13 @@ class EdgeSet:
     # True when (pre-padding) every receiver had exactly one virtual row in
     # order: aggregation is then virt[:num_rec]
     virt_identity: bool
+    transposed: "EdgeSet | None" = None
 
     @staticmethod
     def from_local(senders: np.ndarray, receivers: np.ndarray,
                    features: np.ndarray, num_send: int, num_rec: int,
-                   dense_cap: int | None = None, device="cuda"):
+                   dense_cap: int | None = None, device="cuda",
+                   build_transpose: bool = True):
         """Build the dense layout from already-local index arrays.
 
         Pads the edge list so every receiver owns contiguous K-slot virtual
@@ -129,6 +136,19 @@ class EdgeSet:
                                        device=device)
         recv_p = np.repeat(virt_to_rec, K)
         table, _ = build_gather_table(recv_p, num_rec)
+        transposed = None
+        real = np.nonzero(mask[:, 0] > 0)[0]
+        if build_transpose and real.size:
+            # transposed dense layout: "edges" are this set's real slot
+            # ids, "receivers" its sender nodes; the cap near the mean
+            # out-degree is the JAX package's
+            cap = int(min(8, max(1, -(-real.size // max(num_send, 1)))))
+            transposed = EdgeSet.from_local(
+                real.astype(np.int64), send_p[real],
+                np.zeros((real.size, 0), np.float32), num_send=M_pad,
+                num_rec=num_send, dense_cap=cap, device=device,
+                build_transpose=False,
+            )
 
         def t(a):
             return torch.as_tensor(a, device=device)
@@ -147,7 +167,30 @@ class EdgeSet:
             dense_k=K,
             num_virt=num_virt_pad,
             virt_identity=virt_identity,
+            transposed=transposed,
         )
+
+    def fold_senders(self, d_slots):
+        """(M, W) per-slot sender cotangents -> (num_send, W) table
+        gradient: d_table[s] = sum of d_slots over the REAL slots whose
+        sender is s (padding slots stay out).
+
+        Counterpart of the backward of the JAX package's `gather_send_flat`
+        (`_gather_rows_T_bwd`): masked row gathers over the transposed
+        layout, summed in a fixed order, then the virtual-row fold. No
+        scatter and no float atomics, so the card repeats its sums."""
+        t = self.transposed
+        if t is None:
+            return d_slots.new_zeros((self.num_send, d_slots.shape[1]))
+        slots = t.senders.view(t.num_virt, t.dense_k)
+        masks = t.mask.view(t.num_virt, t.dense_k)
+        virt = None
+        for k in range(t.dense_k):
+            part = d_slots.index_select(0, slots[:, k]) * masks[:, k, None]
+            virt = part if virt is None else virt + part
+        if t.virt_identity:
+            return virt[:self.num_send]
+        return _rec_fold(virt, t.rec_slots, t.rec_mask)
 
 
 class InteractionNet(nn.Module):
@@ -291,12 +334,12 @@ def edge_round_flat(edge_mlp: MLP, edges: EdgeSet, send_rep, rec_rep,
     if edge_rep_flat is not None:
         return edge_flat.edge_layer_flat(
             edge_rep_flat, send_tf, edges.senders, rec_rows, mask_p,
-            w_e, b0, w2, b2, ln.scale, ln.bias,
+            w_e, b0, w2, b2, ln.scale, ln.bias, fold=edges.fold_senders,
         )
     assert ew is not None, "flat static path requires precomputed ew"
     virt = edge_flat.edge_tail_sum_flat(
         send_tf, edges.senders, ew, rec_rows, mask_p, w2, b2,
-        ln.scale, ln.bias,
+        ln.scale, ln.bias, fold=edges.fold_senders,
     )
     return None, virt
 

@@ -105,3 +105,18 @@ def apply_mlp_concat(mlp: MLP, parts: list):
         off += d
     assert off == w0.shape[0], (off, w0.shape)
     return finish_mlp(mlp, x)
+
+
+def grads_through(fn, inputs, output_grads):
+    """torch.autograd.grad of fn(*inputs) with the given output cotangents
+    (None entries skipped) with respect to every input: the plain
+    backward of a fused kernel, through its plain forward on detached
+    leaves."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, output_grads) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs],
+                                   leaves, [g for _, g in pairs],
+                                   allow_unused=True)

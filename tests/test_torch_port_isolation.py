@@ -3,8 +3,8 @@
 * No module of `neural_lam_tpu_torch/`, and not `chip_smoke.py`, imports
   JAX, optax or the JAX package.
 * Entry points default to CUDA and raise without it.
-* Each kernel wrapper takes its plain version only for CPU tensors, and
-  counts a launch only when it launches its kernel.
+* Each kernel wrapper, forward and backward, takes its plain version only
+  for CPU tensors, and counts a launch only when it launches its kernel.
 """
 
 import ast
@@ -104,6 +104,64 @@ def test_wrapper_takes_plain_version_on_cpu(index, monkeypatch):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert wrapper.launches == before
 
+    meta_args = [a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in args]
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        wrapper(*meta_args)
+    assert wrapper.launches == before
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    """entry.train_steps and the training CLI default to CUDA."""
+    from neural_lam_tpu_torch import train
+    from neural_lam_tpu_torch.entry import build_model, train_steps
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    model, ds = build_model(nx=9, ny=9, processor_layers=1, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_steps(model, ds, batch_size=2, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--config_path", str(tmp_path / "config.yaml")])
+
+
+def _bwd_calls():
+    """(backward wrapper, args) for each kernel wrapper, at a tiny shape:
+    the forward's arguments followed by the output cotangents."""
+    rng = np.random.default_rng(1)
+    out = []
+    for wrapper, make_args in _calls():
+        args = make_args()
+        fwd = getattr(__import__(wrapper.__module__, fromlist=["x"]),
+                      wrapper.__name__ + "_plain")(*args)
+        cts = [torch.as_tensor(rng.standard_normal(o.shape).astype(
+            np.float32)) for o in (fwd if isinstance(fwd, tuple) else (fwd,))]
+        bwd = getattr(__import__(wrapper.__module__, fromlist=["x"]),
+                      wrapper.__name__ + "_bwd")
+        out.append((bwd, tuple(args) + tuple(cts)))
+    return out
+
+
+@pytest.mark.parametrize("index", range(4))
+def test_bwd_wrapper_takes_plain_version_on_cpu(index, monkeypatch):
+    """A backward wrapper on CPU tensors returns exactly its *_bwd_plain,
+    builds and launches nothing; a tensor on another device raises."""
+    def no_build(*a, **kw):
+        raise AssertionError("kernel library requested for a CPU tensor")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    wrapper, args = _bwd_calls()[index]
+    plain = getattr(__import__(wrapper.__module__, fromlist=["x"]),
+                    wrapper.__name__ + "_plain")
+    before = wrapper.launches
+    got, want = wrapper(*args), plain(*args)
+    if isinstance(got[-1], dict):
+        got = got[:-1] + tuple(got[-1].values())
+        want = want[:-1] + tuple(want[-1].values())
+    for g, w in zip(got, want):
+        if g is not None or w is not None:
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert wrapper.launches == before
     meta_args = [a.to("meta") if isinstance(a, torch.Tensor) else a
                  for a in args]
     with pytest.raises(ValueError, match="CPU or CUDA"):

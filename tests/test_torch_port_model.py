@@ -37,8 +37,7 @@ from neural_lam_tpu_torch.ops import mlp as tmlp
 B, T, NX = 2, 3, 16
 
 
-@pytest.fixture(scope="module")
-def models(tmp_path_factory):
+def _build_pair(tmp_path_factory, mesh_aggr="sum"):
     """(jax_model, jax_params, port_model) for a 16x16 DummyDatastore, hidden
     64, 2 processor layers."""
     assert jmp._pallas_mode() == "off"
@@ -55,18 +54,23 @@ def models(tmp_path_factory):
                            tds.get_xy("state", stacked=False),
                            n_max_levels=None, hierarchical=False)
     jmodel = J_MODELS["graph_lam"](
-        JModelArgs(hidden_dim=64, processor_layers=2),
+        JModelArgs(hidden_dim=64, processor_layers=2, mesh_aggr=mesh_aggr),
         JNeuralLAMConfig(datastore=JDatastoreSelection("dummydata", "")),
         jds, j_graph_from_bundle(jbundle),
     )
     params = jmodel.init_params(jax.random.PRNGKey(0))
     tmodel = GraphLAM(
-        ModelArgs(hidden_dim=64, processor_layers=2),
+        ModelArgs(hidden_dim=64, processor_layers=2, mesh_aggr=mesh_aggr),
         NeuralLAMConfig(datastore=DatastoreSelection("dummydata", "")),
         tds, graph_from_bundle(tbundle, device="cpu"), device="cpu",
     )
     tmodel.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     return jmodel, params, tmodel
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    return _build_pair(tmp_path_factory)
 
 
 def _inputs(model):
@@ -149,3 +153,32 @@ def test_apply_mlp_concat_matches_jax(flat):
                                                for p in jparts])
     np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
                                atol=1e-5, rtol=1e-5)
+
+
+def test_mean_aggregation_matches_jax(tmp_path_factory):
+    """mesh_aggr="mean" (the processor divides each receiver's sum by its
+    real in-degree): one predict step within atol 1e-4 (as
+    test_predict_step_matches_jax) and the gradient of the training loss
+    for every parameter within 5e-4 * its JAX gradient's max abs (fp32
+    sums in another order through ~10 chained MLPs and their backward)."""
+    jmodel, params, tmodel = _build_pair(tmp_path_factory, mesh_aggr="mean")
+    init, forcing, true = _inputs(tmodel)
+    out_j, _ = jmodel.predict_step(params, jnp.asarray(init[:, 1]),
+                                   jnp.asarray(init[:, 0]),
+                                   jnp.asarray(forcing[:, 0]))
+    with torch.no_grad():
+        out_t, _ = tmodel.predict_step(torch.as_tensor(init[:, 1]),
+                                       torch.as_tensor(init[:, 0]),
+                                       torch.as_tensor(forcing[:, 0]))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-4,
+                               rtol=0)
+    batch = (init, true[:, :1], forcing[:, :1],
+             np.zeros((B, 1), np.int64))
+    g_j = jax.grad(jmodel.training_loss)(
+        params, tuple(jnp.asarray(b) for b in batch))
+    tmodel.training_loss(tuple(torch.as_tensor(b) for b in batch)).backward()
+    want = params_from_jax(jax.tree.map(np.asarray, g_j))
+    got = dict(tmodel.named_parameters())
+    for k, w in want.items():
+        err = float((got[k].grad - w).abs().max())
+        assert err <= 5e-4 * float(w.abs().max()) + 1e-7, (k, err)
