@@ -9,24 +9,36 @@ result line is printed):
 1. Build every CUDA kernel of the forecast and training paths from `csrc/`
    with nvcc (one process per source, all started together); print the
    build time and each source's ptxas registers and spills.
-2. Build the bench-width GraphLAM through `neural_lam_tpu_torch.entry`
-   (268x238 grid, 17 state / 6x3 forcing / 4 static features, hidden 64,
-   4 processor layers, batch 4, fp32, weights from a seeded generator).
-3. For each forward kernel (K1-K4), at the shapes that model gives it:
-   hold the kernel against its plain PyTorch version on the card (TF32
-   off), and time both with CUDA events beside the least time the card
-   could take.
+2. Build the bench-width GraphLAM and HiLAM through
+   `neural_lam_tpu_torch.entry` (268x238 grid, 17 state / 6x3 forcing / 4
+   static features, hidden 64, 4 processor layers, fp32, weights from a
+   seeded generator; HiLAM on the 4-level hierarchical graph).
+3. For each forward kernel, at the shapes those models give it: hold the
+   kernel against its plain PyTorch version on the card (TF32 off), and
+   time both with CUDA events beside the least time the card could take.
+   K1-K4 at GraphLAM's batch-4 shapes; K3 also at HiLAM's K=1 down[0] and
+   non-identity up[0] sets (batch 4); P1-P3 (the batched route) at
+   HiLAM's batch-1 shapes (P3 on m2m[0], P2 on m2g and g2m, P1 on down[0]
+   with and without messages) and at one batch-4 shape each.
 4. The same for each backward kernel (B1, B2, B3/B4, B5/B6) against its
    `*_bwd_plain` version: every output tensor within 1e-4 + 1e-4 * its
    plain version's max abs.
-5. The forecast path: a 4-step rollout with every launch counter set to 0
-   just before it, asserting 1/1/4/1 launches of K1/K2/K3/K4 per predict
-   step and finite output; then the time per predict step, the mesh-node
-   updates/s (bench.py's metric), a torch.profiler breakdown of device
-   time by kernel with the device's idle share, and the gap between one
-   kernel-path and one plain-path predict step on the card.
-6. A small model (16x16 grid) built on the CPU and on the card from one
-   seed: the card's rollout (kernels) agrees with the CPU's (plain versions).
+5. The forecast paths, each a 4-step rollout through `entry.forecast` with
+   every launch counter set to 0 just before it, asserting the launches
+   per predict step and finite output; then the time per predict step,
+   the mesh-node updates/s (bench.py's metric: all levels' mesh nodes x
+   processor layers x batch / step time), a torch.profiler breakdown of
+   device time by kernel with the device's idle share, and the gap
+   between one kernel-path and one plain-path predict step on the card:
+   a. GraphLAM, batch 4 (flat route): K1/K2/K3/K4 1/1/4/1 per step;
+   b. HiLAM, batch 4 (mixed route): K1/K2/K3/K4 1/1/31/1, P1/P3 1/30;
+   c. HiLAM, batch 1 (batched route): P1/P2/P3 3/2/59;
+   d. GraphLAM, batch 1 (batched route): P2/P3 2/4 (no profile, no gap).
+6. Small models built on the CPU and on the card from one seed: the card's
+   rollout (kernels) agrees with the CPU's (plain versions): GraphLAM
+   16x16 on both routes (the dispatch as it is: batched; and its
+   `_FLAT_MIN_VIRT` lowered to 1: flat), HiLAM 30x30 (2 levels) at batch
+   1 and 2.
 7. The training path at bench width: one AdamW step through
    `entry.train_steps` with every counter set to 0 just before it,
    asserting 1/1/4/1 launches of K1-K4 and of B1/B2/B3/B5 and a finite
@@ -34,8 +46,8 @@ result line is printed):
    plain path within 1e-3 * max abs; the training-step time (host clock
    around a synchronised step, median of 7 after warm-up), samples/s,
    peak device memory and a profiler breakdown of a step.
-8. The 16x16 model trained 3 AdamW steps on the card and on the CPU:
-   the loss trajectories agree within rtol 1e-4.
+8. The 16x16 GraphLAM trained 3 AdamW steps on the card and on the CPU,
+   on both routes: the loss trajectories agree within rtol 1e-4.
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -59,6 +71,9 @@ STEPS = 4
 H = 64
 FWD = ("embed_grid_flat", "edge_tail_sum_flat", "edge_layer_flat",
        "grid_update_flat")
+BATCHED = ("edge_tail", "edge_tail_sum", "edge_layer")  # P1, P2, P3
+SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
+PALLAS_EDGE = "neural_lam_tpu/ops/pallas_edge.py"
 
 
 def fail(msg):
@@ -83,19 +98,32 @@ def peaks(device_name):
     return 67e12, 3.35e12, "H100 SXM: 67 TFLOP/s fp32, 3.35 TB/s"
 
 
-def cuda_ms(torch, fn, reps):
+def cuda_ms(torch, fn, reps, queued=True):
     """Mean ms per call over `reps` calls, from CUDA events, after a
-    warm-up call."""
+    warm-up call.
+
+    queued: the calls are queued behind a sleep kernel (`torch.cuda._sleep`)
+    long enough for the host to enqueue all of them, so the events time the
+    device work alone; fails if the host did not finish in time. Without
+    it, a call whose host side (argument checks, ctypes, allocation) takes
+    longer than its kernel is timed at its host cost."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t0 = time.perf_counter()
+    if queued:
+        events[0].record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+    events[1].record()
     for _ in range(reps):
         fn()
-    end.record()
+    events[2].record()
+    host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    if queued and host_ms >= events[0].elapsed_time(events[1]):
+        fail(f"the host took {host_ms:.1f} ms to queue {reps} calls, longer "
+             "than the sleep kernel in front of them")
+    return events[1].elapsed_time(events[2]) / reps
 
 
 def nbytes(*tensors):
@@ -159,7 +187,14 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from neural_lam_tpu_torch import entry
-    from neural_lam_tpu_torch.ops import _build, edge_flat, embed, grid_update
+    from neural_lam_tpu_torch.ops import (
+        _build,
+        edge,
+        edge_flat,
+        embed,
+        grid_update,
+        message_passing,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -174,6 +209,8 @@ def main():
     for k, m in mods.items():
         wrappers[k] = getattr(m, k)
         wrappers[k + "_bwd"] = getattr(m, k + "_bwd")
+    mods.update({k: edge for k in BATCHED})
+    wrappers.update({k: getattr(edge, k) for k in BATCHED})
 
     def reset_counts():
         for w in wrappers.values():
@@ -188,7 +225,7 @@ def main():
         through the plain forward) while inside."""
         for k, m in mods.items():
             plain = getattr(m, k + "_plain")
-            setattr(m, k, lambda *a, fold=None, _p=plain: _p(*a))
+            setattr(m, k, lambda *a, fold=None, _p=plain, **kw: _p(*a, **kw))
         try:
             yield
         finally:
@@ -207,7 +244,7 @@ def main():
         print(f"  ptxas[{src}]: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {sum(spills)} bytes of spill stores and loads")
 
-    # 2. the bench-width model
+    # 2. the bench-width models
     t0 = time.time()
     model, datastore = entry.build_model(**BENCH, device="cuda")
     g = model.graph
@@ -216,6 +253,18 @@ def main():
           f"g2m K={g.g2m.dense_k} rows={g.g2m.num_virt}, m2m "
           f"K={g.m2m[0].dense_k} rows={g.m2m[0].num_virt}, m2g "
           f"K={g.m2g.dense_k} rows={g.m2g.num_virt}")
+    t0 = time.time()
+    hilam, _ = entry.build_model(**BENCH, device="cuda", model="hi_lam")
+    hg = hilam.graph
+
+    def sets(kind):
+        return " ".join(f"({es.dense_k},{es.num_virt}"
+                        f"{'' if es.virt_identity else ',fold'})"
+                        for es in getattr(hg, kind))
+
+    print(f"HiLAM built in {time.time() - t0:.1f} s: levels "
+          f"{hg.level_sizes} (N_mesh={hilam.num_mesh_nodes}); (K, virtual "
+          f"rows) m2m {sets('m2m')}, up {sets('up')}, down {sets('down')}")
 
     # 3-4. every kernel against its plain version at the main path's shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -309,6 +358,66 @@ def main():
                   + n_grid * W * 4 + nbytes(*pp.values()),
                   3 * (node_flops + edge_flops4)))
 
+    # K3 at HiLAM's new shapes: K=1 (down[0]) and a virtual-row fold (up[0])
+    for lev_set, inet in ((hg.down[0], hilam.mesh_read_gnns[0]),
+                          (hg.up[0], hilam.mesh_init_gnns[0])):
+        (a, b, f), _ = edge_cases(lev_set, inet, True)
+        cases.append(("edge_layer_flat", edge_flat, a,
+                      f"{pef}:727 (HiLAM K={lev_set.dense_k}, "
+                      f"{lev_set.num_virt} rows, B=4)", b, f))
+
+    def batched_case(kind, edges, inet, B, with_messages=False):
+        """Args, bytes and FLOPs of one P-kernel call on `edges` at batch
+        B: each input read once, each output written once; W2 (and W_e)
+        products at every slot whose output is written (real slots only
+        for a virt-only tail)."""
+        n_virt, K = edges.num_virt, edges.dense_k
+        M, n_send = n_virt * K, edges.num_send
+        mlp = inet.edge_mlp
+        tail = det(mlp.layers[1].w, mlp.layers[1].b, mlp.ln.scale,
+                   mlp.ln.bias)
+        real = float(edges.mask.sum())
+        out_bytes = B * n_virt * H * 4
+        if kind == "edge_layer":
+            w0 = mlp.layers[0].w.detach()
+            args = (rand(B, M, H), rand(B, n_send, H), edges.senders,
+                    rand(B, n_virt, H), edges.mask, w0[:H],
+                    mlp.layers[0].b.detach()) + tail + (K,)
+            return args, out_bytes + B * M * H * 4, 2.0 * B * M * 2 * H * H
+        slots = M if with_messages else real
+        out_bytes += B * M * H * 4 if with_messages else 0
+        if kind == "edge_tail_sum":
+            args = (rand(B, n_send, H), edges.senders, rand(M, H),
+                    rand(B, n_virt, H)) + tail + (edges.mask, K,
+                                                  with_messages)
+        else:
+            args = (rand(B, M, H),) + tail + (edges.mask, K, with_messages)
+        return args, out_bytes, 2.0 * B * slots * H * H
+
+    p_lines = {"edge_tail": 54, "edge_tail_sum": 182, "edge_layer": 304}
+    main_p = {}  # kernel -> label of its main-path (HiLAM batch-1) case
+    for kname, edges, inet, B, wm, what in (
+            ("edge_layer", hg.m2m[0], hilam.mesh_up_same_gnns[0][0], 1,
+             False, "m2m[0]"),
+            ("edge_tail_sum", hg.m2g, hilam.m2g_gnn, 1, False, "m2g"),
+            ("edge_tail_sum", hg.g2m, hilam.g2m_gnn, 1, False, "g2m"),
+            ("edge_tail", hg.down[0], hilam.mesh_read_gnns[0], 1, False,
+             "down[0]"),
+            ("edge_tail", hg.down[0], hilam.mesh_read_gnns[0], 1, True,
+             "down[0], with messages"),
+            ("edge_layer", hg.m2m[1], hilam.mesh_up_same_gnns[0][1], 4,
+             False, "m2m[1]"),
+            ("edge_tail_sum", hg.g2m, hilam.g2m_gnn, 4, False, "g2m"),
+            ("edge_tail", hg.down[-1], hilam.mesh_read_gnns[-1], 4, False,
+             "top down set")):
+        args, out_bytes, flops = batched_case(kname, edges, inet, B, wm)
+        label = (f"{PALLAS_EDGE}:{p_lines[kname]} (HiLAM {what}, "
+                 f"K={edges.dense_k}, {edges.num_virt} rows, B={B})")
+        main_p.setdefault(kname, label)
+        cases.append((kname, edge, args, label,
+                      nbytes(*(t for t in args if torch.is_tensor(t)))
+                      + out_bytes, flops))
+
     records = []
     with torch.no_grad():
         for kname, mod, args, replaces, bytes_, flops in cases:
@@ -335,16 +444,26 @@ def main():
                          f", max abs err {float(gap.max()):.3e}")
                 err = max(err, float(gap.max()))
             ms = cuda_ms(torch, lambda: kern(*args), 10 if bwd else 20)
+            call_ms = cuda_ms(torch, lambda: kern(*args), 10 if bwd else 20,
+                              queued=False)
             plain_ms = cuda_ms(torch, lambda: plain(*args), 3 if bwd else 5)
             t_bytes = bytes_ / peak_bw * 1e3
             t_ops = flops / peak_flops * 1e3
             bound_ms = max(t_bytes, t_ops)
             rule = ("1e-4 + 1e-4*max|plain| per tensor" if bwd
                     else "1e-4 + 1e-4*|plain|")
-            print(f"{kname}: max_abs_err {err:.3e} (tol {rule}); kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            shape = "" if replaces.endswith(tuple("0123456789")) else (
+                " at " + replaces[replaces.index("(") + 1:-1])
+            print(f"{kname}{shape}: max_abs_err {err:.3e} (tol {rule}); kernel "
+                  f"{ms:.4f} ms (back-to-back calls unqueued: {call_ms:.4f} "
+                  f"ms), plain {plain_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({bytes_ / 1e6:.1f} MB, "
                   f"{flops / 1e9:.2f} GFLOP)")
+            if kname in main_p and replaces != main_p[kname]:
+                continue
+            if any(r["name"] == kname for r in records):
+                continue  # K3 at HiLAM's shapes: printed, not recorded
+            replaces = replaces.split(" (")[0]
             base = os.path.basename(mod.__file__)[:-3]
             records.append({
                 "name": kname, "route": "cuda",
@@ -359,74 +478,117 @@ def main():
     del cases, args, a4, a5, k1
     torch.cuda.empty_cache()
 
-    # 5. the forecast path
-    init, forcing, true = entry.make_inputs(model, BATCH, STEPS, seed=0)
-    entry.forecast(model, init, forcing[:, :1], true[:, :1])  # warm-up
-    reset_counts()
-    pred = entry.forecast(model, init, forcing, true)
-    torch.cuda.synchronize()
-    fwd_counts = counts()
-    if tuple(pred.shape) != (BATCH, STEPS, g.num_grid_nodes, 17):
-        fail(f"rollout shape {tuple(pred.shape)}")
-    if not bool(torch.isfinite(pred).all()):
-        fail("rollout output is not finite")
+    # 5. the forecast paths
+    zero = {k: 0 for k in FWD + BATCHED}
+
+    def forecast_phase(net, B, want, what, full=True):
+        """4-step rollout with the counters at 0 just before it: assert
+        the launches per step (`want`, every other counter 0), finite
+        output; predict-step time and updates/s; with `full`, a profile
+        and the kernel-vs-plain predict-step gap. Returns the counts."""
+        init, forcing, true = entry.make_inputs(net, B, STEPS, seed=0)
+        entry.forecast(net, init, forcing[:, :1], true[:, :1])  # warm-up
+        reset_counts()
+        pred = entry.forecast(net, init, forcing, true)
+        torch.cuda.synchronize()
+        got = counts()
+        n_grid = net.graph.num_grid_nodes
+        if tuple(pred.shape) != (B, STEPS, n_grid, 17):
+            fail(f"{what}: rollout shape {tuple(pred.shape)}")
+        if not bool(torch.isfinite(pred).all()):
+            fail(f"{what}: rollout output is not finite")
+        want = dict(zero, **want)
+        print(f"{what}: {STEPS}-step rollout, output {tuple(pred.shape)} "
+              f"finite; launches per step "
+              f"{ {k: got[k] / STEPS for k in want} }")
+        if any(got[k] != want[k] * STEPS for k in want) or any(
+                got[k + "_bwd"] for k in FWD):
+            fail(f"{what}: launch counts {got}, want {want} per step and "
+                 "no backward launch")
+
+        def rollout_s(steps):
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                entry.forecast(net, init, forcing[:, :steps],
+                               true[:, :steps])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return sorted(times)[2]
+
+        t1, tn = rollout_s(1), rollout_s(STEPS)
+        ms_step = (tn - t1) / (STEPS - 1) * 1e3
+        updates = net.num_mesh_nodes * BENCH["processor_layers"] * B \
+            * 1e3 / ms_step
+        print(f"{what}: predict step {ms_step:.3f} ms (median of 5, "
+              f"{STEPS}-step minus 1-step rollout); {updates:.4e} mesh-node "
+              f"updates/s ({net.num_mesh_nodes} mesh nodes x "
+              f"{BENCH['processor_layers']} layers x batch {B})")
+        if not full:
+            return got
+        with torch.no_grad():
+            ctx = net.precompute_rollout_ctx()
+            profile(torch, lambda: net.predict_step(
+                init[:, 1], init[:, 0], forcing[:, 0], ctx),
+                f"{what} predict step")
+            step_k, _ = net.predict_step(init[:, 1], init[:, 0],
+                                         forcing[:, 0])
+            with plain_kernels():
+                step_p, _ = net.predict_step(init[:, 1], init[:, 0],
+                                             forcing[:, 0])
+        gap = float((step_k - step_p).abs().max())
+        print(f"{what}: predict step, kernels vs plain versions on the "
+              f"card: max abs gap {gap:.3e} (limit 1e-3)")
+        if not gap <= 1e-3:
+            fail(f"{what}: kernel path and plain path disagree")
+        return got
+
+    L = BENCH["processor_layers"]
     want = {"embed_grid_flat": 1, "edge_tail_sum_flat": 1,
-            "edge_layer_flat": BENCH["processor_layers"],
-            "grid_update_flat": 1}
-    print(f"rollout: {STEPS} steps, output {tuple(pred.shape)} finite; "
-          f"launches per step "
-          f"{ {k: fwd_counts[k] / STEPS for k in FWD} }")
-    if any(fwd_counts[k] != want[k] * STEPS for k in want) or any(
-            fwd_counts[k + "_bwd"] for k in FWD):
-        fail(f"launch counts {fwd_counts}, want {want} per step and no "
-             "backward launch")
+            "edge_layer_flat": L, "grid_update_flat": 1}
+    fwd_counts = forecast_phase(model, BATCH, want, "GraphLAM batch 4")
+    # HiLAM, 4 levels: 3 init rounds over up sets, 14 rounds per layer,
+    # 3 read-out rounds over down sets; at batch 4 the sets with >= 512
+    # virtual rows (m2m[0], m2m[1], up[0], down[0], down[1]) go flat
+    forecast_phase(hilam, BATCH, {
+        "embed_grid_flat": 1, "edge_tail_sum_flat": 1,
+        "edge_layer_flat": 1 + 7 * L + 2, "grid_update_flat": 1,
+        "edge_tail": 1, "edge_layer": 2 + 7 * L}, "HiLAM batch 4")
+    p_counts = forecast_phase(hilam, 1, {
+        "edge_tail": 3, "edge_tail_sum": 2, "edge_layer": 3 + 14 * L},
+        "HiLAM batch 1")
+    forecast_phase(model, 1, {"edge_tail_sum": 2, "edge_layer": L},
+                   "GraphLAM batch 1", full=False)
+    del hilam, hg
+    torch.cuda.empty_cache()
 
-    def rollout_s(steps):
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            entry.forecast(model, init, forcing[:, :steps], true[:, :steps])
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return sorted(times)[2]
+    # 6. small models: card (kernels) against CPU (plain versions)
+    def card_vs_cpu(kind, nx, B, min_virt, what):
+        message_passing._FLAT_MIN_VIRT = min_virt
+        try:
+            preds = []
+            for dev in ("cpu", "cuda"):
+                m, _ = entry.build_model(nx=nx, ny=nx, hidden_dim=64,
+                                         processor_layers=2, n_timesteps=20,
+                                         device=dev, seed=1, model=kind)
+                inputs = entry.make_inputs(m, B, 3, seed=1)
+                preds.append(entry.forecast(m, *inputs).cpu())
+        finally:
+            message_passing._FLAT_MIN_VIRT = FLAT_MIN_VIRT
+        small_gap = float((preds[0] - preds[1]).abs().max())
+        print(f"{what} rollout, card vs CPU: max abs gap {small_gap:.3e} "
+              f"(limit 5e-4)")
+        if not small_gap <= 5e-4:
+            fail(f"{what}: card and CPU rollouts disagree")
 
-    t1, tn = rollout_s(1), rollout_s(STEPS)
-    ms_step = (tn - t1) / (STEPS - 1) * 1e3
-    updates = model.num_mesh_nodes * BENCH["processor_layers"] * BATCH \
-        * 1e3 / ms_step
-    print(f"predict step: {ms_step:.3f} ms (batch {BATCH}; median of 5, "
-          f"{STEPS}-step minus 1-step rollout); {updates:.4e} mesh-node "
-          f"updates/s")
-
-    with torch.no_grad():
-        ctx = model.precompute_rollout_ctx()
-        profile(torch, lambda: model.predict_step(
-            init[:, 1], init[:, 0], forcing[:, 0], ctx), "predict step")
-        step_k, _ = model.predict_step(init[:, 1], init[:, 0], forcing[:, 0])
-        with plain_kernels():
-            step_p, _ = model.predict_step(init[:, 1], init[:, 0],
-                                           forcing[:, 0])
-    gap = float((step_k - step_p).abs().max())
-    print(f"predict step, kernels vs plain versions on the card: max abs "
-          f"gap {gap:.3e} (limit 1e-3)")
-    if not gap <= 1e-3:
-        fail("kernel path and plain path disagree")
-    del init, forcing, true, pred, step_k, step_p, ctx
-
-    # 6. small model: card (kernels) against CPU (plain versions)
-    small = dict(nx=16, ny=16, hidden_dim=64, processor_layers=2,
-                 n_timesteps=20)
-    preds = []
-    for dev in ("cpu", "cuda"):
-        m, _ = entry.build_model(**small, device=dev, seed=1)
-        inputs = entry.make_inputs(m, 2, 3, seed=1)
-        preds.append(entry.forecast(m, *inputs).cpu())
-    small_gap = float((preds[0] - preds[1]).abs().max())
-    print(f"16x16 rollout, card vs CPU: max abs gap {small_gap:.3e} "
-          f"(limit 5e-4)")
-    if not small_gap <= 5e-4:
-        fail("card and CPU rollouts disagree")
+    FLAT_MIN_VIRT = message_passing._FLAT_MIN_VIRT
+    card_vs_cpu("graph_lam", 16, 2, FLAT_MIN_VIRT,
+                "16x16 GraphLAM batch 2 (batched route)")
+    card_vs_cpu("graph_lam", 16, 2, 1, "16x16 GraphLAM batch 2 (flat route)")
+    for B in (1, 2):
+        card_vs_cpu("hi_lam", 30, B, FLAT_MIN_VIRT,
+                    f"30x30 HiLAM (2 levels) batch {B}")
 
     # 7. the training path at bench width
     entry.train_steps(model, datastore, BATCH, 1, steps=1, seed=0,
@@ -436,7 +598,8 @@ def main():
                                device="cuda")
     torch.cuda.synchronize()
     train_counts = counts()
-    want_train = dict(want, **{k + "_bwd": n for k, n in want.items()})
+    want_train = dict(zero, **want, **{k + "_bwd": n
+                                        for k, n in want.items()})
     print(f"training step: loss {losses[0]:.6f}; launches {train_counts}")
     if not all(map(math.isfinite, losses)):
         fail(f"training loss is not finite: {losses}")
@@ -445,6 +608,7 @@ def main():
     for rec in records:
         n = rec["name"]
         rec["launches"] = (train_counts[n] if n.endswith("_bwd")
+                           else p_counts[n] if n in BATCHED
                            else fwd_counts[n])
 
     trainer, dm = entry.make_trainer(model, datastore, BATCH, 1, seed=2)
@@ -489,18 +653,26 @@ def main():
     del trainer, dm, batch, model
     torch.cuda.empty_cache()
 
-    # 8. small model trained on the card and on the CPU
-    trajectories = []
-    for dev in ("cpu", "cuda"):
-        m, ds = entry.build_model(**small, device=dev, seed=1)
-        trajectories.append(entry.train_steps(m, ds, 2, 1, steps=3, seed=1,
-                                              device=dev))
-    rel = max(abs(a - b) / abs(a) for a, b in zip(*trajectories))
-    print(f"16x16 training, 3 AdamW steps: CPU losses {trajectories[0]}, "
-          f"card losses {trajectories[1]}; max rel gap {rel:.3e} "
-          f"(limit 1e-4)")
-    if not rel <= 1e-4:
-        fail("card and CPU training trajectories disagree")
+    # 8. small model trained on the card and on the CPU, on both routes
+    small = dict(nx=16, ny=16, hidden_dim=64, processor_layers=2,
+                 n_timesteps=20)
+    for min_virt, route in ((FLAT_MIN_VIRT, "batched"), (1, "flat")):
+        message_passing._FLAT_MIN_VIRT = min_virt
+        try:
+            trajectories = []
+            for dev in ("cpu", "cuda"):
+                m, ds = entry.build_model(**small, device=dev, seed=1)
+                trajectories.append(entry.train_steps(
+                    m, ds, 2, 1, steps=3, seed=1, device=dev))
+        finally:
+            message_passing._FLAT_MIN_VIRT = FLAT_MIN_VIRT
+        rel = max(abs(a - b) / abs(a) for a, b in zip(*trajectories))
+        print(f"16x16 training ({route} route), 3 AdamW steps: CPU losses "
+              f"{trajectories[0]}, card losses {trajectories[1]}; max rel "
+              f"gap {rel:.3e} (limit 1e-4)")
+        if not rel <= 1e-4:
+            fail(f"card and CPU training trajectories disagree ({route} "
+                 "route)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

@@ -1,10 +1,11 @@
-"""Entry points: build the flagship GraphLAM, run a forecast rollout, and
+"""Entry points: build a GraphLAM or HiLAM, run a forecast rollout, and
 train it for a few steps.
 
 Counterpart of `_build_model` in the repository's `__graft_entry__.py`
 and of the rollout `bench.py` times: a DummyDatastore of the given grid
-and feature counts, the multiscale mesh graph built for it, and a GraphLAM
-with weights drawn from a seeded `torch.Generator`.
+and feature counts, the mesh graph built for it (multiscale for GraphLAM,
+hierarchical for HiLAM), and the model with weights drawn from a seeded
+`torch.Generator`.
 
     model, datastore = build_model(nx=268, ny=238,
                                    n_features={"state": 17, "forcing": 6,
@@ -13,6 +14,7 @@ with weights drawn from a seeded `torch.Generator`.
     prediction = forecast(model, init, forcing, true)
     losses = train_steps(model, datastore, batch_size=4, ar_steps=1,
                          steps=10)
+    hilam, _ = build_model(model="hi_lam", nx=268, ny=238)
 
 Everything defaults to device="cuda" and raises when CUDA is absent;
 pass device="cpu" to run the plain PyTorch versions of the kernels.
@@ -31,15 +33,19 @@ from .datastore.dummy import DummyDatastore
 from .device import resolve_device
 from .graph.build import create_graph
 from .graph.storage import graph_from_bundle
+from .models import MODELS
 from .models.ar_model import ModelArgs
-from .models.graph_lam import GraphLAM
 from .train import Trainer, TrainFlags
 
 
 def build_model(nx=60, ny=60, hidden_dim=64, processor_layers=4,
                 n_features=None, n_timesteps=20, seed=0, device="cuda",
-                compute_dtype=None):
-    """(GraphLAM, DummyDatastore) on `device`, weights from `seed`."""
+                compute_dtype=None, model="graph_lam"):
+    """(model, DummyDatastore) on `device`, weights from `seed`: `model`
+    is "graph_lam" (multiscale mesh graph) or "hi_lam" (hierarchical mesh
+    graph, which needs at least 27 grid points per side)."""
+    if model not in MODELS:
+        raise ValueError(f"unknown model {model!r}; one of {sorted(MODELS)}")
     device = resolve_device(device)
     datastore = DummyDatastore(
         grid_shape=(nx, ny), n_timesteps=n_timesteps, n_features=n_features
@@ -50,13 +56,14 @@ def build_model(nx=60, ny=60, hidden_dim=64, processor_layers=4,
     )
     with tempfile.TemporaryDirectory() as gdir:
         bundle = create_graph(gdir, datastore.get_xy("state", stacked=False),
-                              n_max_levels=None, hierarchical=False)
+                              n_max_levels=None,
+                              hierarchical=model == "hi_lam")
     graph = graph_from_bundle(bundle, device)
     args = ModelArgs(hidden_dim=hidden_dim, processor_layers=processor_layers,
                      compute_dtype=compute_dtype)
-    model = GraphLAM(args, config, datastore, graph, device=device,
-                     generator=torch.Generator().manual_seed(seed))
-    return model, datastore
+    net = MODELS[model](args, config, datastore, graph, device=device,
+                        generator=torch.Generator().manual_seed(seed))
+    return net, datastore
 
 
 def make_inputs(model, batch_size: int, steps: int, seed: int = 0):

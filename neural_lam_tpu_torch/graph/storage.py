@@ -100,12 +100,15 @@ def load_graph_bundle(graph_dir_path: str) -> GraphBundle:
 @dataclasses.dataclass(frozen=True)
 class LoadedGraph:
     """Device-resident graph: local-index dense EdgeSets + normalized static
-    features. m2m is a per-level tuple (flat graphs: one entry); the
-    hierarchical up/down sets wait for the hierarchical models' slice."""
+    features. m2m/up/down are per-level tuples (flat graphs: one m2m entry,
+    empty up/down); up[l] sends from level l to its parents at level l+1,
+    down[l] from level l+1 to level l."""
 
     g2m: EdgeSet
     m2g: EdgeSet
     m2m: tuple
+    up: tuple
+    down: tuple
     mesh_static_features: tuple  # per-level (N_l, 2) tensors
     hierarchical: bool
     num_grid_nodes: int
@@ -116,10 +119,6 @@ def graph_from_bundle(bundle: GraphBundle, device="cuda") -> LoadedGraph:
     """Convert a raw bundle to local-index dense EdgeSets on `device`, with
     the reference's normalization (ref: neural_lam/utils.py:36-188)."""
     device = resolve_device(device)
-    if bundle.hierarchical:
-        raise NotImplementedError(
-            "hierarchical graphs are not ported yet (flat GraphLAM only)"
-        )
     level_sizes = bundle.level_sizes
     first_index = np.concatenate(([0], np.cumsum(level_sizes[:-1]))).astype(np.int64)
     num_mesh_total = int(sum(level_sizes))
@@ -157,10 +156,34 @@ def graph_from_bundle(bundle: GraphBundle, device="cuda") -> LoadedGraph:
         )
         for lev, (e, f) in enumerate(zip(bundle.m2m_edge_index, bundle.m2m_features))
     )
+    up = tuple(
+        EdgeSet.from_local(
+            senders=e[0] - first_index[lev],        # child level lev
+            receivers=e[1] - first_index[lev + 1],  # parent level lev+1
+            features=norm(f),
+            num_send=level_sizes[lev], num_rec=level_sizes[lev + 1],
+            device=device,
+        )
+        for lev, (e, f) in enumerate(
+            zip(bundle.mesh_up_edge_index, bundle.mesh_up_features))
+    )
+    down = tuple(
+        EdgeSet.from_local(
+            senders=e[0] - first_index[lev + 1],  # parent level lev+1
+            receivers=e[1] - first_index[lev],    # child level lev
+            features=norm(f),
+            num_send=level_sizes[lev + 1], num_rec=level_sizes[lev],
+            device=device,
+        )
+        for lev, (e, f) in enumerate(
+            zip(bundle.mesh_down_edge_index, bundle.mesh_down_features))
+    )
     return LoadedGraph(
         g2m=g2m,
         m2g=m2g,
         m2m=m2m,
+        up=up,
+        down=down,
         mesh_static_features=tuple(
             torch.as_tensor(np.asarray(p, np.float32), device=device)
             for p in bundle.mesh_static_features

@@ -1,14 +1,18 @@
-"""Encode-process-decode skeleton over a loaded graph, flat route.
+"""Encode-process-decode skeleton over a loaded graph.
 
 Counterpart of neural_lam_tpu/models/base_graph_model.py (ref:
 neural_lam/models/base_graph_model.py:12-177): grid/g2m/m2g embedders, the
-g2m encoder GNN, an abstract processor, the m2g decoder GNN fused with the
+g2m encoder GNN, an abstract processor, the m2g decoder GNN with the
 residual grid MLP and the output MLP (no LayerNorm), and delta prediction
 with diff-stat rescale and residual over prev_state.
 
-The port runs the JAX package's flat-grid route (`_predict_step_flat_grid`)
-only: the grid side stays in the flat (N, B*h) layout from the embedder
-(K1) through the g2m encoder (K2) to the fused decoder (K4).
+`predict_step` takes the JAX package's two routes, chosen by the same test
+(`_flat_grid_eligible`): the flat-grid route (`_predict_step_flat_grid`),
+where the grid side stays in the flat (N, B*h) layout from the embedder
+(K1) through the g2m encoder (K2) to the fused decoder (K4); and the
+batched route, where the grid MLPs are plain matrix products and g2m and
+m2g are interaction nets on whichever route `apply_interaction_net` picks
+for them (P2 on the batched route, e.g. at batch 1).
 """
 
 from __future__ import annotations
@@ -20,12 +24,14 @@ from ..graph.storage import LoadedGraph
 from ..ops import embed, grid_update
 from ..ops.message_passing import (
     _apply_inet_flat,
+    apply_interaction_net,
+    flat_eligible,
     flatten_nodes,
     init_interaction_net,
     node_transform_flat,
     unflatten_nodes,
 )
-from ..ops.mlp import apply_mlp, init_mlp
+from ..ops.mlp import apply_mlp, apply_mlp_concat, init_mlp
 from .ar_model import ARModelBase, ModelArgs
 
 
@@ -41,7 +47,7 @@ class BaseGraphModel(ARModelBase):
         super().__init__(args, config, datastore, device)
         if args.hidden_layers != 1:
             raise NotImplementedError(
-                "the fused flat route needs 2-layer MLPs (hidden_layers=1)"
+                "the port's kernels need 2-layer MLPs (hidden_layers=1)"
             )
         self.graph = graph
         assert graph.num_grid_nodes == self.num_grid_nodes, (
@@ -53,10 +59,6 @@ class BaseGraphModel(ARModelBase):
         self.mlp_blueprint_end = [args.hidden_dim] * (args.hidden_layers + 1)
         self.num_mesh_nodes, _ = self.get_num_mesh()
         self._init_params(generator)
-        if not grid_update.grid_update_applicable(self, graph.m2g):
-            raise NotImplementedError(
-                "the fused decoder needs a virt_identity m2g edge set"
-            )
 
     # --- abstract over mesh structure (ref: base_graph_model.py:82-104) ---
 
@@ -181,9 +183,42 @@ class BaseGraphModel(ARModelBase):
         net_output = unflatten_nodes(net_f[:m2g.num_rec], B)
         return self._finish_output(net_output, prev_state)
 
+    def _flat_grid_eligible(self, batch_size: int) -> bool:
+        """Whether the flat-grid route applies: g2m and m2g both on the
+        flat route and the fused decoder's structure (a virt_identity m2g,
+        2-layer MLPs with the reference LayerNorm layout)."""
+        h = self.args.hidden_dim
+        g = self.graph
+        return (grid_update.grid_update_applicable(self, g.m2g)
+                and flat_eligible(g.m2g, batch_size, h)
+                and flat_eligible(g.g2m, batch_size, h))
+
+    def _inet_static(self, inet, edges, send_rep, rec_rep, ctx_entry):
+        """update_edges=False interaction net on the rollout-invariant
+        edge term ew (M, h)."""
+        return apply_interaction_net(inet, edges, send_rep, rec_rep,
+                                     update_edges=False, ew=ctx_entry["ew"])
+
     def predict_step(self, prev_state, prev_prev_state, forcing, ctx=None):
+        batch_size = prev_state.shape[0]
         if ctx is None:
             ctx = self.precompute_rollout_ctx()
-        return self._predict_step_flat_grid(
-            prev_state, prev_prev_state, forcing, ctx, prev_state.shape[0],
-        )
+        if self._flat_grid_eligible(batch_size):
+            return self._predict_step_flat_grid(
+                prev_state, prev_prev_state, forcing, ctx, batch_size,
+            )
+        grid_emb = apply_mlp_concat(
+            self.grid_embedder,
+            [prev_state, prev_prev_state, forcing,
+             expand_to_batch(self.statics.grid_static_features, batch_size)],
+        )  # (B, N_grid, h)
+        mesh_rep = self._inet_static(
+            self.g2m_gnn, self.graph.g2m, grid_emb,
+            expand_to_batch(ctx["mesh_emb"], batch_size), ctx["g2m"],
+        )  # (B, N_mesh, h)
+        grid_rep = grid_emb + apply_mlp(self.encoding_grid_mlp, grid_emb)
+        mesh_rep = self.process_step(mesh_rep, batch_size, ctx)
+        grid_rep = self._inet_static(self.m2g_gnn, self.graph.m2g, mesh_rep,
+                                     grid_rep, ctx["m2g"])  # (B, N_grid, h)
+        net_output = apply_mlp(self.output_map, grid_rep)
+        return self._finish_output(net_output, prev_state)

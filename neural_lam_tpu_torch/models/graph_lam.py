@@ -3,7 +3,8 @@
 Counterpart of neural_lam_tpu/models/graph_lam.py (ref:
 neural_lam/models/graph_lam.py:12-91): mesh and m2m embedders and a
 processor stack of interaction nets over the single merged multiscale m2m
-edge set, each layer one K3 launch.
+edge set, each layer one interaction net on the route the JAX package
+takes for the set (K3 on the flat route, P3 on the batched one).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 from torch import nn
 
 from ..ops.message_passing import (
-    _apply_inet_flat,
+    apply_interaction_net,
     expand_edge_rep,
     init_interaction_net,
 )
@@ -60,7 +61,7 @@ class GraphLAM(BaseGraphModel):
         (ref: graph_lam.py:73-91)."""
         edge_rep = expand_edge_rep(self.m2m, ctx["m2m_emb"], batch_size)
         for layer in self.processor:
-            mesh_rep, edge_rep = _apply_inet_flat(
+            mesh_rep, edge_rep = apply_interaction_net(
                 layer, self.m2m, mesh_rep, mesh_rep, edge_rep,
                 update_edges=True, aggr=self.args.mesh_aggr,
             )

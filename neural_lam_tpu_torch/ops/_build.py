@@ -28,7 +28,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("embed", "edge_flat", "grid_update",
+SOURCES = ("embed", "edge_flat", "grid_update", "edge",
            "embed_bwd", "edge_flat_bwd", "grid_update_bwd")
 
 P = ctypes.c_void_p

@@ -1,0 +1,341 @@
+"""Batched-layout edge-MLP tail (P1, P2) and processor edge layer (P3).
+
+Counterpart of neural_lam_tpu/ops/pallas_edge.py: the kernels the JAX
+package runs for dense edge sets off the flat route (`flat_eligible`
+false), where activations keep the (B, rows, h) layout.
+
+Layout: x0, edge state and messages are (B, M, h) with M = N_virt*K slots;
+rec_rows and virt are (B, N_virt, h); send_t is the (B, N_send, h) sender
+node table, read by index (`senders`, (M,) int32) inside the kernel, so
+`edge_tail_sum` and `edge_layer` take the table where the JAX functions
+take `send_t[:, senders]` (and `edge_layer` covers both of its `in_gather`
+variants). mask is the EdgeSet's (M, 1) slot validity.
+
+Each function is a `torch.autograd.Function` on both devices. Its forward
+runs the plain PyTorch version (`*_plain`, same module) on a CPU tensor and
+the CUDA kernel (`csrc/edge.cu`) on a CUDA tensor; there is no fallback
+from one to the other. The backward recomputes through the plain version
+with autograd, as the JAX package's reference-recompute VJPs do: it has no
+backward kernel for these three. `<wrapper>.launches` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .mlp import layer_norm
+from .segment import gather_rows_batched
+
+HID = 64  # hidden width the CUDA kernels are written for
+MAX_K = 8  # slots per virtual row the kernels are instantiated for
+
+_P, _I = _build.P, _build.I
+_SIGNATURES = {
+    "nlt_batched_edge_tail": [_P] * 5 + [_I] * 4 + [_P],
+    "nlt_batched_edge_tail_sum": [_P] * 8 + [_I] * 5 + [_P],
+    "nlt_batched_edge_layer": [_P] * 8 + [_I] * 5 + [_P],
+}
+
+
+def _lib():
+    return _build.library("edge", _SIGNATURES)
+
+
+def _tail(x0, w2, b2, ln_scale, ln_bias, mask, K):
+    """(msg (B, M, h), virt (B, M/K, h)) of the tail on x0 (B, M, h)."""
+    msg = layer_norm(F.silu(x0) @ w2 + b2, ln_scale, ln_bias)
+    B, M, h = msg.shape
+    virt = (msg * mask).view(B, M // K, K, h).sum(dim=2)
+    return msg, virt
+
+
+def sum_x0(x_e, send_t, senders, rec_rows, K):
+    """x_e (B or 1, M, h) + send_t[:, senders] + rec_rows repeated over
+    the K slots of each virtual row: x0 of the batched tail."""
+    g = gather_rows_batched(send_t, senders)
+    B, M, h = g.shape
+    return (x_e + g + rec_rows[:, :, None, :].expand(B, M // K, K, h)
+            .reshape(B, M, h))
+
+
+def edge_tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K,
+                    with_messages=True):
+    """Plain PyTorch version of `edge_tail`'s forward."""
+    msg, virt = _tail(x0, w2, b2, ln_scale, ln_bias, mask, K)
+    return (msg if with_messages else None), virt
+
+
+def edge_tail_sum_plain(send_t, senders, ew, rec_rows, w2, b2, ln_scale,
+                        ln_bias, mask, K, with_messages=True):
+    """Plain PyTorch version of `edge_tail_sum`'s forward."""
+    x0 = sum_x0(ew, send_t, senders, rec_rows, K)
+    return edge_tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K,
+                           with_messages)
+
+
+def edge_layer_plain(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2,
+                     b2, ln_scale, ln_bias, K):
+    """Plain PyTorch version of `edge_layer`'s forward."""
+    x0 = sum_x0(edge_rep @ w_e, send_t, senders, rec_rows, K) + b0
+    msg, virt = _tail(x0, w2, b2, ln_scale, ln_bias, mask, K)
+    return edge_rep + msg, virt
+
+
+def _plain_grads(fn, inputs, needs, output_grads):
+    """Gradients of fn(*inputs) for the inputs flagged in `needs` (None for
+    the others), by autograd through the plain forward on detached
+    leaves; output cotangents that are None are skipped."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() if n else t
+                  for t, n in zip(inputs, needs)]
+        outs = fn(*leaves)
+        pairs = [(o, g) for o, g in zip(outs, output_grads)
+                 if o is not None and g is not None]
+        wrt = [t for t, n in zip(leaves, needs) if n]
+        if not pairs or not wrt:
+            return [None] * len(inputs)
+        got = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                       [g for _, g in pairs],
+                                       allow_unused=True))
+    return [next(got) if n else None for n in needs]
+
+
+def _check_common(mask, params_hh, K, M):
+    _build.expect(1 <= K <= MAX_K and M % K == 0, "K", (K, M))
+    _build.expect(mask.numel() == M, "mask", mask.shape)
+    for name, w in params_hh:
+        _build.expect(w.shape == (HID, HID), name, w.shape)
+
+
+def _tail_params(w2, b2, ln_scale, ln_bias, *layer):
+    return torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias]
+                     + [t.reshape(-1) for t in layer])
+
+
+def _outputs(dev, B, M, K, with_messages):
+    f32 = torch.float32
+    msg = (torch.empty((B, M, HID), device=dev, dtype=f32)
+           if with_messages else None)
+    virt = torch.empty((B, M // K, HID), device=dev, dtype=f32)
+    return msg, virt
+
+
+def _tail_fwd(x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
+    if x0.device.type == "cpu":
+        return edge_tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K,
+                               with_messages)
+    dev = _build.require_cuda(x0)
+    B, M, h = x0.shape
+    _build.expect(h == HID, "x0", x0.shape)
+    _check_common(mask, [("w2", w2)], K, M)
+    x0, mask = x0.contiguous(), mask.contiguous()
+    params = _tail_params(w2, b2, ln_scale, ln_bias)
+    msg, virt = _outputs(dev, B, M, K, with_messages)
+    f32 = torch.float32
+    ptrs = _build.pointers(dev, ("x0", x0, f32), ("mask", mask, f32),
+                           ("params", params, f32))
+    ptrs.append(None if msg is None else
+                _build.pointers(dev, ("msg", msg, f32))[0])
+    ptrs += _build.pointers(dev, ("virt", virt, f32))
+    lib = _lib()
+    rc = lib.nlt_batched_edge_tail(*ptrs, M // K, K, B, dev.index,
+                                   _build.stream_of(dev))
+    _build.check(lib, rc, "edge_tail")
+    edge_tail.launches += 1
+    return msg, virt
+
+
+def _tail_sum_fwd(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
+                  mask, K, with_messages):
+    if send_t.device.type == "cpu":
+        return edge_tail_sum_plain(send_t, senders, ew, rec_rows, w2, b2,
+                                   ln_scale, ln_bias, mask, K, with_messages)
+    dev = _build.require_cuda(send_t)
+    B, n_send, h = send_t.shape
+    M = senders.shape[0]
+    _check_common(mask, [("w2", w2)], K, M)
+    _build.expect(h == HID, "send_t", send_t.shape)
+    _build.expect(ew.shape == (M, HID), "ew", ew.shape)
+    _build.expect(rec_rows.shape == (B, M // K, HID), "rec_rows",
+                  rec_rows.shape)
+    send_t, ew = send_t.contiguous(), ew.contiguous()
+    rec_rows, mask = rec_rows.contiguous(), mask.contiguous()
+    params = _tail_params(w2, b2, ln_scale, ln_bias)
+    msg, virt = _outputs(dev, B, M, K, with_messages)
+    f32, i32 = torch.float32, torch.int32
+    ptrs = _build.pointers(dev, ("send_t", send_t, f32),
+                           ("senders", senders, i32), ("ew", ew, f32),
+                           ("rec_rows", rec_rows, f32), ("mask", mask, f32),
+                           ("params", params, f32))
+    ptrs.append(None if msg is None else
+                _build.pointers(dev, ("msg", msg, f32))[0])
+    ptrs += _build.pointers(dev, ("virt", virt, f32))
+    lib = _lib()
+    rc = lib.nlt_batched_edge_tail_sum(*ptrs, M // K, K, B, n_send,
+                                       dev.index, _build.stream_of(dev))
+    _build.check(lib, rc, "edge_tail_sum")
+    edge_tail_sum.launches += 1
+    return msg, virt
+
+
+def _layer_fwd(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
+               ln_scale, ln_bias, K):
+    if edge_rep.device.type == "cpu":
+        return edge_layer_plain(edge_rep, send_t, senders, rec_rows, mask,
+                                w_e, b0, w2, b2, ln_scale, ln_bias, K)
+    dev = _build.require_cuda(edge_rep)
+    B, M, h = edge_rep.shape
+    _check_common(mask, [("w_e", w_e), ("w2", w2)], K, M)
+    _build.expect(h == HID, "edge_rep", edge_rep.shape)
+    _build.expect(send_t.dim() == 3 and send_t.shape[0] == B
+                  and send_t.shape[2] == HID, "send_t", send_t.shape)
+    _build.expect(senders.shape == (M,), "senders", senders.shape)
+    _build.expect(rec_rows.shape == (B, M // K, HID), "rec_rows",
+                  rec_rows.shape)
+    edge_rep, send_t = edge_rep.contiguous(), send_t.contiguous()
+    rec_rows, mask = rec_rows.contiguous(), mask.contiguous()
+    params = _tail_params(w2, b2, ln_scale, ln_bias, w_e, b0)
+    edge_out = torch.empty((B, M, HID), device=dev, dtype=torch.float32)
+    virt = torch.empty((B, M // K, HID), device=dev, dtype=torch.float32)
+    f32, i32 = torch.float32, torch.int32
+    ptrs = _build.pointers(dev, ("edge_rep", edge_rep, f32),
+                           ("send_t", send_t, f32), ("senders", senders, i32),
+                           ("rec_rows", rec_rows, f32), ("mask", mask, f32),
+                           ("params", params, f32),
+                           ("edge_out", edge_out, f32), ("virt", virt, f32))
+    lib = _lib()
+    rc = lib.nlt_batched_edge_layer(*ptrs, M // K, K, B, send_t.shape[1],
+                                    dev.index, _build.stream_of(dev))
+    _build.check(lib, rc, "edge_layer")
+    edge_layer.launches += 1
+    return edge_out, virt
+
+
+class _EdgeTail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
+        ctx.save_for_backward(x0, w2, b2, ln_scale, ln_bias, mask)
+        ctx.K, ctx.with_messages = K, with_messages
+        ctx.set_materialize_grads(False)
+        msg, virt = _tail_fwd(x0, w2, b2, ln_scale, ln_bias, mask, K,
+                              with_messages)
+        return (msg, virt) if with_messages else virt
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if not ctx.with_messages:
+            grads = (None,) + grads
+        K = ctx.K
+        d = _plain_grads(
+            lambda *a: _tail(*a, K), ctx.saved_tensors,
+            ctx.needs_input_grad[:6], grads)
+        return (*d, None, None)
+
+
+def edge_tail(x0, w2, b2, ln_scale, ln_bias, mask, K: int,
+              with_messages: bool = True):
+    """Fused edge-MLP tail on a materialised x0 (B, M, h); mask (M, 1).
+
+    Returns (msg (B, M, h) or None, virt (B, M/K, h)) with msg =
+    LN(silu(x0) @ w2 + b2) at every slot (padding included) and virt the
+    masked sum of each virtual row's K slots. with_messages=False skips
+    writing msg (update_edges=False rounds need only virt).
+
+    Replaces pallas_edge.py::_tail_kernel (via _edge_tail_fwd_impl).
+    Bound by fp32 operations on the card (the W2 product per slot); see
+    csrc/edge.cu.
+    """
+    out = _EdgeTail.apply(x0, w2, b2, ln_scale, ln_bias, mask, K,
+                          with_messages)
+    return out if with_messages else (None, out)
+
+
+class _EdgeTailSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, send_t, senders, ew, rec_rows, w2, b2, ln_scale,
+                ln_bias, mask, K, with_messages):
+        ctx.save_for_backward(send_t, senders, ew, rec_rows, w2, b2,
+                              ln_scale, ln_bias, mask)
+        ctx.K, ctx.with_messages = K, with_messages
+        ctx.set_materialize_grads(False)
+        msg, virt = _tail_sum_fwd(send_t, senders, ew, rec_rows, w2, b2,
+                                  ln_scale, ln_bias, mask, K, with_messages)
+        return (msg, virt) if with_messages else virt
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if not ctx.with_messages:
+            grads = (None,) + grads
+        K = ctx.K
+        d = _plain_grads(
+            lambda *a: edge_tail_sum_plain(*a, K), ctx.saved_tensors,
+            ctx.needs_input_grad[:9], grads)
+        return (*d, None, None)
+
+
+def edge_tail_sum(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
+                  mask, K: int, with_messages: bool = True):
+    """Fused edge-MLP tail with a static edge term (update_edges=False
+    encoders and decoders off the flat route).
+
+    send_t: (B, N_send, h) sender transforms x_j @ W_j; senders: (M,)
+    int32; ew: (M, h) static edge term emb @ W_e + b0, shared across the
+    batch; rec_rows: (B, M/K, h) receiver transforms per virtual row.
+    Returns (msg or None, virt) as `edge_tail` does, with x0 =
+    send_t[:, senders] + ew + rec_rows repeated over each row's K slots.
+
+    Replaces pallas_edge.py::_tail_sum_kernel (via _edge_tail_sum_impl).
+    Bound by fp32 operations on the card (the W2 product per slot); see
+    csrc/edge.cu.
+    """
+    out = _EdgeTailSum.apply(send_t, senders, ew, rec_rows, w2, b2,
+                             ln_scale, ln_bias, mask, K, with_messages)
+    return out if with_messages else (None, out)
+
+
+class _EdgeLayer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2,
+                b2, ln_scale, ln_bias, K):
+        ctx.save_for_backward(edge_rep, send_t, senders, rec_rows, mask,
+                              w_e, b0, w2, b2, ln_scale, ln_bias)
+        ctx.K = K
+        # the last processor layer's edge state is never read: its
+        # gradient arrives as None
+        ctx.set_materialize_grads(False)
+        return _layer_fwd(edge_rep, send_t, senders, rec_rows, mask, w_e,
+                          b0, w2, b2, ln_scale, ln_bias, K)
+
+    @staticmethod
+    def backward(ctx, d_edge_out, d_virt):
+        K = ctx.K
+        d = _plain_grads(
+            lambda *a: edge_layer_plain(*a, K), ctx.saved_tensors,
+            ctx.needs_input_grad[:11], (d_edge_out, d_virt))
+        return (*d, None)
+
+
+def edge_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
+               ln_scale, ln_bias, K: int):
+    """Fused residual edge layer with evolving edge state (processor rounds
+    off the flat route).
+
+    edge_rep: (B, M, h) edge state; send_t/senders/rec_rows/mask as in
+    `edge_tail_sum`. Returns (edge_out = edge_rep + msg, virt) with msg =
+    LN(silu(edge_rep @ w_e + b0 + send_t[:, senders] + rec_rows) @ w2 +
+    b2); edge_out at padding slots is computed the same way.
+
+    Replaces pallas_edge.py::_layer_kernel (via _edge_layer_impl), both
+    in_gather variants. Bound by fp32 operations on the card (W_e and W2
+    products per slot); see csrc/edge.cu.
+    """
+    return _EdgeLayer.apply(edge_rep, send_t, senders, rec_rows, mask, w_e,
+                            b0, w2, b2, ln_scale, ln_bias, K)
+
+
+edge_tail.launches = 0
+edge_tail_sum.launches = 0
+edge_layer.launches = 0

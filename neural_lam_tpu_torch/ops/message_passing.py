@@ -1,6 +1,6 @@
-"""Interaction network (Battaglia et al. 2016) on the flat node-major layout.
+"""Interaction network (Battaglia et al. 2016) on the dense edge layout.
 
-Counterpart of the flat forward route of neural_lam_tpu/ops/message_passing.py.
+Counterpart of neural_lam_tpu/ops/message_passing.py's dense routes.
 Reference behavior (ref: neural_lam/interaction_net.py:10-131):
 
     messages   = EdgeMLP(concat(edge_rep, send_rep[senders], rec_rep[receivers]))
@@ -11,7 +11,12 @@ Reference behavior (ref: neural_lam/interaction_net.py:10-131):
 Layouts kept from the JAX package (so the tests compare like with like):
 
 * flat node-major `(rows, B*h)` activations, batch element b in columns
-  [b*h, (b+1)*h) of each row;
+  [b*h, (b+1)*h) of each row (the flat route, kernels K2/K3 in
+  `edge_flat.py`), or batched `(B, rows, h)` (the batched route, kernels
+  P1-P3 in `edge.py`). `apply_interaction_net` picks the route per edge
+  set as the JAX package does (`flat_eligible`: at least `_FLAT_MIN_VIRT`
+  virtual rows and B*h a multiple of 128), and `expand_edge_rep` gives an
+  evolving edge state the layout of its set's route;
 * the dense K-slot virtual-row `EdgeSet` (`EdgeSet.from_local`): every
   receiver owns ceil(deg/K) contiguous virtual rows of K edge slots, padding
   slots carry sender 0, zero features and mask 0.
@@ -34,9 +39,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from . import edge_flat
-from .mlp import MLP, finish_mlp, init_mlp
+from . import edge, edge_flat
+from .mlp import MLP, apply_mlp_concat, finish_mlp, init_mlp
 from .segment import build_gather_table
+
+# the JAX package's dispatch between its two kernel families: an edge set
+# takes the flat route when it has at least this many virtual rows (and
+# B*h is a multiple of 128), the batched route otherwise
+_FLAT_MIN_VIRT = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,9 +198,7 @@ class EdgeSet:
         for k in range(t.dense_k):
             part = d_slots.index_select(0, slots[:, k]) * masks[:, k, None]
             virt = part if virt is None else virt + part
-        if t.virt_identity:
-            return virt[:self.num_send]
-        return _rec_fold(virt, t.rec_slots, t.rec_mask)
+        return _fold_virt(t, virt)
 
 
 class InteractionNet(nn.Module):
@@ -258,46 +266,59 @@ def apply_mlp_concat_flat(mlp: MLP, parts: list):
     return x.reshape(x.shape[0], -1)
 
 
+def flat_eligible(edges: EdgeSet, batch_size: int, h: int) -> bool:
+    """Whether the flat route (K2/K3) applies to this dense edge set: the
+    JAX package's `flat_eligible` without its Pallas-mode switch."""
+    return (batch_size * h) % 128 == 0 and edges.num_virt >= _FLAT_MIN_VIRT
+
+
 def expand_edge_rep(edges: EdgeSet, emb, batch_size: int):
-    """Initial flat (M, B*h) edge state: the static embedding repeated for
-    every batch element."""
-    return emb.repeat(1, batch_size)
+    """Initial edge state from the static embedding (M, h), in the layout
+    `apply_interaction_net` uses for this set: flat (M, B*h) on the flat
+    route, else batched (B, M, h) (a broadcast view)."""
+    if flat_eligible(edges, batch_size, emb.shape[-1]):
+        return emb.repeat(1, batch_size)
+    return emb[None].expand(batch_size, *emb.shape)
 
 
-def _gather_virt_rows_flat(rec_tf, edges: EdgeSet):
-    """Flat (N_rec, W) -> (N_virt, W) virtual-row receiver transforms;
-    padding rows map to receiver num_rec-1."""
+def _gather_virt_rows(rec_t, edges: EdgeSet):
+    """Receiver rows (..., N_rec, W) -> (..., N_virt, W) per virtual row,
+    flat or batched; padding rows map to receiver num_rec-1."""
     if edges.virt_identity:
         extra = edges.num_virt - edges.num_rec
         if extra == 0:
-            return rec_tf
-        return torch.cat([rec_tf, rec_tf[-1:].expand(extra, -1)], dim=0)
-    return rec_tf.index_select(0, edges.virt_to_rec)
+            return rec_t
+        last = rec_t[..., -1:, :]
+        return torch.cat(
+            [rec_t, last.expand(*last.shape[:-2], extra, last.shape[-1])],
+            dim=-2)
+    return rec_t.index_select(-2, edges.virt_to_rec)
 
 
-def _rec_fold(virt_f, rec_slots, rec_mask):
-    """Gather-based virt->receiver fold: R masked row gathers summed in a
-    fixed order (deterministic, unlike an atomic scatter-add)."""
+def _rec_fold(virt, rec_slots, rec_mask):
+    """Gather-based virt->receiver fold over the row axis (-2): R masked
+    row gathers summed in a fixed order (deterministic, unlike an atomic
+    scatter-add)."""
     out = None
     for j in range(rec_slots.shape[1]):
-        part = virt_f.index_select(0, rec_slots[:, j]) * rec_mask[:, j, None]
+        part = virt.index_select(-2, rec_slots[:, j]) * rec_mask[:, j, None]
         out = part if out is None else out + part
     return out
 
 
-def _fold_virt_flat(edges: EdgeSet, virt_f):
-    """(N_virt, W) virtual-row sums -> (N_rec, W) receiver sums."""
+def _fold_virt(edges: EdgeSet, virt):
+    """(..., N_virt, W) virtual-row sums -> (..., N_rec, W) receiver sums."""
     if edges.virt_identity:
-        return virt_f[:edges.num_rec]
-    return _rec_fold(virt_f, edges.rec_slots, edges.rec_mask)
+        return virt[..., :edges.num_rec, :]
+    return _rec_fold(virt, edges.rec_slots, edges.rec_mask)
 
 
-def _virt_counts_flat(edges: EdgeSet):
+def _virt_counts(edges: EdgeSet):
     """(N_rec, 1) real in-degree per receiver (min 1)."""
     per_virt = edges.mask.view(edges.num_virt, edges.dense_k).sum(
         dim=-1, keepdim=True
     )
-    return _fold_virt_flat(edges, per_virt).clamp_min(1.0)
+    return _fold_virt(edges, per_virt).clamp_min(1.0)
 
 
 def _aggr_mlp_mixed(mlp: MLP, rec_rep, aggregated_f):
@@ -327,7 +348,7 @@ def edge_round_flat(edge_mlp: MLP, edges: EdgeSet, send_rep, rec_rep,
         send_tf = node_transform_from_flat(send_rep, w_j, B)
     else:
         send_tf = node_transform_flat(send_rep, w_j)
-    rec_rows = _gather_virt_rows_flat(node_transform_flat(rec_rep, w_i), edges)
+    rec_rows = _gather_virt_rows(node_transform_flat(rec_rep, w_i), edges)
     mask_p = edges.mask.view(edges.num_virt, edges.dense_k)
     w2, b2 = edge_mlp.layers[1].w, edge_mlp.layers[1].b
     ln = edge_mlp.ln
@@ -353,11 +374,94 @@ def _apply_inet_flat(inet: InteractionNet, edges: EdgeSet, send_rep,
     edge_out, virt = edge_round_flat(
         inet.edge_mlp, edges, send_rep, rec_rep, edge_rep_flat, ew=ew,
     )
-    aggregated = _fold_virt_flat(edges, virt)
+    aggregated = _fold_virt(edges, virt)
     if aggr == "mean":
-        aggregated = aggregated / _virt_counts_flat(edges)
+        aggregated = aggregated / _virt_counts(edges)
     rec_out = rec_rep + _aggr_mlp_mixed(inet.aggr_mlp, rec_rep, aggregated)
     if update_edges:
         return rec_out, edge_out
     return rec_out
 
+
+def edge_messages_and_virt(edge_mlp: MLP, edges: EdgeSet, send_rep,
+                           rec_rep, edge_rep=None, *, update_edges=False,
+                           ew=None):
+    """One batched edge-MLP round: (edge_out (B, M, h) | None, virt
+    (B, N_virt, h)). The edge term is the evolving state `edge_rep`
+    (B, M, h), updated by P3 (`edge.edge_layer`) when update_edges and
+    read by P1 (`edge.edge_tail` on a materialised x0) otherwise
+    (hierarchical read-out sweeps), or the static `ew` (M, h) = emb @ W_e +
+    b0 of an update_edges=False round, read by P2 (`edge.edge_tail_sum`).
+    The JAX function returns the messages where this one returns edge_out
+    = edge_rep + messages, which P3 computes in the kernel."""
+    w0, b0 = edge_mlp.layers[0].w, edge_mlp.layers[0].b
+    h = w0.shape[0] // 3
+    w_e, w_j, w_i = w0[:h], w0[h:2 * h], w0[2 * h:]
+    K = edges.dense_k
+    send_t = send_rep @ w_j
+    rec_rows = _gather_virt_rows(rec_rep @ w_i, edges)
+    tail = (edge_mlp.layers[1].w, edge_mlp.layers[1].b, edge_mlp.ln.scale,
+            edge_mlp.ln.bias)
+    if update_edges:
+        return edge.edge_layer(edge_rep, send_t, edges.senders, rec_rows,
+                               edges.mask, w_e, b0, *tail, K)
+    if ew is not None:
+        return edge.edge_tail_sum(send_t, edges.senders, ew, rec_rows, *tail,
+                                  edges.mask, K, with_messages=False)
+    x0 = edge.sum_x0(edge_rep @ w_e + b0, send_t, edges.senders, rec_rows, K)
+    return edge.edge_tail(x0, *tail, edges.mask, K, with_messages=False)
+
+
+def _check_inet(inet: InteractionNet):
+    for name, mlp in (("edge", inet.edge_mlp), ("aggregation", inet.aggr_mlp)):
+        if len(mlp.layers) != 2 or mlp.ln is None:
+            raise NotImplementedError(
+                f"the port's interaction nets need 2-layer {name} MLPs with "
+                "an output LayerNorm (hidden_layers=1)")
+
+
+def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
+                          rec_rep, edge_rep=None, *, update_edges=True,
+                          aggr="sum", ew=None):
+    """One interaction-net round on a dense edge set, on the route the JAX
+    package takes for it (`flat_eligible`).
+
+    send_rep (B, N_send, h), rec_rep (B, N_rec, h). The edge term is either
+    the evolving state `edge_rep` (flat (M, B*h) on the flat route, batched
+    (B, M, h) on the batched one, as `expand_edge_rep` lays it out) or, for
+    update_edges=False, the static `ew` (M, h) = emb @ W_e + b0.
+
+    Flat route: `_apply_inet_flat` (K2 or K3). Batched route:
+    `edge_messages_and_virt` (P1, P2 or P3). Returns rec_out (B, N_rec, h)
+    and, when update_edges, the new edge state in the same layout."""
+    if aggr not in ("sum", "mean"):
+        raise ValueError(f"Unknown aggregation method: {aggr}")
+    _check_inet(inet)
+    if edge_rep is None and (ew is None or update_edges):
+        raise ValueError("pass an edge state, or a static ew with "
+                         "update_edges=False")
+    B, h = rec_rep.shape[0], rec_rep.shape[-1]
+    flat = flat_eligible(edges, B, h)
+    M = edges.senders.shape[0]
+    if edge_rep is not None:
+        ew = None  # an edge state takes precedence
+        want = (M, B * h) if flat else (B, M, h)
+        if tuple(edge_rep.shape) != want:
+            raise ValueError(
+                f"edge state of shape {tuple(edge_rep.shape)} for a set on "
+                f"the {'flat' if flat else 'batched'} route, which takes "
+                f"{want}: build it with expand_edge_rep")
+    if flat:
+        return _apply_inet_flat(inet, edges, send_rep, rec_rep, edge_rep,
+                                update_edges=update_edges, aggr=aggr, ew=ew)
+    edge_out, virt = edge_messages_and_virt(
+        inet.edge_mlp, edges, send_rep, rec_rep, edge_rep,
+        update_edges=update_edges, ew=ew,
+    )
+    aggregated = _fold_virt(edges, virt)
+    if aggr == "mean":
+        aggregated = aggregated / _virt_counts(edges)
+    rec_out = rec_rep + apply_mlp_concat(inet.aggr_mlp, [rec_rep, aggregated])
+    if update_edges:
+        return rec_out, edge_out
+    return rec_out

@@ -1,7 +1,8 @@
-"""Host-side (numpy) segment layout helpers.
+"""Segment layout helpers.
 
 Counterpart of neural_lam_tpu/ops/segment.py: the padded gather table
-that `EdgeSet.from_local` stores beside the dense layout.
+that `EdgeSet.from_local` stores beside the dense layout (host-side numpy),
+and the batched row gather of the batched edge route.
 """
 
 from __future__ import annotations
@@ -33,3 +34,9 @@ def build_gather_table(receivers: np.ndarray, num_receivers: int):
         within = np.arange(m) - starts[sorted_recv]
         table[sorted_recv, within] = order
     return table, max_deg
+
+
+def gather_rows_batched(src, idx):
+    """src[:, idx] for a (B, N, h) source: the rows `idx` (int32 or int64)
+    of every batch element, (B, len(idx), h)."""
+    return src.index_select(-2, idx)

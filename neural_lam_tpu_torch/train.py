@@ -37,8 +37,8 @@ from .dataset import WeatherDataModule
 from .device import resolve_device
 from .graph.build import create_graph
 from .graph.storage import graph_from_bundle, load_graph_bundle
+from .models import MODELS
 from .models.ar_model import ModelArgs
-from .models.graph_lam import GraphLAM
 
 
 @dataclasses.dataclass
@@ -231,28 +231,27 @@ class Trainer:
 
 
 def load_or_build_graph(datastore, name: str, device):
-    """The flat multiscale graph under <datastore root>/graph/<name>,
-    built there first when absent (as the JAX trainer does)."""
+    """The graph under <datastore root>/graph/<name>, built there first when
+    absent, as the JAX trainer does: hierarchical when the name holds
+    "hier", one level when it holds "1level", multiscale otherwise."""
     graph_dir = Path(datastore.root_path) / "graph" / name
     if not (graph_dir / "meta.json").exists():
-        if "hier" in name.lower():
-            raise NotImplementedError(
-                "hierarchical graphs are not ported yet (flat GraphLAM only)")
         print(f"graph '{name}' not found under {graph_dir.parent}; "
               "building it", flush=True)
         create_graph(str(graph_dir), datastore.get_xy("state", stacked=False),
                      n_max_levels=1 if "1level" in name.lower() else None,
-                     hierarchical=False)
+                     hierarchical="hier" in name.lower())
     return graph_from_bundle(load_graph_bundle(str(graph_dir)), device)
 
 
 def main(input_args=None):
     """CLI mirroring `python -m neural_lam_tpu.train` for what the port
-    runs: GraphLAM training on one device."""
-    parser = ArgumentParser(description="Train the PyTorch port's GraphLAM")
+    runs: GraphLAM and HiLAM (`--model hi_lam --graph hierarchical`)
+    training on one device."""
+    parser = ArgumentParser(description="Train the PyTorch port's models")
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--model", type=str, default="graph_lam",
-                        choices=["graph_lam"])
+                        choices=sorted(MODELS))
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--epochs", type=int, default=200)
@@ -306,8 +305,9 @@ def main(input_args=None):
         max_steps=args.max_steps,
     )
     graph = load_or_build_graph(datastore, args.graph, device)
-    model = GraphLAM(model_args, config, datastore, graph, device=device,
-                     generator=torch.Generator().manual_seed(args.seed))
+    model = MODELS[args.model](
+        model_args, config, datastore, graph, device=device,
+        generator=torch.Generator().manual_seed(args.seed))
     datamodule = WeatherDataModule(
         datastore, ar_steps_train=args.ar_steps_train,
         ar_steps_eval=args.ar_steps_eval, standardize=True,

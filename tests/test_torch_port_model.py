@@ -2,8 +2,13 @@
 graph and weights (carried over with `convert.params_from_jax`).
 
 The JAX side runs its default CPU route (Pallas off: the batched XLA
-path), the port its flat route with the kernels' plain versions. Both are
-fp32; the JAX tests run matmuls at "highest" precision (conftest).
+path), the port the kernels' plain versions on one of its two routes. At
+16x16 every edge set has fewer than 512 virtual rows, so the port's
+dispatch sends them all to the batched route (P1-P3); the tests named
+`*_matches_jax` lower its `_FLAT_MIN_VIRT` to 1 to keep the flat route
+(K1-K4) covered, and the `*_batched_route_*` tests run the dispatch as it
+is. Both are fp32; the JAX tests run matmuls at "highest" precision
+(conftest).
 """
 
 import numpy as np
@@ -73,6 +78,12 @@ def models(tmp_path_factory):
     return _build_pair(tmp_path_factory)
 
 
+@pytest.fixture
+def flat_route(monkeypatch):
+    """Every edge set of the 16x16 graph on the flat route."""
+    monkeypatch.setattr(tmp, "_FLAT_MIN_VIRT", 1)
+
+
 def _inputs(model):
     rng = np.random.default_rng(0)
     n, d = model.num_grid_nodes, model.num_state_vars
@@ -91,10 +102,7 @@ def test_params_from_jax_covers_every_parameter(models):
         np.testing.assert_array_equal(v.numpy(), sd[k].numpy(), k)
 
 
-def test_predict_step_matches_jax(models):
-    """One predict step. atol 1e-4: one step chains ~10 fp32 MLPs whose
-    sums run in another order on each side (flat kernels vs the batched
-    XLA path) on O(1) activations."""
+def _check_predict_step(models):
     jmodel, params, tmodel = models
     init, forcing, _ = _inputs(tmodel)
     out_j, _ = jmodel.predict_step(params, jnp.asarray(init[:, 1]),
@@ -109,9 +117,31 @@ def test_predict_step_matches_jax(models):
                                rtol=0)
 
 
-def test_unroll_prediction_matches_jax(models):
-    """3-step rollout with boundary overwrite. atol 5e-4: each step feeds
-    the last one's rounding differences back in as input."""
+def test_predict_step_matches_jax(models, flat_route):
+    """One predict step on the flat route. atol 1e-4: one step chains ~10
+    fp32 MLPs whose sums run in another order on each side (flat kernels
+    vs the batched XLA path) on O(1) activations."""
+    assert _route(models) == "flat"
+    _check_predict_step(models)
+
+
+def test_predict_step_batched_route_matches_jax(models):
+    """One predict step on the batched route (P2 for g2m and m2g, P3 for
+    the processor), atol 1e-4 as on the flat route."""
+    assert _route(models) == "batched"
+    _check_predict_step(models)
+
+
+def _route(models):
+    """The route the port's dispatch gives every set of the 16x16 model
+    at batch B."""
+    g = models[2].graph
+    flat = {tmp.flat_eligible(es, B, 64) for es in (g.g2m, g.m2g, g.m2m[0])}
+    assert len(flat) == 1, flat
+    return "flat" if flat.pop() else "batched"
+
+
+def _check_unroll(models):
     jmodel, params, tmodel = models
     init, forcing, true = _inputs(tmodel)
     pred_j, std_j = jmodel.unroll_prediction(
@@ -125,6 +155,19 @@ def test_unroll_prediction_matches_jax(models):
     np.testing.assert_allclose(pred_t.numpy(), np.asarray(pred_j),
                                atol=5e-4, rtol=0)
     np.testing.assert_allclose(std_t.numpy(), np.asarray(std_j), rtol=1e-6)
+
+
+def test_unroll_prediction_matches_jax(models, flat_route):
+    """3-step rollout with boundary overwrite on the flat route. atol 5e-4:
+    each step feeds the last one's rounding differences back in."""
+    assert _route(models) == "flat"
+    _check_unroll(models)
+
+
+def test_unroll_prediction_batched_route_matches_jax(models):
+    """The same rollout on the batched route, atol 5e-4."""
+    assert _route(models) == "batched"
+    _check_unroll(models)
 
 
 @pytest.mark.parametrize("flat", [False, True])
@@ -155,9 +198,9 @@ def test_apply_mlp_concat_matches_jax(flat):
                                atol=1e-5, rtol=1e-5)
 
 
-def test_mean_aggregation_matches_jax(tmp_path_factory):
+def test_mean_aggregation_matches_jax(tmp_path_factory, flat_route):
     """mesh_aggr="mean" (the processor divides each receiver's sum by its
-    real in-degree): one predict step within atol 1e-4 (as
+    real in-degree), flat route: one predict step within atol 1e-4 (as
     test_predict_step_matches_jax) and the gradient of the training loss
     for every parameter within 5e-4 * its JAX gradient's max abs (fp32
     sums in another order through ~10 chained MLPs and their backward)."""

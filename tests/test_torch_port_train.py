@@ -14,8 +14,11 @@ centring into the weights.
 
 Model level: `training_loss` gradients of the port's GraphLAM against
 `jax.grad` of the JAX model's (CPU route), and a 20-step AdamW loss
-trajectory against optax. Plus the host modules of the slice: metrics, LR
-schedules, the dataset, checkpoints and the training CLI.
+trajectory against optax, on the port's flat route (its `_FLAT_MIN_VIRT`
+lowered to 1: at 16x16 every set would take the batched route) and, for
+the gradients, on the batched route too. Plus the host modules of the
+slice: metrics, LR schedules, the dataset, checkpoints and the training
+CLI for GraphLAM and HiLAM.
 """
 
 import json
@@ -62,6 +65,7 @@ from neural_lam_tpu_torch.graph.storage import graph_from_bundle
 from neural_lam_tpu_torch.models.ar_model import ModelArgs
 from neural_lam_tpu_torch.models.graph_lam import GraphLAM
 from neural_lam_tpu_torch.ops import edge_flat, embed, grid_update
+from neural_lam_tpu_torch.ops import message_passing as tmp
 from neural_lam_tpu_torch.ops.message_passing import EdgeSet
 from neural_lam_tpu_torch.train import lr_at
 
@@ -420,13 +424,31 @@ def _batch(tds, ar_steps, first=0, size=2):
                                             for i in range(size))))
 
 
+@pytest.fixture
+def flat_route(monkeypatch):
+    """Every edge set of the 16x16 graph on the flat route."""
+    monkeypatch.setattr(tmp, "_FLAT_MIN_VIRT", 1)
+
+
 @pytest.mark.parametrize("ar_steps,rel", [(1, 5e-4), (3, 2e-3)])
-def test_training_loss_grads_match_jax(models, ar_steps, rel):
+def test_training_loss_grads_match_jax(models, ar_steps, rel, flat_route):
     """Gradient of training_loss for every parameter against jax.grad of
-    the JAX model's training_loss (Pallas off: its XLA CPU route). Per
-    parameter: max abs diff <= rel * max abs of the JAX gradient; rel is
-    5e-4 for one step and 2e-3 for three, since each unrolled step feeds
-    the previous step's rounding back in."""
+    the JAX model's training_loss (Pallas off: its XLA CPU route), on the
+    port's flat route. Per parameter: max abs diff <= rel * max abs of the
+    JAX gradient; rel is 5e-4 for one step and 2e-3 for three, since each
+    unrolled step feeds the previous step's rounding back in."""
+    assert tmp.flat_eligible(models[2].m2m, 2, H)
+    _check_training_grads(models, ar_steps, rel)
+
+
+def test_training_loss_grads_batched_route_match_jax(models):
+    """The same one-step gradients on the batched route (P2/P3 with their
+    backward through the plain versions), rel 5e-4."""
+    assert not tmp.flat_eligible(models[2].m2m, 2, H)
+    _check_training_grads(models, 1, 5e-4)
+
+
+def _check_training_grads(models, ar_steps, rel):
     jmodel, params, tmodel, tds = models
     batch = _batch(tds, ar_steps)
     loss_j, g_j = jax.value_and_grad(jmodel.training_loss)(
@@ -444,7 +466,7 @@ def test_training_loss_grads_match_jax(models, ar_steps, rel):
         assert err <= rel * float(w.abs().max()) + 1e-7, (k, err)
 
 
-def test_adamw_trajectory_matches_optax(models):
+def test_adamw_trajectory_matches_optax(models, flat_route):
     """20 AdamW steps of the port's Trainer against optax.adamw(1e-3,
     b1=0.9, b2=0.95, weight_decay=0.01) from the same weights over the
     same batches; losses within rtol 2e-3, atol 1e-5 (fp32 drift grows
@@ -544,3 +566,35 @@ def test_train_cli_one_epoch_on_cpu(tmp_path):
         recs[1]["val_mean_loss"])
     assert (run / "last").is_dir() and (run / "min_val_loss").is_dir()
     assert (tmp_path / "dsroot" / "graph" / "multiscale" / "meta.json").exists()
+
+
+def test_train_cli_hi_lam_one_epoch_on_cpu(tmp_path):
+    """`--model hi_lam --graph hierarchical` on a 27x27 dummy config (the
+    smallest grid with two mesh levels): builds the hierarchical graph,
+    trains one epoch, validates and writes the metrics."""
+    (tmp_path / "dummy.yaml").write_text(
+        "n_points_1d: 27\nn_timesteps: 30\nroot: dsroot\n")
+    (tmp_path / "config.yaml").write_text(
+        "datastore:\n  kind: dummydata\n  config_path: dummy.yaml\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "neural_lam_tpu_torch.train",
+           "--config_path", "config.yaml", "--device", "cpu",
+           "--model", "hi_lam", "--graph", "hierarchical",
+           "--hidden_dim", "64", "--processor_layers", "1", "--epochs", "1",
+           "--batch_size", "2", "--ar_steps_eval", "2",
+           "--val_steps_to_log", "1", "2", "--save_dir", "models",
+           "--run_name", "h1"]
+    res = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    run = tmp_path / "models" / "h1"
+    recs = [json.loads(line) for line in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    assert np.isfinite(recs[0]["train_loss"])
+    assert "val_loss_unroll2" in recs[1] and np.isfinite(
+        recs[1]["val_mean_loss"])
+    assert (run / "last").is_dir()
+    meta = json.loads((tmp_path / "dsroot" / "graph" / "hierarchical"
+                       / "meta.json").read_text())
+    assert meta == {"n_levels": 2, "hierarchical": True}
