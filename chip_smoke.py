@@ -8,7 +8,8 @@ result line is printed):
 
 1. Build every CUDA kernel of the forecast and training paths from `csrc/`
    with nvcc (one process per source, all started together); print the
-   build time and each source's ptxas registers and spills.
+   build time and each source's ptxas registers and spills (per kernel
+   for the decoder backward's two sources).
 2. Build the bench-width GraphLAM and HiLAM through
    `neural_lam_tpu_torch.entry` (268x238 grid, 17 state / 6x3 forcing / 4
    static features, hidden 64, 4 processor layers, fp32, weights from a
@@ -22,7 +23,13 @@ result line is printed):
    with and without messages) and at one batch-4 shape each.
 4. The same for each backward kernel (B1, B2, B3/B4, B5/B6) against its
    `*_bwd_plain` version: every output tensor within 1e-4 + 1e-4 * its
-   plain version's max abs.
+   plain version's max abs. B5/B6 runs in two passes, the chain kernel
+   and `xtd_sum` (the weight gradients): both passes' device times are
+   printed apart, and `xtd_sum` is also held against `xtd_sum_plain` at
+   the decoder's nine pairs (same limit), with `torch.mm(X.t(), D)` over
+   the same pairs timed as its library call, and swept over its rows
+   per block (each value checked against `xtd_sum_plain`, then timed in
+   three interleaved rounds).
 5. The forecast paths, each a 4-step rollout through `entry.forecast` with
    every launch counter set to 0 just before it, asserting the launches
    per predict step and finite output; then the time per predict step,
@@ -41,11 +48,12 @@ result line is printed):
    1 and 2.
 7. The training path at bench width: one AdamW step through
    `entry.train_steps` with every counter set to 0 just before it,
-   asserting 1/1/4/1 launches of K1-K4 and of B1/B2/B3/B5 and a finite
-   loss; one step's parameter gradients on the kernel path against the
-   plain path within 1e-3 * max abs; the training-step time (host clock
-   around a synchronised step, median of 7 after warm-up), samples/s,
-   peak device memory and a profiler breakdown of a step.
+   asserting 1/1/4/1 launches of K1-K4 and of B1/B2/B3/B5, one of
+   `xtd_sum`, and a finite loss; one step's parameter gradients on the
+   kernel path against the plain path within 1e-3 * max abs; the
+   training-step time (host clock around a synchronised step, median of 7
+   after warm-up), samples/s, peak device memory and a profiler breakdown
+   of a step.
 8. The 16x16 GraphLAM trained 3 AdamW steps on the card and on the CPU,
    on both routes: the loss trajectories agree within rtol 1e-4.
 
@@ -73,6 +81,7 @@ FWD = ("embed_grid_flat", "edge_tail_sum_flat", "edge_layer_flat",
        "grid_update_flat")
 BATCHED = ("edge_tail", "edge_tail_sum", "edge_layer")  # P1, P2, P3
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
+XTD_ROWS = (1024, 2048, 4096, 5120, 6144, 8192)  # xtd_sum's sweep
 PALLAS_EDGE = "neural_lam_tpu/ops/pallas_edge.py"
 
 
@@ -128,6 +137,36 @@ def cuda_ms(torch, fn, reps, queued=True):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def unique_nbytes(tensors):
+    """Bytes of the distinct tensors among `tensors`: a tensor passed
+    more than once (the same storage and size) is read once."""
+    return nbytes(*{(t.data_ptr(), t.numel()): t for t in tensors}.values())
+
+
+def xtd_sweep(torch, weight_grad, pairs, rounds=3):
+    """xtd_sum at each of XTD_ROWS rows per block on the decoder's pairs:
+    each held against xtd_sum_plain (1e-4 + 1e-4 * max|plain|), then timed
+    in `rounds` interleaved rounds (queued, 10 calls each); prints each
+    value's grid, times and median."""
+    want = weight_grad.xtd_sum_plain(pairs)
+    for r in XTD_ROWS:
+        got = weight_grad.xtd_sum(pairs, rows_per_block=r)
+        for a, b in zip(got, want):
+            if not bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs().max()).all()):
+                fail(f"xtd_sum at {r} rows per block disagrees with plain")
+    times = {r: [] for r in XTD_ROWS}
+    for _ in range(rounds):
+        for r in XTD_ROWS:
+            times[r].append(cuda_ms(torch, lambda: weight_grad.xtd_sum(
+                pairs, rows_per_block=r), 10))
+    print(f"xtd_sum rows per block (default {weight_grad.ROWS_PER_BLOCK}; "
+          f"{rounds} interleaved rounds, ms):")
+    for r, ts in times.items():
+        blocks = sum(max(1, -(-x.shape[0] // r)) for x, _ in pairs)
+        print(f"  {r}: {blocks} blocks; {', '.join(f'{t:.4f}' for t in ts)}"
+              f"; median {sorted(ts)[len(ts) // 2]:.4f}")
 
 
 def as_tuple(x):
@@ -194,6 +233,7 @@ def main():
         embed,
         grid_update,
         message_passing,
+        weight_grad,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -211,6 +251,7 @@ def main():
         wrappers[k + "_bwd"] = getattr(m, k + "_bwd")
     mods.update({k: edge for k in BATCHED})
     wrappers.update({k: getattr(edge, k) for k in BATCHED})
+    wrappers["xtd_sum"] = weight_grad.xtd_sum
 
     def reset_counts():
         for w in wrappers.values():
@@ -243,6 +284,13 @@ def main():
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
         print(f"  ptxas[{src}]: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {sum(spills)} bytes of spill stores and loads")
+        if src in ("grid_update_bwd", "weight_grad"):
+            for fn, info in re.findall(
+                    r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
+                    r"registers[^\n]*)", log, re.S):
+                used = re.search(r"Used [^\n]*", info).group(0)
+                spill = ", ".join(re.findall(r"\d+ bytes spill \w+", info))
+                print(f"    {fn[:60]}: {used}; {spill or 'no spill line'}")
 
     # 2. the bench-width models
     t0 = time.time()
@@ -357,6 +405,17 @@ def main():
                   in4 + nbytes(a5[-1]) + n_virt * K * (W + H) * 4
                   + n_grid * W * 4 + nbytes(*pp.values()),
                   3 * (node_flops + edge_flops4)))
+    # B5/B6's weight-gradient pass at the pairs its chain pass writes
+    xtd_pairs = grid_update.grid_update_bwd_chain(*a5)[4]
+    torch.cuda.synchronize()
+    # GR and DU0P are in two pairs each: their bytes are read once
+    cases.append(("xtd_sum", weight_grad, (xtd_pairs,), f"{pgu}:752",
+                  unique_nbytes([t for p in xtd_pairs for t in p])
+                  + sum(H * d.shape[1] * 4 for _, d in xtd_pairs),
+                  sum(2.0 * x.shape[0] * H * d.shape[1]
+                      for x, d in xtd_pairs)))
+    library = {"xtd_sum": lambda pairs: [torch.mm(x.t(), d)
+                                         for x, d in pairs]}
 
     # K3 at HiLAM's new shapes: K=1 (down[0]) and a virtual-row fold (up[0])
     for lev_set, inet in ((hg.down[0], hilam.mesh_read_gnns[0]),
@@ -419,6 +478,7 @@ def main():
                       + out_bytes, flops))
 
     records = []
+    case_ms = {}  # kernel -> device ms of its first case
     with torch.no_grad():
         for kname, mod, args, replaces, bytes_, flops in cases:
             kern = getattr(mod, kname)
@@ -430,7 +490,7 @@ def main():
                 got = got[:-1] + tuple(got[-1][k] for k in sorted(got[-1]))
                 want = want[:-1] + tuple(want[-1][k] for k in sorted(want[-1]))
             err = 0.0
-            bwd = kname.endswith("_bwd")
+            bwd = kname.endswith("_bwd") or kname == "xtd_sum"
             for i, (a, b) in enumerate(zip(got, want)):
                 if a is None and b is None:
                     continue
@@ -447,16 +507,20 @@ def main():
             call_ms = cuda_ms(torch, lambda: kern(*args), 10 if bwd else 20,
                               queued=False)
             plain_ms = cuda_ms(torch, lambda: plain(*args), 3 if bwd else 5)
+            lib_ms = (cuda_ms(torch, lambda: library[kname](*args), 10)
+                      if kname in library else None)
             t_bytes = bytes_ / peak_bw * 1e3
             t_ops = flops / peak_flops * 1e3
             bound_ms = max(t_bytes, t_ops)
+            case_ms.setdefault(kname, ms)
             rule = ("1e-4 + 1e-4*max|plain| per tensor" if bwd
                     else "1e-4 + 1e-4*|plain|")
             shape = "" if replaces.endswith(tuple("0123456789")) else (
                 " at " + replaces[replaces.index("(") + 1:-1])
             print(f"{kname}{shape}: max_abs_err {err:.3e} (tol {rule}); kernel "
                   f"{ms:.4f} ms (back-to-back calls unqueued: {call_ms:.4f} "
-                  f"ms), plain {plain_ms:.4f} ms, bound "
+                  f"ms), plain {plain_ms:.4f} ms, library "
+                  f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                   f"{bound_ms:.4f} ms ({bytes_ / 1e6:.1f} MB, "
                   f"{flops / 1e9:.2f} GFLOP)")
             if kname in main_p and replaces != main_p[kname]:
@@ -465,17 +529,26 @@ def main():
                 continue  # K3 at HiLAM's shapes: printed, not recorded
             replaces = replaces.split(" (")[0]
             base = os.path.basename(mod.__file__)[:-3]
+            if kname.endswith("_bwd"):
+                base += "_bwd"
             records.append({
                 "name": kname, "route": "cuda",
-                "source": f"neural_lam_tpu_torch/csrc/{base}"
-                          f"{'_bwd' if bwd else ''}.cu",
+                "source": f"neural_lam_tpu_torch/csrc/{base}.cu",
                 "replaces": replaces, "launches": None,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None,
+                "library_ms": lib_ms,
             })
-    del cases, args, a4, a5, k1
+        # B5/B6's two passes apart (xtd_sum's time from its case above)
+        chain_ms = cuda_ms(
+            torch, lambda: grid_update.grid_update_bwd_chain(*a5), 10)
+        xtd_ms = case_ms["xtd_sum"]
+        print(f"grid_update_flat_bwd in two passes: chain "
+              f"{chain_ms:.4f} ms + xtd_sum {xtd_ms:.4f} ms = "
+              f"{chain_ms + xtd_ms:.4f} ms (device time, queued)")
+        xtd_sweep(torch, weight_grad, xtd_pairs)
+    del cases, args, a4, a5, k1, xtd_pairs
     torch.cuda.empty_cache()
 
     # 5. the forecast paths
@@ -502,7 +575,7 @@ def main():
               f"finite; launches per step "
               f"{ {k: got[k] / STEPS for k in want} }")
         if any(got[k] != want[k] * STEPS for k in want) or any(
-                got[k + "_bwd"] for k in FWD):
+                got[k + "_bwd"] for k in FWD) or got["xtd_sum"]:
             fail(f"{what}: launch counts {got}, want {want} per step and "
                  "no backward launch")
 
@@ -599,7 +672,8 @@ def main():
     torch.cuda.synchronize()
     train_counts = counts()
     want_train = dict(zero, **want, **{k + "_bwd": n
-                                        for k, n in want.items()})
+                                        for k, n in want.items()},
+                      xtd_sum=1)
     print(f"training step: loss {losses[0]:.6f}; launches {train_counts}")
     if not all(map(math.isfinite, losses)):
         fail(f"training loss is not finite: {losses}")
@@ -607,7 +681,8 @@ def main():
         fail(f"training launch counts {train_counts}, want {want_train}")
     for rec in records:
         n = rec["name"]
-        rec["launches"] = (train_counts[n] if n.endswith("_bwd")
+        rec["launches"] = (train_counts[n]
+                           if n.endswith("_bwd") or n == "xtd_sum"
                            else p_counts[n] if n in BATCHED
                            else fwd_counts[n])
 

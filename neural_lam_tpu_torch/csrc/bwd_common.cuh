@@ -8,13 +8,19 @@
 //   dy = rstd * (g - mean(g) - chat * mean(g * chat)).
 //
 // Weight gradients dW = X^T dY sum over every row a kernel visits. Blocks
-// run in no order, so no sum is carried from one block to the next: a
-// block stages the rows of one step (X and dY, 64 wide) in shared memory,
-// and every thread adds the rows' products into the 4x4 tile of dW it owns
-// (256 threads own the 256 tiles of a 64x64 matrix). At the end each block
-// writes its partial sums to its own row of a (blocks, params) scratch,
-// and the caller sums the rows in a fixed order: no float atomics, so a
-// run repeats itself bit for bit.
+// run in no order, so no sum is carried from one block to the next. Two
+// ways to take them:
+// - in the kernel (B1-B3): a block stages the rows of one step (X and dY,
+//   64 wide) in shared memory, and every thread adds the rows' products
+//   into the 4x4 tile of dW it owns (256 threads own the 256 tiles of a
+//   64x64 matrix); at the end each block writes its partial sums to its
+//   own row of a (blocks, params) scratch;
+// - in a second pass (B5/B6): the kernel writes the (X, dY) row pairs to a
+//   scratch in device memory, and csrc/weight_grad.cu (`xtd_sum`) sums
+//   X^T dY over all of them in one launch, each block writing one partial
+//   matrix, so the first kernel keeps its shared memory for its weights.
+// Either way the caller sums the partials in a fixed order: no float
+// atomics, so a run repeats itself bit for bit.
 //
 // Each backward library exports two C entries: nlt_<name>_grid(sizes,
 // device, &grid) gives the number of blocks, which is the number of rows

@@ -29,7 +29,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 SOURCES = ("embed", "edge_flat", "grid_update", "edge",
-           "embed_bwd", "edge_flat_bwd", "grid_update_bwd")
+           "embed_bwd", "edge_flat_bwd", "grid_update_bwd", "weight_grad")
 
 P = ctypes.c_void_p
 I = ctypes.c_int

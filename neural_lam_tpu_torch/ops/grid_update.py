@@ -16,11 +16,14 @@ twin (`grid_update_flat` / `grid_update_flat_win`): the sender rows are
 read by index from the (N_send, W) table. `grid_update_flat` is a
 `torch.autograd.Function` on both devices: forward and backward run their
 plain versions on a CPU tensor and the CUDA kernels (`csrc/grid_update.cu`,
-`csrc/grid_update_bwd.cu`) on a CUDA tensor. The forward saves only its
-inputs; the backward recomputes it and yields the sender cotangent per
-slot, which the caller's `fold` sums onto the table.
-`grid_update_flat.launches` and `grid_update_flat_bwd.launches` count
-kernel launches.
+`csrc/grid_update_bwd.cu` and `csrc/weight_grad.cu`) on a CUDA tensor.
+The forward saves only its inputs; the backward recomputes it and yields
+the sender cotangent per slot, which the caller's `fold` sums onto the
+table. The backward runs in two passes: a chain pass, which writes the
+activation/gradient pairs of the weight gradients to a scratch, and
+`weight_grad.xtd_sum` over those pairs.
+`grid_update_flat.launches` and `grid_update_flat_bwd.launches` (the chain
+kernel) count kernel launches.
 """
 
 from __future__ import annotations
@@ -28,14 +31,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, weight_grad
 from .mlp import grads_through, layer_norm
 
 HID = 64
 
 _P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {"nlt_grid_update": [_P] * 7 + [_I] * 6 + [_P]}
-_BWD_SIGNATURES = {"nlt_grid_update_bwd": [_P] * 12 + [_I] * 7 + [_P],
+_BWD_SIGNATURES = {"nlt_grid_update_bwd": [_P] * 14 + [_I] * 7 + [_P],
                    "nlt_grid_update_bwd_grid": [_I] * 6 + [_IP]}
 
 # order of the parameter blob csrc/grid_update.cu reads
@@ -104,30 +107,35 @@ def grid_update_applicable(model, m2g_edges) -> bool:
     )
 
 
-def _decoder_from_gathered(g, ew, grid_emb_f, mask_p, pp):
-    """K4's math on pre-gathered sender rows g (M, W)."""
+def _decoder_from_gathered(g, ew, grid_emb_f, mask_p, pp, keep=None):
+    """K4's math on pre-gathered sender rows g (M, W). `keep`, a dict,
+    receives the intermediates by name."""
     n_virt, K = mask_p.shape
     h = ew.shape[-1]
     B = g.shape[-1] // h
     ge = grid_emb_f.view(grid_emb_f.shape[0], B, h)
     if ge.shape[0] < n_virt:
         ge = F.pad(ge, (0, 0, 0, 0, 0, n_virt - ge.shape[0]))
-
-    def mlp2(x, w0, b0, w1, b1):
-        return F.silu(x @ w0 + b0) @ w1 + b1
-
-    gr = ge + layer_norm(
-        mlp2(ge, pp["enc_w0"], pp["enc_b0"], pp["enc_w1"], pp["enc_b1"]),
-        pp["enc_ls"], pp["enc_lb"])
+    t1p = ge @ pp["enc_w0"] + pp["enc_b0"]
+    t1 = F.silu(t1p)
+    t2 = t1 @ pp["enc_w1"] + pp["enc_b1"]
+    gr = ge + layer_norm(t2, pp["enc_ls"], pp["enc_lb"])
     rec = gr @ pp["w_i"]
-    x = F.silu(g.view(n_virt, K, B, h) + ew.view(n_virt, K, 1, h)
-               + rec[:, None])
-    msg = layer_norm(x @ pp["w2"] + pp["b2"], pp["e_ls"], pp["e_lb"])
+    x1 = F.silu(g.view(n_virt, K, B, h) + ew.view(n_virt, K, 1, h)
+                + rec[:, None])
+    y2 = x1 @ pp["w2"] + pp["b2"]
+    msg = layer_norm(y2, pp["e_ls"], pp["e_lb"])
     agg = (msg * mask_p[:, :, None, None]).sum(dim=1)
-    u = F.silu(gr @ pp["a_w0"][:h] + agg @ pp["a_w0"][h:] + pp["a_b0"]) \
-        @ pp["a_w1"] + pp["a_b1"]
-    rec_out = gr + layer_norm(u, pp["a_ls"], pp["a_lb"])
-    out = mlp2(rec_out, pp["o_w0"], pp["o_b0"], pp["o_w1"], pp["o_b1"])
+    u0p = gr @ pp["a_w0"][:h] + agg @ pp["a_w0"][h:] + pp["a_b0"]
+    u1 = F.silu(u0p)
+    u2 = u1 @ pp["a_w1"] + pp["a_b1"]
+    ro = gr + layer_norm(u2, pp["a_ls"], pp["a_lb"])
+    y0p = ro @ pp["o_w0"] + pp["o_b0"]
+    y = F.silu(y0p)
+    out = y @ pp["o_w1"] + pp["o_b1"]
+    if keep is not None:
+        keep.update(t1p=t1p, t1=t1, t2=t2, gr=gr, rec=rec, x1=x1, y2=y2,
+                    agg=agg, u0p=u0p, u1=u1, u2=u2, ro=ro, y0p=y0p, y=y)
     return out.reshape(n_virt, -1)
 
 
@@ -200,19 +208,71 @@ def grid_update_flat_bwd_plain(table, senders, ew, grid_emb_f, mask_p, pp,
     return grads[0], grads[1], grads[2], dict(zip(keys, grads[3:]))
 
 
-def grid_update_flat_bwd(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
-    """Backward of `grid_update_flat` from d_out (N_virt, B*d_out):
-    (d_x0 (M, W) per slot, d_ew (M, h), d_grid_emb_f (N_rows, W), {name:
-    gradient} for every parameter of `pp`).
+# Scratch rows of the chain pass (csrc/grid_update_bwd.cu): the node
+# tensors, each (n_virt*B, 64) with row v*B + b, in this order; and the
+# slot tensors X1 = silu(x0) and DX2, each (n_virt*K*B, 64) with row
+# (v*K + k)*B + b. "d" marks a gradient: dt1p is d t1p.
+_NODE = ("t1", "gr", "agg", "u1", "ro", "y",
+         "dt1p", "dt2", "drec", "du0p", "du2", "dy0p")
+_SLOT = ("x1", "dx2")
+# the nine weight gradients, X^T @ D for these (X, D) scratch pairs
+# (a_w0's two halves apart; ge is grid_emb_f, dout is d_out)
+_PAIRS = (("enc_w0", "ge", "dt1p"), ("enc_w1", "t1", "dt2"),
+          ("w_i", "gr", "drec"), ("w2", "x1", "dx2"),
+          ("a_wr", "gr", "du0p"), ("a_wa", "agg", "du0p"),
+          ("a_w1", "u1", "du2"), ("o_w0", "ro", "dy0p"),
+          ("o_w1", "y", "dout"))
 
-    Replaces pallas_grid_update.py::_grid_update_bwd_kernel (via
-    _grid_update_bwd) and ::_grid_update_win_bwd_kernel (via
-    grid_update_flat_win_bwd). Bound by fp32 operations on the card; see
-    csrc/grid_update_bwd.cu.
-    """
+
+def _weight_pairs(node, slot, grid_emb_f, d_out, B):
+    """The (X, D) pairs of `_PAIRS`, as views of the chain's scratch
+    (node (12, n_virt*B, 64), slot (2, n_virt*K*B, 64)) and the inputs;
+    ge's pair over grid_emb_f's real rows only."""
+    rows = dict(zip(_NODE + _SLOT, [*node, *slot]),
+                ge=grid_emb_f.view(-1, HID),
+                dout=d_out.reshape(-1, d_out.shape[1] // B))
+    return [(rows[x], rows[d][:rows[x].shape[0]]) for _, x, d in _PAIRS]
+
+
+def grid_update_bwd_chain_plain(table, senders, ew, grid_emb_f, mask_p, pp,
+                                d_out):
+    """Plain PyTorch version of the chain pass: (d_x0, d_ew, d_grid_emb_f,
+    {name: gradient} for the 13 vector parameters, the weight-gradient
+    pairs of `_PAIRS`), by autograd through the plain forward with its
+    intermediates kept."""
+    n_virt, K = mask_p.shape
+    B = table.shape[1] // HID
+    vec_keys = _VECS + ("o_b1",)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (
+            table.index_select(0, senders), ew, grid_emb_f)]
+        vecs = {k: pp[k].detach().requires_grad_() for k in vec_keys}
+        act = {}
+        out = _decoder_from_gathered(
+            *leaves, mask_p, dict({k: pp[k].detach() for k in pp}, **vecs),
+            act)
+        # scratch gradient -> the intermediate it is taken with respect to
+        grad_of = {"dt1p": "t1p", "dt2": "t2", "drec": "rec", "du0p": "u0p",
+                   "du2": "u2", "dy0p": "y0p", "dx2": "y2"}
+        grads = torch.autograd.grad(
+            out, leaves + [act[k] for k in grad_of.values()]
+            + [vecs[k] for k in vec_keys], d_out.reshape(out.shape))
+    rows = dict(act, **dict(zip(grad_of, grads[3:])))
+    node = [rows[k].detach().reshape(-1, HID) for k in _NODE]
+    slot = [rows[k].detach().reshape(-1, HID) for k in _SLOT]
+    return (grads[0], grads[1], grads[2],
+            dict(zip(vec_keys, grads[3 + len(grad_of):])),
+            _weight_pairs(node, slot, grid_emb_f, d_out, B))
+
+
+def grid_update_bwd_chain(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
+    """B5/B6's chain pass: `grid_update_bwd_chain_plain` on a CPU tensor,
+    the kernel of csrc/grid_update_bwd.cu on a CUDA tensor. Its launches
+    count on `grid_update_flat_bwd.launches`: the chain kernel is the
+    decoder backward's own kernel."""
     if table.device.type == "cpu":
-        return grid_update_flat_bwd_plain(table, senders, ew, grid_emb_f,
-                                          mask_p, pp, d_out)
+        return grid_update_bwd_chain_plain(table, senders, ew, grid_emb_f,
+                                           mask_p, pp, d_out)
     dev = _build.require_cuda(table)
     _check(table, senders, ew, grid_emb_f, mask_p, pp)
     n_virt, K = mask_p.shape
@@ -227,27 +287,56 @@ def grid_update_flat_bwd(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
     tparams = torch.cat([m.t().reshape(-1) for m in mats_t]
                         + [pp["o_w1"].t().reshape(-1)])
     d_out = d_out.contiguous()
-    d_x0 = torch.empty((n_virt * K, W), device=dev, dtype=torch.float32)
+    f32, i32 = torch.float32, torch.int32
+    d_x0 = torch.empty((n_virt * K, W), device=dev, dtype=f32)
     d_ew = torch.empty_like(ew)
     d_ge = torch.empty_like(grid_emb_f)
-    f32, i32 = torch.float32, torch.int32
+    node = torch.empty((len(_NODE), n_virt * B, HID), device=dev, dtype=f32)
+    slot = torch.empty((len(_SLOT), n_virt * K * B, HID), device=dev,
+                       dtype=f32)
     ptrs = _build.pointers(dev, ("table", table, f32),
                            ("senders", senders, i32), ("ew", ew, f32),
                            ("grid_emb_f", grid_emb_f, f32),
                            ("mask_p", mask_p, f32), ("params", params, f32),
                            ("tparams", tparams, f32), ("d_out", d_out, f32),
                            ("d_x0", d_x0, f32), ("d_ew", d_ew, f32),
-                           ("d_ge", d_ge, f32))
+                           ("d_ge", d_ge, f32), ("node", node, f32),
+                           ("slot", slot, f32))
+    n_vec = len(_VECS) * HID
     g = _build.run_bwd(_bwd_lib(), "nlt_grid_update_bwd", ptrs,
                        [n_virt, grid_emb_f.shape[0], K, B, d_o],
-                       params.numel(), dev, "grid_update_flat_bwd")
+                       n_vec + d_o, dev, "grid_update_flat_bwd")
     grid_update_flat_bwd.launches += 1
-    d_pp, at = {}, 0
-    for name in _KEYS:
-        n = pp[name].numel()
-        d_pp[name] = g[at:at + n].view(pp[name].shape)
-        at += n
-    return d_x0, d_ew, d_ge, d_pp
+    vecs = {k: g[i * HID:(i + 1) * HID] for i, k in enumerate(_VECS)}
+    vecs["o_b1"] = g[n_vec:]
+    return d_x0, d_ew, d_ge, vecs, _weight_pairs(node, slot, grid_emb_f,
+                                                 d_out, B)
+
+
+def _assemble(vecs, mats):
+    """{name: gradient} in `_KEYS` order from the chain's vector gradients
+    and the weight-gradient pass's matrices (in `_PAIRS` order)."""
+    m = dict(zip((name for name, _, _ in _PAIRS), mats))
+    m["a_w0"] = torch.cat([m.pop("a_wr"), m.pop("a_wa")])
+    return {k: m[k] if k in m else vecs[k] for k in _KEYS}
+
+
+def grid_update_flat_bwd(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
+    """Backward of `grid_update_flat` from d_out (N_virt, B*d_out):
+    (d_x0 (M, W) per slot, d_ew (M, h), d_grid_emb_f (N_rows, W), {name:
+    gradient} for every parameter, in `_KEYS` order).
+
+    Replaces pallas_grid_update.py::_grid_update_bwd_kernel (via
+    _grid_update_bwd) and ::_grid_update_win_bwd_kernel (via
+    grid_update_flat_win_bwd), in two passes: the chain
+    (`grid_update_bwd_chain`, csrc/grid_update_bwd.cu) writes the
+    activation/gradient pairs of the nine weight gradients, and
+    `weight_grad.xtd_sum` (csrc/weight_grad.cu) sums them. Both run their
+    plain versions on a CPU tensor and their kernels on a CUDA tensor.
+    """
+    d_x0, d_ew, d_ge, vecs, pairs = grid_update_bwd_chain(
+        table, senders, ew, grid_emb_f, mask_p, pp, d_out)
+    return d_x0, d_ew, d_ge, _assemble(vecs, weight_grad.xtd_sum(pairs))
 
 
 class _GridUpdateFlat(torch.autograd.Function):
