@@ -9,7 +9,10 @@ result line is printed):
 1. Build every CUDA kernel of the forecast and training paths from `csrc/`
    with nvcc (one process per source, all started together); print the
    build time and each source's ptxas registers and spills (per kernel
-   for the decoder backward's two sources).
+   for the backward sources with two passes or two kernels: B2's and
+   B3/B4's kernels of `edge_flat_bwd` apart, the decoder backward's and
+   `xtd_sum`'s), and, where the toolkit has `cuobjdump`, the shared-memory
+   loads by width and the FFMAs in the SASS of B3/B4's K=8 chain kernel.
 2. Build the bench-width GraphLAM and HiLAM through
    `neural_lam_tpu_torch.entry` (268x238 grid, 17 state / 6x3 forcing / 4
    static features, hidden 64, 4 processor layers, fp32, weights from a
@@ -23,13 +26,15 @@ result line is printed):
    with and without messages) and at one batch-4 shape each.
 4. The same for each backward kernel (B1, B2, B3/B4, B5/B6) against its
    `*_bwd_plain` version: every output tensor within 1e-4 + 1e-4 * its
-   plain version's max abs. B5/B6 runs in two passes, the chain kernel
-   and `xtd_sum` (the weight gradients): both passes' device times are
-   printed apart, and `xtd_sum` is also held against `xtd_sum_plain` at
-   the decoder's nine pairs (same limit), with `torch.mm(X.t(), D)` over
-   the same pairs timed as its library call, and swept over its rows
-   per block (each value checked against `xtd_sum_plain`, then timed in
-   three interleaved rounds).
+   plain version's max abs; B3/B4 also at HiLAM's K=1 down[0] and folded
+   up[0] sets (batch 4). B3/B4 and B5/B6 run in two passes, a chain
+   kernel and `xtd_sum` (the weight gradients): both passes' device times
+   are printed apart, with their sum. `xtd_sum` is also held against
+   `xtd_sum_plain` at the decoder's nine pairs and at B3/B4's two (same
+   limit), with `torch.mm(X.t(), D)` over the same pairs timed as its
+   library call, and swept over its rows per block at both (512-8192,
+   each value checked against `xtd_sum_plain`, then timed in three
+   interleaved rounds).
 5. The forecast paths, each a 4-step rollout through `entry.forecast` with
    every launch counter set to 0 just before it, asserting the launches
    per predict step and finite output; then the time per predict step,
@@ -48,8 +53,9 @@ result line is printed):
    1 and 2.
 7. The training path at bench width: one AdamW step through
    `entry.train_steps` with every counter set to 0 just before it,
-   asserting 1/1/4/1 launches of K1-K4 and of B1/B2/B3/B5, one of
-   `xtd_sum`, and a finite loss; one step's parameter gradients on the
+   asserting 1/1/4/1 launches of K1-K4 and of B1/B2/B3/B5, five of
+   `xtd_sum` (the decoder's and one per processor layer), and a finite
+   loss; one step's parameter gradients on the
    kernel path against the plain path within 1e-3 * max abs; the
    training-step time (host clock around a synchronised step, median of 7
    after warm-up), samples/s, peak device memory and a profiler breakdown
@@ -70,6 +76,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 BENCH = dict(nx=268, ny=238, hidden_dim=64, processor_layers=4,
              n_features={"state": 17, "forcing": 6, "static": 4},
@@ -81,7 +88,7 @@ FWD = ("embed_grid_flat", "edge_tail_sum_flat", "edge_layer_flat",
        "grid_update_flat")
 BATCHED = ("edge_tail", "edge_tail_sum", "edge_layer")  # P1, P2, P3
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
-XTD_ROWS = (1024, 2048, 4096, 5120, 6144, 8192)  # xtd_sum's sweep
+XTD_ROWS = (512, 1024, 2048, 4096, 5120, 6144, 8192)  # xtd_sum's sweep
 PALLAS_EDGE = "neural_lam_tpu/ops/pallas_edge.py"
 
 
@@ -145,11 +152,12 @@ def unique_nbytes(tensors):
     return nbytes(*{(t.data_ptr(), t.numel()): t for t in tensors}.values())
 
 
-def xtd_sweep(torch, weight_grad, pairs, rounds=3):
-    """xtd_sum at each of XTD_ROWS rows per block on the decoder's pairs:
-    each held against xtd_sum_plain (1e-4 + 1e-4 * max|plain|), then timed
-    in `rounds` interleaved rounds (queued, 10 calls each); prints each
-    value's grid, times and median."""
+def xtd_sweep(torch, weight_grad, pairs, what, default, rounds=3):
+    """xtd_sum at each of XTD_ROWS rows per block on `pairs` (`what`
+    names them; their caller passes `default`): each held against
+    xtd_sum_plain (1e-4 + 1e-4 * max|plain|), then timed in `rounds`
+    interleaved rounds (queued, 10 calls each); prints each value's grid,
+    times and median."""
     want = weight_grad.xtd_sum_plain(pairs)
     for r in XTD_ROWS:
         got = weight_grad.xtd_sum(pairs, rows_per_block=r)
@@ -161,12 +169,43 @@ def xtd_sweep(torch, weight_grad, pairs, rounds=3):
         for r in XTD_ROWS:
             times[r].append(cuda_ms(torch, lambda: weight_grad.xtd_sum(
                 pairs, rows_per_block=r), 10))
-    print(f"xtd_sum rows per block (default {weight_grad.ROWS_PER_BLOCK}; "
+    print(f"xtd_sum rows per block at {what} (their caller's: {default}; "
           f"{rounds} interleaved rounds, ms):")
     for r, ts in times.items():
         blocks = sum(max(1, -(-x.shape[0] // r)) for x, _ in pairs)
         print(f"  {r}: {blocks} blocks; {', '.join(f'{t:.4f}' for t in ts)}"
               f"; median {sorted(ts)[len(ts) // 2]:.4f}")
+
+
+def kernel_name(mangled):
+    """`name<K>` from a mangled `..._kernelILi<K>EE...` entry name, with
+    B2's and B3/B4's kernels of edge_flat_bwd tagged."""
+    m = re.search(r"\d+([a-z]\w*?_kernel)(?:ILi(\d+)E)?", mangled)
+    if not m:
+        return mangled[:60]
+    tag = {"edge_tail_bwd_kernel": "B2 ",
+           "edge_layer_bwd_kernel": "B3/B4 chain "}.get(m.group(1), "")
+    return f"{tag}{m.group(1)}" + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def sass_counts(_build, lib, fn_part):
+    """Shared-memory loads by width (LDS, LDS.64, LDS.128) and FFMAs in the
+    SASS of the kernel of `lib` whose mangled name holds `fn_part`, read
+    with the toolkit's cuobjdump; says so where there is none."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print(f"  SASS of {fn_part}: no cuobjdump beside nvcc")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True,
+                          timeout=120).stdout
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        if fn_part in part.split("\n", 1)[0]:
+            ops = re.findall(r"\b(LDS(?:\.U)?(?:\.\d+)?|FFMA)\b", part)
+            n = {k: ops.count(k) for k in sorted(set(ops))}
+            print(f"  SASS of {kernel_name(part.split()[0])}: {n}")
+            return
+    print(f"  SASS of {fn_part}: no such function in {lib}")
 
 
 def as_tuple(x):
@@ -284,13 +323,15 @@ def main():
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
         print(f"  ptxas[{src}]: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {sum(spills)} bytes of spill stores and loads")
-        if src in ("grid_update_bwd", "weight_grad"):
-            for fn, info in re.findall(
+        if src in ("edge_flat_bwd", "grid_update_bwd", "weight_grad"):
+            for fn, info in sorted(re.findall(
                     r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
-                    r"registers[^\n]*)", log, re.S):
+                    r"registers[^\n]*)", log, re.S)):
                 used = re.search(r"Used [^\n]*", info).group(0)
                 spill = ", ".join(re.findall(r"\d+ bytes spill \w+", info))
-                print(f"    {fn[:60]}: {used}; {spill or 'no spill line'}")
+                print(f"    {kernel_name(fn)}: {used}; "
+                      f"{spill or 'no spill line'}")
+    sass_counts(_build, libs["edge_flat_bwd"], "edge_layer_bwd_kernelILi8E")
 
     # 2. the bench-width models
     t0 = time.time()
@@ -388,6 +429,7 @@ def main():
         cases.append((kname, edge_flat, a, f"{pef}:{lines[0]}", b, f))
         cases.append((kname + "_bwd", edge_flat, ab, f"{pef}:{lines[1]}",
                       bb, bf))
+    b3_args = ab  # B3/B4 at m2m[0]
 
     n_virt, K = m2g.num_virt, m2g.dense_k
     mask_p = m2g.mask.view(n_virt, K)
@@ -414,16 +456,34 @@ def main():
                   + sum(H * d.shape[1] * 4 for _, d in xtd_pairs),
                   sum(2.0 * x.shape[0] * H * d.shape[1]
                       for x, d in xtd_pairs)))
+    # B3/B4's weight-gradient pass at the pairs its chain pass gives
+    b3_pairs = edge_flat.edge_layer_bwd_chain(*b3_args)[4]
+    torch.cuda.synchronize()
+    b3_label = f"{pef}:846 (B3/B4's two pairs at m2m[0])"
+    # as edge_layer_flat_bwd calls it: at its rows per block
+    b3_xtd = types.SimpleNamespace(
+        __file__=weight_grad.__file__,
+        xtd_sum_plain=weight_grad.xtd_sum_plain,
+        xtd_sum=lambda pairs: weight_grad.xtd_sum(
+            pairs, edge_flat.XTD_ROWS_PER_BLOCK))
+    cases.append(("xtd_sum", b3_xtd, (b3_pairs,), b3_label,
+                  unique_nbytes([t for p in b3_pairs for t in p])
+                  + 2 * H * H * 4,
+                  sum(2.0 * x.shape[0] * H * H for x, _ in b3_pairs)))
     library = {"xtd_sum": lambda pairs: [torch.mm(x.t(), d)
                                          for x, d in pairs]}
 
-    # K3 at HiLAM's new shapes: K=1 (down[0]) and a virtual-row fold (up[0])
+    # K3 and B3/B4 at HiLAM's new shapes: K=1 (down[0]) and a virtual-row
+    # fold (up[0])
     for lev_set, inet in ((hg.down[0], hilam.mesh_read_gnns[0]),
                           (hg.up[0], hilam.mesh_init_gnns[0])):
-        (a, b, f), _ = edge_cases(lev_set, inet, True)
-        cases.append(("edge_layer_flat", edge_flat, a,
-                      f"{pef}:727 (HiLAM K={lev_set.dense_k}, "
-                      f"{lev_set.num_virt} rows, B=4)", b, f))
+        (a, b, f), (ab, bb, bf) = edge_cases(lev_set, inet, True)
+        at = (f"HiLAM K={lev_set.dense_k}, {lev_set.num_virt} rows"
+              f"{'' if lev_set.virt_identity else ', fold'}, B=4")
+        cases.append(("edge_layer_flat", edge_flat, a, f"{pef}:727 ({at})",
+                      b, f))
+        cases.append(("edge_layer_flat_bwd", edge_flat, ab,
+                      f"{pef}:846 ({at})", bb, bf))
 
     def batched_case(kind, edges, inet, B, with_messages=False):
         """Args, bytes and FLOPs of one P-kernel call on `edges` at batch
@@ -478,7 +538,7 @@ def main():
                       + out_bytes, flops))
 
     records = []
-    case_ms = {}  # kernel -> device ms of its first case
+    case_ms = {}  # (kernel, replaces) -> device ms
     with torch.no_grad():
         for kname, mod, args, replaces, bytes_, flops in cases:
             kern = getattr(mod, kname)
@@ -512,7 +572,7 @@ def main():
             t_bytes = bytes_ / peak_bw * 1e3
             t_ops = flops / peak_flops * 1e3
             bound_ms = max(t_bytes, t_ops)
-            case_ms.setdefault(kname, ms)
+            case_ms[kname, replaces] = ms
             rule = ("1e-4 + 1e-4*max|plain| per tensor" if bwd
                     else "1e-4 + 1e-4*|plain|")
             shape = "" if replaces.endswith(tuple("0123456789")) else (
@@ -526,7 +586,7 @@ def main():
             if kname in main_p and replaces != main_p[kname]:
                 continue
             if any(r["name"] == kname for r in records):
-                continue  # K3 at HiLAM's shapes: printed, not recorded
+                continue  # other shapes: printed, not recorded
             replaces = replaces.split(" (")[0]
             base = os.path.basename(mod.__file__)[:-3]
             if kname.endswith("_bwd"):
@@ -540,15 +600,23 @@ def main():
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib_ms,
             })
-        # B5/B6's two passes apart (xtd_sum's time from its case above)
-        chain_ms = cuda_ms(
-            torch, lambda: grid_update.grid_update_bwd_chain(*a5), 10)
-        xtd_ms = case_ms["xtd_sum"]
-        print(f"grid_update_flat_bwd in two passes: chain "
-              f"{chain_ms:.4f} ms + xtd_sum {xtd_ms:.4f} ms = "
-              f"{chain_ms + xtd_ms:.4f} ms (device time, queued)")
-        xtd_sweep(torch, weight_grad, xtd_pairs)
-    del cases, args, a4, a5, k1, xtd_pairs
+        # B3/B4's and B5/B6's two passes apart (xtd_sum's time from its
+        # case above)
+        for what, chain, chain_args, xtd_at in (
+                ("edge_layer_flat_bwd", edge_flat.edge_layer_bwd_chain,
+                 b3_args, b3_label),
+                ("grid_update_flat_bwd", grid_update.grid_update_bwd_chain,
+                 a5, f"{pgu}:752")):
+            chain_ms = cuda_ms(torch, lambda: chain(*chain_args), 10)
+            xtd_ms = case_ms["xtd_sum", xtd_at]
+            print(f"{what} in two passes: chain {chain_ms:.4f} ms + xtd_sum "
+                  f"{xtd_ms:.4f} ms = {chain_ms + xtd_ms:.4f} ms (device "
+                  "time, queued)")
+        xtd_sweep(torch, weight_grad, b3_pairs, "B3/B4's two pairs (m2m[0])",
+                  edge_flat.XTD_ROWS_PER_BLOCK)
+        xtd_sweep(torch, weight_grad, xtd_pairs, "the decoder's nine pairs",
+                  weight_grad.ROWS_PER_BLOCK)
+    del cases, args, a4, a5, k1, xtd_pairs, b3_args, b3_pairs
     torch.cuda.empty_cache()
 
     # 5. the forecast paths
@@ -673,7 +741,7 @@ def main():
     train_counts = counts()
     want_train = dict(zero, **want, **{k + "_bwd": n
                                         for k, n in want.items()},
-                      xtd_sum=1)
+                      xtd_sum=1 + L)
     print(f"training step: loss {losses[0]:.6f}; launches {train_counts}")
     if not all(map(math.isfinite, losses)):
         fail(f"training loss is not finite: {losses}")

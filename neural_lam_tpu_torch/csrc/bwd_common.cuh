@@ -10,15 +10,17 @@
 // Weight gradients dW = X^T dY sum over every row a kernel visits. Blocks
 // run in no order, so no sum is carried from one block to the next. Two
 // ways to take them:
-// - in the kernel (B1-B3): a block stages the rows of one step (X and dY,
+// - in the kernel (B1, B2): a block stages the rows of one step (X and dY,
 //   64 wide) in shared memory, and every thread adds the rows' products
 //   into the 4x4 tile of dW it owns (256 threads own the 256 tiles of a
 //   64x64 matrix); at the end each block writes its partial sums to its
 //   own row of a (blocks, params) scratch;
-// - in a second pass (B5/B6): the kernel writes the (X, dY) row pairs to a
-//   scratch in device memory, and csrc/weight_grad.cu (`xtd_sum`) sums
-//   X^T dY over all of them in one launch, each block writing one partial
-//   matrix, so the first kernel keeps its shared memory for its weights.
+// - in a second pass (B3/B4, B5/B6): the kernel writes the (X, dY) row
+//   pairs to a scratch in device memory (or names rows it already has,
+//   as B3's dW_e pair (edge_rep, d_x0)), and csrc/weight_grad.cu
+//   (`xtd_sum`) sums X^T dY over all of them in one launch, each block
+//   writing one partial matrix, so the first kernel needs no block-wide
+//   step per row and keeps its shared memory for its weights.
 // Either way the caller sums the partials in a fixed order: no float
 // atomics, so a run repeats itself bit for bit.
 //

@@ -4,10 +4,13 @@
 // each pair's result is the (64, d) sum over its rows of x^T d. Written for
 // the backward kernels whose weight gradients are such sums: the decoder
 // backward (B5/B6, csrc/grid_update_bwd.cu) writes its nine activation /
-// gradient pairs to device memory, and this pass sums them. It takes the
-// place of the weight-gradient sums inside
+// gradient pairs to device memory, the processor edge layer's (B3/B4,
+// csrc/edge_flat_bwd.cu) its dW2 pair, and this pass sums them. It takes
+// the place of the weight-gradient sums inside
 // neural_lam_tpu/ops/pallas_grid_update.py::_grid_update_bwd_kernel :752
-// and ::_grid_update_win_bwd_kernel :767.
+// and ::_grid_update_win_bwd_kernel :767, and
+// neural_lam_tpu/ops/pallas_edge_flat.py::_layer_bwd_kernel :846 and
+// ::_layer_bwd_win_kernel :1093.
 //
 // Design. The pairs' rows are cut into runs of `rows_per_block` rows; one
 // block of 256 threads sums one run of one pair (the pair of a block is

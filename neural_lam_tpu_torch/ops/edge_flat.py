@@ -11,13 +11,21 @@ is the (N_virt, K) dense-slot validity of the EdgeSet.
 
 `edge_tail_sum_flat` and `edge_layer_flat` are `torch.autograd.Function`s
 on both devices. Forward and backward each run their plain PyTorch
-version (`*_plain`, `*_bwd_plain`, same module) on a CPU tensor and their
-CUDA kernel (`csrc/edge_flat.cu`, `csrc/edge_flat_bwd.cu`) on a CUDA
-tensor; there is no fallback from one to the other. The forward saves only
-its inputs and the backward recomputes it. The backward yields the sender
-cotangent per edge slot, d_x0 (M, W); the `fold` the caller passes
+version (`*_plain`, same module) on a CPU tensor and their CUDA kernels
+(`csrc/edge_flat.cu`, `csrc/edge_flat_bwd.cu`, `csrc/weight_grad.cu`) on a
+CUDA tensor; there is no fallback from one to the other. The forward saves
+only its inputs and the backward recomputes it. The backward yields the
+sender cotangent per edge slot, d_x0 (M, W); the `fold` the caller passes
 (`EdgeSet.fold_senders`) sums it onto the node table in a fixed order.
-`<wrapper>.launches` counts kernel launches.
+
+The edge layer's backward (B3/B4) runs in two passes: a chain pass
+(`edge_layer_bwd_chain`) computes the cotangents and the vector gradients
+and writes X1 = silu(x0) and DY (the LayerNorm input's gradient) to a
+scratch; then `weight_grad.xtd_sum` sums dW2 = X1^T DY and dW_e = edge^T
+d_x0 over every slot and batch element, in one launch. B2 takes its weight
+gradient inside its kernel. `<wrapper>.launches` counts kernel launches
+(B3/B4's chain on `edge_layer_flat_bwd.launches`, its weight-gradient pass
+on `weight_grad.xtd_sum.launches`).
 """
 
 from __future__ import annotations
@@ -25,10 +33,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, weight_grad
 from .mlp import grads_through, layer_norm
 
 HID = 64  # hidden width the CUDA kernels are written for
+# `xtd_sum`'s rows per block for B3/B4's two pairs. chip_smoke.py's sweep
+# at m2m[0] (2 x 237,568 rows), NVIDIA H100 80GB HBM3, 700 W: 1024 rows
+# (464 blocks) 0.1677 ms, 512 0.1742, 2048 (232 blocks, under two per
+# SM) 0.2172, each the median of three rounds within 0.2% of each other.
+XTD_ROWS_PER_BLOCK = 1024
 
 _P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {
@@ -37,7 +50,7 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "nlt_edge_tail_sum_bwd": [_P] * 11 + [_I] * 5 + [_P],
-    "nlt_edge_layer_bwd": [_P] * 12 + [_I] * 5 + [_P],
+    "nlt_edge_layer_bwd": [_P] * 14 + [_I] * 5 + [_P],
     "nlt_edge_tail_sum_bwd_grid": [_I] * 4 + [_IP],
     "nlt_edge_layer_bwd_grid": [_I] * 4 + [_IP],
 }
@@ -218,8 +231,10 @@ edge_tail_sum_flat_bwd.launches = 0
 
 
 def _layer_from_gathered(edge_rep, g, rec_rows, mask_p, w_e, b0, w2, b2,
-                         ln_scale, ln_bias):
-    """K3's math on pre-gathered sender rows g (M, W)."""
+                         ln_scale, ln_bias, keep=None):
+    """K3's math on pre-gathered sender rows g (M, W). `keep`, a dict,
+    receives the intermediates x1 = silu(x0) and y (the LayerNorm's input),
+    each (N_virt, K, B, h)."""
     n_virt, K = mask_p.shape
     M, W = edge_rep.shape
     h = w2.shape[0]
@@ -227,7 +242,11 @@ def _layer_from_gathered(edge_rep, g, rec_rows, mask_p, w_e, b0, w2, b2,
     e = edge_rep.view(n_virt, K, B, h)
     x0 = (e @ w_e + b0 + g.view(n_virt, K, B, h)
           + rec_rows.view(n_virt, 1, B, h))
-    msg = layer_norm(F.silu(x0) @ w2 + b2, ln_scale, ln_bias)
+    x1 = F.silu(x0)
+    y = x1 @ w2 + b2
+    msg = layer_norm(y, ln_scale, ln_bias)
+    if keep is not None:
+        keep.update(x1=x1, y=y)
     return (e + msg).reshape(M, W), _masked_slot_sum(msg, mask_p)
 
 
@@ -296,22 +315,50 @@ def edge_layer_flat_bwd_plain(edge_rep, table, senders, rec_rows, mask_p,
         (d_edge_out, d_virt))
 
 
-def edge_layer_flat_bwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
-                        w2, b2, ln_scale, ln_bias, d_edge_out, d_virt):
-    """Backward of `edge_layer_flat` from d_edge_out (M, W) or None (the
-    last layer's edge state is unused) and d_virt (N_virt, W): (d_edge_rep,
-    d_x0 (M, W) per slot, d_rec_rows, d_w_e, d_b0, d_w2, d_b2, d_ln_scale,
-    d_ln_bias).
+def _layer_pairs(edge_rep, d_x0, x1, dy):
+    """`xtd_sum`'s (X, D) pairs for (d_w2, d_w_e): (X1, DY) from the chain,
+    and edge_rep and d_x0 (M, W) viewed (M*B, h), whose row (v*K + k)*B + b
+    is X1's and DY's: no copy."""
+    h = x1.shape[-1]
+    return [(x1, dy), (edge_rep.reshape(-1, h), d_x0.reshape(-1, h))]
 
-    Replaces pallas_edge_flat.py::_layer_bwd_kernel (via
-    _edge_layer_flat_bwd) and ::_layer_bwd_win_kernel (via
-    edge_layer_flat_win_bwd). Bound by fp32 operations on the card; see
-    csrc/edge_flat_bwd.cu.
-    """
+
+def edge_layer_bwd_chain_plain(edge_rep, table, senders, rec_rows, mask_p,
+                               w_e, b0, w2, b2, ln_scale, ln_bias,
+                               d_edge_out, d_virt):
+    """Plain PyTorch version of `edge_layer_bwd_chain`, by autograd through
+    the plain forward with its intermediates kept."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (
+            edge_rep, table.index_select(0, senders), rec_rows, b0, b2,
+            ln_scale, ln_bias)]
+        e, g, rec, vb0, vb2, vls, vlb = leaves
+        keep = {}
+        outs = _layer_from_gathered(e, g, rec, mask_p, w_e.detach(), vb0,
+                                    w2.detach(), vb2, vls, vlb, keep)
+        pairs = [(o, d) for o, d in zip(outs, (d_edge_out, d_virt))
+                 if d is not None]
+        grads = torch.autograd.grad([o for o, _ in pairs],
+                                    leaves + [keep["y"]],
+                                    [d for _, d in pairs])
+    d_e, d_x0, d_rec, *d_vec, d_y = grads
+    h = w2.shape[0]
+    return (d_e, d_x0, d_rec, tuple(d_vec),
+            _layer_pairs(edge_rep, d_x0, keep["x1"].detach().reshape(-1, h),
+                         d_y.reshape(-1, h)))
+
+
+def edge_layer_bwd_chain(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
+                         w2, b2, ln_scale, ln_bias, d_edge_out, d_virt):
+    """B3/B4's chain pass: (d_edge_rep, d_x0 (M, W) per slot, d_rec_rows,
+    (d_b0, d_b2, d_ln_scale, d_ln_bias), the (X, D) pairs of (d_w2, d_w_e)
+    for `weight_grad.xtd_sum`). `edge_layer_bwd_chain_plain` on a CPU
+    tensor, the chain kernel of csrc/edge_flat_bwd.cu on a CUDA tensor; its
+    launches count on `edge_layer_flat_bwd.launches`."""
     if edge_rep.device.type == "cpu":
-        return edge_layer_flat_bwd_plain(edge_rep, table, senders, rec_rows,
-                                         mask_p, w_e, b0, w2, b2, ln_scale,
-                                         ln_bias, d_edge_out, d_virt)
+        return edge_layer_bwd_chain_plain(edge_rep, table, senders, rec_rows,
+                                          mask_p, w_e, b0, w2, b2, ln_scale,
+                                          ln_bias, d_edge_out, d_virt)
     dev = _build.require_cuda(edge_rep)
     n_virt, K = mask_p.shape
     M, W = edge_rep.shape
@@ -320,10 +367,12 @@ def edge_layer_flat_bwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias,
                         w_e.reshape(-1), b0])
     d_virt = d_virt.contiguous()
+    f32, i32 = torch.float32, torch.int32
     d_x0 = torch.empty_like(edge_rep)
     d_e = torch.empty_like(edge_rep)
     d_rec = torch.empty_like(d_virt)
-    f32, i32 = torch.float32, torch.int32
+    x1 = torch.empty((M * (W // HID), HID), device=dev, dtype=f32)
+    dy = torch.empty_like(x1)
     ptrs = _build.pointers(dev, ("edge_rep", edge_rep, f32),
                            ("table", table, f32), ("senders", senders, i32),
                            ("rec_rows", rec_rows, f32),
@@ -335,15 +384,37 @@ def edge_layer_flat_bwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
         d_edge_out = d_edge_out.contiguous()
         ptrs += _build.pointers(dev, ("d_edge_out", d_edge_out, f32))
     ptrs += _build.pointers(dev, ("d_x0", d_x0, f32), ("d_e", d_e, f32),
-                            ("d_rec", d_rec, f32))
+                            ("d_rec", d_rec, f32), ("x1", x1, f32),
+                            ("dy", dy, f32))
     g = _build.run_bwd(_bwd_lib(), "nlt_edge_layer_bwd", ptrs,
-                       [n_virt, K, W // HID], params.numel(), dev,
+                       [n_virt, K, W // HID], 4 * HID, dev,
                        "edge_layer_flat_bwd")
     edge_layer_flat_bwd.launches += 1
-    HH = HID * HID
-    v = g[HH:HH + 3 * HID].view(3, HID)
-    return (d_e, d_x0, d_rec, g[HH + 3 * HID:2 * HH + 3 * HID].view(HID, HID),
-            g[2 * HH + 3 * HID:], g[:HH].view(HID, HID), v[0], v[1], v[2])
+    d_b2, d_ls, d_lb, d_b0 = g.view(4, HID)
+    return (d_e, d_x0, d_rec, (d_b0, d_b2, d_ls, d_lb),
+            _layer_pairs(edge_rep, d_x0, x1, dy))
+
+
+def edge_layer_flat_bwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
+                        w2, b2, ln_scale, ln_bias, d_edge_out, d_virt):
+    """Backward of `edge_layer_flat` from d_edge_out (M, W) or None (the
+    last layer's edge state is unused) and d_virt (N_virt, W): (d_edge_rep,
+    d_x0 (M, W) per slot, d_rec_rows, d_w_e, d_b0, d_w2, d_b2, d_ln_scale,
+    d_ln_bias).
+
+    Replaces pallas_edge_flat.py::_layer_bwd_kernel (via
+    _edge_layer_flat_bwd) and ::_layer_bwd_win_kernel (via
+    edge_layer_flat_win_bwd), in two passes: the chain
+    (`edge_layer_bwd_chain`, csrc/edge_flat_bwd.cu) and
+    `weight_grad.xtd_sum` (csrc/weight_grad.cu) over the pairs it gives.
+    Both run their plain versions on a CPU tensor and their kernels on a
+    CUDA tensor. Bound by fp32 operations on the card.
+    """
+    d_e, d_x0, d_rec, (d_b0, d_b2, d_ls, d_lb), pairs = edge_layer_bwd_chain(
+        edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2, b2,
+        ln_scale, ln_bias, d_edge_out, d_virt)
+    d_w2, d_w_e = weight_grad.xtd_sum(pairs, XTD_ROWS_PER_BLOCK)
+    return d_e, d_x0, d_rec, d_w_e, d_b0, d_w2, d_b2, d_ls, d_lb
 
 
 class _EdgeLayerFlat(torch.autograd.Function):

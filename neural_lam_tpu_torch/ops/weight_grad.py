@@ -2,11 +2,14 @@
 
 A backward pass whose weight gradients are sums over rows of X (n, 64)
 times D (n, d), d <= 64, writes the pairs out and hands them to `xtd_sum`,
-which computes all of them in one launch of `csrc/weight_grad.cu`. The
-decoder backward (B5/B6, `ops/grid_update.py::grid_update_flat_bwd`) takes
-its nine weight gradients this way; the JAX kernels it replaces
-(pallas_grid_update.py::_grid_update_bwd_kernel, ::_grid_update_win_bwd_kernel)
-sum the same products inside their own bodies.
+which computes all of them in one launch of `csrc/weight_grad.cu`. Two
+callers take their weight gradients this way: the decoder backward (B5/B6,
+`ops/grid_update.py::grid_update_flat_bwd`, nine pairs) and the processor
+edge layer's backward (B3/B4, `ops/edge_flat.py::edge_layer_flat_bwd`, two
+pairs: dW2 and dW_e). The JAX kernels they replace
+(pallas_grid_update.py::_grid_update_bwd_kernel, ::_grid_update_win_bwd_kernel,
+pallas_edge_flat.py::_layer_bwd_kernel, ::_layer_bwd_win_kernel) sum the
+same products inside their own bodies.
 
 Each block of the kernel sums `rows_per_block` rows of one pair into a
 (64, d) partial matrix; the wrapper sums each pair's partials in a fixed
