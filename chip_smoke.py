@@ -12,7 +12,9 @@ result line is printed):
    for the backward sources with two passes or two kernels: B2's and
    B3/B4's kernels of `edge_flat_bwd` apart, the decoder backward's and
    `xtd_sum`'s), and, where the toolkit has `cuobjdump`, the shared-memory
-   loads by width and the FFMAs in the SASS of B3/B4's K=8 chain kernel.
+   loads by width and the FFMAs in the SASS of B3/B4's K=8 chain kernel,
+   of K4's K=4 kernel (`grid_update_kernel<4>`) and of `xtd_sum`'s main
+   kernel (with its tensor-core products, HMMA, and async copies, LDGSTS).
 2. Build the bench-width GraphLAM and HiLAM through
    `neural_lam_tpu_torch.entry` (268x238 grid, 17 state / 6x3 forcing / 4
    static features, hidden 64, 4 processor layers, fp32, weights from a
@@ -21,9 +23,10 @@ result line is printed):
    kernel against its plain PyTorch version on the card (TF32 off), and
    time both with CUDA events beside the least time the card could take.
    K1-K4 at GraphLAM's batch-4 shapes; K3 also at HiLAM's K=1 down[0] and
-   non-identity up[0] sets (batch 4); P1-P3 (the batched route) at
-   HiLAM's batch-1 shapes (P3 on m2m[0], P2 on m2g and g2m, P1 on down[0]
-   with and without messages) and at one batch-4 shape each.
+   non-identity up[0] sets (batch 4), K4 also at HiLAM's batch-4 m2g;
+   P1-P3 (the batched route) at HiLAM's batch-1 shapes (P3 on m2m[0], P2
+   on m2g and g2m, P1 on down[0] with and without messages) and at one
+   batch-4 shape each.
 4. The same for each backward kernel (B1, B2, B3/B4, B5/B6) against its
    `*_bwd_plain` version: every output tensor within 1e-4 + 1e-4 * its
    plain version's max abs; B3/B4 also at HiLAM's K=1 down[0] and folded
@@ -31,10 +34,14 @@ result line is printed):
    kernel and `xtd_sum` (the weight gradients): both passes' device times
    are printed apart, with their sum. `xtd_sum` is also held against
    `xtd_sum_plain` at the decoder's nine pairs and at B3/B4's two (same
-   limit), with `torch.mm(X.t(), D)` over the same pairs timed as its
-   library call, and swept over its rows per block at both (512-8192,
+   limit; two calls must give bit-identical outputs), with
+   `torch.mm(X.t(), D)` over the same pairs timed as its library call,
+   and swept over its blocks per SM at both (1 up to what is resident,
    each value checked against `xtd_sum_plain`, then timed in three
-   interleaved rounds).
+   interleaved rounds); its reduce kernel (`xtd_reduce`) is held against
+   `xtd_reduce_plain` at the decoder's partials, with one `index_add`
+   of the same partials into their pairs' rows timed as its library
+   call.
 5. The forecast paths, each a 4-step rollout through `entry.forecast` with
    every launch counter set to 0 just before it, asserting the launches
    per predict step and finite output; then the time per predict step,
@@ -54,7 +61,8 @@ result line is printed):
 7. The training path at bench width: one AdamW step through
    `entry.train_steps` with every counter set to 0 just before it,
    asserting 1/1/4/1 launches of K1-K4 and of B1/B2/B3/B5, five of
-   `xtd_sum` (the decoder's and one per processor layer), and a finite
+   `xtd_sum`'s main kernel and five of its reduce kernel (the decoder's
+   and one per processor layer), and a finite
    loss; one step's parameter gradients on the
    kernel path against the plain path within 1e-3 * max abs; the
    training-step time (host clock around a synchronised step, median of 7
@@ -76,7 +84,6 @@ import re
 import subprocess
 import sys
 import time
-import types
 
 BENCH = dict(nx=268, ny=238, hidden_dim=64, processor_layers=4,
              n_features={"state": 17, "forcing": 6, "static": 4},
@@ -88,7 +95,7 @@ FWD = ("embed_grid_flat", "edge_tail_sum_flat", "edge_layer_flat",
        "grid_update_flat")
 BATCHED = ("edge_tail", "edge_tail_sum", "edge_layer")  # P1, P2, P3
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
-XTD_ROWS = (512, 1024, 2048, 4096, 5120, 6144, 8192)  # xtd_sum's sweep
+TRAIN_ONLY = ("xtd_sum", "xtd_reduce")  # kernels of the backward alone
 PALLAS_EDGE = "neural_lam_tpu/ops/pallas_edge.py"
 
 
@@ -152,29 +159,51 @@ def unique_nbytes(tensors):
     return nbytes(*{(t.data_ptr(), t.numel()): t for t in tensors}.values())
 
 
-def xtd_sweep(torch, weight_grad, pairs, what, default, rounds=3):
-    """xtd_sum at each of XTD_ROWS rows per block on `pairs` (`what`
-    names them; their caller passes `default`): each held against
+def xtd_sweep(torch, weight_grad, pairs, what, rounds=3):
+    """xtd_sum's two kernels at each count of blocks per SM from 1 up to
+    what is resident, on `pairs` (`what` names them): each held against
     xtd_sum_plain (1e-4 + 1e-4 * max|plain|), then timed in `rounds`
     interleaved rounds (queued, 10 calls each); prints each value's grid,
-    times and median."""
+    segments, times and median."""
+    dev = pairs[0][0].device
+    ns = [x.shape[0] for x, _ in pairs]
+    widths = [d.shape[1] for _, d in pairs]
+    resident = weight_grad._occupancy(dev)[1]
+    values = range(1, resident + 1)
+
+    def run(v):
+        return weight_grad.xtd_reduce(*weight_grad.xtd_partials(
+            pairs, weight_grad.n_blocks(ns, dev, v)), widths)
+
     want = weight_grad.xtd_sum_plain(pairs)
-    for r in XTD_ROWS:
-        got = weight_grad.xtd_sum(pairs, rows_per_block=r)
-        for a, b in zip(got, want):
+    for v in values:
+        for a, b in zip(run(v), want):
             if not bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs().max()).all()):
-                fail(f"xtd_sum at {r} rows per block disagrees with plain")
-    times = {r: [] for r in XTD_ROWS}
+                fail(f"xtd_sum at {v} blocks per SM disagrees with plain")
+    times = {v: [] for v in values}
     for _ in range(rounds):
-        for r in XTD_ROWS:
-            times[r].append(cuda_ms(torch, lambda: weight_grad.xtd_sum(
-                pairs, rows_per_block=r), 10))
-    print(f"xtd_sum rows per block at {what} (their caller's: {default}; "
-          f"{rounds} interleaved rounds, ms):")
-    for r, ts in times.items():
-        blocks = sum(max(1, -(-x.shape[0] // r)) for x, _ in pairs)
-        print(f"  {r}: {blocks} blocks; {', '.join(f'{t:.4f}' for t in ts)}"
-              f"; median {sorted(ts)[len(ts) // 2]:.4f}")
+        for v in values:
+            times[v].append(cuda_ms(torch, lambda: run(v), 10))
+    print(f"xtd_sum blocks per SM at {what} (shipped: "
+          f"{weight_grad.BLOCKS_PER_SM}; {resident} resident; {rounds} "
+          "interleaved rounds, ms):")
+    for v, ts in times.items():
+        blocks = weight_grad.n_blocks(ns, dev, v)
+        n_seg = len(weight_grad.segments(ns, blocks))
+        print(f"  {v}: {blocks} blocks, {n_seg} segments; "
+              f"{', '.join(f'{t:.4f}' for t in ts)}; median "
+              f"{sorted(ts)[len(ts) // 2]:.4f}")
+
+
+def read_yardstick(torch, pairs, what):
+    """The card's read rate on xtd_sum's bytes at `pairs`: one torch.sum
+    per distinct tensor, timed queued (10 rounds)."""
+    distinct = list({(t.data_ptr(), t.numel()): t
+                     for p in pairs for t in p}.values())
+    ms = cuda_ms(torch, lambda: [t.sum() for t in distinct], 10)
+    print(f"read yardstick at {what}: torch.sum over its {len(distinct)} "
+          f"distinct tensors ({nbytes(*distinct) / 1e6:.1f} MB) {ms:.4f} ms, "
+          f"{nbytes(*distinct) / ms / 1e9:.3f} TB/s")
 
 
 def kernel_name(mangled):
@@ -189,9 +218,10 @@ def kernel_name(mangled):
 
 
 def sass_counts(_build, lib, fn_part):
-    """Shared-memory loads by width (LDS, LDS.64, LDS.128) and FFMAs in the
-    SASS of the kernel of `lib` whose mangled name holds `fn_part`, read
-    with the toolkit's cuobjdump; says so where there is none."""
+    """Shared-memory loads by width (LDS, LDS.64, LDS.128), FFMAs,
+    tensor-core products (HMMA) and async copies to shared memory (LDGSTS)
+    in the SASS of the kernel of `lib` whose mangled name holds `fn_part`,
+    read with the toolkit's cuobjdump; says so where there is none."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         print(f"  SASS of {fn_part}: no cuobjdump beside nvcc")
@@ -201,7 +231,8 @@ def sass_counts(_build, lib, fn_part):
                           timeout=120).stdout
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         if fn_part in part.split("\n", 1)[0]:
-            ops = re.findall(r"\b(LDS(?:\.U)?(?:\.\d+)?|FFMA)\b", part)
+            ops = re.findall(r"\b(LDS(?:\.U)?(?:\.\d+)?|FFMA"
+                             r"|HMMA(?:\.\w+)*|LDGSTS(?:\.\w+)*)\b", part)
             n = {k: ops.count(k) for k in sorted(set(ops))}
             print(f"  SASS of {kernel_name(part.split()[0])}: {n}")
             return
@@ -291,6 +322,7 @@ def main():
     mods.update({k: edge for k in BATCHED})
     wrappers.update({k: getattr(edge, k) for k in BATCHED})
     wrappers["xtd_sum"] = weight_grad.xtd_sum
+    wrappers["xtd_reduce"] = weight_grad.xtd_reduce
 
     def reset_counts():
         for w in wrappers.values():
@@ -332,6 +364,8 @@ def main():
                 print(f"    {kernel_name(fn)}: {used}; "
                       f"{spill or 'no spill line'}")
     sass_counts(_build, libs["edge_flat_bwd"], "edge_layer_bwd_kernelILi8E")
+    sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4E")
+    sass_counts(_build, libs["weight_grad"], "xtd_sum_kernel")
 
     # 2. the bench-width models
     t0 = time.time()
@@ -442,6 +476,21 @@ def main():
     in4 = nbytes(*a4[:5], *pp.values())
     cases.append(("grid_update_flat", grid_update, a4, f"{pgu}:174",
                   in4 + n_virt * BATCH * d_out * 4, node_flops + edge_flops4))
+    # K4 at HiLAM's batch-4 m2g
+    hm2g = hg.m2g
+    h_pp = {k: v.detach() for k, v in
+            grid_update.pack_grid_update_params(hilam).items()}
+    h_mask = hm2g.mask.view(hm2g.num_virt, hm2g.dense_k)
+    h_a4 = (rand(hm2g.num_send, W), hm2g.senders,
+            rand(hm2g.num_virt * hm2g.dense_k, H),
+            rand(hilam.graph.num_grid_nodes, W), h_mask, h_pp)
+    cases.append(("grid_update_flat", grid_update, h_a4,
+                  f"{pgu}:174 (HiLAM m2g, K={hm2g.dense_k}, "
+                  f"{hm2g.num_virt} rows, B=4)",
+                  nbytes(*h_a4[:5], *h_pp.values())
+                  + hm2g.num_virt * BATCH * d_out * 4,
+                  2.0 * hm2g.num_virt * BATCH * (7 * H * H + H * d_out)
+                  + 2.0 * float(h_mask.sum()) * BATCH * H * H))
     a5 = a4 + (rand(n_virt, BATCH * d_out),)
     cases.append(("grid_update_flat_bwd", grid_update, a5, f"{pgu}:752",
                   in4 + nbytes(a5[-1]) + n_virt * K * (W + H) * 4
@@ -460,18 +509,33 @@ def main():
     b3_pairs = edge_flat.edge_layer_bwd_chain(*b3_args)[4]
     torch.cuda.synchronize()
     b3_label = f"{pef}:846 (B3/B4's two pairs at m2m[0])"
-    # as edge_layer_flat_bwd calls it: at its rows per block
-    b3_xtd = types.SimpleNamespace(
-        __file__=weight_grad.__file__,
-        xtd_sum_plain=weight_grad.xtd_sum_plain,
-        xtd_sum=lambda pairs: weight_grad.xtd_sum(
-            pairs, edge_flat.XTD_ROWS_PER_BLOCK))
-    cases.append(("xtd_sum", b3_xtd, (b3_pairs,), b3_label,
+    cases.append(("xtd_sum", weight_grad, (b3_pairs,), b3_label,
                   unique_nbytes([t for p in b3_pairs for t in p])
                   + 2 * H * H * 4,
                   sum(2.0 * x.shape[0] * H * H for x, _ in b3_pairs)))
     library = {"xtd_sum": lambda pairs: [torch.mm(x.t(), d)
                                          for x, d in pairs]}
+    # xtd_sum's reduce kernel at the decoder's partials
+    partial, pair_first = weight_grad.xtd_partials(
+        xtd_pairs, weight_grad.n_blocks([x.shape[0] for x, _ in xtd_pairs],
+                                        xtd_pairs[0][0].device))
+    widths = [d.shape[1] for _, d in xtd_pairs]
+    red_elems = sum((b - a) * H * w for a, b, w
+                    in zip(pair_first, pair_first[1:], widths))
+    cases.append(("xtd_reduce", weight_grad, (partial, pair_first, widths),
+                  f"{pgu}:752 (the decoder's {pair_first[-1]} partials)",
+                  4 * (red_elems + H * sum(widths)), float(red_elems)))
+    # its library call: every pair's segments added into the pair's row in
+    # one call (over all 64*64 columns of a partial; a pair's result is its
+    # first 64*d). torch.segment_reduce computes the same sums but waits
+    # for the card on every call, so it cannot be timed queued.
+    seg_pair = torch.repeat_interleave(
+        torch.arange(len(widths), device="cuda"),
+        torch.tensor([b - a for a, b in zip(pair_first, pair_first[1:])],
+                     device="cuda"))
+    red_zeros = torch.zeros(len(widths), H * H, device="cuda")
+    library["xtd_reduce"] = lambda partial, pair_first, widths: (
+        red_zeros.index_add(0, seg_pair, partial[:pair_first[-1]]))
 
     # K3 and B3/B4 at HiLAM's new shapes: K=1 (down[0]) and a virtual-row
     # fold (up[0])
@@ -550,7 +614,11 @@ def main():
                 got = got[:-1] + tuple(got[-1][k] for k in sorted(got[-1]))
                 want = want[:-1] + tuple(want[-1][k] for k in sorted(want[-1]))
             err = 0.0
-            bwd = kname.endswith("_bwd") or kname == "xtd_sum"
+            bwd = kname.endswith("_bwd") or kname in TRAIN_ONLY
+            if kname == "xtd_sum":
+                again = kern(*args)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"xtd_sum at {replaces}: two calls differ")
             for i, (a, b) in enumerate(zip(got, want)):
                 if a is None and b is None:
                     continue
@@ -612,11 +680,13 @@ def main():
             print(f"{what} in two passes: chain {chain_ms:.4f} ms + xtd_sum "
                   f"{xtd_ms:.4f} ms = {chain_ms + xtd_ms:.4f} ms (device "
                   "time, queued)")
-        xtd_sweep(torch, weight_grad, b3_pairs, "B3/B4's two pairs (m2m[0])",
-                  edge_flat.XTD_ROWS_PER_BLOCK)
-        xtd_sweep(torch, weight_grad, xtd_pairs, "the decoder's nine pairs",
-                  weight_grad.ROWS_PER_BLOCK)
-    del cases, args, a4, a5, k1, xtd_pairs, b3_args, b3_pairs
+        print("xtd_sum's outputs: two calls bit-identical at both callers")
+        read_yardstick(torch, xtd_pairs, "the decoder's pairs")
+        read_yardstick(torch, b3_pairs, "B3/B4's pairs")
+        xtd_sweep(torch, weight_grad, b3_pairs, "B3/B4's two pairs (m2m[0])")
+        xtd_sweep(torch, weight_grad, xtd_pairs, "the decoder's nine pairs")
+    del cases, args, a4, a5, h_a4, h_pp, h_mask, hm2g, k1, xtd_pairs
+    del b3_args, b3_pairs, partial, library, seg_pair, red_zeros
     torch.cuda.empty_cache()
 
     # 5. the forecast paths
@@ -643,7 +713,8 @@ def main():
               f"finite; launches per step "
               f"{ {k: got[k] / STEPS for k in want} }")
         if any(got[k] != want[k] * STEPS for k in want) or any(
-                got[k + "_bwd"] for k in FWD) or got["xtd_sum"]:
+                got[k + "_bwd"] for k in FWD) or any(
+                    got[k] for k in TRAIN_ONLY):
             fail(f"{what}: launch counts {got}, want {want} per step and "
                  "no backward launch")
 
@@ -741,7 +812,7 @@ def main():
     train_counts = counts()
     want_train = dict(zero, **want, **{k + "_bwd": n
                                         for k, n in want.items()},
-                      xtd_sum=1 + L)
+                      xtd_sum=1 + L, xtd_reduce=1 + L)
     print(f"training step: loss {losses[0]:.6f}; launches {train_counts}")
     if not all(map(math.isfinite, losses)):
         fail(f"training loss is not finite: {losses}")
@@ -750,7 +821,7 @@ def main():
     for rec in records:
         n = rec["name"]
         rec["launches"] = (train_counts[n]
-                           if n.endswith("_bwd") or n == "xtd_sum"
+                           if n.endswith("_bwd") or n in TRAIN_ONLY
                            else p_counts[n] if n in BATCHED
                            else fwd_counts[n])
 
@@ -781,6 +852,7 @@ def main():
         torch.cuda.synchronize()
         if i == 2:
             torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         trainer.train_step(batch)
         torch.cuda.synchronize()
@@ -791,7 +863,8 @@ def main():
     print(f"train step (fwd+bwd+AdamW, ar_steps 1, batch {BATCH}): "
           f"{ms_train:.3f} ms (median of 7 after 2 warm-up steps); "
           f"{4000 / ms_train:.2f} samples/s; peak device memory "
-          f"{peak / 2**30:.3f} GiB (max_memory_allocated over one step)")
+          f"{peak / 2**30:.3f} GiB (max_memory_allocated over one step; "
+          f"{live / 2**30:.3f} GiB live before it)")
     profile(torch, lambda: trainer.train_step(batch), "train step")
     del trainer, dm, batch, model
     torch.cuda.empty_cache()

@@ -98,22 +98,32 @@ static cudaError_t nlt_allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The current device's SM count and the blocks of `kernel` that can be
+// resident on one SM. Raises the shared-memory limit too.
+template <typename Kernel>
+static cudaError_t nlt_occupancy(Kernel kernel, int threads, size_t smem,
+                                 int* sms, int* per_sm) {
+  cudaError_t err = nlt_allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  return *per_sm < 1 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
 // Grid size for a grid-stride kernel: enough blocks for `blocks_needed`,
 // capped at what can be resident at once, so each block loads its
 // parameters into shared memory once. Raises the shared-memory limit too.
 template <typename Kernel>
 static cudaError_t nlt_launch_config(Kernel kernel, int threads, size_t smem,
                                      long long blocks_needed, int* grid) {
-  cudaError_t err = nlt_allow_smem(kernel, smem);
+  int sms = 0, per_sm = 0;
+  cudaError_t err = nlt_occupancy(kernel, threads, smem, &sms, &per_sm);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long cap = (long long)sms * per_sm;
   long long g = blocks_needed < cap ? blocks_needed : cap;
   *grid = (int)(g < 1 ? 1 : g);

@@ -1,4 +1,4 @@
-// Weight gradients as X^T D for a list of (X, D) pairs, in one launch.
+// Weight gradients as X^T D for a list of (X, D) pairs, in two launches.
 //
 // X is (n, 64) and D (n, d) with d <= 64, both row-major in device memory;
 // each pair's result is the (64, d) sum over its rows of x^T d. Written for
@@ -12,118 +12,371 @@
 // neural_lam_tpu/ops/pallas_edge_flat.py::_layer_bwd_kernel :846 and
 // ::_layer_bwd_win_kernel :1093.
 //
-// Design. The pairs' rows are cut into runs of `rows_per_block` rows; one
-// block of 256 threads sums one run of one pair (the pair of a block is
-// looked up in `first`, the prefix count of blocks per pair, so a pair of
-// 4x the rows gets 4x the blocks). It stages 32 rows of X and D in shared
-// memory with 16-byte loads (D narrower than 64 by single loads, padded
-// with zeros), and each thread adds their products into the 4x4 tile of
-// the 64x64 result it owns, in registers, across the whole run
-// (`nlt_tile_acc`). Each block writes its (64, d) partial matrix once; the
-// caller sums each pair's partials in a fixed order (no float atomics).
-// Bound (fp32 CUDA cores, the decoder's pairs at bench shapes): bytes --
-// every row of X and D is read once, ~1.5 GB, against ~24 GFLOP.
-#include "bwd_common.cuh"
+// Bound (the decoder's pairs at bench shapes): bytes -- every row of X and
+// D is read once, ~1.4 GB, against ~24 GFLOP. On CUDA cores the FMAs alone
+// would take 0.35 ms at the H100's fp32 peak, near the bytes' time, so the
+// products run on tensor cores; what is left is the rate at which the
+// blocks stream their rows (chip_smoke.py times a plain read of the same
+// tensors beside the kernel).
+//
+// Design.
+// - Even split. A persistent grid of (SMs x resident blocks) blocks; the
+//   pairs' rows, laid end to end, are cut into one even, contiguous share
+//   per block. A share that crosses a pair boundary is cut into segments,
+//   one per (block, pair); the caller builds the segment list
+//   (ops/weight_grad.py::segments) and each segment writes one (64, d)
+//   partial matrix.
+// - Async ring. A block stages kTile rows of X and D at a time in a ring of
+//   kStages shared-memory stages filled with cp.async (16-byte copies that
+//   bypass L1; 4-byte copies for a D row that is not a multiple of 16
+//   bytes), so the loads of the next stages overlap the products of this
+//   one. Rows past a segment's end are filled with zeros.
+// - Products on tensor cores in 3xTF32: `mma.sync` m16n8k8 TF32 with fp32
+//   accumulators, each operand split into big = tf32(x) and small =
+//   tf32(x - big), and big*big + big*small + small*big summed, which keeps
+//   fp32 accuracy (one TF32 product keeps ~3 digits). The result is A^T B
+//   with A(i, r) = X[r, i] read column-wise from the staged X: each of the
+//   8 warps owns a 32x32 quarter of the 64x64 result over half of each
+//   staged tile's rows, so that each split fragment feeds four (A) or two
+//   (B) products, and skips the 8-column tiles at or past d; the two warps
+//   of a quarter add their sums once per segment. The staged rows are
+//   padded to 72 floats, so the fragment reads (lane g = lane/4, t =
+//   lane%4 at row t, column g) hit 32 distinct banks. A tile's products
+//   are summed in fresh accumulators and added to the segment's sums in
+//   fp32 (see xtd_sum_kernel). With 64 accumulators a lane the kernel
+//   takes 128 registers: two blocks, 16 warps, per SM.
+// - A second kernel sums each pair's partials in segment order (no float
+//   atomics: the same inputs give bit-identical outputs).
+#include <cstdint>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kMaxPairs = 16;
-constexpr int kThreads = 256;
-constexpr int kTile = 32;  // rows staged per step
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kNq = 4;           // 8-column tiles of a warp's 32 columns
+constexpr int kTile = 32;        // rows per stage
+constexpr int kStages = 4;       // ring depth
+constexpr int kLd = NLT_H + 8;   // padded row stride of a staged tile
+constexpr int kStage = 2 * kTile * kLd;  // floats per stage (X, then D)
 constexpr int HH = NLT_H * NLT_H;
+constexpr size_t kSmem = sizeof(float) * kStages * kStage;
 
 struct Pairs {
   const float* x[kMaxPairs];
   const float* d[kMaxPairs];
-  long long n[kMaxPairs];  // rows of pair p
-  int dw[kMaxPairs];       // D's width
-  int first[kMaxPairs + 1];  // blocks of pair p: first[p] .. first[p+1]-1
-  int n_pairs;
-  long long rows_per_block;
+  int dw[kMaxPairs];  // D's width
 };
 
-__global__ void __launch_bounds__(kThreads)
-    xtd_sum_kernel(const Pairs pp, float* __restrict__ partial) {
-  __shared__ __align__(16) float xs[kTile * NLT_H];
-  __shared__ __align__(16) float ds[kTile * NLT_H];
-  int p = 0;
-  while (p + 1 < pp.n_pairs && (int)blockIdx.x >= pp.first[p + 1]) ++p;
-  const int tid = threadIdx.x, ti = tid >> 4, tj = tid & 15;
-  const int dw = pp.dw[p];
-  const float* __restrict__ X = pp.x[p];
-  const float* __restrict__ D = pp.d[p];
-  const long long r0 =
-      (long long)(blockIdx.x - pp.first[p]) * pp.rows_per_block;
-  const long long r1 =
-      r0 + pp.rows_per_block < pp.n[p] ? r0 + pp.rows_per_block : pp.n[p];
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  float acc[16];
-#pragma unroll
-  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;  // 0: zero-fill
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
 
-  for (long long r = r0; r < r1; r += kTile) {
-    const int rows = (int)(r1 - r < kTile ? r1 - r : kTile);
-    // 16 float4 per 64-wide row: thread i stages float4 (i & 15) of row i/16
-    for (int i = tid; i < kTile * NLT_H / 4; i += kThreads) {
-      const int rr = i >> 4, c = 4 * (i & 15);
-      float4 xv = zero4, dv = zero4;
-      if (rr < rows) {
-        const long long row = r + rr;
-        xv = __ldcs(reinterpret_cast<const float4*>(X + row * NLT_H + c));
-        if (dw == NLT_H) {
-          dv = __ldcs(reinterpret_cast<const float4*>(D + row * NLT_H + c));
-        } else {
-          const float* drow = D + row * dw;
-          dv.x = c < dw ? drow[c] : 0.f;
-          dv.y = c + 1 < dw ? drow[c + 1] : 0.f;
-          dv.z = c + 2 < dw ? drow[c + 2] : 0.f;
-          dv.w = c + 3 < dw ? drow[c + 3] : 0.f;
-        }
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage rows [r, r + kTile) of X and D (rows at or past r1 as zeros).
+__device__ __forceinline__ void load_tile(float* st, const float* X,
+                                          const float* D, int dw,
+                                          long long r, long long r1) {
+  const int tid = threadIdx.x;
+  float* xs = st;
+  float* ds = st + kTile * kLd;
+#pragma unroll
+  for (int i = tid; i < kTile * NLT_H / 4; i += kThreads) {
+    const int rr = i >> 4, c = 4 * (i & 15);
+    const bool ok = r + rr < r1;
+    const long long row = ok ? r + rr : r;
+    cp_async16(xs + rr * kLd + c, X + row * NLT_H + c, ok);
+  }
+  if ((dw & 3) == 0) {
+    const int q = dw >> 2;  // 16-byte chunks per D row
+    for (int i = tid; i < kTile * q; i += kThreads) {
+      const int rr = i / q, c = 4 * (i - rr * q);
+      const bool ok = r + rr < r1;
+      const long long row = ok ? r + rr : r;
+      cp_async16(ds + rr * kLd + c, D + row * dw + c, ok);
+    }
+  } else {
+    for (int i = tid; i < kTile * dw; i += kThreads) {
+      const int rr = i / dw, c = i - rr * dw;
+      const bool ok = r + rr < r1;
+      const long long row = ok ? r + rr : r;
+      cp_async4(ds + rr * kLd + c, D + row * dw + c, ok);
+    }
+  }
+}
+
+// x = big + small, both TF32 (round to nearest, ties away from zero).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n"
+      : "=r"(small)
+      : "f"(x - __uint_as_float(big)));
+}
+
+// c += a b for a 16x8 TF32 A fragment, an 8x8 B fragment, fp32 C.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c[m][q] += the 16x8 tile (32*mi + 16*m .., 32*ni + 8*q ..) of X^T D over
+// rows kk0 .. kk0+15 of the staged tile, m < 2, q < NQ, in 3xTF32; a
+// template on NQ so that the products are straight-line code that the
+// compiler can interleave (each term's products go to 2*NQ independent
+// accumulators). Fragments (g = lane/4, t = lane%4): A (16x8, A(i, r) =
+// X[r, i0 + i]): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
+// B (8x8, B(r, j) = D[r, j0 + j]): b0 (t, g), b1 (t+4, g); C: c0 (g, 2t),
+// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
+template <int NQ>
+__device__ __forceinline__ void tile_mma(const float* st, int mi, int ni,
+                                         int kk0, int lane,
+                                         float (&c)[2][kNq][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* xs = st + (kk0 + t) * kLd + 32 * mi + g;
+  const float* ds = st + kTile * kLd + (kk0 + t) * kLd + 32 * ni + g;
+#pragma unroll
+  for (int kk = 0; kk < kTile / 2; kk += 8) {
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float* x0 = xs + kk * kLd + 16 * m;
+      const float* x1 = x0 + 4 * kLd;
+      split_tf32(x0[0], ab[m][0], as[m][0]);
+      split_tf32(x0[8], ab[m][1], as[m][1]);
+      split_tf32(x1[0], ab[m][2], as[m][2]);
+      split_tf32(x1[8], ab[m][3], as[m][3]);
+    }
+    const float* d0 = ds + kk * kLd;
+    const float* d1 = d0 + 4 * kLd;
+    uint32_t bb[NQ][2], bs[NQ][2];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      split_tf32(d0[8 * q], bb[q][0], bs[q][0]);
+      split_tf32(d1[8 * q], bb[q][1], bs[q][1]);
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        mma_tf32(c[m][q], as[m], bb[q][0], bb[q][1]);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        mma_tf32(c[m][q], ab[m], bs[q][0], bs[q][1]);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+        mma_tf32(c[m][q], ab[m], bb[q][0], bb[q][1]);
+  }
+}
+
+// seg: (n_seg, 3) int64 rows (pair, first row, end row); block b sums the
+// segments block_first[b] .. block_first[b+1]-1 and writes segment s's
+// (64, d) partial row-major at partial + s*HH. Warp w owns the 32x32
+// quarter (w/2 % 2, w % 2) of the result over rows 16*(w/4) .. of each
+// staged tile; the two warps of a quarter add their sums at the end of a
+// segment.
+__global__ void __launch_bounds__(kThreads, 2)
+    xtd_sum_kernel(const Pairs pp, const long long* __restrict__ seg,
+                   const int* __restrict__ block_first,
+                   float* __restrict__ partial) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mi = (warp >> 1) & 1, ni = warp & 1, kg = warp >> 2;
+  const int s_end = block_first[blockIdx.x + 1];
+  for (int s = block_first[blockIdx.x]; s < s_end; ++s) {
+    const int p = (int)seg[3 * s];
+    const long long r0 = seg[3 * s + 1], r1 = seg[3 * s + 2];
+    const float* __restrict__ X = pp.x[p];
+    const float* __restrict__ D = pp.d[p];
+    const int dw = pp.dw[p];
+    const int n_tiles = (int)((r1 - r0 + kTile - 1) / kTile);
+    // this warp's 8-column tiles that hold columns < dw
+    const int nq = min(kNq, max(0, (dw + 7) / 8 - kNq * ni));
+    float acc[2][kNq][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int q = 0; q < kNq; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][q][e] = 0.f;
+
+#pragma unroll
+    for (int t = 0; t < kStages - 1; ++t) {
+      if (t < n_tiles)
+        load_tile(smem + t * kStage, X, D, dw, r0 + (long long)t * kTile, r1);
+      cp_async_commit();
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+      cp_async_wait<kStages - 2>();  // tile t has landed (this thread's part)
+      __syncthreads();  // ... everyone's; and tile t-1's stage is free
+      const int nt = t + kStages - 1;
+      if (nt < n_tiles)
+        load_tile(smem + (nt % kStages) * kStage, X, D, dw,
+                  r0 + (long long)nt * kTile, r1);
+      cp_async_commit();
+      // The tile's products go to fresh tensor-core accumulators, added to
+      // acc in fp32: summed in the tensor cores' accumulators over a whole
+      // segment, the products of the decoder's pairs drifted past phase
+      // 4's limit (chip_smoke.py).
+      float c[2][kNq][4] = {};
+      const float* st = smem + (t % kStages) * kStage;
+      const int kk0 = kg * (kTile / 2);
+      switch (nq) {
+        case 4: tile_mma<4>(st, mi, ni, kk0, lane, c); break;
+        case 3: tile_mma<3>(st, mi, ni, kk0, lane, c); break;
+        case 2: tile_mma<2>(st, mi, ni, kk0, lane, c); break;
+        case 1: tile_mma<1>(st, mi, ni, kk0, lane, c); break;
+        default: break;
       }
-      *reinterpret_cast<float4*>(xs + rr * NLT_H + c) = xv;
-      *reinterpret_cast<float4*>(ds + rr * NLT_H + c) = dv;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int q = 0; q < kNq; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][q][e] += c[m][q][e];
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the stages are free: stage 0 takes the k-group sums
+    float* red = smem + (warp & 3) * (2 * kNq * 4 * 32) + lane;
+    if (kg == 1) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int q = 0; q < kNq; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) red[((m * kNq + q) * 4 + e) * 32] =
+              acc[m][q][e];
     }
     __syncthreads();
-    nlt_tile_acc(xs, NLT_H, ds, NLT_H, rows, ti, tj, acc);
-    __syncthreads();
+    if (kg == 0) {
+      float* dst = partial + (size_t)s * HH;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int i = 32 * mi + 16 * m + (lane >> 2);
+#pragma unroll
+        for (int q = 0; q < kNq; ++q) {
+          const int j = 32 * ni + 8 * q + 2 * (lane & 3);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int jj = j + (e & 1);
+            const float v = acc[m][q][e] + red[((m * kNq + q) * 4 + e) * 32];
+            if (jj < dw) dst[(i + 8 * (e >> 1)) * dw + jj] = v;
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next segment's loads overwrite the stages
   }
-  nlt_tile_store(partial + (size_t)blockIdx.x * HH, NLT_H, dw, ti, tj, acc);
+}
+
+struct Reduce {
+  int first[kMaxPairs + 1];  // pair p's segments: first[p] .. first[p+1]-1
+  int off[kMaxPairs];        // pair p's (64, d) result at out + off[p]
+  int dw[kMaxPairs];
+};
+
+// out[off[p] + e] = sum over pair p's segments s, in order, of
+// partial[s*HH + e], for e < 64*d. Grid (HH / 256, n_pairs).
+__global__ void __launch_bounds__(256)
+    xtd_reduce_kernel(const Reduce rr, const float* __restrict__ partial,
+                      float* __restrict__ out) {
+  const int p = blockIdx.y;
+  const int e = blockIdx.x * 256 + threadIdx.x;
+  if (e >= NLT_H * rr.dw[p]) return;
+  float acc = 0.f;
+  for (int s = rr.first[p]; s < rr.first[p + 1]; ++s)
+    acc += partial[(size_t)s * HH + e];
+  out[rr.off[p] + e] = acc;
 }
 
 }  // namespace
 
-// X^T D for n_pairs pairs: xs[p], ds[p] device pointers (16-byte aligned),
-// ns[p] rows, dws[p] in 1..64 the width of D; first[0..n_pairs] the prefix
-// count of blocks per pair (pair p's rows cut into runs of rows_per_block,
-// a multiple of 32). partial: (first[n_pairs], 64*64); block i writes its
-// (64, d) partial matrix row-major at the start of row i.
-extern "C" int nlt_xtd_sum(const long long* xs, const long long* ds,
-                           const long long* ns, const int* dws,
-                           const int* first, int n_pairs,
-                           long long rows_per_block, float* partial,
-                           int device, void* stream) {
+// Resident blocks of xtd_sum_kernel per SM, and the SM count.
+extern "C" int nlt_xtd_sum_occupancy(int device, int* sms, int* per_sm) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n_pairs < 1 || n_pairs > kMaxPairs || rows_per_block < kTile ||
-      rows_per_block % kTile != 0 || first[0] != 0)
+  return (int)nlt_occupancy(xtd_sum_kernel, kThreads, kSmem, sms, per_sm);
+}
+
+// X^T D partial sums for n_pairs pairs: xs[p], ds[p] device pointers (X
+// 16-byte aligned; D 16-byte aligned when d % 4 == 0, else 4-byte), dws[p]
+// in 1..64 the width of D; seg (n_seg, 3) and block_first (n_blocks + 1)
+// device arrays from ops/weight_grad.py::segments. partial: (n_seg, 64*64).
+extern "C" int nlt_xtd_sum(const long long* xs, const long long* ds,
+                           const int* dws, int n_pairs, const long long* seg,
+                           const int* block_first, int n_blocks,
+                           float* partial, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_pairs < 1 || n_pairs > kMaxPairs || n_blocks < 1)
     return (int)cudaErrorInvalidValue;
   Pairs pp;
-  pp.n_pairs = n_pairs;
-  pp.rows_per_block = rows_per_block;
-  pp.first[0] = 0;
   for (int p = 0; p < n_pairs; ++p) {
-    const long long blocks = (ns[p] + rows_per_block - 1) / rows_per_block;
-    if (ns[p] < 0 || dws[p] < 1 || dws[p] > NLT_H ||
-        first[p + 1] - first[p] != (blocks > 1 ? blocks : 1) ||
-        (xs[p] & 15) != 0 || (ds[p] & 15) != 0)
+    const int align = dws[p] % 4 == 0 ? 15 : 3;
+    if (dws[p] < 1 || dws[p] > NLT_H || (xs[p] & 15) != 0 ||
+        (ds[p] & align) != 0)
       return (int)cudaErrorInvalidValue;
     pp.x[p] = reinterpret_cast<const float*>(xs[p]);
     pp.d[p] = reinterpret_cast<const float*>(ds[p]);
-    pp.n[p] = ns[p];
     pp.dw[p] = dws[p];
-    pp.first[p + 1] = first[p + 1];
   }
-  xtd_sum_kernel<<<first[n_pairs], kThreads, 0, (cudaStream_t)stream>>>(
-      pp, partial);
+  if ((err = nlt_allow_smem(xtd_sum_kernel, kSmem)) != cudaSuccess)
+    return (int)err;
+  xtd_sum_kernel<<<n_blocks, kThreads, kSmem, (cudaStream_t)stream>>>(
+      pp, seg, block_first, partial);
+  return (int)cudaGetLastError();
+}
+
+// Each pair's sum of its segments' partials: first[0..n_pairs] the prefix
+// count of segments per pair (host array), dws[p] D's width; out holds the
+// (64, dws[p]) results one after another, row-major.
+extern "C" int nlt_xtd_reduce(const float* partial, const int* first,
+                              const int* dws, int n_pairs, float* out,
+                              int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_pairs < 1 || n_pairs > kMaxPairs || first[0] != 0)
+    return (int)cudaErrorInvalidValue;
+  Reduce rr;
+  int off = 0;
+  rr.first[0] = 0;
+  for (int p = 0; p < n_pairs; ++p) {
+    if (dws[p] < 1 || dws[p] > NLT_H || first[p + 1] < first[p])
+      return (int)cudaErrorInvalidValue;
+    rr.first[p + 1] = first[p + 1];
+    rr.off[p] = off;
+    rr.dw[p] = dws[p];
+    off += NLT_H * dws[p];
+  }
+  xtd_reduce_kernel<<<dim3(HH / 256, n_pairs), 256, 0,
+                      (cudaStream_t)stream>>>(rr, partial, out);
   return (int)cudaGetLastError();
 }

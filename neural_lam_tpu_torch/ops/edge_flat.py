@@ -22,10 +22,11 @@ The edge layer's backward (B3/B4) runs in two passes: a chain pass
 (`edge_layer_bwd_chain`) computes the cotangents and the vector gradients
 and writes X1 = silu(x0) and DY (the LayerNorm input's gradient) to a
 scratch; then `weight_grad.xtd_sum` sums dW2 = X1^T DY and dW_e = edge^T
-d_x0 over every slot and batch element, in one launch. B2 takes its weight
-gradient inside its kernel. `<wrapper>.launches` counts kernel launches
-(B3/B4's chain on `edge_layer_flat_bwd.launches`, its weight-gradient pass
-on `weight_grad.xtd_sum.launches`).
+d_x0 over every slot and batch element, in two launches. B2 takes its
+weight gradient inside its kernel. `<wrapper>.launches` counts kernel
+launches (B3/B4's chain on `edge_layer_flat_bwd.launches`, its
+weight-gradient pass on `weight_grad.xtd_sum.launches` and
+`weight_grad.xtd_reduce.launches`).
 """
 
 from __future__ import annotations
@@ -37,11 +38,6 @@ from . import _build, weight_grad
 from .mlp import grads_through, layer_norm
 
 HID = 64  # hidden width the CUDA kernels are written for
-# `xtd_sum`'s rows per block for B3/B4's two pairs. chip_smoke.py's sweep
-# at m2m[0] (2 x 237,568 rows), NVIDIA H100 80GB HBM3, 700 W: 1024 rows
-# (464 blocks) 0.1677 ms, 512 0.1742, 2048 (232 blocks, under two per
-# SM) 0.2172, each the median of three rounds within 0.2% of each other.
-XTD_ROWS_PER_BLOCK = 1024
 
 _P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {
@@ -413,7 +409,7 @@ def edge_layer_flat_bwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
     d_e, d_x0, d_rec, (d_b0, d_b2, d_ls, d_lb), pairs = edge_layer_bwd_chain(
         edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2, b2,
         ln_scale, ln_bias, d_edge_out, d_virt)
-    d_w2, d_w_e = weight_grad.xtd_sum(pairs, XTD_ROWS_PER_BLOCK)
+    d_w2, d_w_e = weight_grad.xtd_sum(pairs)
     return d_e, d_x0, d_rec, d_w_e, d_b0, d_w2, d_b2, d_ls, d_lb
 
 

@@ -2,7 +2,7 @@
 
 A backward pass whose weight gradients are sums over rows of X (n, 64)
 times D (n, d), d <= 64, writes the pairs out and hands them to `xtd_sum`,
-which computes all of them in one launch of `csrc/weight_grad.cu`. Two
+which computes all of them in two launches of `csrc/weight_grad.cu`. Two
 callers take their weight gradients this way: the decoder backward (B5/B6,
 `ops/grid_update.py::grid_update_flat_bwd`, nine pairs) and the processor
 edge layer's backward (B3/B4, `ops/edge_flat.py::edge_layer_flat_bwd`, two
@@ -11,10 +11,13 @@ pairs: dW2 and dW_e). The JAX kernels they replace
 pallas_edge_flat.py::_layer_bwd_kernel, ::_layer_bwd_win_kernel) sum the
 same products inside their own bodies.
 
-Each block of the kernel sums `rows_per_block` rows of one pair into a
-(64, d) partial matrix; the wrapper sums each pair's partials in a fixed
-order (no float atomics), so a run repeats itself bit for bit.
-`xtd_sum.launches` counts kernel launches.
+The pairs' rows, end to end, are cut into one even share per block of a
+persistent grid (`BLOCKS_PER_SM` blocks on each SM); `segments` cuts each
+share at the pair boundaries, and each segment's (64, d) partial matrix is
+written apart (`xtd_partials`, the main kernel). `xtd_reduce` (a second,
+small kernel) sums each pair's partials in segment order: no float
+atomics, so a run repeats itself bit for bit. `xtd_sum.launches` counts
+the main kernel's launches, `xtd_reduce.launches` the reduce kernel's.
 """
 
 from __future__ import annotations
@@ -27,16 +30,20 @@ from . import _build
 
 HID = 64
 MAX_PAIRS = 16  # csrc/weight_grad.cu's kMaxPairs
-TILE = 32  # csrc/weight_grad.cu's kTile: rows staged per step
-# A multiple of TILE. chip_smoke.py sweeps 1024-8192 at the decoder's
-# pairs: 2048 and 6144 were fastest; 2048 runs several waves of blocks,
-# so its tail stays short at other row counts too.
-ROWS_PER_BLOCK = 2048
+TILE = 32  # csrc/weight_grad.cu's kTile: rows per stage of the ring
+# Blocks of the persistent grid per SM (capped at what is resident).
+BLOCKS_PER_SM = 2
 
 _LLP = ctypes.POINTER(_build.LL)
 _IP = _build.IP
-_SIGNATURES = {"nlt_xtd_sum": [_LLP, _LLP, _LLP, _IP, _IP, _build.I,
-                               _build.LL, _build.P, _build.I, _build.P]}
+_P, _I = _build.P, _build.I
+_SIGNATURES = {
+    "nlt_xtd_sum": [_LLP, _LLP, _IP, _I, _P, _P, _I, _P, _I, _P],
+    "nlt_xtd_reduce": [_P, _IP, _IP, _I, _P, _I, _P],
+    "nlt_xtd_sum_occupancy": [_I, _IP, _IP],
+}
+_OCCUPANCY: dict[int, tuple[int, int]] = {}  # device -> (SMs, blocks per SM)
+_SEGMENTS: dict[tuple, tuple] = {}  # (rows, blocks, device) -> tensors
 
 
 def _lib():
@@ -48,52 +55,182 @@ def xtd_sum_plain(pairs):
     return tuple(x.t() @ d for x, d in pairs)
 
 
-def _check(pairs, rows_per_block):
+def segments(ns, n_blocks):
+    """The segment list of `n_blocks` blocks over pairs of ns[p] rows:
+    [(block, pair, first row, end row)], rows within the pair, end
+    exclusive. The pairs' rows laid end to end are cut into even,
+    contiguous shares (block b takes rows b*T//n_blocks up to
+    (b+1)*T//n_blocks of the T in all), and each share at the pair
+    boundaries; empty segments are left out. In block order, and within a
+    block in row order, so each pair's segments are consecutive."""
+    total = sum(ns)
+    starts = [0]
+    for n in ns:
+        starts.append(starts[-1] + n)
+    out = []
+    p = 0
+    for b in range(n_blocks):
+        lo, hi = b * total // n_blocks, (b + 1) * total // n_blocks
+        while lo < hi:
+            while starts[p + 1] <= lo:
+                p += 1
+            end = min(hi, starts[p + 1])
+            out.append((b, p, lo - starts[p], end - starts[p]))
+            lo = end
+    return out
+
+
+def _occupancy(dev):
+    """(SMs, resident blocks of the main kernel per SM) of `dev`, asked of
+    the library once per device."""
+    occ = _OCCUPANCY.get(dev.index)
+    if occ is None:
+        lib = _lib()
+        sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(lib, lib.nlt_xtd_sum_occupancy(
+            dev.index, ctypes.byref(sms), ctypes.byref(per_sm)), "xtd_sum")
+        occ = _OCCUPANCY[dev.index] = (sms.value, per_sm.value)
+    return occ
+
+
+def n_blocks(ns, dev, per_sm=BLOCKS_PER_SM):
+    """Blocks of the persistent grid for pairs of ns[p] rows: SMs x
+    min(per_sm, resident blocks per SM), and no more than one per TILE
+    rows. `xtd_sum` takes BLOCKS_PER_SM; chip_smoke.py sweeps `per_sm`."""
+    sms, resident = _occupancy(dev)
+    return max(1, min(sms * min(per_sm, resident), -(-sum(ns) // TILE)))
+
+
+def _segment_tensors(ns, blocks, dev):
+    """(seg (n_seg, 3) int64 on `dev`: pair, first row, end row;
+    block_first (blocks + 1) int32 on `dev`; pair_first, the prefix count
+    of segments per pair), built once per row counts and grid."""
+    key = (tuple(ns), blocks, dev.index)
+    got = _SEGMENTS.get(key)
+    if got is None:
+        segs = segments(ns, blocks)
+        block_first = [0] * (blocks + 1)
+        for b, _, _, _ in segs:
+            block_first[b + 1] += 1
+        for i in range(blocks):
+            block_first[i + 1] += block_first[i]
+        seg = torch.tensor([s[1:] for s in segs] or [[0, 0, 0]],
+                           dtype=torch.int64).to(dev)
+        got = _SEGMENTS[key] = (
+            seg, torch.tensor(block_first, dtype=torch.int32).to(dev),
+            _pair_first(segs, len(ns)))
+    return got
+
+
+def _check(pairs, blocks):
     _build.expect(1 <= len(pairs) <= MAX_PAIRS, "number of pairs", len(pairs))
-    _build.expect(rows_per_block >= TILE and rows_per_block % TILE == 0,
-                  "rows per block", rows_per_block)
+    _build.expect(blocks >= 1, "blocks", blocks)
     for i, (x, d) in enumerate(pairs):
         _build.expect(x.dim() == 2 and x.shape[1] == HID, f"X[{i}]",
                       tuple(x.shape))
         _build.expect(d.dim() == 2 and d.shape[0] == x.shape[0]
                       and 1 <= d.shape[1] <= HID, f"D[{i}]", tuple(d.shape))
-        for name, t in (("X", x), ("D", d)):
-            _build.expect(t.data_ptr() % 16 == 0, f"{name}[{i}] alignment",
-                          t.data_ptr())
+        _build.expect(x.data_ptr() % 16 == 0, f"X[{i}] alignment",
+                      x.data_ptr())
+        align = 16 if d.shape[1] % 4 == 0 else 4
+        _build.expect(d.data_ptr() % align == 0, f"D[{i}] alignment",
+                      d.data_ptr())
 
 
-def xtd_sum(pairs, rows_per_block=ROWS_PER_BLOCK):
+def _pair_first(segs, n_pairs):
+    """The prefix count of segments per pair."""
+    first = [0] * (n_pairs + 1)
+    for _, p, _, _ in segs:
+        first[p + 1] += 1
+    for i in range(n_pairs):
+        first[i + 1] += first[i]
+    return first
+
+
+def xtd_partials_plain(pairs, blocks):
+    """Plain PyTorch version of `xtd_partials`."""
+    segs = segments([x.shape[0] for x, _ in pairs], blocks)
+    partial = pairs[0][0].new_zeros((max(1, len(segs)), HID * HID))
+    for s, (_, p, lo, hi) in enumerate(segs):
+        x, d = pairs[p]
+        partial[s, :HID * d.shape[1]] = (x[lo:hi].t() @ d[lo:hi]).reshape(-1)
+    return partial, _pair_first(segs, len(pairs))
+
+
+def xtd_partials(pairs, blocks):
+    """The main kernel over `blocks` blocks (`segments`): (partial (n_seg,
+    64*64), whose row s holds segment s's (64, d) partial matrix
+    row-major; pair_first, the prefix count of segments per pair)."""
+    if pairs[0][0].device.type == "cpu":
+        return xtd_partials_plain(pairs, blocks)
+    dev = _build.require_cuda(pairs[0][0])
+    _check(pairs, blocks)
+    f32 = torch.float32
+    ptrs = _build.pointers(dev, *((f"{n}[{i}]", t, f32)
+                                  for i, p in enumerate(pairs)
+                                  for n, t in zip("XD", p)))
+    ns = [x.shape[0] for x, _ in pairs]
+    seg, block_first, pair_first = _segment_tensors(ns, blocks, dev)
+    partial = torch.empty((max(1, pair_first[-1]), HID * HID), device=dev,
+                          dtype=f32)
+    if pair_first[-1]:
+        n = len(pairs)
+        lib = _lib()
+        rc = lib.nlt_xtd_sum(
+            (_build.LL * n)(*ptrs[0::2]), (_build.LL * n)(*ptrs[1::2]),
+            (ctypes.c_int * n)(*(d.shape[1] for _, d in pairs)), n,
+            seg.data_ptr(), block_first.data_ptr(), blocks,
+            partial.data_ptr(), dev.index, _build.stream_of(dev))
+        _build.check(lib, rc, "xtd_sum")
+        xtd_sum.launches += 1
+    return partial, pair_first
+
+
+def xtd_reduce_plain(partial, pair_first, widths):
+    """Plain PyTorch version of `xtd_reduce`."""
+    return tuple(partial[a:b, :HID * d].sum(dim=0).view(HID, d)
+                 for a, b, d in zip(pair_first, pair_first[1:], widths))
+
+
+def xtd_reduce(partial, pair_first, widths):
+    """Each pair's (64, d) sum of its segments' partials (rows
+    pair_first[p] .. pair_first[p+1]-1 of `partial`), in segment order, in
+    one launch on a CUDA tensor."""
+    if partial.device.type == "cpu":
+        return xtd_reduce_plain(partial, pair_first, widths)
+    dev = _build.require_cuda(partial)
+    n = len(widths)
+    _build.expect(len(pair_first) == n + 1 and pair_first[0] == 0
+                  and partial.shape[0] >= pair_first[-1]
+                  and partial.shape[1] == HID * HID, "partial",
+                  (tuple(partial.shape), pair_first))
+    (ptr,) = _build.pointers(dev, ("partial", partial, torch.float32))
+    out = torch.empty(HID * sum(widths), device=dev, dtype=torch.float32)
+    lib = _lib()
+    rc = lib.nlt_xtd_reduce(ptr, (ctypes.c_int * (n + 1))(*pair_first),
+                            (ctypes.c_int * n)(*widths), n, out.data_ptr(),
+                            dev.index, _build.stream_of(dev))
+    _build.check(lib, rc, "xtd_reduce")
+    xtd_reduce.launches += 1
+    return tuple(m.view(HID, d)
+                 for m, d in zip(out.split([HID * d for d in widths]), widths))
+
+
+def xtd_sum(pairs):
     """X^T @ D, summed over the rows, for each (X (n, 64), D (n, d)) pair
-    with 1 <= d <= 64: a tuple of (64, d) matrices, one launch for all
-    pairs on a CUDA device, each block summing `rows_per_block` rows.
+    with 1 <= d <= 64: a tuple of (64, d) matrices. On a CUDA device two
+    launches for all pairs (`xtd_partials` over `n_blocks` blocks, then
+    `xtd_reduce`).
 
     Bound by the bytes of the pairs on the card (each row of X and D read
     once); see csrc/weight_grad.cu."""
     x0 = pairs[0][0]
     if x0.device.type == "cpu":
         return xtd_sum_plain(pairs)
-    dev = _build.require_cuda(x0)
-    _check(pairs, rows_per_block)
-    f32 = torch.float32
-    ptrs = _build.pointers(dev, *((f"{n}[{i}]", t, f32)
-                                  for i, p in enumerate(pairs)
-                                  for n, t in zip("XD", p)))
-    first = [0]
-    for x, _ in pairs:
-        first.append(first[-1] + max(1, -(-x.shape[0] // rows_per_block)))
-    n = len(pairs)
-    partial = torch.empty((first[-1], HID * HID), device=dev, dtype=f32)
-    lib = _lib()
-    rc = lib.nlt_xtd_sum(
-        (_build.LL * n)(*ptrs[0::2]), (_build.LL * n)(*ptrs[1::2]),
-        (_build.LL * n)(*(x.shape[0] for x, _ in pairs)),
-        (ctypes.c_int * n)(*(d.shape[1] for _, d in pairs)),
-        (ctypes.c_int * (n + 1))(*first), n, rows_per_block,
-        partial.data_ptr(), dev.index, _build.stream_of(dev))
-    _build.check(lib, rc, "xtd_sum")
-    xtd_sum.launches += 1
-    return tuple(partial[a:b, :HID * d.shape[1]].sum(dim=0).view(HID, -1)
-                 for (_, d), a, b in zip(pairs, first, first[1:]))
+    blocks = n_blocks([x.shape[0] for x, _ in pairs], _build.require_cuda(x0))
+    partial, pair_first = xtd_partials(pairs, blocks)
+    return xtd_reduce(partial, pair_first, [d.shape[1] for _, d in pairs])
 
 
 xtd_sum.launches = 0
+xtd_reduce.launches = 0
