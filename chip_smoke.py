@@ -10,33 +10,39 @@ result line is printed):
    with nvcc (one process per source, all started together); print the
    build time and each source's ptxas registers and spills (per kernel
    for the backward sources with two passes or two kernels: B2's and
-   B3/B4's kernels of `edge_flat_bwd` apart, the decoder backward's and
-   `xtd_sum`'s), and, where the toolkit has `cuobjdump`, the shared-memory
-   loads by width and the FFMAs in the SASS of B3/B4's K=8 chain kernel,
-   of K4's K=4 kernel (`grid_update_kernel<4>`) and of `xtd_sum`'s main
-   kernel (with its tensor-core products, HMMA, and async copies, LDGSTS).
+   B3/B4's chain kernels of `edge_flat_bwd` per K, the decoder backward's
+   and `xtd_sum`'s), and, where the toolkit has `cuobjdump`, the
+   shared-memory loads by width, the FFMAs, the tensor-core products
+   (HMMA) and the async copies (LDGSTS) in the SASS of B3/B4's K=8 chain
+   kernel, of K3's and K2's K=8 kernels, of K4's K=4 kernel
+   (`grid_update_kernel<4>`) and of `xtd_sum`'s main kernel.
 2. Build the bench-width GraphLAM and HiLAM through
    `neural_lam_tpu_torch.entry` (268x238 grid, 17 state / 6x3 forcing / 4
    static features, hidden 64, 4 processor layers, fp32, weights from a
    seeded generator; HiLAM on the 4-level hierarchical graph).
 3. For each forward kernel, at the shapes those models give it: hold the
    kernel against its plain PyTorch version on the card (TF32 off), and
-   time both with CUDA events beside the least time the card could take.
+   time both with CUDA events beside the least time the card could take
+   (for K3, whose products run on tensor cores in 3xTF32, max(bytes, 3 x
+   FLOP / TF32 peak), with its fp32 CUDA-core bound printed beside it, and
+   two `torch.mm` calls for its two products as its library time).
    K1-K4 at GraphLAM's batch-4 shapes; K3 also at HiLAM's K=1 down[0] and
-   non-identity up[0] sets (batch 4), K4 also at HiLAM's batch-4 m2g;
+   non-identity up[0] sets (batch 4) and at K=3 on a seeded local graph (a
+   K that does not divide its 16-row tiles), K4 also at HiLAM's batch-4
+   m2g;
    P1-P3 (the batched route) at HiLAM's batch-1 shapes (P3 on m2m[0], P2
    on m2g and g2m, P1 on down[0] with and without messages) and at one
    batch-4 shape each.
 4. The same for each backward kernel (B1, B2, B3/B4, B5/B6) against its
    `*_bwd_plain` version: every output tensor within 1e-4 + 1e-4 * its
    plain version's max abs; B3/B4 also at HiLAM's K=1 down[0] and folded
-   up[0] sets (batch 4). B3/B4 and B5/B6 run in two passes, a chain
+   up[0] sets (batch 4). B2, B3/B4 and B5/B6 run in two passes, a chain
    kernel and `xtd_sum` (the weight gradients): both passes' device times
    are printed apart, with their sum. `xtd_sum` is also held against
-   `xtd_sum_plain` at the decoder's nine pairs and at B3/B4's two (same
-   limit; two calls must give bit-identical outputs), with
+   `xtd_sum_plain` at the decoder's nine pairs, at B3/B4's two and at
+   B2's one (same limit; two calls must give bit-identical outputs), with
    `torch.mm(X.t(), D)` over the same pairs timed as its library call,
-   and swept over its blocks per SM at both (1 up to what is resident,
+   and swept over its blocks per SM at all three (1 up to what is resident,
    each value checked against `xtd_sum_plain`, then timed in three
    interleaved rounds); its reduce kernel (`xtd_reduce`) is held against
    `xtd_reduce_plain` at the decoder's partials, with one `index_add`
@@ -60,9 +66,9 @@ result line is printed):
    1 and 2.
 7. The training path at bench width: one AdamW step through
    `entry.train_steps` with every counter set to 0 just before it,
-   asserting 1/1/4/1 launches of K1-K4 and of B1/B2/B3/B5, five of
-   `xtd_sum`'s main kernel and five of its reduce kernel (the decoder's
-   and one per processor layer), and a finite
+   asserting 1/1/4/1 launches of K1-K4 and of B1/B2/B3/B5, six of
+   `xtd_sum`'s main kernel and six of its reduce kernel (the decoder's,
+   B2's and one per processor layer), and a finite
    loss; one step's parameter gradients on the
    kernel path against the plain path within 1e-3 * max abs; the
    training-step time (host clock around a synchronised step, median of 7
@@ -112,13 +118,17 @@ def smi_line():
 
 
 def peaks(device_name):
-    """(fp32 FLOP/s without tensor cores, memory bytes/s, label) from the
-    data sheet of the named card."""
+    """(fp32 FLOP/s without tensor cores, TF32 FLOP/s on tensor cores
+    (dense), memory bytes/s, label) from the data sheet of the named
+    card."""
     if "H100" in device_name and "PCIe" in device_name:
-        return 51.2e12, 2.0e12, "H100 PCIe: 51.2 TFLOP/s fp32, 2.0 TB/s"
+        return (51.2e12, 378e12, 2.0e12,
+                "H100 PCIe: 51.2 TFLOP/s fp32, 378 TFLOP/s TF32, 2.0 TB/s")
     if "H100" in device_name and "NVL" in device_name:
-        return 60e12, 3.9e12, "H100 NVL: 60 TFLOP/s fp32, 3.9 TB/s"
-    return 67e12, 3.35e12, "H100 SXM: 67 TFLOP/s fp32, 3.35 TB/s"
+        return (60e12, 417.5e12, 3.9e12,
+                "H100 NVL: 60 TFLOP/s fp32, 417.5 TFLOP/s TF32, 3.9 TB/s")
+    return (67e12, 495e12, 3.35e12,
+            "H100 SXM: 67 TFLOP/s fp32, 495 TFLOP/s TF32, 3.35 TB/s")
 
 
 def cuda_ms(torch, fn, reps, queued=True):
@@ -212,7 +222,7 @@ def kernel_name(mangled):
     m = re.search(r"\d+([a-z]\w*?_kernel)(?:ILi(\d+)E)?", mangled)
     if not m:
         return mangled[:60]
-    tag = {"edge_tail_bwd_kernel": "B2 ",
+    tag = {"edge_tail_bwd_kernel": "B2 chain ",
            "edge_layer_bwd_kernel": "B3/B4 chain "}.get(m.group(1), "")
     return f"{tag}{m.group(1)}" + (f"<{m.group(2)}>" if m.group(2) else "")
 
@@ -295,6 +305,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
     from neural_lam_tpu_torch import entry
     from neural_lam_tpu_torch.ops import (
         _build,
@@ -305,13 +317,14 @@ def main():
         message_passing,
         weight_grad,
     )
+    from neural_lam_tpu_torch.ops.message_passing import EdgeSet
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     print(smi)
     name = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw, peak_label = peaks(name)
+    peak_flops, peak_tf32, peak_bw, peak_label = peaks(name)
     print(f"device: {name}; peaks used for bounds: {peak_label}")
     mods = {"embed_grid_flat": embed, "edge_tail_sum_flat": edge_flat,
             "edge_layer_flat": edge_flat, "grid_update_flat": grid_update}
@@ -355,7 +368,8 @@ def main():
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
         print(f"  ptxas[{src}]: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {sum(spills)} bytes of spill stores and loads")
-        if src in ("edge_flat_bwd", "grid_update_bwd", "weight_grad"):
+        if src in ("edge_flat", "edge_flat_bwd", "grid_update_bwd",
+                   "weight_grad"):
             for fn, info in sorted(re.findall(
                     r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
                     r"registers[^\n]*)", log, re.S)):
@@ -364,6 +378,8 @@ def main():
                 print(f"    {kernel_name(fn)}: {used}; "
                       f"{spill or 'no spill line'}")
     sass_counts(_build, libs["edge_flat_bwd"], "edge_layer_bwd_kernelILi8E")
+    sass_counts(_build, libs["edge_flat"], "edge_layer_tc_kernelILi8E")  # K3
+    sass_counts(_build, libs["edge_flat"], "edge_tail_kernelILi8E")  # K2
     sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4E")
     sass_counts(_build, libs["weight_grad"], "xtd_sum_kernel")
 
@@ -449,8 +465,9 @@ def main():
         fwd_bytes = nbytes(*args) + n_virt * W * 4
         fwd_flops = 2.0 * real * BATCH * H * H
         bwd_args = args + (rand(n_virt, W),)
+        # the chain's scratch (X1, DY: (M*B, 64) each) written once
         bwd_bytes = (nbytes(*bwd_args) + M * (W + H) * 4 + n_virt * W * 4
-                     + nbytes(*tail))
+                     + nbytes(*tail) + 2 * M * W * 4)
         return ((args, fwd_bytes, fwd_flops),
                 (bwd_args, bwd_bytes, 3 * fwd_flops))
 
@@ -463,6 +480,8 @@ def main():
         cases.append((kname, edge_flat, a, f"{pef}:{lines[0]}", b, f))
         cases.append((kname + "_bwd", edge_flat, ab, f"{pef}:{lines[1]}",
                       bb, bf))
+        if not layer:
+            b2_args = ab  # B2 at g2m
     b3_args = ab  # B3/B4 at m2m[0]
 
     n_virt, K = m2g.num_virt, m2g.dense_k
@@ -513,8 +532,21 @@ def main():
                   unique_nbytes([t for p in b3_pairs for t in p])
                   + 2 * H * H * 4,
                   sum(2.0 * x.shape[0] * H * H for x, _ in b3_pairs)))
+    # B2's weight-gradient pass at the pair its chain pass gives
+    b2_pairs = edge_flat.edge_tail_bwd_chain(*b2_args)[4]
+    torch.cuda.synchronize()
+    b2_label = f"{pef}:526 (B2's pair at g2m)"
+    cases.append(("xtd_sum", weight_grad, (b2_pairs,), b2_label,
+                  unique_nbytes([t for p in b2_pairs for t in p])
+                  + H * H * 4,
+                  sum(2.0 * x.shape[0] * H * H for x, _ in b2_pairs)))
     library = {"xtd_sum": lambda pairs: [torch.mm(x.t(), d)
                                          for x, d in pairs]}
+    # K3's two products (edge @ W_e, x1 @ W2) as two torch.mm calls on
+    # (M*B, 64) rows: its library time "for its products"
+    library["edge_layer_flat"] = lambda edge_rep, table, senders, rec, mask, \
+        w_e, b0, w2, *rest: (torch.mm(edge_rep.view(-1, H), w_e),
+                             torch.mm(edge_rep.view(-1, H), w2))
     # xtd_sum's reduce kernel at the decoder's partials
     partial, pair_first = weight_grad.xtd_partials(
         xtd_pairs, weight_grad.n_blocks([x.shape[0] for x, _ in xtd_pairs],
@@ -548,6 +580,23 @@ def main():
                       b, f))
         cases.append(("edge_layer_flat_bwd", edge_flat, ab,
                       f"{pef}:846 ({at})", bb, bf))
+
+    # K3 at a slot count that does not divide its 16-row tiles: K = 3 on a
+    # seeded local graph (each of 20,000 receivers takes 3 senders near it
+    # among 6,561), the processor's first layer's weights
+    rng = np.random.default_rng(0)
+    n_rec3, n_send3 = 20000, 6561
+    centre = (np.arange(n_rec3) * n_send3 // n_rec3)[:, None]
+    send3 = np.clip(centre + rng.integers(-4, 5, (n_rec3, 3)), 0,
+                    n_send3 - 1).reshape(-1)
+    k3_set = EdgeSet.from_local(
+        send3, np.repeat(np.arange(n_rec3), 3),
+        rng.standard_normal((3 * n_rec3, 3)).astype(np.float32), n_send3,
+        n_rec3, device="cuda", build_transpose=False)
+    a, b, f = edge_cases(k3_set, model.processor[0], True)[0]
+    cases.append(("edge_layer_flat", edge_flat, a,
+                  f"{pef}:727 (local graph K={k3_set.dense_k}, "
+                  f"{k3_set.num_virt} rows, B=4)", b, f))
 
     def batched_case(kind, edges, inet, B, with_messages=False):
         """Args, bytes and FLOPs of one P-kernel call on `edges` at batch
@@ -639,6 +688,13 @@ def main():
                       if kname in library else None)
             t_bytes = bytes_ / peak_bw * 1e3
             t_ops = flops / peak_flops * 1e3
+            fp32_note = ""
+            if kname == "edge_layer_flat":
+                # K3's products run on tensor cores in 3xTF32: three TF32
+                # products per term; its fp32 CUDA-core bound printed too
+                fp32_note = (f"; fp32 CUDA-core bound "
+                             f"{max(t_bytes, t_ops):.4f} ms")
+                t_ops = 3 * flops / peak_tf32 * 1e3
             bound_ms = max(t_bytes, t_ops)
             case_ms[kname, replaces] = ms
             rule = ("1e-4 + 1e-4*max|plain| per tensor" if bwd
@@ -650,7 +706,7 @@ def main():
                   f"ms), plain {plain_ms:.4f} ms, library "
                   f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                   f"{bound_ms:.4f} ms ({bytes_ / 1e6:.1f} MB, "
-                  f"{flops / 1e9:.2f} GFLOP)")
+                  f"{flops / 1e9:.2f} GFLOP){fp32_note}")
             if kname in main_p and replaces != main_p[kname]:
                 continue
             if any(r["name"] == kname for r in records):
@@ -668,9 +724,11 @@ def main():
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib_ms,
             })
-        # B3/B4's and B5/B6's two passes apart (xtd_sum's time from its
-        # case above)
+        # B2's, B3/B4's and B5/B6's two passes apart (xtd_sum's time from
+        # its case above)
         for what, chain, chain_args, xtd_at in (
+                ("edge_tail_sum_flat_bwd", edge_flat.edge_tail_bwd_chain,
+                 b2_args, b2_label),
                 ("edge_layer_flat_bwd", edge_flat.edge_layer_bwd_chain,
                  b3_args, b3_label),
                 ("grid_update_flat_bwd", grid_update.grid_update_bwd_chain,
@@ -680,13 +738,17 @@ def main():
             print(f"{what} in two passes: chain {chain_ms:.4f} ms + xtd_sum "
                   f"{xtd_ms:.4f} ms = {chain_ms + xtd_ms:.4f} ms (device "
                   "time, queued)")
-        print("xtd_sum's outputs: two calls bit-identical at both callers")
+        print("xtd_sum's outputs: two calls bit-identical at its three "
+              "callers")
         read_yardstick(torch, xtd_pairs, "the decoder's pairs")
         read_yardstick(torch, b3_pairs, "B3/B4's pairs")
+        read_yardstick(torch, b2_pairs, "B2's pair")
+        xtd_sweep(torch, weight_grad, b2_pairs, "B2's pair (g2m)")
         xtd_sweep(torch, weight_grad, b3_pairs, "B3/B4's two pairs (m2m[0])")
         xtd_sweep(torch, weight_grad, xtd_pairs, "the decoder's nine pairs")
     del cases, args, a4, a5, h_a4, h_pp, h_mask, hm2g, k1, xtd_pairs
-    del b3_args, b3_pairs, partial, library, seg_pair, red_zeros
+    del b3_args, b3_pairs, b2_args, b2_pairs, partial, library, seg_pair
+    del red_zeros, k3_set, a
     torch.cuda.empty_cache()
 
     # 5. the forecast paths
@@ -812,7 +874,7 @@ def main():
     train_counts = counts()
     want_train = dict(zero, **want, **{k + "_bwd": n
                                         for k, n in want.items()},
-                      xtd_sum=1 + L, xtd_reduce=1 + L)
+                      xtd_sum=2 + L, xtd_reduce=2 + L)
     print(f"training step: loss {losses[0]:.6f}; launches {train_counts}")
     if not all(map(math.isfinite, losses)):
         fail(f"training loss is not finite: {losses}")

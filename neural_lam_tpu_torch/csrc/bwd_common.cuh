@@ -10,12 +10,12 @@
 // Weight gradients dW = X^T dY sum over every row a kernel visits. Blocks
 // run in no order, so no sum is carried from one block to the next. Two
 // ways to take them:
-// - in the kernel (B1, B2): a block stages the rows of one step (X and dY,
+// - in the kernel (B1): a block stages the rows of one step (X and dY,
 //   64 wide) in shared memory, and every thread adds the rows' products
 //   into the 4x4 tile of dW it owns (256 threads own the 256 tiles of a
 //   64x64 matrix); at the end each block writes its partial sums to its
 //   own row of a (blocks, params) scratch;
-// - in a second pass (B3/B4, B5/B6): the kernel writes the (X, dY) row
+// - in a second pass (B2, B3/B4, B5/B6): the kernel writes the (X, dY) row
 //   pairs to a scratch in device memory (or names rows it already has,
 //   as B3's dW_e pair (edge_rep, d_x0)), and csrc/weight_grad.cu
 //   (`xtd_sum`) sums X^T dY over all of them in one launch, each block
@@ -31,9 +31,6 @@
 #pragma once
 
 #include "common.cuh"
-
-// X(K) for each slot count the K-templated kernels are instantiated for.
-#define NLT_FOR_K(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
 
 __device__ __forceinline__ float nlt_silu_grad(float x) {
   const float s = 1.0f / (1.0f + expf(-x));

@@ -14,6 +14,9 @@
 
 #define NLT_H 64
 
+// X(K) for each slot count the K-templated kernels are instantiated for.
+#define NLT_FOR_K(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
 constexpr float NLT_LN_EPS = 1e-5f;
 
 __device__ __forceinline__ float nlt_silu(float x) {

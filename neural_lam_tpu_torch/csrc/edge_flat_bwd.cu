@@ -25,48 +25,61 @@
 //   B3: dW_e = sum edge^T d_x0, db0 = sum d_x0.
 //
 // In both, one warp owns one virtual row v and walks its batch elements,
-// so the per-slot sum over b (d_ew) and over k (d_rec) are register sums,
+// so the per-slot sum over b (d_ew, kept in the warp's shared memory) and
+// over k (d_rec, in registers) need no other warp,
 // and the vector gradients are summed per block (`nlt_block_vec_sums`)
 // into a row of a (blocks, n) scratch that the caller sums in a fixed
 // order (no float atomics). W2 (and W_e) sit in shared memory as given and
 // transposed, so the backward products read them as the forward does.
 //
-// B2 takes its weight gradient dW2 in the kernel: after each batch element
-// the block's rows (8 warps x K of them) are staged in shared memory and
-// each thread adds their products into the 4x4 tile of dW2 it owns, in
-// registers; each block writes its partial dW2 once, beside its vector sums.
-//
-// B3/B4 runs in two passes. This kernel is the chain pass: it writes X1 =
-// silu(x0) and DY = d_y to a scratch, each (M*B, 64) with row
+// Both run in two passes. These kernels are the chain passes: each writes
+// X1 = silu(x0) and DY = d_y to a scratch, each (M*B, 64) with row
 // (v*K + k)*B + b, and the weight-gradient pass (csrc/weight_grad.cu,
-// `xtd_sum`) sums dW2 = X1^T DY and dW_e = edge^T d_x0 (edge_rep and d_x0
-// viewed (M*B, 64) have that row order as they are). So the chain has no
-// block-wide step after its weight load: each warp stages only its own
-// rows, in two K x 64 buffers that its four products take in turn, and
-// walks its rows on its own. Bound (fp32 CUDA cores, bench shapes):
-// operations -- four 64x64 products per slot and batch element, plus the
-// scratch's two (M*B, 64) tensors written once.
+// `xtd_sum`) sums dW2 = X1^T DY and, for B3, dW_e = edge^T d_x0
+// (edge_rep and d_x0 viewed (M*B, 64) have that row order as they are).
+// So a chain has no block-wide step after its weight load: each warp
+// stages only its own rows, in two K x 64 buffers that its products take
+// in turn, and walks its rows on its own; warps per block are set by K
+// (`layer_warps`), one block per SM. Bound (fp32 CUDA cores, bench
+// shapes): operations -- two (B2) or four (B3) 64x64 products per slot
+// and batch element, plus the scratch's two (M*B, 64) tensors written
+// once. What holds the chains is the shared-memory traffic of
+// `nlt_mm64`: a weight load and input broadcasts per k for few FFMAs.
 #include "bwd_common.cuh"
 
 namespace {
 
 constexpr int HH = NLT_H * NLT_H;
 
-// ---------------------------------------------------------------- B2 ----
-
-constexpr int kTailWarps = 8;  // warps per block, one virtual row each
-
-// Parameter blob (floats): w2[64*64] | b2 | ls | lb
-constexpr int kTailParams = HH + 3 * NLT_H;
-
+// Warps per block of both chain kernels: as many as the registers allow,
+// one block per SM. ptxas of B3/B4's chain, unbounded (256 threads a
+// block): 56, 71, 90, 106, 118, 129, 145 and 161 registers at K = 1..8; a
+// block of 32, 24 and 16 warps caps them at 64, 80 and 128. B2's chain
+// needs fewer (chip_smoke.py prints both per K).
 template <int K>
-constexpr int tail_smem_floats() {
-  return nlt_round4(kTailParams) + HH + 2 * kTailWarps * K * NLT_H +
-         kTailWarps * 3 * NLT_H;
+__host__ __device__ constexpr int layer_warps() {
+  return K == 1 ? 32 : K == 2 ? 24 : 16;
 }
 
+// ------------------------------------------------------ B2's chain pass ----
+
+// Parameter blob (floats), as csrc/edge_flat.cu's K2 reads it:
+//   w2[64*64] | b2 | ls | lb
+// Shared memory: w2 | w2^T | the vectors | per warp two K x 64 staging
+// buffers and a K x 64 buffer of its row's d_ew sums over b (in registers
+// they spill at K = 7 and 8). The block's vector sums come out in this
+// order:
+enum { T_B2, T_LS, T_LB, N_TAIL_VEC };
+
 template <int K>
-__global__ void __launch_bounds__(kTailWarps * 32, 1)
+__host__ __device__ constexpr size_t tail_smem_floats() {
+  return 2 * HH + N_TAIL_VEC * NLT_H + (size_t)layer_warps<K>() * 3 * K * NLT_H;
+}
+static_assert(32 * N_TAIL_VEC * NLT_H <= 2 * HH,
+              "the vector sums reuse the weight region");
+
+template <int K>
+__global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
     edge_tail_bwd_kernel(const float* __restrict__ table,
                          const int* __restrict__ senders,
                          const float* __restrict__ ew,
@@ -75,43 +88,49 @@ __global__ void __launch_bounds__(kTailWarps * 32, 1)
                          const float* __restrict__ params,
                          const float* __restrict__ d_virt,
                          float* __restrict__ d_x0, float* __restrict__ d_ew,
-                         float* __restrict__ d_rec, float* __restrict__ partial,
-                         int n_virt, int B) {
+                         float* __restrict__ d_rec,
+                         float* __restrict__ x1_s,  // (M*B, 64)
+                         float* __restrict__ dy_s,  // (M*B, 64)
+                         float* __restrict__ partial, int n_virt, int B) {
+  constexpr int kWarps = layer_warps<K>();
+  static_assert(sizeof(float) * tail_smem_floats<K>() <= 232448,
+                "shared memory of a block");
   extern __shared__ __align__(16) float smem[];
-  constexpr int kSlots = kTailWarps * K;  // staged rows per step
-  nlt_load_params(smem, params, kTailParams);
-  const float* w2 = smem;
-  const float* b2 = w2 + HH;
-  const float* ls = b2 + NLT_H;
-  float* w2t = smem + nlt_round4(kTailParams);
-  float* x1s = w2t + HH;  // (kSlots, 64) each
-  float* dx2s = x1s + kSlots * NLT_H;
-  float* red = dx2s + kSlots * NLT_H;
+  float* w2 = smem;
+  float* w2t = w2 + HH;
+  float* vec = w2t + HH;
+  for (int i = threadIdx.x; i < HH; i += blockDim.x) w2[i] = params[i];
+  for (int i = threadIdx.x; i < N_TAIL_VEC * NLT_H; i += blockDim.x)
+    vec[i] = params[HH + i];
   nlt_load_transposed(w2t, params);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tid = threadIdx.x, ti = tid >> 4, tj = tid & 15;
   const int W = B * NLT_H;
-  const float2 b2v = nlt_ld2(b2, lane), lsv = nlt_ld2(ls, lane);
   const float2 zero = make_float2(0.f, 0.f);
-  float2 vsum[3];  // db2, dls, dlb
+  const float2 b2v = nlt_ld2(vec + T_B2 * NLT_H, lane);
+  const float2 lsv = nlt_ld2(vec + T_LS * NLT_H, lane);
+  float2 vsum[N_TAIL_VEC];  // this lane's shares of db2, dls, dlb
   nlt_fill(vsum, zero);
-  float aw2[16] = {};
-  float* x1w = x1s + warp * K * NLT_H;
-  float* dx2w = dx2s + warp * K * NLT_H;
-  const int n_chunks = (n_virt + kTailWarps - 1) / kTailWarps;
+  // this warp's staging buffers (x1 rows, then d_y rows) and d_ew sums;
+  // a lane touches only its own two columns of the sums
+  float* sa = vec + N_TAIL_VEC * NLT_H + warp * 3 * K * NLT_H;
+  float* sb = sa + K * NLT_H;
+  float* sd = sb + K * NLT_H;
+  // this lane's two features of scratch row r (streaming store)
+  auto put = [&](float* base, size_t r, float2 val) {
+    __stcs(reinterpret_cast<float2*>(base + r * NLT_H) + lane, val);
+  };
 
-  for (int chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
-    const int v0 = chunk * kTailWarps + warp;
-    const bool ok = v0 < n_virt;
-    const int v = ok ? v0 : n_virt - 1;
+  for (int v = blockIdx.x * kWarps + warp; v < n_virt;
+       v += gridDim.x * kWarps) {
     const size_t slot0 = (size_t)v * K;
-    float2 dew[K];
-    nlt_fill(dew, zero);
+#pragma unroll
+    for (int k = 0; k < K; ++k) nlt_st2(sd + k * NLT_H, lane, zero);
     for (int b = 0; b < B; ++b) {
       const size_t col = (size_t)b * NLT_H;
       const float2 rec = nlt_ld2(rec_rows + (size_t)v * W + col, lane);
+      // x0 = ew + table[senders] + rec;  y = silu(x0) @ W2 + b2  (sa: x1)
       float2 x0[K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
@@ -121,50 +140,51 @@ __global__ void __launch_bounds__(kTailWarps * 32, 1)
         const int s = senders[slot0 + k];
         const float2 g = nlt_ld2(table + (size_t)s * W + col, lane);
         x0[k] = nlt_add2(nlt_add2(x0[k], g), rec);
-        nlt_st2(x1w + k * NLT_H, lane, nlt_silu2(x0[k]));
+        const float2 x1 = nlt_silu2(x0[k]);
+        nlt_st2(sa + k * NLT_H, lane, x1);
+        put(x1_s, (slot0 + k) * B + b, x1);
       }
       __syncwarp();
       float2 y[K];
       nlt_fill(y, b2v);
-      nlt_mm64<K>(x1w, NLT_H, w2, NLT_H, lane, y);
-      const float2 dv =
-          ok ? nlt_ld2(d_virt + (size_t)v * W + col, lane) : zero;
+      nlt_mm64<K>(sa, NLT_H, w2, NLT_H, lane, y);
+      // d_y, LayerNorm backward   (sb: d_y rows)
+      const float2 dv = nlt_ld2(d_virt + (size_t)v * W + col, lane);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const float m = ok ? mask[slot0 + k] : 0.f;
+        const float m = mask[slot0 + k];
         const float2 dmsg = make_float2(m * dv.x, m * dv.y);
-        const float2 dy =
-            nlt_ln_grad(nlt_ln_stats(y[k]), lsv, dmsg, vsum[1], vsum[2]);
-        nlt_acc2(vsum[0], dy);
-        nlt_st2(dx2w + k * NLT_H, lane, dy);
+        const float2 dy = nlt_ln_grad(nlt_ln_stats(y[k]), lsv, dmsg,
+                                      vsum[T_LS], vsum[T_LB]);
+        nlt_acc2(vsum[T_B2], dy);
+        nlt_st2(sb + k * NLT_H, lane, dy);
+        put(dy_s, (slot0 + k) * B + b, dy);
       }
       __syncwarp();
+      // d_x0 = (d_y @ W2^T) * silu'(x0), d_rec = sum_k d_x0
       float2 dx1[K];
       nlt_fill(dx1, zero);
-      nlt_mm64<K>(dx2w, NLT_H, w2t, NLT_H, lane, dx1);
+      nlt_mm64<K>(sb, NLT_H, w2t, NLT_H, lane, dx1);
       float2 drec = zero;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const float2 d0 = nlt_mul_silu_grad(dx1[k], x0[k]);
         nlt_acc2(drec, d0);
-        if (ok) nlt_st2(d_x0 + (slot0 + k) * W + col, lane, d0);
-        nlt_acc2(dew[k], d0);
+        nlt_st2(sd + k * NLT_H, lane,
+                nlt_add2(nlt_ld2(sd + k * NLT_H, lane), d0));
+        nlt_st2(d_x0 + (slot0 + k) * W + col, lane, d0);
       }
-      if (ok) nlt_st2(d_rec + (size_t)v * W + col, lane, drec);
-      __syncthreads();
-      nlt_tile_acc(x1s, NLT_H, dx2s, NLT_H, kSlots, ti, tj, aw2);
-      __syncthreads();
+      nlt_st2(d_rec + (size_t)v * W + col, lane, drec);
     }
-    if (ok) {
 #pragma unroll
-      for (int k = 0; k < K; ++k)
-        nlt_st2(d_ew + (slot0 + k) * NLT_H, lane, dew[k]);
-    }
+    for (int k = 0; k < K; ++k)
+      nlt_st2(d_ew + (slot0 + k) * NLT_H, lane,
+              nlt_ld2(sd + k * NLT_H, lane));
   }
 
-  float* part = partial + (size_t)blockIdx.x * kTailParams;
-  nlt_tile_store(part, NLT_H, NLT_H, ti, tj, aw2);
-  nlt_block_vec_sums<3>(red, vsum, kTailWarps, part + HH);
+  __syncthreads();  // every warp is done with the weights: the sums reuse them
+  nlt_block_vec_sums<N_TAIL_VEC>(
+      smem, vsum, kWarps, partial + (size_t)blockIdx.x * N_TAIL_VEC * NLT_H);
 }
 
 // ------------------------------------------------- B3/B4's chain pass ----
@@ -174,15 +194,6 @@ __global__ void __launch_bounds__(kTailWarps * 32, 1)
 // Shared memory: w2 | we | w2^T | we^T | the vectors | per warp two K x 64
 // staging buffers. The block's vector sums come out in this order:
 enum { V_B2, V_LS, V_LB, V_B0, N_VEC };
-
-// Warps per block: as many as the registers allow, one block per SM.
-// ptxas, unbounded (256 threads a block): 56, 71, 90, 106, 118, 129, 145
-// and 161 registers at K = 1..8; a block of 32, 24 and 16 warps caps them
-// at 64, 80 and 128.
-template <int K>
-__host__ __device__ constexpr int layer_warps() {
-  return K == 1 ? 32 : K == 2 ? 24 : 16;
-}
 
 template <int K>
 __host__ __device__ constexpr size_t layer_smem_floats() {
@@ -324,9 +335,10 @@ __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
 
 template <int K>
 cudaError_t tail_grid_for(int n_virt, int* grid) {
-  return nlt_launch_config(edge_tail_bwd_kernel<K>, kTailWarps * 32,
+  return nlt_launch_config(edge_tail_bwd_kernel<K>, layer_warps<K>() * 32,
                            sizeof(float) * tail_smem_floats<K>(),
-                           (n_virt + kTailWarps - 1) / kTailWarps, grid);
+                           (n_virt + layer_warps<K>() - 1) / layer_warps<K>(),
+                           grid);
 }
 
 template <int K>
@@ -342,14 +354,15 @@ cudaError_t tail_launch(const float* table, const int* senders,
                         const float* ew, const float* rec_rows,
                         const float* mask, const float* params,
                         const float* d_virt, float* d_x0, float* d_ew,
-                        float* d_rec, float* partial, int n_virt, int B,
-                        int grid, cudaStream_t stream) {
+                        float* d_rec, float* x1_s, float* dy_s,
+                        float* partial, int n_virt, int B, int grid,
+                        cudaStream_t stream) {
   const size_t smem = sizeof(float) * tail_smem_floats<K>();
   cudaError_t err = nlt_allow_smem(edge_tail_bwd_kernel<K>, smem);
   if (err != cudaSuccess) return err;
-  edge_tail_bwd_kernel<K><<<grid, kTailWarps * 32, smem, stream>>>(
+  edge_tail_bwd_kernel<K><<<grid, layer_warps<K>() * 32, smem, stream>>>(
       table, senders, ew, rec_rows, mask, params, d_virt, d_x0, d_ew, d_rec,
-      partial, n_virt, B);
+      x1_s, dy_s, partial, n_virt, B);
   return cudaGetLastError();
 }
 
@@ -406,15 +419,17 @@ extern "C" int nlt_edge_layer_bwd_grid(int n_virt, int K, int B, int device,
 #undef NLT_CASE
 }
 
-// B2. d_virt (n_virt, B*64) -> d_x0 (M, B*64), d_ew (M, 64),
-// d_rec (n_virt, B*64), partial (grid, params) in the blob's layout.
+// B2's chain pass. d_virt (n_virt, B*64) -> d_x0 (M, B*64), d_ew (M, 64),
+// d_rec (n_virt, B*64), the scratch x1_s and dy_s (M*B, 64) each (see
+// above), and partial (grid, 3*64): each block's sums of db2, dls, dlb.
 extern "C" int nlt_edge_tail_sum_bwd(const float* table, const int* senders,
                                      const float* ew, const float* rec_rows,
                                      const float* mask, const float* params,
                                      const float* d_virt, float* d_x0,
-                                     float* d_ew, float* d_rec,
-                                     float* partial, int n_virt, int K, int B,
-                                     int grid, int device, void* stream) {
+                                     float* d_ew, float* d_rec, float* x1_s,
+                                     float* dy_s, float* partial, int n_virt,
+                                     int K, int B, int grid, int device,
+                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_virt < 1 || grid < 1) return (int)cudaErrorInvalidValue;
@@ -422,8 +437,8 @@ extern "C" int nlt_edge_tail_sum_bwd(const float* table, const int* senders,
 #define NLT_CASE(KK)                                                        \
   case KK:                                                                  \
     return (int)tail_launch<KK>(table, senders, ew, rec_rows, mask, params, \
-                                d_virt, d_x0, d_ew, d_rec, partial, n_virt, \
-                                B, grid, s);
+                                d_virt, d_x0, d_ew, d_rec, x1_s, dy_s,      \
+                                partial, n_virt, B, grid, s);
   switch (K) {
     NLT_FOR_K(NLT_CASE)
     default:

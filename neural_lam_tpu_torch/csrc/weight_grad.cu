@@ -5,12 +5,13 @@
 // the backward kernels whose weight gradients are such sums: the decoder
 // backward (B5/B6, csrc/grid_update_bwd.cu) writes its nine activation /
 // gradient pairs to device memory, the processor edge layer's (B3/B4,
-// csrc/edge_flat_bwd.cu) its dW2 pair, and this pass sums them. It takes
-// the place of the weight-gradient sums inside
+// csrc/edge_flat_bwd.cu) and the g2m edge tail's (B2, same file) their dW2
+// pair, and this pass sums them. It takes the place of the weight-gradient
+// sums inside
 // neural_lam_tpu/ops/pallas_grid_update.py::_grid_update_bwd_kernel :752
 // and ::_grid_update_win_bwd_kernel :767, and
-// neural_lam_tpu/ops/pallas_edge_flat.py::_layer_bwd_kernel :846 and
-// ::_layer_bwd_win_kernel :1093.
+// neural_lam_tpu/ops/pallas_edge_flat.py::_layer_bwd_kernel :846,
+// ::_layer_bwd_win_kernel :1093 and ::_tail_bwd_kernel :526.
 //
 // Bound (the decoder's pairs at bench shapes): bytes -- every row of X and
 // D is read once, ~1.4 GB, against ~24 GFLOP. On CUDA cores the FMAs alone
@@ -34,7 +35,8 @@
 // - Products on tensor cores in 3xTF32: `mma.sync` m16n8k8 TF32 with fp32
 //   accumulators, each operand split into big = tf32(x) and small =
 //   tf32(x - big), and big*big + big*small + small*big summed, which keeps
-//   fp32 accuracy (one TF32 product keeps ~3 digits). The result is A^T B
+//   fp32 accuracy (one TF32 product keeps ~3 digits; the helpers are in
+//   tc_common.cuh). The result is A^T B
 //   with A(i, r) = X[r, i] read column-wise from the staged X: each of the
 //   8 warps owns a 32x32 quarter of the 64x64 result over half of each
 //   staged tile's rows, so that each split fragment feeds four (A) or two
@@ -47,9 +49,8 @@
 //   takes 128 registers: two blocks, 16 warps, per SM.
 // - A second kernel sums each pair's partials in segment order (no float
 //   atomics: the same inputs give bit-identical outputs).
-#include <cstdint>
-
 #include "common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -68,31 +69,6 @@ struct Pairs {
   const float* d[kMaxPairs];
   int dw[kMaxPairs];  // D's width
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? 16 : 0;  // 0: zero-fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Stage rows [r, r + kTile) of X and D (rows at or past r1 as zeros).
 __device__ __forceinline__ void load_tile(float* st, const float* X,
@@ -124,24 +100,6 @@ __device__ __forceinline__ void load_tile(float* st, const float* X,
       cp_async4(ds + rr * kLd + c, D + row * dw + c, ok);
     }
   }
-}
-
-// x = big + small, both TF32 (round to nearest, ties away from zero).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n"
-      : "=r"(small)
-      : "f"(x - __uint_as_float(big)));
-}
-
-// c += a b for a 16x8 TF32 A fragment, an 8x8 B fragment, fp32 C.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // c[m][q] += the 16x8 tile (32*mi + 16*m .., 32*ni + 8*q ..) of X^T D over

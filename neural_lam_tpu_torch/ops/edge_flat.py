@@ -18,15 +18,15 @@ only its inputs and the backward recomputes it. The backward yields the
 sender cotangent per edge slot, d_x0 (M, W); the `fold` the caller passes
 (`EdgeSet.fold_senders`) sums it onto the node table in a fixed order.
 
-The edge layer's backward (B3/B4) runs in two passes: a chain pass
-(`edge_layer_bwd_chain`) computes the cotangents and the vector gradients
-and writes X1 = silu(x0) and DY (the LayerNorm input's gradient) to a
-scratch; then `weight_grad.xtd_sum` sums dW2 = X1^T DY and dW_e = edge^T
-d_x0 over every slot and batch element, in two launches. B2 takes its
-weight gradient inside its kernel. `<wrapper>.launches` counts kernel
-launches (B3/B4's chain on `edge_layer_flat_bwd.launches`, its
-weight-gradient pass on `weight_grad.xtd_sum.launches` and
-`weight_grad.xtd_reduce.launches`).
+Both backwards (B2, B3/B4) run in two passes: a chain pass
+(`edge_tail_bwd_chain`, `edge_layer_bwd_chain`) computes the cotangents
+and the vector gradients and writes X1 = silu(x0) and DY (the LayerNorm
+input's gradient) to a scratch; then `weight_grad.xtd_sum` sums dW2 =
+X1^T DY (and, for B3/B4, dW_e = edge^T d_x0) over every slot and batch
+element, in two launches. `<wrapper>.launches` counts kernel launches
+(B2's chain on `edge_tail_sum_flat_bwd.launches`, B3/B4's on
+`edge_layer_flat_bwd.launches`, the weight-gradient pass on
+`weight_grad.xtd_sum.launches` and `weight_grad.xtd_reduce.launches`).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ _SIGNATURES = {
     "nlt_edge_layer": [_P] * 8 + [_I] * 4 + [_P],
 }
 _BWD_SIGNATURES = {
-    "nlt_edge_tail_sum_bwd": [_P] * 11 + [_I] * 5 + [_P],
+    "nlt_edge_tail_sum_bwd": [_P] * 13 + [_I] * 5 + [_P],
     "nlt_edge_layer_bwd": [_P] * 14 + [_I] * 5 + [_P],
     "nlt_edge_tail_sum_bwd_grid": [_I] * 4 + [_IP],
     "nlt_edge_layer_bwd_grid": [_I] * 4 + [_IP],
@@ -66,15 +66,21 @@ def _masked_slot_sum(msg, mask_p):
     return (msg * mask_p[:, :, None, None]).sum(dim=1).reshape(n_virt, -1)
 
 
-def _tail_from_gathered(g, ew, rec_rows, mask_p, w2, b2, ln_scale, ln_bias):
-    """K2's math on pre-gathered sender rows g (M, W)."""
+def _tail_from_gathered(g, ew, rec_rows, mask_p, w2, b2, ln_scale, ln_bias,
+                        keep=None):
+    """K2's math on pre-gathered sender rows g (M, W). `keep`, a dict,
+    receives the intermediates x1 = silu(x0) and y (the LayerNorm's input),
+    each (N_virt, K, B, h)."""
     n_virt, K = mask_p.shape
     h = ew.shape[-1]
     B = g.shape[-1] // h
     x0 = (g.view(n_virt, K, B, h) + ew.view(n_virt, K, 1, h)
           + rec_rows.view(n_virt, 1, B, h))
-    msg = layer_norm(F.silu(x0) @ w2 + b2, ln_scale, ln_bias)
-    return _masked_slot_sum(msg, mask_p)
+    x1 = F.silu(x0)
+    y = x1 @ w2 + b2
+    if keep is not None:
+        keep.update(x1=x1, y=y)
+    return _masked_slot_sum(layer_norm(y, ln_scale, ln_bias), mask_p)
 
 
 def edge_tail_sum_flat_plain(table, senders, ew, rec_rows, mask_p, w2, b2,
@@ -133,20 +139,43 @@ def edge_tail_sum_flat_bwd_plain(table, senders, ew, rec_rows, mask_p, w2,
                           (d_virt,))
 
 
-def edge_tail_sum_flat_bwd(table, senders, ew, rec_rows, mask_p, w2, b2,
-                           ln_scale, ln_bias, d_virt):
-    """Backward of `edge_tail_sum_flat` from d_virt (N_virt, W): (d_x0
-    (M, W) per slot, d_ew (M, h), d_rec_rows (N_virt, W), d_w2, d_b2,
-    d_ln_scale, d_ln_bias).
+def _tail_pairs(x1, dy):
+    """`xtd_sum`'s (X, D) pair for d_w2: (X1, DY) from the chain, each
+    (M*B, h) with row (v*K + k)*B + b."""
+    return [(x1, dy)]
 
-    Replaces pallas_edge_flat.py::_tail_bwd_kernel (via
-    _edge_tail_sum_flat_bwd). Bound by fp32 operations on the card; see
-    csrc/edge_flat_bwd.cu.
-    """
+
+def edge_tail_bwd_chain_plain(table, senders, ew, rec_rows, mask_p, w2, b2,
+                              ln_scale, ln_bias, d_virt):
+    """Plain PyTorch version of `edge_tail_bwd_chain`, by autograd through
+    the plain forward with its intermediates kept."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (
+            table.index_select(0, senders), ew, rec_rows, b2, ln_scale,
+            ln_bias)]
+        g, vew, rec, vb2, vls, vlb = leaves
+        keep = {}
+        virt = _tail_from_gathered(g, vew, rec, mask_p, w2.detach(), vb2,
+                                   vls, vlb, keep)
+        grads = torch.autograd.grad(virt, leaves + [keep["y"]], d_virt)
+    d_x0, d_ew, d_rec, *d_vec, d_y = grads
+    h = w2.shape[0]
+    return (d_x0, d_ew, d_rec, tuple(d_vec),
+            _tail_pairs(keep["x1"].detach().reshape(-1, h),
+                        d_y.reshape(-1, h)))
+
+
+def edge_tail_bwd_chain(table, senders, ew, rec_rows, mask_p, w2, b2,
+                        ln_scale, ln_bias, d_virt):
+    """B2's chain pass: (d_x0 (M, W) per slot, d_ew (M, h), d_rec_rows,
+    (d_b2, d_ln_scale, d_ln_bias), the (X, D) pair of d_w2 for
+    `weight_grad.xtd_sum`). `edge_tail_bwd_chain_plain` on a CPU tensor,
+    the chain kernel of csrc/edge_flat_bwd.cu on a CUDA tensor; its
+    launches count on `edge_tail_sum_flat_bwd.launches`."""
     if table.device.type == "cpu":
-        return edge_tail_sum_flat_bwd_plain(table, senders, ew, rec_rows,
-                                            mask_p, w2, b2, ln_scale,
-                                            ln_bias, d_virt)
+        return edge_tail_bwd_chain_plain(table, senders, ew, rec_rows,
+                                         mask_p, w2, b2, ln_scale, ln_bias,
+                                         d_virt)
     dev = _build.require_cuda(table)
     n_virt, K = mask_p.shape
     W = table.shape[1]
@@ -155,22 +184,45 @@ def edge_tail_sum_flat_bwd(table, senders, ew, rec_rows, mask_p, w2, b2,
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias])
     d_virt = d_virt.contiguous()
     M = n_virt * K
-    d_x0 = torch.empty((M, W), device=dev, dtype=torch.float32)
-    d_ew = torch.empty((M, HID), device=dev, dtype=torch.float32)
-    d_rec = torch.empty_like(d_virt)
     f32, i32 = torch.float32, torch.int32
+    d_x0 = torch.empty((M, W), device=dev, dtype=f32)
+    d_ew = torch.empty((M, HID), device=dev, dtype=f32)
+    d_rec = torch.empty_like(d_virt)
+    x1 = torch.empty((M * (W // HID), HID), device=dev, dtype=f32)
+    dy = torch.empty_like(x1)
     ptrs = _build.pointers(dev, ("table", table, f32),
                            ("senders", senders, i32), ("ew", ew, f32),
                            ("rec_rows", rec_rows, f32),
                            ("mask_p", mask_p, f32), ("params", params, f32),
                            ("d_virt", d_virt, f32), ("d_x0", d_x0, f32),
-                           ("d_ew", d_ew, f32), ("d_rec", d_rec, f32))
+                           ("d_ew", d_ew, f32), ("d_rec", d_rec, f32),
+                           ("x1", x1, f32), ("dy", dy, f32))
     g = _build.run_bwd(_bwd_lib(), "nlt_edge_tail_sum_bwd", ptrs,
-                       [n_virt, K, W // HID], params.numel(), dev,
+                       [n_virt, K, W // HID], 3 * HID, dev,
                        "edge_tail_sum_flat_bwd")
     edge_tail_sum_flat_bwd.launches += 1
-    v = g[HID * HID:].view(3, HID)
-    return d_x0, d_ew, d_rec, g[:HID * HID].view(HID, HID), v[0], v[1], v[2]
+    d_b2, d_ls, d_lb = g.view(3, HID)
+    return d_x0, d_ew, d_rec, (d_b2, d_ls, d_lb), _tail_pairs(x1, dy)
+
+
+def edge_tail_sum_flat_bwd(table, senders, ew, rec_rows, mask_p, w2, b2,
+                           ln_scale, ln_bias, d_virt):
+    """Backward of `edge_tail_sum_flat` from d_virt (N_virt, W): (d_x0
+    (M, W) per slot, d_ew (M, h), d_rec_rows (N_virt, W), d_w2, d_b2,
+    d_ln_scale, d_ln_bias).
+
+    Replaces pallas_edge_flat.py::_tail_bwd_kernel (via
+    _edge_tail_sum_flat_bwd), in two passes: the chain
+    (`edge_tail_bwd_chain`, csrc/edge_flat_bwd.cu) and `weight_grad.xtd_sum`
+    (csrc/weight_grad.cu) over the pair it gives. Both run their plain
+    versions on a CPU tensor and their kernels on a CUDA tensor. Bound by
+    fp32 operations on the card.
+    """
+    d_x0, d_ew, d_rec, (d_b2, d_ls, d_lb), pairs = edge_tail_bwd_chain(
+        table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale, ln_bias,
+        d_virt)
+    (d_w2,) = weight_grad.xtd_sum(pairs)
+    return d_x0, d_ew, d_rec, d_w2, d_b2, d_ls, d_lb
 
 
 def _fold(fold, d_x0, needed):
@@ -449,9 +501,9 @@ def edge_layer_flat(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
     + b2). edge_out at padding slots is computed the same way.
 
     Replaces pallas_edge_flat.py::_layer_flat_kernel (edge_layer_flat) and
-    ::_layer_flat_win_kernel (edge_layer_flat_win). Bound by fp32
-    operations on the card (W_e and W2 products per slot); see
-    csrc/edge_flat.cu.
+    ::_layer_flat_win_kernel (edge_layer_flat_win). Its W_e and W2
+    products run on tensor cores in 3xTF32, so it is bound by bytes on the
+    card; see csrc/edge_flat.cu.
     """
     return _EdgeLayerFlat.apply(edge_rep, table, senders, rec_rows, mask_p,
                                 w_e, b0, w2, b2, ln_scale, ln_bias, fold)

@@ -16,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from neural_lam_tpu.ops import message_passing as jmp
 from neural_lam_tpu.ops import pallas_edge_flat as pef
 from neural_lam_tpu.ops import pallas_embed as pe
 from neural_lam_tpu.ops import pallas_grid_update as pgu
@@ -211,3 +212,108 @@ def test_embed_grid_flat_matches_jax():
         _t(lyr[1]["w"]), _t(lyr[1]["b"]), _t(params["ln"]["scale"]),
         _t(params["ln"]["bias"]), B)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+
+
+# Gradients of the two flat edge kernels (K2's backward B2, K3's B3/B4) at
+# several slot counts: (n_send, n_rec, in-degree) -> K = 8 with two virtual
+# rows per receiver and padding slots, K = 3 (a K that does not divide the
+# 16-row tiles of K3's tensor-core kernel) and K = 1 (a down set).
+GRAD_SETS = {"k8": (150, 120, 9), "k3": (90, 120, 3), "k1": (40, 300, 1)}
+
+
+@pytest.fixture(scope="module", params=sorted(GRAD_SETS))
+def grad_case(request):
+    """(JAX EdgeSet, port EdgeSet, inputs, cotangents) for B = 2."""
+    rng = np.random.default_rng(20 + len(request.param))
+    n_send, n_rec, deg = GRAD_SETS[request.param]
+    j, t = _edge_sets(*_local_graph(n_send, n_rec, deg, rng), n_send, n_rec)
+    assert t.dense_k == int(request.param[1:])
+    B, K, n_virt = 2, t.dense_k, t.num_virt
+    x = _tail_inputs(rng, n_virt, K, n_send, B)
+    x.update(ct_v=_rand(rng, n_virt, B * H, scale=1.0),
+             ct_e=_rand(rng, n_virt * K, B * H, scale=1.0))
+    return j, t, x
+
+
+def _assert_grad_close(got, want, name):
+    """max |got - want| <= 1e-4 + 1e-4 * max |want|: fp32 sums over up to
+    ~2k slots (the table's rows, the weights) run in another order on each
+    side."""
+    got = got.detach().numpy()
+    want = np.asarray(want)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    tol = 1e-4 + 1e-4 * float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    assert err <= tol, f"{name}: max abs diff {err:.3e} > {tol:.3e}"
+
+
+def _slot_capture(edges, captured):
+    def fold(d_slots):
+        captured.append(d_slots)
+        return edges.fold_senders(d_slots)
+
+    return fold
+
+
+def test_edge_tail_sum_flat_grads_match_jax(grad_case):
+    """K2's autograd Function backward (B2: chain + xtd_sum, plain on the
+    CPU) against jax.vjp through pallas_edge_flat.edge_tail_sum_flat
+    (interpret), the JAX side's sender gather by `gather_send_flat` (whose
+    backward, like the port's fold, sums real slots only): the per-slot
+    sender cotangent, the table's gradient through the fold, and ew,
+    rec_rows and the tail parameters."""
+    j, t, x = grad_case
+    K, n_virt = t.dense_k, t.num_virt
+    mask_p = np.asarray(j.mask).reshape(n_virt, K)
+    names = ("table", "ew", "rec_rows", "w2", "b2", "ls", "lb")
+
+    def f(delta, table, ew, rec, w2, b2, ls, lb):
+        g = jmp.gather_send_flat(table, j) + delta
+        _, virt = pef.edge_tail_sum_flat(g, ew, rec, w2, b2, ls, lb, mask_p,
+                                         K, interpret=True)
+        return virt
+
+    _, vjp = jax.vjp(f, jnp.zeros((n_virt * K, x["table"].shape[1])),
+                     *(jnp.asarray(x[n]) for n in names))
+    g_j = vjp(jnp.asarray(x["ct_v"]))
+    leaves = [torch.tensor(x[n], requires_grad=True) for n in names]
+    slots = []
+    virt = edge_flat.edge_tail_sum_flat(
+        leaves[0], t.senders, leaves[1], leaves[2], t.mask.view(n_virt, K),
+        *leaves[3:], fold=_slot_capture(t, slots))
+    (virt * _t(x["ct_v"])).sum().backward()
+    _assert_grad_close(slots[0], g_j[0], "d_x0 per slot")
+    for name, leaf, want in zip(names, leaves, g_j[1:]):
+        _assert_grad_close(leaf.grad, want, name)
+
+
+def test_edge_layer_flat_grads_match_jax(grad_case):
+    """K3's autograd Function backward (B3/B4: chain + xtd_sum, plain on
+    the CPU) against jax.vjp through pallas_edge_flat.edge_layer_flat
+    (interpret, gather as above), with cotangents on both outputs (padding
+    slots' edge_out too): the per-slot sender
+    cotangent, the table's gradient through the fold, edge_rep, rec_rows
+    and the layer parameters."""
+    j, t, x = grad_case
+    K, n_virt = t.dense_k, t.num_virt
+    mask_p = np.asarray(j.mask).reshape(n_virt, K)
+    names = ("edge", "table", "rec_rows", "w_e", "b0", "w2", "b2", "ls",
+             "lb")
+
+    def f(delta, edge, table, rec, *par):
+        g = jmp.gather_send_flat(table, j) + delta
+        return pef.edge_layer_flat(edge, g, rec, mask_p, *par, K,
+                                   interpret=True)
+
+    _, vjp = jax.vjp(f, jnp.zeros_like(jnp.asarray(x["edge"])),
+                     *(jnp.asarray(x[n]) for n in names))
+    g_j = vjp((jnp.asarray(x["ct_e"]), jnp.asarray(x["ct_v"])))
+    leaves = [torch.tensor(x[n], requires_grad=True) for n in names]
+    slots = []
+    eo, virt = edge_flat.edge_layer_flat(
+        leaves[0], leaves[1], t.senders, leaves[2], t.mask.view(n_virt, K),
+        *leaves[3:], fold=_slot_capture(t, slots))
+    ((virt * _t(x["ct_v"])).sum() + (eo * _t(x["ct_e"])).sum()).backward()
+    _assert_grad_close(slots[0], g_j[0], "d_x0 per slot")
+    for name, leaf, want in zip(names, leaves, g_j[1:]):
+        _assert_grad_close(leaf.grad, want, name)
