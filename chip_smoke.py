@@ -11,11 +11,12 @@ result line is printed):
    build time and each source's ptxas registers and spills (per kernel
    for the backward sources with two passes or two kernels: B2's and
    B3/B4's chain kernels of `edge_flat_bwd` per K, the decoder backward's
-   and `xtd_sum`'s), and, where the toolkit has `cuobjdump`, the
-   shared-memory loads by width, the FFMAs, the tensor-core products
-   (HMMA) and the async copies (LDGSTS) in the SASS of B3/B4's K=8 chain
-   kernel, of K3's and K2's K=8 kernels, of K4's K=4 kernel
-   (`grid_update_kernel<4>`) and of `xtd_sum`'s main kernel.
+   and `xtd_sum`'s, and B1's two, for d_in up to 64 and above), and,
+   where the toolkit has `cuobjdump`, the shared-memory loads by width,
+   the FFMAs, the tensor-core products (HMMA) and the async copies
+   (LDGSTS) in the SASS of B3/B4's K=8 chain kernel, of K3's and K2's K=8
+   kernels, of K4's K=4 kernel (`grid_update_kernel<4>`), of `xtd_sum`'s
+   main kernel and of B1's kernel for d_in up to 64.
 2. Build the bench-width GraphLAM and HiLAM through
    `neural_lam_tpu_torch.entry` (268x238 grid, 17 state / 6x3 forcing / 4
    static features, hidden 64, 4 processor layers, fp32, weights from a
@@ -35,10 +36,16 @@ result line is printed):
    batch-4 shape each.
 4. The same for each backward kernel (B1, B2, B3/B4, B5/B6) against its
    `*_bwd_plain` version: every output tensor within 1e-4 + 1e-4 * its
-   plain version's max abs; B3/B4 also at HiLAM's K=1 down[0] and folded
-   up[0] sets (batch 4). B2, B3/B4 and B5/B6 run in two passes, a chain
-   kernel and `xtd_sum` (the weight gradients): both passes' device times
-   are printed apart, with their sum. `xtd_sum` is also held against
+   plain version's max abs; B1 at the training step's call (no dx, as
+   x_f is data) and with dx, and at d_in 23 (x rows not a multiple of 16
+   bytes) and 100 (two x column blocks) with and without dx, two calls
+   bit-identical, its bound max(bytes, 3 x FLOP / TF32 peak) (its
+   products run on tensor cores in 3xTF32; the fp32 bound printed beside
+   it) and its products as `torch.mm` calls its library time; B3/B4 also
+   at HiLAM's K=1 down[0] and folded up[0] sets (batch 4). B2, B3/B4 and
+   B5/B6 run in two passes, a chain kernel and `xtd_sum` (the weight
+   gradients): both passes' device times are printed apart, with their
+   sum. `xtd_sum` is also held against
    `xtd_sum_plain` at the decoder's nine pairs, at B3/B4's two and at
    B2's one (same limit; two calls must give bit-identical outputs), with
    `torch.mm(X.t(), D)` over the same pairs timed as its library call,
@@ -219,7 +226,7 @@ def read_yardstick(torch, pairs, what):
 def kernel_name(mangled):
     """`name<K>` from a mangled `..._kernelILi<K>EE...` entry name, with
     B2's and B3/B4's kernels of edge_flat_bwd tagged."""
-    m = re.search(r"\d+([a-z]\w*?_kernel)(?:ILi(\d+)E)?", mangled)
+    m = re.search(r"\d+([a-z]\w*?_kernel)(?:IL[ib](\d+)E)?", mangled)
     if not m:
         return mangled[:60]
     tag = {"edge_tail_bwd_kernel": "B2 chain ",
@@ -369,7 +376,7 @@ def main():
         print(f"  ptxas[{src}]: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {sum(spills)} bytes of spill stores and loads")
         if src in ("edge_flat", "edge_flat_bwd", "grid_update_bwd",
-                   "weight_grad"):
+                   "weight_grad", "embed_bwd"):
             for fn, info in sorted(re.findall(
                     r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
                     r"registers[^\n]*)", log, re.S)):
@@ -382,6 +389,7 @@ def main():
     sass_counts(_build, libs["edge_flat"], "edge_tail_kernelILi8E")  # K2
     sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4E")
     sass_counts(_build, libs["weight_grad"], "xtd_sum_kernel")
+    sass_counts(_build, libs["embed_bwd"], "embed_bwd_kernelILb0E")  # B1
 
     # 2. the bench-width models
     t0 = time.time()
@@ -432,11 +440,25 @@ def main():
                   "neural_lam_tpu/ops/pallas_embed.py:99",
                   nbytes(*k1) + rows1 * H * 4,
                   2.0 * rows1 * (d_in * H + H * H)))
-    cases.append(("embed_grid_flat_bwd", embed,
-                  k1 + (BATCH, rand(n_grid, W)),
-                  "neural_lam_tpu/ops/pallas_embed.py:111",
-                  nbytes(*k1) + rows1 * (H + d_in) * 4 + nbytes(*k1[1:]),
-                  2.0 * rows1 * 3 * (d_in * H + H * H)))
+    # B1 at the training step's call (no dx: x_f is data), then with dx,
+    # then at d_in 23 (rows not 16-byte multiples) and 100 (two x column
+    # blocks); products: t0, y, dt, dW1, dW0 (and dx)
+    d_emb = rand(n_grid, W)
+    pem = "neural_lam_tpu/ops/pallas_embed.py:111"
+    for din, need_dx in ((d_in, False), (d_in, True), (23, False),
+                         (23, True), (100, False), (100, True)):
+        bk = k1 if din == d_in else (
+            rand(n_grid, BATCH * din), 0.2 * rand(din, H), 0.1 * rand(H),
+            0.2 * rand(H, H), 0.1 * rand(H), 1 + 0.1 * rand(H),
+            0.1 * rand(H))
+        label = pem if (din, need_dx) == (d_in, False) else (
+            f"{pem} (d_in {din}, {'with' if need_dx else 'no'} dx)")
+        cases.append(("embed_grid_flat_bwd", embed,
+                      bk + (BATCH, d_emb, need_dx), label,
+                      nbytes(*bk) + nbytes(d_emb) + nbytes(*bk[1:])
+                      + (nbytes(bk[0]) if need_dx else 0),
+                      2.0 * rows1 * ((3 if need_dx else 2) * din * H
+                                     + 3 * H * H)))
 
     def edge_cases(edges, inet, layer):
         n_virt, K = edges.num_virt, edges.dense_k
@@ -542,6 +564,18 @@ def main():
                   sum(2.0 * x.shape[0] * H * H for x, _ in b2_pairs)))
     library = {"xtd_sum": lambda pairs: [torch.mm(x.t(), d)
                                          for x, d in pairs]}
+
+    def b1_products(x_f, w0, b0, w1, b1, ls, lb, B, d_out, need_dx):
+        """B1's products as torch.mm calls on operands of their shapes:
+        t0 = x W0, y = t W1, dt = dy W1^T, dW1 = t^T dy, dW0 = x^T dt0
+        (and dx = dt0 W0^T), with d_out's rows standing in for t, dy
+        and dt0."""
+        x, d = x_f.view(-1, w0.shape[0]), d_out.view(-1, H)
+        out = [torch.mm(x, w0), torch.mm(d, w1), torch.mm(d, w1.t()),
+               torch.mm(d.t(), d), torch.mm(x.t(), d)]
+        return out + [torch.mm(d, w0.t())] if need_dx else out
+
+    library["embed_grid_flat_bwd"] = b1_products
     # K3's two products (edge @ W_e, x1 @ W2) as two torch.mm calls on
     # (M*B, 64) rows: its library time "for its products"
     library["edge_layer_flat"] = lambda edge_rep, table, senders, rec, mask, \
@@ -664,10 +698,11 @@ def main():
                 want = want[:-1] + tuple(want[-1][k] for k in sorted(want[-1]))
             err = 0.0
             bwd = kname.endswith("_bwd") or kname in TRAIN_ONLY
-            if kname == "xtd_sum":
-                again = kern(*args)
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    fail(f"xtd_sum at {replaces}: two calls differ")
+            if kname in ("xtd_sum", "embed_grid_flat_bwd"):
+                again = as_tuple(kern(*args))
+                if not all(a is None and b is None or torch.equal(a, b)
+                           for a, b in zip(got, again)):
+                    fail(f"{kname} at {replaces}: two calls differ")
             for i, (a, b) in enumerate(zip(got, want)):
                 if a is None and b is None:
                     continue
@@ -689,9 +724,10 @@ def main():
             t_bytes = bytes_ / peak_bw * 1e3
             t_ops = flops / peak_flops * 1e3
             fp32_note = ""
-            if kname == "edge_layer_flat":
-                # K3's products run on tensor cores in 3xTF32: three TF32
-                # products per term; its fp32 CUDA-core bound printed too
+            if kname in ("edge_layer_flat", "embed_grid_flat_bwd"):
+                # K3's and B1's products run on tensor cores in 3xTF32:
+                # three TF32 products per term; the fp32 CUDA-core bound
+                # printed too
                 fp32_note = (f"; fp32 CUDA-core bound "
                              f"{max(t_bytes, t_ops):.4f} ms")
                 t_ops = 3 * flops / peak_tf32 * 1e3
@@ -748,7 +784,7 @@ def main():
         xtd_sweep(torch, weight_grad, xtd_pairs, "the decoder's nine pairs")
     del cases, args, a4, a5, h_a4, h_pp, h_mask, hm2g, k1, xtd_pairs
     del b3_args, b3_pairs, b2_args, b2_pairs, partial, library, seg_pair
-    del red_zeros, k3_set, a
+    del red_zeros, k3_set, a, d_emb, bk
     torch.cuda.empty_cache()
 
     # 5. the forecast paths

@@ -10,11 +10,11 @@
 // Weight gradients dW = X^T dY sum over every row a kernel visits. Blocks
 // run in no order, so no sum is carried from one block to the next. Two
 // ways to take them:
-// - in the kernel (B1): a block stages the rows of one step (X and dY,
-//   64 wide) in shared memory, and every thread adds the rows' products
-//   into the 4x4 tile of dW it owns (256 threads own the 256 tiles of a
-//   64x64 matrix); at the end each block writes its partial sums to its
-//   own row of a (blocks, params) scratch;
+// - in the kernel (B1): a block keeps the rows of one step (X and dY) in
+//   shared memory, and each warp sums its strips of dW over them on tensor
+//   cores, in registers over the block's whole row range; at the end each
+//   block writes its partial sums to its own row of a (blocks, params)
+//   scratch;
 // - in a second pass (B2, B3/B4, B5/B6): the kernel writes the (X, dY) row
 //   pairs to a scratch in device memory (or names rows it already has,
 //   as B3's dW_e pair (edge_rep, d_x0)), and csrc/weight_grad.cu
@@ -79,43 +79,6 @@ __device__ __forceinline__ float2 nlt_ln_grad(NltLn s, float2 scale,
       nlt_warp_sum(gx * s.chat.x + gy * s.chat.y) * (1.0f / NLT_H);
   return make_float2(s.inv * (gx - mg - s.chat.x * mgc),
                      s.inv * (gy - mg - s.chat.y * mgc));
-}
-
-// acc[a*4+b] += sum_r X[r*ldx + 4ti + a] * D[r*ldd + 4tj + b] for r < rows.
-// X and D lie in shared memory, 16-byte aligned, ldx and ldd multiples of 4.
-__device__ __forceinline__ void nlt_tile_acc(const float* __restrict__ X,
-                                             int ldx,
-                                             const float* __restrict__ D,
-                                             int ldd, int rows, int ti,
-                                             int tj, float (&acc)[16]) {
-  for (int r = 0; r < rows; ++r) {
-    const float4 xv = *reinterpret_cast<const float4*>(X + r * ldx + 4 * ti);
-    const float4 dv = *reinterpret_cast<const float4*>(D + r * ldd + 4 * tj);
-    const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-    const float da[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        acc[a * 4 + b] = fmaf(xa[a], da[b], acc[a * 4 + b]);
-  }
-}
-
-// Write the 4x4 tile (4ti.., 4tj..) of a (n_rows, n_cols) matrix stored
-// row-major at `dst`, skipping entries outside it.
-__device__ __forceinline__ void nlt_tile_store(float* dst, int n_rows,
-                                               int n_cols, int ti, int tj,
-                                               const float (&acc)[16]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = 4 * ti + a;
-    if (i >= n_rows) continue;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = 4 * tj + b;
-      if (j < n_cols) dst[i * n_cols + j] = acc[a * 4 + b];
-    }
-  }
 }
 
 // Per-block sums of per-lane vector gradients: vals[i] is this lane's

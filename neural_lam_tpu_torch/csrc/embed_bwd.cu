@@ -11,158 +11,546 @@
 //   dW1 = sum t^T dy, dW0 = sum x^T dt0, db1 = sum dy, db0 = sum dt0,
 //   dLN scale = sum d_out * chat, dLN bias = sum d_out.
 //
-// One warp takes kRows rows per step, so each weight read from shared
-// memory feeds kRows rows; W1 and W0 are also held transposed, so that the
-// backward products read them as the forward does. A block's 32 rows of
-// (x, t, dy, dt0) are staged in shared memory and each thread adds their
-// products into its 4x4 tiles of dW1 and dW0, kept in registers and
-// written once per block to its row of the partial-sum scratch (same
-// layout as the parameter blob); the caller sums the rows in a fixed
-// order. Bound (fp32 CUDA cores, bench shapes): operations -- about three
-// times the forward's 2*(d_in + 64)*64 FLOP per row against
-// (2*d_in + 64)*4 bytes.
+// Bound (bench shapes, d_in 56, no dx): about 9.9 GFLOP of products
+// against 122 MB of x and d_out, so operations on CUDA cores (0.148 ms at
+// the fp32 peak); the products run on tensor cores in 3xTF32 (helpers and
+// fragment layouts in tc_common.cuh), where three TF32 products a term
+// put the bound near 0.06 ms.
+//
+// Design.
+// - A warp takes 16-row tiles: x rows (d_in zero-padded to 64 or 128
+//   columns) and d_out rows are staged by cp.async into the warp's
+//   buffers, and the chain t0 = x W0, y = t W1, dt = dy W1^T (and dx =
+//   dt0 W0^T) runs as mma.sync m16n8k8 in 3xTF32, with the LayerNorm and
+//   its backward in the C fragments (a row's 64 columns lie in a lane
+//   quad: statistics by quad shuffles). Between products a tile goes from
+//   the C layout back to the A layout through the warp's shared memory:
+//   t and dy into their buffers, t0 (for silu') and then dt0 into a third.
+// - The weights stay fp32 in shared memory, each once, and every use
+//   splits its fragments; W1^T and W0^T are read from W1 and W0 by their
+//   transposed index. So a block of 12 warps fits at d_in <= 64 (8 above),
+//   one block a SM. The chain is held by each warp's chain of dependent
+//   steps, not by its tensor cores, and warps hide it: ALU work on that
+//   chain is what costs (split_fast and the fast silu below).
+// - Every staged matrix is stored with column c of row r at c ^ swz(r),
+//   so that the fragment reads of both orientations, the C layout's
+//   float2 stores and the 16-byte copies all hit distinct banks.
+// - db0, db1 and the two LayerNorm sums: each tile's column sums are
+//   reduce-scattered over the warp's row lanes, so that lane l keeps
+//   columns 2l and 2l+1 (nlt_block_vec_sums' layout).
+// - Weight gradients on tensor cores in the same pass: a block step is
+//   kWarps tiles, whose x, t, dy and dt0 stay in the warps' buffers; after
+//   a barrier each warp sums its 16 x 64 strips of dW1 = t^T dy and dW0 =
+//   x^T dt0 over the step's rows (the row as the k dimension), keeping
+//   them in registers over the block's whole row range (step_wgrad). Each
+//   block writes its sums once to its row of the partial-sum scratch (the
+//   parameter blob's layout); the caller sums the rows in a fixed order.
 #include "bwd_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRows = 4;  // rows per warp and step
-constexpr int kChunk = kWarps * kRows;
-constexpr int kMaxDin = 128;  // two dW0 tiles per thread
+constexpr int kRows = 16;  // rows of a warp's tile
+constexpr int kMaxDin = 128;  // x staged at 128 columns
+constexpr int HH = NLT_H * NLT_H;
 
 // Parameter blob (floats): w0[d_in*64] | w1[64*64] | b0 | b1 | ls | lb
 __host__ __device__ inline int n_params(int d_in) {
-  return d_in * NLT_H + NLT_H * NLT_H + 4 * NLT_H;
+  return d_in * NLT_H + HH + 4 * NLT_H;
 }
 
-__host__ __device__ inline int x_stride(int d_in) {
-  return nlt_round4(d_in > NLT_H ? d_in : NLT_H);
+// Warps a block, one block a SM: as many as the shared memory holds.
+template <bool kWide>
+__host__ __device__ constexpr int n_warps() {
+  return kWide ? 8 : 12;
 }
 
-__host__ __device__ inline int n_col_blocks(int d_in) {
-  return (d_in + NLT_H - 1) / NLT_H;
+// Staged columns of an x row: 64, or 128 when d_in is above 64.
+template <bool kWide>
+__host__ __device__ constexpr int x_cols() {
+  return kWide ? 2 * NLT_H : NLT_H;
 }
 
-__host__ __device__ inline size_t smem_floats(int d_in) {
-  return (size_t)nlt_round4(n_params(d_in)) + NLT_H * NLT_H +
-         (size_t)n_col_blocks(d_in) * NLT_H * NLT_H +
-         (size_t)kChunk * (x_stride(d_in) + 3 * NLT_H);
+// A warp's buffers: x (16 x x_cols), t, dy, t0 then dt0 (16 x 64 each).
+template <bool kWide>
+__host__ __device__ constexpr int warp_floats() {
+  return kRows * (x_cols<kWide>() + 3 * NLT_H);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// W0 (x_cols x 64), W1, b0 | b1 | ls | lb, and the warps' buffers.
+template <bool kWide>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * ((size_t)x_cols<kWide>() * NLT_H + HH + 4 * NLT_H +
+                          (size_t)n_warps<kWide>() * warp_floats<kWide>());
+}
+static_assert(smem_bytes<true>() <= 232448 && smem_bytes<false>() <= 232448,
+              "shared memory of a block");
+
+// Column c of row r of a staged matrix (ld columns) lies at r*ld +
+// (c ^ swz(r)). The xor moves bits 2-4 of c only, so float2 and float4
+// groups stay whole and a row stays within its 32-column groups. Reads of
+// (row g.., column t..) and of (row t.., column g..) across a warp (g =
+// lane/4, t = lane%4) both hit 32 distinct banks.
+__device__ __forceinline__ int at(int r, int c, int ld) {
+  return r * ld + (c ^ (((r & 3) << 3) | (r & 4)));
+}
+
+__device__ __forceinline__ float2 ld2s(const float* m, int r, int c, int ld) {
+  return *reinterpret_cast<const float2*>(m + at(r, c, ld));
+}
+
+__device__ __forceinline__ void st2s(float* m, int r, int c, int ld,
+                                     float2 v) {
+  *reinterpret_cast<float2*>(m + at(r, c, ld)) = v;
+}
+
+// x = big + small as TF32 operands, as split_tf32 (tc_common.cuh) but by
+// integer rounding and masks: big rounds x's mantissa to 10 bits (half
+// away from zero), small = x - big (exact in fp32) cut to 10 bits. A few
+// ALU operations where two cvt.rna cost more: with them the kernel took
+// 25% longer (probes/torch_b1_parts.py). The sum keeps about 21 bits.
+__device__ __forceinline__ void split_fast(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+
+// silu and its gradient with the fast exponential and division: within
+// a few ulp of nlt_silu2 / nlt_mul_silu_grad, and far fewer instructions
+// on each warp's chain of dependent steps.
+__device__ __forceinline__ float2 silu_fast(float2 v) {
+  return make_float2(__fdividef(v.x, 1.0f + __expf(-v.x)),
+                     __fdividef(v.y, 1.0f + __expf(-v.y)));
+}
+
+__device__ __forceinline__ float2 mul_silu_grad_fast(float2 d, float2 v) {
+  const float sx = __fdividef(1.0f, 1.0f + __expf(-v.x));
+  const float sy = __fdividef(1.0f, 1.0f + __expf(-v.y));
+  return make_float2(d.x * sx * (1.0f + v.x * (1.0f - sx)),
+                     d.y * sy * (1.0f + v.y * (1.0f - sy)));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+}
+
+// acc[q] += A @ B over k steps ks < nks, in 3xTF32: A the 16-row tile `a`
+// (ld columns, swizzled) at columns 8ks..; B(k, n) = W[k, 8(q0+q) + n]
+// or, kTrans, W[8(q0+q) + n, k], W the swizzled (rows, 64) matrix `w`.
+template <bool kTrans>
+__device__ __forceinline__ void tile_mma(const float* a, int ld, int nks,
+                                         const float* w, int q0, int lane,
+                                         float (&acc)[8][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int ks = 0; ks < nks; ++ks) {
+    const int c = 8 * ks + t;
+    uint32_t ab[4], as[4];
+    split_fast(a[at(g, c, ld)], ab[0], as[0]);
+    split_fast(a[at(g + 8, c, ld)], ab[1], as[1]);
+    split_fast(a[at(g, c + 4, ld)], ab[2], as[2]);
+    split_fast(a[at(g + 8, c + 4, ld)], ab[3], as[3]);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int n = 8 * (q0 + q) + g;
+      const float w0 = kTrans ? w[at(n, c, NLT_H)] : w[at(c, n, NLT_H)];
+      const float w1 =
+          kTrans ? w[at(n, c + 4, NLT_H)] : w[at(c + 4, n, NLT_H)];
+      uint32_t bb0, bs0, bb1, bs1;
+      split_fast(w0, bb0, bs0);
+      split_fast(w1, bb1, bs1);
+      mma_tf32(acc[q], as, bb0, bb1);
+      mma_tf32(acc[q], ab, bs0, bs1);
+      mma_tf32(acc[q], ab, bb0, bb1);
+    }
+  }
+}
+
+// Sums over the warp's 16 rows of a C-layout tile's columns, given per
+// lane as v[q][e] = rows g and g+8 of column 8q + 2t + e already added:
+// reduce-scattered over the 8 lanes of a column (xor 16, 8, 4), so that
+// lane l returns columns 2l and 2l+1. Fixed order.
+__device__ __forceinline__ float2 col_sums(const float (&v)[8][2], int lane) {
+  float a[4][2], b[2][2];
+  const bool h2 = lane & 16, h1 = lane & 8, h0 = lane & 4;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float send = h2 ? v[q][e] : v[q + 4][e];
+      a[q][e] = (h2 ? v[q + 4][e] : v[q][e]) +
+                __shfl_xor_sync(0xffffffffu, send, 16);
+    }
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float send = h1 ? a[q][e] : a[q + 2][e];
+      b[q][e] = (h1 ? a[q + 2][e] : a[q][e]) +
+                __shfl_xor_sync(0xffffffffu, send, 8);
+    }
+  float2 r;
+  const float s0 = h0 ? b[0][0] : b[1][0], s1 = h0 ? b[0][1] : b[1][1];
+  r.x = (h0 ? b[1][0] : b[0][0]) + __shfl_xor_sync(0xffffffffu, s0, 4);
+  r.y = (h0 ? b[1][1] : b[0][1]) + __shfl_xor_sync(0xffffffffu, s1, 4);
+  return r;
+}
+
+// Stage rows r0 .. r0+15 of x (d_in columns) into xs and of d_out into
+// dys (rows past n_rows as zeros; x's columns from d_in on are never
+// written), as two cp.async groups: x, then d_out, which the chain waits
+// for only at its LayerNorm. 16-byte copies where the rows allow them.
+template <int XC>
+__device__ __forceinline__ void stage_tile(float* xs, float* dys,
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ dout,
+                                           long long r0, long long n_rows,
+                                           int d_in, bool x16, bool d16,
+                                           int lane) {
+  if (x16) {
+    const int nc = d_in >> 2;
+    for (int i = lane; i < kRows * nc; i += 32) {
+      const int r = i / nc, c = 4 * (i - r * nc);
+      const bool ok = r0 + r < n_rows;
+      cp_async16(xs + at(r, c, XC), x + (ok ? r0 + r : 0) * d_in + c, ok);
+    }
+  } else {
+    for (int i = lane; i < kRows * d_in; i += 32) {
+      const int r = i / d_in, c = i - r * d_in;
+      const bool ok = r0 + r < n_rows;
+      cp_async4(xs + at(r, c, XC), x + (ok ? (r0 + r) * d_in + c : 0), ok);
+    }
+  }
+  cp_async_commit();
+  if (d16) {
+    for (int i = lane; i < kRows * NLT_H / 4; i += 32) {
+      const int r = i >> 4, c = 4 * (i & 15);
+      const bool ok = r0 + r < n_rows;
+      cp_async16(dys + at(r, c, NLT_H), dout + (ok ? r0 + r : 0) * NLT_H + c,
+                 ok);
+    }
+  } else {
+    for (int i = lane; i < kRows * NLT_H; i += 32) {
+      const int r = i >> 6, c = i & (NLT_H - 1);
+      const bool ok = r0 + r < n_rows;
+      cp_async4(dys + at(r, c, NLT_H),
+                dout + (ok ? (r0 + r) * NLT_H + c : 0), ok);
+    }
+  }
+  cp_async_commit();
+}
+
+// The chain of one staged tile (rows r0..): writes t to ts, dy to dys
+// (over d_out), dt0 to d0s, dx when asked; adds the tile's column sums of
+// dt0, dy, d_out * chat and d_out to vsum.
+template <int XC>
+__device__ __forceinline__ void chain_tile(const float* xs, float* ts,
+                                           float* dys, float* d0s,
+                                           const float* w0, const float* w1,
+                                           const float* vec, float* dx,
+                                           long long r0, long long n_rows,
+                                           int d_in, int lane,
+                                           float2 (&vsum)[4]) {
+  const int g = lane >> 2, t = lane & 3;
+  float acc[8][4];
+  float v[8][2];
+
+  // t0 = x W0 + b0 -> d0s, t = silu(t0) -> ts
+  zero(acc);
+  tile_mma<false>(xs, XC, (d_in + 7) >> 3, w0, 0, lane, acc);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = 8 * q + 2 * t;
+      const float2 b0 = nlt_ld2(vec + 8 * q, t);
+      const float2 t0 =
+          make_float2(acc[q][2 * h] + b0.x, acc[q][2 * h + 1] + b0.y);
+      st2s(d0s, g + 8 * h, c, NLT_H, t0);
+      st2s(ts, g + 8 * h, c, NLT_H, silu_fast(t0));
+    }
+  __syncwarp();
+
+  // y = t W1 + b1; LayerNorm statistics of rows g and g + 8
+  zero(acc);
+  tile_mma<false>(ts, NLT_H, 8, w1, 0, lane, acc);
+  float mean[2], inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float2 b1 = nlt_ld2(vec + NLT_H + 8 * q, t);
+      acc[q][2 * h] += b1.x;
+      acc[q][2 * h + 1] += b1.y;
+      s += acc[q][2 * h] + acc[q][2 * h + 1];
+    }
+    mean[h] = quad_sum(s) * (1.0f / NLT_H);
+    float var = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float cx = acc[q][2 * h] - mean[h];
+      const float cy = acc[q][2 * h + 1] - mean[h];
+      var += cx * cx + cy * cy;
+    }
+    inv[h] = rsqrtf(quad_sum(var) * (1.0f / NLT_H) + NLT_LN_EPS);
+  }
+
+  // chat -> acc; the LayerNorm parameters' column sums; the row sums of
+  // g = d_out * ls and g * chat
+  cp_async_wait<0>();  // d_out has landed
+  __syncwarp();
+  float mg[2], mgc[2];
+  {
+    float vb[8][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sg = 0.f, sgc = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int c = 8 * q + 2 * t;
+        const float2 d = ld2s(dys, g + 8 * h, c, NLT_H);
+        const float2 ls = nlt_ld2(vec + 2 * NLT_H + 8 * q, t);
+        const float cx = (acc[q][2 * h] - mean[h]) * inv[h];
+        const float cy = (acc[q][2 * h + 1] - mean[h]) * inv[h];
+        acc[q][2 * h] = cx;
+        acc[q][2 * h + 1] = cy;
+        v[q][0] = h ? v[q][0] + d.x * cx : d.x * cx;
+        v[q][1] = h ? v[q][1] + d.y * cy : d.y * cy;
+        vb[q][0] = h ? vb[q][0] + d.x : d.x;
+        vb[q][1] = h ? vb[q][1] + d.y : d.y;
+        const float gx = d.x * ls.x, gy = d.y * ls.y;
+        sg += gx + gy;
+        sgc += gx * cx + gy * cy;
+      }
+      mg[h] = quad_sum(sg) * (1.0f / NLT_H);
+      mgc[h] = quad_sum(sgc) * (1.0f / NLT_H);
+    }
+    nlt_acc2(vsum[2], col_sums(v, lane));
+    nlt_acc2(vsum[3], col_sums(vb, lane));
+  }
+
+  // dy = rstd * (g - mean(g) - chat * mean(g chat)) -> dys (over d_out)
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = 8 * q + 2 * t;
+      const float2 d = ld2s(dys, g + 8 * h, c, NLT_H);
+      const float2 ls = nlt_ld2(vec + 2 * NLT_H + 8 * q, t);
+      const float2 dy =
+          make_float2(inv[h] * (d.x * ls.x - mg[h] - acc[q][2 * h] * mgc[h]),
+                      inv[h] * (d.y * ls.y - mg[h] -
+                                acc[q][2 * h + 1] * mgc[h]));
+      st2s(dys, g + 8 * h, c, NLT_H, dy);
+      v[q][0] = h ? v[q][0] + dy.x : dy.x;
+      v[q][1] = h ? v[q][1] + dy.y : dy.y;
+    }
+  nlt_acc2(vsum[1], col_sums(v, lane));
+  __syncwarp();
+
+  // dt0 = (dy W1^T) * silu'(t0) -> d0s (over t0)
+  zero(acc);
+  tile_mma<true>(dys, NLT_H, 8, w1, 0, lane, acc);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = 8 * q + 2 * t;
+      const float2 d0 = mul_silu_grad_fast(
+          make_float2(acc[q][2 * h], acc[q][2 * h + 1]),
+          ld2s(d0s, g + 8 * h, c, NLT_H));
+      st2s(d0s, g + 8 * h, c, NLT_H, d0);
+      v[q][0] = h ? v[q][0] + d0.x : d0.x;
+      v[q][1] = h ? v[q][1] + d0.y : d0.y;
+    }
+  nlt_acc2(vsum[0], col_sums(v, lane));
+  __syncwarp();
+
+  // dx = dt0 W0^T, 64 input columns a pass
+  if (dx != nullptr) {
+    for (int q0 = 0; 8 * q0 < d_in; q0 += 8) {
+      zero(acc);
+      tile_mma<true>(d0s, NLT_H, 8, w0, q0, lane, acc);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = r0 + g + 8 * h;
+        if (row >= n_rows) continue;
+        float* dst = dx + row * d_in;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int c = 8 * (q0 + q) + 2 * t;
+          if (c < d_in) dst[c] = acc[q][2 * h];
+          if (c + 1 < d_in) dst[c + 1] = acc[q][2 * h + 1];
+        }
+      }
+    }
+  }
+}
+
+// Weight gradients of a block step on tensor cores. The outputs are cut
+// into 16 x 64 strips: dW1 = t^T dy (strips 0-3, of t's columns) and
+// dW0 = x^T dt0 (strips 4.., of x's columns, as far as d_in reaches);
+// warp w sums strips w, w + kWarps, .. over the step's rows, in 3xTF32
+// with the row as the k dimension: A(i, r) = X[r, i0 + i] and B(r, j) =
+// D[r, j], read from each warp's buffers. Each 16-row tile is summed in
+// fresh accumulators, then added to acc (fp32) in warp order.
+template <int XC, int NS, int kWarps>
+__device__ __forceinline__ void step_wgrad(const float* bufs, int n_strips,
+                                           int warp, int lane,
+                                           float (&acc)[NS][8][4]) {
+  constexpr int WF = kRows * (XC + 3 * NLT_H);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int s = warp + j * kWarps;
+    if (s >= n_strips) break;
+    const bool w1s = s < 4;
+    const int xo = w1s ? kRows * XC : 0, lx = w1s ? NLT_H : XC;
+    const int i0 = 16 * (w1s ? s : s - 4);
+    const int dof = kRows * (XC + (w1s ? 1 : 2) * NLT_H);
+    for (int w = 0; w < kWarps; ++w) {
+      const float* X = bufs + w * WF + xo;
+      const float* D = bufs + w * WF + dof;
+      float c[8][4];
+      zero(c);
+#pragma unroll
+      for (int kk = 0; kk < kRows; kk += 8) {
+        uint32_t ab[4], as[4];
+        split_fast(X[at(kk + t, i0 + g, lx)], ab[0], as[0]);
+        split_fast(X[at(kk + t, i0 + g + 8, lx)], ab[1], as[1]);
+        split_fast(X[at(kk + t + 4, i0 + g, lx)], ab[2], as[2]);
+        split_fast(X[at(kk + t + 4, i0 + g + 8, lx)], ab[3], as[3]);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          uint32_t bb0, bs0, bb1, bs1;
+          split_fast(D[at(kk + t, 8 * q + g, NLT_H)], bb0, bs0);
+          split_fast(D[at(kk + t + 4, 8 * q + g, NLT_H)], bb1, bs1);
+          mma_tf32(c[q], as, bb0, bb1);
+          mma_tf32(c[q], ab, bs0, bs1);
+          mma_tf32(c[q], ab, bb0, bb1);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][q][e] += c[q][e];
+    }
+  }
+}
+
+// Write warp `warp`'s strips (step_wgrad) to the block's partial row.
+template <int NS, int kWarps>
+__device__ __forceinline__ void store_wgrad(float* part, int d_in,
+                                            int n_strips, int warp, int lane,
+                                            const float (&acc)[NS][8][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int s = warp + j * kWarps;
+    if (s >= n_strips) break;
+    const bool w1s = s < 4;
+    float* dst = w1s ? part + d_in * NLT_H : part;
+    const int i0 = 16 * (w1s ? s : s - 4), rows = w1s ? NLT_H : d_in;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + g + 8 * h;
+      if (i >= rows) continue;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        *reinterpret_cast<float2*>(dst + i * NLT_H + 8 * q + 2 * t) =
+            make_float2(acc[j][q][2 * h], acc[j][q][2 * h + 1]);
+    }
+  }
+}
+
+template <bool kWide>
+__global__ void __launch_bounds__(n_warps<kWide>() * 32, 1)
     embed_bwd_kernel(const float* __restrict__ x,
                      const float* __restrict__ dout,
                      const float* __restrict__ params, float* __restrict__ dx,
                      float* __restrict__ partial, long long n_rows,
                      int d_in) {
+  constexpr int XC = x_cols<kWide>();
+  constexpr int WF = warp_floats<kWide>();
+  constexpr int kWarps = n_warps<kWide>(), kStep = kWarps * kRows;
   extern __shared__ __align__(16) float smem[];
-  const int n_par = n_params(d_in);
-  nlt_load_params(smem, params, n_par);
-  const float* w0 = smem;
-  const float* w1 = w0 + d_in * NLT_H;
-  const float* vec = w1 + NLT_H * NLT_H;  // b0 | b1 | ls | lb
-  float* w1t = smem + nlt_round4(n_par);
-  float* w0t = w1t + NLT_H * NLT_H;  // (64, 64) blocks of W0^T columns
-  const int n_cb = n_col_blocks(d_in);
-  const int ldx = x_stride(d_in);
-  float* xs = w0t + n_cb * NLT_H * NLT_H;  // (kChunk, ldx)
-  float* ts = xs + kChunk * ldx;           // (kChunk, 64) each
-  float* dys = ts + kChunk * NLT_H;
-  float* d0s = dys + kChunk * NLT_H;
-  nlt_load_transposed(w1t, params + d_in * NLT_H);
-  for (int i = threadIdx.x; i < n_cb * NLT_H * NLT_H; i += blockDim.x) {
-    const int q = i / (NLT_H * NLT_H), rem = i % (NLT_H * NLT_H);
-    const int k = rem / NLT_H, c = q * NLT_H + rem % NLT_H;
-    w0t[i] = c < d_in ? params[c * NLT_H + k] : 0.f;
+  float* w0 = smem;             // (XC, 64), rows from d_in on zero
+  float* w1 = w0 + XC * NLT_H;  // (64, 64)
+  float* vec = w1 + HH;         // b0 | b1 | ls | lb
+  float* bufs = vec + 4 * NLT_H;
+  for (int i = threadIdx.x; i < XC * NLT_H; i += blockDim.x) {
+    const int r = i >> 6;
+    w0[at(r, i & (NLT_H - 1), NLT_H)] = r < d_in ? params[i] : 0.f;
   }
+  const float* pw1 = params + d_in * NLT_H;
+  for (int i = threadIdx.x; i < HH; i += blockDim.x)
+    w1[at(i >> 6, i & (NLT_H - 1), NLT_H)] = pw1[i];
+  for (int i = threadIdx.x; i < 4 * NLT_H; i += blockDim.x)
+    vec[i] = pw1[HH + i];
+  for (int i = threadIdx.x; i < kWarps * WF; i += blockDim.x) bufs[i] = 0.f;
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tid = threadIdx.x, ti = tid >> 4, tj = tid & 15;
-  const float2 b0v = nlt_ld2(vec, lane), b1v = nlt_ld2(vec + NLT_H, lane),
-               lsv = nlt_ld2(vec + 2 * NLT_H, lane);
+  float* xs = bufs + warp * WF;
+  float* ts = xs + kRows * XC;
+  float* dys = ts + kRows * NLT_H;
+  float* d0s = dys + kRows * NLT_H;
+  const bool x16 = (d_in & 3) == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  const bool d16 = (reinterpret_cast<size_t>(dout) & 15) == 0;
   float2 vsum[4];  // db0, db1, dls, dlb
   nlt_fill(vsum, make_float2(0.f, 0.f));
-  float a1[16] = {}, a0[2][16] = {};
-  float* xw = xs + warp * kRows * ldx;
-  float* tw = ts + warp * kRows * NLT_H;
-  float* dyw = dys + warp * kRows * NLT_H;
-  float* d0w = d0s + warp * kRows * NLT_H;
-  const long long n_chunks = (n_rows + kChunk - 1) / kChunk;
+  constexpr int NS = kWide ? 2 : 1;  // strips a warp
+  const int n_strips = 4 + (d_in + 15) / 16;
+  float acc[NS][8][4];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) zero(acc[j]);
+  const long long n_steps = (n_rows + kStep - 1) / kStep;
 
-  for (long long chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
-    const long long r0 = chunk * kChunk + warp * kRows;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool ok = r0 + r < n_rows;
-      for (int c = lane; c < ldx; c += 32)
-        xw[r * ldx + c] = (ok && c < d_in) ? x[(r0 + r) * d_in + c] : 0.f;
-    }
+  for (long long s = blockIdx.x; s < n_steps; s += gridDim.x) {
+    const long long r0 = s * kStep + warp * kRows;
+    stage_tile<XC>(xs, dys, x, dout, r0, n_rows, d_in, x16, d16, lane);
+    cp_async_wait<1>();  // x has landed
     __syncwarp();
-    float2 t0[kRows];
-    nlt_fill(t0, b0v);
-    nlt_mm64<kRows>(xw, ldx, w0, d_in, lane, t0);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) nlt_st2(tw + r * NLT_H, lane, nlt_silu2(t0[r]));
-    __syncwarp();
-    float2 y[kRows];
-    nlt_fill(y, b1v);
-    nlt_mm64<kRows>(tw, NLT_H, w1, NLT_H, lane, y);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float2 g = r0 + r < n_rows ? nlt_ld2(dout + (r0 + r) * NLT_H, lane)
-                                       : make_float2(0.f, 0.f);
-      const float2 dy = nlt_ln_grad(nlt_ln_stats(y[r]), lsv, g, vsum[2],
-                                    vsum[3]);
-      nlt_acc2(vsum[1], dy);
-      nlt_st2(dyw + r * NLT_H, lane, dy);
-    }
-    __syncwarp();
-    float2 dt[kRows];
-    nlt_fill(dt, make_float2(0.f, 0.f));
-    nlt_mm64<kRows>(dyw, NLT_H, w1t, NLT_H, lane, dt);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float2 d0 = nlt_mul_silu_grad(dt[r], t0[r]);
-      nlt_acc2(vsum[0], d0);
-      nlt_st2(d0w + r * NLT_H, lane, d0);
-    }
-    __syncwarp();
-    if (dx != nullptr) {
-      for (int q = 0; q < n_cb; ++q) {
-        float2 o[kRows];
-        nlt_fill(o, make_float2(0.f, 0.f));
-        nlt_mm64<kRows>(d0w, NLT_H, w0t + q * NLT_H * NLT_H, NLT_H, lane, o);
-        const int c = q * NLT_H + 2 * lane;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (r0 + r >= n_rows) continue;
-          float* row = dx + (r0 + r) * d_in;
-          if (c < d_in) row[c] = o[r].x;
-          if (c + 1 < d_in) row[c + 1] = o[r].y;
-        }
-      }
-    }
+    chain_tile<XC>(xs, ts, dys, d0s, w0, w1, vec, dx, r0, n_rows, d_in,
+                   lane, vsum);
     __syncthreads();
-    nlt_tile_acc(ts, NLT_H, dys, NLT_H, kChunk, ti, tj, a1);
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int ti0 = (tid + u * kWarps * 32) >> 4;
-      if (4 * ti0 < d_in)
-        nlt_tile_acc(xs, ldx, d0s, NLT_H, kChunk, ti0, tj, a0[u]);
-    }
+    step_wgrad<XC, NS, kWarps>(bufs, n_strips, warp, lane, acc);
     __syncthreads();
   }
 
-  float* part = partial + (size_t)blockIdx.x * n_par;
-  nlt_tile_store(part + d_in * NLT_H, NLT_H, NLT_H, ti, tj, a1);
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int ti0 = (tid + u * kWarps * 32) >> 4;
-    if (4 * ti0 < d_in) nlt_tile_store(part, d_in, NLT_H, ti0, tj, a0[u]);
-  }
-  nlt_block_vec_sums<4>(ts, vsum, kWarps,
-                        part + d_in * NLT_H + NLT_H * NLT_H);
+  float* part = partial + (size_t)blockIdx.x * n_params(d_in);
+  store_wgrad<NS, kWarps>(part, d_in, n_strips, warp, lane, acc);
+  nlt_block_vec_sums<4>(bufs, vsum, kWarps, part + d_in * NLT_H + HH);
+}
+
+template <bool kWide>
+cudaError_t grid_for(long long n_rows, int* grid) {
+  constexpr int kStep = n_warps<kWide>() * kRows;
+  return nlt_launch_config(embed_bwd_kernel<kWide>, n_warps<kWide>() * 32,
+                           smem_bytes<kWide>(),
+                           (n_rows + kStep - 1) / kStep, grid);
+}
+
+template <bool kWide>
+cudaError_t launch(const float* x, const float* dout, const float* params,
+                   float* dx, float* partial, long long n_rows, int d_in,
+                   int grid, cudaStream_t stream) {
+  cudaError_t err = nlt_allow_smem(embed_bwd_kernel<kWide>,
+                                   smem_bytes<kWide>());
+  if (err != cudaSuccess) return err;
+  embed_bwd_kernel<kWide><<<grid, n_warps<kWide>() * 32, smem_bytes<kWide>(),
+                            stream>>>(x, dout, params, dx, partial, n_rows,
+                                      d_in);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -173,9 +561,8 @@ extern "C" int nlt_embed_bwd_grid(long long n_rows, int d_in, int device,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d_in < 1 || d_in > kMaxDin) return (int)cudaErrorInvalidValue;
-  return (int)nlt_launch_config(embed_bwd_kernel, kWarps * 32,
-                                sizeof(float) * smem_floats(d_in),
-                                (n_rows + kChunk - 1) / kChunk, grid);
+  return (int)(d_in > NLT_H ? grid_for<true>(n_rows, grid)
+                            : grid_for<false>(n_rows, grid));
 }
 
 // B1. x (n_rows, d_in), dout (n_rows, 64) -> dx (n_rows, d_in) when dx is
@@ -189,10 +576,9 @@ extern "C" int nlt_embed_bwd(const float* x, const float* dout,
   if (err != cudaSuccess) return (int)err;
   if (d_in < 1 || d_in > kMaxDin || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * smem_floats(d_in);
-  if ((err = nlt_allow_smem(embed_bwd_kernel, smem)) != cudaSuccess)
-    return (int)err;
-  embed_bwd_kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      x, dout, params, dx, partial, n_rows, d_in);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(d_in > NLT_H ? launch<true>(x, dout, params, dx, partial,
+                                           n_rows, d_in, grid, st)
+                            : launch<false>(x, dout, params, dx, partial,
+                                            n_rows, d_in, grid, st));
 }

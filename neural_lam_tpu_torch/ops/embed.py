@@ -31,7 +31,7 @@ _P, _I, _LL, _IP = _build.P, _build.I, _build.LL, _build.IP
 _SIGNATURES = {"nlt_embed": [_P] * 3 + [_LL, _I, _I, _P]}
 _BWD_SIGNATURES = {"nlt_embed_bwd": [_P] * 5 + [_LL, _I, _I, _I, _P],
                    "nlt_embed_bwd_grid": [_LL, _I, _I, _IP]}
-MAX_D_IN = 128  # csrc/embed_bwd.cu: two dW0 tiles per thread
+MAX_D_IN = 128  # csrc/embed_bwd.cu stages x rows at up to 128 columns
 
 
 def _lib():
@@ -92,8 +92,9 @@ def embed_grid_flat_bwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
     d_w0, d_b0, d_w1, d_b1, d_ln_scale, d_ln_bias). d_x is computed only
     when `need_dx` (the first predict step's input needs none).
 
-    Replaces pallas_embed.py::_embed_bwd_kernel (via _embed_bwd). Bound by
-    fp32 operations on the card; see csrc/embed_bwd.cu.
+    Replaces pallas_embed.py::_embed_bwd_kernel (via _embed_bwd). Its
+    products, the weight gradients' included, run on tensor cores in
+    3xTF32 in one pass; see csrc/embed_bwd.cu.
     """
     if x_f.device.type == "cpu":
         return embed_grid_flat_bwd_plain(x_f, w0, b0, w1, b1, ln_scale,
