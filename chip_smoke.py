@@ -9,14 +9,16 @@ result line is printed):
 1. Build every CUDA kernel of the forecast and training paths from `csrc/`
    with nvcc (one process per source, all started together); print the
    build time and each source's ptxas registers and spills (per kernel
-   for the backward sources with two passes or two kernels: B2's and
+   for K1's three (d_in up to 64, up to 128, above), K2's and K3's per K,
+   and the backward sources with two passes or two kernels: B2's and
    B3/B4's chain kernels of `edge_flat_bwd` per K, the decoder backward's
    and `xtd_sum`'s, and B1's two, for d_in up to 64 and above), and,
    where the toolkit has `cuobjdump`, the shared-memory loads by width,
    the FFMAs, the tensor-core products (HMMA) and the async copies
    (LDGSTS) in the SASS of B3/B4's K=8 chain kernel, of K3's and K2's K=8
-   kernels, of K4's K=4 kernel (`grid_update_kernel<4>`), of `xtd_sum`'s
-   main kernel and of B1's kernel for d_in up to 64.
+   kernels, of K1's kernel for d_in up to 64, of K4's K=4 kernel
+   (`grid_update_kernel<4>`), of `xtd_sum`'s main kernel and of B1's
+   kernel for d_in up to 64.
 2. Build the bench-width GraphLAM and HiLAM through
    `neural_lam_tpu_torch.entry` (268x238 grid, 17 state / 6x3 forcing / 4
    static features, hidden 64, 4 processor layers, fp32, weights from a
@@ -24,13 +26,15 @@ result line is printed):
 3. For each forward kernel, at the shapes those models give it: hold the
    kernel against its plain PyTorch version on the card (TF32 off), and
    time both with CUDA events beside the least time the card could take
-   (for K3, whose products run on tensor cores in 3xTF32, max(bytes, 3 x
-   FLOP / TF32 peak), with its fp32 CUDA-core bound printed beside it, and
-   two `torch.mm` calls for its two products as its library time).
-   K1-K4 at GraphLAM's batch-4 shapes; K3 also at HiLAM's K=1 down[0] and
-   non-identity up[0] sets (batch 4) and at K=3 on a seeded local graph (a
-   K that does not divide its 16-row tiles), K4 also at HiLAM's batch-4
-   m2g;
+   (for K1, K2 and K3, whose products run on tensor cores in 3xTF32,
+   max(bytes, 3 x FLOP / TF32 peak), with the fp32 CUDA-core bound
+   printed beside it, and their products as `torch.mm` calls, TF32 off,
+   as their library time); K1 and K2 also give bit-identical outputs in
+   two calls. K1-K4 at GraphLAM's batch-4 shapes; K1 also at d_in 23, 100
+   and 160 on a row count that is not a multiple of 16; K3 also at
+   HiLAM's K=1 down[0] and non-identity up[0] sets (batch 4); K2 and K3
+   at every K from 1 to 8 on seeded local graphs (K = 3, 5, 6, 7 do not
+   divide their 16-row tiles); K4 also at HiLAM's batch-4 m2g;
    P1-P3 (the batched route) at HiLAM's batch-1 shapes (P3 on m2m[0], P2
    on m2g and g2m, P1 on down[0] with and without messages) and at one
    batch-4 shape each.
@@ -224,14 +228,24 @@ def read_yardstick(torch, pairs, what):
 
 
 def kernel_name(mangled):
-    """`name<K>` from a mangled `..._kernelILi<K>EE...` entry name, with
-    B2's and B3/B4's kernels of edge_flat_bwd tagged."""
-    m = re.search(r"\d+([a-z]\w*?_kernel)(?:IL[ib](\d+)E)?", mangled)
-    if not m:
+    """`name<args>` of a mangled kernel entry name (its integer and bool
+    template arguments), tagged K1, K2, K3, B1, or as B2's or B3/B4's
+    chain kernel of edge_flat_bwd."""
+    for m in re.finditer(r"(?=(\d+)([a-z]\w*))", mangled):
+        n = int(m.group(1))
+        name, rest = m.group(2)[:n], m.group(2)[n:]
+        if len(name) == n and name.endswith("_kernel"):
+            break
+    else:
         return mangled[:60]
+    args = re.findall(r"L[ib](\d+)E", re.match(r"I?(?:L[ib]\d+E)*",
+                                              rest).group(0))
     tag = {"edge_tail_bwd_kernel": "B2 chain ",
-           "edge_layer_bwd_kernel": "B3/B4 chain "}.get(m.group(1), "")
-    return f"{tag}{m.group(1)}" + (f"<{m.group(2)}>" if m.group(2) else "")
+           "edge_layer_bwd_kernel": "B3/B4 chain ", "embed_kernel": "K1 ",
+           "embed_bwd_kernel": "B1 ",
+           "edge_tc_kernel": "K3 " if args[1:] == ["1"] else "K2 ",
+           }.get(name, "")
+    return f"{tag}{name}" + (f"<{', '.join(args)}>" if args else "")
 
 
 def sass_counts(_build, lib, fn_part):
@@ -375,7 +389,7 @@ def main():
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
         print(f"  ptxas[{src}]: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {sum(spills)} bytes of spill stores and loads")
-        if src in ("edge_flat", "edge_flat_bwd", "grid_update_bwd",
+        if src in ("embed", "edge_flat", "edge_flat_bwd", "grid_update_bwd",
                    "weight_grad", "embed_bwd"):
             for fn, info in sorted(re.findall(
                     r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
@@ -385,8 +399,9 @@ def main():
                 print(f"    {kernel_name(fn)}: {used}; "
                       f"{spill or 'no spill line'}")
     sass_counts(_build, libs["edge_flat_bwd"], "edge_layer_bwd_kernelILi8E")
-    sass_counts(_build, libs["edge_flat"], "edge_layer_tc_kernelILi8E")  # K3
-    sass_counts(_build, libs["edge_flat"], "edge_tail_kernelILi8E")  # K2
+    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELb1E")  # K3
+    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELb0E")  # K2
+    sass_counts(_build, libs["embed"], "embed_kernelILi0E")  # K1, d_in <= 64
     sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4E")
     sass_counts(_build, libs["weight_grad"], "xtd_sum_kernel")
     sass_counts(_build, libs["embed_bwd"], "embed_bwd_kernelILb0E")  # B1
@@ -436,10 +451,23 @@ def main():
 
     k1 = det(rand(n_grid, BATCH * d_in), emb.layers[0].w, emb.layers[0].b,
              emb.layers[1].w, emb.layers[1].b, emb.ln.scale, emb.ln.bias)
-    cases.append(("embed_grid_flat", embed, k1 + (BATCH,),
-                  "neural_lam_tpu/ops/pallas_embed.py:99",
+    pe1 = "neural_lam_tpu/ops/pallas_embed.py:99"
+    cases.append(("embed_grid_flat", embed, k1 + (BATCH,), pe1,
                   nbytes(*k1) + rows1 * H * 4,
                   2.0 * rows1 * (d_in * H + H * H)))
+    # K1 at d_in 23 (x rows not a multiple of 16 bytes), 100 (two x column
+    # blocks) and 160 (64-column chunks, W0 from device memory), on one
+    # node fewer: a row count that is not a multiple of the 16-row tiles
+    for din in (23, 100, 160):
+        kx = (rand(n_grid - 1, BATCH * din), 0.2 * rand(din, H),
+              0.1 * rand(H), 0.2 * rand(H, H), 0.1 * rand(H),
+              1 + 0.1 * rand(H), 0.1 * rand(H))
+        rows = (n_grid - 1) * BATCH
+        cases.append(("embed_grid_flat", embed, kx + (BATCH,),
+                      f"{pe1} (d_in {din}, {rows} rows)",
+                      nbytes(*kx) + rows * H * 4,
+                      2.0 * rows * (din * H + H * H)))
+    del kx
     # B1 at the training step's call (no dx: x_f is data), then with dx,
     # then at d_in 23 (rows not 16-byte multiples) and 100 (two x column
     # blocks); products: t0, y, dt, dW1, dW0 (and dx)
@@ -564,6 +592,21 @@ def main():
                   sum(2.0 * x.shape[0] * H * H for x, _ in b2_pairs)))
     library = {"xtd_sum": lambda pairs: [torch.mm(x.t(), d)
                                          for x, d in pairs]}
+    # K1's two products (x @ W0, then its result @ W1) as torch.mm calls
+    library["embed_grid_flat"] = lambda x_f, w0, b0, w1, *rest: torch.mm(
+        torch.mm(x_f.view(-1, w0.shape[0]), w0), w1)
+    # K2's one product (X1 @ W2) on (M*B, 64) rows: the gathered sender
+    # rows of g2m stand in for X1
+    k2_rows = {}
+
+    def k2_product(table, senders, ew, rec, mask, w2, *rest):
+        key = (table.data_ptr(), senders.data_ptr())
+        if key not in k2_rows:
+            k2_rows.clear()
+            k2_rows[key] = table.index_select(0, senders).view(-1, H)
+        return torch.mm(k2_rows[key], w2)
+
+    library["edge_tail_sum_flat"] = k2_product
 
     def b1_products(x_f, w0, b0, w1, b1, ls, lb, B, d_out, need_dx):
         """B1's products as torch.mm calls on operands of their shapes:
@@ -615,22 +658,35 @@ def main():
         cases.append(("edge_layer_flat_bwd", edge_flat, ab,
                       f"{pef}:846 ({at})", bb, bf))
 
-    # K3 at a slot count that does not divide its 16-row tiles: K = 3 on a
-    # seeded local graph (each of 20,000 receivers takes 3 senders near it
-    # among 6,561), the processor's first layer's weights
-    rng = np.random.default_rng(0)
-    n_rec3, n_send3 = 20000, 6561
-    centre = (np.arange(n_rec3) * n_send3 // n_rec3)[:, None]
-    send3 = np.clip(centre + rng.integers(-4, 5, (n_rec3, 3)), 0,
-                    n_send3 - 1).reshape(-1)
-    k3_set = EdgeSet.from_local(
-        send3, np.repeat(np.arange(n_rec3), 3),
-        rng.standard_normal((3 * n_rec3, 3)).astype(np.float32), n_send3,
-        n_rec3, device="cuda", build_transpose=False)
-    a, b, f = edge_cases(k3_set, model.processor[0], True)[0]
-    cases.append(("edge_layer_flat", edge_flat, a,
-                  f"{pef}:727 (local graph K={k3_set.dense_k}, "
-                  f"{k3_set.num_virt} rows, B=4)", b, f))
+    # K2 and K3 at every slot count their kernels are built for, K = 1..8,
+    # on seeded local graphs (each of 20,000 receivers takes K senders near
+    # it among 6,561): K = 3, 5, 6, 7 do not divide the 16-row tiles and
+    # sum virt through shared memory, K = 1, 2, 4, 8 by shuffles; the g2m
+    # encoder's and the processor's first layer's weights
+    def k_sweep():
+        rng = np.random.default_rng(0)
+        n_rec, n_send = 20000, 6561
+        centre = (np.arange(n_rec) * n_send // n_rec)[:, None]
+        out = []
+        for K in range(1, 9):
+            send = np.clip(centre + rng.integers(-4, 5, (n_rec, K)), 0,
+                           n_send - 1).reshape(-1)
+            es = EdgeSet.from_local(
+                send, np.repeat(np.arange(n_rec), K),
+                rng.standard_normal((K * n_rec, 3)).astype(np.float32),
+                n_send, n_rec, device="cuda", build_transpose=False)
+            if es.dense_k != K:
+                fail(f"local graph of in-degree {K} has K={es.dense_k}")
+            at = f"local graph K={K}, {es.num_virt} rows, B=4"
+            for kname, inet, layer, line in (
+                    ("edge_tail_sum_flat", model.g2m_gnn, False, 373),
+                    ("edge_layer_flat", model.processor[0], True, 727)):
+                a, b, f = edge_cases(es, inet, layer)[0]
+                out.append((kname, edge_flat, a, f"{pef}:{line} ({at})", b,
+                            f))
+        return out
+
+    cases += k_sweep()
 
     def batched_case(kind, edges, inet, B, with_messages=False):
         """Args, bytes and FLOPs of one P-kernel call on `edges` at batch
@@ -698,7 +754,8 @@ def main():
                 want = want[:-1] + tuple(want[-1][k] for k in sorted(want[-1]))
             err = 0.0
             bwd = kname.endswith("_bwd") or kname in TRAIN_ONLY
-            if kname in ("xtd_sum", "embed_grid_flat_bwd"):
+            if kname in ("xtd_sum", "embed_grid_flat_bwd", "embed_grid_flat",
+                         "edge_tail_sum_flat"):
                 again = as_tuple(kern(*args))
                 if not all(a is None and b is None or torch.equal(a, b)
                            for a, b in zip(got, again)):
@@ -724,8 +781,10 @@ def main():
             t_bytes = bytes_ / peak_bw * 1e3
             t_ops = flops / peak_flops * 1e3
             fp32_note = ""
-            if kname in ("edge_layer_flat", "embed_grid_flat_bwd"):
-                # K3's and B1's products run on tensor cores in 3xTF32:
+            if kname in ("embed_grid_flat", "edge_tail_sum_flat",
+                         "edge_layer_flat", "embed_grid_flat_bwd"):
+                # K1's, K2's, K3's and B1's products run on tensor cores in
+                # 3xTF32:
                 # three TF32 products per term; the fp32 CUDA-core bound
                 # printed too
                 fp32_note = (f"; fp32 CUDA-core bound "
@@ -784,7 +843,7 @@ def main():
         xtd_sweep(torch, weight_grad, xtd_pairs, "the decoder's nine pairs")
     del cases, args, a4, a5, h_a4, h_pp, h_mask, hm2g, k1, xtd_pairs
     del b3_args, b3_pairs, b2_args, b2_pairs, partial, library, seg_pair
-    del red_zeros, k3_set, a, d_emb, bk
+    del red_zeros, a, d_emb, bk, k2_rows
     torch.cuda.empty_cache()
 
     # 5. the forecast paths

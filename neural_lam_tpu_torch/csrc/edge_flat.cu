@@ -15,13 +15,7 @@
 //   edge_out[v*K+k, b] = edge[v*K+k, b] + msg[k]   (K3, padding slots too)
 //   virt[v, b] = sum_k mask[v, k] * msg[k]
 //
-// K2 (`edge_tail_kernel`): one warp owns one (v, b) pair and all K slots
-// of it, so the masked slot sum is a register sum; W2 sits in shared
-// memory and the product runs on CUDA cores (`nlt_mm64`). Bound (fp32
-// CUDA cores, bench shapes): operations -- 2*64*64 FLOP per slot and
-// batch element against ~1 KB of traffic per slot.
-//
-// K3 (`edge_layer_tc_kernel`) runs both 64x64 products on tensor cores in
+// K3 (`edge_tc_kernel<K, true>`) runs both 64x64 products on tensor cores in
 // 3xTF32 (tc_common.cuh), which keeps fp32 accuracy at three TF32
 // products per term. Its bound on this card is then the bytes (~1.2 KB
 // per slot and batch element: the edge row in, edge_out out, the sender
@@ -58,127 +52,68 @@
 //   g, summed by shfl.xor; other K sum the masked rows through shared
 //   memory. A fixed order and no atomics: two calls give bit-identical
 //   outputs.
+//
+// K2 (`edge_tc_kernel<K, false>`) is K3's design with one product: x0 =
+// ew + table[s] + rec (b0 is inside ew), then X1, msg and virt as in K3,
+// and no edge_out. ew (M, 64) is shared by every batch element: its rows
+// are staged into the edge buffers (stride 64, not B*64), and since tiles
+// t and t+1 are one row group at two batch elements, a block's warps read
+// each ew row from L2 once. With one split weight matrix (32 KB, not 64)
+// a block of 14 warps fits. Bound (g2m at the bench shapes): the bytes,
+// ~123 MB (the table, ew, rec_rows, virt), against 3 x 3.3 GFLOP in
+// 3xTF32 (0.020 ms); the sender gather reads a row a slot from a 65 MB
+// table that L2 cannot hold. Neither 12 warps, nor 16 with ew read into
+// registers and the sender rows double-buffered, was faster
+// (probes/torch_k1k2_probe.py).
 #include "common.cuh"
 #include "tc_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // K2: warps per block
 constexpr int HH = NLT_H * NLT_H;
 
 // Parameter blob (floats): w2[64*64] | b2 | ls | lb  [| we[64*64] | b0]
-constexpr int kTailParams = HH + 3 * NLT_H;
-
-// ------------------------------------------------------------------ K2 ----
-
-template <int K>
-__global__ void __launch_bounds__(kWarps * 32)
-    edge_tail_kernel(const float* __restrict__ table,
-                     const int* __restrict__ senders,
-                     const float* __restrict__ ew,  // (M, 64)
-                     const float* __restrict__ rec_rows,
-                     const float* __restrict__ mask,
-                     const float* __restrict__ params,
-                     float* __restrict__ virt, int n_virt, int B) {
-  extern __shared__ float smem[];
-  nlt_load_params(smem, params, kTailParams);
-  __syncthreads();
-  const float* w2 = smem;
-  const float* b2 = w2 + HH;
-  const float* ls = b2 + NLT_H;
-  const float* lb = ls + NLT_H;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* xs = smem + nlt_round4(kTailParams) + warp * K * NLT_H;
-  const int W = B * NLT_H;
-  const float2 b2v = nlt_ld2(b2, lane), lsv = nlt_ld2(ls, lane),
-               lbv = nlt_ld2(lb, lane);
-  const long long n_items = (long long)n_virt * B;
-
-  for (long long item = (long long)blockIdx.x * kWarps + warp; item < n_items;
-       item += (long long)gridDim.x * kWarps) {
-    const int v = (int)(item / B), b = (int)(item % B);
-    const size_t slot0 = (size_t)v * K;
-    const float2 rec = nlt_ld2(rec_rows + (size_t)v * W + b * NLT_H, lane);
-    float2 x0[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) x0[k] = nlt_ld2(ew + (slot0 + k) * NLT_H, lane);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int s = senders[slot0 + k];
-      const float2 g = nlt_ld2(table + (size_t)s * W + b * NLT_H, lane);
-      nlt_st2(xs + k * NLT_H, lane,
-              nlt_silu2(nlt_add2(nlt_add2(x0[k], g), rec)));
-    }
-    __syncwarp();
-    float2 y[K];
-    nlt_fill(y, b2v);
-    nlt_mm64<K>(xs, NLT_H, w2, NLT_H, lane, y);
-    __syncwarp();  // xs is rewritten by the next item
-    float2 sum = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float2 msg = nlt_layer_norm(y[k], lsv, lbv);
-      const float m = mask[slot0 + k];
-      sum.x = fmaf(m, msg.x, sum.x);
-      sum.y = fmaf(m, msg.y, sum.y);
-    }
-    nlt_st2(virt + (size_t)v * W + b * NLT_H, lane, sum);
-  }
-}
-
-template <int K>
-cudaError_t tail_launch(const float* table, const int* senders,
-                        const float* ew, const float* rec_rows,
-                        const float* mask, const float* params, float* virt,
-                        int n_virt, int B, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (nlt_round4(kTailParams) + kWarps * K * NLT_H);
-  const long long items = (long long)n_virt * B;
-  int grid = 0;
-  cudaError_t err = nlt_launch_config(edge_tail_kernel<K>, kWarps * 32, smem,
-                                      (items + kWarps - 1) / kWarps, &grid);
-  if (err != cudaSuccess) return err;
-  edge_tail_kernel<K><<<grid, kWarps * 32, smem, stream>>>(
-      table, senders, ew, rec_rows, mask, params, virt, n_virt, B);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------------------------ K3 ----
+// (K2's blob stops at lb).
 
 // K3's warps per block, one block per SM: the most that the shared memory
-// holds (probes/torch_k3_probe.py times 8 and 10 beside it).
+// holds (probes/torch_k3_probe.py times 8 and 10 beside it). K2's: one
+// weight matrix fewer leaves room for 14.
 constexpr int kLayerWarps = 12;
+constexpr int kTailWarps = 14;
 constexpr int kRows = 16;               // slot rows of a tile
 constexpr int kLd = NLT_H + 4;          // padded stride of a staged row
 constexpr int kTileF = kRows * kLd;     // floats of one staged tile
 constexpr int kFrag = 8 * 8 * 32;       // (k step, 8-column tile, lane)
 enum { V_B0, V_B2, V_LS, V_LB, N_VEC };  // vectors in shared memory
 
-// Weights in fragment order, the vectors, and per warp two edge buffers
-// and a sender buffer.
-constexpr size_t kLayerSmem = 2 * kFrag * sizeof(uint4) +
-                              N_VEC * NLT_H * sizeof(float) +
-                              (size_t)kLayerWarps * 3 * kTileF * sizeof(float);
-static_assert(kLayerSmem <= 232448, "shared memory of a block");
-
-// silu with the fast exponential and division: within a few ulp of
-// nlt_silu, and far fewer instructions on the kernel's critical path.
-__device__ __forceinline__ float2 silu_fast(float2 v) {
-  return make_float2(__fdividef(v.x, 1.0f + __expf(-v.x)),
-                     __fdividef(v.y, 1.0f + __expf(-v.y)));
+template <bool kLayer>
+__host__ __device__ constexpr int n_warps() {
+  return kLayer ? kLayerWarps : kTailWarps;
 }
+
+// Weights in fragment order (W_e and W2, or W2 alone), the vectors, and
+// per warp two edge (or ew) buffers and a sender buffer.
+template <bool kLayer>
+constexpr size_t smem_bytes() {
+  return (kLayer ? 2 : 1) * kFrag * sizeof(uint4) +
+         N_VEC * NLT_H * sizeof(float) +
+         (size_t)n_warps<kLayer>() * 3 * kTileF * sizeof(float);
+}
+constexpr size_t kLayerSmem = smem_bytes<true>();
+static_assert(smem_bytes<true>() <= 232448 && smem_bytes<false>() <= 232448,
+              "shared memory of a block");
 
 // B fragments of W (64 x 64, (in, out) row-major) for (k step ks, 8-column
 // tile q, lane): {big(b0), big(b1), small(b0), small(b1)} with b0 =
 // W[8ks + t, 8q + g], b1 = W[8ks + t + 4, 8q + g]. Unrolled over the
-// block's threads, so that every thread's loads are in flight at once:
-// the split is each block's fixed cost, a large share of K3's time on
-// small edge sets.
+// block's kThreads threads, so that every thread's loads are in flight at
+// once: the split is each block's fixed cost, a large share of K3's time
+// on small edge sets.
+template <int kThreads = kLayerWarps * 32>
 __device__ __forceinline__ void split_weights(uint4* frag,
                                               const float* __restrict__ w) {
 #pragma unroll
-  for (int i0 = 0; i0 < kFrag; i0 += kLayerWarps * 32) {
+  for (int i0 = 0; i0 < kFrag; i0 += kThreads) {
     const int i = i0 + threadIdx.x;
     if (i < kFrag) {
       const int ln = i & 31, q = (i >> 5) & 7, ks = i >> 8;
@@ -214,8 +149,8 @@ __device__ __forceinline__ void tile_product(const float* a,
   }
 }
 
-// Tile t of K3: its 16/K virtual rows from v0 (K rows each; the tile's
-// rows from n_rows on are padding) at batch element b.
+// Tile t: its 16/K virtual rows from v0 (K rows each; the tile's rows from
+// n_rows on are padding) at batch element b.
 template <int K>
 struct Tile {
   int v0, b, n_rows;
@@ -239,11 +174,12 @@ __device__ __forceinline__ int tile_senders(const int* __restrict__ senders,
   return row < tl.n_rows ? senders[(size_t)tl.v0 * K + row] : 0;
 }
 
-// Stage tile t's rows into `dst`: its edge rows (table == nullptr) or
-// its sender rows table[s] (s from `tile_senders`, in s_l); rows past the
+// Stage tile t's rows into `dst`: its edge rows (table == nullptr; with
+// kShared, rows of the (M, 64) ew that every batch element shares) or its
+// sender rows table[s] (s from `tile_senders`, in s_l); rows past the
 // tile's n_rows as zeros, nothing past the last tile. Commits one
 // cp.async group either way.
-template <int K>
+template <int K, bool kShared = false>
 __device__ __forceinline__ void stage_rows(float* dst,
                                            const float* __restrict__ edge_in,
                                            const float* __restrict__ table,
@@ -258,35 +194,41 @@ __device__ __forceinline__ void stage_rows(float* dst,
       const int row = 2 * j + (lane >> 4), c = 4 * (lane & 15);
       const bool ok = row < tl.n_rows;
       const int s = __shfl_sync(0xffffffffu, s_l, row);
-      const float* src = table != nullptr
-                             ? table + (size_t)s * W
-                             : edge_in + (ok ? slot0 + row : slot0) * W;
-      cp_async16(dst + row * kLd + c, src + col0 + c, ok);
+      const size_t e_row = ok ? slot0 + row : slot0;
+      const float* src = table != nullptr ? table + (size_t)s * W + col0
+                         : kShared        ? edge_in + e_row * NLT_H
+                                          : edge_in + e_row * W + col0;
+      cp_async16(dst + row * kLd + c, src + c, ok);
     }
   }
   cp_async_commit();
 }
 
-template <int K>
-__global__ void __launch_bounds__(kLayerWarps * 32, 1)
-    edge_layer_tc_kernel(const float* __restrict__ table,
-                         const int* __restrict__ senders,
-                         const float* __restrict__ edge_in,  // (M, W)
-                         const float* __restrict__ rec_rows,
-                         const float* __restrict__ mask,
-                         const float* __restrict__ params,
-                         float* __restrict__ edge_out,
-                         float* __restrict__ virt, int n_virt, int B) {
+// K3 (kLayer) and K2 (!kLayer, edge_in = ew, edge_out unused).
+template <int K, bool kLayer>
+__global__ void __launch_bounds__(n_warps<kLayer>() * 32, 1)
+    edge_tc_kernel(const float* __restrict__ table,
+                   const int* __restrict__ senders,
+                   const float* __restrict__ edge_in,  // (M, W); K2: (M, 64)
+                   const float* __restrict__ rec_rows,
+                   const float* __restrict__ mask,
+                   const float* __restrict__ params,
+                   float* __restrict__ edge_out,
+                   float* __restrict__ virt, int n_virt, int B) {
   constexpr int kVpt = kRows / K;  // virtual rows of a tile
+  constexpr int kWarps = n_warps<kLayer>();
+  constexpr bool kSh = !kLayer;   // K2's ew rows: one for every b
   extern __shared__ __align__(16) float smem[];
-  uint4* we_f = reinterpret_cast<uint4*>(smem);
-  uint4* w2_f = we_f + kFrag;
+  uint4* we_f = reinterpret_cast<uint4*>(smem);  // K3 only
+  uint4* w2_f = we_f + (kLayer ? kFrag : 0);
   float* vec = reinterpret_cast<float*>(w2_f + kFrag);
-  split_weights(we_f, params + HH + 3 * NLT_H);
-  split_weights(w2_f, params);
+  if constexpr (kLayer)
+    split_weights<kWarps * 32>(we_f, params + HH + 3 * NLT_H);
+  split_weights<kWarps * 32>(w2_f, params);
   for (int i = threadIdx.x; i < N_VEC * NLT_H; i += blockDim.x)  // b0 | b2..
-    vec[i] = i < NLT_H ? params[2 * HH + 3 * NLT_H + i]
-                       : params[HH + i - NLT_H];
+    vec[i] = i >= NLT_H ? params[HH + i - NLT_H]
+             : kLayer   ? params[2 * HH + 3 * NLT_H + i]
+                        : 0.f;
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -297,18 +239,19 @@ __global__ void __launch_bounds__(kLayerWarps * 32, 1)
   float* X = stages + 2 * kTileF;
   const int W = B * NLT_H;
   const int n_tiles = (n_virt + kVpt - 1) / kVpt * B;
-  const int stride = gridDim.x * kLayerWarps;
+  const int stride = gridDim.x * kWarps;
 
-  int tile = blockIdx.x * kLayerWarps + warp;
+  int tile = blockIdx.x * kWarps + warp;
   // cp.async groups in commit order: E(i), G(i), E(i+1), then per tile i
   // G(i+1) after its second product and E(i+2) at its end, so that tile
   // i's wait leaves only E(i+1) in flight
-  stage_rows<K>(stages, edge_in, nullptr, 0, tile, n_tiles, n_virt, B, lane);
-  stage_rows<K>(X, edge_in, table,
-                tile_senders<K>(senders, tile, n_tiles, n_virt, B, lane),
-                tile, n_tiles, n_virt, B, lane);
-  stage_rows<K>(stages + kTileF, edge_in, nullptr, 0, tile + stride, n_tiles,
-                n_virt, B, lane);
+  stage_rows<K, kSh>(stages, edge_in, nullptr, 0, tile, n_tiles, n_virt, B,
+                     lane);
+  stage_rows<K, kSh>(X, edge_in, table,
+                     tile_senders<K>(senders, tile, n_tiles, n_virt, B, lane),
+                     tile, n_tiles, n_virt, B, lane);
+  stage_rows<K, kSh>(stages + kTileF, edge_in, nullptr, 0, tile + stride,
+                     n_tiles, n_virt, B, lane);
   for (int i = 0; tile < n_tiles; tile += stride, ++i) {
     float* E = stages + (i & 1) * kTileF;
     const Tile<K> tl(tile, n_virt, B);
@@ -333,40 +276,40 @@ __global__ void __launch_bounds__(kLayerWarps * 32, 1)
     cp_async_wait<1>();  // E(i) and G(i) have landed
     __syncwarp();
 
-    // x0 = E @ W_e + b0 + table[senders] + rec;  X1 = silu(x0) -> X
+    // x0 = E @ W_e + b0 (K3) or ew (K2), + table[senders] + rec;
+    // X1 = silu(x0) -> X
     float acc[8][4];
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
-    tile_product(E, we_f, lane, acc);
+    zero(acc);
+    if constexpr (kLayer) tile_product(E, we_f, lane, acc);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = g + 8 * h;
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int c = 8 * q + 2 * t;
-        const float2 b0 = *reinterpret_cast<const float2*>(vec + c);
+        float2 e;
+        if constexpr (kLayer) {
+          const float2 b0 = *reinterpret_cast<const float2*>(vec + c);
+          e = make_float2(acc[q][2 * h] + b0.x, acc[q][2 * h + 1] + b0.y);
+        } else {
+          e = *reinterpret_cast<const float2*>(E + row * kLd + c);
+        }
         float2* xp = reinterpret_cast<float2*>(X + row * kLd + c);
         const float2 gv = *xp;
-        *xp = silu_fast(
-            make_float2(acc[q][2 * h] + b0.x + gv.x + rec[h][q].x,
-                        acc[q][2 * h + 1] + b0.y + gv.y + rec[h][q].y));
+        *xp = silu_fast(make_float2(e.x + gv.x + rec[h][q].x,
+                                    e.y + gv.y + rec[h][q].y));
       }
     }
     __syncwarp();
 
     // y = X1 @ W2 + b2
-#pragma unroll
-    for (int q = 0; q < 8; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+    zero(acc);
     tile_product(X, w2_f, lane, acc);
     __syncwarp();  // every lane has read X1: X takes the next sender rows
-    stage_rows<K>(X, edge_in, table, s_next, tile + stride, n_tiles, n_virt,
-                  B, lane);
+    stage_rows<K, kSh>(X, edge_in, table, s_next, tile + stride, n_tiles,
+                       n_virt, B, lane);
 
-    // msg = LN(y) over the quad's 64 columns; edge_out = edge + msg
+    // msg = LN(y) over the quad's 64 columns; K3: edge_out = edge + msg
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = g + 8 * h;
@@ -379,18 +322,14 @@ __global__ void __launch_bounds__(kLayerWarps * 32, 1)
         acc[q][2 * h + 1] += b2.y;
         s += acc[q][2 * h] + acc[q][2 * h + 1];
       }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      const float mean = s * (1.0f / NLT_H);
+      const float mean = quad_sum(s) * (1.0f / NLT_H);
       float var = 0.f;
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const float cx = acc[q][2 * h] - mean, cy = acc[q][2 * h + 1] - mean;
         var += cx * cx + cy * cy;
       }
-      var += __shfl_xor_sync(0xffffffffu, var, 1);
-      var += __shfl_xor_sync(0xffffffffu, var, 2);
-      const float inv = rsqrtf(var * (1.0f / NLT_H) + NLT_LN_EPS);
+      const float inv = rsqrtf(quad_sum(var) * (1.0f / NLT_H) + NLT_LN_EPS);
       const bool ok = row < tl.n_rows;
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
@@ -402,7 +341,7 @@ __global__ void __launch_bounds__(kLayerWarps * 32, 1)
         const float2 msg =
             make_float2((acc[q][2 * h] - mean) * inv * ls.x + lb.x,
                         (acc[q][2 * h + 1] - mean) * inv * ls.y + lb.y);
-        if (ok) {
+        if (kLayer && ok) {
           const float2 e = *reinterpret_cast<const float2*>(E + row * kLd + c);
           *reinterpret_cast<float2*>(edge_out + (slot0 + row) * W + col0 + c) =
               nlt_add2(e, msg);
@@ -454,29 +393,30 @@ __global__ void __launch_bounds__(kLayerWarps * 32, 1)
       }
     }
     __syncwarp();  // E is free: it takes the tile two ahead
-    stage_rows<K>(E, edge_in, nullptr, 0, tile + 2 * stride, n_tiles, n_virt,
-                  B, lane);
+    stage_rows<K, kSh>(E, edge_in, nullptr, 0, tile + 2 * stride, n_tiles,
+                       n_virt, B, lane);
   }
   cp_async_wait<0>();
 }
 
-template <int K>
-cudaError_t layer_launch(const float* table, const int* senders,
-                         const float* edge_in, const float* rec_rows,
-                         const float* mask, const float* params,
-                         float* edge_out, float* virt, int n_virt, int B,
-                         cudaStream_t stream) {
+template <int K, bool kLayer>
+cudaError_t tc_launch(const float* table, const int* senders,
+                      const float* edge_in, const float* rec_rows,
+                      const float* mask, const float* params, float* edge_out,
+                      float* virt, int n_virt, int B, cudaStream_t stream) {
+  constexpr int kWarps = n_warps<kLayer>();
   const long long tiles =
       (long long)((n_virt + kRows / K - 1) / (kRows / K)) * B;
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
   int grid = 0;
   cudaError_t err = nlt_launch_config(
-      edge_layer_tc_kernel<K>, kLayerWarps * 32, kLayerSmem,
-      (tiles + kLayerWarps - 1) / kLayerWarps, &grid);
+      edge_tc_kernel<K, kLayer>, kWarps * 32, smem_bytes<kLayer>(),
+      (tiles + kWarps - 1) / kWarps, &grid);
   if (err != cudaSuccess) return err;
-  edge_layer_tc_kernel<K><<<grid, kLayerWarps * 32, kLayerSmem, stream>>>(
-      table, senders, edge_in, rec_rows, mask, params, edge_out, virt, n_virt,
-      B);
+  edge_tc_kernel<K, kLayer><<<grid, kWarps * 32, smem_bytes<kLayer>(),
+                              stream>>>(table, senders, edge_in, rec_rows,
+                                        mask, params, edge_out, virt, n_virt,
+                                        B);
   return cudaGetLastError();
 }
 
@@ -492,10 +432,10 @@ extern "C" int nlt_edge_tail_sum(const float* table, const int* senders,
   if (err != cudaSuccess) return (int)err;
   if (n_virt == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define NLT_CASE(KK)                                                      \
-  case KK:                                                                \
-    return (int)tail_launch<KK>(table, senders, ew, rec_rows, mask, params, \
-                                virt, n_virt, B, s);
+#define NLT_CASE(KK)                                                    \
+  case KK:                                                              \
+    return (int)tc_launch<KK, false>(table, senders, ew, rec_rows, mask, \
+                                     params, nullptr, virt, n_virt, B, s);
   switch (K) {
     NLT_FOR_K(NLT_CASE)
     default:
@@ -514,10 +454,11 @@ extern "C" int nlt_edge_layer(const float* edge_rep, const float* table,
   if (err != cudaSuccess) return (int)err;
   if (n_virt == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-#define NLT_CASE(KK)                                                   \
-  case KK:                                                             \
-    return (int)layer_launch<KK>(table, senders, edge_rep, rec_rows, mask, \
-                                 params, edge_out, virt, n_virt, B, s);
+#define NLT_CASE(KK)                                                      \
+  case KK:                                                                \
+    return (int)tc_launch<KK, true>(table, senders, edge_rep, rec_rows,   \
+                                    mask, params, edge_out, virt, n_virt, \
+                                    B, s);
   switch (K) {
     NLT_FOR_K(NLT_CASE)
     default:

@@ -7,92 +7,258 @@
 // out (N, B*64) == (N*B, 64). The TPU kernel's zero-padding of d_in to a
 // lane multiple and its kron-widened weights are not needed here.
 //
-// One warp computes kRows consecutive rows, so each weight read from
-// shared memory feeds kRows rows. Bound (fp32 CUDA cores, bench shapes):
-// operations -- 2*(d_in + 64)*64 FLOP per row against (d_in + 64)*4 bytes.
+// Bound (bench shapes: 255,136 rows, d_in 56): 3.9 GFLOP against 122 MB
+// of x and out. On CUDA cores that is operations (0.059 ms at the fp32
+// peak); the products run on tensor cores in 3xTF32 (tc_common.cuh),
+// where three TF32 products a term take 0.024 ms, so the bytes bound it
+// (0.037 ms).
+//
+// Design: the forward half of B1's chain (csrc/embed_bwd.cu), without its
+// backward and weight-gradient buffers.
+// - A warp takes 16-row tiles on its own, no block-wide step: its x rows
+//   are staged by cp.async into a swizzled buffer (at, tc_common.cuh),
+//   zero-padded to a multiple of 8 columns, and double-buffered, so the
+//   next tile's rows are in flight while this one is computed.
+// - t0 = x W0 and y = t W1 run as mma.sync m16n8k8 in 3xTF32; t =
+//   silu(t0 + b0) goes from the C layout to the A layout through the
+//   tile's own x buffer (its rows have been read by then). The LayerNorm
+//   runs in the C fragments (a row's 64 columns lie in a lane quad:
+//   statistics by quad shuffles, fp32), and out is stored from them.
+// - The weights are split into TF32 big/small halves once per block and
+//   kept in fragment order (K3's way), so a lane loads the B fragments of
+//   one (k step, 8-column tile) with one 128-bit load and the products
+//   split only their A operand. That takes twice the shared memory of
+//   fp32 weights split at each use (B1's way), but at d_in <= 64 both fit
+//   the block of 16 warps that the registers allow (20 spill), one block
+//   a SM; 8 warps up to 128 columns. Above 128, x is staged in 64-column
+//   chunks, one buffer a warp, and W0 is read from device memory and
+//   split at each use (it need not fit in shared memory): any d_in runs.
+// Rows past n_rows are staged as zeros and never stored.
 #include "common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRows = 4;  // rows per warp and step
+constexpr int HH = NLT_H * NLT_H;  // W1's floats
 
-// Parameter blob (floats): w0[d_in*64] | w1[64*64] | b0 | b1 | ls | lb
-__host__ __device__ inline int n_params(int d_in) {
-  return d_in * NLT_H + NLT_H * NLT_H + 4 * NLT_H;
+// How x is staged: 64 columns (d_in <= 64), 128 (d_in <= 128), or in
+// 64-column chunks with W0 read from device memory.
+enum { kNarrow, kWide, kChunked };
+
+template <int kKind>
+__host__ __device__ constexpr int x_cols() {
+  return kKind == kWide ? 2 * NLT_H : NLT_H;
 }
 
-__host__ __device__ inline int x_stride(int d_in) {
-  return nlt_round4(d_in > NLT_H ? d_in : NLT_H);
+// Warps a block, one block a SM.
+template <int kKind>
+__host__ __device__ constexpr int n_warps() {
+  return kKind == kWide ? 8 : 16;
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+// x buffers a warp: two (double-buffered), one when chunked.
+template <int kKind>
+__host__ __device__ constexpr int n_bufs() {
+  return kKind == kChunked ? 1 : 2;
+}
+
+// Fragments (split_frags) of one 8-row k step of a (rows, 64) weight.
+constexpr int kStepFrags = 8 * 32;
+
+// k steps of W0 in shared memory: x_cols / 8, none when chunked.
+template <int kKind>
+__host__ __device__ constexpr int w0_steps() {
+  return kKind == kChunked ? 0 : x_cols<kKind>() / 8;
+}
+
+// W1's and W0's fragments, b0 | b1 | ls | lb, and the warps' x buffers
+// (16 x x_cols each).
+template <int kKind>
+constexpr size_t smem_bytes() {
+  return sizeof(uint4) * kStepFrags * (8 + w0_steps<kKind>()) +
+         sizeof(float) * (4 * NLT_H + (size_t)n_warps<kKind>() *
+                                          n_bufs<kKind>() * kTcRows *
+                                          x_cols<kKind>());
+}
+static_assert(smem_bytes<kNarrow>() <= 232448 &&
+                  smem_bytes<kWide>() <= 232448 &&
+                  smem_bytes<kChunked>() <= 232448,
+              "shared memory of a block");
+
+// tile_mma's reader of B(k, n) = W0[k, n] from device memory, zero from
+// row `rows` on (W0 offset to a chunk's first row), split at each use.
+struct GlobalW {
+  const float* w;
+  int rows;
+  __device__ __forceinline__ float ld(int k, int n) const {
+    return k < rows ? __ldg(w + k * NLT_H + n) : 0.f;
+  }
+  __device__ __forceinline__ uint4 operator()(int c, int n, int, int,
+                                              int) const {
+    return split_pair(ld(c, n), ld(c + 4, n));
+  }
+};
+
+// Stage tile `tile`'s x rows into xs (nothing past the last tile) and
+// commit one cp.async group either way.
+template <int XC>
+__device__ __forceinline__ void stage_tile(float* xs,
+                                           const float* __restrict__ x,
+                                           long long tile, long long n_tiles,
+                                           long long n_rows, int d_in,
+                                           bool x16, int lane) {
+  if (tile < n_tiles)
+    stage_x<XC>(xs, x, tile * kTcRows, n_rows, d_in, 0, d_in, x16, lane);
+  cp_async_commit();
+}
+
+template <int kKind>
+__global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
     embed_kernel(const float* __restrict__ x, const float* __restrict__ params,
                  float* __restrict__ out, long long n_rows, int d_in) {
-  extern __shared__ float smem[];
-  const int n_par = n_params(d_in);
-  nlt_load_params(smem, params, n_par);
+  constexpr int XC = x_cols<kKind>(), kWarps = n_warps<kKind>();
+  constexpr int kBuf = kTcRows * XC;  // floats of one x buffer
+  constexpr bool kChunk = kKind == kChunked;
+  extern __shared__ __align__(16) float smem[];
+  uint4* w1f = reinterpret_cast<uint4*>(smem);  // W1's fragments
+  uint4* w0f = w1f + 8 * kStepFrags;            // W0's, unless chunked
+  float* vec = reinterpret_cast<float*>(w0f + w0_steps<kKind>() * kStepFrags);
+  float* bufs = vec + 4 * NLT_H;                // after b0 | b1 | ls | lb
+  const float* pw1 = params + (size_t)d_in * NLT_H;
+  split_frags(w1f, pw1, NLT_H, 8);
+  if constexpr (!kChunk) split_frags(w0f, params, d_in, w0_steps<kKind>());
+  for (int i = threadIdx.x; i < 4 * NLT_H; i += blockDim.x)
+    vec[i] = pw1[HH + i];
   __syncthreads();
-  const float* w0 = smem;
-  const float* w1 = w0 + d_in * NLT_H;
-  const float* b0 = w1 + NLT_H * NLT_H;
-  const float* b1 = b0 + NLT_H;
-  const float* ls = b1 + NLT_H;
-  const float* lb = ls + NLT_H;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ldx = x_stride(d_in);
-  float* xs = smem + nlt_round4(n_par) + warp * kRows * ldx;
-  const float2 b0v = nlt_ld2(b0, lane), b1v = nlt_ld2(b1, lane),
-               lsv = nlt_ld2(ls, lane), lbv = nlt_ld2(lb, lane);
-  const long long n_groups = (n_rows + kRows - 1) / kRows;
-
-  for (long long grp = (long long)blockIdx.x * kWarps + warp; grp < n_groups;
-       grp += (long long)gridDim.x * kWarps) {
-    const long long r0 = grp * kRows;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool ok = r0 + r < n_rows;
-      for (int c = lane; c < d_in; c += 32)
-        xs[r * ldx + c] = ok ? x[(r0 + r) * d_in + c] : 0.f;
+  const int g = lane >> 2, t = lane & 3;
+  float* xb = bufs + warp * n_bufs<kKind>() * kBuf;
+  const bool x16 = (d_in & 3) == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  const long long n_tiles = (n_rows + kTcRows - 1) / kTcRows;
+  const long long stride = (long long)gridDim.x * kWarps;
+  long long tile = (long long)blockIdx.x * kWarps + warp;
+  if constexpr (!kChunk) {
+    // cp.async groups in commit order: X(0), X(1), then X(i+2) once tile
+    // i's second product has read its buffer; tile i's wait leaves only
+    // X(i+1) in flight
+    stage_tile<XC>(xb, x, tile, n_tiles, n_rows, d_in, x16, lane);
+    stage_tile<XC>(xb + kBuf, x, tile + stride, n_tiles, n_rows, d_in, x16,
+                   lane);
+  }
+  for (int i = 0; tile < n_tiles; tile += stride, ++i) {
+    const long long r0 = tile * kTcRows;
+    float* xs = xb + (kChunk ? 0 : (i & 1) * kBuf);
+    float acc[8][4];
+    zero(acc);
+    // t0 = x W0
+    if constexpr (kChunk) {
+      for (int c0 = 0; c0 < d_in; c0 += NLT_H) {
+        const int nc = min(NLT_H, d_in - c0);
+        __syncwarp();  // every lane is done with the buffer
+        stage_x<XC>(xs, x, r0, n_rows, d_in, c0, nc, x16, lane);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncwarp();
+        tile_mma(xs, XC, (nc + 7) >> 3,
+                 GlobalW{params + (size_t)c0 * NLT_H, d_in - c0}, 0, lane,
+                 acc);
+      }
+    } else {
+      cp_async_wait<1>();  // X(i) has landed
+      __syncwarp();
+      tile_mma(xs, XC, (d_in + 7) >> 3, FragW{w0f}, 0, lane, acc);
     }
-    __syncwarp();
-    float2 t[kRows];
-    nlt_fill(t, b0v);
-    nlt_mm64<kRows>(xs, ldx, w0, d_in, lane, t);
-    __syncwarp();
+    __syncwarp();  // every lane has read x: xs takes t
+
+    // t = silu(t0 + b0) -> xs (16 x 64)
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) nlt_st2(xs + r * ldx, lane, nlt_silu2(t[r]));
-    __syncwarp();
-    float2 y[kRows];
-    nlt_fill(y, b1v);
-    nlt_mm64<kRows>(xs, ldx, w1, NLT_H, lane, y);
-    __syncwarp();
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float2 o = nlt_layer_norm(y[r], lsv, lbv);
-      if (r0 + r < n_rows) nlt_st2(out + (r0 + r) * NLT_H, lane, o);
+      for (int q = 0; q < 8; ++q) {
+        const float2 b0 = nlt_ld2(vec + 8 * q, t);
+        st2s(xs, g + 8 * h, 8 * q + 2 * t, NLT_H,
+             silu_fast(make_float2(acc[q][2 * h] + b0.x,
+                                   acc[q][2 * h + 1] + b0.y)));
+      }
+    __syncwarp();
+
+    // y = t W1 + b1
+    zero(acc);
+    tile_mma(xs, NLT_H, 8, FragW{w1f}, 0, lane, acc);
+    if constexpr (!kChunk) {
+      __syncwarp();  // every lane has read t: xs takes the tile two ahead
+      stage_tile<XC>(xs, x, tile + 2 * stride, n_tiles, n_rows, d_in, x16,
+                     lane);
+    }
+
+    // out = LN(y) over the quad's 64 columns, rows g and g + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float2 b1 = nlt_ld2(vec + NLT_H + 8 * q, t);
+        acc[q][2 * h] += b1.x;
+        acc[q][2 * h + 1] += b1.y;
+        s += acc[q][2 * h] + acc[q][2 * h + 1];
+      }
+      const float mean = quad_sum(s) * (1.0f / NLT_H);
+      float var = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float cx = acc[q][2 * h] - mean;
+        const float cy = acc[q][2 * h + 1] - mean;
+        var += cx * cx + cy * cy;
+      }
+      const float inv = rsqrtf(quad_sum(var) * (1.0f / NLT_H) + NLT_LN_EPS);
+      const long long row = r0 + g + 8 * h;
+      if (row < n_rows) {
+        float* dst = out + row * NLT_H + 2 * t;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float2 ls = nlt_ld2(vec + 2 * NLT_H + 8 * q, t);
+          const float2 lb = nlt_ld2(vec + 3 * NLT_H + 8 * q, t);
+          *reinterpret_cast<float2*>(dst + 8 * q) =
+              make_float2((acc[q][2 * h] - mean) * inv * ls.x + lb.x,
+                          (acc[q][2 * h + 1] - mean) * inv * ls.y + lb.y);
+        }
+      }
     }
   }
+  if constexpr (!kChunk) cp_async_wait<0>();
+}
+
+template <int kKind>
+cudaError_t launch(const float* x, const float* params, float* out,
+                   long long n_rows, int d_in, cudaStream_t stream) {
+  constexpr int kWarps = n_warps<kKind>();
+  const long long tiles = (n_rows + kTcRows - 1) / kTcRows;
+  int grid = 0;
+  cudaError_t err =
+      nlt_launch_config(embed_kernel<kKind>, kWarps * 32, smem_bytes<kKind>(),
+                        (tiles + kWarps - 1) / kWarps, &grid);
+  if (err != cudaSuccess) return err;
+  embed_kernel<kKind><<<grid, kWarps * 32, smem_bytes<kKind>(), stream>>>(
+      x, params, out, n_rows, d_in);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// K1. x (n_rows, d_in) -> out (n_rows, 64), n_rows = N*B.
+// K1. x (n_rows, d_in) -> out (n_rows, 64), n_rows = N*B; params is the
+// blob w0[d_in*64] | w1[64*64] | b0 | b1 | ls | lb.
 extern "C" int nlt_embed(const float* x, const float* params, float* out,
                          long long n_rows, int d_in, int device,
                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_rows == 0) return 0;
-  const size_t smem = sizeof(float) * (nlt_round4(n_params(d_in)) +
-                                       kWarps * kRows * x_stride(d_in));
-  const long long groups = (n_rows + kRows - 1) / kRows;
-  int grid = 0;
-  err = nlt_launch_config(embed_kernel, kWarps * 32, smem,
-                          (groups + kWarps - 1) / kWarps, &grid);
-  if (err != cudaSuccess) return (int)err;
-  embed_kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      x, params, out, n_rows, d_in);
-  return (int)cudaGetLastError();
+  if (d_in < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d_in <= NLT_H)
+    return (int)launch<kNarrow>(x, params, out, n_rows, d_in, s);
+  if (d_in <= 2 * NLT_H)
+    return (int)launch<kWide>(x, params, out, n_rows, d_in, s);
+  return (int)launch<kChunked>(x, params, out, n_rows, d_in, s);
 }

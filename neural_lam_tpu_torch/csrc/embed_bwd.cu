@@ -31,7 +31,7 @@
 //   transposed index. So a block of 12 warps fits at d_in <= 64 (8 above),
 //   one block a SM. The chain is held by each warp's chain of dependent
 //   steps, not by its tensor cores, and warps hide it: ALU work on that
-//   chain is what costs (split_fast and the fast silu below).
+//   chain is what costs (split_fast and silu_fast, tc_common.cuh).
 // - Every staged matrix is stored with column c of row r at c ^ swz(r),
 //   so that the fragment reads of both orientations, the C layout's
 //   float2 stores and the 16-byte copies all hit distinct banks.
@@ -50,7 +50,7 @@
 
 namespace {
 
-constexpr int kRows = 16;  // rows of a warp's tile
+constexpr int kRows = kTcRows;  // rows of a warp's tile
 constexpr int kMaxDin = 128;  // x staged at 128 columns
 constexpr int HH = NLT_H * NLT_H;
 
@@ -86,92 +86,13 @@ constexpr size_t smem_bytes() {
 static_assert(smem_bytes<true>() <= 232448 && smem_bytes<false>() <= 232448,
               "shared memory of a block");
 
-// Column c of row r of a staged matrix (ld columns) lies at r*ld +
-// (c ^ swz(r)). The xor moves bits 2-4 of c only, so float2 and float4
-// groups stay whole and a row stays within its 32-column groups. Reads of
-// (row g.., column t..) and of (row t.., column g..) across a warp (g =
-// lane/4, t = lane%4) both hit 32 distinct banks.
-__device__ __forceinline__ int at(int r, int c, int ld) {
-  return r * ld + (c ^ (((r & 3) << 3) | (r & 4)));
-}
-
-__device__ __forceinline__ float2 ld2s(const float* m, int r, int c, int ld) {
-  return *reinterpret_cast<const float2*>(m + at(r, c, ld));
-}
-
-__device__ __forceinline__ void st2s(float* m, int r, int c, int ld,
-                                     float2 v) {
-  *reinterpret_cast<float2*>(m + at(r, c, ld)) = v;
-}
-
-// x = big + small as TF32 operands, as split_tf32 (tc_common.cuh) but by
-// integer rounding and masks: big rounds x's mantissa to 10 bits (half
-// away from zero), small = x - big (exact in fp32) cut to 10 bits. A few
-// ALU operations where two cvt.rna cost more: with them the kernel took
-// 25% longer (probes/torch_b1_parts.py). The sum keeps about 21 bits.
-__device__ __forceinline__ void split_fast(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
-}
-
-// silu and its gradient with the fast exponential and division: within
-// a few ulp of nlt_silu2 / nlt_mul_silu_grad, and far fewer instructions
-// on each warp's chain of dependent steps.
-__device__ __forceinline__ float2 silu_fast(float2 v) {
-  return make_float2(__fdividef(v.x, 1.0f + __expf(-v.x)),
-                     __fdividef(v.y, 1.0f + __expf(-v.y)));
-}
-
+// The gradient of silu with the fast exponential and division: within
+// a few ulp of nlt_mul_silu_grad (silu_fast is in tc_common.cuh).
 __device__ __forceinline__ float2 mul_silu_grad_fast(float2 d, float2 v) {
   const float sx = __fdividef(1.0f, 1.0f + __expf(-v.x));
   const float sy = __fdividef(1.0f, 1.0f + __expf(-v.y));
   return make_float2(d.x * sx * (1.0f + v.x * (1.0f - sx)),
                      d.y * sy * (1.0f + v.y * (1.0f - sy)));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
-#pragma unroll
-  for (int q = 0; q < 8; ++q)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
-}
-
-// acc[q] += A @ B over k steps ks < nks, in 3xTF32: A the 16-row tile `a`
-// (ld columns, swizzled) at columns 8ks..; B(k, n) = W[k, 8(q0+q) + n]
-// or, kTrans, W[8(q0+q) + n, k], W the swizzled (rows, 64) matrix `w`.
-template <bool kTrans>
-__device__ __forceinline__ void tile_mma(const float* a, int ld, int nks,
-                                         const float* w, int q0, int lane,
-                                         float (&acc)[8][4]) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll 2
-  for (int ks = 0; ks < nks; ++ks) {
-    const int c = 8 * ks + t;
-    uint32_t ab[4], as[4];
-    split_fast(a[at(g, c, ld)], ab[0], as[0]);
-    split_fast(a[at(g + 8, c, ld)], ab[1], as[1]);
-    split_fast(a[at(g, c + 4, ld)], ab[2], as[2]);
-    split_fast(a[at(g + 8, c + 4, ld)], ab[3], as[3]);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int n = 8 * (q0 + q) + g;
-      const float w0 = kTrans ? w[at(n, c, NLT_H)] : w[at(c, n, NLT_H)];
-      const float w1 =
-          kTrans ? w[at(n, c + 4, NLT_H)] : w[at(c + 4, n, NLT_H)];
-      uint32_t bb0, bs0, bb1, bs1;
-      split_fast(w0, bb0, bs0);
-      split_fast(w1, bb1, bs1);
-      mma_tf32(acc[q], as, bb0, bb1);
-      mma_tf32(acc[q], ab, bs0, bs1);
-      mma_tf32(acc[q], ab, bb0, bb1);
-    }
-  }
 }
 
 // Sums over the warp's 16 rows of a C-layout tile's columns, given per
@@ -204,10 +125,11 @@ __device__ __forceinline__ float2 col_sums(const float (&v)[8][2], int lane) {
   return r;
 }
 
-// Stage rows r0 .. r0+15 of x (d_in columns) into xs and of d_out into
-// dys (rows past n_rows as zeros; x's columns from d_in on are never
-// written), as two cp.async groups: x, then d_out, which the chain waits
-// for only at its LayerNorm. 16-byte copies where the rows allow them.
+// Stage rows r0 .. r0+15 of x (d_in columns, zero-padded to a multiple
+// of 8 by stage_x; the columns past that are never written) into xs and
+// of d_out into dys (rows past n_rows as zeros), as two cp.async groups:
+// x, then d_out, which the chain waits for only at its LayerNorm. 16-byte
+// copies where the rows allow them.
 template <int XC>
 __device__ __forceinline__ void stage_tile(float* xs, float* dys,
                                            const float* __restrict__ x,
@@ -215,20 +137,7 @@ __device__ __forceinline__ void stage_tile(float* xs, float* dys,
                                            long long r0, long long n_rows,
                                            int d_in, bool x16, bool d16,
                                            int lane) {
-  if (x16) {
-    const int nc = d_in >> 2;
-    for (int i = lane; i < kRows * nc; i += 32) {
-      const int r = i / nc, c = 4 * (i - r * nc);
-      const bool ok = r0 + r < n_rows;
-      cp_async16(xs + at(r, c, XC), x + (ok ? r0 + r : 0) * d_in + c, ok);
-    }
-  } else {
-    for (int i = lane; i < kRows * d_in; i += 32) {
-      const int r = i / d_in, c = i - r * d_in;
-      const bool ok = r0 + r < n_rows;
-      cp_async4(xs + at(r, c, XC), x + (ok ? (r0 + r) * d_in + c : 0), ok);
-    }
-  }
+  stage_x<XC>(xs, x, r0, n_rows, d_in, 0, d_in, x16, lane);
   cp_async_commit();
   if (d16) {
     for (int i = lane; i < kRows * NLT_H / 4; i += 32) {
@@ -265,7 +174,7 @@ __device__ __forceinline__ void chain_tile(const float* xs, float* ts,
 
   // t0 = x W0 + b0 -> d0s, t = silu(t0) -> ts
   zero(acc);
-  tile_mma<false>(xs, XC, (d_in + 7) >> 3, w0, 0, lane, acc);
+  tile_mma(xs, XC, (d_in + 7) >> 3, SmemW<false>{w0}, 0, lane, acc);
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -281,7 +190,7 @@ __device__ __forceinline__ void chain_tile(const float* xs, float* ts,
 
   // y = t W1 + b1; LayerNorm statistics of rows g and g + 8
   zero(acc);
-  tile_mma<false>(ts, NLT_H, 8, w1, 0, lane, acc);
+  tile_mma(ts, NLT_H, 8, SmemW<false>{w1}, 0, lane, acc);
   float mean[2], inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -359,7 +268,7 @@ __device__ __forceinline__ void chain_tile(const float* xs, float* ts,
 
   // dt0 = (dy W1^T) * silu'(t0) -> d0s (over t0)
   zero(acc);
-  tile_mma<true>(dys, NLT_H, 8, w1, 0, lane, acc);
+  tile_mma(dys, NLT_H, 8, SmemW<true>{w1}, 0, lane, acc);
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -379,7 +288,7 @@ __device__ __forceinline__ void chain_tile(const float* xs, float* ts,
   if (dx != nullptr) {
     for (int q0 = 0; 8 * q0 < d_in; q0 += 8) {
       zero(acc);
-      tile_mma<true>(d0s, NLT_H, 8, w0, q0, lane, acc);
+      tile_mma(d0s, NLT_H, 8, SmemW<true>{w0}, q0, lane, acc);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const long long row = r0 + g + 8 * h;

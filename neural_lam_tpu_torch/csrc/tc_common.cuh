@@ -1,7 +1,9 @@
 // Shared device helpers for the kernels that run their products on tensor
 // cores in 3xTF32 and stage their tiles with cp.async: the weight-gradient
-// pass (csrc/weight_grad.cu) and the processor edge layer (K3,
-// csrc/edge_flat.cu).
+// pass (csrc/weight_grad.cu), the flat edge kernels (K2 and K3,
+// csrc/edge_flat.cu) and the grid embedder and its backward (K1 and B1,
+// csrc/embed.cu and csrc/embed_bwd.cu), whose 16-row tiles share the
+// swizzled staging and the product below.
 //
 // 3xTF32: `mma.sync` m16n8k8 TF32 with fp32 accumulators; each operand is
 // split into big = tf32(x) and small = tf32(x - big), and big*big +
@@ -16,6 +18,8 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 // 16 bytes from global to shared memory, bypassing L1; zeros when !valid.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -61,4 +65,163 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// silu with the fast exponential and division: within a few ulp of
+// nlt_silu2, and far fewer instructions on each warp's chain of dependent
+// steps.
+__device__ __forceinline__ float2 silu_fast(float2 v) {
+  return make_float2(__fdividef(v.x, 1.0f + __expf(-v.x)),
+                     __fdividef(v.y, 1.0f + __expf(-v.y)));
+}
+
+// ------------------------------------------- 16-row tiles (K1, B1) ----
+
+constexpr int kTcRows = 16;  // rows of a warp's tile: the m16 of m16n8k8
+
+// Column c of row r of a staged matrix (ld columns) lies at r*ld +
+// (c ^ swz(r)). The xor moves bits 2-4 of c only, so float2 and float4
+// groups stay whole and a row stays within its 32-column groups. Reads of
+// (row g.., column t..) and of (row t.., column g..) across a warp (g =
+// lane/4, t = lane%4) both hit 32 distinct banks.
+__device__ __forceinline__ int at(int r, int c, int ld) {
+  return r * ld + (c ^ (((r & 3) << 3) | (r & 4)));
+}
+
+__device__ __forceinline__ float2 ld2s(const float* m, int r, int c, int ld) {
+  return *reinterpret_cast<const float2*>(m + at(r, c, ld));
+}
+
+__device__ __forceinline__ void st2s(float* m, int r, int c, int ld,
+                                     float2 v) {
+  *reinterpret_cast<float2*>(m + at(r, c, ld)) = v;
+}
+
+// x = big + small as TF32 operands, as split_tf32 but by integer rounding
+// and masks: big rounds x's mantissa to 10 bits (half away from zero),
+// small = x - big (exact in fp32) cut to 10 bits. A few ALU operations
+// where two cvt.rna cost more: with them B1 took 25% longer
+// (probes/torch_b1_parts.py). The sum keeps about 21 bits.
+__device__ __forceinline__ void split_fast(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+}
+
+// {big(b0), big(b1), small(b0), small(b1)}: a B fragment pair, split by
+// split_fast.
+__device__ __forceinline__ uint4 split_pair(float b0, float b1) {
+  uint4 f;
+  split_fast(b0, f.x, f.z);
+  split_fast(b1, f.y, f.w);
+  return f;
+}
+
+// Readers of the B operand for tile_mma: wb(c, n, ks, q, lane) gives the
+// split fragment pair of b0 = B(c, n), b1 = B(c + 4, n), with c = 8ks + t
+// and n = 8(q0 + q) + g. SmemW reads the swizzled (rows, 64) matrix w in
+// shared memory, B(k, n) = w[k, n] or, kTrans, w[n, k], and splits at
+// each use; FragW reads fragments split once into fragment order
+// (split_frags).
+template <bool kTrans>
+struct SmemW {
+  const float* w;
+  __device__ __forceinline__ uint4 operator()(int c, int n, int, int,
+                                              int) const {
+    return kTrans ? split_pair(w[at(n, c, NLT_H)], w[at(n, c + 4, NLT_H)])
+                  : split_pair(w[at(c, n, NLT_H)], w[at(c + 4, n, NLT_H)]);
+  }
+};
+
+struct FragW {
+  const uint4* f;
+  __device__ __forceinline__ uint4 operator()(int, int, int ks, int q,
+                                              int lane) const {
+    return f[(ks * 8 + q) * 32 + lane];
+  }
+};
+
+// The B fragments of W (rows x 64, (in, out) row-major; zero from row
+// `rows` on) for k steps ks < nks in fragment order: frag[(ks*8 + q)*32 +
+// lane] = {big(b0), big(b1), small(b0), small(b1)}, b0 = W[8ks + t, 8q +
+// g], b1 = W[8ks + t + 4, 8q + g], split by split_tf32. Whole block.
+__device__ __forceinline__ void split_frags(uint4* frag,
+                                            const float* __restrict__ w,
+                                            int rows, int nks) {
+  for (int i = threadIdx.x; i < nks * 256; i += blockDim.x) {
+    const int ln = i & 31, k = 8 * (i >> 8) + (ln & 3);
+    const int n = 8 * ((i >> 5) & 7) + (ln >> 2);
+    uint32_t bb0, bs0, bb1, bs1;
+    split_tf32(k < rows ? w[k * NLT_H + n] : 0.f, bb0, bs0);
+    split_tf32(k + 4 < rows ? w[(k + 4) * NLT_H + n] : 0.f, bb1, bs1);
+    frag[i] = make_uint4(bb0, bb1, bs0, bs1);
+  }
+}
+
+// acc[q] += A @ B over k steps ks < nks, in 3xTF32: A the 16-row tile `a`
+// (ld columns, swizzled) at columns 8ks.., split at each use by
+// split_fast; B from the reader wb (SmemW, FragW, or one of device
+// memory) at the 8-column tiles q0 + q.
+template <class WB>
+__device__ __forceinline__ void tile_mma(const float* a, int ld, int nks,
+                                         WB wb, int q0, int lane,
+                                         float (&acc)[8][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int ks = 0; ks < nks; ++ks) {
+    const int c = 8 * ks + t;
+    uint32_t ab[4], as[4];
+    split_fast(a[at(g, c, ld)], ab[0], as[0]);
+    split_fast(a[at(g + 8, c, ld)], ab[1], as[1]);
+    split_fast(a[at(g, c + 4, ld)], ab[2], as[2]);
+    split_fast(a[at(g + 8, c + 4, ld)], ab[3], as[3]);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const uint4 w = wb(c, 8 * (q0 + q) + g, ks, q, lane);
+      mma_tf32(acc[q], as, w.x, w.y);
+      mma_tf32(acc[q], ab, w.z, w.w);
+      mma_tf32(acc[q], ab, w.x, w.y);
+    }
+  }
+}
+
+// Stage rows r0 .. r0+15, columns c0 .. c0+nc-1, of x (ldx columns a row)
+// into the swizzled tile xs (XC columns), zero-padded to a multiple of 8
+// columns and past n_rows: 16-byte cp.async copies when x16 (ldx and c0
+// multiples of 4, x 16-byte aligned), else 4-byte ones. Commits nothing.
+template <int XC>
+__device__ __forceinline__ void stage_x(float* xs,
+                                        const float* __restrict__ x,
+                                        long long r0, long long n_rows,
+                                        int ldx, int c0, int nc, bool x16,
+                                        int lane) {
+  const int nc8 = (nc + 7) & ~7;
+  if (x16) {
+    const int n4 = nc8 >> 2;
+    for (int i = lane; i < kTcRows * n4; i += 32) {
+      const int r = i / n4, c = 4 * (i - r * n4);
+      const bool ok = r0 + r < n_rows && c < nc;
+      cp_async16(xs + at(r, c, XC), x + (ok ? (r0 + r) * ldx + c0 + c : 0),
+                 ok);
+    }
+  } else {
+    for (int i = lane; i < kTcRows * nc8; i += 32) {
+      const int r = i / nc8, c = i - r * nc8;
+      const bool ok = r0 + r < n_rows && c < nc;
+      cp_async4(xs + at(r, c, XC), x + (ok ? (r0 + r) * ldx + c0 + c : 0),
+                ok);
+    }
+  }
 }

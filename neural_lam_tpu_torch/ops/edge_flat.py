@@ -267,8 +267,9 @@ def edge_tail_sum_flat(table, senders, ew, rec_rows, mask_p, w2, b2,
     x0 = table[senders] + ew + rec_rows.
 
     Replaces pallas_edge_flat.py::_tail_sum_flat_kernel (via
-    edge_tail_sum_flat). Bound by fp32 operations on the card (the W2
-    product per slot); see csrc/edge_flat.cu.
+    edge_tail_sum_flat). Its W2 product runs on tensor cores in 3xTF32
+    (K3's tiles with one product), so it is bound by bytes on the card;
+    see csrc/edge_flat.cu.
     """
     return _EdgeTailSumFlat.apply(table, senders, ew, rec_rows, mask_p, w2,
                                   b2, ln_scale, ln_bias, fold)

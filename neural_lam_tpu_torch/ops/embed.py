@@ -147,7 +147,8 @@ def embed_grid_flat(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
     Returns (N, B*h).
 
     Replaces pallas_embed.py::_embed_fwd_kernel (via embed_grid_flat).
-    Bound by fp32 operations on the card; see csrc/embed.cu.
+    Both products run on tensor cores in 3xTF32, so it is bound by bytes
+    on the card; see csrc/embed.cu.
     """
     return _EmbedGridFlat.apply(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
                                 batch_size)

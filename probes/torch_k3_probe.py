@@ -1,4 +1,4 @@
-"""What holds K3 (the processor edge layer, `edge_layer_tc_kernel` in
+"""What holds K3 (the processor edge layer, `edge_tc_kernel<K, true>` in
 neural_lam_tpu_torch/csrc/edge_flat.cu) on one CUDA card.
 
     python3 probes/torch_k3_probe.py [--rounds 2]
@@ -43,7 +43,7 @@ OUT = os.path.join(ROOT, "build", "k3_probe")
 _MMA3 = """      mma_tf32(acc[q], as, w.x, w.y);
       mma_tf32(acc[q], ab, w.z, w.w);
       mma_tf32(acc[q], ab, w.x, w.y);"""
-_EDGE_STORE = "        if (ok) {\n          const float2 e ="
+_EDGE_STORE = "        if (kLayer && ok) {\n          const float2 e ="
 _VIRT_STORE = "          if (tl.v0 + j < n_virt) {"
 VARIANTS = {
     "shipped": [],
@@ -54,7 +54,7 @@ VARIANTS = {
     "terms1": [(_MMA3, "      mma_tf32(acc[q], ab, w.x, w.y);")],
     "terms0": [(_MMA3, "      acc[q][0] += __uint_as_float(ab[0] ^ w.x);")],
     "nostores": [
-        (_EDGE_STORE, "        if (ok && n_virt < 0) {\n"
+        (_EDGE_STORE, "        if (kLayer && ok && n_virt < 0) {\n"
                       "          const float2 e ="),
         (_VIRT_STORE, "          if (tl.v0 + j < n_virt && n_virt < 0) {")],
 }

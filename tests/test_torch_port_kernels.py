@@ -21,7 +21,7 @@ from neural_lam_tpu.ops import pallas_edge_flat as pef
 from neural_lam_tpu.ops import pallas_embed as pe
 from neural_lam_tpu.ops import pallas_grid_update as pgu
 from neural_lam_tpu.ops.message_passing import EdgeSet as JEdgeSet
-from neural_lam_tpu_torch.ops import edge_flat, embed, grid_update
+from neural_lam_tpu_torch.ops import _build, edge_flat, embed, grid_update
 from neural_lam_tpu_torch.ops.message_passing import EdgeSet
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -84,11 +84,12 @@ def _tail_inputs(rng, n_virt, K, n_send, B):
     )
 
 
-def test_edge_tail_sum_flat_matches_jax():
-    """K2 plain == pallas_edge_flat.edge_tail_sum_flat (interpret)."""
-    rng = np.random.default_rng(1)
-    B, n_send = 2, 120
-    j, t = _edge_sets(*_local_graph(n_send, 100, 9, rng), n_send, 100)
+def _tail_matches_jax(seed, deg, B, n_send=120, n_rec=100):
+    """K2 plain == pallas_edge_flat.edge_tail_sum_flat (interpret) on a
+    local graph of in-degree `deg` at batch B; returns the port's
+    EdgeSet."""
+    rng = np.random.default_rng(seed)
+    j, t = _edge_sets(*_local_graph(n_send, n_rec, deg, rng), n_send, n_rec)
     K, n_virt = t.dense_k, t.num_virt
     x = _tail_inputs(rng, n_virt, K, n_send, B)
     mask_p = np.asarray(j.mask).reshape(n_virt, K)
@@ -101,6 +102,21 @@ def test_edge_tail_sum_flat_matches_jax():
         t.mask.view(n_virt, K), _t(x["w2"]), _t(x["b2"]), _t(x["ls"]),
         _t(x["lb"]))
     np.testing.assert_allclose(virt_t.numpy(), np.asarray(virt_j), **TOL)
+    return t
+
+
+def test_edge_tail_sum_flat_matches_jax():
+    """K2 plain == pallas_edge_flat.edge_tail_sum_flat (interpret)."""
+    _tail_matches_jax(1, 9, 2)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("K", range(1, 9))
+def test_edge_tail_sum_flat_sizes_match_jax(K, B):
+    """The same at every slot count K2's kernel is built for (in-degree K:
+    K slots a virtual row, one virtual row a receiver) and at batch 1 and
+    4."""
+    assert _tail_matches_jax(30 + K, K, B).dense_k == K
 
 
 @pytest.mark.parametrize("variant", ["gathered", "window"])
@@ -189,12 +205,7 @@ def test_grid_update_flat_matches_jax(variant):
                                np.asarray(out_j)[:n_rec], **TOL)
 
 
-def test_embed_grid_flat_matches_jax():
-    """K1 plain (unpadded features) == embed_grid_flat (interpret) on the
-    JAX package's lane-padded packing of the same features."""
-    rng = np.random.default_rng(4)
-    B, N, d_in = 2, 256, 23
-    d_pad = 64  # JAX pads each batch group to a 128/B multiple
+def _embed_case(rng, N, B, d_in):
     x = _rand(rng, N, B, d_in, scale=1.0)
     params = {
         "layers": [{"w": _rand(rng, d_in, H), "b": _rand(rng, H)},
@@ -202,16 +213,71 @@ def test_embed_grid_flat_matches_jax():
         "ln": {"scale": 1 + _rand(rng, H, scale=0.1),
                "bias": _rand(rng, H, scale=0.1)},
     }
+    lyr = params["layers"]
+    port_args = (_t(x.reshape(N, -1)), _t(lyr[0]["w"]), _t(lyr[0]["b"]),
+                 _t(lyr[1]["w"]), _t(lyr[1]["b"]), _t(params["ln"]["scale"]),
+                 _t(params["ln"]["bias"]), B)
+    return x, params, port_args
+
+
+def _embed_matches_jax(seed, N, B, d_in):
+    """K1 plain (unpadded features) == embed_grid_flat (interpret) on the
+    JAX package's lane-padded packing of the same features (each batch
+    group padded to a multiple of 128/B, as its models pack it)."""
+    rng = np.random.default_rng(seed)
+    m = 128 // B
+    d_pad = -(-d_in // m) * m
+    x, params, port_args = _embed_case(rng, N, B, d_in)
     x_pad = np.pad(x, ((0, 0), (0, 0), (0, d_pad - d_in))).reshape(N, -1)
     out_j = pe.embed_grid_flat(jnp.asarray(x_pad),
                                jax.tree.map(jnp.asarray, params), B, d_pad,
                                interpret=True)
-    lyr = params["layers"]
-    out_t = embed.embed_grid_flat(
-        _t(x.reshape(N, -1)), _t(lyr[0]["w"]), _t(lyr[0]["b"]),
-        _t(lyr[1]["w"]), _t(lyr[1]["b"]), _t(params["ln"]["scale"]),
-        _t(params["ln"]["bias"]), B)
+    out_t = embed.embed_grid_flat(*port_args)
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+
+
+def test_embed_grid_flat_matches_jax():
+    """K1 plain (unpadded features) == embed_grid_flat (interpret) on the
+    JAX package's lane-padded packing of the same features."""
+    _embed_matches_jax(4, 256, 2, 23)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("d_in", [23, 56, 100, 160])
+def test_embed_grid_flat_sizes_match_jax(d_in, B):
+    """The same at the widths K1's kernel stages differently (rows not a
+    multiple of 16 bytes; one, two and more than two 64-column blocks) on
+    250 nodes (no Pallas tile divides them, so the JAX side takes its XLA
+    reference path)."""
+    _embed_matches_jax(40 + d_in + B, 250, B, d_in)
+
+
+def test_k1_k2_take_plain_version_on_cpu(monkeypatch):
+    """On CPU tensors K1 and K2 are their plain versions: nothing is built
+    and no launch is counted."""
+    def no_build(*a, **kw):
+        raise AssertionError("kernel library requested for a CPU tensor")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    monkeypatch.setattr(_build, "build_all", no_build)
+    rng = np.random.default_rng(5)
+    _, _, k1 = _embed_case(rng, 50, 4, 23)
+    n_send, n_rec, K, B = 60, 40, 3, 4
+    _, t = _edge_sets(*_local_graph(n_send, n_rec, K, rng), n_send, n_rec)
+    x = _tail_inputs(rng, t.num_virt, t.dense_k, n_send, B)
+    k2 = (_t(x["table"]), t.senders, _t(x["ew"]), _t(x["rec_rows"]),
+          t.mask.view(t.num_virt, t.dense_k), _t(x["w2"]), _t(x["b2"]),
+          _t(x["ls"]), _t(x["lb"]))
+    before = (embed.embed_grid_flat.launches,
+              edge_flat.edge_tail_sum_flat.launches)
+    torch.testing.assert_close(embed.embed_grid_flat(*k1),
+                               embed.embed_grid_flat_plain(*k1), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(edge_flat.edge_tail_sum_flat(*k2),
+                               edge_flat.edge_tail_sum_flat_plain(*k2),
+                               rtol=0, atol=0)
+    assert (embed.embed_grid_flat.launches,
+            edge_flat.edge_tail_sum_flat.launches) == before
 
 
 # Gradients of the two flat edge kernels (K2's backward B2, K3's B3/B4) at
