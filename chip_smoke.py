@@ -9,14 +9,16 @@ result line is printed):
 1. Build every CUDA kernel of the forecast and training paths from `csrc/`
    with nvcc (one process per source, all started together); print the
    build time and each source's ptxas registers and spills (per kernel
-   for K1's three (d_in up to 64, up to 128, above), K2's and K3's per K,
-   and the backward sources with two passes or two kernels: B2's and
-   B3/B4's chain kernels of `edge_flat_bwd` per K, the decoder backward's
-   and `xtd_sum`'s, and B1's two, for d_in up to 64 and above), and,
-   where the toolkit has `cuobjdump`, the shared-memory loads by width,
-   the FFMAs, the tensor-core products (HMMA) and the async copies
-   (LDGSTS) in the SASS of B3/B4's K=8 chain kernel, of K3's and K2's K=8
-   kernels, of K1's kernel for d_in up to 64, of K4's K=4 kernel
+   for K1's three (d_in up to 64, up to 128, above), K2's, K3's, P1's,
+   P2's and P3's per K, with the registers and spill of K2/K3/P2/P3's
+   `edge_tc_kernel` instances summed per kernel, and the backward sources
+   with two passes or two kernels: B2's and B3/B4's chain kernels of
+   `edge_flat_bwd` per K, the decoder backward's and `xtd_sum`'s, and
+   B1's two, for d_in up to 64 and above), and, where the toolkit has
+   `cuobjdump`, the shared-memory loads by width, the FFMAs, the
+   tensor-core products (HMMA) and the async copies (LDGSTS) in the SASS
+   of B3/B4's K=8 chain kernel, of K3's, K2's, P3's and P2's K=8 kernels,
+   of K1's kernel for d_in up to 64, of K4's K=4 kernel
    (`grid_update_kernel<4>`), of `xtd_sum`'s main kernel and of B1's
    kernel for d_in up to 64.
 2. Build the bench-width GraphLAM and HiLAM through
@@ -26,18 +28,19 @@ result line is printed):
 3. For each forward kernel, at the shapes those models give it: hold the
    kernel against its plain PyTorch version on the card (TF32 off), and
    time both with CUDA events beside the least time the card could take
-   (for K1, K2 and K3, whose products run on tensor cores in 3xTF32,
-   max(bytes, 3 x FLOP / TF32 peak), with the fp32 CUDA-core bound
-   printed beside it, and their products as `torch.mm` calls, TF32 off,
-   as their library time); K1 and K2 also give bit-identical outputs in
-   two calls. K1-K4 at GraphLAM's batch-4 shapes; K1 also at d_in 23, 100
-   and 160 on a row count that is not a multiple of 16; K3 also at
-   HiLAM's K=1 down[0] and non-identity up[0] sets (batch 4); K2 and K3
-   at every K from 1 to 8 on seeded local graphs (K = 3, 5, 6, 7 do not
-   divide their 16-row tiles); K4 also at HiLAM's batch-4 m2g;
-   P1-P3 (the batched route) at HiLAM's batch-1 shapes (P3 on m2m[0], P2
-   on m2g and g2m, P1 on down[0] with and without messages) and at one
-   batch-4 shape each.
+   (for K1, K2, K3, P2 and P3, whose products run on tensor cores in
+   3xTF32, max(bytes, 3 x FLOP / TF32 peak), with the fp32 CUDA-core
+   bound printed beside it, and their products as `torch.mm` calls, TF32
+   off, as their library time); K1, K2, K3, P2 and P3 also give
+   bit-identical outputs in two calls. K1-K4 at GraphLAM's batch-4
+   shapes; K1 also at d_in 23, 100 and 160 on a row count that is not a
+   multiple of 16; K3 also at HiLAM's K=1 down[0] and non-identity up[0]
+   sets (batch 4); K2 and K3 (batch 4) and P2 (with and without messages)
+   and P3 (batch 1 and 4) at every K from 1 to 8 on seeded local graphs
+   (K = 3, 5, 6, 7 do not divide their 16-row tiles); K4 also at HiLAM's
+   batch-4 m2g; P1-P3 (the batched route) at HiLAM's batch-1 shapes (P3
+   on m2m[0], P2 on m2g with and without messages and on g2m, P1 on
+   down[0] with and without messages) and at one batch-4 shape each.
 4. The same for each backward kernel (B1, B2, B3/B4, B5/B6) against its
    `*_bwd_plain` version: every output tensor within 1e-4 + 1e-4 * its
    plain version's max abs; B1 at the training step's call (no dx, as
@@ -114,6 +117,9 @@ BATCHED = ("edge_tail", "edge_tail_sum", "edge_layer")  # P1, P2, P3
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
 TRAIN_ONLY = ("xtd_sum", "xtd_reduce")  # kernels of the backward alone
 PALLAS_EDGE = "neural_lam_tpu/ops/pallas_edge.py"
+# K2, K3, P2, P3: instances of the kernel template in csrc/edge_tc.cuh
+TC_EDGE = ("edge_tail_sum_flat", "edge_layer_flat", "edge_tail_sum",
+           "edge_layer")
 
 
 def fail(msg):
@@ -229,8 +235,8 @@ def read_yardstick(torch, pairs, what):
 
 def kernel_name(mangled):
     """`name<args>` of a mangled kernel entry name (its integer and bool
-    template arguments), tagged K1, K2, K3, B1, or as B2's or B3/B4's
-    chain kernel of edge_flat_bwd."""
+    template arguments), tagged K1, K2, K3, B1, P1, P2, P3, or as B2's or
+    B3/B4's chain kernel of edge_flat_bwd."""
     for m in re.finditer(r"(?=(\d+)([a-z]\w*))", mangled):
         n = int(m.group(1))
         name, rest = m.group(2)[:n], m.group(2)[n:]
@@ -242,8 +248,11 @@ def kernel_name(mangled):
                                               rest).group(0))
     tag = {"edge_tail_bwd_kernel": "B2 chain ",
            "edge_layer_bwd_kernel": "B3/B4 chain ", "embed_kernel": "K1 ",
-           "embed_bwd_kernel": "B1 ",
-           "edge_tc_kernel": "K3 " if args[1:] == ["1"] else "K2 ",
+           "embed_bwd_kernel": "B1 ", "edge_tail_kernel": "P1 ",
+           # <K, kLayer, kBatched>
+           "edge_tc_kernel": {("1", "0"): "K3 ", ("0", "0"): "K2 ",
+                              ("1", "1"): "P3 ", ("0", "1"): "P2 "}.get(
+                                  tuple(args[1:]), ""),
            }.get(name, "")
     return f"{tag}{name}" + (f"<{', '.join(args)}>" if args else "")
 
@@ -383,24 +392,37 @@ def main():
     libs = _build.build_all()
     print(f"kernel build: {time.time() - t0:.1f} s for {len(libs)} sources "
           f"({', '.join(p.name for p in libs.values())})")
+    tc_usage = {}  # K2/K3/P2/P3 tag -> [(registers, spill bytes)]
     for src in libs:
         log = _build.build_log(src)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
         print(f"  ptxas[{src}]: {len(regs)} kernels, {min(regs)}-{max(regs)} "
               f"registers, {sum(spills)} bytes of spill stores and loads")
-        if src in ("embed", "edge_flat", "edge_flat_bwd", "grid_update_bwd",
-                   "weight_grad", "embed_bwd"):
+        if src in ("embed", "edge_flat", "edge", "edge_flat_bwd",
+                   "grid_update_bwd", "weight_grad", "embed_bwd"):
             for fn, info in sorted(re.findall(
                     r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
                     r"registers[^\n]*)", log, re.S)):
                 used = re.search(r"Used [^\n]*", info).group(0)
                 spill = ", ".join(re.findall(r"\d+ bytes spill \w+", info))
-                print(f"    {kernel_name(fn)}: {used}; "
-                      f"{spill or 'no spill line'}")
+                kn = kernel_name(fn)
+                print(f"    {kn}: {used}; {spill or 'no spill line'}")
+                if "edge_tc_kernel" in kn:
+                    tc_usage.setdefault(kn[:2], []).append((
+                        int(re.search(r"Used (\d+)", used).group(1)),
+                        sum(int(b) for b in re.findall(r"(\d+) bytes spill",
+                                                       info))))
+    for tag, use in sorted(tc_usage.items()):
+        print(f"  edge_tc_kernel {tag} ({len(use)} instances): "
+              f"{min(r for r, _ in use)}-{max(r for r, _ in use)} registers, "
+              f"{sum(s for _, s in use)} bytes of spill")
     sass_counts(_build, libs["edge_flat_bwd"], "edge_layer_bwd_kernelILi8E")
-    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELb1E")  # K3
-    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELb0E")  # K2
+    # edge_tc_kernel<K, kLayer, kBatched>: K3, K2 (flat), P3, P2 (batched)
+    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELb1ELb0E")
+    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELb0ELb0E")
+    sass_counts(_build, libs["edge"], "edge_tc_kernelILi8ELb1ELb1E")
+    sass_counts(_build, libs["edge"], "edge_tc_kernelILi8ELb0ELb1E")
     sass_counts(_build, libs["embed"], "embed_kernelILi0E")  # K1, d_in <= 64
     sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4E")
     sass_counts(_build, libs["weight_grad"], "xtd_sum_kernel")
@@ -596,17 +618,18 @@ def main():
     library["embed_grid_flat"] = lambda x_f, w0, b0, w1, *rest: torch.mm(
         torch.mm(x_f.view(-1, w0.shape[0]), w0), w1)
     # K2's one product (X1 @ W2) on (M*B, 64) rows: the gathered sender
-    # rows of g2m stand in for X1
-    k2_rows = {}
+    # rows of g2m stand in for X1 (P2's the same in its layout, below)
+    gathered = {}  # (table, senders) -> the gathered rows, (rows, 64)
 
-    def k2_product(table, senders, ew, rec, mask, w2, *rest):
+    def gathered_rows(table, senders, dim):
         key = (table.data_ptr(), senders.data_ptr())
-        if key not in k2_rows:
-            k2_rows.clear()
-            k2_rows[key] = table.index_select(0, senders).view(-1, H)
-        return torch.mm(k2_rows[key], w2)
+        if key not in gathered:
+            gathered.clear()
+            gathered[key] = table.index_select(dim, senders).view(-1, H)
+        return gathered[key]
 
-    library["edge_tail_sum_flat"] = k2_product
+    library["edge_tail_sum_flat"] = lambda table, senders, ew, rec, mask, \
+        w2, *rest: torch.mm(gathered_rows(table, senders, 0), w2)
 
     def b1_products(x_f, w0, b0, w1, b1, ls, lb, B, d_out, need_dx):
         """B1's products as torch.mm calls on operands of their shapes:
@@ -658,11 +681,13 @@ def main():
         cases.append(("edge_layer_flat_bwd", edge_flat, ab,
                       f"{pef}:846 ({at})", bb, bf))
 
-    # K2 and K3 at every slot count their kernels are built for, K = 1..8,
-    # on seeded local graphs (each of 20,000 receivers takes K senders near
-    # it among 6,561): K = 3, 5, 6, 7 do not divide the 16-row tiles and
-    # sum virt through shared memory, K = 1, 2, 4, 8 by shuffles; the g2m
-    # encoder's and the processor's first layer's weights
+    # K2, K3, P2 and P3 at every slot count their kernels are built for, K
+    # = 1..8, on seeded local graphs (each of 20,000 receivers takes K
+    # senders near it among 6,561): K = 3, 5, 6, 7 do not divide the 16-row
+    # tiles and sum virt through shared memory, K = 1, 2, 4, 8 by shuffles;
+    # the g2m encoder's and the processor's first layer's weights. K2 and
+    # K3 at batch 4; P2 (with and without messages) and P3 at batch 1 and
+    # 4
     def k_sweep():
         rng = np.random.default_rng(0)
         n_rec, n_send = 20000, 6561
@@ -684,9 +709,21 @@ def main():
                 a, b, f = edge_cases(es, inet, layer)[0]
                 out.append((kname, edge_flat, a, f"{pef}:{line} ({at})", b,
                             f))
+            for kname, inet, B, wm in (
+                    ("edge_tail_sum", model.g2m_gnn, 1, False),
+                    ("edge_tail_sum", model.g2m_gnn, 4, False),
+                    ("edge_tail_sum", model.g2m_gnn, 1, True),
+                    ("edge_tail_sum", model.g2m_gnn, 4, True),
+                    ("edge_layer", model.processor[0], 1, False),
+                    ("edge_layer", model.processor[0], 4, False)):
+                a, out_bytes, f = batched_case(kname, es, inet, B, wm)
+                out.append((kname, edge, a,
+                            f"{PALLAS_EDGE}:{p_lines[kname]} (local graph "
+                            f"K={K}, {es.num_virt} rows, B={B}"
+                            f"{', with messages' if wm else ''})",
+                            nbytes(*(t for t in a if torch.is_tensor(t)))
+                            + out_bytes, f))
         return out
-
-    cases += k_sweep()
 
     def batched_case(kind, edges, inet, B, with_messages=False):
         """Args, bytes and FLOPs of one P-kernel call on `edges` at batch
@@ -722,6 +759,8 @@ def main():
             ("edge_layer", hg.m2m[0], hilam.mesh_up_same_gnns[0][0], 1,
              False, "m2m[0]"),
             ("edge_tail_sum", hg.m2g, hilam.m2g_gnn, 1, False, "m2g"),
+            ("edge_tail_sum", hg.m2g, hilam.m2g_gnn, 1, True,
+             "m2g, with messages"),
             ("edge_tail_sum", hg.g2m, hilam.g2m_gnn, 1, False, "g2m"),
             ("edge_tail", hg.down[0], hilam.mesh_read_gnns[0], 1, False,
              "down[0]"),
@@ -739,6 +778,15 @@ def main():
         cases.append((kname, edge, args, label,
                       nbytes(*(t for t in args if torch.is_tensor(t)))
                       + out_bytes, flops))
+    cases += k_sweep()
+    # P3's two products (edge @ W_e, x1 @ W2) as two torch.mm calls on
+    # (B*M, 64) rows, and P2's one (X1 @ W2) with the gathered sender rows
+    # standing in for X1: their library time "for their products"
+    library["edge_layer"] = lambda edge_rep, send_t, senders, rec, mask, \
+        w_e, b0, w2, *rest: (torch.mm(edge_rep.view(-1, H), w_e),
+                             torch.mm(edge_rep.view(-1, H), w2))
+    library["edge_tail_sum"] = lambda send_t, senders, ew, rec, w2, \
+        *rest: torch.mm(gathered_rows(send_t, senders, 1), w2)
 
     records = []
     case_ms = {}  # (kernel, replaces) -> device ms
@@ -754,8 +802,8 @@ def main():
                 want = want[:-1] + tuple(want[-1][k] for k in sorted(want[-1]))
             err = 0.0
             bwd = kname.endswith("_bwd") or kname in TRAIN_ONLY
-            if kname in ("xtd_sum", "embed_grid_flat_bwd", "embed_grid_flat",
-                         "edge_tail_sum_flat"):
+            if kname in ("xtd_sum", "embed_grid_flat_bwd",
+                         "embed_grid_flat") + TC_EDGE:
                 again = as_tuple(kern(*args))
                 if not all(a is None and b is None or torch.equal(a, b)
                            for a, b in zip(got, again)):
@@ -781,10 +829,9 @@ def main():
             t_bytes = bytes_ / peak_bw * 1e3
             t_ops = flops / peak_flops * 1e3
             fp32_note = ""
-            if kname in ("embed_grid_flat", "edge_tail_sum_flat",
-                         "edge_layer_flat", "embed_grid_flat_bwd"):
-                # K1's, K2's, K3's and B1's products run on tensor cores in
-                # 3xTF32:
+            if kname in ("embed_grid_flat", "embed_grid_flat_bwd") + TC_EDGE:
+                # K1's, K2's, K3's, B1's, P2's and P3's products run on
+                # tensor cores in 3xTF32:
                 # three TF32 products per term; the fp32 CUDA-core bound
                 # printed too
                 fp32_note = (f"; fp32 CUDA-core bound "
@@ -810,15 +857,20 @@ def main():
             base = os.path.basename(mod.__file__)[:-3]
             if kname.endswith("_bwd"):
                 base += "_bwd"
+            source = f"neural_lam_tpu_torch/csrc/{base}.cu"
+            if kname in TC_EDGE:
+                source = "neural_lam_tpu_torch/csrc/edge_tc.cuh"
             records.append({
-                "name": kname, "route": "cuda",
-                "source": f"neural_lam_tpu_torch/csrc/{base}.cu",
+                "name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": None,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": lib_ms,
             })
+        # the last case's outputs would count in phase 7's peak memory
+        del got, want, gap, tol, b
+        again = None
         # B2's, B3/B4's and B5/B6's two passes apart (xtd_sum's time from
         # its case above)
         for what, chain, chain_args, xtd_at in (
@@ -843,7 +895,7 @@ def main():
         xtd_sweep(torch, weight_grad, xtd_pairs, "the decoder's nine pairs")
     del cases, args, a4, a5, h_a4, h_pp, h_mask, hm2g, k1, xtd_pairs
     del b3_args, b3_pairs, b2_args, b2_pairs, partial, library, seg_pair
-    del red_zeros, a, d_emb, bk, k2_rows
+    del red_zeros, a, d_emb, bk, gathered
     torch.cuda.empty_cache()
 
     # 5. the forecast paths

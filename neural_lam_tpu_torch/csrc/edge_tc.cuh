@@ -1,0 +1,482 @@
+// The edge-MLP tensor-core kernel `edge_tc_kernel<K, kLayer, kBatched>`,
+// in two layouts and two modes. Included by csrc/edge_flat.cu (K2, K3:
+// the flat layout) and csrc/edge.cu (P2, P3: the batched layout).
+//
+// Replaces, from neural_lam_tpu/ops/:
+//   K2  pallas_edge_flat.py _tail_sum_flat_kernel     <K, false, false>
+//   K3  pallas_edge_flat.py _layer_flat_kernel and
+//       _layer_flat_win_kernel                        <K, true, false>
+//   P2  pallas_edge.py _tail_sum_kernel               <K, false, true>
+//   P3  pallas_edge.py _layer_kernel, both in_gather  <K, true, true>
+// The sender row is read by index from the node table here, so each pair
+// of Pallas variants (pre-gathered rows, a one-hot window, a resident
+// table) is one kernel.
+//
+// Per (virtual row v, batch element b), over the row's K edge slots k:
+//   x0[k]  = table[senders[v*K+k], b] + rec_rows[v, b]
+//            + ew[v*K+k]                          (!kLayer; b0 is in ew)
+//            + edge[v*K+k, b] @ W_e + b0           (kLayer)
+//   msg[k] = LayerNorm(silu(x0[k]) @ W2 + b2)
+//   out[v*K+k, b] = edge[v*K+k, b] + msg[k]        (kLayer)
+//                 = msg[k]                         (P2, when out != null)
+//   virt[v, b] = sum_k mask[v, k] * msg[k]
+// out is written at every slot of a virtual row, padding slots included,
+// as the Pallas kernels write it.
+//
+// Layouts (`row_at`): flat, (rows, B*64) for every array (row stride
+// B*64, batch stride 64); batched, the JAX package's (B, rows, 64) (row
+// stride 64, batch stride rows*64), with rows = n_virt*K for edge and out,
+// n_send for the table and n_virt for rec_rows and virt. ew (M, 64) is
+// shared by every batch element in both. At B = 1 the two are the same
+// bytes.
+//
+// Bound on this card: the bytes. Both 64x64 products run on tensor cores
+// in 3xTF32 (tc_common.cuh), which keeps fp32 accuracy at three TF32
+// products per term; ~1.2 KB a slot row (the edge row in, out out, the
+// sender and receiver rows) then outweighs 3 x 16 KFLOP at the TF32 peak
+// (at GraphLAM's m2m[0], B = 4: 0.043 ms for 144 MB against 0.024 ms).
+// What holds the kernel is the latency of each warp's chain of dependent
+// steps (products, silu, LayerNorm, stores): with the products taken out
+// it runs within 10% of its time, and more warps per SM make it faster
+// (probes/torch_k3_probe.py); so the design buys warps with shared memory.
+// - One warp owns one tile: 16 consecutive slot rows (v*K + k) at one
+//   batch element b, the m16 of `mma.sync` m16n8k8: 16/K virtual rows
+//   (2 at K = 8, 16 at K = 1); for a K that does not divide 16 the
+//   tile takes floor(16/K) virtual rows and its last rows are padding.
+//   Warps walk their tiles on their own; tile t is (16/K-row group t/B,
+//   batch element t%B), so tiles t and t+1 read the same rows (with the
+//   shared ew, each ew row comes from DRAM once). Warp w of block c takes
+//   tiles w*G + c, then every (warps * G)-th, G the grid: each round of
+//   tiles spreads over every block, so a last, partial round does not
+//   pile up on the first SMs, and a set of fewer tiles than the card
+//   holds warps (HiLAM's upper levels at batch 1: 32-384 tiles) runs as
+//   one block per tile, up to one block an SM, each tile's chain alone
+//   (or nearly) on its SM.
+// - A tile's edge rows and gathered sender rows are staged by 16-byte
+//   cp.async into 16 x 68 buffers (the padded stride makes the
+//   A-fragment reads (row g, column t) hit 32 distinct banks). The edge
+//   rows have two buffers a warp, so the next tile's are in flight while
+//   this one is computed; the sender rows one, refilled for the next tile
+//   as soon as the second product has read it. The receiver rows and the
+//   masks are loaded into registers at the top of the tile.
+// - W_e and W2 are split once per block into TF32 big/small halves and
+//   stored in fragment order, so a lane loads the B fragments of one
+//   (k step, 8-column tile) with one 128-bit load. The split is each
+//   block's fixed cost, a large share of the time on small edge sets.
+// - Product 1 (E @ W_e) leaves x0 - b0 - table - rec in the C fragments;
+//   the lane adds the rest, applies silu and writes X1 over the staged
+//   sender rows (the C and A fragment layouts differ), and product 2
+//   (X1 @ W2) reads it back as its A operand. Without kLayer there is no
+//   product 1: x0 = ew + table + rec from the staged ew rows.
+// - A lane holds 16 of the 64 columns of rows g and g+8, so the
+//   LayerNorm statistics are quad sums (two shfl.xor); out is written
+//   from the C fragments (and, with kLayer, the staged edge rows). virt:
+//   at K = 1, 2, 4, 8 the K rows of a virtual row sit in lanes that differ
+//   in the low bits of g, summed by shfl.xor; other K sum the masked rows
+//   through shared memory. A fixed order and no atomics: two calls give
+//   bit-identical outputs.
+// - kLayer: 12 warps a block, one block a SM, the most that the shared
+//   memory holds with two split weight matrices; !kLayer: one matrix
+//   fewer leaves room for 14.
+#pragma once
+
+#include "common.cuh"
+#include "tc_common.cuh"
+
+namespace {
+
+constexpr int HH = NLT_H * NLT_H;
+
+// Parameter blob (floats): w2[64*64] | b2 | ls | lb  [| we[64*64] | b0]
+// (the !kLayer blob stops at lb).
+
+// Warps per block (probes/torch_k3_probe.py times 8 and 10 for kLayer,
+// probes/torch_k1k2_probe.py 12 for !kLayer).
+constexpr int kLayerWarps = 12;
+constexpr int kTailWarps = 14;
+constexpr int kRows = 16;               // slot rows of a tile
+constexpr int kLd = NLT_H + 4;          // padded stride of a staged row
+constexpr int kTileF = kRows * kLd;     // floats of one staged tile
+constexpr int kFrag = 8 * 8 * 32;       // (k step, 8-column tile, lane)
+enum { V_B0, V_B2, V_LS, V_LB, N_VEC };  // vectors in shared memory
+
+template <bool kLayer>
+__host__ __device__ constexpr int n_warps() {
+  return kLayer ? kLayerWarps : kTailWarps;
+}
+
+// Weights in fragment order (W_e and W2, or W2 alone), the vectors, and
+// per warp two edge (or ew) buffers and a sender buffer.
+template <bool kLayer>
+constexpr size_t smem_bytes() {
+  return (kLayer ? 2 : 1) * kFrag * sizeof(uint4) +
+         N_VEC * NLT_H * sizeof(float) +
+         (size_t)n_warps<kLayer>() * 3 * kTileF * sizeof(float);
+}
+static_assert(smem_bytes<true>() <= 232448 && smem_bytes<false>() <= 232448,
+              "shared memory of a block");
+
+// Offset (floats) of row `row` of batch element b in an array of `rows`
+// rows a batch element: flat (rows, B*64) or batched (B, rows, 64).
+template <bool kBatched>
+__device__ __forceinline__ size_t row_at(size_t row, int b, size_t rows,
+                                         int B) {
+  return kBatched ? ((size_t)b * rows + row) * NLT_H
+                  : (row * B + b) * NLT_H;
+}
+
+// B fragments of W (64 x 64, (in, out) row-major) for (k step ks, 8-column
+// tile q, lane): {big(b0), big(b1), small(b0), small(b1)} with b0 =
+// W[8ks + t, 8q + g], b1 = W[8ks + t + 4, 8q + g]. Unrolled over the
+// block's kThreads threads, so that every thread's loads are in flight at
+// once.
+template <int kThreads = kLayerWarps * 32>
+__device__ __forceinline__ void split_weights(uint4* frag,
+                                              const float* __restrict__ w) {
+#pragma unroll
+  for (int i0 = 0; i0 < kFrag; i0 += kThreads) {
+    const int i = i0 + threadIdx.x;
+    if (i < kFrag) {
+      const int ln = i & 31, q = (i >> 5) & 7, ks = i >> 8;
+      const float* p = w + (8 * ks + (ln & 3)) * NLT_H + 8 * q + (ln >> 2);
+      uint32_t bb0, bs0, bb1, bs1;
+      split_tf32(p[0], bb0, bs0);
+      split_tf32(p[4 * NLT_H], bb1, bs1);
+      frag[i] = make_uint4(bb0, bb1, bs0, bs1);
+    }
+  }
+}
+
+// acc[q] += A @ W over the 8-column tiles q, in 3xTF32: A the staged
+// 16 x 64 tile `a` (stride kLd), W in fragment order (`split_weights`).
+__device__ __forceinline__ void tile_product(const float* a,
+                                             const uint4* __restrict__ frag,
+                                             int lane, float (&acc)[8][4]) {
+  const float* a0 = a + (lane >> 2) * kLd + (lane & 3);
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    uint32_t ab[4], as[4];
+    split_tf32(a0[8 * ks], ab[0], as[0]);                // (g, t)
+    split_tf32(a0[8 * kLd + 8 * ks], ab[1], as[1]);      // (g + 8, t)
+    split_tf32(a0[8 * ks + 4], ab[2], as[2]);            // (g, t + 4)
+    split_tf32(a0[8 * kLd + 8 * ks + 4], ab[3], as[3]);  // (g + 8, t + 4)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const uint4 w = frag[(ks * 8 + q) * 32 + lane];
+      mma_tf32(acc[q], as, w.x, w.y);
+      mma_tf32(acc[q], ab, w.z, w.w);
+      mma_tf32(acc[q], ab, w.x, w.y);
+    }
+  }
+}
+
+// Tile t: its 16/K virtual rows from v0 (K rows each; the tile's rows from
+// n_rows on are padding) at batch element b.
+template <int K>
+struct Tile {
+  int v0, b, n_rows;
+  __device__ __forceinline__ Tile(int t, int n_virt, int B) {
+    constexpr int kVpt = kRows / K;
+    v0 = t / B * kVpt;
+    b = t % B;
+    n_rows = min(kVpt, n_virt - v0) * K;
+  }
+};
+
+// The sender of the tile's row (lane % 16), for `stage_rows`; 0 past the
+// last tile or row.
+template <int K>
+__device__ __forceinline__ int tile_senders(const int* __restrict__ senders,
+                                            int t, int n_tiles, int n_virt,
+                                            int B, int lane) {
+  if (t >= n_tiles) return 0;
+  const Tile<K> tl(t, n_virt, B);
+  const int row = lane & 15;
+  return row < tl.n_rows ? senders[(size_t)tl.v0 * K + row] : 0;
+}
+
+// Stage tile t's rows into `dst`: its edge rows (table == nullptr; with
+// kShared, rows of the (M, 64) ew that every batch element shares) or its
+// sender rows table[s] (s from `tile_senders`, in s_l; n_send rows a batch
+// element); rows past the tile's n_rows as zeros, nothing past the last
+// tile. Commits one cp.async group either way.
+template <int K, bool kShared, bool kBatched>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ edge_in,
+                                           const float* __restrict__ table,
+                                           int s_l, int t, int n_tiles,
+                                           int n_virt, int n_send, int B,
+                                           int lane) {
+  if (t < n_tiles) {
+    const Tile<K> tl(t, n_virt, B);
+    const size_t slot0 = (size_t)tl.v0 * K, M = (size_t)n_virt * K;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = 2 * j + (lane >> 4), c = 4 * (lane & 15);
+      const bool ok = row < tl.n_rows;
+      const int s = __shfl_sync(0xffffffffu, s_l, row);
+      const size_t e_row = ok ? slot0 + row : slot0;
+      const float* src =
+          table != nullptr ? table + row_at<kBatched>(s, tl.b, n_send, B)
+          : kShared        ? edge_in + e_row * NLT_H
+                           : edge_in + row_at<kBatched>(e_row, tl.b, M, B);
+      cp_async16(dst + row * kLd + c, src + c, ok);
+    }
+  }
+  cp_async_commit();
+}
+
+// kLayer: K3 / P3 (edge_in = edge, out = edge_out). !kLayer: K2 / P2
+// (edge_in = ew; out = msg or null, written by P2 only).
+template <int K, bool kLayer, bool kBatched>
+__global__ void __launch_bounds__(n_warps<kLayer>() * 32, 1)
+    edge_tc_kernel(const float* __restrict__ table,
+                   const int* __restrict__ senders,
+                   const float* __restrict__ edge_in,
+                   const float* __restrict__ rec_rows,
+                   const float* __restrict__ mask,
+                   const float* __restrict__ params,
+                   float* __restrict__ out, float* __restrict__ virt,
+                   int n_virt, int n_send, int B) {
+  constexpr int kVpt = kRows / K;  // virtual rows of a tile
+  constexpr int kWarps = n_warps<kLayer>();
+  constexpr bool kSh = !kLayer;   // ew rows: one for every b
+  extern __shared__ __align__(16) float smem[];
+  uint4* we_f = reinterpret_cast<uint4*>(smem);  // kLayer only
+  uint4* w2_f = we_f + (kLayer ? kFrag : 0);
+  float* vec = reinterpret_cast<float*>(w2_f + kFrag);
+  if constexpr (kLayer)
+    split_weights<kWarps * 32>(we_f, params + HH + 3 * NLT_H);
+  split_weights<kWarps * 32>(w2_f, params);
+  for (int i = threadIdx.x; i < N_VEC * NLT_H; i += blockDim.x)  // b0 | b2..
+    vec[i] = i >= NLT_H ? params[HH + i - NLT_H]
+             : kLayer   ? params[2 * HH + 3 * NLT_H + i]
+                        : 0.f;
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // this warp's two edge buffers (tile i in buffer i % 2) and its sender
+  // buffer (the sender rows, then X1)
+  float* stages = vec + N_VEC * NLT_H + warp * 3 * kTileF;
+  float* X = stages + 2 * kTileF;
+  const size_t M = (size_t)n_virt * K;
+  const int n_tiles = (n_virt + kVpt - 1) / kVpt * B;
+  const int stride = gridDim.x * kWarps;
+
+  int tile = warp * gridDim.x + blockIdx.x;
+  // cp.async groups in commit order: E(i), G(i), E(i+1), then per tile i
+  // G(i+1) after its second product and E(i+2) at its end, so that tile
+  // i's wait leaves only E(i+1) in flight
+  stage_rows<K, kSh, kBatched>(stages, edge_in, nullptr, 0, tile, n_tiles,
+                               n_virt, n_send, B, lane);
+  stage_rows<K, kSh, kBatched>(
+      X, edge_in, table,
+      tile_senders<K>(senders, tile, n_tiles, n_virt, B, lane), tile,
+      n_tiles, n_virt, n_send, B, lane);
+  stage_rows<K, kSh, kBatched>(stages + kTileF, edge_in, nullptr, 0,
+                               tile + stride, n_tiles, n_virt, n_send, B,
+                               lane);
+  for (int i = 0; tile < n_tiles; tile += stride, ++i) {
+    float* E = stages + (i & 1) * kTileF;
+    const Tile<K> tl(tile, n_virt, B);
+    const size_t slot0 = (size_t)tl.v0 * K;
+    // loads of this tile's receiver rows and masks, and of the next tile's
+    // senders, before the staged rows are needed
+    const int s_next =
+        tile_senders<K>(senders, tile + stride, n_tiles, n_virt, B, lane);
+    float2 rec[2][8];
+    float m[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = g + 8 * h;
+      const int v = tl.v0 + min(row, tl.n_rows - 1) / K;
+      const float* rp =
+          rec_rows + row_at<kBatched>(v, tl.b, n_virt, B) + 2 * t;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        rec[h][q] = *reinterpret_cast<const float2*>(rp + 8 * q);
+      m[h] = row < tl.n_rows ? mask[slot0 + row] : 0.f;
+    }
+    cp_async_wait<1>();  // E(i) and G(i) have landed
+    __syncwarp();
+
+    // x0 = E @ W_e + b0 (kLayer) or ew, + table[senders] + rec;
+    // X1 = silu(x0) -> X
+    float acc[8][4];
+    zero(acc);
+    if constexpr (kLayer) tile_product(E, we_f, lane, acc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = g + 8 * h;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int c = 8 * q + 2 * t;
+        float2 e;
+        if constexpr (kLayer) {
+          const float2 b0 = *reinterpret_cast<const float2*>(vec + c);
+          e = make_float2(acc[q][2 * h] + b0.x, acc[q][2 * h + 1] + b0.y);
+        } else {
+          e = *reinterpret_cast<const float2*>(E + row * kLd + c);
+        }
+        float2* xp = reinterpret_cast<float2*>(X + row * kLd + c);
+        const float2 gv = *xp;
+        *xp = silu_fast(make_float2(e.x + gv.x + rec[h][q].x,
+                                    e.y + gv.y + rec[h][q].y));
+      }
+    }
+    __syncwarp();
+
+    // y = X1 @ W2 + b2
+    zero(acc);
+    tile_product(X, w2_f, lane, acc);
+    __syncwarp();  // every lane has read X1: X takes the next sender rows
+    stage_rows<K, kSh, kBatched>(X, edge_in, table, s_next, tile + stride,
+                                 n_tiles, n_virt, n_send, B, lane);
+
+    // msg = LN(y) over the quad's 64 columns; out = edge + msg (kLayer)
+    // or msg (P2, when asked)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = g + 8 * h;
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float2 b2 =
+            *reinterpret_cast<const float2*>(vec + V_B2 * NLT_H + 8 * q + 2 * t);
+        acc[q][2 * h] += b2.x;
+        acc[q][2 * h + 1] += b2.y;
+        s += acc[q][2 * h] + acc[q][2 * h + 1];
+      }
+      const float mean = quad_sum(s) * (1.0f / NLT_H);
+      float var = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float cx = acc[q][2 * h] - mean, cy = acc[q][2 * h + 1] - mean;
+        var += cx * cx + cy * cy;
+      }
+      const float inv = rsqrtf(quad_sum(var) * (1.0f / NLT_H) + NLT_LN_EPS);
+      const bool ok = row < tl.n_rows;
+      float* op = out + row_at<kBatched>(slot0 + row, tl.b, M, B);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int c = 8 * q + 2 * t;
+        const float2 ls =
+            *reinterpret_cast<const float2*>(vec + V_LS * NLT_H + c);
+        const float2 lb =
+            *reinterpret_cast<const float2*>(vec + V_LB * NLT_H + c);
+        const float2 msg =
+            make_float2((acc[q][2 * h] - mean) * inv * ls.x + lb.x,
+                        (acc[q][2 * h + 1] - mean) * inv * ls.y + lb.y);
+        if constexpr (kLayer) {
+          if (ok) {
+            const float2 e =
+                *reinterpret_cast<const float2*>(E + row * kLd + c);
+            *reinterpret_cast<float2*>(op + c) = nlt_add2(e, msg);
+          }
+        } else if constexpr (kBatched) {
+          if (ok && out != nullptr)
+            *reinterpret_cast<float2*>(op + c) = msg;
+        }
+        acc[q][2 * h] = m[h] * msg.x;  // from here on: the masked message
+        acc[q][2 * h + 1] = m[h] * msg.y;
+      }
+    }
+
+    // virt[v, b] = sum over the virtual row's K slot rows
+    if constexpr ((K & (K - 1)) == 0) {
+      // rows g and g+8 of a lane; the K rows of a virtual row are the
+      // lanes whose g differ in the low log2(K) bits
+#pragma unroll
+      for (int o = 4; o < 4 * K; o <<= 1)
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[q][e] += __shfl_xor_sync(0xffffffffu, acc[q][e], o);
+      if (g % K == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = (g + 8 * h) / K;  // virtual row within the tile
+          if (tl.v0 + j < n_virt) {
+            float* dst =
+                virt + row_at<kBatched>(tl.v0 + j, tl.b, n_virt, B) + 2 * t;
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              *reinterpret_cast<float2*>(dst + 8 * q) =
+                  make_float2(acc[q][2 * h], acc[q][2 * h + 1]);
+          }
+        }
+      }
+    } else {
+      __syncwarp();  // every lane has read its edge rows: E takes the sums
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          *reinterpret_cast<float2*>(E + (g + 8 * h) * kLd + 8 * q + 2 * t) =
+              make_float2(acc[q][2 * h], acc[q][2 * h + 1]);
+      __syncwarp();
+      for (int j = 0; j < kVpt && tl.v0 + j < n_virt; ++j) {
+        float2 sum = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          sum = nlt_add2(sum, nlt_ld2(E + (j * K + k) * kLd, lane));
+        nlt_st2(virt + row_at<kBatched>(tl.v0 + j, tl.b, n_virt, B), lane,
+                sum);
+      }
+    }
+    __syncwarp();  // E is free: it takes the tile two ahead
+    stage_rows<K, kSh, kBatched>(E, edge_in, nullptr, 0, tile + 2 * stride,
+                                 n_tiles, n_virt, n_send, B, lane);
+  }
+  cp_async_wait<0>();
+}
+
+template <int K, bool kLayer, bool kBatched>
+cudaError_t tc_launch(const float* table, const int* senders,
+                      const float* edge_in, const float* rec_rows,
+                      const float* mask, const float* params, float* out,
+                      float* virt, int n_virt, int n_send, int B,
+                      cudaStream_t stream) {
+  constexpr int kWarps = n_warps<kLayer>();
+  auto kernel = edge_tc_kernel<K, kLayer, kBatched>;
+  const long long tiles =
+      (long long)((n_virt + kRows / K - 1) / (kRows / K)) * B;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = nlt_launch_config(kernel, kWarps * 32,
+                                      smem_bytes<kLayer>(), tiles, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kWarps * 32, smem_bytes<kLayer>(), stream>>>(
+      table, senders, edge_in, rec_rows, mask, params, out, virt, n_virt,
+      n_send, B);
+  return cudaGetLastError();
+}
+
+// One launch of edge_tc_kernel<K, kLayer, kBatched> for the K (1..8) of
+// the edge set, on `device`'s stream; 0 or a cudaError_t.
+template <bool kLayer, bool kBatched>
+int tc_dispatch(const float* table, const int* senders, const float* edge_in,
+                const float* rec_rows, const float* mask, const float* params,
+                float* out, float* virt, int n_virt, int K, int B, int n_send,
+                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_virt == 0 || B == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define NLT_CASE(KK)                                                     \
+  case KK:                                                               \
+    return (int)tc_launch<KK, kLayer, kBatched>(table, senders, edge_in, \
+                                                rec_rows, mask, params,  \
+                                                out, virt, n_virt,       \
+                                                n_send, B, s);
+  switch (K) {
+    NLT_FOR_K(NLT_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NLT_CASE
+}
+
+}  // namespace

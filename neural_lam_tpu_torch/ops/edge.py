@@ -14,7 +14,8 @@ variants). mask is the EdgeSet's (M, 1) slot validity.
 Each function is a `torch.autograd.Function` on both devices. Its forward
 runs the plain PyTorch version (`*_plain`, same module) on a CPU tensor and
 the CUDA kernel (`csrc/edge.cu`) on a CUDA tensor; there is no fallback
-from one to the other. The backward recomputes through the plain version
+from one to the other. P2 and P3 are the batched-layout instances of K2's
+and K3's tensor-core kernel (`csrc/edge_tc.cuh`); P1 runs on CUDA cores. The backward recomputes through the plain version
 with autograd, as the JAX package's reference-recompute VJPs do: it has no
 backward kernel for these three. `<wrapper>.launches` counts kernel
 launches.
@@ -245,8 +246,8 @@ def edge_tail(x0, w2, b2, ln_scale, ln_bias, mask, K: int,
     writing msg (update_edges=False rounds need only virt).
 
     Replaces pallas_edge.py::_tail_kernel (via _edge_tail_fwd_impl).
-    Bound by fp32 operations on the card (the W2 product per slot); see
-    csrc/edge.cu.
+    Bound by fp32 operations on the card (the W2 product per slot, on CUDA
+    cores); see csrc/edge.cu.
     """
     out = _EdgeTail.apply(x0, w2, b2, ln_scale, ln_bias, mask, K,
                           with_messages)
@@ -288,8 +289,9 @@ def edge_tail_sum(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
     send_t[:, senders] + ew + rec_rows repeated over each row's K slots.
 
     Replaces pallas_edge.py::_tail_sum_kernel (via _edge_tail_sum_impl).
-    Bound by fp32 operations on the card (the W2 product per slot); see
-    csrc/edge.cu.
+    Bound by bytes on the card (the gathered sender rows, ew, rec_rows,
+    virt and msg), its W2 product on tensor cores in 3xTF32; see
+    csrc/edge_tc.cuh.
     """
     out = _EdgeTailSum.apply(send_t, senders, ew, rec_rows, w2, b2,
                              ln_scale, ln_bias, mask, K, with_messages)
@@ -329,8 +331,9 @@ def edge_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
     b2); edge_out at padding slots is computed the same way.
 
     Replaces pallas_edge.py::_layer_kernel (via _edge_layer_impl), both
-    in_gather variants. Bound by fp32 operations on the card (W_e and W2
-    products per slot); see csrc/edge.cu.
+    in_gather variants. Bound by bytes on the card (the edge rows in and
+    out, the gathered sender rows, rec_rows, virt), its W_e and W2
+    products on tensor cores in 3xTF32; see csrc/edge_tc.cuh.
     """
     return _EdgeLayer.apply(edge_rep, send_t, senders, rec_rows, mask, w_e,
                             b0, w2, b2, ln_scale, ln_bias, K)

@@ -269,7 +269,7 @@ def edge_tail_sum_flat(table, senders, ew, rec_rows, mask_p, w2, b2,
     Replaces pallas_edge_flat.py::_tail_sum_flat_kernel (via
     edge_tail_sum_flat). Its W2 product runs on tensor cores in 3xTF32
     (K3's tiles with one product), so it is bound by bytes on the card;
-    see csrc/edge_flat.cu.
+    see csrc/edge_flat.cu and csrc/edge_tc.cuh.
     """
     return _EdgeTailSumFlat.apply(table, senders, ew, rec_rows, mask_p, w2,
                                   b2, ln_scale, ln_bias, fold)
@@ -504,7 +504,7 @@ def edge_layer_flat(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
     Replaces pallas_edge_flat.py::_layer_flat_kernel (edge_layer_flat) and
     ::_layer_flat_win_kernel (edge_layer_flat_win). Its W_e and W2
     products run on tensor cores in 3xTF32, so it is bound by bytes on the
-    card; see csrc/edge_flat.cu.
+    card; see csrc/edge_flat.cu and csrc/edge_tc.cuh.
     """
     return _EdgeLayerFlat.apply(edge_rep, table, senders, rec_rows, mask_p,
                                 w_e, b0, w2, b2, ln_scale, ln_bias, fold)

@@ -51,13 +51,13 @@ BATCH, H = 4, 64
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
 SOURCES = ("embed", "edge_flat", "embed_bwd")
 KERNELS = ("k1", "k2", "k3", "b1")
-# name -> (source, old text, new text)
+# name -> (file under csrc/, old text, new text)
 VARIANTS = {
-    "k1w12": ("embed", "return kKind == kWide ? 8 : 16;",
+    "k1w12": ("embed.cu", "return kKind == kWide ? 8 : 16;",
               "return kKind == kWide ? 8 : 12;"),
-    "k1w20": ("embed", "return kKind == kWide ? 8 : 16;",
+    "k1w20": ("embed.cu", "return kKind == kWide ? 8 : 16;",
               "return kKind == kWide ? 8 : 20;"),
-    "k2w12": ("edge_flat", "constexpr int kTailWarps = 14;",
+    "k2w12": ("edge_tc.cuh", "constexpr int kTailWarps = 14;",
               "constexpr int kTailWarps = 12;"),
 }
 
@@ -227,7 +227,7 @@ def make_variant(base, name):
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(base, "neural_lam_tpu_torch"), pkg,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = os.path.join(pkg, "csrc", f"{src}.cu")
+    path = os.path.join(pkg, "csrc", src)
     text = open(path).read()
     if text.count(old) != 1:
         raise RuntimeError(f"{name}: no single match for {old!r}")

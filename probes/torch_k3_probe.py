@@ -1,10 +1,12 @@
-"""What holds K3 (the processor edge layer, `edge_tc_kernel<K, true>` in
-neural_lam_tpu_torch/csrc/edge_flat.cu) on one CUDA card.
+"""What holds K3 (the processor edge layer, `edge_tc_kernel<K, true,
+false>` of neural_lam_tpu_torch/csrc/edge_tc.cuh, built by csrc/edge_flat.cu)
+on one CUDA card.
 
     python3 probes/torch_k3_probe.py [--rounds 2]
 
-Builds variants of csrc/edge_flat.cu into build/k3_probe/ (git-ignored),
-each a copy of the source with one textual change, and times each at
+Builds variants of csrc/edge_flat.cu into build/k3_probe/NAME/
+(git-ignored), each with a copy of csrc/edge_tc.cuh that has one textual
+change, and times each at
 GraphLAM's m2m[0] shape (7,424 virtual rows, K = 8, batch 4, a 6,561-row
 sender table; inputs from a seeded generator) with CUDA events around 20
 calls queued behind a sleep kernel:
@@ -33,6 +35,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import shutil
 import subprocess
 import sys
 
@@ -43,7 +46,7 @@ OUT = os.path.join(ROOT, "build", "k3_probe")
 _MMA3 = """      mma_tf32(acc[q], as, w.x, w.y);
       mma_tf32(acc[q], ab, w.z, w.w);
       mma_tf32(acc[q], ab, w.x, w.y);"""
-_EDGE_STORE = "        if (kLayer && ok) {\n          const float2 e ="
+_EDGE_STORE = "          if (ok) {\n            const float2 e ="
 _VIRT_STORE = "          if (tl.v0 + j < n_virt) {"
 VARIANTS = {
     "shipped": [],
@@ -54,8 +57,8 @@ VARIANTS = {
     "terms1": [(_MMA3, "      mma_tf32(acc[q], ab, w.x, w.y);")],
     "terms0": [(_MMA3, "      acc[q][0] += __uint_as_float(ab[0] ^ w.x);")],
     "nostores": [
-        (_EDGE_STORE, "        if (kLayer && ok && n_virt < 0) {\n"
-                      "          const float2 e ="),
+        (_EDGE_STORE, "          if (ok && n_virt < 0) {\n"
+                      "            const float2 e ="),
         (_VIRT_STORE, "          if (tl.v0 + j < n_virt && n_virt < 0) {")],
 }
 
@@ -65,6 +68,8 @@ EXTRA = r"""
 #include "edge_flat.cu"
 
 namespace {
+
+constexpr size_t kLayerSmem = smem_bytes<true>();
 
 __global__ void __launch_bounds__(kLayerWarps * 32, 1)
     setup_kernel(const float* __restrict__ params, float* out) {
@@ -93,14 +98,16 @@ __global__ void __launch_bounds__(kLayerWarps * 32, 1)
   const int W = B * NLT_H;
   const int n_tiles = (n_virt + kVpt - 1) / kVpt * B;
   const int stride = gridDim.x * kLayerWarps;
-  int tile = blockIdx.x * kLayerWarps + warp;
+  int tile = warp * gridDim.x + blockIdx.x;
   float dsum = 0.f;
-  stage_rows<K>(stages, edge_in, nullptr, 0, tile, n_tiles, n_virt, B, lane);
-  stage_rows<K>(X, edge_in, table,
-                tile_senders<K>(senders, tile, n_tiles, n_virt, B, lane),
-                tile, n_tiles, n_virt, B, lane);
-  stage_rows<K>(stages + kTileF, edge_in, nullptr, 0, tile + stride, n_tiles,
-                n_virt, B, lane);
+  stage_rows<K, false, false>(stages, edge_in, nullptr, 0, tile, n_tiles,
+                              n_virt, 0, B, lane);
+  stage_rows<K, false, false>(
+      X, edge_in, table,
+      tile_senders<K>(senders, tile, n_tiles, n_virt, B, lane), tile,
+      n_tiles, n_virt, 0, B, lane);
+  stage_rows<K, false, false>(stages + kTileF, edge_in, nullptr, 0,
+                              tile + stride, n_tiles, n_virt, 0, B, lane);
   for (int i = 0; tile < n_tiles; tile += stride, ++i) {
     float* E = stages + (i & 1) * kTileF;
     const Tile<K> tl(tile, n_virt, B);
@@ -120,10 +127,10 @@ __global__ void __launch_bounds__(kLayerWarps * 32, 1)
     __syncwarp();
     dsum += E[lane] + X[lane];
     __syncwarp();
-    stage_rows<K>(X, edge_in, table, s_next, tile + stride, n_tiles, n_virt,
-                  B, lane);
-    stage_rows<K>(E, edge_in, nullptr, 0, tile + 2 * stride, n_tiles, n_virt,
-                  B, lane);
+    stage_rows<K, false, false>(X, edge_in, table, s_next, tile + stride,
+                                n_tiles, n_virt, 0, B, lane);
+    stage_rows<K, false, false>(E, edge_in, nullptr, 0, tile + 2 * stride,
+                                n_tiles, n_virt, 0, B, lane);
   }
   cp_async_wait<0>();
   if (dsum == 12345.f) out[0] = dsum;
@@ -163,9 +170,7 @@ extern "C" int probe_loads(const float* table, const int* senders,
   const long long tiles = (long long)((n_virt + 1) / 2) * B;  // K = 8
   int grid = 0;
   cudaError_t err = nlt_launch_config(loads_kernel<8>, kLayerWarps * 32,
-                                      kLayerSmem,
-                                      (tiles + kLayerWarps - 1) / kLayerWarps,
-                                      &grid);
+                                      kLayerSmem, tiles, &grid);
   if (err != cudaSuccess) return (int)err;
   loads_kernel<8><<<grid, kLayerWarps * 32, kLayerSmem, (cudaStream_t)stream>>>(
       table, senders, edge_in, rec_rows, mask, out, n_virt, B);
@@ -184,9 +189,11 @@ extern "C" int probe_hmma(int nacc, int blocks, int threads, int iters,
 
 
 def build(nvcc, flags):
-    """One nvcc per variant and the extra kernels, all started together."""
+    """One nvcc per variant and the extra kernels, all started together.
+    A variant's edge_flat.cu includes the edge_tc.cuh beside it (a quoted
+    include looks in the includer's directory first)."""
     os.makedirs(OUT, exist_ok=True)
-    src = open(os.path.join(CSRC, "edge_flat.cu")).read()
+    src = open(os.path.join(CSRC, "edge_tc.cuh")).read()
     jobs = {}
     for name, edits in VARIANTS.items():
         text = src
@@ -194,9 +201,12 @@ def build(nvcc, flags):
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: no single match for {old!r}")
             text = text.replace(old, new)
-        path = os.path.join(OUT, f"{name}.cu")
-        with open(path, "w") as f:
+        vdir = os.path.join(OUT, name)
+        os.makedirs(vdir, exist_ok=True)
+        with open(os.path.join(vdir, "edge_tc.cuh"), "w") as f:
             f.write(text)
+        path = os.path.join(vdir, "edge_flat.cu")
+        shutil.copyfile(os.path.join(CSRC, "edge_flat.cu"), path)
         jobs[name] = path
     path = os.path.join(OUT, "extra.cu")
     with open(path, "w") as f:

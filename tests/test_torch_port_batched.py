@@ -12,6 +12,12 @@ the JAX function (its reference-recompute VJP): max abs diff <= 1e-4 +
 1e-4 * max abs of the JAX gradient, since the sender-table gradient sums
 up to ~2k slot cotangents per row in another order.
 
+At every slot count the kernels are built for (K = 1..8, local graphs
+of in-degree K, batch 1 and 4), the values of P2 (with and without
+messages) and P3 (both in_gather variants) against JAX, within TOL; and
+the batched plain P2/P3 against the flat plain K2/K3 after the layout
+permutation, torch only (see that test for its tolerance).
+
 Route level: `flat_eligible` and `expand_edge_rep` against the JAX
 package's dispatch, and `apply_interaction_net`'s batched rounds against
 the JAX package's.
@@ -348,3 +354,120 @@ def test_apply_interaction_net_rejects_the_other_layout(case, monkeypatch):
     with pytest.raises(ValueError, match="flat route"):
         tmp.apply_interaction_net(tp, t, send, rec,
                                   torch.as_tensor(x["edge"]))
+
+
+def _sized_sets(K, seed):
+    """(JAX EdgeSet, port EdgeSet, rng) of a local graph of in-degree K:
+    K slots a virtual row, 100 receivers padded to 128 virtual rows (28
+    padding rows), 120 senders."""
+    rng = np.random.default_rng(seed)
+    n_send, n_rec = 120, 100
+    s, r, f = _local_graph(n_send, n_rec, K, rng)
+    j = JEdgeSet.from_local(s, r, f, n_send, n_rec, dense=True)
+    t = EdgeSet.from_local(s, r, f, n_send, n_rec, device="cpu")
+    assert t.dense_k == j.dense_k == K
+    # the Pallas kernel runs (not its reference fallback) at this size
+    assert jpe._pick_tile_v_batched(t.num_virt, K) >= 64
+    return j, t, rng
+
+
+def _sized_inputs(rng, t, B):
+    n_virt, K = t.num_virt, t.dense_k
+    M = n_virt * K
+    return dict(
+        send_t=_rand(rng, B, t.num_send, H), ew=_rand(rng, M, H),
+        rec=_rand(rng, B, n_virt, H), edge=_rand(rng, B, M, H),
+        w_e=_rand(rng, H, H, scale=0.2), b0=_rand(rng, H, scale=0.2),
+        w2=_rand(rng, H, H, scale=0.2), b2=_rand(rng, H, scale=0.2),
+        ls=1 + _rand(rng, H, scale=0.1), lb=_rand(rng, H, scale=0.1),
+    )
+
+
+@pytest.mark.parametrize("with_messages", [True, False])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("K", range(1, 9))
+def test_edge_tail_sum_sizes_match_jax(K, B, with_messages):
+    """P2 plain == pallas_edge.edge_tail_sum (interpret) at every slot
+    count P2's kernel is built for, at batch 1 and 4, with and without
+    messages (msg at every slot, padding included); TOL as above."""
+    j, t, rng = _sized_sets(K, 40 + K)
+    x = _sized_inputs(rng, t, B)
+    tail = [x[n] for n in ("w2", "b2", "ls", "lb")]
+    gathered = x["send_t"][:, np.asarray(j.senders)]
+    msg_j, virt_j = jpe.edge_tail_sum(gathered, x["ew"], x["rec"], *tail,
+                                      np.asarray(j.mask), K, True,
+                                      with_messages)
+    msg_t, virt_t = edge.edge_tail_sum(
+        torch.as_tensor(x["send_t"]), t.senders, torch.as_tensor(x["ew"]),
+        torch.as_tensor(x["rec"]), *map(torch.as_tensor, tail), t.mask, K,
+        with_messages=with_messages)
+    np.testing.assert_allclose(virt_t.numpy(), np.asarray(virt_j), **TOL)
+    if with_messages:
+        np.testing.assert_allclose(msg_t.numpy(), np.asarray(msg_j), **TOL)
+    else:
+        assert msg_t is None and msg_j is None
+
+
+@pytest.mark.parametrize("in_gather", [False, True])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("K", range(1, 9))
+def test_edge_layer_sizes_match_jax(K, B, in_gather):
+    """P3 plain == pallas_edge.edge_layer (interpret), both in_gather
+    variants, at every slot count P3's kernel is built for and at batch 1
+    and 4: edge_out at every slot (padding included) and virt; TOL as
+    above."""
+    j, t, rng = _sized_sets(K, 50 + K)
+    x = _sized_inputs(rng, t, B)
+    par = [x[n] for n in ("w_e", "b0", "w2", "b2", "ls", "lb")]
+    senders = np.asarray(j.senders)
+    gs = senders if in_gather else x["send_t"][:, senders]
+    eo_j, virt_j = jpe.edge_layer(x["edge"], gs, x["send_t"], x["rec"],
+                                  np.asarray(j.mask), *par, K, in_gather,
+                                  True)
+    eo_t, virt_t = edge.edge_layer(
+        torch.as_tensor(x["edge"]), torch.as_tensor(x["send_t"]), t.senders,
+        torch.as_tensor(x["rec"]), t.mask, *map(torch.as_tensor, par), K)
+    np.testing.assert_allclose(virt_t.numpy(), np.asarray(virt_j), **TOL)
+    np.testing.assert_allclose(eo_t.numpy(), np.asarray(eo_j), **TOL)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("K", range(1, 9))
+def test_batched_matches_flat_layout(K, B):
+    """The batched plain P2 and P3 equal the flat plain K2 and K3 after
+    the (B, rows, h) <-> (rows, B*h) permutation, the mapping between the
+    two layouts of the CUDA kernel template both share; at B = 1 the flat
+    functions take the batched tensors as views. Tolerance: fp32
+    rounding, atol = rtol = 1e-5 (the same arithmetic; the CPU's BLAS
+    blocks the (B*M, h) and (M*B, h) products differently, and P3 adds b0
+    after the sender and receiver terms where K3 adds it first; virt sums
+    up to 8 unit-scale messages, values up to ~30, whose rounding reaches
+    a few 1e-6)."""
+    from neural_lam_tpu_torch.ops import edge_flat
+
+    _, t, rng = _sized_sets(K, 60 + K)
+    x = {k: torch.as_tensor(v) for k, v in _sized_inputs(rng, t, B).items()}
+    n_virt = t.num_virt
+    mask_p = t.mask.view(n_virt, K)
+    tail = [x[n] for n in ("w2", "b2", "ls", "lb")]
+
+    def flat(a):  # (B, rows, h) -> (rows, B*h)
+        return a[0] if B == 1 else a.permute(1, 0, 2).reshape(a.shape[1], -1)
+
+    if B == 1:
+        assert flat(x["send_t"]).data_ptr() == x["send_t"].data_ptr()
+    tol = dict(atol=1e-5, rtol=1e-5)
+    _, virt_p2 = edge.edge_tail_sum_plain(x["send_t"], t.senders, x["ew"],
+                                          x["rec"], *tail, t.mask, K,
+                                          with_messages=False)
+    virt_k2 = edge_flat.edge_tail_sum_flat_plain(
+        flat(x["send_t"]), t.senders, x["ew"], flat(x["rec"]), mask_p, *tail)
+    torch.testing.assert_close(flat(virt_p2), virt_k2, **tol)
+    eo_p3, virt_p3 = edge.edge_layer_plain(
+        x["edge"], x["send_t"], t.senders, x["rec"], t.mask, x["w_e"],
+        x["b0"], *tail, K)
+    eo_k3, virt_k3 = edge_flat.edge_layer_flat_plain(
+        flat(x["edge"]), flat(x["send_t"]), t.senders, flat(x["rec"]),
+        mask_p, x["w_e"], x["b0"], *tail)
+    torch.testing.assert_close(flat(eo_p3), eo_k3, **tol)
+    torch.testing.assert_close(flat(virt_p3), virt_k3, **tol)
