@@ -4,21 +4,21 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass (any failure exits non-zero, and no
-result line is printed):
+result line is printed), each printing its seconds:
 
 1. Build every CUDA kernel of the forecast and training paths from `csrc/`
    with nvcc (one process per source, all started together); print the
    build time and each source's ptxas registers and spills (per kernel
    for K1's three (d_in up to 64, up to 128, above), K2's, K3's, P1's,
-   P2's and P3's per K, with the registers and spill of K2/K3/P2/P3's
+   P2's and P3's per K, with the registers and spill of K2/K3/P1/P2/P3's
    `edge_tc_kernel` instances summed per kernel, and the backward sources
    with two passes or two kernels: B2's and B3/B4's chain kernels of
    `edge_flat_bwd` per K, the decoder backward's and `xtd_sum`'s, and
    B1's two, for d_in up to 64 and above), and, where the toolkit has
    `cuobjdump`, the shared-memory loads by width, the FFMAs, the
    tensor-core products (HMMA) and the async copies (LDGSTS) in the SASS
-   of B3/B4's K=8 chain kernel, of K3's, K2's, P3's and P2's K=8 kernels,
-   of K1's kernel for d_in up to 64, of K4's K=4 kernel
+   of B3/B4's K=8 chain kernel, of K3's, K2's, P3's, P2's and P1's K=8
+   kernels and P1's K=1 kernel, of K1's kernel for d_in up to 64, of K4's K=4 kernel
    (`grid_update_kernel<4>`), of `xtd_sum`'s main kernel and of B1's
    kernel for d_in up to 64.
 2. Build the bench-width GraphLAM and HiLAM through
@@ -28,19 +28,20 @@ result line is printed):
 3. For each forward kernel, at the shapes those models give it: hold the
    kernel against its plain PyTorch version on the card (TF32 off), and
    time both with CUDA events beside the least time the card could take
-   (for K1, K2, K3, P2 and P3, whose products run on tensor cores in
+   (for K1, K2, K3, P1, P2 and P3, whose products run on tensor cores in
    3xTF32, max(bytes, 3 x FLOP / TF32 peak), with the fp32 CUDA-core
    bound printed beside it, and their products as `torch.mm` calls, TF32
-   off, as their library time); K1, K2, K3, P2 and P3 also give
+   off, as their library time); K1, K2, K3, P1, P2 and P3 also give
    bit-identical outputs in two calls. K1-K4 at GraphLAM's batch-4
    shapes; K1 also at d_in 23, 100 and 160 on a row count that is not a
    multiple of 16; K3 also at HiLAM's K=1 down[0] and non-identity up[0]
-   sets (batch 4); K2 and K3 (batch 4) and P2 (with and without messages)
-   and P3 (batch 1 and 4) at every K from 1 to 8 on seeded local graphs
-   (K = 3, 5, 6, 7 do not divide their 16-row tiles); K4 also at HiLAM's
-   batch-4 m2g; P1-P3 (the batched route) at HiLAM's batch-1 shapes (P3
-   on m2m[0], P2 on m2g with and without messages and on g2m, P1 on
-   down[0] with and without messages) and at one batch-4 shape each.
+   sets (batch 4); K2 and K3 (batch 4) and P1 and P2 (with and without
+   messages) and P3 (batch 1 and 4) at every K from 1 to 8 on seeded
+   local graphs (K = 3, 5, 6, 7 do not divide their 16-row tiles); K4
+   also at HiLAM's batch-4 m2g; P1-P3 (the batched route) at HiLAM's
+   batch-1 shapes (P3 on m2m[0], P2 on m2g with and without messages and
+   on g2m, P1 on down[0], down[1] and down[2] with and without messages)
+   and at one batch-4 shape each (P1 on the top down set).
 4. The same for each backward kernel (B1, B2, B3/B4, B5/B6) against its
    `*_bwd_plain` version: every output tensor within 1e-4 + 1e-4 * its
    plain version's max abs; B1 at the training step's call (no dx, as
@@ -78,18 +79,25 @@ result line is printed):
    16x16 on both routes (the dispatch as it is: batched; and its
    `_FLAT_MIN_VIRT` lowered to 1: flat), HiLAM 30x30 (2 levels) at batch
    1 and 2.
-7. The training path at bench width: one AdamW step through
-   `entry.train_steps` with every counter set to 0 just before it,
-   asserting 1/1/4/1 launches of K1-K4 and of B1/B2/B3/B5, six of
-   `xtd_sum`'s main kernel and six of its reduce kernel (the decoder's,
-   B2's and one per processor layer), and a finite
-   loss; one step's parameter gradients on the
-   kernel path against the plain path within 1e-3 * max abs; the
-   training-step time (host clock around a synchronised step, median of 7
-   after warm-up), samples/s, peak device memory and a profiler breakdown
-   of a step.
-8. The 16x16 GraphLAM trained 3 AdamW steps on the card and on the CPU,
-   on both routes: the loss trajectories agree within rtol 1e-4.
+7. The training path at bench width, batch 4, for GraphLAM and then
+   HiLAM: one AdamW step through `entry.train_steps` with every counter
+   set to 0 just before it, asserting the launches and a finite loss;
+   one step's parameter gradients on the kernel path against the plain
+   path within 1e-3 * max abs; the training-step time (host clock around
+   a synchronised step, median of 7 after warm-up), samples/s, peak
+   device memory and a profiler breakdown of a step. Launches: GraphLAM
+   1/1/4/1 of K1-K4 and of B1/B2/B3/B5, six of `xtd_sum`'s main kernel
+   and six of its reduce kernel (the decoder's, B2's and one per
+   processor layer); HiLAM (mixed route) the forward's of 5b, K1/K2/K3/K4
+   1/1/31/1 and P1/P3 1/30, a backward kernel for each flat launch
+   (B1/B2/B3/B5 1/1/31/1) and 33 of `xtd_sum`'s two kernels each (the
+   decoder's, B2's and one per B3/B4 call); P1-P3 have no backward
+   kernel, so this step runs P1's backward (the plain recompute) on the
+   card.
+8. Small models trained 3 AdamW steps on the card and on the CPU: the
+   16x16 GraphLAM on both routes, the 30x30 HiLAM (2 levels) at batch 1
+   (batched route) and at batch 2 with `_FLAT_MIN_VIRT` at 100 (mixed
+   route): the loss trajectories agree within rtol 1e-4.
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -97,6 +105,7 @@ Imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -114,12 +123,12 @@ H = 64
 FWD = ("embed_grid_flat", "edge_tail_sum_flat", "edge_layer_flat",
        "grid_update_flat")
 BATCHED = ("edge_tail", "edge_tail_sum", "edge_layer")  # P1, P2, P3
-SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
+SLEEP_CYCLES = 200_000_000  # ~0.1 s at the H100's 1.98 GHz boost clock
 TRAIN_ONLY = ("xtd_sum", "xtd_reduce")  # kernels of the backward alone
 PALLAS_EDGE = "neural_lam_tpu/ops/pallas_edge.py"
-# K2, K3, P2, P3: instances of the kernel template in csrc/edge_tc.cuh
-TC_EDGE = ("edge_tail_sum_flat", "edge_layer_flat", "edge_tail_sum",
-           "edge_layer")
+# K2, K3, P1, P2, P3: instances of the kernel template in csrc/edge_tc.cuh
+TC_EDGE = ("edge_tail_sum_flat", "edge_layer_flat", "edge_tail",
+           "edge_tail_sum", "edge_layer")
 
 
 def fail(msg):
@@ -248,13 +257,21 @@ def kernel_name(mangled):
                                               rest).group(0))
     tag = {"edge_tail_bwd_kernel": "B2 chain ",
            "edge_layer_bwd_kernel": "B3/B4 chain ", "embed_kernel": "K1 ",
-           "embed_bwd_kernel": "B1 ", "edge_tail_kernel": "P1 ",
-           # <K, kLayer, kBatched>
+           "embed_bwd_kernel": "B1 ",
+           # <K, kMode (TAIL_SUM 0, LAYER 1, X0 2), kBatched>
            "edge_tc_kernel": {("1", "0"): "K3 ", ("0", "0"): "K2 ",
-                              ("1", "1"): "P3 ", ("0", "1"): "P2 "}.get(
-                                  tuple(args[1:]), ""),
+                              ("1", "1"): "P3 ", ("0", "1"): "P2 ",
+                              ("2", "1"): "P1 "}.get(tuple(args[1:]), ""),
            }.get(name, "")
     return f"{tag}{name}" + (f"<{', '.join(args)}>" if args else "")
+
+
+@functools.lru_cache(maxsize=None)
+def sass_of(tool, lib):
+    """The SASS of every kernel of `lib`, by cuobjdump."""
+    return subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True,
+                          timeout=120).stdout
 
 
 def sass_counts(_build, lib, fn_part):
@@ -266,9 +283,7 @@ def sass_counts(_build, lib, fn_part):
     if not os.path.exists(tool):
         print(f"  SASS of {fn_part}: no cuobjdump beside nvcc")
         return
-    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
-                          capture_output=True, text=True,
-                          timeout=120).stdout
+    sass = sass_of(tool, lib)
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         if fn_part in part.split("\n", 1)[0]:
             ops = re.findall(r"\b(LDS(?:\.U)?(?:\.\d+)?|FFMA"
@@ -387,12 +402,20 @@ def main():
             for k, m in mods.items():
                 setattr(m, k, wrappers[k])
 
+    phase_t0 = [time.time()]
+
+    def phase_end(what):
+        """Print the seconds since the last phase ended."""
+        now = time.time()
+        print(f"phase {what}: {now - phase_t0[0]:.1f} s")
+        phase_t0[0] = now
+
     # 1. build
     t0 = time.time()
     libs = _build.build_all()
     print(f"kernel build: {time.time() - t0:.1f} s for {len(libs)} sources "
           f"({', '.join(p.name for p in libs.values())})")
-    tc_usage = {}  # K2/K3/P2/P3 tag -> [(registers, spill bytes)]
+    tc_usage = {}  # K2/K3/P1/P2/P3 tag -> [(registers, spill bytes)]
     for src in libs:
         log = _build.build_log(src)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
@@ -418,15 +441,18 @@ def main():
               f"{min(r for r, _ in use)}-{max(r for r, _ in use)} registers, "
               f"{sum(s for _, s in use)} bytes of spill")
     sass_counts(_build, libs["edge_flat_bwd"], "edge_layer_bwd_kernelILi8E")
-    # edge_tc_kernel<K, kLayer, kBatched>: K3, K2 (flat), P3, P2 (batched)
-    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELb1ELb0E")
-    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELb0ELb0E")
-    sass_counts(_build, libs["edge"], "edge_tc_kernelILi8ELb1ELb1E")
-    sass_counts(_build, libs["edge"], "edge_tc_kernelILi8ELb0ELb1E")
+    # edge_tc_kernel<K, kMode, kBatched>: K3, K2 (flat), P3, P2, P1 at K=8
+    # and P1 at K=1 (batched)
+    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELi1ELb0E")
+    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELi0ELb0E")
+    for fn in ("ILi8ELi1ELb1E", "ILi8ELi0ELb1E", "ILi8ELi2ELb1E",
+               "ILi1ELi2ELb1E"):
+        sass_counts(_build, libs["edge"], "edge_tc_kernel" + fn)
     sass_counts(_build, libs["embed"], "embed_kernelILi0E")  # K1, d_in <= 64
     sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4E")
     sass_counts(_build, libs["weight_grad"], "xtd_sum_kernel")
     sass_counts(_build, libs["embed_bwd"], "embed_bwd_kernelILb0E")  # B1
+    phase_end("1 (build)")
 
     # 2. the bench-width models
     t0 = time.time()
@@ -449,6 +475,7 @@ def main():
     print(f"HiLAM built in {time.time() - t0:.1f} s: levels "
           f"{hg.level_sizes} (N_mesh={hilam.num_mesh_nodes}); (K, virtual "
           f"rows) m2m {sets('m2m')}, up {sets('up')}, down {sets('down')}")
+    phase_end("2 (the bench-width models)")
 
     # 3-4. every kernel against its plain version at the main path's shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -681,13 +708,13 @@ def main():
         cases.append(("edge_layer_flat_bwd", edge_flat, ab,
                       f"{pef}:846 ({at})", bb, bf))
 
-    # K2, K3, P2 and P3 at every slot count their kernels are built for, K
-    # = 1..8, on seeded local graphs (each of 20,000 receivers takes K
-    # senders near it among 6,561): K = 3, 5, 6, 7 do not divide the 16-row
-    # tiles and sum virt through shared memory, K = 1, 2, 4, 8 by shuffles;
-    # the g2m encoder's and the processor's first layer's weights. K2 and
-    # K3 at batch 4; P2 (with and without messages) and P3 at batch 1 and
-    # 4
+    # K2, K3, P1, P2 and P3 at every slot count their kernels are built
+    # for, K = 1..8, on seeded local graphs (each of 20,000 receivers takes
+    # K senders near it among 6,561): K = 3, 5, 6, 7 do not divide the
+    # 16-row tiles and sum virt through shared memory, K = 1, 2, 4, 8 by
+    # shuffles; the g2m encoder's and the processor's first layer's
+    # weights. K2 and K3 at batch 4; P1 and P2 (with and without messages)
+    # and P3 at batch 1 and 4
     def k_sweep():
         rng = np.random.default_rng(0)
         n_rec, n_send = 20000, 6561
@@ -710,6 +737,10 @@ def main():
                 out.append((kname, edge_flat, a, f"{pef}:{line} ({at})", b,
                             f))
             for kname, inet, B, wm in (
+                    ("edge_tail", model.g2m_gnn, 1, False),
+                    ("edge_tail", model.g2m_gnn, 4, False),
+                    ("edge_tail", model.g2m_gnn, 1, True),
+                    ("edge_tail", model.g2m_gnn, 4, True),
                     ("edge_tail_sum", model.g2m_gnn, 1, False),
                     ("edge_tail_sum", model.g2m_gnn, 4, False),
                     ("edge_tail_sum", model.g2m_gnn, 1, True),
@@ -755,6 +786,10 @@ def main():
 
     p_lines = {"edge_tail": 54, "edge_tail_sum": 182, "edge_layer": 304}
     main_p = {}  # kernel -> label of its main-path (HiLAM batch-1) case
+    # P1 on each down set of the read-out, with and without messages
+    read_out = [("edge_tail", es, hilam.mesh_read_gnns[lv], 1, wm,
+                 f"down[{lv}]{', with messages' if wm else ''}")
+                for lv, es in enumerate(hg.down) for wm in (False, True)]
     for kname, edges, inet, B, wm, what in (
             ("edge_layer", hg.m2m[0], hilam.mesh_up_same_gnns[0][0], 1,
              False, "m2m[0]"),
@@ -762,10 +797,7 @@ def main():
             ("edge_tail_sum", hg.m2g, hilam.m2g_gnn, 1, True,
              "m2g, with messages"),
             ("edge_tail_sum", hg.g2m, hilam.g2m_gnn, 1, False, "g2m"),
-            ("edge_tail", hg.down[0], hilam.mesh_read_gnns[0], 1, False,
-             "down[0]"),
-            ("edge_tail", hg.down[0], hilam.mesh_read_gnns[0], 1, True,
-             "down[0], with messages"),
+            *read_out,
             ("edge_layer", hg.m2m[1], hilam.mesh_up_same_gnns[0][1], 4,
              False, "m2m[1]"),
             ("edge_tail_sum", hg.g2m, hilam.g2m_gnn, 4, False, "g2m"),
@@ -780,8 +812,11 @@ def main():
                       + out_bytes, flops))
     cases += k_sweep()
     # P3's two products (edge @ W_e, x1 @ W2) as two torch.mm calls on
-    # (B*M, 64) rows, and P2's one (X1 @ W2) with the gathered sender rows
-    # standing in for X1: their library time "for their products"
+    # (B*M, 64) rows, P2's one (X1 @ W2) with the gathered sender rows
+    # standing in for X1, and P1's one (silu(x0) @ W2) on x0's rows: their
+    # library time "for their products"
+    library["edge_tail"] = lambda x0, w2, *rest: torch.mm(x0.view(-1, H),
+                                                          w2)
     library["edge_layer"] = lambda edge_rep, send_t, senders, rec, mask, \
         w_e, b0, w2, *rest: (torch.mm(edge_rep.view(-1, H), w_e),
                              torch.mm(edge_rep.view(-1, H), w2))
@@ -830,8 +865,8 @@ def main():
             t_ops = flops / peak_flops * 1e3
             fp32_note = ""
             if kname in ("embed_grid_flat", "embed_grid_flat_bwd") + TC_EDGE:
-                # K1's, K2's, K3's, B1's, P2's and P3's products run on
-                # tensor cores in 3xTF32:
+                # K1's, K2's, K3's, B1's, P1's, P2's and P3's products run
+                # on tensor cores in 3xTF32:
                 # three TF32 products per term; the fp32 CUDA-core bound
                 # printed too
                 fp32_note = (f"; fp32 CUDA-core bound "
@@ -895,8 +930,9 @@ def main():
         xtd_sweep(torch, weight_grad, xtd_pairs, "the decoder's nine pairs")
     del cases, args, a4, a5, h_a4, h_pp, h_mask, hm2g, k1, xtd_pairs
     del b3_args, b3_pairs, b2_args, b2_pairs, partial, library, seg_pair
-    del red_zeros, a, d_emb, bk, gathered
+    del red_zeros, a, d_emb, bk, gathered, read_out, edges, inet
     torch.cuda.empty_cache()
+    phase_end("3-4 (every kernel against its plain version)")
 
     # 5. the forecast paths
     zero = {k: 0 for k in FWD + BATCHED}
@@ -972,10 +1008,10 @@ def main():
     # HiLAM, 4 levels: 3 init rounds over up sets, 14 rounds per layer,
     # 3 read-out rounds over down sets; at batch 4 the sets with >= 512
     # virtual rows (m2m[0], m2m[1], up[0], down[0], down[1]) go flat
-    forecast_phase(hilam, BATCH, {
-        "embed_grid_flat": 1, "edge_tail_sum_flat": 1,
-        "edge_layer_flat": 1 + 7 * L + 2, "grid_update_flat": 1,
-        "edge_tail": 1, "edge_layer": 2 + 7 * L}, "HiLAM batch 4")
+    hi_fwd = {"embed_grid_flat": 1, "edge_tail_sum_flat": 1,
+              "edge_layer_flat": 1 + 7 * L + 2, "grid_update_flat": 1,
+              "edge_tail": 1, "edge_layer": 2 + 7 * L}
+    forecast_phase(hilam, BATCH, hi_fwd, "HiLAM batch 4")
     p_counts = forecast_phase(hilam, 1, {
         "edge_tail": 3, "edge_tail_sum": 2, "edge_layer": 3 + 14 * L},
         "HiLAM batch 1")
@@ -983,6 +1019,7 @@ def main():
                    "GraphLAM batch 1", full=False)
     del hilam, hg
     torch.cuda.empty_cache()
+    phase_end("5 (the forecast paths)")
 
     # 6. small models: card (kernels) against CPU (plain versions)
     def card_vs_cpu(kind, nx, B, min_virt, what):
@@ -1010,94 +1047,133 @@ def main():
     for B in (1, 2):
         card_vs_cpu("hi_lam", 30, B, FLAT_MIN_VIRT,
                     f"30x30 HiLAM (2 levels) batch {B}")
+    phase_end("6 (small models, card vs CPU)")
 
     # 7. the training path at bench width
-    entry.train_steps(model, datastore, BATCH, 1, steps=1, seed=0,
-                      device="cuda")  # warm-up
-    reset_counts()
-    losses = entry.train_steps(model, datastore, BATCH, 1, steps=1, seed=1,
-                               device="cuda")
-    torch.cuda.synchronize()
-    train_counts = counts()
-    want_train = dict(zero, **want, **{k + "_bwd": n
-                                        for k, n in want.items()},
-                      xtd_sum=2 + L, xtd_reduce=2 + L)
-    print(f"training step: loss {losses[0]:.6f}; launches {train_counts}")
-    if not all(map(math.isfinite, losses)):
-        fail(f"training loss is not finite: {losses}")
-    if train_counts != want_train:
-        fail(f"training launch counts {train_counts}, want {want_train}")
+    def train_phase(net, ds, want, what):
+        """One AdamW step at batch 4 with every counter at 0 just before
+        it: assert `want` (every other counter 0) and a finite loss; one
+        step's parameter gradients, kernel path against plain path within
+        1e-3 * max abs; the step time (median of 7), samples/s, peak
+        memory and a profile. Returns the counts."""
+        entry.train_steps(net, ds, BATCH, 1, steps=1, seed=0,
+                          device="cuda")  # warm-up
+        reset_counts()
+        losses = entry.train_steps(net, ds, BATCH, 1, steps=1, seed=1,
+                                   device="cuda")
+        torch.cuda.synchronize()
+        got = counts()
+        want = dict(dict(zero, xtd_sum=0, xtd_reduce=0,
+                         **{k + "_bwd": 0 for k in FWD}), **want)
+        print(f"{what} training step: loss {losses[0]:.6f}; launches {got}")
+        if not all(map(math.isfinite, losses)):
+            fail(f"{what} training loss is not finite: {losses}")
+        if got != want:
+            fail(f"{what} training launch counts {got}, want {want}")
+
+        trainer, dm = entry.make_trainer(net, ds, BATCH, 1, seed=2)
+        batch = next(trainer.train_batches(dm, 0))
+
+        def grads():
+            net.zero_grad(set_to_none=True)
+            net.training_loss(batch).backward()
+            return {k: p.grad.detach().clone()
+                    for k, p in net.named_parameters()}
+
+        g_k = grads()
+        with plain_kernels():
+            g_p = grads()
+        worst = max((float((g_k[k] - g_p[k]).abs().max())
+                     / max(float(g_p[k].abs().max()), 1e-30), k)
+                    for k in g_p)
+        print(f"{what} training gradients, kernels vs plain versions on "
+              f"the card: worst max abs gap / max abs {worst[0]:.3e} "
+              f"({worst[1]}; limit 1e-3), {len(g_p)} parameters")
+        if not worst[0] <= 1e-3:
+            fail(f"{what}: kernel-path and plain-path gradients disagree")
+        del g_k, g_p
+        net.zero_grad(set_to_none=True)
+
+        times = []
+        for i in range(9):
+            torch.cuda.synchronize()
+            if i == 2:
+                torch.cuda.reset_peak_memory_stats()
+                live = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i == 2:
+                peak = torch.cuda.max_memory_allocated()
+        ms_train = sorted(times[2:])[3] * 1e3
+        print(f"{what} train step (fwd+bwd+AdamW, ar_steps 1, batch "
+              f"{BATCH}): {ms_train:.3f} ms (median of 7 after 2 warm-up "
+              f"steps); {BATCH * 1000 / ms_train:.2f} samples/s; peak "
+              f"device memory {peak / 2**30:.3f} GiB (max_memory_allocated "
+              f"over one step; {live / 2**30:.3f} GiB live before it)")
+        profile(torch, lambda: trainer.train_step(batch),
+                f"{what} train step")
+        return got
+
+    # GraphLAM: K1-K4 1/1/4/1 and their backward kernels B1/B2/B3/B5 once
+    # each a forward launch; xtd_sum (and its reduce kernel) once for the
+    # decoder, once for B2 and once a B3/B4 call
+    train_counts = train_phase(model, datastore, dict(
+        want, **{k + "_bwd": n for k, n in want.items()},
+        xtd_sum=2 + L, xtd_reduce=2 + L), "GraphLAM")
     for rec in records:
         n = rec["name"]
         rec["launches"] = (train_counts[n]
                            if n.endswith("_bwd") or n in TRAIN_ONLY
                            else p_counts[n] if n in BATCHED
                            else fwd_counts[n])
-
-    trainer, dm = entry.make_trainer(model, datastore, BATCH, 1, seed=2)
-    batch = next(trainer.train_batches(dm, 0))
-
-    def grads():
-        model.zero_grad(set_to_none=True)
-        model.training_loss(batch).backward()
-        return {k: p.grad.detach().clone()
-                for k, p in model.named_parameters()}
-
-    g_k = grads()
-    with plain_kernels():
-        g_p = grads()
-    worst = max((float((g_k[k] - g_p[k]).abs().max())
-                 / max(float(g_p[k].abs().max()), 1e-30), k) for k in g_p)
-    print(f"training gradients, kernels vs plain versions on the card: "
-          f"worst max abs gap / max abs {worst[0]:.3e} ({worst[1]}; limit "
-          f"1e-3), {len(g_p)} parameters")
-    if not worst[0] <= 1e-3:
-        fail("kernel-path and plain-path gradients disagree")
-    del g_k, g_p
-    model.zero_grad(set_to_none=True)
-
-    times = []
-    for i in range(9):
-        torch.cuda.synchronize()
-        if i == 2:
-            torch.cuda.reset_peak_memory_stats()
-            live = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if i == 2:
-            peak = torch.cuda.max_memory_allocated()
-    ms_train = sorted(times[2:])[3] * 1e3
-    print(f"train step (fwd+bwd+AdamW, ar_steps 1, batch {BATCH}): "
-          f"{ms_train:.3f} ms (median of 7 after 2 warm-up steps); "
-          f"{4000 / ms_train:.2f} samples/s; peak device memory "
-          f"{peak / 2**30:.3f} GiB (max_memory_allocated over one step; "
-          f"{live / 2**30:.3f} GiB live before it)")
-    profile(torch, lambda: trainer.train_step(batch), "train step")
-    del trainer, dm, batch, model
+    del model, datastore
     torch.cuda.empty_cache()
+    # HiLAM, batch 4 (mixed route): the forward's launches of phase 5b (K1
+    # 1, K2 1, K3 31, K4 1, P1 1, P3 30); a backward kernel for each flat
+    # launch (B1 1, B2 1, B3/B4 31, B5 1) and xtd_sum with its reduce
+    # kernel once for the decoder, once for B2 and once a B3/B4 call (33);
+    # P1-P3 have none (their backward recomputes through the plain
+    # versions)
+    hilam, hds = entry.build_model(**BENCH, device="cuda", model="hi_lam")
+    hi_want = dict(hi_fwd, **{k + "_bwd": n for k, n in hi_fwd.items()
+                              if k in FWD},
+                   xtd_sum=2 + hi_fwd["edge_layer_flat"],
+                   xtd_reduce=2 + hi_fwd["edge_layer_flat"])
+    train_phase(hilam, hds, hi_want, "HiLAM")
+    del hilam, hds
+    torch.cuda.empty_cache()
+    phase_end("7 (training at bench width)")
 
-    # 8. small model trained on the card and on the CPU, on both routes
+    # 8. small models trained on the card and on the CPU, on both routes
     small = dict(nx=16, ny=16, hidden_dim=64, processor_layers=2,
                  n_timesteps=20)
-    for min_virt, route in ((FLAT_MIN_VIRT, "batched"), (1, "flat")):
+    for kind, nx, B, min_virt, what in (
+            ("graph_lam", 16, 2, FLAT_MIN_VIRT, "16x16 GraphLAM batch 2 "
+             "(batched route)"),
+            ("graph_lam", 16, 2, 1, "16x16 GraphLAM batch 2 (flat route)"),
+            ("hi_lam", 30, 1, FLAT_MIN_VIRT, "30x30 HiLAM (2 levels) batch "
+             "1 (batched route)"),
+            ("hi_lam", 30, 2, 100, "30x30 HiLAM (2 levels) batch 2 (mixed "
+             "route)")):
         message_passing._FLAT_MIN_VIRT = min_virt
         try:
             trajectories = []
             for dev in ("cpu", "cuda"):
-                m, ds = entry.build_model(**small, device=dev, seed=1)
+                m, ds = entry.build_model(**dict(small, nx=nx, ny=nx),
+                                          device=dev, seed=1, model=kind)
                 trajectories.append(entry.train_steps(
-                    m, ds, 2, 1, steps=3, seed=1, device=dev))
+                    m, ds, B, 1, steps=3, seed=1, device=dev))
         finally:
             message_passing._FLAT_MIN_VIRT = FLAT_MIN_VIRT
         rel = max(abs(a - b) / abs(a) for a, b in zip(*trajectories))
-        print(f"16x16 training ({route} route), 3 AdamW steps: CPU losses "
+        print(f"{what} training, 3 AdamW steps: CPU losses "
               f"{trajectories[0]}, card losses {trajectories[1]}; max rel "
               f"gap {rel:.3e} (limit 1e-4)")
         if not rel <= 1e-4:
-            fail(f"card and CPU training trajectories disagree ({route} "
-                 "route)")
+            fail(f"{what}: card and CPU training trajectories disagree")
+    phase_end("8 (small models trained on card and CPU)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

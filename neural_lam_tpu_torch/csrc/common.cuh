@@ -90,8 +90,6 @@ __device__ __forceinline__ void nlt_load_params(float* dst,
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
-__host__ __device__ constexpr int nlt_round4(int n) { return (n + 3) & ~3; }
-
 // Raises the dynamic shared-memory limit of `kernel` when a block needs
 // more than the default 48 KB.
 template <typename Kernel>

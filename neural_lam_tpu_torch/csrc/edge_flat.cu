@@ -8,8 +8,9 @@
 //       instead of from a pre-gathered array or a one-hot window.
 //
 // Both are the flat-layout instances of the tensor-core kernel in
-// edge_tc.cuh, whose note gives the design: K3 = `edge_tc_kernel<K, true,
-// false>`, K2 = `edge_tc_kernel<K, false, false>`. The flat layout keeps
+// edge_tc.cuh, whose note gives the design: K3 = `edge_tc_kernel<K,
+// LAYER, false>`, K2 = `edge_tc_kernel<K, TAIL_SUM, false>`. The flat
+// layout keeps
 // every array as (rows, B*64): a slot row of batch element b is 64
 // floats at column b*64.
 //
@@ -29,9 +30,9 @@ extern "C" int nlt_edge_tail_sum(const float* table, const int* senders,
                                  const float* mask, const float* params,
                                  float* virt, int n_virt, int K, int B,
                                  int device, void* stream) {
-  return tc_dispatch<false, false>(table, senders, ew, rec_rows, mask,
-                                   params, nullptr, virt, n_virt, K, B, 0,
-                                   device, stream);
+  return tc_dispatch<TAIL_SUM, false>(table, senders, ew, rec_rows, mask,
+                                      params, nullptr, virt, n_virt, K, B, 0,
+                                      device, stream);
 }
 
 // K3. edge_out (n_virt*K, B*64), virt (n_virt, B*64).
@@ -40,7 +41,7 @@ extern "C" int nlt_edge_layer(const float* edge_rep, const float* table,
                               const float* mask, const float* params,
                               float* edge_out, float* virt, int n_virt, int K,
                               int B, int device, void* stream) {
-  return tc_dispatch<true, false>(table, senders, edge_rep, rec_rows, mask,
-                                  params, edge_out, virt, n_virt, K, B, 0,
-                                  device, stream);
+  return tc_dispatch<LAYER, false>(table, senders, edge_rep, rec_rows, mask,
+                                   params, edge_out, virt, n_virt, K, B, 0,
+                                   device, stream);
 }

@@ -1,24 +1,27 @@
-// The edge-MLP tensor-core kernel `edge_tc_kernel<K, kLayer, kBatched>`,
-// in two layouts and two modes. Included by csrc/edge_flat.cu (K2, K3:
-// the flat layout) and csrc/edge.cu (P2, P3: the batched layout).
+// The edge-MLP tensor-core kernel `edge_tc_kernel<K, kMode, kBatched>`,
+// in two layouts and three modes. Included by csrc/edge_flat.cu (K2, K3:
+// the flat layout) and csrc/edge.cu (P1, P2, P3: the batched layout).
 //
 // Replaces, from neural_lam_tpu/ops/:
-//   K2  pallas_edge_flat.py _tail_sum_flat_kernel     <K, false, false>
+//   K2  pallas_edge_flat.py _tail_sum_flat_kernel     <K, TAIL_SUM, false>
 //   K3  pallas_edge_flat.py _layer_flat_kernel and
-//       _layer_flat_win_kernel                        <K, true, false>
-//   P2  pallas_edge.py _tail_sum_kernel               <K, false, true>
-//   P3  pallas_edge.py _layer_kernel, both in_gather  <K, true, true>
+//       _layer_flat_win_kernel                        <K, LAYER, false>
+//   P1  pallas_edge.py _tail_kernel                   <K, X0, true>
+//   P2  pallas_edge.py _tail_sum_kernel               <K, TAIL_SUM, true>
+//   P3  pallas_edge.py _layer_kernel, both in_gather  <K, LAYER, true>
 // The sender row is read by index from the node table here, so each pair
 // of Pallas variants (pre-gathered rows, a one-hot window, a resident
-// table) is one kernel.
+// table) is one kernel. The JAX package has no flat P1, so X0 has the
+// batched instance only.
 //
 // Per (virtual row v, batch element b), over the row's K edge slots k:
 //   x0[k]  = table[senders[v*K+k], b] + rec_rows[v, b]
-//            + ew[v*K+k]                          (!kLayer; b0 is in ew)
-//            + edge[v*K+k, b] @ W_e + b0           (kLayer)
+//            + ew[v*K+k]                          (TAIL_SUM; b0 is in ew)
+//            + edge[v*K+k, b] @ W_e + b0           (LAYER)
+//          = edge[v*K+k, b], materialised          (X0)
 //   msg[k] = LayerNorm(silu(x0[k]) @ W2 + b2)
-//   out[v*K+k, b] = edge[v*K+k, b] + msg[k]        (kLayer)
-//                 = msg[k]                         (P2, when out != null)
+//   out[v*K+k, b] = edge[v*K+k, b] + msg[k]        (LAYER)
+//                 = msg[k]                         (P1, P2, when out != null)
 //   virt[v, b] = sum_k mask[v, k] * msg[k]
 // out is written at every slot of a virtual row, padding slots included,
 // as the Pallas kernels write it.
@@ -30,11 +33,12 @@
 // shared by every batch element in both. At B = 1 the two are the same
 // bytes.
 //
-// Bound on this card: the bytes. Both 64x64 products run on tensor cores
+// Bound on this card: the bytes. The 64x64 products run on tensor cores
 // in 3xTF32 (tc_common.cuh), which keeps fp32 accuracy at three TF32
 // products per term; ~1.2 KB a slot row (the edge row in, out out, the
-// sender and receiver rows) then outweighs 3 x 16 KFLOP at the TF32 peak
-// (at GraphLAM's m2m[0], B = 4: 0.043 ms for 144 MB against 0.024 ms).
+// sender and receiver rows; X0: x0 in, msg out) then outweighs 3 x 16
+// KFLOP a product at the TF32 peak (at GraphLAM's m2m[0], B = 4: 0.043 ms
+// for 144 MB against 0.024 ms).
 // What holds the kernel is the latency of each warp's chain of dependent
 // steps (products, silu, LayerNorm, stores): with the products taken out
 // it runs within 10% of its time, and more warps per SM make it faster
@@ -52,13 +56,14 @@
 //   holds warps (HiLAM's upper levels at batch 1: 32-384 tiles) runs as
 //   one block per tile, up to one block an SM, each tile's chain alone
 //   (or nearly) on its SM.
-// - A tile's edge rows and gathered sender rows are staged by 16-byte
-//   cp.async into 16 x 68 buffers (the padded stride makes the
+// - A tile's edge (ew, x0) rows and gathered sender rows are staged by
+//   16-byte cp.async into 16 x 68 buffers (the padded stride makes the
 //   A-fragment reads (row g, column t) hit 32 distinct banks). The edge
 //   rows have two buffers a warp, so the next tile's are in flight while
 //   this one is computed; the sender rows one, refilled for the next tile
 //   as soon as the second product has read it. The receiver rows and the
-//   masks are loaded into registers at the top of the tile.
+//   masks are loaded into registers at the top of the tile. X0 has no
+//   sender rows and no receiver rows: two buffers a warp.
 // - W_e and W2 are split once per block into TF32 big/small halves and
 //   stored in fragment order, so a lane loads the B fragments of one
 //   (k step, 8-column tile) with one 128-bit load. The split is each
@@ -66,18 +71,21 @@
 // - Product 1 (E @ W_e) leaves x0 - b0 - table - rec in the C fragments;
 //   the lane adds the rest, applies silu and writes X1 over the staged
 //   sender rows (the C and A fragment layouts differ), and product 2
-//   (X1 @ W2) reads it back as its A operand. Without kLayer there is no
-//   product 1: x0 = ew + table + rec from the staged ew rows.
+//   (X1 @ W2) reads it back as its A operand. TAIL_SUM has no product 1:
+//   x0 = ew + table + rec from the staged ew rows. X0 has neither: each
+//   lane applies silu in place to the x0 groups it staged itself, and
+//   product 2 reads the edge buffer.
 // - A lane holds 16 of the 64 columns of rows g and g+8, so the
 //   LayerNorm statistics are quad sums (two shfl.xor); out is written
-//   from the C fragments (and, with kLayer, the staged edge rows). virt:
+//   from the C fragments (and, with LAYER, the staged edge rows). virt:
 //   at K = 1, 2, 4, 8 the K rows of a virtual row sit in lanes that differ
 //   in the low bits of g, summed by shfl.xor; other K sum the masked rows
 //   through shared memory. A fixed order and no atomics: two calls give
 //   bit-identical outputs.
-// - kLayer: 12 warps a block, one block a SM, the most that the shared
-//   memory holds with two split weight matrices; !kLayer: one matrix
-//   fewer leaves room for 14.
+// - LAYER: 12 warps a block, one block a SM, the most that the shared
+//   memory holds with two split weight matrices; TAIL_SUM: one matrix
+//   fewer leaves room for 14; X0, with two buffers a warp and no receiver
+//   rows in registers: 16.
 #pragma once
 
 #include "common.cuh"
@@ -87,33 +95,42 @@ namespace {
 
 constexpr int HH = NLT_H * NLT_H;
 
-// Parameter blob (floats): w2[64*64] | b2 | ls | lb  [| we[64*64] | b0]
-// (the !kLayer blob stops at lb).
+// What x0 is made of (see the note above); LAYER = 1 and TAIL_SUM = 0, so
+// a bool kLayer names the same mode.
+enum { TAIL_SUM, LAYER, X0 };
 
-// Warps per block (probes/torch_k3_probe.py times 8 and 10 for kLayer,
-// probes/torch_k1k2_probe.py 12 for !kLayer).
+// Parameter blob (floats): w2[64*64] | b2 | ls | lb  [| we[64*64] | b0]
+// (the LAYER blob; the others stop at lb).
+
+// Warps per block (probes/torch_k3_probe.py times 8 and 10 for LAYER,
+// probes/torch_k1k2_probe.py 12 for TAIL_SUM).
 constexpr int kLayerWarps = 12;
 constexpr int kTailWarps = 14;
+constexpr int kX0Warps = 16;
 constexpr int kRows = 16;               // slot rows of a tile
 constexpr int kLd = NLT_H + 4;          // padded stride of a staged row
 constexpr int kTileF = kRows * kLd;     // floats of one staged tile
 constexpr int kFrag = 8 * 8 * 32;       // (k step, 8-column tile, lane)
 enum { V_B0, V_B2, V_LS, V_LB, N_VEC };  // vectors in shared memory
 
-template <bool kLayer>
+template <int kMode>
 __host__ __device__ constexpr int n_warps() {
-  return kLayer ? kLayerWarps : kTailWarps;
+  return kMode == LAYER ? kLayerWarps
+         : kMode == X0  ? kX0Warps
+                        : kTailWarps;
 }
 
 // Weights in fragment order (W_e and W2, or W2 alone), the vectors, and
-// per warp two edge (or ew) buffers and a sender buffer.
-template <bool kLayer>
+// per warp two edge (ew, x0) buffers and, but for X0, a sender buffer.
+template <int kMode>
 constexpr size_t smem_bytes() {
-  return (kLayer ? 2 : 1) * kFrag * sizeof(uint4) +
+  return (kMode == LAYER ? 2 : 1) * kFrag * sizeof(uint4) +
          N_VEC * NLT_H * sizeof(float) +
-         (size_t)n_warps<kLayer>() * 3 * kTileF * sizeof(float);
+         (size_t)n_warps<kMode>() * (kMode == X0 ? 2 : 3) * kTileF *
+             sizeof(float);
 }
-static_assert(smem_bytes<true>() <= 232448 && smem_bytes<false>() <= 232448,
+static_assert(smem_bytes<TAIL_SUM>() <= 232448 &&
+                  smem_bytes<LAYER>() <= 232448 && smem_bytes<X0>() <= 232448,
               "shared memory of a block");
 
 // Offset (floats) of row `row` of batch element b in an array of `rows`
@@ -226,10 +243,11 @@ __device__ __forceinline__ void stage_rows(float* dst,
   cp_async_commit();
 }
 
-// kLayer: K3 / P3 (edge_in = edge, out = edge_out). !kLayer: K2 / P2
-// (edge_in = ew; out = msg or null, written by P2 only).
-template <int K, bool kLayer, bool kBatched>
-__global__ void __launch_bounds__(n_warps<kLayer>() * 32, 1)
+// LAYER: K3 / P3 (edge_in = edge, out = edge_out). TAIL_SUM: K2 / P2
+// (edge_in = ew; out = msg or null, written by P2 only). X0: P1 (edge_in
+// = x0; out = msg or null; table, senders and rec_rows unused).
+template <int K, int kMode, bool kBatched>
+__global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
     edge_tc_kernel(const float* __restrict__ table,
                    const int* __restrict__ senders,
                    const float* __restrict__ edge_in,
@@ -239,8 +257,9 @@ __global__ void __launch_bounds__(n_warps<kLayer>() * 32, 1)
                    float* __restrict__ out, float* __restrict__ virt,
                    int n_virt, int n_send, int B) {
   constexpr int kVpt = kRows / K;  // virtual rows of a tile
-  constexpr int kWarps = n_warps<kLayer>();
-  constexpr bool kSh = !kLayer;   // ew rows: one for every b
+  constexpr int kWarps = n_warps<kMode>();
+  constexpr bool kLayer = kMode == LAYER, kX0 = kMode == X0;
+  constexpr bool kSh = kMode == TAIL_SUM;  // ew rows: one for every b
   extern __shared__ __align__(16) float smem[];
   uint4* we_f = reinterpret_cast<uint4*>(smem);  // kLayer only
   uint4* w2_f = we_f + (kLayer ? kFrag : 0);
@@ -256,9 +275,9 @@ __global__ void __launch_bounds__(n_warps<kLayer>() * 32, 1)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  // this warp's two edge buffers (tile i in buffer i % 2) and its sender
-  // buffer (the sender rows, then X1)
-  float* stages = vec + N_VEC * NLT_H + warp * 3 * kTileF;
+  // this warp's two edge buffers (tile i in buffer i % 2) and, but for
+  // X0, its sender buffer (the sender rows, then X1)
+  float* stages = vec + N_VEC * NLT_H + warp * (kX0 ? 2 : 3) * kTileF;
   float* X = stages + 2 * kTileF;
   const size_t M = (size_t)n_virt * K;
   const int n_tiles = (n_virt + kVpt - 1) / kVpt * B;
@@ -267,13 +286,15 @@ __global__ void __launch_bounds__(n_warps<kLayer>() * 32, 1)
   int tile = warp * gridDim.x + blockIdx.x;
   // cp.async groups in commit order: E(i), G(i), E(i+1), then per tile i
   // G(i+1) after its second product and E(i+2) at its end, so that tile
-  // i's wait leaves only E(i+1) in flight
+  // i's wait leaves only E(i+1) in flight. X0 commits no G: E(i), E(i+1),
+  // then E(i+2) per tile, and the same wait leaves E(i+1) in flight.
   stage_rows<K, kSh, kBatched>(stages, edge_in, nullptr, 0, tile, n_tiles,
                                n_virt, n_send, B, lane);
-  stage_rows<K, kSh, kBatched>(
-      X, edge_in, table,
-      tile_senders<K>(senders, tile, n_tiles, n_virt, B, lane), tile,
-      n_tiles, n_virt, n_send, B, lane);
+  if constexpr (!kX0)
+    stage_rows<K, kSh, kBatched>(
+        X, edge_in, table,
+        tile_senders<K>(senders, tile, n_tiles, n_virt, B, lane), tile,
+        n_tiles, n_virt, n_send, B, lane);
   stage_rows<K, kSh, kBatched>(stages + kTileF, edge_in, nullptr, 0,
                                tile + stride, n_tiles, n_virt, n_send, B,
                                lane);
@@ -283,59 +304,80 @@ __global__ void __launch_bounds__(n_warps<kLayer>() * 32, 1)
     const size_t slot0 = (size_t)tl.v0 * K;
     // loads of this tile's receiver rows and masks, and of the next tile's
     // senders, before the staged rows are needed
-    const int s_next =
-        tile_senders<K>(senders, tile + stride, n_tiles, n_virt, B, lane);
+    int s_next = 0;
+    if constexpr (!kX0)
+      s_next =
+          tile_senders<K>(senders, tile + stride, n_tiles, n_virt, B, lane);
     float2 rec[2][8];
     float m[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = g + 8 * h;
-      const int v = tl.v0 + min(row, tl.n_rows - 1) / K;
-      const float* rp =
-          rec_rows + row_at<kBatched>(v, tl.b, n_virt, B) + 2 * t;
+      if constexpr (!kX0) {
+        const int v = tl.v0 + min(row, tl.n_rows - 1) / K;
+        const float* rp =
+            rec_rows + row_at<kBatched>(v, tl.b, n_virt, B) + 2 * t;
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        rec[h][q] = *reinterpret_cast<const float2*>(rp + 8 * q);
+        for (int q = 0; q < 8; ++q)
+          rec[h][q] = *reinterpret_cast<const float2*>(rp + 8 * q);
+      }
       m[h] = row < tl.n_rows ? mask[slot0 + row] : 0.f;
     }
     cp_async_wait<1>();  // E(i) and G(i) have landed
-    __syncwarp();
-
-    // x0 = E @ W_e + b0 (kLayer) or ew, + table[senders] + rec;
-    // X1 = silu(x0) -> X
-    float acc[8][4];
-    zero(acc);
-    if constexpr (kLayer) tile_product(E, we_f, lane, acc);
+    if constexpr (kX0) {
+      // X1 = silu(x0) in place: each lane over the 16-byte groups it
+      // staged (`stage_rows`), which its own wait has made visible to it
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = g + 8 * h;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int c = 8 * q + 2 * t;
-        float2 e;
-        if constexpr (kLayer) {
-          const float2 b0 = *reinterpret_cast<const float2*>(vec + c);
-          e = make_float2(acc[q][2 * h] + b0.x, acc[q][2 * h + 1] + b0.y);
-        } else {
-          e = *reinterpret_cast<const float2*>(E + row * kLd + c);
-        }
-        float2* xp = reinterpret_cast<float2*>(X + row * kLd + c);
-        const float2 gv = *xp;
-        *xp = silu_fast(make_float2(e.x + gv.x + rec[h][q].x,
-                                    e.y + gv.y + rec[h][q].y));
+      for (int j = 0; j < 8; ++j) {
+        float4* p = reinterpret_cast<float4*>(E + (2 * j + (lane >> 4)) * kLd +
+                                              4 * (lane & 15));
+        const float4 v = *p;
+        const float2 lo = silu_fast(make_float2(v.x, v.y));
+        const float2 hi = silu_fast(make_float2(v.z, v.w));
+        *p = make_float4(lo.x, lo.y, hi.x, hi.y);
       }
     }
     __syncwarp();
 
+    float acc[8][4];
+    if constexpr (!kX0) {
+      // x0 = E @ W_e + b0 (LAYER) or ew, + table[senders] + rec;
+      // X1 = silu(x0) -> X
+      zero(acc);
+      if constexpr (kLayer) tile_product(E, we_f, lane, acc);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = g + 8 * h;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int c = 8 * q + 2 * t;
+          float2 e;
+          if constexpr (kLayer) {
+            const float2 b0 = *reinterpret_cast<const float2*>(vec + c);
+            e = make_float2(acc[q][2 * h] + b0.x, acc[q][2 * h + 1] + b0.y);
+          } else {
+            e = *reinterpret_cast<const float2*>(E + row * kLd + c);
+          }
+          float2* xp = reinterpret_cast<float2*>(X + row * kLd + c);
+          const float2 gv = *xp;
+          *xp = silu_fast(make_float2(e.x + gv.x + rec[h][q].x,
+                                      e.y + gv.y + rec[h][q].y));
+        }
+      }
+      __syncwarp();
+    }
+
     // y = X1 @ W2 + b2
     zero(acc);
-    tile_product(X, w2_f, lane, acc);
-    __syncwarp();  // every lane has read X1: X takes the next sender rows
-    stage_rows<K, kSh, kBatched>(X, edge_in, table, s_next, tile + stride,
-                                 n_tiles, n_virt, n_send, B, lane);
+    tile_product(kX0 ? E : X, w2_f, lane, acc);
+    if constexpr (!kX0) {
+      __syncwarp();  // every lane has read X1: X takes the next sender rows
+      stage_rows<K, kSh, kBatched>(X, edge_in, table, s_next, tile + stride,
+                                   n_tiles, n_virt, n_send, B, lane);
+    }
 
-    // msg = LN(y) over the quad's 64 columns; out = edge + msg (kLayer)
-    // or msg (P2, when asked)
+    // msg = LN(y) over the quad's 64 columns; out = edge + msg (LAYER)
+    // or msg (P1, P2, when asked)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = g + 8 * h;
@@ -409,7 +451,7 @@ __global__ void __launch_bounds__(n_warps<kLayer>() * 32, 1)
         }
       }
     } else {
-      __syncwarp();  // every lane has read its edge rows: E takes the sums
+      __syncwarp();  // every lane has read E (X0: X1): E takes the sums
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -433,30 +475,30 @@ __global__ void __launch_bounds__(n_warps<kLayer>() * 32, 1)
   cp_async_wait<0>();
 }
 
-template <int K, bool kLayer, bool kBatched>
+template <int K, int kMode, bool kBatched>
 cudaError_t tc_launch(const float* table, const int* senders,
                       const float* edge_in, const float* rec_rows,
                       const float* mask, const float* params, float* out,
                       float* virt, int n_virt, int n_send, int B,
                       cudaStream_t stream) {
-  constexpr int kWarps = n_warps<kLayer>();
-  auto kernel = edge_tc_kernel<K, kLayer, kBatched>;
+  constexpr int kWarps = n_warps<kMode>();
+  auto kernel = edge_tc_kernel<K, kMode, kBatched>;
   const long long tiles =
       (long long)((n_virt + kRows / K - 1) / (kRows / K)) * B;
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
   int grid = 0;
   cudaError_t err = nlt_launch_config(kernel, kWarps * 32,
-                                      smem_bytes<kLayer>(), tiles, &grid);
+                                      smem_bytes<kMode>(), tiles, &grid);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kWarps * 32, smem_bytes<kLayer>(), stream>>>(
+  kernel<<<grid, kWarps * 32, smem_bytes<kMode>(), stream>>>(
       table, senders, edge_in, rec_rows, mask, params, out, virt, n_virt,
       n_send, B);
   return cudaGetLastError();
 }
 
-// One launch of edge_tc_kernel<K, kLayer, kBatched> for the K (1..8) of
+// One launch of edge_tc_kernel<K, kMode, kBatched> for the K (1..8) of
 // the edge set, on `device`'s stream; 0 or a cudaError_t.
-template <bool kLayer, bool kBatched>
+template <int kMode, bool kBatched>
 int tc_dispatch(const float* table, const int* senders, const float* edge_in,
                 const float* rec_rows, const float* mask, const float* params,
                 float* out, float* virt, int n_virt, int K, int B, int n_send,
@@ -467,10 +509,10 @@ int tc_dispatch(const float* table, const int* senders, const float* edge_in,
   cudaStream_t s = (cudaStream_t)stream;
 #define NLT_CASE(KK)                                                     \
   case KK:                                                               \
-    return (int)tc_launch<KK, kLayer, kBatched>(table, senders, edge_in, \
-                                                rec_rows, mask, params,  \
-                                                out, virt, n_virt,       \
-                                                n_send, B, s);
+    return (int)tc_launch<KK, kMode, kBatched>(table, senders, edge_in, \
+                                               rec_rows, mask, params,  \
+                                               out, virt, n_virt,       \
+                                               n_send, B, s);
   switch (K) {
     NLT_FOR_K(NLT_CASE)
     default:

@@ -14,8 +14,9 @@ variants). mask is the EdgeSet's (M, 1) slot validity.
 Each function is a `torch.autograd.Function` on both devices. Its forward
 runs the plain PyTorch version (`*_plain`, same module) on a CPU tensor and
 the CUDA kernel (`csrc/edge.cu`) on a CUDA tensor; there is no fallback
-from one to the other. P2 and P3 are the batched-layout instances of K2's
-and K3's tensor-core kernel (`csrc/edge_tc.cuh`); P1 runs on CUDA cores. The backward recomputes through the plain version
+from one to the other. P1, P2 and P3 are the batched-layout instances of
+K2's and K3's tensor-core kernel (`csrc/edge_tc.cuh`); P1 is its
+materialised-x0 mode. The backward recomputes through the plain version
 with autograd, as the JAX package's reference-recompute VJPs do: it has no
 backward kernel for these three. `<wrapper>.launches` counts kernel
 launches.
@@ -246,8 +247,8 @@ def edge_tail(x0, w2, b2, ln_scale, ln_bias, mask, K: int,
     writing msg (update_edges=False rounds need only virt).
 
     Replaces pallas_edge.py::_tail_kernel (via _edge_tail_fwd_impl).
-    Bound by fp32 operations on the card (the W2 product per slot, on CUDA
-    cores); see csrc/edge.cu.
+    Bound by bytes on the card (x0 in, virt and msg out), its W2 product
+    on tensor cores in 3xTF32; see csrc/edge_tc.cuh.
     """
     out = _EdgeTail.apply(x0, w2, b2, ln_scale, ln_bias, mask, K,
                           with_messages)

@@ -1,12 +1,18 @@
-"""P2 (the batched edge tail, `edge.edge_tail_sum`) and P3 (the batched
-edge layer, `edge.edge_layer`) of two or more checkouts of the repo, on
-one CUDA card, in alternating processes, at every edge set that runs them
-in a batch-1 forecast; K2 and K3, whose kernel P2 and P3 share, timed
-beside them at their bench shapes.
+"""P1 (the batched edge tail on a materialised x0, `edge.edge_tail`), P2
+(the batched edge tail, `edge.edge_tail_sum`) and P3 (the batched edge
+layer, `edge.edge_layer`) of two or more checkouts of the repo, on one
+CUDA card, in alternating processes, at every edge set that runs them in
+a batch-1 forecast; K2 and K3, whose kernel P1-P3 share, timed beside
+them at their bench shapes.
 
     python3 probes/torch_p23_probe.py ROOT_A ROOT_B ... [--rounds 2]
+        [--variants NAME,...]
 
-Every root's `edge` and `edge_flat` kernels are built first, all at once.
+`--variants` adds, for each NAME of VARIANTS below, a copy of the last
+root's `neural_lam_tpu_torch/` under build/p23_probe/NAME/ with one
+textual change to `csrc/edge_tc.cuh` (the warps of P1's block), as one
+more root. Every root's `edge` and `edge_flat` kernels are built first,
+all at once.
 Each round runs one worker process per root in the order A B ... B A. A
 worker imports `neural_lam_tpu_torch` from its root, builds the
 bench-width HiLAM (268x238 grid, hidden 64, 4 processor layers, the
@@ -15,9 +21,12 @@ inputs from a seeded generator with each set's own interaction-net
 weights:
 
 - holds P3 at HiLAM's m2m[0..3], up[0..2] (with their virtual-row fold)
-  and down[0..2] (K = 1) and GraphLAM's m2m, and P2 at HiLAM's and
-  GraphLAM's g2m and m2g, all at batch 1, and P2 with messages at
-  HiLAM's m2g, against their plain versions: every output within 1e-4 +
+  and down[0..2] (K = 1) and GraphLAM's m2m, P2 at HiLAM's and
+  GraphLAM's g2m and m2g, and P1 at HiLAM's read-out sets down[0..2],
+  all at batch 1, and P2 with messages at HiLAM's m2g, P1 with messages
+  at down[0..2] and P1 at the top down set at batch 4 (the one P1 launch
+  of a batch-4 step), against their plain versions: every output within
+  1e-4 +
   1e-4 * |plain|, two calls bit-identical; K2 at GraphLAM's g2m and K3
   at its m2m[0], batch 4, the same way;
 - times each, and the one other kernel of a wrapper call (its
@@ -25,7 +34,8 @@ weights:
   behind a sleep kernel, in three interleaved rounds, and prints one
   JSON line
   (`ms`: set -> the rounds' times; `err`: the largest error; `ptxas`:
-  the register and spill lines of the edge and edge_flat builds).
+  each kernel's register and spill line of the edge and edge_flat
+  builds).
 
 The orchestrator prints every worker's line, then, per set, its launches
 per batch-1 predict step, each root's median time, the bound max(bytes /
@@ -40,6 +50,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -49,6 +60,11 @@ BENCH = dict(nx=268, ny=238, hidden_dim=64, processor_layers=4,
 H = 64
 SLEEP_CYCLES = 400_000_000  # ~0.2 s at the H100's 1.98 GHz boost clock
 PEAK_BW, PEAK_TF32 = 3.35e12, 495e12  # H100 SXM data sheet
+OUT = os.path.join("build", "p23_probe")
+# name -> (old text, new text) in csrc/edge_tc.cuh
+VARIANTS = {f"x0w{n}": ("constexpr int kX0Warps = 16;",
+                        f"constexpr int kX0Warps = {n};")
+            for n in (12, 14, 20)}
 
 
 def queued_ms(torch, fn, reps=20):
@@ -92,8 +108,8 @@ def check(torch, what, kern, plain, args):
 
 def cases(torch, entry, rand):
     """{set: (kernel, plain, args, bound ms, launches per batch-1 predict
-    step)} for every P2/P3 set of a batch-1 forecast, and K2/K3 at their
-    bench shapes (launches None)."""
+    step, tag)} for every P1/P2/P3 set of a batch-1 forecast, and K2/K3
+    at their bench shapes (launches None)."""
     from neural_lam_tpu_torch.ops import edge, edge_flat
 
     def nbytes(args):
@@ -117,6 +133,14 @@ def cases(torch, entry, rand):
         out = B * (M + n_virt) * H * 4
         return (edge.edge_layer, edge.edge_layer_plain, args,
                 bound(nbytes(args) + out, 2.0 * B * M * 2 * H * H))
+
+    def p1(es, inet, B=1, wm=False):
+        n_virt, K, M = es.num_virt, es.dense_k, es.num_virt * es.dense_k
+        args = (rand(B, M, H),) + tail(inet) + (es.mask, K, wm)
+        out = B * (n_virt + (M if wm else 0)) * H * 4
+        slots = M if wm else float(es.mask.sum())
+        return (edge.edge_tail, edge.edge_tail_plain, args,
+                bound(nbytes(args) + out, 2.0 * B * slots * H * H))
 
     def p2(es, inet, B=1, wm=False):
         n_virt, K, M = es.num_virt, es.dense_k, es.num_virt * es.dense_k
@@ -153,29 +177,39 @@ def cases(torch, entry, rand):
     # and once in the initial sweep; down[l] once a layer
     for lv, es in enumerate(hg.m2m):
         out[f"HiLAM m2m[{lv}]"] = p3(es, hilam.mesh_up_same_gnns[0][lv]) \
-            + (2 * L,)
+            + (2 * L, "P3")
     for lv, es in enumerate(hg.up):
-        out[f"HiLAM up[{lv}]"] = p3(es, hilam.mesh_up_gnns[0][lv]) + (L + 1,)
+        out[f"HiLAM up[{lv}]"] = p3(es, hilam.mesh_up_gnns[0][lv]) \
+            + (L + 1, "P3")
     for lv, es in enumerate(hg.down):
-        out[f"HiLAM down[{lv}]"] = p3(es, hilam.mesh_down_gnns[0][lv]) + (L,)
-    out["HiLAM g2m"] = p2(hg.g2m, hilam.g2m_gnn) + (1,)
-    out["HiLAM m2g"] = p2(hg.m2g, hilam.m2g_gnn) + (1,)
+        out[f"HiLAM down[{lv}]"] = p3(es, hilam.mesh_down_gnns[0][lv]) \
+            + (L, "P3")
+    # the read-out: P1 once on each down set
+    for lv, es in enumerate(hg.down):
+        out[f"HiLAM read-out down[{lv}]"] = p1(
+            es, hilam.mesh_read_gnns[lv]) + (1, "P1")
+        out[f"HiLAM read-out down[{lv}], with messages"] = p1(
+            es, hilam.mesh_read_gnns[lv], wm=True) + (None, "P1")
+    out["HiLAM read-out top down set, B=4"] = p1(
+        hg.down[-1], hilam.mesh_read_gnns[-1], B=4) + (None, "P1")
+    out["HiLAM g2m"] = p2(hg.g2m, hilam.g2m_gnn) + (1, "P2")
+    out["HiLAM m2g"] = p2(hg.m2g, hilam.m2g_gnn) + (1, "P2")
     out["HiLAM m2g, with messages"] = p2(hg.m2g, hilam.m2g_gnn,
-                                         wm=True) + (None,)
+                                         wm=True) + (None, "P2")
     del hilam
     model, _ = entry.build_model(**BENCH, device="cuda")
     g = model.graph
-    out["GraphLAM m2m"] = p3(g.m2m[0], model.processor[0]) + (L,)
-    out["GraphLAM g2m"] = p2(g.g2m, model.g2m_gnn) + (1,)
-    out["GraphLAM m2g"] = p2(g.m2g, model.m2g_gnn) + (1,)
+    out["GraphLAM m2m"] = p3(g.m2m[0], model.processor[0]) + (L, "P3")
+    out["GraphLAM g2m"] = p2(g.g2m, model.g2m_gnn) + (1, "P2")
+    out["GraphLAM m2g"] = p2(g.m2g, model.m2g_gnn) + (1, "P2")
     out["K2 at GraphLAM g2m, B=4"] = flat(g.g2m, model.g2m_gnn, False) \
-        + (None,)
+        + (None, "K2")
     out["K3 at GraphLAM m2m[0], B=4"] = flat(g.m2m[0], model.processor[0],
-                                             True) + (None,)
+                                             True) + (None, "K3")
     # the one other kernel of each wrapper call: its parameter blob
     out["P3's parameter blob (torch.cat)"] = (
         lambda *a: (edge._tail_params(*a[7:11], a[5], a[6]),), None,
-        out["HiLAM m2m[0]"][2], 0.0, None)
+        out["HiLAM m2m[0]"][2], 0.0, None, "cat")
     return out
 
 
@@ -195,18 +229,23 @@ def worker(root):
     with torch.no_grad():
         sets = cases(torch, entry, rand)
         err = {k: check(torch, k, kern, plain, args)
-               for k, (kern, plain, args, _, _) in sets.items()
+               for k, (kern, plain, args, *_) in sets.items()
                if plain is not None}
         ms = {k: [] for k in sets}
         for _ in range(3):
-            for k, (kern, _, args, _, _) in sets.items():
+            for k, (kern, _, args, *_) in sets.items():
                 ms[k].append(queued_ms(torch, lambda: kern(*args)))
     ptxas = {}
     for src in ("edge", "edge_flat"):
         log = _build.build_log(src)
-        ptxas[src] = sorted(set(re.findall(
-            r"Used \d+ registers[^\n]*|\d+ bytes spill[^\n]*", log)))
-    meta = {k: {"bound_ms": c[3], "launches": c[4]} for k, c in sets.items()}
+        ptxas[src] = sorted(
+            fn + ": " + "; ".join(re.findall(
+                r"Used \d+ registers|\d+ bytes spill \w+", info))
+            for fn, info in re.findall(
+                r"Compiling entry function '(\w+)'.*?\n(.*?Used \d+ "
+                r"registers[^\n]*)", log, re.S))
+    meta = {k: {"bound_ms": c[3], "launches": c[4], "kernel": c[5]}
+            for k, c in sets.items()}
     print(json.dumps(dict(root=root, err=err, ms=ms, meta=meta,
                           ptxas=ptxas)), flush=True)
 
@@ -231,6 +270,24 @@ def build_roots(roots):
     return ok
 
 
+def make_variant(base, name):
+    """A copy of `base`'s package under OUT/name with VARIANTS[name]'s
+    change to csrc/edge_tc.cuh; returns its root."""
+    old, new = VARIANTS[name]
+    root = os.path.join(OUT, name)
+    pkg = os.path.join(root, "neural_lam_tpu_torch")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(base, "neural_lam_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("__pycache__", "_kernels"))
+    path = os.path.join(pkg, "csrc", "edge_tc.cuh")
+    text = open(path).read()
+    if text.count(old) != 1:
+        raise RuntimeError(f"{name}: no single match for {old!r}")
+    with open(path, "w") as f:
+        f.write(text.replace(old, new))
+    return root
+
+
 def median(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2]
@@ -240,12 +297,18 @@ def main(argv):
     if argv[:1] == ["--worker"]:
         worker(argv[1])
         return 0
-    rounds = 2
-    if "--rounds" in argv:
-        i = argv.index("--rounds")
-        rounds = int(argv[i + 1])
-        argv = argv[:i] + argv[i + 2:]
-    roots = build_roots(argv or ["."])
+    rounds, variants = 2, []
+    for flag in ("--rounds", "--variants"):
+        if flag in argv:
+            i = argv.index(flag)
+            if flag == "--rounds":
+                rounds = int(argv[i + 1])
+            else:
+                variants = argv[i + 1].split(",")
+            argv = argv[:i] + argv[i + 2:]
+    roots = argv or ["."]
+    roots = build_roots(roots + [make_variant(roots[-1], v)
+                                 for v in variants])
     order = []
     for r in range(rounds):
         order += roots if r % 2 == 0 else roots[::-1]
@@ -279,8 +342,7 @@ def main(argv):
                 + " | ".join("-" if x is None else f"{x:.4f}"
                              for x in gaps))
             if n:
-                kern = "P2" if "g2m" in k or "m2g" in k else "P3"
-                key = (k.split()[0], kern)
+                key = (k.split()[0], m["kernel"])
                 totals[key] = [t + x for t, x in zip(
                     totals.get(key, [0.0] * len(done)), gaps)]
         for (model, kern), ts in sorted(totals.items()):

@@ -13,7 +13,7 @@ the JAX function (its reference-recompute VJP): max abs diff <= 1e-4 +
 up to ~2k slot cotangents per row in another order.
 
 At every slot count the kernels are built for (K = 1..8, local graphs
-of in-degree K, batch 1 and 4), the values of P2 (with and without
+of in-degree K, batch 1 and 4), the values of P1 and P2 (with and without
 messages) and P3 (both in_gather variants) against JAX, within TOL; and
 the batched plain P2/P3 against the flat plain K2/K3 after the layout
 permutation, torch only (see that test for its tolerance).
@@ -401,6 +401,29 @@ def test_edge_tail_sum_sizes_match_jax(K, B, with_messages):
         torch.as_tensor(x["send_t"]), t.senders, torch.as_tensor(x["ew"]),
         torch.as_tensor(x["rec"]), *map(torch.as_tensor, tail), t.mask, K,
         with_messages=with_messages)
+    np.testing.assert_allclose(virt_t.numpy(), np.asarray(virt_j), **TOL)
+    if with_messages:
+        np.testing.assert_allclose(msg_t.numpy(), np.asarray(msg_j), **TOL)
+    else:
+        assert msg_t is None and msg_j is None
+
+
+@pytest.mark.parametrize("with_messages", [True, False])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("K", range(1, 9))
+def test_edge_tail_sizes_match_jax(K, B, with_messages):
+    """P1 plain == pallas_edge.edge_tail (interpret) at every slot count
+    P1's kernel is built for, at batch 1 and 4, with and without messages
+    (msg at every slot, padding included); TOL as above."""
+    j, t, rng = _sized_sets(K, 70 + K)
+    x = _sized_inputs(rng, t, B)
+    x0 = _rand(rng, B, t.num_virt * K, H, scale=1.0)
+    tail = [x[n] for n in ("w2", "b2", "ls", "lb")]
+    msg_j, virt_j = jpe.edge_tail(x0, *tail, np.asarray(j.mask), K, True,
+                                  with_messages)
+    msg_t, virt_t = edge.edge_tail(torch.as_tensor(x0),
+                                   *map(torch.as_tensor, tail), t.mask, K,
+                                   with_messages=with_messages)
     np.testing.assert_allclose(virt_t.numpy(), np.asarray(virt_j), **TOL)
     if with_messages:
         np.testing.assert_allclose(msg_t.numpy(), np.asarray(msg_j), **TOL)

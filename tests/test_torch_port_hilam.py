@@ -12,6 +12,12 @@ off: the batched XLA path everywhere), the port two of its routes:
   -- g2m, m2g, m2m[0] and down[0] (128-192 virtual rows) flat (K1/K2/K3/
   K4), m2m[1] and up[0] (64 rows) batched (P3).
 
+The training-loss gradients are held on both routes.
+
+An 81x81 DummyDatastore gives a three-level hierarchy (729, 81 and 9 mesh
+nodes): a middle level with its own m2m, up and down sets, and two down
+sets in the read-out, both on P1 at batch 1 (the batched route).
+
 Tolerances: 1e-4 on one predict step (as the GraphLAM tests: ~20 chained
 fp32 MLPs whose sums run in another order on each side, on O(1)
 activations); 5e-4 on a 3-step rollout (each step feeds the last one's
@@ -46,17 +52,17 @@ from neural_lam_tpu_torch.models.hi_lam import HiLAM
 from neural_lam_tpu_torch.ops import message_passing as tmp
 
 NX, T, LAYERS = 30, 3, 2
+NX3 = 81  # the three-level hierarchy (see module doc)
 # the port's flat-route threshold for the mixed route (see module doc)
 MIXED_MIN_VIRT = 100
 ROUTES = {"batched": (1, None), "mixed": (2, MIXED_MIN_VIRT)}
 
 
-@pytest.fixture(scope="module")
-def models(tmp_path_factory):
-    """(jax_model, jax_params, port_model)."""
+def _models(tmp_path_factory, nx):
+    """(jax_model, jax_params, port_model) on an nx x nx grid."""
     assert jmp._pallas_mode() == "off"
-    jds = JDummyDatastore(grid_shape=(NX, NX), n_timesteps=10)
-    tds = DummyDatastore(grid_shape=(NX, NX), n_timesteps=10)
+    jds = JDummyDatastore(grid_shape=(nx, nx), n_timesteps=10)
+    tds = DummyDatastore(grid_shape=(nx, nx), n_timesteps=10)
     jbundle = j_create_graph(str(tmp_path_factory.mktemp("jg")),
                              jds.get_xy("state", stacked=False),
                              n_max_levels=None, hierarchical=True)
@@ -76,6 +82,18 @@ def models(tmp_path_factory):
     )
     tmodel.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     return jmodel, params, tmodel
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    """(jax_model, jax_params, port_model) on the two-level hierarchy."""
+    return _models(tmp_path_factory, NX)
+
+
+@pytest.fixture(scope="module")
+def models3(tmp_path_factory):
+    """(jax_model, jax_params, port_model) on the three-level hierarchy."""
+    return _models(tmp_path_factory, NX3)
 
 
 @pytest.fixture(params=sorted(ROUTES))
@@ -128,10 +146,8 @@ def test_params_from_jax_covers_every_parameter(models):
         np.testing.assert_array_equal(v.numpy(), sd[k].numpy(), k)
 
 
-def test_predict_step_matches_jax(models, route):
-    """One predict step on each route (atol 1e-4, see module doc)."""
+def _check_predict_step(models, B):
     jmodel, params, tmodel = models
-    _, B = route
     init, forcing, _ = _inputs(tmodel, B)
     out_j, _ = jmodel.predict_step(params, jnp.asarray(init[:, 1]),
                                    jnp.asarray(init[:, 0]),
@@ -145,11 +161,8 @@ def test_predict_step_matches_jax(models, route):
                                rtol=0)
 
 
-def test_unroll_prediction_matches_jax(models, route):
-    """3-step rollout with boundary overwrite on each route (atol 5e-4,
-    see module doc)."""
+def _check_unroll(models, B):
     jmodel, params, tmodel = models
-    _, B = route
     init, forcing, true = _inputs(tmodel, B)
     pred_j, _ = jmodel.unroll_prediction(
         params, jnp.asarray(init), jnp.asarray(forcing), jnp.asarray(true))
@@ -163,13 +176,37 @@ def test_unroll_prediction_matches_jax(models, route):
                                atol=5e-4, rtol=0)
 
 
-def test_training_loss_grads_match_jax_batch1(models):
-    """Gradient of training_loss at batch 1 (the batched route: the
-    P-kernels' autograd.Function backward through their plain versions)
-    for every parameter, within 5e-4 of the JAX gradient's max abs."""
+def test_predict_step_matches_jax(models, route):
+    """One predict step on each route (atol 1e-4, see module doc)."""
+    _check_predict_step(models, route[1])
+
+
+def test_unroll_prediction_matches_jax(models, route):
+    """3-step rollout with boundary overwrite on each route (atol 5e-4,
+    see module doc)."""
+    _check_unroll(models, route[1])
+
+
+def test_three_levels_match_jax(models3):
+    """The three-level hierarchy (729/81/9 mesh nodes) at batch 1, the
+    batched route with P1 on both read-out down sets: one predict step
+    (atol 1e-4) and a 3-step rollout (atol 5e-4) against the JAX CPU
+    route."""
+    tmodel = models3[2]
+    g = tmodel.graph
+    assert g.level_sizes == (729, 81, 9)
+    assert [s.dense_k for s in g.down] == [1, 1]
+    assert not any(tmp.flat_eligible(es, 1, 64) for es in g.down)
+    _check_predict_step(models3, 1)
+    _check_unroll(models3, 1)
+
+
+def _check_grads(models, B):
+    """Gradient of training_loss at batch B for every parameter, within
+    5e-4 of the JAX gradient's max abs."""
     jmodel, params, tmodel = models
-    init, forcing, true = _inputs(tmodel, 1)
-    batch = (init, true[:, :1], forcing[:, :1], np.zeros((1, 1), np.int64))
+    init, forcing, true = _inputs(tmodel, B)
+    batch = (init, true[:, :1], forcing[:, :1], np.zeros((B, 1), np.int64))
     loss_j, g_j = jax.value_and_grad(jmodel.training_loss)(
         params, tuple(jnp.asarray(b) for b in batch))
     tmodel.zero_grad(set_to_none=True)
@@ -184,3 +221,18 @@ def test_training_loss_grads_match_jax_batch1(models):
         err = float((got[k].grad - w).abs().max())
         assert err <= 5e-4 * float(w.abs().max()) + 1e-7, (k, err)
     tmodel.zero_grad(set_to_none=True)
+
+
+def test_training_loss_grads_match_jax_batch1(models):
+    """Gradient of training_loss at batch 1 (the batched route: the
+    P-kernels' autograd.Function backward through their plain versions)
+    for every parameter, within 5e-4 of the JAX gradient's max abs."""
+    _check_grads(models, 1)
+
+
+def test_training_loss_grads_match_jax_mixed(models, monkeypatch):
+    """Gradient of training_loss at batch 2 on the mixed route (flat K1-K4
+    backward on g2m, m2g, m2m[0] and down[0]; P3's plain recompute on
+    m2m[1] and up[0]), within 5e-4 of the JAX gradient's max abs."""
+    monkeypatch.setattr(tmp, "_FLAT_MIN_VIRT", MIXED_MIN_VIRT)
+    _check_grads(models, 2)
