@@ -35,10 +35,10 @@ result line is printed), each printing its seconds:
    bit-identical outputs in two calls. K1-K4 at GraphLAM's batch-4
    shapes; K1 also at d_in 23, 100 and 160 on a row count that is not a
    multiple of 16; K3 also at HiLAM's K=1 down[0] and non-identity up[0]
-   sets (batch 4); K2 and K3 (batch 4) and P1 and P2 (with and without
-   messages) and P3 (batch 1 and 4) at every K from 1 to 8 on seeded
-   local graphs (K = 3, 5, 6, 7 do not divide their 16-row tiles); K4
-   also at HiLAM's batch-4 m2g; P1-P3 (the batched route) at HiLAM's
+   sets (batch 4); K2, K3 and K4 (batch 4) and P1 and P2 (with and
+   without messages) and P3 (batch 1 and 4) at every K from 1 to 8 on
+   seeded local graphs (K = 3, 5, 6, 7 do not divide their 16-row tiles);
+   K4 also at HiLAM's batch-4 m2g; P1-P3 (the batched route) at HiLAM's
    batch-1 shapes (P3 on m2m[0], P2 on m2g with and without messages and
    on g2m, P1 on down[0], down[1] and down[2] with and without messages)
    and at one batch-4 shape each (P1 on the top down set).
@@ -98,6 +98,23 @@ result line is printed), each printing its seconds:
    16x16 GraphLAM on both routes, the 30x30 HiLAM (2 levels) at batch 1
    (batched route) and at batch 2 with `_FLAT_MIN_VIRT` at 100 (mixed
    route): the loss trajectories agree within rtol 1e-4.
+9. Serving at full width through the CLIs a user calls: an MDP datastore
+   (268x238 grid, 17 state / 6 forcing / 4 static features, 3-hourly,
+   splits of 12/6/8 time steps, zlib chunks) written with the port's zarr
+   writer in a temporary directory; `train.main` trains GraphLAM 2 steps
+   at batch 4 (hidden 64, 4 processor layers; it builds the multiscale
+   graph under the datastore's root) and writes its `last` checkpoint;
+   a HiLAM with seeded weights is saved through
+   `checkpoint.save_checkpoint` (the hierarchical graph built the same
+   way). `predict.main` forecasts 4 steps from the test split's last
+   sample for each, with every counter set to 0 just before it: launches
+   per step GraphLAM P2/P3 2/4, HiLAM P1/P2/P3 3/2/59, every other
+   counter 0. The written zarr reads back through the port's reader with
+   shape (4, 63784, 17), finite values, the sample's valid times and the
+   state feature names; standardized, it is within 1e-3 of the same
+   rollout through the plain versions on the card. Prints the CLI's init
+   and rollout seconds, a warm rollout's time per step and the peak
+   device memory of the CLI's forecast.
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -106,6 +123,7 @@ Imports nothing of JAX or of the JAX package.
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -341,6 +359,259 @@ def profile(torch, step, what, steps=3, top=12):
     for us, count, key in rows[:top]:
         print(f"  {us / 1e3 / steps:.4f} ms/{what}  {count / steps:g} "
               f"calls/{what}  {key[:90]}")
+
+
+def write_mdp_datastore(root, np, nx=268, ny=238, n_t=26, seed=0):
+    """An MDP ("training-ready" zarr) datastore laid out as the repo's test
+    fixture lays it out, at the bench grid: 17 state, 6 forcing and 4
+    static features, 3-hourly times split 12/6/8 into train/val/test,
+    statistics over the train split, chunks zlib-compressed (level 1).
+    Writes <root>/mdp.datastore.{yaml,zarr} and <root>/config.yaml (JSON,
+    which YAML readers take); returns the config's path."""
+    from neural_lam_tpu_torch.datastore.zarr_reader import (
+        consolidate_metadata,
+        write_zarr_array,
+    )
+
+    zlib = {"id": "zlib", "level": 1}
+    rng = np.random.default_rng(seed)
+    zarr = root / "mdp.datastore.zarr"
+    n_grid = nx * ny
+    feats = {"state": 17, "forcing": 6, "static": 4}
+    times = np.datetime64("2020-01-01T00", "ns") + np.arange(n_t) \
+        * np.timedelta64(3, "h")
+    xx, yy = np.meshgrid(np.arange(nx) * 2500.0, np.arange(ny) * 2500.0,
+                         indexing="ij")
+    state = np.cumsum(0.2 * rng.standard_normal(
+        (n_t, n_grid, feats["state"]), dtype=np.float32), axis=0) \
+        + rng.standard_normal((1, n_grid, feats["state"]),
+                              dtype=np.float32)
+    forcing = rng.standard_normal((n_t, n_grid, feats["forcing"]),
+                                  dtype=np.float32)
+    write_zarr_array(zarr, "time", times, dims=["time"], compressor=zlib)
+    write_zarr_array(zarr, "x", xx.reshape(-1), dims=["grid_index"],
+                     compressor=zlib)
+    write_zarr_array(zarr, "y", yy.reshape(-1), dims=["grid_index"],
+                     compressor=zlib)
+    for cat, arr in (("state", state), ("forcing", forcing)):
+        write_zarr_array(zarr, cat, arr,
+                         dims=["time", "grid_index", f"{cat}_feature"],
+                         chunks=[2, n_grid, feats[cat]], compressor=zlib)
+    write_zarr_array(zarr, "static", rng.standard_normal(
+        (n_grid, feats["static"]), dtype=np.float32),
+        dims=["grid_index", "static_feature"], compressor=zlib)
+    for cat, n in feats.items():
+        names = np.array([f"{cat}_var_{i}" for i in range(n)], dtype=object)
+        for suffix, vals in (("", names), ("_units", ["-"] * n),
+                             ("_long_name", [f"long {v}" for v in names])):
+            write_zarr_array(zarr, f"{cat}_feature{suffix}",
+                             np.array(vals, dtype=object),
+                             dims=[f"{cat}_feature"], compressor=None)
+    bounds = [(0, 11), (12, 17), (18, n_t - 1)]
+    write_zarr_array(zarr, "splits", np.array(
+        [[str(times[i].astype("datetime64[s]")) for i in b] for b in bounds],
+        dtype=object), dims=["split_name", "split_part"], compressor=None)
+    write_zarr_array(zarr, "split_name", np.array(
+        ["train", "val", "test"], dtype=object), dims=["split_name"],
+        compressor=None)
+    write_zarr_array(zarr, "split_part", np.array(
+        ["start", "end"], dtype=object), dims=["split_part"],
+        compressor=None)
+    train = state[:12]
+    diffs = np.diff(train, axis=0)
+    for name, arr, dim in (
+            ("state__train__mean", train.mean(axis=(0, 1)), "state"),
+            ("state__train__std", train.std(axis=(0, 1)), "state"),
+            ("state__train__diff_mean", diffs.mean(axis=(0, 1)), "state"),
+            ("state__train__diff_std", diffs.std(axis=(0, 1)), "state"),
+            ("forcing__train__mean", forcing[:12].mean(axis=(0, 1)),
+             "forcing"),
+            ("forcing__train__std", forcing[:12].std(axis=(0, 1)),
+             "forcing")):
+        write_zarr_array(zarr, name, arr, dims=[f"{dim}_feature"],
+                         compressor=zlib)
+    consolidate_metadata(zarr)
+    (root / "mdp.datastore.yaml").write_text(json.dumps({
+        "schema_version": "v0.5.0", "dataset_version": "v0.1.0",
+        "inputs": {"danra_surface": {
+            "path": "unused://", "dims": ["time", "x", "y"],
+            "dim_mapping": {"grid_index": {"method": "stack",
+                                           "dims": ["x", "y"]}}}},
+        "extra": {"projection": {
+            "class_name": "LambertConformal",
+            "kwargs": {"central_longitude": 25.0,
+                       "central_latitude": 56.7}}}}))
+    config = root / "config.yaml"
+    config.write_text(json.dumps({"datastore": {
+        "kind": "mdp", "config_path": "mdp.datastore.yaml"}}))
+    return config
+
+
+def median_ms(torch, fn, n=3):
+    """Median host ms of n synchronised calls of fn."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[n // 2] * 1e3
+
+
+def quiet(fn, *args):
+    """fn(*args) with its standard output printed after it, each line
+    prefixed (the CLIs print JSON lines of their own), also when it
+    raises."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args)
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"  | {line}")
+
+
+def serving_phase(torch, np, counts, reset_counts, plain_kernels, zero):
+    """Phase 9: train GraphLAM 2 steps through `train.main` and save a
+    seeded HiLAM on an MDP datastore at full width, then forecast with
+    each through `predict.main`, counting the launches, reading the zarr
+    back, and holding it against the plain path on the card."""
+    import tempfile
+    from pathlib import Path
+
+    from neural_lam_tpu_torch import predict, train
+    from neural_lam_tpu_torch.checkpoint import save_checkpoint
+    from neural_lam_tpu_torch.config import load_config_and_datastore
+    from neural_lam_tpu_torch.dataset import WeatherDataset
+    from neural_lam_tpu_torch.datastore.zarr_reader import ZarrGroup
+    from neural_lam_tpu_torch.graph.storage import load_or_build_graph
+    from neural_lam_tpu_torch.models import MODELS
+    from neural_lam_tpu_torch.models.ar_model import ModelArgs
+
+    width = ["--hidden_dim", "64", "--processor_layers", "4"]
+    with tempfile.TemporaryDirectory(prefix="nlt_serving_") as tmp:
+        root = Path(tmp)
+        t0 = time.time()
+        cfg = write_mdp_datastore(root, np)
+        mb = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+        print(f"MDP datastore written in {time.time() - t0:.1f} s "
+              f"({mb / 1e6:.1f} MB on disk, zlib level 1)")
+
+        t0 = time.time()
+        reset_counts()
+        quiet(train.main, ["--config_path", str(cfg), "--model", "graph_lam",
+                           "--graph", "multiscale", *width, "--batch_size",
+                           "4", "--ar_steps_train", "1", "--ar_steps_eval",
+                           "2", "--val_steps_to_log", "1", "2",
+                           "--max_steps", "2", "--seed", "0",
+                           "--save_dir", str(root / "models"),
+                           "--run_name", "graph_lam"])
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"train.main: 2 steps and validation in "
+              f"{time.time() - t0:.1f} s; launches {got}")
+        if not all(got[k] for k in FWD) or not all(
+                got[k + "_bwd"] for k in FWD) or not got["xtd_sum"]:
+            fail(f"train.main did not run every training kernel: {got}")
+
+        t0 = time.time()
+        config, ds = load_config_and_datastore(cfg)
+        hilam = MODELS["hi_lam"](
+            ModelArgs(hidden_dim=64, processor_layers=4), config, ds,
+            load_or_build_graph(ds, "hierarchical", "cuda"), device="cuda",
+            generator=torch.Generator().manual_seed(0))
+        save_checkpoint(root / "models", "hi_lam", hilam.state_dict(),
+                        meta={"step": 0})
+        del hilam
+        print(f"HiLAM (seeded weights) saved in {time.time() - t0:.1f} s")
+
+        L = 4
+        stats = ds.get_standardization_dataarray("state")
+        mean, std = stats["state_mean"], stats["state_std"]
+        want_times = WeatherDataset(ds, split="test", ar_steps=STEPS)[-1][3]
+        names = ds.get_vars_names("state")
+        for model, graph, ckpt, want in (
+                ("graph_lam", "multiscale", "graph_lam/last",
+                 {"edge_tail_sum": 2, "edge_layer": L}),
+                ("hi_lam", "hierarchical", "hi_lam",
+                 {"edge_tail": 3, "edge_tail_sum": 2,
+                  "edge_layer": 3 + 14 * L})):
+            out = root / f"{model}.zarr"
+            argv = ["--config_path", str(cfg), "--model", model, "--graph",
+                    graph, *width, "--load", str(root / "models" / ckpt),
+                    "--split", "test", "--sample_idx", "-1", "--ar_steps",
+                    str(STEPS), "--out", str(out)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            reset_counts()
+            summary = quiet(predict.main, argv)
+            torch.cuda.synchronize()
+            got = counts()
+            peak = torch.cuda.max_memory_allocated()
+            want = dict(zero, **want)
+            print(f"predict.main {model}: init {summary['init_s']:.2f} s, "
+                  f"rollout {summary['rollout_s']:.3f} s for {STEPS} steps "
+                  f"({summary['rollout_s'] * 1e3 / STEPS:.1f} ms a step, "
+                  f"first calls included); peak device memory "
+                  f"{peak / 2**30:.3f} GiB ({live / 2**30:.3f} GiB live "
+                  f"before it); launches per step "
+                  f"{ {k: got[k] / STEPS for k in want if got[k]} }")
+            if got != {k: n * STEPS for k, n in want.items()}:
+                fail(f"predict.main {model}: launch counts {got}, want "
+                     f"{want} per step")
+            g = ZarrGroup(out)
+            pred = g["state"].read_full()
+            times = g["time"].read_full()
+            if pred.shape != (STEPS, 268 * 238, 17):
+                fail(f"predict.main {model}: forecast shape {pred.shape}")
+            if not np.isfinite(pred).all():
+                fail(f"predict.main {model}: forecast is not finite")
+            if not np.array_equal(times, want_times):
+                fail(f"predict.main {model}: valid times {times}, want "
+                     f"{want_times}")
+            if list(g["state_feature"].read_full()) != names:
+                fail(f"predict.main {model}: feature names differ")
+
+            args = predict.parse_args(argv)
+            net, net_ds, _ = predict.prepare(args)
+            pred_k, _ = predict.rollout(net, net_ds, args)  # warm-up
+            warm_ms = median_ms(
+                torch, lambda: predict.rollout(net, net_ds, args)) / STEPS
+
+            def sample_in():
+                """The test sample read, standardized and on the card."""
+                item = WeatherDataset(net_ds, split="test",
+                                      ar_steps=STEPS)[-1]
+                return [torch.as_tensor(b, device="cuda")[None]
+                        for b in item[:3]]
+
+            sample_ms = median_ms(torch, sample_in)
+            init, true, forcing = sample_in()
+            with torch.no_grad():
+                unroll_ms = median_ms(torch, lambda: net.unroll_prediction(
+                    init, forcing, true)) / STEPS
+            with plain_kernels():
+                pred_p, _ = predict.rollout(net, net_ds, args)
+            gap = float(np.abs((pred - mean) / std - pred_p).max())
+            gap_k = float(np.abs(pred_k - pred_p).max())
+            print(f"predict.main {model}: forecast {pred.shape} finite, "
+                  f"valid times {times.astype('datetime64[ns]')[[0, -1]]}; "
+                  f"standardized, within {gap:.3e} of the plain path on "
+                  f"the card (limit 1e-3; a warm kernel rollout "
+                  f"{gap_k:.3e}); warm rollout {warm_ms:.1f} ms a step "
+                  f"(host clock, median of 3, the sample's read and copies "
+                  f"included); the sample read, standardized and copied to "
+                  f"the card {sample_ms:.1f} ms, the model's unroll alone "
+                  f"{unroll_ms:.1f} ms a step")
+            if not gap <= 1e-3:
+                fail(f"predict.main {model}: forecast and plain path "
+                     "disagree")
+            del net, net_ds, pred_k, pred_p, init, true, forcing
+            torch.cuda.empty_cache()
 
 
 def main():
@@ -708,13 +979,13 @@ def main():
         cases.append(("edge_layer_flat_bwd", edge_flat, ab,
                       f"{pef}:846 ({at})", bb, bf))
 
-    # K2, K3, P1, P2 and P3 at every slot count their kernels are built
-    # for, K = 1..8, on seeded local graphs (each of 20,000 receivers takes
-    # K senders near it among 6,561): K = 3, 5, 6, 7 do not divide the
-    # 16-row tiles and sum virt through shared memory, K = 1, 2, 4, 8 by
-    # shuffles; the g2m encoder's and the processor's first layer's
-    # weights. K2 and K3 at batch 4; P1 and P2 (with and without messages)
-    # and P3 at batch 1 and 4
+    # K2, K3, K4, P1, P2 and P3 at every slot count their kernels are
+    # built for, K = 1..8, on seeded local graphs (each of 20,000 receivers
+    # takes K senders near it among 6,561): K = 3, 5, 6, 7 do not divide
+    # the 16-row tiles and sum virt through shared memory, K = 1, 2, 4, 8
+    # by shuffles; the g2m encoder's, the processor's first layer's and the
+    # decoder's weights. K2, K3 and K4 at batch 4; P1 and P2 (with and
+    # without messages) and P3 at batch 1 and 4
     def k_sweep():
         rng = np.random.default_rng(0)
         n_rec, n_send = 20000, 6561
@@ -736,6 +1007,16 @@ def main():
                 a, b, f = edge_cases(es, inet, layer)[0]
                 out.append((kname, edge_flat, a, f"{pef}:{line} ({at})", b,
                             f))
+            # K4 (the m2g decoder) on the same set at batch 4, with
+            # GraphLAM's decoder weights
+            a4k = (rand(n_send, W), es.senders, rand(es.num_virt * K, H),
+                   rand(n_rec, W), es.mask.view(es.num_virt, K), pp)
+            out.append(("grid_update_flat", grid_update, a4k,
+                        f"{pgu}:174 ({at})",
+                        nbytes(*a4k[:5], *pp.values())
+                        + es.num_virt * BATCH * d_out * 4,
+                        2.0 * es.num_virt * BATCH * (7 * H * H + H * d_out)
+                        + 2.0 * float(es.mask.sum()) * BATCH * H * H))
             for kname, inet, B, wm in (
                     ("edge_tail", model.g2m_gnn, 1, False),
                     ("edge_tail", model.g2m_gnn, 4, False),
@@ -1174,6 +1455,16 @@ def main():
         if not rel <= 1e-4:
             fail(f"{what}: card and CPU training trajectories disagree")
     phase_end("8 (small models trained on card and CPU)")
+
+    # the bench GraphLAM's graph and decoder weights, still bound here,
+    # would count in phase 9's peak memory
+    del g, m2g, mask_p, emb, pp, m, ds
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_phase(torch, np, counts, reset_counts, plain_kernels,
+                  dict(zero, xtd_sum=0, xtd_reduce=0,
+                       **{k + "_bwd": 0 for k in FWD}))
+    phase_end("9 (serving through the train and predict CLIs)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

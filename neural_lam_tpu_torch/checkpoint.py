@@ -6,8 +6,10 @@ neural_lam/train_model.py:264-270, ar_model.py:698-721): the trainer keeps
 model's `state_dict` and, optionally, the AdamW state, with the progress
 metadata beside it in `<name>.meta.json`. Graphs and statistics are never
 stored: they are rebuilt from the datastore. The format is the port's own
-(`torch.save` of tensors only, loaded with `weights_only=True`); loading
-the JAX package's checkpoints waits for the predict CLI.
+(`torch.save` of tensors only, loaded with `weights_only=True`). The JAX
+package's orbax checkpoints come in through `convert_jax_checkpoint.py`
+at the repository's root (weights only), reference Neural-LAM checkpoints
+through `torch_compat.load_torch_checkpoint`.
 """
 
 from __future__ import annotations

@@ -111,16 +111,12 @@ class NeuralLAMConfig:
 
 def load_config_and_datastore(config_path):
     """Load the neural-lam config and construct the datastore it selects
-    (ref: config.py:139-171). The port has the `dummydata` datastore so
-    far; any other kind raises NotImplementedError."""
-    from .datastore.dummy import DummyDatastore
+    (ref: config.py:139-171): mdp, npyfilesmeps or dummydata; the
+    datastore's config path resolves against the config file's directory."""
+    from .datastore import init_datastore
 
     config = NeuralLAMConfig.from_yaml_file(config_path)
-    kind = config.datastore.kind
-    if kind != DummyDatastore.SHORT_NAME:
-        raise NotImplementedError(
-            f"datastore kind {kind!r} is not ported yet (the port has "
-            f"{DummyDatastore.SHORT_NAME!r})"
-        )
     ds_path = Path(config_path).parent / config.datastore.config_path
-    return config, DummyDatastore(config_path=ds_path)
+    datastore = init_datastore(datastore_kind=config.datastore.kind,
+                               config_path=ds_path)
+    return config, datastore

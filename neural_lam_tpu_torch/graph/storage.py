@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -192,3 +194,28 @@ def graph_from_bundle(bundle: GraphBundle, device="cuda") -> LoadedGraph:
         num_grid_nodes=num_grid,
         level_sizes=tuple(int(s) for s in level_sizes),
     )
+
+
+def load_or_build_graph(datastore, name: str, device="cuda") -> LoadedGraph:
+    """The graph under <datastore root>/graph/<name> on `device`, built
+    there first when absent, as the JAX package's models do: hierarchical
+    when the name holds "hier", one level when it holds "1level",
+    multiscale otherwise. The build goes to a directory unique to the
+    process and is renamed into place, so processes that share the root
+    (a trainer and a forecaster, or two of either) never read a
+    half-written graph: the first rename wins, the others discard theirs."""
+    from .build import create_graph
+
+    graph_dir = Path(datastore.root_path) / "graph" / name
+    if not (graph_dir / "meta.json").exists():
+        print(f"graph '{name}' not found under {graph_dir.parent}; "
+              "building it", flush=True)
+        tmp = graph_dir.parent / f".{name}.tmp{os.getpid()}"
+        create_graph(str(tmp), datastore.get_xy("state", stacked=False),
+                     n_max_levels=1 if "1level" in name.lower() else None,
+                     hierarchical="hier" in name.lower())
+        try:
+            os.rename(tmp, graph_dir)
+        except OSError:  # another process renamed its build first
+            shutil.rmtree(tmp, ignore_errors=True)
+    return graph_from_bundle(load_graph_bundle(str(graph_dir)), device)

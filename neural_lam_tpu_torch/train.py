@@ -35,8 +35,7 @@ from .checkpoint import load_checkpoint, save_checkpoint
 from .config import load_config_and_datastore
 from .dataset import WeatherDataModule
 from .device import resolve_device
-from .graph.build import create_graph
-from .graph.storage import graph_from_bundle, load_graph_bundle
+from .graph.storage import load_or_build_graph
 from .models import MODELS
 from .models.ar_model import ModelArgs
 
@@ -132,7 +131,14 @@ class Trainer:
         model_state, opt_state, meta = load_checkpoint(self.flags.load,
                                                        self.device)
         self.model.load_state_dict(model_state)
-        if self.flags.restore_opt and opt_state is not None:
+        if self.flags.restore_opt:
+            if opt_state is None:
+                raise ValueError(
+                    f"--restore_opt: checkpoint {self.flags.load} holds no "
+                    "optimizer state"
+                    + (" (it was converted from the JAX package, whose "
+                       "AdamW state is not carried across)"
+                       if "converted_from" in meta else ""))
             self.optimizer.load_state_dict(opt_state)
         self.global_step = int(meta.get("step", 0))
         self.best_val_loss = float(meta.get("best_val_loss", float("inf")))
@@ -228,20 +234,6 @@ class Trainer:
         return {"time_step_loss": tsl, "val_mean_loss": float(tsl.mean()),
                 "mse": np.concatenate(mse).mean(axis=0),
                 "mae": np.concatenate(mae).mean(axis=0)}
-
-
-def load_or_build_graph(datastore, name: str, device):
-    """The graph under <datastore root>/graph/<name>, built there first when
-    absent, as the JAX trainer does: hierarchical when the name holds
-    "hier", one level when it holds "1level", multiscale otherwise."""
-    graph_dir = Path(datastore.root_path) / "graph" / name
-    if not (graph_dir / "meta.json").exists():
-        print(f"graph '{name}' not found under {graph_dir.parent}; "
-              "building it", flush=True)
-        create_graph(str(graph_dir), datastore.get_xy("state", stacked=False),
-                     n_max_levels=1 if "1level" in name.lower() else None,
-                     hierarchical="hier" in name.lower())
-    return graph_from_bundle(load_graph_bundle(str(graph_dir)), device)
 
 
 def main(input_args=None):

@@ -1,7 +1,8 @@
 """The port stands alone and never runs on the CPU unless asked to.
 
 * No module of `neural_lam_tpu_torch/`, and not `chip_smoke.py`, imports
-  JAX, optax or the JAX package.
+  JAX, optax or the JAX package; `convert_jax_checkpoint.py` imports JAX
+  and orbax but nothing of the JAX package.
 * Entry points default to CUDA and raise without it.
 * Each kernel wrapper, forward and backward, takes its plain version only
   for CPU tensors, and counts a launch only when it launches its kernel.
@@ -36,11 +37,24 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     assert (ROOT / "chip_smoke.py").exists()
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for serving in ("predict.py", "torch_compat.py", "datastore/mdp.py",
+                    "datastore/npyfilesmeps.py", "datastore/zarr_reader.py",
+                    "graph/torch_io.py"):
+        assert f"neural_lam_tpu_torch/{serving}" in names, serving
     bad = []
     for path in _port_files():
         for name in _imports(path):
             if any(name == f or name.startswith(f + ".") for f in FORBIDDEN):
                 bad.append(f"{path.relative_to(ROOT)}: {name}")
+    assert not bad, bad
+
+
+def test_convert_script_imports_no_jax_package():
+    names = list(_imports(ROOT / "convert_jax_checkpoint.py"))
+    assert "jax" in names and "orbax.checkpoint" in names
+    bad = [n for n in names
+           if n == "neural_lam_tpu" or n.startswith("neural_lam_tpu.")]
     assert not bad, bad
 
 

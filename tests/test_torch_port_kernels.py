@@ -205,6 +205,32 @@ def test_grid_update_flat_matches_jax(variant):
                                np.asarray(out_j)[:n_rec], **TOL)
 
 
+@pytest.mark.parametrize("K", range(1, 9))
+def test_grid_update_flat_sizes_match_jax(K):
+    """K4 plain == grid_update_flat (interpret) at every slot count K4's
+    kernel is built for (in-degree K, one virtual row a receiver), batch
+    4: the CPU half of the K4 sweep on the card."""
+    rng = np.random.default_rng(40 + K)
+    B, d_out, n_rec, n_send = 4, 17, 200, 60
+    j, t = _edge_sets(*_local_graph(n_send, n_rec, K, rng, spread=2),
+                      n_send, n_rec)
+    assert t.dense_k == K and t.virt_identity
+    n_virt = t.num_virt
+    table = _rand(rng, n_send, B * H)
+    ew = _rand(rng, n_virt * K, H)
+    ge = _rand(rng, n_rec, B * H)
+    mask_p = np.asarray(j.mask).reshape(n_virt, K)
+    pp = _decoder_params(rng, d_out)
+    out_j = pgu.grid_update_flat(
+        table[np.asarray(j.senders)], ew, ge, mask_p,
+        {k: jnp.asarray(v) for k, v in pp.items()}, K, interpret=True)
+    out_t = grid_update.grid_update_flat(
+        _t(table), t.senders, _t(ew), _t(ge), t.mask.view(n_virt, K),
+        {k: _t(v) for k, v in pp.items()})
+    np.testing.assert_allclose(out_t.numpy()[:n_rec],
+                               np.asarray(out_j)[:n_rec], **TOL)
+
+
 def _embed_case(rng, N, B, d_in):
     x = _rand(rng, N, B, d_in, scale=1.0)
     params = {
