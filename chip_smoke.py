@@ -98,23 +98,38 @@ result line is printed), each printing its seconds:
    16x16 GraphLAM on both routes, the 30x30 HiLAM (2 levels) at batch 1
    (batched route) and at batch 2 with `_FLAT_MIN_VIRT` at 100 (mixed
    route): the loss trajectories agree within rtol 1e-4.
-9. Serving at full width through the CLIs a user calls: an MDP datastore
-   (268x238 grid, 17 state / 6 forcing / 4 static features, 3-hourly,
-   splits of 12/6/8 time steps, zlib chunks) written with the port's zarr
-   writer in a temporary directory; `train.main` trains GraphLAM 2 steps
-   at batch 4 (hidden 64, 4 processor layers; it builds the multiscale
-   graph under the datastore's root) and writes its `last` checkpoint;
-   a HiLAM with seeded weights is saved through
-   `checkpoint.save_checkpoint` (the hierarchical graph built the same
-   way). `predict.main` forecasts 4 steps from the test split's last
-   sample for each, with every counter set to 0 just before it: launches
-   per step GraphLAM P2/P3 2/4, HiLAM P1/P2/P3 3/2/59, every other
-   counter 0. The written zarr reads back through the port's reader with
-   shape (4, 63784, 17), finite values, the sample's valid times and the
-   state feature names; standardized, it is within 1e-3 of the same
-   rollout through the plain versions on the card. Prints the CLI's init
-   and rollout seconds, a warm rollout's time per step and the peak
-   device memory of the CLI's forecast.
+9. Serving and evaluation at full width through the entry points a user
+   calls. The native chunk decoder is built with g++ (its time printed);
+   a blosc chunk must raise. An MDP datastore (268x238 grid, 17 state / 6
+   forcing / 4 static features, 3-hourly, splits of 12/6/10 time steps,
+   zlib chunks) is written with the port's zarr writer in a temporary
+   directory; `train.main` trains GraphLAM 2 steps at batch 4 (hidden 64,
+   4 processor layers; it builds the multiscale graph under the
+   datastore's root) and writes its `last` checkpoint; a HiLAM with
+   seeded weights is saved through `checkpoint.save_checkpoint` (the
+   hierarchical graph built the same way).
+   Evaluation, with every counter set to 0 just before each call:
+   `train.main --eval val` (batch 4, `--ar_steps_eval` 2: one partial
+   batch of 1, P2/P3 4/8 and every other counter 0), its val_mean_loss
+   finite and within 1e-4 relative of the same call through the plain
+   versions; `train.main --eval test` for GraphLAM and HiLAM (5 test
+   samples: a batch of 4 on the flat or mixed route and a partial batch
+   of 1 on the batched route, 2 steps each; launches asserted), its files
+   asserted, its csv error maps within 1e-3 x state_std, spatial maps
+   within 1e-4 of their largest value and losses within 1e-4 relative of
+   the same call through the plain versions; the CLI draws its figures
+   (GraphLAM's with one example forecast) where matplotlib imports (the
+   phase and the CLI say whether it does). Serving: `predict.main` forecasts 4 steps from
+   the test split's last sample for each model, with every counter set to
+   0 just before it: launches per step GraphLAM P2/P3 2/4, HiLAM P1/P2/P3
+   3/2/59, every other counter 0. The written zarr reads back through the
+   port's reader with shape (4, 63784, 17), finite values, the sample's
+   valid times and the state feature names; standardized, it is within
+   1e-3 of the same rollout through the plain versions on the card.
+   Prints the CLI's init and rollout seconds, a warm rollout's time per
+   step, the sample's read taken cold (chunk cache emptied; the native
+   decoder must decode chunks) and warm, and the peak device memory of
+   the CLI's forecast.
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -361,10 +376,10 @@ def profile(torch, step, what, steps=3, top=12):
               f"calls/{what}  {key[:90]}")
 
 
-def write_mdp_datastore(root, np, nx=268, ny=238, n_t=26, seed=0):
+def write_mdp_datastore(root, np, nx=268, ny=238, n_t=28, seed=0):
     """An MDP ("training-ready" zarr) datastore laid out as the repo's test
     fixture lays it out, at the bench grid: 17 state, 6 forcing and 4
-    static features, 3-hourly times split 12/6/8 into train/val/test,
+    static features, 3-hourly times split 12/6/10 into train/val/test,
     statistics over the train split, chunks zlib-compressed (level 1).
     Writes <root>/mdp.datastore.{yaml,zarr} and <root>/config.yaml (JSON,
     which YAML readers take); returns the config's path."""
@@ -474,6 +489,157 @@ def quiet(fn, *args):
             print(f"  | {line}")
 
 
+def eval_phase(torch, np, root, cfg, width, counts, reset_counts,
+               plain_kernels, zero):
+    """Phase 9's evaluation through the CLI: `train.main --eval val` on
+    the trained GraphLAM, then `train.main --eval test` for it and for the
+    seeded HiLAM at batch 4 and `--ar_steps_eval` 2, each through the
+    kernels (launches counted) and through the plain versions, their
+    outputs compared."""
+    import importlib.util
+
+    from neural_lam_tpu_torch import train
+    from neural_lam_tpu_torch.config import load_config_and_datastore
+    from neural_lam_tpu_torch.dataset import WeatherDataset
+
+    L = 4
+    paths = (("kernels", contextlib.nullcontext), ("plain", plain_kernels))
+    # the val split (6 steps) gives one sample at --ar_steps_eval 2: one
+    # partial batch of 1, on the batched route (P2/P3 2/4 a step)
+    argv = ["--config_path", str(cfg), *width, "--batch_size", "4",
+            "--ar_steps_eval", "2", "--val_steps_to_log", "1", "2",
+            "--save_dir", str(root / "models")]
+    val_argv = argv + ["--model", "graph_lam", "--graph", "multiscale",
+                       "--load", str(root / "models" / "graph_lam" / "last"),
+                       "--eval", "val"]
+    val = {}
+    for path, ctx in paths:
+        reset_counts()
+        t0 = time.time()
+        with ctx():
+            val[path] = quiet(train.main,
+                              val_argv + ["--run_name", f"val_{path}"])
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"train.main --eval val ({path}): {time.time() - t0:.2f} s; "
+              f"val_mean_loss {val[path]['val_mean_loss']!r}; launches "
+              f"{ {k: n for k, n in got.items() if n} }")
+        if path == "kernels":
+            want = dict(zero, edge_tail_sum=2 * 2, edge_layer=2 * L)
+            if got != want:
+                fail(f"train.main --eval val: launch counts {got}, want "
+                     f"{want}")
+    v, w = val["kernels"]["val_mean_loss"], val["plain"]["val_mean_loss"]
+    print(f"train.main --eval val: kernels within {abs(v - w) / abs(w):.3e} "
+          "relative of the plain path (limit 1e-4)")
+    if not (math.isfinite(v) and abs(v - w) <= 1e-4 * abs(w)):
+        fail("train.main --eval val: kernels and plain path disagree")
+
+    config, ds = load_config_and_datastore(cfg)
+    std = ds.get_standardization_dataarray("state")["state_std"]
+    n_vars = len(std)
+    n_samples = len(WeatherDataset(ds, split="test", ar_steps=2))
+    n_batches = -(-n_samples // 4)
+    plots = importlib.util.find_spec("matplotlib") is not None
+    print("matplotlib " + ("imports: the test CLI draws its figures"
+                           if plots else "is not installed: the test CLI "
+                           "draws no figures"))
+    # the test split (10 steps) gives 5 samples: a batch of 4 on the flat
+    # route (K1-K4 1/1/4/1 a step; HiLAM's mixed route 1/1/31/1 and P1/P3
+    # 1/30) and a partial batch of 1 on the batched route (GraphLAM P2/P3
+    # 2/4, HiLAM P1/P2/P3 3/2/59 a step), 2 steps each; with figures, the
+    # example forecast runs the batch of 4 once more
+    full_g = {"embed_grid_flat": 2, "edge_tail_sum_flat": 2,
+              "edge_layer_flat": 2 * L, "grid_update_flat": 2}
+    for model, graph, ckpt, examples, full, part in (
+            ("graph_lam", "multiscale", "graph_lam/last", 1, full_g,
+             {"edge_tail_sum": 4, "edge_layer": 2 * L}),
+            ("hi_lam", "hierarchical", "hi_lam", 0,
+             dict(full_g, edge_layer_flat=2 * (3 + 7 * L), edge_tail=2,
+                  edge_layer=2 * (2 + 7 * L)),
+             {"edge_tail": 6, "edge_tail_sum": 4,
+              "edge_layer": 2 * (3 + 14 * L)})):
+        want = dict(zero)
+        for part_counts in (full, part) + ((full,) if plots else ()):
+            for k, n in part_counts.items():
+                want[k] += n
+        test_argv = argv + [
+            "--model", model, "--graph", graph, "--load",
+            str(root / "models" / ckpt), "--eval", "test",
+            "--n_example_pred", str(examples)]
+        out, dirs = {}, {}
+        for path, ctx in paths:
+            run = f"test_{model}_{path}"
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with ctx():
+                out[path] = quiet(train.main, test_argv + ["--run_name", run])
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            got = counts()
+            print(f"train.main --eval test {model} ({path}): {dt:.2f} s for "
+                  f"{n_samples} samples in {n_batches} batches, "
+                  f"{dt * 1e3 / n_batches:.1f} ms a batch (host clock; the "
+                  "graph, model and checkpoint set-up, the batches' reads "
+                  "and the files' writes included"
+                  + (", and the figures" if plots else "") + f"); launches "
+                  f"{ {k: n for k, n in got.items() if n} }")
+            if path == "kernels" and got != want:
+                fail(f"train.main --eval test {model}: launch counts {got}, "
+                     f"want {want}")
+            dirs[path] = root / "models" / run
+            files = sorted(f.name for f in dirs[path].iterdir())
+            expect = ["mean_spatial_loss.npy", "metrics.jsonl",
+                      "spatial_loss_t1.npy", "spatial_loss_t2.npy",
+                      "test_mae.csv", "test_rmse.csv"]
+            if plots:
+                expect += ["spatial_loss_t1.pdf", "spatial_loss_t2.pdf",
+                           "test_mae.pdf", "test_rmse.pdf"]
+            if plots and examples:
+                expect += ["example_pred_1.npy", "example_target_1.npy"] + [
+                    f"example_1_{v}_t{t}.png"
+                    for v in ds.get_vars_names("state") for t in (1, 2)]
+            if files != sorted(expect):
+                fail(f"train.main --eval test {model} ({path}): files "
+                     f"{files}, want {sorted(expect)}")
+        gaps = {}
+        for name in ("test_rmse.csv", "test_mae.csv"):
+            a, b = (np.loadtxt(d / name, delimiter=",", ndmin=2)
+                    for d in (dirs["kernels"], dirs["plain"]))
+            if a.shape != (2, n_vars) or not np.isfinite(a).all():
+                fail(f"train.main --eval test {model}: {name} {a.shape}, "
+                     f"finite {np.isfinite(a).all()}")
+            gaps[name] = float((np.abs(a - b) / std).max())
+            if not gaps[name] <= 1e-3:
+                fail(f"train.main --eval test {model}: {name} differs from "
+                     "the plain path by more than 1e-3 x state_std")
+        for name in ("mean_spatial_loss.npy", "spatial_loss_t1.npy",
+                     "spatial_loss_t2.npy"):
+            a, b = (np.load(d / name) for d in (dirs["kernels"],
+                                                 dirs["plain"]))
+            gaps[name] = float(np.abs(a - b).max() / np.abs(b).max())
+            if not (np.isfinite(a).all() and gaps[name] <= 1e-4):
+                fail(f"train.main --eval test {model}: {name} differs from "
+                     "the plain path by more than 1e-4 of its largest value")
+        for k, v in out["kernels"].items():
+            if k.startswith("test_mean_loss") or k.startswith("test_loss"):
+                w = float(out["plain"][k])
+                gaps[k] = abs(float(v) - w) / abs(w)
+                if not (math.isfinite(float(v)) and gaps[k] <= 1e-4):
+                    fail(f"train.main --eval test {model}: {k} {v} differs "
+                         f"from the plain path's {w} by more than 1e-4 "
+                         "relative")
+        print(f"train.main --eval test {model}: test_mean_loss "
+              f"{float(out['kernels']['test_mean_loss'])!r}; kernels vs "
+              f"plain path: " + ", ".join(f"{k} {g:.3e}"
+                                           for k, g in gaps.items())
+              + " (limits: csv 1e-3 x state_std, maps 1e-4 x max, losses "
+              "1e-4 relative)")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def serving_phase(torch, np, counts, reset_counts, plain_kernels, zero):
     """Phase 9: train GraphLAM 2 steps through `train.main` and save a
     seeded HiLAM on an MDP datastore at full width, then forecast with
@@ -482,16 +648,35 @@ def serving_phase(torch, np, counts, reset_counts, plain_kernels, zero):
     import tempfile
     from pathlib import Path
 
-    from neural_lam_tpu_torch import predict, train
+    from neural_lam_tpu_torch import native, predict, train
     from neural_lam_tpu_torch.checkpoint import save_checkpoint
     from neural_lam_tpu_torch.config import load_config_and_datastore
     from neural_lam_tpu_torch.dataset import WeatherDataset
-    from neural_lam_tpu_torch.datastore.zarr_reader import ZarrGroup
+    from neural_lam_tpu_torch.datastore.zarr_reader import (
+        ZarrGroup,
+        _chunk_cache,
+    )
     from neural_lam_tpu_torch.graph.storage import load_or_build_graph
     from neural_lam_tpu_torch.models import MODELS
     from neural_lam_tpu_torch.models.ar_model import ModelArgs
 
     width = ["--hidden_dim", "64", "--processor_layers", "4"]
+    built = native.lib_path().exists()
+    t0 = time.time()
+    native.library()
+    print(f"chunk decoder {native.lib_path().name} "
+          f"{'found' if built else 'built with g++'} and loaded in "
+          f"{time.time() - t0:.2f} s")
+    # a blosc chunk raises: on a machine without libblosc because the
+    # library cannot be opened, else because these bytes are no blosc
+    # frame
+    try:
+        native.decode_chunks_parallel([bytes(16)] * 2,
+                                      [native.CODEC_BLOSC] * 2, 16)
+    except ValueError as e:
+        print(f"a blosc chunk: {e}")
+    else:
+        fail("the chunk decoder took 16 zero bytes for a blosc chunk")
     with tempfile.TemporaryDirectory(prefix="nlt_serving_") as tmp:
         root = Path(tmp)
         t0 = time.time()
@@ -527,6 +712,9 @@ def serving_phase(torch, np, counts, reset_counts, plain_kernels, zero):
                         meta={"step": 0})
         del hilam
         print(f"HiLAM (seeded weights) saved in {time.time() - t0:.1f} s")
+
+        eval_phase(torch, np, root, cfg, width, counts, reset_counts,
+                   plain_kernels, zero)
 
         L = 4
         stats = ds.get_standardization_dataarray("state")
@@ -589,7 +777,19 @@ def serving_phase(torch, np, counts, reset_counts, plain_kernels, zero):
                 return [torch.as_tensor(b, device="cuda")[None]
                         for b in item[:3]]
 
+            cold = []
+            for _ in range(3):
+                _chunk_cache.clear()
+                before = native.decoded_chunks
+                cold.append(median_ms(torch, sample_in, n=1))
+                decoded = native.decoded_chunks - before
+                if not decoded:
+                    fail(f"predict.main {model}: the cold sample read "
+                         "decoded no chunk in the native decoder")
+            cold_ms = sorted(cold)[1]
+            before = native.decoded_chunks
             sample_ms = median_ms(torch, sample_in)
+            warm_decoded = native.decoded_chunks - before
             init, true, forcing = sample_in()
             with torch.no_grad():
                 unroll_ms = median_ms(torch, lambda: net.unroll_prediction(
@@ -605,8 +805,11 @@ def serving_phase(torch, np, counts, reset_counts, plain_kernels, zero):
                   f"{gap_k:.3e}); warm rollout {warm_ms:.1f} ms a step "
                   f"(host clock, median of 3, the sample's read and copies "
                   f"included); the sample read, standardized and copied to "
-                  f"the card {sample_ms:.1f} ms, the model's unroll alone "
-                  f"{unroll_ms:.1f} ms a step")
+                  f"the card: cold (chunk cache emptied) {cold_ms:.1f} ms "
+                  f"(median of {', '.join(f'{c:.1f}' for c in cold)}; "
+                  f"{decoded} chunks decoded natively), warm "
+                  f"{sample_ms:.1f} ms ({warm_decoded} decoded); the "
+                  f"model's unroll alone {unroll_ms:.1f} ms a step")
             if not gap <= 1e-3:
                 fail(f"predict.main {model}: forecast and plain path "
                      "disagree")
@@ -1464,7 +1667,7 @@ def main():
     serving_phase(torch, np, counts, reset_counts, plain_kernels,
                   dict(zero, xtd_sum=0, xtd_reduce=0,
                        **{k + "_bwd": 0 for k in FWD}))
-    phase_end("9 (serving through the train and predict CLIs)")
+    phase_end("9 (serving and evaluation through the CLIs)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

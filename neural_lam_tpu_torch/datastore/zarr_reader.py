@@ -15,9 +15,11 @@ implementation:
   ("<units> since <epoch>").
 
 The writer covers the same subset; it writes the forecasts of the predict
-CLI and builds datasets for tests. Chunks decode one at a time through a
-process-wide LRU cache; the JAX package's parallel native decoder
-(`neural_lam_tpu/native`) gives the same bytes and is not ported.
+CLI and builds datasets for tests. Decoded chunks go through a
+process-wide LRU cache. The chunks a read misses of a blosc, zlib, gzip
+or uncompressed array decode together in the native decoder's thread pool
+(`neural_lam_tpu_torch/native`); a zstd chunk and a string array decode
+here, in Python.
 """
 
 from __future__ import annotations
@@ -55,6 +57,12 @@ class _ChunkCache:
             if v is not None:
                 self._d.move_to_end(key)
             return v
+
+    def clear(self):
+        """Drop every cached chunk."""
+        with self._lock:
+            self._d.clear()
+            self._bytes = 0
 
     def put(self, key, arr: np.ndarray):
         if arr.nbytes > self.max_bytes:
@@ -216,17 +224,6 @@ class ZarrArray:
     def ndim(self):
         return len(self.shape)
 
-    def _read_chunk(self, idx: tuple) -> np.ndarray:
-        cacheable = not self.is_object
-        if cacheable:
-            hit = _chunk_cache.get((self.path, idx))
-            if hit is not None:
-                return hit
-        chunk = self._read_chunk_nocache(idx)
-        if cacheable:
-            _chunk_cache.put((self.path, idx), chunk)
-        return chunk
-
     def _read_chunk_nocache(self, idx: tuple) -> np.ndarray:
         key = self.sep.join(str(i) for i in idx) if idx else "0"
         fp = self.path / key
@@ -248,16 +245,65 @@ class ZarrArray:
         arr = np.frombuffer(buf, dtype=self.dtype)
         return arr.reshape(chunk_shape, order=self.order)
 
+    def _codec_id(self):
+        """The native decoder's codec id for this array, or None where
+        it has none (zstd, strings)."""
+        from ..native import CODEC_BLOSC, CODEC_RAW, CODEC_ZLIB
+
+        if self.is_object:
+            return None
+        if self.compressor is None:
+            return CODEC_RAW
+        return {"blosc": CODEC_BLOSC, "zlib": CODEC_ZLIB,
+                "gzip": CODEC_ZLIB}.get(self.compressor["id"])
+
+    def _decode_list(self, idx_list) -> list:
+        """Decode the chunks `idx_list`, bypassing the cache: those of a
+        codec the native decoder has go through it together."""
+        codec = self._codec_id()
+        if codec is None or not idx_list:
+            return [self._read_chunk_nocache(idx) for idx in idx_list]
+        from ..native import decode_chunks_parallel
+
+        chunk_shape = tuple(self.chunks)
+        nbytes = int(np.prod(chunk_shape)) * self.dtype.itemsize
+        paths = [self.path / (self.sep.join(str(i) for i in idx) or "0")
+                 for idx in idx_list]
+        present = [fp.exists() for fp in paths]
+        buffers = [fp.read_bytes() for fp, ok in zip(paths, present) if ok]
+        flat = decode_chunks_parallel(buffers, [codec] * len(buffers),
+                                      nbytes)
+        decoded = iter(flat.reshape(len(buffers), nbytes).view(self.dtype))
+        # copy each: a cached view would pin the whole batch's buffer
+        return [np.array(next(decoded).reshape(chunk_shape,
+                                               order=self.order))
+                if ok else np.full(chunk_shape, self.fill_value, self.dtype)
+                for ok in present]
+
+    def _read_chunks_batch(self, idx_list) -> list:
+        """The chunks `idx_list` through the LRU cache; the misses are
+        decoded together (`_decode_list`)."""
+        if self.is_object:  # strings are not cached
+            return self._decode_list(idx_list)
+        out = {}
+        for idx in dict.fromkeys(idx_list):
+            out[idx] = _chunk_cache.get((self.path, idx))
+        misses = [idx for idx, chunk in out.items() if chunk is None]
+        for idx, chunk in zip(misses, self._decode_list(misses)):
+            _chunk_cache.put((self.path, idx), chunk)
+            out[idx] = chunk
+        return [out[idx] for idx in idx_list]
+
     def read_full(self) -> np.ndarray:
         """Materialize the whole array."""
         if self.ndim == 0:
-            return self._read_chunk(())
+            return self._read_chunks_batch([()])[0]
         n_chunks = [
             -(-s // c) for s, c in zip(self.shape, self.chunks)
         ]
         out = np.empty(self.shape, dtype=self.dtype)
-        for idx in np.ndindex(*n_chunks):
-            chunk = self._read_chunk(idx)
+        idx_list = list(np.ndindex(*n_chunks))
+        for idx, chunk in zip(idx_list, self._read_chunks_batch(idx_list)):
             slices = tuple(
                 slice(i * c, min((i + 1) * c, s))
                 for i, c, s in zip(idx, self.chunks, self.shape)
@@ -283,7 +329,7 @@ class ZarrArray:
             for i0 in range(first_chunk, last_chunk + 1)
             for idx_rest in np.ndindex(*n_chunks_rest)
         ]
-        chunks = {idx: self._read_chunk(idx) for idx in idx_list}
+        chunks = dict(zip(idx_list, self._read_chunks_batch(idx_list)))
         out = np.empty((stop - start,) + self.shape[1:], dtype=self.dtype)
         for idx in idx_list:
             i0, idx_rest = idx[0], idx[1:]

@@ -40,6 +40,11 @@ class ModelArgs:
     num_past_forcing_steps: int = 1
     num_future_forcing_steps: int = 1
     val_steps_to_log: tuple = (1, 2, 3, 5, 10, 15, 19)
+    # test metrics (by name, e.g. "test_rmse") whose values are logged for
+    # the variables and lead times of var_leads_metrics_watch
+    metrics_watch: tuple = ()
+    var_leads_metrics_watch: dict = dataclasses.field(default_factory=dict)
+    n_example_pred: int = 1
     # None = fp32 everywhere; "bfloat16" is not ported yet
     compute_dtype: str | None = None
 

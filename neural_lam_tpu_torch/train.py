@@ -15,13 +15,27 @@ optional step cap, validates (`val_mean_loss`), and keeps the `last` and
 `min_val_loss` checkpoints; metrics go to stdout and
 <run_dir>/metrics.jsonl. Everything runs on CUDA unless `--device cpu`.
 
-Not ported yet: `--eval test`, example plots, ensemble evaluation,
-multi-host and spatial sharding, W&B, profiling, `--remat`.
+Evaluation (`--eval val|test`, ref: train_model.py:167-208) runs the
+checkpoint given by `--load` over the split at `--batch_size`, the last
+batch partial where the split does not divide, and prints what it
+computes. `--eval test` (`Trainer.test`) writes to <run_dir>/ the rescaled
+error maps `test_rmse.csv` / `test_mae.csv` (lead time x variable), the
+spatial loss maps `mean_spatial_loss.npy` and `spatial_loss_t{t}.npy`,
+and, where matplotlib imports (`main` checks and prints which case
+holds), their figures (`test_rmse.pdf`, `test_mae.pdf`,
+`spatial_loss_t{t}.pdf`) and `--n_example_pred` example forecasts
+(`example_{pred,target}_{i}.npy`, `example_{i}_{var}_t{t}.png`);
+matplotlib is imported only to draw.
+
+Not ported yet: ensemble evaluation (`--ensemble_members`, ROADMAP.md
+queue 1, item 5), multi-host and spatial sharding, W&B, profiling,
+`--remat`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
 import time
@@ -99,6 +113,10 @@ class MetricsLogger:
             f.write(json.dumps(rec) + "\n")
         print(json.dumps({k: v for k, v in rec.items()
                           if not k.startswith("_")}), flush=True)
+
+    def log_image(self, name: str, fig):
+        """Where the JAX trainer forwards a figure to W&B; the port has no
+        W&B sink yet (ROADMAP.md queue 1, item 3), so this does nothing."""
 
 
 class Trainer:
@@ -222,24 +240,156 @@ class Trainer:
         """Mean loss per unroll step over the val split
         (ref: ar_model.py:324-373): time_step_loss (T,), val_mean_loss,
         and per-(T, d) mse / mae."""
-        tsl, mse, mae = [], [], []
+        agg = _EvalAggregator()
         for batch in datamodule.val_dataloader():
-            out = self.model.eval_step_metrics(self.to_device(batch))
-            tsl.append(out["time_step_loss"].cpu().numpy())
-            mse.append(out["mse"].cpu().numpy())
-            mae.append(out["mae"].cpu().numpy())
-        if not tsl:
-            raise ValueError("no validation batches were produced")
-        tsl = np.concatenate(tsl).mean(axis=0)
-        return {"time_step_loss": tsl, "val_mean_loss": float(tsl.mean()),
-                "mse": np.concatenate(mse).mean(axis=0),
-                "mae": np.concatenate(mae).mean(axis=0)}
+            agg.add(self.model.eval_step_metrics(self.to_device(batch)))
+        return agg.summarize()
+
+    @torch.no_grad()
+    def test(self, datamodule, make_plots=True):
+        """Test epoch: losses, rmse/mae error maps rescaled to physical
+        units, mean spatial loss maps, csv/npy files and, with
+        `make_plots`, their figures and example forecasts
+        (ref: ar_model.py:375-454, 610-696)."""
+        datamodule.setup("test")
+        agg = _EvalAggregator(keep_spatial=True)
+        example_batch = None
+        for batch in datamodule.test_dataloader():
+            if example_batch is None:
+                example_batch = batch
+            agg.add(self.model.eval_step_metrics(self.to_device(batch)))
+        summary = agg.summarize()
+
+        model = self.model
+        datastore = model.datastore
+        args = model.args
+        state_std = model.statics.state_std.cpu().numpy()
+        log = {"test_mean_loss": summary["val_mean_loss"]}
+        for step in args.val_steps_to_log:
+            if step <= len(summary["time_step_loss"]):
+                log[f"test_loss_unroll{step}"] = \
+                    summary["time_step_loss"][step - 1]
+        self.logger.log(log)
+
+        artifacts = {}
+        var_names = datastore.get_vars_names("state")
+        for name, arr in (("rmse", np.sqrt(summary["mse"])),
+                          ("mae", summary["mae"])):
+            rescaled = arr * state_std  # (T, d)
+            full_name = f"test_{name}"
+            artifacts[full_name] = rescaled
+            np.savetxt(self.run_dir / f"{full_name}.csv", rescaled,
+                       delimiter=",")
+            # watched metrics: chosen variables at chosen lead times
+            # (ref: ar_model.py:599-606)
+            if full_name in args.metrics_watch:
+                watch = {}
+                for var_i, steps in args.var_leads_metrics_watch.items():
+                    for step in steps:
+                        if step - 1 < rescaled.shape[0]:
+                            watch[f"{full_name}_{var_names[int(var_i)]}_"
+                                  f"step_{step}"] = \
+                                float(rescaled[step - 1, int(var_i)])
+                if watch:
+                    self.logger.log(watch)
+
+        # lead time t is unroll index t - 1; maps only at the logged ones
+        spatial = summary["mean_spatial_loss"]
+        lead_times = [t for t in args.val_steps_to_log
+                      if 1 <= t <= spatial.shape[0]]
+        np.save(self.run_dir / "mean_spatial_loss.npy", spatial)
+        for t in lead_times:
+            np.save(self.run_dir / f"spatial_loss_t{t}.npy", spatial[t - 1])
+
+        if make_plots:
+            from . import vis
+
+            for name, arr in artifacts.items():
+                fig = vis.plot_error_map(arr, datastore)
+                fig.savefig(self.run_dir / f"{name}.pdf")
+                self.logger.log_image(name, fig)
+            for t in lead_times:
+                fig = vis.plot_spatial_error(
+                    spatial[t - 1], datastore,
+                    title=f"Test loss, t={t} ({datastore.step_length * t} h)")
+                fig.savefig(self.run_dir / f"spatial_loss_t{t}.pdf")
+                self.logger.log_image(f"test_loss_t{t}", fig)
+            vis.plt.close("all")
+            self.plot_examples(example_batch, n_examples=min(
+                args.n_example_pred, example_batch[0].shape[0]))
+        return {**log, **{k: v.tolist() for k, v in artifacts.items()}}
+
+    @torch.no_grad()
+    def plot_examples(self, batch, n_examples=1):
+        """Per-variable, per-step prediction/target figures and arrays of
+        the first `n_examples` samples of `batch`
+        (ref: ar_model.py:456-566)."""
+        from . import vis
+
+        model = self.model
+        datastore = model.datastore
+        prediction, target, _, _ = model.common_step(self.to_device(batch))
+        mean = model.statics.state_mean.cpu().numpy()
+        std = model.statics.state_std.cpu().numpy()
+        pred = prediction.cpu().numpy() * std + mean
+        tgt = target.cpu().numpy() * std + mean
+        var_names = datastore.get_vars_names("state")
+        var_units = datastore.get_vars_units("state")
+        for ex in range(n_examples):
+            np.save(self.run_dir / f"example_pred_{ex + 1}.npy", pred[ex])
+            np.save(self.run_dir / f"example_target_{ex + 1}.npy", tgt[ex])
+            for t in range(pred.shape[1]):
+                for var_i, (vn, vu) in enumerate(zip(var_names, var_units)):
+                    fig = vis.plot_prediction(
+                        pred[ex, t, :, var_i], tgt[ex, t, :, var_i],
+                        datastore,
+                        title=f"{vn} ({vu}), t={t + 1} "
+                              f"({datastore.step_length * (t + 1)} h)")
+                    fig.savefig(self.run_dir
+                                / f"example_{ex + 1}_{vn}_t{t + 1}.png")
+                    self.logger.log_image(f"{vn}_example_{ex + 1}", fig)
+                    vis.plt.close("all")
+
+
+class _EvalAggregator:
+    """Per-sample sums of what `eval_step_metrics` gives over the batches
+    of a split, divided by the sample count (ref: ar_model.py:610-644:
+    gather, then the mean over samples). A partial last batch counts its
+    own samples; nothing is padded."""
+
+    def __init__(self, keep_spatial=False):
+        self.keep_spatial = keep_spatial
+        self.n = 0
+        self.sums = {}
+
+    def add(self, out):
+        keys = ["time_step_loss", "mse", "mae"] + (
+            ["spatial_loss"] if self.keep_spatial else [])
+        self.n += out["time_step_loss"].shape[0]
+        for k in keys:
+            s = out[k].double().sum(dim=0).cpu().numpy()
+            self.sums[k] = self.sums[k] + s if k in self.sums else s
+
+    def summarize(self):
+        if not self.n:
+            raise ValueError(
+                "no evaluation batches were produced: the split has fewer "
+                "samples than one unroll needs")
+        mean = {k: (v / self.n).astype(np.float32)
+                for k, v in self.sums.items()}
+        out = {"time_step_loss": mean["time_step_loss"],
+               "val_mean_loss": float(mean["time_step_loss"].mean()),
+               "mse": mean["mse"], "mae": mean["mae"]}
+        if self.keep_spatial:
+            out["mean_spatial_loss"] = mean["spatial_loss"]
+        return out
 
 
 def main(input_args=None):
     """CLI mirroring `python -m neural_lam_tpu.train` for what the port
     runs: GraphLAM and HiLAM (`--model hi_lam --graph hierarchical`)
-    training on one device."""
+    training and evaluation on one device. Returns what `--eval` printed
+    (None when training)."""
     parser = ArgumentParser(description="Train the PyTorch port's models")
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--model", type=str, default="graph_lam",
@@ -271,9 +421,21 @@ def main(input_args=None):
     parser.add_argument("--num_future_forcing_steps", type=int, default=1)
     parser.add_argument("--val_steps_to_log", nargs="+", type=int,
                         default=[1, 2, 3, 5, 10, 15, 19])
+    parser.add_argument("--eval", type=str, choices=["val", "test"])
+    parser.add_argument("--n_example_pred", type=int, default=1)
+    parser.add_argument("--metrics_watch", nargs="+", default=[],
+                        help="names of metrics to log watched values for")
+    parser.add_argument("--var_leads_metrics_watch", type=str, default="{}",
+                        help="JSON dict var_index -> [lead steps] to watch")
+    parser.add_argument("--ensemble_members", type=int, default=0,
+                        help="ensemble evaluation; not ported yet")
     parser.add_argument("--run_name", type=str, default=None)
     parser.add_argument("--save_dir", type=str, default="saved_models")
     args = parser.parse_args(input_args)
+    if args.ensemble_members > 0:
+        raise NotImplementedError(
+            "--ensemble_members: ensemble evaluation is not ported yet "
+            "(ROADMAP.md queue 1, item 5)")
 
     device = resolve_device(args.device)
     torch.manual_seed(args.seed)
@@ -285,6 +447,11 @@ def main(input_args=None):
         num_past_forcing_steps=args.num_past_forcing_steps,
         num_future_forcing_steps=args.num_future_forcing_steps,
         val_steps_to_log=tuple(args.val_steps_to_log),
+        metrics_watch=tuple(args.metrics_watch),
+        var_leads_metrics_watch={
+            int(k): v
+            for k, v in json.loads(args.var_leads_metrics_watch).items()},
+        n_example_pred=args.n_example_pred,
     )
     flags = TrainFlags(
         epochs=args.epochs, val_interval=args.val_interval, seed=args.seed,
@@ -309,7 +476,23 @@ def main(input_args=None):
     )
     trainer = Trainer(model, flags)
     trainer.init_state()
-    trainer.fit(datamodule)
+    if args.eval == "val":
+        datamodule.setup("fit")
+        result = trainer.validate(datamodule)
+    elif args.eval == "test":
+        # figures only where matplotlib imports: the card's machine may
+        # have none
+        make_plots = importlib.util.find_spec("matplotlib") is not None
+        print("--eval test: " + ("matplotlib imports, figures are drawn"
+                                 if make_plots else "matplotlib is not "
+                                 "installed, no figures are drawn"),
+              flush=True)
+        result = trainer.test(datamodule, make_plots=make_plots)
+    else:
+        trainer.fit(datamodule)
+        return None
+    print(result, flush=True)
+    return result
 
 
 if __name__ == "__main__":

@@ -42,6 +42,9 @@ def test_port_imports_no_jax():
                     "datastore/npyfilesmeps.py", "datastore/zarr_reader.py",
                     "graph/torch_io.py"):
         assert f"neural_lam_tpu_torch/{serving}" in names, serving
+    for evaluation in ("vis.py", "projections.py", "datastore/plot_example.py",
+                       "native/__init__.py", "train.py"):
+        assert f"neural_lam_tpu_torch/{evaluation}" in names, evaluation
     bad = []
     for path in _port_files():
         for name in _imports(path):
