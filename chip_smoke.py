@@ -50,8 +50,9 @@ result line is printed), each printing its seconds:
    bit-identical, its bound max(bytes, 3 x FLOP / TF32 peak) (its
    products run on tensor cores in 3xTF32; the fp32 bound printed beside
    it) and its products as `torch.mm` calls its library time; B3/B4 also
-   at HiLAM's K=1 down[0] and folded up[0] sets (batch 4). B2, B3/B4 and
-   B5/B6 run in two passes, a chain kernel and `xtd_sum` (the weight
+   at HiLAM's K=1 down[0] and folded up[0] sets (batch 4); B2, B3/B4 and
+   B5/B6 also at every K from 1 to 8 on phase 3's seeded local graphs
+   (batch 4). B2, B3/B4 and B5/B6 run in two passes, a chain kernel and `xtd_sum` (the weight
    gradients): both passes' device times are printed apart, with their
    sum. `xtd_sum` is also held against
    `xtd_sum_plain` at the decoder's nine pairs, at B3/B4's two and at
@@ -131,6 +132,31 @@ result line is printed), each printing its seconds:
    decoder must decode chunks) and warm, and the peak device memory of
    the CLI's forecast.
 
+10. Datastores built by the port's tools, at full width. a. Raw source
+   zarrs in the DANRA example's shape at the bench grid (height-level
+   variables over an altitude coordinate, 4 of 5 altitudes selected;
+   single-level state and forcing; a static mask; 30 3-hourly times,
+   zlib chunks) and a datastore config (coord_ranges keeping 28 times,
+   splits 12/6/10 with statistics on train, `output.compression: none`);
+   `create_dataset(compression="lz4")` on a copy of the config must
+   raise naming `--compression none` where libblosc is missing (and
+   leave nothing), else write; `train.main` trains GraphLAM 2 steps on
+   the config with its archive missing, so that `MDPDatastore` creates
+   it (its seconds and MB printed; K1-K4, B1-B6 and `xtd_sum` must
+   launch); the archive's state, forcing and static equal the sources
+   restacked with numpy, its statistics are within 1e-6 relative of
+   float64 numpy over the train window, and no array is blosc;
+   `predict.main` forecasts 4 steps at batch 1 from the trained
+   checkpoint (P2/P3 2/4 a step), finite, and, standardized, within
+   1e-3 of the plain path. b. A MEPS npy datastore on its 268x238 grid
+   (18 raw state features, one removed; 2 members; 3/1/1 analysis
+   times; num_timesteps cut to 7): `compute_standardization_stats.cli`
+   serially, with `--n_workers 4` (bit-identical) and with `--num_shards
+   2`, shard 1 then 0 (within rtol 2e-5 / atol 2e-6 of the serial
+   files), each timed; a seeded GraphLAM saved through
+   `checkpoint.save_checkpoint` forecasts 4 steps at batch 1 through
+   `predict.main` on it, as in a.
+
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -143,6 +169,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -152,6 +179,7 @@ BENCH = dict(nx=268, ny=238, hidden_dim=64, processor_layers=4,
              n_timesteps=20)
 BATCH = 4
 STEPS = 4
+WIDTH = ("--hidden_dim", "64", "--processor_layers", "4")
 H = 64
 FWD = ("embed_grid_flat", "edge_tail_sum_flat", "edge_layer_flat",
        "grid_update_flat")
@@ -817,6 +845,410 @@ def serving_phase(torch, np, counts, reset_counts, plain_kernels, zero):
             torch.cuda.empty_cache()
 
 
+def write_raw_sources(root, np, nx=268, ny=238, n_t=30, seed=0):
+    """Raw source zarrs in the DANRA example's shape at the bench grid,
+    zlib chunks (level 1), and a datastore config over them for
+    `create_dataset`: height-level u, v, t and r over 5 altitudes (4 of
+    them selected, named "{var}{altitude}m") and single-level t2m as the
+    17 state features, 6 single-level forcing fields, 4 static fields
+    (the land-sea mask among them); 30 3-hourly times, of which the
+    config's coord_ranges keep 28, split 12/6/10 with statistics over
+    train; output.compression none. Writes <root>/sources/*.zarr,
+    <root>/mdp.datastore.yaml and <root>/config.yaml (JSON, which YAML
+    readers take); returns the config's path and the restacked state,
+    forcing and static arrays the archive must hold."""
+    from neural_lam_tpu_torch.datastore.zarr_reader import (
+        consolidate_metadata,
+        write_zarr_array,
+    )
+
+    zlib = {"id": "zlib", "level": 1}
+    rng = np.random.default_rng(seed)
+    times = np.datetime64("2020-01-01T00", "ns") + np.arange(n_t) \
+        * np.timedelta64(3, "h")
+    alts = [30.0, 100.0, 200.0, 300.0, 500.0]
+    keep = alts[1:]
+    height_vars = ("u", "v", "t", "r")
+    forcing_vars = ("swavr0m", "lwavr0m", "tcc", "mslp", "pres0m", "sst")
+    static_vars = ("lsm", "orography", "lake_fraction", "roughness")
+
+    def field(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+
+    def store(name, arrays, with_time=True):
+        """(name, values, dims, chunks or None) -> a consolidated zarr."""
+        path = root / "sources" / name
+        coords = [("x", np.arange(nx) * 2500.0, ["x"], None),
+                  ("y", np.arange(ny) * 2500.0, ["y"], None)]
+        if with_time:
+            coords.append(("time", times, ["time"], None))
+        for key, arr, dims, chunks in coords + arrays:
+            write_zarr_array(path, key, arr, dims=dims, chunks=chunks,
+                             attrs={"units": "-", "long_name": key},
+                             compressor=zlib)
+        consolidate_metadata(path)
+        return str(path)
+
+    hl = {v: field(n_t, nx, ny, len(alts)) for v in height_vars}
+    sl = {v: field(n_t, nx, ny) for v in ("t2m",) + forcing_vars}
+    st = {v: field(nx, ny) for v in static_vars}
+    st["lsm"] = (st["lsm"] > 0).astype(np.float32)
+    hl_path = store("height_levels.zarr", [
+        ("altitude", np.array(alts), ["altitude"], None)] + [
+        (v, a, ["time", "x", "y", "altitude"], [3, nx, ny, len(alts)])
+        for v, a in hl.items()])
+    sl_path = store("single_levels.zarr", [
+        (v, a, ["time", "x", "y"], [3, nx, ny]) for v, a in sl.items()])
+    st_path = store("static.zarr", [
+        (v, a, ["x", "y"], None) for v, a in st.items()], with_time=False)
+
+    def tstr(i):
+        return str(times[i].astype("datetime64[s]"))
+
+    grid = {"method": "stack", "dims": ["x", "y"]}
+    rename = {"method": "rename", "dim": "time"}
+
+    def inp(path, src_dims, variables, cat, **stack):
+        mapping = {"grid_index": grid, f"{cat}_feature": dict(
+            method="stack_variables_by_var_name", **stack)}
+        if "time" in src_dims:
+            mapping["time"] = rename
+        return {"path": path, "dims": src_dims, "variables": variables,
+                "dim_mapping": mapping, "target_output_variable": cat}
+
+    config = {
+        "schema_version": "v0.5.0", "dataset_version": "v0.1.0",
+        "output": {
+            "variables": {
+                "static": ["grid_index", "static_feature"],
+                "state": ["time", "grid_index", "state_feature"],
+                "forcing": ["time", "grid_index", "forcing_feature"]},
+            "coord_ranges": {"time": {"start": tstr(1), "end": tstr(28),
+                                      "step": "PT3H"}},
+            "chunking": {"time": 2},
+            "compression": "none",
+            "splitting": {"dim": "time", "splits": {
+                "train": {"start": tstr(1), "end": tstr(12),
+                          "compute_statistics": {
+                              "ops": ["mean", "std", "diff_mean",
+                                      "diff_std"],
+                              "dims": ["grid_index", "time"]}},
+                "val": {"start": tstr(13), "end": tstr(18)},
+                "test": {"start": tstr(19), "end": tstr(28)}}}},
+        "inputs": {
+            "danra_height_levels": inp(
+                hl_path, ["time", "x", "y", "altitude"],
+                {v: {"altitude": {"values": keep, "units": "m"}}
+                 for v in height_vars}, "state", dims=["altitude"],
+                name_format="{var_name}{altitude:g}m"),
+            "danra_surface_state": inp(sl_path, ["time", "x", "y"], ["t2m"],
+                                       "state", name_format="{var_name}"),
+            "danra_surface": inp(sl_path, ["time", "x", "y"],
+                                 list(forcing_vars), "forcing",
+                                 name_format="{var_name}"),
+            "danra_static": inp(st_path, ["x", "y"], list(static_vars),
+                                "static", name_format="{var_name}")},
+        "extra": {"projection": {
+            "class_name": "LambertConformal",
+            "kwargs": {"central_longitude": 25.0,
+                       "central_latitude": 56.7}}}}
+    (root / "mdp.datastore.yaml").write_text(json.dumps(config))
+    cfg = root / "config.yaml"
+    cfg.write_text(json.dumps({"datastore": {
+        "kind": "mdp", "config_path": "mdp.datastore.yaml"}}))
+    n_grid = nx * ny
+    sel = [alts.index(a) for a in keep]
+    want = {
+        "state": np.concatenate(
+            [hl[v][1:29][..., sel].reshape(28, n_grid, len(sel))
+             for v in height_vars]
+            + [sl["t2m"][1:29].reshape(28, n_grid, 1)], axis=-1),
+        "forcing": np.stack([sl[v][1:29].reshape(28, n_grid)
+                             for v in forcing_vars], axis=-1),
+        "static": np.stack([st[v].reshape(n_grid) for v in static_vars],
+                           axis=-1)}
+    return cfg, want
+
+
+def write_meps_datastore(root, np, nx=238, ny=268, n_t=7, seed=0):
+    """A datastore in the MEPS npy layout (as the repo's MEPS test fixture
+    lays it out) on MEPS's own 268x238 grid: 18 raw state features, of
+    which `remove_state_features_with_index` drops one, leaving 17; 2
+    ensemble members; the TOA flux, open-water, static and nwp_xy files;
+    3 train, 1 val and 1 test analysis times. num_timesteps is cut from
+    the reference's 65 to 7: 2 initial states, a 4-step forecast and its
+    one future forcing step. Writes <root>/data_config.yaml and
+    <root>/config.yaml; returns the config's path."""
+    rng = np.random.default_rng(seed)
+    times = {"train": ["2022040100", "2022040112", "2022040200"],
+             "val": ["2022060500"], "test": ["2022090100"]}
+    n_raw, drop, members = 18, [7], 2
+    for split, atimes in times.items():
+        d = root / "samples" / split
+        d.mkdir(parents=True)
+        for at in atimes:
+            for member in range(members):
+                np.save(d / f"nwp_{at}_mbr{member:03d}.npy",
+                        rng.standard_normal((n_t, ny, nx, n_raw),
+                                            dtype=np.float32))
+            np.save(d / f"nwp_toa_downwelling_shortwave_flux_{at}.npy",
+                    rng.uniform(0, 100, (n_t, ny, nx)).astype(np.float32))
+            np.save(d / f"wtr_{at}.npy",
+                    rng.uniform(0, 1, (ny, nx)).astype(np.float32))
+    static = root / "static"
+    static.mkdir()
+    np.save(static / "surface_geopotential.npy",
+            rng.standard_normal((ny, nx), dtype=np.float32))
+    border = np.ones((ny, nx), np.float32)
+    border[10:-10, 10:-10] = 0
+    np.save(static / "border_mask.npy", border)
+    np.save(static / "nwp_xy.npy", np.stack(np.meshgrid(
+        np.arange(nx) * 2500.0, np.arange(ny) * 2500.0, indexing="xy"))
+        .astype(np.float32))
+    names = [f"var_{i}" for i in range(n_raw - len(drop))]
+    (root / "data_config.yaml").write_text(json.dumps({
+        "dataset": {"name": "meps_example", "var_names": names,
+                    "var_units": ["-"] * len(names),
+                    "var_longnames": [f"long {v}" for v in names],
+                    "num_forcing_features": 6, "num_timesteps": n_t,
+                    "step_length": 3, "num_ensemble_members": members,
+                    "remove_state_features_with_index": drop},
+        "grid_shape_state": [ny, nx],
+        "projection": {"class_name": "LambertConformal", "kwargs": {
+            "central_longitude": 15.0, "central_latitude": 63.3,
+            "standard_parallels": [63.3, 63.3]}}}))
+    cfg = root / "config.yaml"
+    cfg.write_text(json.dumps({"datastore": {
+        "kind": "npyfilesmeps", "config_path": "data_config.yaml"}}))
+    return cfg
+
+
+def forecast_check(torch, np, argv, want, counts, reset_counts,
+                   plain_kernels, zero, what):
+    """`predict.main` with every counter at 0 just before it: the launches
+    per step, a finite forecast of the bench's shape, and, standardized,
+    within 1e-3 of the same rollout through the plain versions; prints
+    the CLI's seconds and a warm rollout's ms a step."""
+    from neural_lam_tpu_torch import predict
+    from neural_lam_tpu_torch.datastore.zarr_reader import ZarrGroup
+
+    reset_counts()
+    summary = quiet(predict.main, argv)
+    torch.cuda.synchronize()
+    got = counts()
+    want = dict(zero, **want)
+    if got != {k: n * STEPS for k, n in want.items()}:
+        fail(f"predict.main {what}: launch counts {got}, want {want} per "
+             "step")
+    pred = ZarrGroup(argv[argv.index("--out") + 1])["state"].read_full()
+    if pred.shape != (STEPS, 268 * 238, 17) or not np.isfinite(pred).all():
+        fail(f"predict.main {what}: forecast {pred.shape}, finite "
+             f"{np.isfinite(pred).all()}")
+    args = predict.parse_args(argv)
+    net, ds, _ = predict.prepare(args)
+    stats = ds.get_standardization_dataarray("state")
+    predict.rollout(net, ds, args)  # warm-up
+    warm_ms = median_ms(torch, lambda: predict.rollout(net, ds, args)) / STEPS
+    with plain_kernels():
+        pred_p, _ = predict.rollout(net, ds, args)
+    gap = float(np.abs((pred - stats["state_mean"]) / stats["state_std"]
+                       - pred_p).max())
+    print(f"predict.main {what}: init {summary['init_s']:.2f} s, rollout "
+          f"{summary['rollout_s'] * 1e3 / STEPS:.1f} ms a step (first calls "
+          f"included), warm rollout {warm_ms:.1f} ms a step (host clock, "
+          f"median of 3, the sample's read included); launches per step "
+          f"{ {k: got[k] / STEPS for k in want if got[k]} }; forecast "
+          f"{pred.shape} finite, standardized within {gap:.3e} of the "
+          "plain path (limit 1e-3)")
+    if not gap <= 1e-3:
+        fail(f"predict.main {what}: forecast and plain path disagree")
+    del net, ds, pred_p
+    torch.cuda.empty_cache()
+
+
+def mdp_tool_phase(torch, np, root, counts, reset_counts, plain_kernels,
+                   zero):
+    """Phase 10a: the MDP archive created from raw sources by
+    MDPDatastore on first use inside `train.main`, held against the
+    sources, then forecast from."""
+    from neural_lam_tpu_torch import train
+    from neural_lam_tpu_torch.datastore import create_dataset as cd
+    from neural_lam_tpu_torch.datastore.zarr_reader import ZarrGroup
+
+    t0 = time.time()
+    cfg, want = write_raw_sources(root, np)
+    print(f"raw source zarrs written in {time.time() - t0:.1f} s "
+          f"({disk_mb(root / 'sources'):.1f} MB on disk, zlib level 1)")
+    archive = root / "mdp.datastore.zarr"
+
+    # a blosc codec where libblosc may be missing, on a copy of the
+    # config: it raises naming --compression none and leaves nothing, or
+    # writes its archive
+    lz4 = root / "lz4.datastore.yaml"
+    shutil.copy(root / "mdp.datastore.yaml", lz4)
+    before = sorted(p.name for p in root.iterdir())
+    t0 = time.time()
+    try:
+        cd.create_dataset(lz4, compression="lz4")
+    except OSError as e:
+        print(f"create_dataset(compression='lz4'): {e}")
+        if "--compression none" not in str(e):
+            fail("the libblosc error does not name --compression none")
+        if sorted(p.name for p in root.iterdir()) != before:
+            fail("a failed lz4 creation left files behind")
+    else:
+        print(f"create_dataset(compression='lz4'): libblosc is present; "
+              f"written in {time.time() - t0:.1f} s "
+              f"({disk_mb(lz4.with_suffix('.zarr')):.1f} MB)")
+        shutil.rmtree(lz4.with_suffix(".zarr"))
+
+    # train.main on the config with the archive missing: MDPDatastore
+    # creates it, timed through the module's create_dataset
+    created = []
+    real = cd.create_dataset
+
+    def timed(*args, **kwargs):
+        t = time.time()
+        out = real(*args, **kwargs)
+        created.append(time.time() - t)
+        return out
+
+    cd.create_dataset = timed
+    reset_counts()
+    t0 = time.time()
+    try:
+        quiet(train.main, [
+            "--config_path", str(cfg), "--model", "graph_lam", "--graph",
+            "multiscale", *WIDTH, "--batch_size", "4", "--ar_steps_train",
+            "1", "--ar_steps_eval", "2", "--val_steps_to_log", "1", "2",
+            "--max_steps", "2", "--seed", "0", "--save_dir",
+            str(root / "models"), "--run_name", "graph_lam"])
+    finally:
+        cd.create_dataset = real
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"train.main: the archive created on first use in "
+          f"{sum(created):.1f} s ({disk_mb(archive):.1f} MB on disk, raw "
+          f"chunks), then 2 steps and validation, {time.time() - t0:.1f} s "
+          f"in all; launches {got}")
+    if len(created) != 1:
+        fail(f"MDPDatastore created the archive {len(created)} times")
+    if not all(got[k] for k in FWD) or not all(
+            got[k + "_bwd"] for k in FWD) or not got["xtd_sum"]:
+        fail(f"train.main did not run every training kernel: {got}")
+
+    g = ZarrGroup(archive)
+    blosc = [n for n in g.arrays
+             if (g[n].compressor or {}).get("id") == "blosc"]
+    if blosc:
+        fail(f"arrays with a blosc compressor: {blosc}")
+    for cat, arr in want.items():
+        if not np.array_equal(g[cat].read_full(), arr):
+            fail(f"the archive's {cat} differs from the restacked sources")
+    gap = 0.0
+    for cat in ("state", "forcing"):
+        window = want[cat][:12].astype(np.float64)
+        diffs = np.diff(window, axis=0)
+        for op, ref in (("mean", window.mean(axis=(0, 1))),
+                        ("std", window.std(axis=(0, 1))),
+                        ("diff_mean", diffs.mean(axis=(0, 1))),
+                        ("diff_std", diffs.std(axis=(0, 1)))):
+            got_op = g[f"{cat}__train__{op}"].read_full()
+            gap = max(gap, float((np.abs(got_op - ref) / np.abs(ref)).max()))
+    print(f"archive: state/forcing/static equal the sources restacked with "
+          f"numpy, bit for bit; statistics within {gap:.3e} relative of "
+          f"float64 numpy over the train window (limit 1e-6); "
+          f"{len(g.arrays)} arrays, none blosc")
+    if not gap <= 1e-6:
+        fail("the archive's statistics disagree with numpy")
+    forecast_check(
+        torch, np, ["--config_path", str(cfg), "--model", "graph_lam",
+                    "--graph", "multiscale", *WIDTH, "--load",
+                    str(root / "models" / "graph_lam" / "last"), "--split",
+                    "test", "--sample_idx", "-1", "--ar_steps", str(STEPS),
+                    "--out", str(root / "forecast.zarr")],
+        {"edge_tail_sum": 2, "edge_layer": 4}, counts, reset_counts,
+        plain_kernels, zero, "GraphLAM on the created MDP archive")
+
+
+def meps_tool_phase(torch, np, root, counts, reset_counts, plain_kernels,
+                    zero):
+    """Phase 10b: a MEPS datastore given its statistics by the port's
+    tool serially, with 4 workers and in 2 shards, then forecast from."""
+    from neural_lam_tpu_torch.checkpoint import save_checkpoint
+    from neural_lam_tpu_torch.config import load_config_and_datastore
+    from neural_lam_tpu_torch.datastore import compute_standardization_stats
+    from neural_lam_tpu_torch.graph.storage import load_or_build_graph
+    from neural_lam_tpu_torch.models import MODELS
+    from neural_lam_tpu_torch.models.ar_model import ModelArgs
+
+    t0 = time.time()
+    cfg = write_meps_datastore(root, np)
+    print(f"MEPS datastore written in {time.time() - t0:.1f} s "
+          f"({disk_mb(root):.1f} MB on disk; num_timesteps cut from 65 to "
+          "7; 2 members; 3/1/1 analysis times)")
+    static = root / "static"
+    files = ("parameter_mean.pt", "parameter_std.pt", "flux_stats.pt",
+             "diff_mean.pt", "diff_std.pt")
+
+    def run(*flags):
+        t = time.time()
+        quiet(compute_standardization_stats.cli, [
+            "--datastore_config_path", str(root / "data_config.yaml"),
+            *flags])
+        return time.time() - t
+
+    def load():
+        return {f: torch.load(static / f, weights_only=True) for f in files}
+
+    serial_s = run()
+    serial = load()
+    workers_s = run("--n_workers", "4")
+    if not all(torch.equal(serial[f], t) for f, t in load().items()):
+        fail("compute_standardization_stats --n_workers 4 differs from the "
+             "serial pass")
+    for f in files:
+        (static / f).unlink()
+    shard_s = [run("--num_shards", "2", "--shard_id", str(i), "--job_tag",
+                   "phase10") for i in (1, 0)]
+    sharded = load()
+    print(f"compute_standardization_stats: serial {serial_s:.2f} s, "
+          f"--n_workers 4 {workers_s:.2f} s (bit-identical), --num_shards 2 "
+          f"shard 1 {shard_s[0]:.2f} s then shard 0 {shard_s[1]:.2f} s "
+          f"(merged); sharded vs serial max abs " + ", ".join(
+              f"{f} {float((sharded[f] - serial[f]).abs().max()):.3e}"
+              for f in files) + " (limit rtol 2e-5, atol 2e-6)")
+    for f in files:
+        if not torch.allclose(sharded[f], serial[f], rtol=2e-5, atol=2e-6):
+            fail(f"sharded {f} differs from the serial pass")
+
+    t0 = time.time()
+    config, ds = load_config_and_datastore(cfg)
+    net = MODELS["graph_lam"](
+        ModelArgs(hidden_dim=64, processor_layers=4), config, ds,
+        load_or_build_graph(ds, "multiscale", "cuda"), device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    save_checkpoint(root / "models", "graph_lam", net.state_dict(),
+                    meta={"step": 0})
+    del net
+    print(f"GraphLAM (seeded weights) on the MEPS grid saved in "
+          f"{time.time() - t0:.1f} s, its multiscale graph built")
+    forecast_check(
+        torch, np, ["--config_path", str(cfg), "--model", "graph_lam",
+                    "--graph", "multiscale", *WIDTH, "--load",
+                    str(root / "models" / "graph_lam"), "--split", "test",
+                    "--sample_idx", "-1", "--ar_steps", str(STEPS), "--out",
+                    str(root / "forecast.zarr")],
+        {"edge_tail_sum": 2, "edge_layer": 4}, counts, reset_counts,
+        plain_kernels, zero, "GraphLAM on MEPS")
+
+
+def disk_mb(path):
+    """MB of the files under path."""
+    return sum(f.stat().st_size for f in path.rglob("*")
+               if f.is_file()) / 1e6
+
+
 def main():
     import torch
 
@@ -1182,13 +1614,15 @@ def main():
         cases.append(("edge_layer_flat_bwd", edge_flat, ab,
                       f"{pef}:846 ({at})", bb, bf))
 
-    # K2, K3, K4, P1, P2 and P3 at every slot count their kernels are
-    # built for, K = 1..8, on seeded local graphs (each of 20,000 receivers
-    # takes K senders near it among 6,561): K = 3, 5, 6, 7 do not divide
-    # the 16-row tiles and sum virt through shared memory, K = 1, 2, 4, 8
-    # by shuffles; the g2m encoder's, the processor's first layer's and the
-    # decoder's weights. K2, K3 and K4 at batch 4; P1 and P2 (with and
-    # without messages) and P3 at batch 1 and 4
+    # K2, K3, K4, P1, P2 and P3, and the backward kernels B2, B3/B4 and
+    # B5/B6 (each with its xtd_sum pass), at every slot count their
+    # kernels are built for, K = 1..8, on seeded local graphs (each of
+    # 20,000 receivers takes K senders near it among 6,561): K = 3, 5, 6, 7
+    # do not divide the 16-row tiles and sum virt through shared memory,
+    # K = 1, 2, 4, 8 by shuffles; the g2m encoder's, the processor's first
+    # layer's and the decoder's weights. K2, K3, K4 and their backward
+    # kernels at batch 4; P1 and P2 (with and without messages) and P3 at
+    # batch 1 and 4
     def k_sweep():
         rng = np.random.default_rng(0)
         n_rec, n_send = 20000, 6561
@@ -1204,22 +1638,32 @@ def main():
             if es.dense_k != K:
                 fail(f"local graph of in-degree {K} has K={es.dense_k}")
             at = f"local graph K={K}, {es.num_virt} rows, B=4"
-            for kname, inet, layer, line in (
-                    ("edge_tail_sum_flat", model.g2m_gnn, False, 373),
-                    ("edge_layer_flat", model.processor[0], True, 727)):
-                a, b, f = edge_cases(es, inet, layer)[0]
-                out.append((kname, edge_flat, a, f"{pef}:{line} ({at})", b,
-                            f))
+            # K2 and K3, then B2 and B3/B4 (chain and xtd_sum) on the
+            # same set
+            for kname, inet, layer, lines in (
+                    ("edge_tail_sum_flat", model.g2m_gnn, False, (373, 526)),
+                    ("edge_layer_flat", model.processor[0], True,
+                     (727, 846))):
+                for sfx, (a, b, f), line in zip(
+                        ("", "_bwd"), edge_cases(es, inet, layer), lines):
+                    out.append((kname + sfx, edge_flat, a,
+                                f"{pef}:{line} ({at})", b, f))
             # K4 (the m2g decoder) on the same set at batch 4, with
-            # GraphLAM's decoder weights
+            # GraphLAM's decoder weights, then B5/B6 (chain and xtd_sum)
             a4k = (rand(n_send, W), es.senders, rand(es.num_virt * K, H),
                    rand(n_rec, W), es.mask.view(es.num_virt, K), pp)
+            in4k = nbytes(*a4k[:5], *pp.values())
+            flops4k = (2.0 * es.num_virt * BATCH * (7 * H * H + H * d_out)
+                       + 2.0 * float(es.mask.sum()) * BATCH * H * H)
             out.append(("grid_update_flat", grid_update, a4k,
                         f"{pgu}:174 ({at})",
-                        nbytes(*a4k[:5], *pp.values())
-                        + es.num_virt * BATCH * d_out * 4,
-                        2.0 * es.num_virt * BATCH * (7 * H * H + H * d_out)
-                        + 2.0 * float(es.mask.sum()) * BATCH * H * H))
+                        in4k + es.num_virt * BATCH * d_out * 4, flops4k))
+            a5k = a4k + (rand(es.num_virt, BATCH * d_out),)
+            out.append(("grid_update_flat_bwd", grid_update, a5k,
+                        f"{pgu}:752 ({at})",
+                        in4k + nbytes(a5k[-1]) + es.num_virt * K * (W + H) * 4
+                        + n_rec * W * 4 + nbytes(*pp.values()),
+                        3 * flops4k))
             for kname, inet, B, wm in (
                     ("edge_tail", model.g2m_gnn, 1, False),
                     ("edge_tail", model.g2m_gnn, 4, False),
@@ -1668,6 +2112,21 @@ def main():
                   dict(zero, xtd_sum=0, xtd_reduce=0,
                        **{k + "_bwd": 0 for k in FWD}))
     phase_end("9 (serving and evaluation through the CLIs)")
+
+    # 10. datastores built by the port's tools
+    import tempfile
+    from pathlib import Path
+
+    zero_all = dict(zero, xtd_sum=0, xtd_reduce=0,
+                    **{k + "_bwd": 0 for k in FWD})
+    for part, prefix in ((mdp_tool_phase, "nlt_mdp_"),
+                         (meps_tool_phase, "nlt_meps_")):
+        with tempfile.TemporaryDirectory(prefix=prefix) as tmp:
+            part(torch, np, Path(tmp), counts, reset_counts, plain_kernels,
+                 zero_all)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_end("10 (datastores built by the port)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

@@ -11,13 +11,13 @@ standardization statistics as `{category}__train__{mean,std}` (+
 boundary mask is an `n_boundary_points`-wide frame (ref: mdp.py:322-351);
 projection comes from the config's `extra` section (ref: mdp.py:353-406).
 
-Differences from the reference: the zarr archive must already exist — the
-reference calls into the external `mllam_data_prep` package to create it
-from the config on first use (ref: mdp.py:70-72), and the JAX package into
-its own `create_dataset`, which the port does not have yet. Reading uses
-the port's zarr reader (datastore/zarr_reader.py); time-varying arrays are
-loaded lazily per time-chunk. PyYAML is imported only here, when the
-datastore is built.
+Like the JAX package, the port creates a missing archive from the
+config's raw inputs on first use, through its own `create_dataset`
+(datastore/create_dataset.py), where the reference calls into the external
+`mllam_data_prep` package (ref: mdp.py:70-72). Reading uses the port's
+zarr reader (datastore/zarr_reader.py); time-varying arrays are loaded
+lazily per time-chunk. PyYAML is imported only here, when the datastore is
+built.
 """
 
 from __future__ import annotations
@@ -45,13 +45,23 @@ class MDPDatastore(BaseRegularGridDatastore):
             ".yaml", ".zarr"
         )
         if not fp_ds.exists():
-            raise FileNotFoundError(
-                f"MDP zarr dataset not found at {fp_ds}: the archive must "
-                "exist beside its config. The port cannot create it from "
-                "the config's inputs (`create_dataset` is not ported yet); "
-                "build it with mllam-data-prep or with `python -m "
-                "neural_lam_tpu.datastore.create_dataset <config>`."
-            )
+            # create on first use from the config's raw inputs, like the
+            # reference's call into mllam-data-prep (ref: mdp.py:70-72)
+            from .create_dataset import create_dataset
+
+            try:
+                create_dataset(self._config_path)
+            except FileExistsError:
+                pass  # another process created it meanwhile
+            except (KeyError, FileNotFoundError, ValueError) as e:
+                raise FileNotFoundError(
+                    f"MDP zarr dataset not found at {fp_ds} and it could "
+                    f"not be created from the config's inputs ({e}). Point "
+                    "the config's input paths at local raw zarr sources, "
+                    "or create the dataset explicitly with `python -m "
+                    "neural_lam_tpu_torch.datastore.create_dataset "
+                    "<config>`."
+                ) from e
         self._ds = ZarrGroup(fp_ds)
         self._n_boundary_points = n_boundary_points
 

@@ -7,8 +7,8 @@
 * On the MDP and MEPS fixtures, every `BaseDatastore` method of the port's
   `MDPDatastore` and `NpyFilesDatastoreMEPS` equals the JAX one exactly,
   and so do the `WeatherDataset` items over them.
-* The registry, a missing MDP archive, and the graph built by two
-  processes at once.
+* The registry, a missing MDP archive whose inputs do not exist, and the
+  graph built by two processes at once.
 """
 
 import json
@@ -248,10 +248,25 @@ def test_registry_and_config(mdp_path, tmp_path):
 
 
 def test_missing_mdp_zarr_raises(mdp_path, tmp_path):
-    cfg = tmp_path / "other.datastore.yaml"
-    cfg.write_text(mdp_path.read_text())
-    with pytest.raises(FileNotFoundError, match="create_dataset"):
-        MDPDatastore(cfg)
+    """A config without its archive whose inputs do not exist raises
+    FileNotFoundError in both packages; the port's names its own
+    `create_dataset` and leaves nothing beside the config."""
+    config = yaml.safe_load(mdp_path.read_text())
+    config["output"] = {"variables": {
+        "forcing": ["time", "grid_index", "forcing_feature"]}}
+    config["inputs"]["danra_surface"].update(
+        path=str(tmp_path / "missing.zarr"), variables=["swavr0m"],
+        target_output_variable="forcing")
+    for name, cls in (("port", MDPDatastore), ("jax", JMDPDatastore)):
+        cfg = tmp_path / name / "other.datastore.yaml"
+        cfg.parent.mkdir()
+        cfg.write_text(yaml.safe_dump(config))
+        with pytest.raises(FileNotFoundError, match="missing.zarr") as e:
+            cls(cfg)
+        assert sorted(p.name for p in cfg.parent.iterdir()) == [cfg.name]
+        if name == "port":
+            assert ("python -m neural_lam_tpu_torch.datastore.create_dataset"
+                    in str(e.value))
 
 
 _FINGERPRINT = textwrap.dedent("""

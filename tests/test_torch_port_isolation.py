@@ -45,6 +45,9 @@ def test_port_imports_no_jax():
     for evaluation in ("vis.py", "projections.py", "datastore/plot_example.py",
                        "native/__init__.py", "train.py"):
         assert f"neural_lam_tpu_torch/{evaluation}" in names, evaluation
+    for tool in ("datastore/create_dataset.py",
+                 "datastore/compute_standardization_stats.py"):
+        assert f"neural_lam_tpu_torch/{tool}" in names, tool
     bad = []
     for path in _port_files():
         for name in _imports(path):
