@@ -156,6 +156,46 @@ result line is printed), each printing its seconds:
    files), each timed; a seeded GraphLAM saved through
    `checkpoint.save_checkpoint` forecasts 4 steps at batch 1 through
    `predict.main` on it, as in a.
+11. The bf16 forecast path (`compute_dtype="bfloat16"`): the bench-width
+   GraphLAM and HiLAM built in bf16 through `entry.build_model`. The bf16
+   instances of K1-K4, P2 and P3 (bf16 in and out, fp32 math) at their
+   main-path shapes (K1-K4 at GraphLAM's batch 4, P2 at HiLAM's m2g and
+   P3 at its m2m[0], batch 1) and at every K from 1 to 8 on phase 3's
+   seeded local graphs (K2-K4 at batch 4, P2 with messages and P3 at
+   batch 1): each must launch its bf16 instance, be within one bf16 ulp
+   of its plain version (2^-20 of the largest |plain| where a sum
+   cancels), with the share not bit-equal printed, and give
+   bit-identical outputs in two calls; at the main-path shapes each is
+   timed with its fp32 instance on the same values, its plain version
+   and its products as `torch.mm` calls on bf16 operands, beside its
+   bound (bf16 bytes, or its TF32 products on tensor cores: three a term,
+   two where the A operand is a staged bf16 value, the first products of
+   K1, K3 and P3; fp32 FLOP for K4). Then 4-step bf16 rollouts through `entry.forecast` with the
+   counters at 0 just before each, asserting the launches per step and
+   the dtype each kernel ran in: GraphLAM batch 4 K1/K2/K3/K4 bf16
+   1/1/4/1; HiLAM batch 4 K1/K2/K3/K4 1/1/31/1 and P3 30 in bf16, P1 1
+   in fp32; HiLAM batch 1 P2/P3 2/59 in bf16, P1 3 in fp32; GraphLAM
+   batch 1 P2/P3 2/4 in bf16. For each: the bf16 and fp32 steps' host
+   clocks, peak memory and profiles (the fp32 step on the same weights),
+   and the size of the kernel path's bf16 error against the fp32 step
+   next to the plain bf16 path's: mean abs within 0.9-1.1x, max within
+   0.5-1.5x, the kernel path's bf16-vs-fp32 gap at least half the plain
+   path's (bf16 storage makes the raw kernel-vs-plain gap of the order
+   of the bf16 effect: one fp32 last-bit difference flips a rounding,
+   and the flip spreads). `entry.train_steps` on the bf16 model must
+   raise NotImplementedError. Last, `predict.main --precision bf16`
+   forecasts 4 steps at batch 1 on a 268x238 MDP datastore for a seeded
+   GraphLAM and HiLAM (launches asserted: P2/P3 2/4 in bf16; P2/P3 2/59
+   in bf16 and P1 3 in fp32), held the same way against the plain bf16
+   path and the fp32 rollout, with the warm ms a step of both dtypes;
+   `train.main --eval test --precision bf16` scores each (a batch of 4
+   on the flat or mixed route and a partial batch of 1 on the batched
+   route, 2 steps each; launches asserted by dtype), its files written
+   and its error maps within 1e-3 x state_std and losses within 1e-4
+   relative of the plain bf16 path's, the fp32 call's printed beside
+   them; and
+   `train.main --precision bf16` without --eval must raise
+   NotImplementedError before any step.
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -190,10 +230,64 @@ PALLAS_EDGE = "neural_lam_tpu/ops/pallas_edge.py"
 # K2, K3, P1, P2, P3: instances of the kernel template in csrc/edge_tc.cuh
 TC_EDGE = ("edge_tail_sum_flat", "edge_layer_flat", "edge_tail",
            "edge_tail_sum", "edge_layer")
+# the kernels with a bf16 instance (K1-K4, P2, P3); P1 runs fp32 in the
+# bf16 path
+BF16 = FWD + ("edge_tail_sum", "edge_layer")
 
 
 def fail(msg):
     raise RuntimeError(msg)
+
+
+def kernel_registry():
+    """(reset_counts, counts, counts_bf16, plain_kernels) over every kernel
+    wrapper: counts() gives each wrapper's float32 launches (`launches`),
+    counts_bf16() the bf16 instances' (`launches_bf16`) of BF16, and
+    inside plain_kernels() the model's kernel calls go to the plain
+    versions (autograd through the plain forward)."""
+    from neural_lam_tpu_torch.ops import (
+        edge,
+        edge_flat,
+        embed,
+        grid_update,
+        weight_grad,
+    )
+
+    mods = {"embed_grid_flat": embed, "edge_tail_sum_flat": edge_flat,
+            "edge_layer_flat": edge_flat, "grid_update_flat": grid_update}
+    wrappers = {}
+    for k, m in mods.items():
+        wrappers[k] = getattr(m, k)
+        wrappers[k + "_bwd"] = getattr(m, k + "_bwd")
+    mods.update({k: edge for k in BATCHED})
+    wrappers.update({k: getattr(edge, k) for k in BATCHED})
+    wrappers["xtd_sum"] = weight_grad.xtd_sum
+    wrappers["xtd_reduce"] = weight_grad.xtd_reduce
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+            if hasattr(w, "launches_bf16"):
+                w.launches_bf16 = 0
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def counts_bf16():
+        return {k: wrappers[k].launches_bf16 for k in BF16}
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        for k, m in mods.items():
+            plain = getattr(m, k + "_plain")
+            setattr(m, k, lambda *a, fold=None, _p=plain, **kw: _p(*a, **kw))
+        try:
+            yield
+        finally:
+            for k, m in mods.items():
+                setattr(m, k, wrappers[k])
+
+    return reset_counts, counts, counts_bf16, plain_kernels
 
 
 def smi_line():
@@ -324,7 +418,8 @@ def kernel_name(mangled):
                               ("1", "1"): "P3 ", ("0", "1"): "P2 ",
                               ("2", "1"): "P1 "}.get(tuple(args[1:]), ""),
            }.get(name, "")
-    return f"{tag}{name}" + (f"<{', '.join(args)}>" if args else "")
+    bf16 = " [bf16]" if "__nv_bfloat16" in mangled else ""
+    return f"{tag}{name}" + (f"<{', '.join(args)}>" if args else "") + bf16
 
 
 @functools.lru_cache(maxsize=None)
@@ -362,7 +457,8 @@ def as_tuple(x):
 def profile(torch, step, what, steps=3, top=12):
     """Device time by kernel over `steps` calls of `step` (torch.profiler),
     and the device's busy share of the profiled window's wall time (the
-    profiler's own host overhead lengthens that window)."""
+    profiler's own host overhead lengthens that window). Returns (busy ms,
+    wall ms) a call, or None when the profiler saw no device time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
@@ -402,6 +498,7 @@ def profile(torch, step, what, steps=3, top=12):
     for us, count, key in rows[:top]:
         print(f"  {us / 1e3 / steps:.4f} ms/{what}  {count / steps:g} "
               f"calls/{what}  {key[:90]}")
+    return busy_ms, wall_ms
 
 
 def write_mdp_datastore(root, np, nx=268, ny=238, n_t=28, seed=0):
@@ -1243,6 +1340,602 @@ def meps_tool_phase(torch, np, root, counts, reset_counts, plain_kernels,
         plain_kernels, zero, "GraphLAM on MEPS")
 
 
+def bf16_gap(torch, got, want):
+    """(share not bit-equal, worst gap over its limit, max abs gap) of a
+    bf16 output against its plain version's: the limit is one bf16 ulp of
+    the larger magnitude, or 2^-20 of the largest |want| where a sum
+    cancels to near zero (the fp32 error of that sum)."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        fail(f"bf16 outputs expected, got {got.dtype} and {want.dtype}")
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0**-126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    tol = torch.maximum(ulp, 2.0**-20 * w.abs().max())
+    gap = (g - w).abs()
+    return (float((g != w).float().mean()), float((gap / tol).max()),
+            float(gap.max()))
+
+
+def error_size(torch, what, k16, ref16, k32):
+    """The bf16 error of `k16` (kernels) against the fp32 output `k32`
+    against that of `ref16` (the plain bf16 path): mean abs within
+    0.9-1.1x, max abs within 0.5-1.5x, and k16's bf16-vs-fp32 gap at
+    least half of ref16's; prints them and the gap k16 vs ref16."""
+    k16, ref16, k32 = (torch.as_tensor(t).float() for t in (k16, ref16, k32))
+    e_k, e_r = (k16 - k32).abs(), (ref16 - k32).abs()
+    mean_r = float(e_k.mean() / e_r.mean())
+    max_r = float(e_k.max() / e_r.max())
+    gap = float((k16 - ref16).abs().max())
+    share = float((k16 != ref16).float().mean())
+    print(f"{what}: bf16 error against fp32, kernels / plain: mean "
+          f"{float(e_k.mean()):.4e} / {float(e_r.mean()):.4e} = {mean_r:.4f} "
+          f"(limit 0.9-1.1), max {float(e_k.max()):.4e} / "
+          f"{float(e_r.max()):.4e} = {max_r:.4f} (limit 0.5-1.5); kernels "
+          f"vs plain bf16: max abs gap {gap:.4e} ({gap / float(e_r.max()):.3f}"
+          f" of the bf16-vs-fp32 gap), {share:.4f} of the outputs differ")
+    if not (0.9 <= mean_r <= 1.1 and 0.5 <= max_r <= 1.5
+            and float(e_k.max()) >= 0.5 * float(e_r.max())):
+        fail(f"{what}: the kernel path's bf16 error is not the plain "
+             "path's size")
+
+
+def bf16_eval(torch, np, root, cfg, counts, counts_bf16, reset_counts,
+              plain_kernels):
+    """Phase 11's evaluation: `train.main --eval test --precision bf16`
+    for the seeded GraphLAM and HiLAM under root/models (5 test samples: a
+    batch of 4 on the flat or mixed route and a partial batch of 1 on the
+    batched route, 2 steps each), through the kernels (bf16 and fp32
+    launches asserted) and through the plain versions: its files written,
+    its csv error maps within 1e-3 x state_std and its losses within 1e-4
+    relative of the plain bf16 path's, phase 9's limits (the two paths'
+    outputs differ by a bf16 rounding here and there, see `error_size`,
+    but a score averages over the grid), the fp32 call's scores printed
+    beside them. Then
+    `train.main --precision bf16` without --eval must raise
+    NotImplementedError before any step."""
+    import importlib.util
+
+    from neural_lam_tpu_torch import train
+    from neural_lam_tpu_torch.config import load_config_and_datastore
+
+    L = BENCH["processor_layers"]
+    plots = importlib.util.find_spec("matplotlib") is not None
+    _, ds = load_config_and_datastore(cfg)
+    std = np.asarray(ds.get_standardization_dataarray("state")["state_std"])
+    argv = ["--config_path", str(cfg), *WIDTH, "--batch_size", "4",
+            "--ar_steps_eval", "2", "--val_steps_to_log", "1", "2",
+            "--save_dir", str(root / "models"), "--eval", "test",
+            "--n_example_pred", "0"]
+    # a step: the batch of 4 (bf16 instances; P1 fp32) and the batch of 1
+    full_g = {"embed_grid_flat": 1, "edge_tail_sum_flat": 1,
+              "edge_layer_flat": L, "grid_update_flat": 1}
+    for kind, graph, full16, full32, part16, part32 in (
+            ("graph_lam", "multiscale", full_g, {},
+             {"edge_tail_sum": 2, "edge_layer": L}, {}),
+            ("hi_lam", "hierarchical",
+             dict(full_g, edge_layer_flat=3 + 7 * L, edge_layer=2 + 7 * L),
+             {"edge_tail": 1}, {"edge_tail_sum": 2, "edge_layer": 3 + 14 * L},
+             {"edge_tail": 3})):
+        want16, want32 = {}, {}
+        # 2 steps each; with figures, the CLI runs the batch of 4 once more
+        for parts, want in (((full16, part16) + ((full16,) if plots else ()),
+                             want16),
+                            ((full32, part32) + ((full32,) if plots else ()),
+                             want32)):
+            for part in parts:
+                for k, n in part.items():
+                    want[k] = want.get(k, 0) + 2 * n
+        out, dirs = {}, {}
+        for path, prec, ctx in (
+                ("kernels", "bf16", contextlib.nullcontext),
+                ("plain", "bf16", plain_kernels),
+                ("fp32", "32", contextlib.nullcontext)):
+            run = f"bf16_test_{kind}_{path}"
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            with ctx():
+                out[path] = quiet(train.main, argv + [
+                    "--model", kind, "--graph", graph, "--load",
+                    str(root / "models" / kind), "--precision", prec,
+                    "--run_name", run])
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            c16 = {k: n for k, n in counts_bf16().items() if n}
+            c32 = {k: n for k, n in counts().items() if n}
+            print(f"train.main --eval test {kind} --precision {prec} "
+                  f"({path}): {dt:.2f} s (host clock, set-up included); "
+                  f"launches bf16 {c16}, fp32 {c32}")
+            if path == "kernels" and (c16 != want16 or c32 != want32):
+                fail(f"train.main --eval test {kind} --precision bf16: "
+                     f"launches {c16} (bf16), {c32} (fp32); want {want16}, "
+                     f"{want32}")
+            dirs[path] = root / "models" / run
+            files = {f.name for f in dirs[path].iterdir()}
+            need = {"mean_spatial_loss.npy", "metrics.jsonl",
+                    "spatial_loss_t1.npy", "spatial_loss_t2.npy",
+                    "test_mae.csv", "test_rmse.csv"}
+            if not need <= files:
+                fail(f"train.main --eval test {kind} --precision {prec}: "
+                     f"files {sorted(files)} lack {sorted(need - files)}")
+        gaps, effect = {}, {}
+        for name in ("test_rmse.csv", "test_mae.csv"):
+            k16, p16, k32 = (np.loadtxt(dirs[p] / name, delimiter=",",
+                                        ndmin=2)
+                             for p in ("kernels", "plain", "fp32"))
+            if k16.shape != (2, len(std)) or not np.isfinite(k16).all():
+                fail(f"train.main --eval test {kind} --precision bf16: "
+                     f"{name} {k16.shape}, finite {np.isfinite(k16).all()}")
+            gaps[name] = float((np.abs(k16 - p16) / std).max())
+            effect[name] = float((np.abs(p16 - k32) / std).max())
+        for k, v in out["kernels"].items():
+            if k.startswith("test_mean_loss") or k.startswith("test_loss"):
+                w = float(out["plain"][k])
+                if not math.isfinite(float(v)):
+                    fail(f"train.main --eval test {kind} --precision bf16: "
+                         f"{k} {v}")
+                gaps[k] = abs(float(v) - w) / abs(w)
+                effect[k] = abs(w - float(out["fp32"][k])) / abs(w)
+        print(f"train.main --eval test {kind} --precision bf16: kernels vs "
+              "plain bf16 path (bf16 vs fp32 on the plain path): "
+              + ", ".join(f"{k} {g:.3e} ({effect[k]:.3e})"
+                          for k, g in gaps.items())
+              + " (limits: csv 1e-3 x state_std, losses 1e-4 relative)")
+        if any(g > (1e-3 if k.endswith(".csv") else 1e-4)
+               for k, g in gaps.items()):
+            fail(f"train.main --eval test {kind} --precision bf16: the "
+                 "kernel path's scores differ from the plain bf16 path's")
+    try:
+        train.main(["--config_path", str(cfg), *WIDTH, "--model",
+                    "graph_lam", "--graph", "multiscale", "--batch_size",
+                    "4", "--epochs", "1", "--precision", "bf16",
+                    "--save_dir", str(root / "models"), "--run_name",
+                    "bf16_train"])
+    except NotImplementedError as e:
+        print(f"train.main --precision bf16 (training) raises "
+              f"NotImplementedError: {e}")
+    else:
+        fail("train.main trained in bf16")
+    if (root / "models" / "bf16_train").exists():
+        fail("train.main --precision bf16 wrote a run before raising")
+
+
+def mlp_tail(mlp):
+    """An edge MLP's second layer and LayerNorm, detached."""
+    return tuple(t.detach() for t in (mlp.layers[1].w, mlp.layers[1].b,
+                                      mlp.ln.scale, mlp.ln.bias))
+
+
+def mlp_first(mlp):
+    """A processor edge MLP's W_e (the edge rows of its first layer) and
+    b0, detached."""
+    w0 = mlp.layers[0].w.detach()
+    return w0[:H], mlp.layers[0].b.detach()
+
+
+def bf16_cases(torch, gm, hm, rand):
+    """Phase 11's main-path cases of the bf16 instances, on the bf16
+    bench GraphLAM `gm` and HiLAM `hm` with bf16 inputs from `rand`: K1-K4
+    at GraphLAM's batch 4, P2 at HiLAM's m2g and P3 at its m2m[0], batch
+    1. Each is (kernel, module, args, replaces, source, bytes, FLOP, TF32
+    FLOP on tensor cores (None: fp32 CUDA cores), the library call for its
+    products on bf16 operands); a 3xTF32 product takes three TF32 products
+    a term, two where its A operand is a bf16 value (its small half is
+    zero: the first products of K1, K3 and P3)."""
+    from neural_lam_tpu_torch.ops import edge, edge_flat, embed, grid_update
+
+    bf = torch.bfloat16
+    W = BATCH * H
+    tail, first = mlp_tail, mlp_first
+    g, hg = gm.graph, hm.graph
+    emb = gm.grid_embedder
+    d_in = emb.layers[0].w.shape[0]
+    n_grid = g.num_grid_nodes
+    pp = {k: v.detach() for k, v in
+          grid_update.pack_grid_update_params(gm).items()}
+    d_out = pp["o_w1"].shape[1]
+    pef = "neural_lam_tpu/ops/pallas_edge_flat.py"
+    csrc = "neural_lam_tpu_torch/csrc/"
+    cases = []
+    rows = n_grid * BATCH
+    k1 = (rand(n_grid, BATCH * d_in),) + tuple(
+        t.detach() for t in (emb.layers[0].w, emb.layers[0].b,
+                             emb.layers[1].w, emb.layers[1].b, emb.ln.scale,
+                             emb.ln.bias)) + (BATCH,)
+    w0b, w1b = k1[1].to(bf), k1[3].to(bf)
+    cases.append((
+        "embed_grid_flat", embed, k1, "neural_lam_tpu/ops/pallas_embed.py:99",
+        csrc + "embed.cu", nbytes(*k1[:7]) + rows * H * 2,
+        2.0 * rows * (d_in * H + H * H),
+        2.0 * rows * (2 * d_in + 3 * H) * H,
+        lambda: torch.mm(torch.mm(k1[0].view(-1, d_in), w0b), w1b)))
+    es = g.g2m
+    nv, K = es.num_virt, es.dense_k
+    mask_p = es.mask.view(nv, K)
+    a2 = (rand(es.num_send, W), es.senders, rand(nv * K, H), rand(nv, W),
+          mask_p) + tail(gm.g2m_gnn.edge_mlp)
+    g2 = a2[0].index_select(0, es.senders).view(-1, H)
+    w2b = a2[5].to(bf)
+    cases.append((
+        "edge_tail_sum_flat", edge_flat, a2, f"{pef}:373",
+        csrc + "edge_tc.cuh", nbytes(*a2) + nv * W * 2,
+        2.0 * float(mask_p.sum()) * BATCH * H * H,
+        3 * 2.0 * float(mask_p.sum()) * BATCH * H * H,
+        lambda: torch.mm(g2, w2b)))
+    es = g.m2m[0]
+    nv, K = es.num_virt, es.dense_k
+    mask_p = es.mask.view(nv, K)
+    lay = gm.processor[0].edge_mlp
+    a3 = (rand(nv * K, W), rand(es.num_send, W), es.senders, rand(nv, W),
+          mask_p) + first(lay) + tail(lay)
+    e3, web3, w2b3 = a3[0].view(-1, H), a3[5].to(bf), a3[7].to(bf)
+    cases.append((
+        "edge_layer_flat", edge_flat, a3, f"{pef}:727", csrc + "edge_tc.cuh",
+        nbytes(*a3) + nv * K * W * 2 + nv * W * 2,
+        2.0 * nv * K * BATCH * 2 * H * H,
+        (2 + 3) * 2.0 * nv * K * BATCH * H * H,
+        lambda: (torch.mm(e3, web3), torch.mm(e3, w2b3))))
+    es = g.m2g
+    nv, K = es.num_virt, es.dense_k
+    mask_p = es.mask.view(nv, K)
+    a4 = (rand(es.num_send, W), es.senders, rand(nv * K, H), rand(n_grid, W),
+          mask_p, pp)
+    # K4's products as three torch.mm calls: the six 64x64 node products
+    # (encoder 2, w_i, aggregation 3 with its 128 inputs as two) in one,
+    # the edge product, the output map
+    node4 = a4[3].view(-1, H)
+    wn4 = torch.cat([pp[k] for k in ("enc_w0", "enc_w1", "w_i", "a_w1",
+                                     "o_w0")] + [pp["a_w0"][:H],
+                                                 pp["a_w0"][H:]], 1).to(bf)
+    g4 = a4[0].index_select(0, es.senders).view(-1, H)
+    w24, wo4 = pp["w2"].to(bf), pp["o_w1"].to(bf)
+    cases.append((
+        "grid_update_flat", grid_update, a4,
+        "neural_lam_tpu/ops/pallas_grid_update.py:174",
+        csrc + "grid_update.cu",
+        nbytes(*a4[:5], *pp.values()) + nv * BATCH * d_out * 2,
+        2.0 * nv * BATCH * (7 * H * H + H * d_out)
+        + 2.0 * float(mask_p.sum()) * BATCH * H * H, None,
+        lambda: (torch.mm(node4, wn4), torch.mm(g4, w24),
+                 torch.mm(node4, wo4))))
+    es = hg.m2g
+    nv, K = es.num_virt, es.dense_k
+    mlp = hm.m2g_gnn.edge_mlp
+    a5 = (rand(1, es.num_send, H), es.senders, rand(nv * K, H),
+          rand(1, nv, H)) + tail(mlp) + (es.mask, K, False)
+    g5 = a5[0].index_select(1, es.senders).view(-1, H)
+    w2b5 = a5[4].to(bf)
+    cases.append((
+        "edge_tail_sum", edge, a5, f"{PALLAS_EDGE}:182",
+        csrc + "edge_tc.cuh",
+        nbytes(*(t for t in a5 if torch.is_tensor(t))) + nv * H * 2,
+        2.0 * float(es.mask.sum()) * H * H,
+        3 * 2.0 * float(es.mask.sum()) * H * H,
+        lambda: torch.mm(g5, w2b5)))
+    es = hg.m2m[0]
+    nv, K = es.num_virt, es.dense_k
+    lay = hm.mesh_up_same_gnns[0][0].edge_mlp
+    a6 = (rand(1, nv * K, H), rand(1, es.num_send, H), es.senders,
+          rand(1, nv, H), es.mask) + first(lay) + tail(lay) + (K,)
+    e6, web6, w2b6 = a6[0].view(-1, H), a6[5].to(bf), a6[7].to(bf)
+    cases.append((
+        "edge_layer", edge, a6, f"{PALLAS_EDGE}:304", csrc + "edge_tc.cuh",
+        nbytes(*(t for t in a6 if torch.is_tensor(t))) + nv * K * H * 2
+        + nv * H * 2, 2.0 * nv * K * 2 * H * H,
+        (2 + 3) * 2.0 * nv * K * H * H,
+        lambda: (torch.mm(e6, web6), torch.mm(e6, w2b6))))
+
+    return cases
+
+
+def bf16_check(torch, counts_bf16, name, mod, args, what):
+    """The bf16 instance of kernel `name` (in `mod`) against its plain
+    version (bf16 in and out) within one bf16 ulp, two calls bit-identical;
+    returns (share not bit-equal, max abs)."""
+    kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    before = counts_bf16()[name]
+    got, again = as_tuple(kern(*args)), as_tuple(kern(*args))
+    want = as_tuple(plain(*args))
+    torch.cuda.synchronize()
+    if counts_bf16()[name] != before + 2:
+        fail(f"{name} [bf16] at {what}: its bf16 instance did not run")
+    if not all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, again)):
+        fail(f"{name} [bf16] at {what}: two calls differ")
+    share, err = 0.0, 0.0
+    for a, b in zip(got, want):
+        if a is None and b is None:
+            continue
+        if a.shape != b.shape or not torch.isfinite(a.float()).all():
+            fail(f"{name} [bf16] at {what}: bad output {tuple(a.shape)}")
+        s, worst, gap = bf16_gap(torch, a, b)
+        if worst > 1.0:
+            fail(f"{name} [bf16] at {what}: kernel and plain differ by "
+                 f"{worst:.2f} x one bf16 ulp")
+        share, err = max(share, s), max(err, gap)
+    return share, err
+
+
+def bf16_phase(torch, np, counts, counts_bf16, reset_counts, plain_kernels,
+               records, peak_flops, peak_tf32, peak_bw):
+    """Phase 11: the bf16 forecast path on the card (module doc)."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    from neural_lam_tpu_torch import entry, predict
+    from neural_lam_tpu_torch.checkpoint import save_checkpoint
+    from neural_lam_tpu_torch.config import load_config_and_datastore
+    from neural_lam_tpu_torch.datastore.zarr_reader import ZarrGroup
+    from neural_lam_tpu_torch.graph.storage import load_or_build_graph
+    from neural_lam_tpu_torch.models import MODELS
+    from neural_lam_tpu_torch.models.ar_model import ModelArgs
+    from neural_lam_tpu_torch.ops import edge, edge_flat, grid_update
+    from neural_lam_tpu_torch.ops.message_passing import EdgeSet
+
+    bf = torch.bfloat16
+    t0 = time.time()
+    gm, gds = entry.build_model(**BENCH, device="cuda",
+                                compute_dtype="bfloat16")
+    hm, _ = entry.build_model(**BENCH, device="cuda",
+                              compute_dtype="bfloat16", model="hi_lam")
+    print(f"bf16 GraphLAM and HiLAM (the bench configuration, "
+          f"compute_dtype='bfloat16') built in {time.time() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    W = BATCH * H
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(bf)
+
+    tail, first = mlp_tail, mlp_first
+    n_grid = gm.graph.num_grid_nodes
+    pp = {k: v.detach() for k, v in
+          grid_update.pack_grid_update_params(gm).items()}
+    cases = bf16_cases(torch, gm, hm, rand)
+
+    def check(name, mod, args, what):
+        return bf16_check(torch, counts_bf16, name, mod, args, what)
+
+    with torch.no_grad():
+        for (name, mod, args, replaces, source, bytes_, flops, tf32,
+             lib) in cases:
+            share, err = check(name, mod, args, "its main-path shape")
+            kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+            a32 = tuple(a.float() if torch.is_tensor(a) and a.dtype == bf
+                        else a for a in args)
+            ms16 = cuda_ms(torch, lambda: kern(*args), 20)
+            ms32 = cuda_ms(torch, lambda: kern(*a32), 20)
+            plain_ms = cuda_ms(torch, lambda: plain(*args), 5)
+            lib_ms = cuda_ms(torch, lib, 10)
+            t_bytes = bytes_ / peak_bw * 1e3
+            t_ops = 1e3 * (tf32 / peak_tf32 if tf32 is not None
+                           else flops / peak_flops)
+            bound = max(t_bytes, t_ops)
+            print(f"{name} [bf16] at its main-path shape: within one bf16 ulp "
+                  f"of its plain version ({share:.5f} of the outputs not "
+                  f"bit-equal, max abs {err:.3e}), two calls bit-identical; "
+                  f"kernel {ms16:.4f} ms (fp32 instance {ms32:.4f} ms, "
+                  f"{ms16 / ms32:.3f}x), plain {plain_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms (torch.mm on bf16 operands), bound "
+                  f"{bound:.4f} ms (bf16 bytes {bytes_ / 1e6:.1f} MB: "
+                  f"{t_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP"
+                  + (f" as {tf32 / flops:.2f} TF32 products a term on "
+                     "tensor cores" if tf32 is not None else " fp32")
+                  + f": {t_ops:.4f} ms)")
+            records.append({
+                "name": name + "[bf16]", "route": "cuda", "source": source,
+                "replaces": replaces, "launches": None, "max_abs_err": err,
+                "ms": ms16, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib_ms})
+        del cases
+
+        # K = 1..8 on seeded local graphs (20,000 receivers, K senders each
+        # near it among 6,561): K2, K3 and K4 at batch 4, P2 (with
+        # messages) and P3 at batch 1
+        rng = np.random.default_rng(0)
+        n_rec, n_send = 20000, 6561
+        centre = (np.arange(n_rec) * n_send // n_rec)[:, None]
+        for K in range(1, 9):
+            send = np.clip(centre + rng.integers(-4, 5, (n_rec, K)), 0,
+                           n_send - 1).reshape(-1)
+            es = EdgeSet.from_local(
+                send, np.repeat(np.arange(n_rec), K),
+                rng.standard_normal((K * n_rec, 3)).astype(np.float32),
+                n_send, n_rec, device="cuda", build_transpose=False)
+            nv, M = es.num_virt, es.num_virt * K
+            mask_p = es.mask.view(nv, K)
+            lay = gm.processor[0].edge_mlp
+            shares = []
+            for name, mod, args in (
+                    ("edge_tail_sum_flat", edge_flat,
+                     (rand(n_send, W), es.senders, rand(M, H), rand(nv, W),
+                      mask_p) + tail(gm.g2m_gnn.edge_mlp)),
+                    ("edge_layer_flat", edge_flat,
+                     (rand(M, W), rand(n_send, W), es.senders, rand(nv, W),
+                      mask_p) + first(lay) + tail(lay)),
+                    ("grid_update_flat", grid_update,
+                     (rand(n_send, W), es.senders, rand(M, H),
+                      rand(n_rec, W), mask_p, pp)),
+                    ("edge_tail_sum", edge,
+                     (rand(1, n_send, H), es.senders, rand(M, H),
+                      rand(1, nv, H)) + tail(gm.g2m_gnn.edge_mlp)
+                     + (es.mask, K, True)),
+                    ("edge_layer", edge,
+                     (rand(1, M, H), rand(1, n_send, H), es.senders,
+                      rand(1, nv, H), es.mask) + first(lay) + tail(lay)
+                     + (K,))):
+                shares.append(check(name, mod, args,
+                                    f"local graph K={K}")[0])
+            print(f"bf16 instances at K={K} ({nv} rows; K2, K3, K4 at batch "
+                  f"4, P2 with messages and P3 at batch 1): each within one "
+                  f"bf16 ulp of its plain version, two calls bit-identical; "
+                  f"shares not bit-equal "
+                  f"{', '.join(f'{s:.5f}' for s in shares)}")
+
+    L = BENCH["processor_layers"]
+
+    def step_check(net, B, want16, want32, what):
+        """A 4-step bf16 rollout through `entry.forecast` with the counters
+        at 0 just before it (bf16 launches `want16`, fp32 `want32`, a
+        step); then the bf16 and fp32 steps' host clocks, peak memory and
+        profiles, and the error size of the kernel path against the plain
+        path (`error_size`). Returns the bf16 counts."""
+        init, forcing, true = entry.make_inputs(net, B, STEPS, seed=0)
+        entry.forecast(net, init, forcing[:, :1], true[:, :1])  # warm-up
+        reset_counts()
+        pred = entry.forecast(net, init, forcing, true)
+        torch.cuda.synchronize()
+        c16, c32 = counts_bf16(), counts()
+        if tuple(pred.shape) != (B, STEPS, n_grid, 17) or not bool(
+                torch.isfinite(pred).all()):
+            fail(f"{what}: bf16 rollout {tuple(pred.shape)}, not finite")
+        print(f"{what}: bf16 {STEPS}-step rollout, output "
+              f"{tuple(pred.shape)} {pred.dtype} finite; launches per step, "
+              f"bf16 instances {({k: n / STEPS for k, n in c16.items() if n})}"
+              f", fp32 {({k: n / STEPS for k, n in c32.items() if n})}")
+        if c16 != {k: want16.get(k, 0) * STEPS for k in c16} or c32 != {
+                k: want32.get(k, 0) * STEPS for k in c32}:
+            fail(f"{what}: launches {c16} (bf16), {c32} (fp32); want "
+                 f"{want16}, {want32} a step")
+        net32 = copy.copy(net)  # the same weights, fp32 path
+        net32.compute_dtype = None
+        line = []
+        for m, tag in ((net, "bf16"), (net32, "fp32")):
+            times = []
+            for steps in (1, STEPS):
+                ts = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    entry.forecast(m, init, forcing[:, :steps],
+                                   true[:, :steps])
+                    torch.cuda.synchronize()
+                    ts.append(time.perf_counter() - t0)
+                times.append(sorted(ts)[1])
+            ms = (times[1] - times[0]) / (STEPS - 1) * 1e3
+            with torch.no_grad():
+                ctx = m.precompute_rollout_ctx()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                live = torch.cuda.memory_allocated()
+                m.predict_step(init[:, 1], init[:, 0], forcing[:, 0], ctx)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                gib = [b / 2**30 for b in (peak, peak - live, live)]
+                line.append(f"{tag} {ms:.3f} ms a step (host clock, median "
+                            f"of 3, 4-step minus 1-step rollout), peak "
+                            f"{gib[0]:.3f} GiB ({gib[1]:.3f} GiB above the "
+                            f"{gib[2]:.3f} live)")
+                profile(torch, lambda: m.predict_step(
+                    init[:, 1], init[:, 0], forcing[:, 0], ctx),
+                    f"{what} {tag} predict step", top=8)
+        print(f"{what}: {'; '.join(line)}")
+        with torch.no_grad():
+            k16 = net.predict_step(init[:, 1], init[:, 0], forcing[:, 0])[0]
+            k32 = net32.predict_step(init[:, 1], init[:, 0], forcing[:, 0])[0]
+            with plain_kernels():
+                p16 = net.predict_step(init[:, 1], init[:, 0],
+                                       forcing[:, 0])[0]
+        error_size(torch, f"{what} predict step", k16, p16, k32)
+        return c16
+
+    c16 = step_check(gm, BATCH, {"embed_grid_flat": 1,
+                                 "edge_tail_sum_flat": 1,
+                                 "edge_layer_flat": L,
+                                 "grid_update_flat": 1}, {},
+                     "bf16 GraphLAM batch 4")
+    step_check(hm, BATCH, {"embed_grid_flat": 1, "edge_tail_sum_flat": 1,
+                           "edge_layer_flat": 1 + 7 * L + 2,
+                           "grid_update_flat": 1, "edge_layer": 2 + 7 * L},
+               {"edge_tail": 1}, "bf16 HiLAM batch 4")
+    p16 = step_check(hm, 1, {"edge_tail_sum": 2, "edge_layer": 3 + 14 * L},
+                     {"edge_tail": 3}, "bf16 HiLAM batch 1")
+    step_check(gm, 1, {"edge_tail_sum": 2, "edge_layer": L}, {},
+               "bf16 GraphLAM batch 1")
+    for rec in records:
+        if rec["name"].endswith("[bf16]"):
+            n = rec["name"][:-len("[bf16]")]
+            rec["launches"] = p16[n] if n in BATCHED else c16[n]
+
+    try:
+        entry.train_steps(gm, gds, BATCH, 1, steps=1)
+    except NotImplementedError as e:
+        print(f"entry.train_steps on the bf16 GraphLAM raises "
+              f"NotImplementedError: {e}")
+    else:
+        fail("entry.train_steps trained a bf16 model")
+    del gm, hm, gds
+    torch.cuda.empty_cache()
+
+    # the predict CLI, --precision bf16, batch 1 on an MDP datastore
+    with tempfile.TemporaryDirectory(prefix="nlt_bf16_") as tmp:
+        root = Path(tmp)
+        t0 = time.time()
+        cfg = write_mdp_datastore(root, np)
+        config, ds = load_config_and_datastore(cfg)
+        for kind, graph in (("graph_lam", "multiscale"),
+                            ("hi_lam", "hierarchical")):
+            net = MODELS[kind](
+                ModelArgs(hidden_dim=64, processor_layers=L), config, ds,
+                load_or_build_graph(ds, graph, "cuda"), device="cuda",
+                generator=torch.Generator().manual_seed(0))
+            save_checkpoint(root / "models", kind, net.state_dict(),
+                            meta={"step": 0})
+        del net
+        print(f"MDP datastore and seeded GraphLAM and HiLAM checkpoints "
+              f"written in {time.time() - t0:.1f} s")
+        for kind, graph, want16, want32 in (
+                ("graph_lam", "multiscale",
+                 {"edge_tail_sum": 2, "edge_layer": L}, {}),
+                ("hi_lam", "hierarchical",
+                 {"edge_tail_sum": 2, "edge_layer": 3 + 14 * L},
+                 {"edge_tail": 3})):
+            out = root / f"{kind}.zarr"
+            argv = ["--config_path", str(cfg), "--model", kind, "--graph",
+                    graph, *WIDTH, "--load", str(root / "models" / kind),
+                    "--split", "test", "--sample_idx", "-1", "--ar_steps",
+                    str(STEPS), "--precision", "bf16", "--out", str(out)]
+            reset_counts()
+            summary = quiet(predict.main, argv)
+            torch.cuda.synchronize()
+            c16, c32 = counts_bf16(), counts()
+            if c16 != {k: want16.get(k, 0) * STEPS for k in c16} or c32 != {
+                    k: want32.get(k, 0) * STEPS for k in c32}:
+                fail(f"predict.main {kind} --precision bf16: launches {c16} "
+                     f"(bf16), {c32} (fp32); want {want16}, {want32} a step")
+            pred = ZarrGroup(out)["state"].read_full()
+            if pred.shape != (STEPS, 268 * 238, 17) or not np.isfinite(
+                    pred).all():
+                fail(f"predict.main {kind} --precision bf16: forecast "
+                     f"{pred.shape}, finite {np.isfinite(pred).all()}")
+            args = predict.parse_args(argv)
+            net, nds, _ = predict.prepare(args)
+            net32 = copy.copy(net)
+            net32.compute_dtype = None
+            predict.rollout(net, nds, args)  # warm-up
+            ms16 = median_ms(torch, lambda: predict.rollout(net, nds, args))
+            ms32 = median_ms(torch, lambda: predict.rollout(net32, nds, args))
+            stats = nds.get_standardization_dataarray("state")
+            k16 = (pred - stats["state_mean"]) / stats["state_std"]
+            p32, _ = predict.rollout(net32, nds, args)
+            with plain_kernels():
+                pp16, _ = predict.rollout(net, nds, args)
+            print(f"predict.main {kind} --precision bf16: init "
+                  f"{summary['init_s']:.2f} s, launches per step bf16 "
+                  f"{({k: n / STEPS for k, n in c16.items() if n})}, fp32 "
+                  f"{({k: n / STEPS for k, n in c32.items() if n})}; "
+                  f"forecast {pred.shape} finite; warm rollout "
+                  f"{ms16 / STEPS:.1f} ms a step (fp32 {ms32 / STEPS:.1f}; "
+                  "host clock, median of 3, the sample's read included)")
+            error_size(torch, f"predict.main {kind} --precision bf16 "
+                       "(standardized)", k16, pp16, p32)
+            del net, net32, nds
+            torch.cuda.empty_cache()
+        bf16_eval(torch, np, root, cfg, counts, counts_bf16, reset_counts,
+                  plain_kernels)
+
+
 def disk_mb(path):
     """MB of the files under path."""
     return sum(f.stat().st_size for f in path.rglob("*")
@@ -1277,36 +1970,7 @@ def main():
     name = torch.cuda.get_device_name(0)
     peak_flops, peak_tf32, peak_bw, peak_label = peaks(name)
     print(f"device: {name}; peaks used for bounds: {peak_label}")
-    mods = {"embed_grid_flat": embed, "edge_tail_sum_flat": edge_flat,
-            "edge_layer_flat": edge_flat, "grid_update_flat": grid_update}
-    wrappers = {}
-    for k, m in mods.items():
-        wrappers[k] = getattr(m, k)
-        wrappers[k + "_bwd"] = getattr(m, k + "_bwd")
-    mods.update({k: edge for k in BATCHED})
-    wrappers.update({k: getattr(edge, k) for k in BATCHED})
-    wrappers["xtd_sum"] = weight_grad.xtd_sum
-    wrappers["xtd_reduce"] = weight_grad.xtd_reduce
-
-    def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def counts():
-        return {k: w.launches for k, w in wrappers.items()}
-
-    @contextlib.contextmanager
-    def plain_kernels():
-        """The model's kernel calls go to the plain versions (autograd
-        through the plain forward) while inside."""
-        for k, m in mods.items():
-            plain = getattr(m, k + "_plain")
-            setattr(m, k, lambda *a, fold=None, _p=plain, **kw: _p(*a, **kw))
-        try:
-            yield
-        finally:
-            for k, m in mods.items():
-                setattr(m, k, wrappers[k])
+    reset_counts, counts, counts_bf16, plain_kernels = kernel_registry()
 
     phase_t0 = [time.time()]
 
@@ -1338,7 +2002,8 @@ def main():
                 kn = kernel_name(fn)
                 print(f"    {kn}: {used}; {spill or 'no spill line'}")
                 if "edge_tc_kernel" in kn:
-                    tc_usage.setdefault(kn[:2], []).append((
+                    tag = kn[:2] + (" [bf16]" if kn.endswith("]") else "")
+                    tc_usage.setdefault(tag, []).append((
                         int(re.search(r"Used (\d+)", used).group(1)),
                         sum(int(b) for b in re.findall(r"(\d+) bytes spill",
                                                        info))))
@@ -1349,13 +2014,14 @@ def main():
     sass_counts(_build, libs["edge_flat_bwd"], "edge_layer_bwd_kernelILi8E")
     # edge_tc_kernel<K, kMode, kBatched>: K3, K2 (flat), P3, P2, P1 at K=8
     # and P1 at K=1 (batched)
-    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELi1ELb0E")
-    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELi0ELb0E")
-    for fn in ("ILi8ELi1ELb1E", "ILi8ELi0ELb1E", "ILi8ELi2ELb1E",
-               "ILi1ELi2ELb1E"):
+    # (the float instances: "fE" ends their template arguments)
+    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELi1ELb0EfE")
+    sass_counts(_build, libs["edge_flat"], "edge_tc_kernelILi8ELi0ELb0EfE")
+    for fn in ("ILi8ELi1ELb1EfE", "ILi8ELi0ELb1EfE", "ILi8ELi2ELb1EfE",
+               "ILi1ELi2ELb1EfE"):
         sass_counts(_build, libs["edge"], "edge_tc_kernel" + fn)
-    sass_counts(_build, libs["embed"], "embed_kernelILi0E")  # K1, d_in <= 64
-    sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4E")
+    sass_counts(_build, libs["embed"], "embed_kernelILi0EfE")  # K1, d_in <= 64
+    sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4EfE")
     sass_counts(_build, libs["weight_grad"], "xtd_sum_kernel")
     sass_counts(_build, libs["embed_bwd"], "embed_bwd_kernelILb0E")  # B1
     phase_end("1 (build)")
@@ -2127,6 +2793,13 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     phase_end("10 (datastores built by the port)")
+
+    # 11. the bf16 forecast path
+    bf16_phase(torch, np, counts, counts_bf16, reset_counts, plain_kernels,
+               records, peak_flops, peak_tf32, peak_bw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end("11 (the bf16 forecast path)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

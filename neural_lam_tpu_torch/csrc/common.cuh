@@ -10,6 +10,7 @@
 // all inputs (`nlt_mm64`). LayerNorm statistics are fp32 warp-shuffle sums.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define NLT_H 64
@@ -45,6 +46,50 @@ __device__ __forceinline__ float2 nlt_ld2(const float* __restrict__ row,
 
 __device__ __forceinline__ void nlt_st2(float* row, int lane, float2 v) {
   reinterpret_cast<float2*>(row)[lane] = v;
+}
+
+// Storage types: float, or __nv_bfloat16 for the bf16 instances, which
+// convert to fp32 on load, compute in fp32 and round to nearest even on
+// store.
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  // two consecutive values at p (8-byte aligned)
+  static __device__ __forceinline__ float2 ld2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ void st2(float* p, float2 v) {
+    *reinterpret_cast<float2*>(p) = v;
+  }
+  static __device__ __forceinline__ void st(float* p, float v) { *p = v; }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  // two consecutive values at p (4-byte aligned)
+  static __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+  }
+  static __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+};
+
+// Row load/store of this lane's two features of a 64-wide row of T.
+template <typename T>
+__device__ __forceinline__ float2 nlt_ld2t(const T* __restrict__ row,
+                                           int lane) {
+  return Io<T>::ld2(row + 2 * lane);
+}
+
+template <typename T>
+__device__ __forceinline__ void nlt_st2t(T* row, int lane, float2 v) {
+  Io<T>::st2(row + 2 * lane, v);
 }
 
 // acc[r] += xs[r*ldx + k] * w[k, 2*lane .. 2*lane+1] for k < nk.

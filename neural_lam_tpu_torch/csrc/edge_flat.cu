@@ -22,7 +22,13 @@
 // both (probes/torch_k3_probe.py); for K2 neither 12 warps, nor 16 with
 // ew read into registers and the sender rows double-buffered, was faster
 // (probes/torch_k1k2_probe.py).
+//
+// Each has a float and a bf16 instance (`edge_tc_kernel<..., T>`): the
+// `_bf16` entries take and give bf16 table, ew / edge_rep, rec_rows,
+// edge_out and virt (the bf16 forecast path), with fp32 math inside.
 #include "edge_tc.cuh"
+
+using bf16 = __nv_bfloat16;
 
 // K2. virt (n_virt, B*64).
 extern "C" int nlt_edge_tail_sum(const float* table, const int* senders,
@@ -30,9 +36,9 @@ extern "C" int nlt_edge_tail_sum(const float* table, const int* senders,
                                  const float* mask, const float* params,
                                  float* virt, int n_virt, int K, int B,
                                  int device, void* stream) {
-  return tc_dispatch<TAIL_SUM, false>(table, senders, ew, rec_rows, mask,
-                                      params, nullptr, virt, n_virt, K, B, 0,
-                                      device, stream);
+  return tc_dispatch<TAIL_SUM, false, float>(
+      table, senders, ew, rec_rows, mask, params, nullptr, virt, n_virt, K, B,
+      0, device, stream);
 }
 
 // K3. edge_out (n_virt*K, B*64), virt (n_virt, B*64).
@@ -41,7 +47,29 @@ extern "C" int nlt_edge_layer(const float* edge_rep, const float* table,
                               const float* mask, const float* params,
                               float* edge_out, float* virt, int n_virt, int K,
                               int B, int device, void* stream) {
-  return tc_dispatch<LAYER, false>(table, senders, edge_rep, rec_rows, mask,
-                                   params, edge_out, virt, n_virt, K, B, 0,
-                                   device, stream);
+  return tc_dispatch<LAYER, false, float>(
+      table, senders, edge_rep, rec_rows, mask, params, edge_out, virt, n_virt,
+      K, B, 0, device, stream);
+}
+
+// K2, bf16 instance.
+extern "C" int nlt_edge_tail_sum_bf16(const bf16* table, const int* senders,
+                                      const bf16* ew, const bf16* rec_rows,
+                                      const float* mask, const float* params,
+                                      bf16* virt, int n_virt, int K, int B,
+                                      int device, void* stream) {
+  return tc_dispatch<TAIL_SUM, false, bf16>(
+      table, senders, ew, rec_rows, mask, params, nullptr, virt, n_virt, K, B,
+      0, device, stream);
+}
+
+// K3, bf16 instance.
+extern "C" int nlt_edge_layer_bf16(const bf16* edge_rep, const bf16* table,
+                                   const int* senders, const bf16* rec_rows,
+                                   const float* mask, const float* params,
+                                   bf16* edge_out, bf16* virt, int n_virt,
+                                   int K, int B, int device, void* stream) {
+  return tc_dispatch<LAYER, false, bf16>(
+      table, senders, edge_rep, rec_rows, mask, params, edge_out, virt, n_virt,
+      K, B, 0, device, stream);
 }

@@ -57,8 +57,9 @@
 //   one block per tile, up to one block an SM, each tile's chain alone
 //   (or nearly) on its SM.
 // - A tile's edge (ew, x0) rows and gathered sender rows are staged by
-//   16-byte cp.async into 16 x 68 buffers (the padded stride makes the
-//   A-fragment reads (row g, column t) hit 32 distinct banks). The edge
+//   16-byte cp.async into 16 x 68 float buffers (the padded stride makes
+//   the A-fragment reads (row g, column t) hit 32 distinct banks; 16
+//   distinct words, two lanes a word, for bf16 rows). The edge
 //   rows have two buffers a warp, so the next tile's are in flight while
 //   this one is computed; the sender rows one, refilled for the next tile
 //   as soon as the second product has read it. The receiver rows and the
@@ -69,8 +70,9 @@
 //   (k step, 8-column tile) with one 128-bit load. The split is each
 //   block's fixed cost, a large share of the time on small edge sets.
 // - Product 1 (E @ W_e) leaves x0 - b0 - table - rec in the C fragments;
-//   the lane adds the rest, applies silu and writes X1 over the staged
-//   sender rows (the C and A fragment layouts differ), and product 2
+//   the lane adds the rest and applies silu into the C fragments, and,
+//   once the quad has read its staged sender rows, writes X1 over them
+//   (the C and A fragment layouts differ), and product 2
 //   (X1 @ W2) reads it back as its A operand. TAIL_SUM has no product 1:
 //   x0 = ew + table + rec from the staged ew rows. X0 has neither: each
 //   lane applies silu in place to the x0 groups it staged itself, and
@@ -86,6 +88,23 @@
 //   memory holds with two split weight matrices; TAIL_SUM: one matrix
 //   fewer leaves room for 14; X0, with two buffers a warp and no receiver
 //   rows in registers: 16.
+// - Storage type T (`edge_tc_kernel<K, kMode, kBatched, T>`): float, or
+//   __nv_bfloat16 for the bf16 instances of K2, K3, P2 and P3 (the JAX
+//   package's bf16 path: table, ew or edge, rec_rows, out and virt in
+//   bf16; mask and parameters fp32). Both stage their rows raw by the same
+//   cp.async copies (a bf16 row in the first half of a float row of the
+//   buffer) and convert a value to fp32 where they read it: the product's
+//   A fragments, the sums into x0, the residual, the receiver rows. A
+//   bf16 value is exact in TF32, so a product whose A operand is staged
+//   bf16 (LAYER's first) takes two TF32 products a term, not three. The
+//   LayerNorm and the sums run in fp32, and each output is rounded to
+//   nearest even as it is stored: the JAX kernels' fp32 math on bf16
+//   inputs. P1's x0 is fp32 in the bf16 path too, so X0 has the float
+//   instance only. With the bytes halved, K3's and P3's bound stays the
+//   bytes (K3 at m2m[0], B = 4: 72 MB, 0.0216 ms against 0.0197 ms for
+//   five TF32 products a term), and K2's and P2's one product, on fp32
+//   X1, makes theirs about even; each warp's chain holds them all the
+//   same (PERF.md, section 6).
 #pragma once
 
 #include "common.cuh"
@@ -164,23 +183,54 @@ __device__ __forceinline__ void split_weights(uint4* frag,
   }
 }
 
+// Row stride, in values of T, of a staged tile: every buffer is a float
+// tile (kLd floats a row), and a tile of T staged raw by `stage_rows`
+// keeps its rows there, so a bf16 row fills the first half of one.
+template <typename T>
+__host__ __device__ constexpr int staged_stride() {
+  return kLd * (int)(sizeof(float) / sizeof(T));
+}
+
+// Columns c, c+1 of row `row` of a staged tile of T, as fp32.
+template <typename T>
+__device__ __forceinline__ float2 ld2_staged(const float* buf, int row,
+                                            int c) {
+  return Io<T>::ld2(reinterpret_cast<const T*>(buf) +
+                    row * staged_stride<T>() + c);
+}
+
+// A staged value of T as a TF32 operand: float by split_tf32, bf16 by
+// split_a (its own big half, its small half zero).
+__device__ __forceinline__ void split_staged(float x, uint32_t& big,
+                                             uint32_t& small) {
+  split_tf32(x, big, small);
+}
+__device__ __forceinline__ void split_staged(__nv_bfloat16 x, uint32_t& big,
+                                             uint32_t& small) {
+  split_a(x, big, small);
+}
+
 // acc[q] += A @ W over the 8-column tiles q, in 3xTF32: A the staged
-// 16 x 64 tile `a` (stride kLd), W in fragment order (`split_weights`).
+// 16 x 64 tile `a` of T (`staged_stride`), W in fragment order
+// (`split_weights`). A bf16 A has no small half: two products a term.
+template <typename T>
 __device__ __forceinline__ void tile_product(const float* a,
                                              const uint4* __restrict__ frag,
                                              int lane, float (&acc)[8][4]) {
-  const float* a0 = a + (lane >> 2) * kLd + (lane & 3);
+  constexpr int ld = staged_stride<T>();
+  const T* a0 = reinterpret_cast<const T*>(a) + (lane >> 2) * ld + (lane & 3);
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) {
     uint32_t ab[4], as[4];
-    split_tf32(a0[8 * ks], ab[0], as[0]);                // (g, t)
-    split_tf32(a0[8 * kLd + 8 * ks], ab[1], as[1]);      // (g + 8, t)
-    split_tf32(a0[8 * ks + 4], ab[2], as[2]);            // (g, t + 4)
-    split_tf32(a0[8 * kLd + 8 * ks + 4], ab[3], as[3]);  // (g + 8, t + 4)
+    split_staged(a0[8 * ks], ab[0], as[0]);               // (g, t)
+    split_staged(a0[8 * ld + 8 * ks], ab[1], as[1]);      // (g + 8, t)
+    split_staged(a0[8 * ks + 4], ab[2], as[2]);           // (g, t + 4)
+    split_staged(a0[8 * ld + 8 * ks + 4], ab[3], as[3]);  // (g + 8, t + 4)
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const uint4 w = frag[(ks * 8 + q) * 32 + lane];
-      mma_tf32(acc[q], as, w.x, w.y);
+      if constexpr (sizeof(T) == sizeof(float))
+        mma_tf32(acc[q], as, w.x, w.y);
       mma_tf32(acc[q], ab, w.z, w.w);
       mma_tf32(acc[q], ab, w.x, w.y);
     }
@@ -212,32 +262,37 @@ __device__ __forceinline__ int tile_senders(const int* __restrict__ senders,
   return row < tl.n_rows ? senders[(size_t)tl.v0 * K + row] : 0;
 }
 
-// Stage tile t's rows into `dst`: its edge rows (table == nullptr; with
+// Stage tile t's rows into `dst`, raw, by 16-byte cp.async copies (rows
+// of `staged_stride<T>()` values): its edge rows (table == nullptr; with
 // kShared, rows of the (M, 64) ew that every batch element shares) or its
 // sender rows table[s] (s from `tile_senders`, in s_l; n_send rows a batch
 // element); rows past the tile's n_rows as zeros, nothing past the last
 // tile. Commits one cp.async group either way.
-template <int K, bool kShared, bool kBatched>
+template <int K, bool kShared, bool kBatched, typename T>
 __device__ __forceinline__ void stage_rows(float* dst,
-                                           const float* __restrict__ edge_in,
-                                           const float* __restrict__ table,
+                                           const T* __restrict__ edge_in,
+                                           const T* __restrict__ table,
                                            int s_l, int t, int n_tiles,
                                            int n_virt, int n_send, int B,
                                            int lane) {
+  constexpr int kPer = 16 / sizeof(T);  // values a copy
+  constexpr int kCopies = NLT_H / kPer;  // copies a row: 16 or 8
   if (t < n_tiles) {
     const Tile<K> tl(t, n_virt, B);
     const size_t slot0 = (size_t)tl.v0 * K, M = (size_t)n_virt * K;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int row = 2 * j + (lane >> 4), c = 4 * (lane & 15);
+    for (int j = 0; j < kRows * kCopies / 32; ++j) {
+      const int row = j * (32 / kCopies) + lane / kCopies;
+      const int c = kPer * (lane % kCopies);
       const bool ok = row < tl.n_rows;
       const int s = __shfl_sync(0xffffffffu, s_l, row);
       const size_t e_row = ok ? slot0 + row : slot0;
-      const float* src =
+      const T* src =
           table != nullptr ? table + row_at<kBatched>(s, tl.b, n_send, B)
           : kShared        ? edge_in + e_row * NLT_H
                            : edge_in + row_at<kBatched>(e_row, tl.b, M, B);
-      cp_async16(dst + row * kLd + c, src + c, ok);
+      cp_async16(reinterpret_cast<T*>(dst) + row * staged_stride<T>() + c,
+                 src + c, ok);
     }
   }
   cp_async_commit();
@@ -246,20 +301,21 @@ __device__ __forceinline__ void stage_rows(float* dst,
 // LAYER: K3 / P3 (edge_in = edge, out = edge_out). TAIL_SUM: K2 / P2
 // (edge_in = ew; out = msg or null, written by P2 only). X0: P1 (edge_in
 // = x0; out = msg or null; table, senders and rec_rows unused).
-template <int K, int kMode, bool kBatched>
+template <int K, int kMode, bool kBatched, typename T>
 __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
-    edge_tc_kernel(const float* __restrict__ table,
+    edge_tc_kernel(const T* __restrict__ table,
                    const int* __restrict__ senders,
-                   const float* __restrict__ edge_in,
-                   const float* __restrict__ rec_rows,
+                   const T* __restrict__ edge_in,
+                   const T* __restrict__ rec_rows,
                    const float* __restrict__ mask,
                    const float* __restrict__ params,
-                   float* __restrict__ out, float* __restrict__ virt,
+                   T* __restrict__ out, T* __restrict__ virt,
                    int n_virt, int n_send, int B) {
   constexpr int kVpt = kRows / K;  // virtual rows of a tile
   constexpr int kWarps = n_warps<kMode>();
   constexpr bool kLayer = kMode == LAYER, kX0 = kMode == X0;
   constexpr bool kSh = kMode == TAIL_SUM;  // ew rows: one for every b
+  static_assert(!kX0 || sizeof(T) == 4, "X0 (P1) is instantiated for float");
   extern __shared__ __align__(16) float smem[];
   uint4* we_f = reinterpret_cast<uint4*>(smem);  // kLayer only
   uint4* w2_f = we_f + (kLayer ? kFrag : 0);
@@ -288,16 +344,16 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
   // G(i+1) after its second product and E(i+2) at its end, so that tile
   // i's wait leaves only E(i+1) in flight. X0 commits no G: E(i), E(i+1),
   // then E(i+2) per tile, and the same wait leaves E(i+1) in flight.
-  stage_rows<K, kSh, kBatched>(stages, edge_in, nullptr, 0, tile, n_tiles,
-                               n_virt, n_send, B, lane);
+  stage_rows<K, kSh, kBatched, T>(stages, edge_in, nullptr, 0, tile,
+                                  n_tiles, n_virt, n_send, B, lane);
   if constexpr (!kX0)
-    stage_rows<K, kSh, kBatched>(
+    stage_rows<K, kSh, kBatched, T>(
         X, edge_in, table,
         tile_senders<K>(senders, tile, n_tiles, n_virt, B, lane), tile,
         n_tiles, n_virt, n_send, B, lane);
-  stage_rows<K, kSh, kBatched>(stages + kTileF, edge_in, nullptr, 0,
-                               tile + stride, n_tiles, n_virt, n_send, B,
-                               lane);
+  stage_rows<K, kSh, kBatched, T>(stages + kTileF, edge_in, nullptr, 0,
+                                  tile + stride, n_tiles, n_virt, n_send, B,
+                                  lane);
   for (int i = 0; tile < n_tiles; tile += stride, ++i) {
     float* E = stages + (i & 1) * kTileF;
     const Tile<K> tl(tile, n_virt, B);
@@ -315,11 +371,10 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
       const int row = g + 8 * h;
       if constexpr (!kX0) {
         const int v = tl.v0 + min(row, tl.n_rows - 1) / K;
-        const float* rp =
+        const T* rp =
             rec_rows + row_at<kBatched>(v, tl.b, n_virt, B) + 2 * t;
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
-          rec[h][q] = *reinterpret_cast<const float2*>(rp + 8 * q);
+        for (int q = 0; q < 8; ++q) rec[h][q] = Io<T>::ld2(rp + 8 * q);
       }
       m[h] = row < tl.n_rows ? mask[slot0 + row] : 0.f;
     }
@@ -344,7 +399,9 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
       // x0 = E @ W_e + b0 (LAYER) or ew, + table[senders] + rec;
       // X1 = silu(x0) -> X
       zero(acc);
-      if constexpr (kLayer) tile_product(E, we_f, lane, acc);
+      if constexpr (kLayer) tile_product<T>(E, we_f, lane, acc);
+      // X1 into acc, then over the staged sender rows (a staged bf16 row
+      // lies under fp32 columns that other lanes of its quad write)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = g + 8 * h;
@@ -356,24 +413,33 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
             const float2 b0 = *reinterpret_cast<const float2*>(vec + c);
             e = make_float2(acc[q][2 * h] + b0.x, acc[q][2 * h + 1] + b0.y);
           } else {
-            e = *reinterpret_cast<const float2*>(E + row * kLd + c);
+            e = ld2_staged<T>(E, row, c);
           }
-          float2* xp = reinterpret_cast<float2*>(X + row * kLd + c);
-          const float2 gv = *xp;
-          *xp = silu_fast(make_float2(e.x + gv.x + rec[h][q].x,
-                                      e.y + gv.y + rec[h][q].y));
+          const float2 gv = ld2_staged<T>(X, row, c);
+          const float2 x1 = silu_fast(make_float2(e.x + gv.x + rec[h][q].x,
+                                                  e.y + gv.y + rec[h][q].y));
+          acc[q][2 * h] = x1.x;
+          acc[q][2 * h + 1] = x1.y;
         }
       }
+      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          *reinterpret_cast<float2*>(X + (g + 8 * h) * kLd + 8 * q + 2 * t) =
+              make_float2(acc[q][2 * h], acc[q][2 * h + 1]);
       __syncwarp();
     }
 
     // y = X1 @ W2 + b2
     zero(acc);
-    tile_product(kX0 ? E : X, w2_f, lane, acc);
+    tile_product<float>(kX0 ? E : X, w2_f, lane, acc);
     if constexpr (!kX0) {
       __syncwarp();  // every lane has read X1: X takes the next sender rows
-      stage_rows<K, kSh, kBatched>(X, edge_in, table, s_next, tile + stride,
-                                   n_tiles, n_virt, n_send, B, lane);
+      stage_rows<K, kSh, kBatched, T>(X, edge_in, table, s_next,
+                                      tile + stride, n_tiles, n_virt, n_send,
+                                      B, lane);
     }
 
     // msg = LN(y) over the quad's 64 columns; out = edge + msg (LAYER)
@@ -399,7 +465,7 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
       }
       const float inv = rsqrtf(quad_sum(var) * (1.0f / NLT_H) + NLT_LN_EPS);
       const bool ok = row < tl.n_rows;
-      float* op = out + row_at<kBatched>(slot0 + row, tl.b, M, B);
+      T* op = out + row_at<kBatched>(slot0 + row, tl.b, M, B);
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int c = 8 * q + 2 * t;
@@ -411,14 +477,10 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
             make_float2((acc[q][2 * h] - mean) * inv * ls.x + lb.x,
                         (acc[q][2 * h + 1] - mean) * inv * ls.y + lb.y);
         if constexpr (kLayer) {
-          if (ok) {
-            const float2 e =
-                *reinterpret_cast<const float2*>(E + row * kLd + c);
-            *reinterpret_cast<float2*>(op + c) = nlt_add2(e, msg);
-          }
+          if (ok)
+            Io<T>::st2(op + c, nlt_add2(ld2_staged<T>(E, row, c), msg));
         } else if constexpr (kBatched) {
-          if (ok && out != nullptr)
-            *reinterpret_cast<float2*>(op + c) = msg;
+          if (ok && out != nullptr) Io<T>::st2(op + c, msg);
         }
         acc[q][2 * h] = m[h] * msg.x;  // from here on: the masked message
         acc[q][2 * h + 1] = m[h] * msg.y;
@@ -441,12 +503,12 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
         for (int h = 0; h < 2; ++h) {
           const int j = (g + 8 * h) / K;  // virtual row within the tile
           if (tl.v0 + j < n_virt) {
-            float* dst =
+            T* dst =
                 virt + row_at<kBatched>(tl.v0 + j, tl.b, n_virt, B) + 2 * t;
 #pragma unroll
             for (int q = 0; q < 8; ++q)
-              *reinterpret_cast<float2*>(dst + 8 * q) =
-                  make_float2(acc[q][2 * h], acc[q][2 * h + 1]);
+              Io<T>::st2(dst + 8 * q,
+                         make_float2(acc[q][2 * h], acc[q][2 * h + 1]));
           }
         }
       }
@@ -464,25 +526,25 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
 #pragma unroll
         for (int k = 0; k < K; ++k)
           sum = nlt_add2(sum, nlt_ld2(E + (j * K + k) * kLd, lane));
-        nlt_st2(virt + row_at<kBatched>(tl.v0 + j, tl.b, n_virt, B), lane,
-                sum);
+        nlt_st2t(virt + row_at<kBatched>(tl.v0 + j, tl.b, n_virt, B), lane,
+                 sum);
       }
     }
     __syncwarp();  // E is free: it takes the tile two ahead
-    stage_rows<K, kSh, kBatched>(E, edge_in, nullptr, 0, tile + 2 * stride,
-                                 n_tiles, n_virt, n_send, B, lane);
+    stage_rows<K, kSh, kBatched, T>(E, edge_in, nullptr, 0,
+                                    tile + 2 * stride, n_tiles, n_virt,
+                                    n_send, B, lane);
   }
   cp_async_wait<0>();
 }
 
-template <int K, int kMode, bool kBatched>
-cudaError_t tc_launch(const float* table, const int* senders,
-                      const float* edge_in, const float* rec_rows,
-                      const float* mask, const float* params, float* out,
-                      float* virt, int n_virt, int n_send, int B,
-                      cudaStream_t stream) {
+template <int K, int kMode, bool kBatched, typename T>
+cudaError_t tc_launch(const T* table, const int* senders, const T* edge_in,
+                      const T* rec_rows, const float* mask,
+                      const float* params, T* out, T* virt, int n_virt,
+                      int n_send, int B, cudaStream_t stream) {
   constexpr int kWarps = n_warps<kMode>();
-  auto kernel = edge_tc_kernel<K, kMode, kBatched>;
+  auto kernel = edge_tc_kernel<K, kMode, kBatched, T>;
   const long long tiles =
       (long long)((n_virt + kRows / K - 1) / (kRows / K)) * B;
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
@@ -496,12 +558,12 @@ cudaError_t tc_launch(const float* table, const int* senders,
   return cudaGetLastError();
 }
 
-// One launch of edge_tc_kernel<K, kMode, kBatched> for the K (1..8) of
-// the edge set, on `device`'s stream; 0 or a cudaError_t.
-template <int kMode, bool kBatched>
-int tc_dispatch(const float* table, const int* senders, const float* edge_in,
-                const float* rec_rows, const float* mask, const float* params,
-                float* out, float* virt, int n_virt, int K, int B, int n_send,
+// One launch of edge_tc_kernel<K, kMode, kBatched, T> for the K (1..8)
+// of the edge set, on `device`'s stream; 0 or a cudaError_t.
+template <int kMode, bool kBatched, typename T>
+int tc_dispatch(const T* table, const int* senders, const T* edge_in,
+                const T* rec_rows, const float* mask, const float* params,
+                T* out, T* virt, int n_virt, int K, int B, int n_send,
                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -509,10 +571,9 @@ int tc_dispatch(const float* table, const int* senders, const float* edge_in,
   cudaStream_t s = (cudaStream_t)stream;
 #define NLT_CASE(KK)                                                     \
   case KK:                                                               \
-    return (int)tc_launch<KK, kMode, kBatched>(table, senders, edge_in, \
-                                               rec_rows, mask, params,  \
-                                               out, virt, n_virt,       \
-                                               n_send, B, s);
+    return (int)tc_launch<KK, kMode, kBatched, T>(                    \
+        table, senders, edge_in, rec_rows, mask, params, out, virt,     \
+        n_virt, n_send, B, s);
   switch (K) {
     NLT_FOR_K(NLT_CASE)
     default:

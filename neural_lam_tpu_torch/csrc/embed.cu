@@ -34,6 +34,16 @@
 //   chunks, one buffer a warp, and W0 is read from device memory and
 //   split at each use (it need not fit in shared memory): any d_in runs.
 // Rows past n_rows are staged as zeros and never stored.
+//
+// bf16 instance (`embed_kernel<kKind, __nv_bfloat16>`, entry
+// nlt_embed_bf16): x read in bf16, staged raw by the same cp.async copies
+// into a swizzled bf16 tile (`at_bf16`, one value at a time when d_in is
+// not a multiple of 8), and converted at the A-fragment reads of t0 = x
+// W0, which takes two TF32 products a term (a bf16 value has no small
+// half); t, y and the LayerNorm in fp32 on the fp32 weights, out stored
+// in bf16 (round to nearest even): the JAX kernel with
+// out_dtype=bfloat16. Its bytes halve (61 MB, 0.018 ms at the bench), so
+// the products bound it (0.020 ms).
 #include "common.cuh"
 #include "tc_common.cuh"
 
@@ -101,9 +111,9 @@ struct GlobalW {
 
 // Stage tile `tile`'s x rows into xs (nothing past the last tile) and
 // commit one cp.async group either way.
-template <int XC>
+template <int XC, typename T>
 __device__ __forceinline__ void stage_tile(float* xs,
-                                           const float* __restrict__ x,
+                                           const T* __restrict__ x,
                                            long long tile, long long n_tiles,
                                            long long n_rows, int d_in,
                                            bool x16, int lane) {
@@ -112,10 +122,10 @@ __device__ __forceinline__ void stage_tile(float* xs,
   cp_async_commit();
 }
 
-template <int kKind>
+template <int kKind, typename T>
 __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
-    embed_kernel(const float* __restrict__ x, const float* __restrict__ params,
-                 float* __restrict__ out, long long n_rows, int d_in) {
+    embed_kernel(const T* __restrict__ x, const float* __restrict__ params,
+                 T* __restrict__ out, long long n_rows, int d_in) {
   constexpr int XC = x_cols<kKind>(), kWarps = n_warps<kKind>();
   constexpr int kBuf = kTcRows * XC;  // floats of one x buffer
   constexpr bool kChunk = kKind == kChunked;
@@ -134,7 +144,7 @@ __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   float* xb = bufs + warp * n_bufs<kKind>() * kBuf;
-  const bool x16 = (d_in & 3) == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  const bool x16 = rows16(x, d_in);
   const long long n_tiles = (n_rows + kTcRows - 1) / kTcRows;
   const long long stride = (long long)gridDim.x * kWarps;
   long long tile = (long long)blockIdx.x * kWarps + warp;
@@ -160,14 +170,14 @@ __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
         cp_async_commit();
         cp_async_wait<0>();
         __syncwarp();
-        tile_mma(xs, XC, (nc + 7) >> 3,
-                 GlobalW{params + (size_t)c0 * NLT_H, d_in - c0}, 0, lane,
-                 acc);
+        tile_mma<T>(xs, XC, (nc + 7) >> 3,
+                    GlobalW{params + (size_t)c0 * NLT_H, d_in - c0}, 0, lane,
+                    acc);
       }
     } else {
       cp_async_wait<1>();  // X(i) has landed
       __syncwarp();
-      tile_mma(xs, XC, (d_in + 7) >> 3, FragW{w0f}, 0, lane, acc);
+      tile_mma<T>(xs, XC, (d_in + 7) >> 3, FragW{w0f}, 0, lane, acc);
     }
     __syncwarp();  // every lane has read x: xs takes t
 
@@ -214,14 +224,15 @@ __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
       const float inv = rsqrtf(quad_sum(var) * (1.0f / NLT_H) + NLT_LN_EPS);
       const long long row = r0 + g + 8 * h;
       if (row < n_rows) {
-        float* dst = out + row * NLT_H + 2 * t;
+        T* dst = out + row * NLT_H + 2 * t;
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
           const float2 ls = nlt_ld2(vec + 2 * NLT_H + 8 * q, t);
           const float2 lb = nlt_ld2(vec + 3 * NLT_H + 8 * q, t);
-          *reinterpret_cast<float2*>(dst + 8 * q) =
-              make_float2((acc[q][2 * h] - mean) * inv * ls.x + lb.x,
-                          (acc[q][2 * h + 1] - mean) * inv * ls.y + lb.y);
+          Io<T>::st2(dst + 8 * q,
+                     make_float2((acc[q][2 * h] - mean) * inv * ls.x + lb.x,
+                                 (acc[q][2 * h + 1] - mean) * inv * ls.y +
+                                     lb.y));
         }
       }
     }
@@ -229,28 +240,25 @@ __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
   if constexpr (!kChunk) cp_async_wait<0>();
 }
 
-template <int kKind>
-cudaError_t launch(const float* x, const float* params, float* out,
-                   long long n_rows, int d_in, cudaStream_t stream) {
+template <int kKind, typename T>
+cudaError_t launch(const T* x, const float* params, T* out, long long n_rows,
+                   int d_in, cudaStream_t stream) {
   constexpr int kWarps = n_warps<kKind>();
   const long long tiles = (n_rows + kTcRows - 1) / kTcRows;
+  auto kernel = embed_kernel<kKind, T>;
   int grid = 0;
   cudaError_t err =
-      nlt_launch_config(embed_kernel<kKind>, kWarps * 32, smem_bytes<kKind>(),
+      nlt_launch_config(kernel, kWarps * 32, smem_bytes<kKind>(),
                         (tiles + kWarps - 1) / kWarps, &grid);
   if (err != cudaSuccess) return err;
-  embed_kernel<kKind><<<grid, kWarps * 32, smem_bytes<kKind>(), stream>>>(
-      x, params, out, n_rows, d_in);
+  kernel<<<grid, kWarps * 32, smem_bytes<kKind>(), stream>>>(x, params, out,
+                                                             n_rows, d_in);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// K1. x (n_rows, d_in) -> out (n_rows, 64), n_rows = N*B; params is the
-// blob w0[d_in*64] | w1[64*64] | b0 | b1 | ls | lb.
-extern "C" int nlt_embed(const float* x, const float* params, float* out,
-                         long long n_rows, int d_in, int device,
-                         void* stream) {
+template <typename T>
+int dispatch(const T* x, const float* params, T* out, long long n_rows,
+             int d_in, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_rows == 0) return 0;
@@ -261,4 +269,21 @@ extern "C" int nlt_embed(const float* x, const float* params, float* out,
   if (d_in <= 2 * NLT_H)
     return (int)launch<kWide>(x, params, out, n_rows, d_in, s);
   return (int)launch<kChunked>(x, params, out, n_rows, d_in, s);
+}
+
+}  // namespace
+
+// K1. x (n_rows, d_in) -> out (n_rows, 64), n_rows = N*B; params is the
+// blob w0[d_in*64] | w1[64*64] | b0 | b1 | ls | lb.
+extern "C" int nlt_embed(const float* x, const float* params, float* out,
+                         long long n_rows, int d_in, int device,
+                         void* stream) {
+  return dispatch(x, params, out, n_rows, d_in, device, stream);
+}
+
+// K1, bf16 instance: x and out in bf16.
+extern "C" int nlt_embed_bf16(const __nv_bfloat16* x, const float* params,
+                              __nv_bfloat16* out, long long n_rows, int d_in,
+                              int device, void* stream) {
+  return dispatch(x, params, out, n_rows, d_in, device, stream);
 }

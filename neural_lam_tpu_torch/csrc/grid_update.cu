@@ -31,6 +31,12 @@
 // gathers', LayerNorms' and products' latencies pay more than fewer
 // shared-memory reads per FFMA. ptxas keeps 24 warps at <= 80 registers
 // without spills.
+//
+// bf16 instance (`grid_update_kernel<K, __nv_bfloat16>`, entry
+// nlt_grid_update_bf16): table, ew, ge and out in bf16, each value
+// converted to fp32 as it is loaded and the output rounded to nearest
+// even as it is stored; the math between is the float instance's, on the
+// fp32 weights (the JAX kernel's fp32 math on bf16 inputs).
 #include "common.cuh"
 
 namespace {
@@ -60,15 +66,14 @@ constexpr int kOB1Pad = kOW1Pad + HH;
 constexpr int kWeights = kOB1Pad + NLT_H;
 constexpr int kStaging = kRows * kLdx;  // floats per warp
 
-template <int K>
+template <int K, typename T>
 __global__ void __launch_bounds__(kWarps * 32, 1)
-    grid_update_kernel(const float* __restrict__ table,
+    grid_update_kernel(const T* __restrict__ table,
                        const int* __restrict__ senders,
-                       const float* __restrict__ ew,
-                       const float* __restrict__ ge,
+                       const T* __restrict__ ew, const T* __restrict__ ge,
                        const float* __restrict__ mask,
                        const float* __restrict__ params,
-                       float* __restrict__ out, int n_virt, int n_ge, int B,
+                       T* __restrict__ out, int n_virt, int n_ge, int B,
                        int d_out) {
   extern __shared__ float smem[];
   nlt_load_params(smem, params, kOW1);
@@ -103,7 +108,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       gev[r] = vr[r] < n_ge
-                   ? nlt_ld2(ge + (size_t)vr[r] * W + br[r] * NLT_H, lane)
+                   ? nlt_ld2t(ge + (size_t)vr[r] * W + br[r] * NLT_H, lane)
                    : make_float2(0.f, 0.f);
       nlt_st2(xin + r * kLdx, lane, gev[r]);
     }
@@ -136,8 +141,9 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
       for (int r = 0; r < kRows; ++r) {
         const size_t slot = (size_t)vr[r] * K + k;
         const int s = senders[slot];
-        const float2 g = nlt_ld2(table + (size_t)s * W + br[r] * NLT_H, lane);
-        const float2 e = nlt_ld2(ew + slot * NLT_H, lane);
+        const float2 g =
+            nlt_ld2t(table + (size_t)s * W + br[r] * NLT_H, lane);
+        const float2 e = nlt_ld2t(ew + slot * NLT_H, lane);
         nlt_st2(xin + r * kLdx, lane,
                 nlt_silu2(nlt_add2(nlt_add2(g, e), rec[r])));
       }
@@ -190,40 +196,37 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (r0 + r >= n_rows) continue;
-      float* o = out + ((size_t)vr[r] * B + br[r]) * d_out;
-      if (j < d_out) o[j] = t[r].x;
-      if (j + 1 < d_out) o[j + 1] = t[r].y;
+      T* o = out + ((size_t)vr[r] * B + br[r]) * d_out;
+      if (j < d_out) Io<T>::st(o + j, t[r].x);
+      if (j + 1 < d_out) Io<T>::st(o + j + 1, t[r].y);
     }
     __syncwarp();  // the staging tile is rewritten by the next step
   }
 }
 
-template <int K>
-cudaError_t launch(const float* table, const int* senders, const float* ew,
-                   const float* ge, const float* mask, const float* params,
-                   float* out, int n_virt, int n_ge, int B, int d_out,
+template <int K, typename T>
+cudaError_t launch(const T* table, const int* senders, const T* ew,
+                   const T* ge, const float* mask, const float* params,
+                   T* out, int n_virt, int n_ge, int B, int d_out,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kWeights + kWarps * kStaging);
   const long long rows = (long long)n_virt * B;
   const long long per_block = (long long)kWarps * kRows;
+  auto kernel = grid_update_kernel<K, T>;
   int grid = 0;
-  cudaError_t err = nlt_launch_config(grid_update_kernel<K>, kWarps * 32,
-                                      smem, (rows + per_block - 1) / per_block,
+  cudaError_t err = nlt_launch_config(kernel, kWarps * 32, smem,
+                                      (rows + per_block - 1) / per_block,
                                       &grid);
   if (err != cudaSuccess) return err;
-  grid_update_kernel<K><<<grid, kWarps * 32, smem, stream>>>(
+  kernel<<<grid, kWarps * 32, smem, stream>>>(
       table, senders, ew, ge, mask, params, out, n_virt, n_ge, B, d_out);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// K4. out (n_virt, B*d_out); ge has n_ge <= n_virt rows.
-extern "C" int nlt_grid_update(const float* table, const int* senders,
-                               const float* ew, const float* ge,
-                               const float* mask, const float* params,
-                               float* out, int n_virt, int n_ge, int K, int B,
-                               int d_out, int device, void* stream) {
+template <typename T>
+int dispatch(const T* table, const int* senders, const T* ew, const T* ge,
+             const float* mask, const float* params, T* out, int n_virt,
+             int n_ge, int K, int B, int d_out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_virt == 0) return 0;
@@ -231,8 +234,8 @@ extern "C" int nlt_grid_update(const float* table, const int* senders,
   cudaStream_t s = (cudaStream_t)stream;
 #define NLT_GU_CASE(KK)                                                     \
   case KK:                                                                  \
-    return (int)launch<KK>(table, senders, ew, ge, mask, params, out,       \
-                           n_virt, n_ge, B, d_out, s);
+    return (int)launch<KK, T>(table, senders, ew, ge, mask, params, out,    \
+                              n_virt, n_ge, B, d_out, s);
   switch (K) {
     NLT_GU_CASE(1)
     NLT_GU_CASE(2)
@@ -246,4 +249,26 @@ extern "C" int nlt_grid_update(const float* table, const int* senders,
       return (int)cudaErrorInvalidValue;
   }
 #undef NLT_GU_CASE
+}
+
+}  // namespace
+
+// K4. out (n_virt, B*d_out); ge has n_ge <= n_virt rows.
+extern "C" int nlt_grid_update(const float* table, const int* senders,
+                               const float* ew, const float* ge,
+                               const float* mask, const float* params,
+                               float* out, int n_virt, int n_ge, int K, int B,
+                               int d_out, int device, void* stream) {
+  return dispatch(table, senders, ew, ge, mask, params, out, n_virt, n_ge, K,
+                  B, d_out, device, stream);
+}
+
+// K4, bf16 instance: table, ew, ge and out in bf16.
+extern "C" int nlt_grid_update_bf16(
+    const __nv_bfloat16* table, const int* senders, const __nv_bfloat16* ew,
+    const __nv_bfloat16* ge, const float* mask, const float* params,
+    __nv_bfloat16* out, int n_virt, int n_ge, int K, int B, int d_out,
+    int device, void* stream) {
+  return dispatch(table, senders, ew, ge, mask, params, out, n_virt, n_ge, K,
+                  B, d_out, device, stream);
 }

@@ -22,7 +22,7 @@
 #include "common.cuh"
 
 // 16 bytes from global to shared memory, bypassing L1; zeros when !valid.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   const int n = valid ? 16 : 0;  // 0: zero-fill
@@ -86,6 +86,31 @@ constexpr int kTcRows = 16;  // rows of a warp's tile: the m16 of m16n8k8
 // lane/4, t = lane%4) both hit 32 distinct banks.
 __device__ __forceinline__ int at(int r, int c, int ld) {
   return r * ld + (c ^ (((r & 3) << 3) | (r & 4)));
+}
+
+// Column c of row r of a staged tile of bf16 values (ld columns, ld a
+// multiple of 64) lies at r*ld + (c ^ ((r & 7) << 3)): the xor moves
+// whole 8-value (16-byte) groups, so a cp.async copy stays whole, and
+// reads of (row g.., column t..) across a warp hit 16 distinct words, two
+// lanes a word.
+__device__ __forceinline__ int at_bf16(int r, int c, int ld) {
+  return r * ld + (c ^ ((r & 7) << 3));
+}
+
+// Value (r, c) of a staged tile of T (float: `at`; bf16: `at_bf16`), the
+// tile held in the float buffer m.
+template <typename T>
+__device__ __forceinline__ T* staged_at(float* m, int r, int c, int ld) {
+  if constexpr (sizeof(T) == sizeof(float))
+    return m + at(r, c, ld);
+  else
+    return reinterpret_cast<T*>(m) + at_bf16(r, c, ld);
+}
+
+template <typename T>
+__device__ __forceinline__ const T* staged_at(const float* m, int r, int c,
+                                              int ld) {
+  return staged_at<T>(const_cast<float*>(m), r, c, ld);
 }
 
 __device__ __forceinline__ float2 ld2s(const float* m, int r, int c, int ld) {
@@ -170,11 +195,24 @@ __device__ __forceinline__ void split_frags(uint4* frag,
   }
 }
 
+// A staged value of T as a TF32 operand: float by split_fast; a bf16
+// value is its own big half (8 mantissa bits), its small half zero.
+__device__ __forceinline__ void split_a(float x, uint32_t& big,
+                                        uint32_t& small) {
+  split_fast(x, big, small);
+}
+__device__ __forceinline__ void split_a(__nv_bfloat16 x, uint32_t& big,
+                                        uint32_t& small) {
+  big = (uint32_t)__bfloat16_as_ushort(x) << 16;
+  small = 0;
+}
+
 // acc[q] += A @ B over k steps ks < nks, in 3xTF32: A the 16-row tile `a`
-// (ld columns, swizzled) at columns 8ks.., split at each use by
-// split_fast; B from the reader wb (SmemW, FragW, or one of device
-// memory) at the 8-column tiles q0 + q.
-template <class WB>
+// of TA (ld columns, swizzled: `staged_at`) at columns 8ks.., split at
+// each use (`split_a`; a bf16 A has no small half, so two products a
+// term); B from the reader wb (SmemW, FragW, or one of device memory) at
+// the 8-column tiles q0 + q.
+template <typename TA = float, class WB>
 __device__ __forceinline__ void tile_mma(const float* a, int ld, int nks,
                                          WB wb, int q0, int lane,
                                          float (&acc)[8][4]) {
@@ -183,45 +221,59 @@ __device__ __forceinline__ void tile_mma(const float* a, int ld, int nks,
   for (int ks = 0; ks < nks; ++ks) {
     const int c = 8 * ks + t;
     uint32_t ab[4], as[4];
-    split_fast(a[at(g, c, ld)], ab[0], as[0]);
-    split_fast(a[at(g + 8, c, ld)], ab[1], as[1]);
-    split_fast(a[at(g, c + 4, ld)], ab[2], as[2]);
-    split_fast(a[at(g + 8, c + 4, ld)], ab[3], as[3]);
+    split_a(*staged_at<TA>(a, g, c, ld), ab[0], as[0]);
+    split_a(*staged_at<TA>(a, g + 8, c, ld), ab[1], as[1]);
+    split_a(*staged_at<TA>(a, g, c + 4, ld), ab[2], as[2]);
+    split_a(*staged_at<TA>(a, g + 8, c + 4, ld), ab[3], as[3]);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const uint4 w = wb(c, 8 * (q0 + q) + g, ks, q, lane);
-      mma_tf32(acc[q], as, w.x, w.y);
+      if constexpr (sizeof(TA) == sizeof(float))
+        mma_tf32(acc[q], as, w.x, w.y);
       mma_tf32(acc[q], ab, w.z, w.w);
       mma_tf32(acc[q], ab, w.x, w.y);
     }
   }
 }
 
-// Stage rows r0 .. r0+15, columns c0 .. c0+nc-1, of x (ldx columns a row)
-// into the swizzled tile xs (XC columns), zero-padded to a multiple of 8
-// columns and past n_rows: 16-byte cp.async copies when x16 (ldx and c0
-// multiples of 4, x 16-byte aligned), else 4-byte ones. Commits nothing.
-template <int XC>
-__device__ __forceinline__ void stage_x(float* xs,
-                                        const float* __restrict__ x,
+// Whether rows of x (ldx values of T a row) can be staged by 16-byte
+// copies: ldx a multiple of a copy's values and x 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ bool rows16(const T* x, int ldx) {
+  return ldx % (16 / (int)sizeof(T)) == 0 &&
+         reinterpret_cast<size_t>(x) % 16 == 0;
+}
+
+// Stage rows r0 .. r0+15, columns c0 .. c0+nc-1, of x (ldx columns a row,
+// float or bf16) raw into the swizzled tile xs of T (XC columns,
+// `staged_at`), zero-padded to a multiple of 8 columns and past n_rows:
+// 16-byte cp.async copies when x16 (`rows16`; c0 a multiple of a copy's
+// values), else one value at a time (4-byte cp.async copies for float;
+// loads and stores for bf16, which has no 2-byte copy). Commits nothing.
+template <int XC, typename T>
+__device__ __forceinline__ void stage_x(float* xs, const T* __restrict__ x,
                                         long long r0, long long n_rows,
                                         int ldx, int c0, int nc, bool x16,
                                         int lane) {
+  constexpr int kPer = 16 / sizeof(T);  // values a copy: 4 or 8
   const int nc8 = (nc + 7) & ~7;
   if (x16) {
-    const int n4 = nc8 >> 2;
-    for (int i = lane; i < kTcRows * n4; i += 32) {
-      const int r = i / n4, c = 4 * (i - r * n4);
+    const int n = nc8 / kPer;
+    for (int i = lane; i < kTcRows * n; i += 32) {
+      const int r = i / n, c = kPer * (i - r * n);
       const bool ok = r0 + r < n_rows && c < nc;
-      cp_async16(xs + at(r, c, XC), x + (ok ? (r0 + r) * ldx + c0 + c : 0),
-                 ok);
+      cp_async16(staged_at<T>(xs, r, c, XC),
+                 x + (ok ? (r0 + r) * ldx + c0 + c : 0), ok);
     }
   } else {
     for (int i = lane; i < kTcRows * nc8; i += 32) {
       const int r = i / nc8, c = i - r * nc8;
       const bool ok = r0 + r < n_rows && c < nc;
-      cp_async4(xs + at(r, c, XC), x + (ok ? (r0 + r) * ldx + c0 + c : 0),
-                ok);
+      const T* src = x + (ok ? (r0 + r) * ldx + c0 + c : 0);
+      if constexpr (sizeof(T) == sizeof(float))
+        cp_async4(staged_at<T>(xs, r, c, XC), src, ok);
+      else
+        *staged_at<T>(xs, r, c, XC) = ok ? *src : __float2bfloat16_rn(0.f);
     }
   }
 }

@@ -45,7 +45,9 @@ class ModelArgs:
     metrics_watch: tuple = ()
     var_leads_metrics_watch: dict = dataclasses.field(default_factory=dict)
     n_example_pred: int = 1
-    # None = fp32 everywhere; "bfloat16" is not ported yet
+    # None = fp32 everywhere; "bfloat16" = the JAX package's bf16 path:
+    # fp32 parameters, activations stored in bf16, forward only in the
+    # port so far (bf16 training: ROADMAP.md queue 1, item 2)
     compute_dtype: str | None = None
 
 
@@ -101,12 +103,14 @@ class ARModelBase(nn.Module):
 
     def __init__(self, args: ModelArgs, config, datastore, device="cuda"):
         super().__init__()
-        if args.compute_dtype is not None:
-            raise NotImplementedError(
-                f"compute_dtype={args.compute_dtype!r}: the port runs fp32 "
-                "only so far (the bf16 path is queued in ROADMAP.md)"
-            )
+        if args.compute_dtype not in (None, "bfloat16"):
+            raise ValueError(f"compute_dtype={args.compute_dtype!r}: None "
+                             "(fp32) or 'bfloat16'")
         self.args = args
+        # the dtype node, edge and grid representations are stored in;
+        # None = fp32
+        self.compute_dtype = (torch.bfloat16
+                              if args.compute_dtype == "bfloat16" else None)
         self.device = resolve_device(device)
         self.datastore = datastore
         self.statics = build_statics(config, datastore, self.device)
@@ -179,7 +183,13 @@ class ARModelBase(nn.Module):
 
     def training_loss(self, batch):
         """Mean loss over batch and unrolled steps, interior nodes only
-        (ref: ar_model.py:287-309)."""
+        (ref: ar_model.py:287-309). fp32 only: bf16 raises."""
+        if self.compute_dtype is not None:
+            raise NotImplementedError(
+                "training with compute_dtype='bfloat16': the port runs the "
+                "bf16 forward only; bf16 training (its backward kernels "
+                "and xtd_sum with bf16 inputs) waits for ROADMAP.md queue "
+                "1, item 2's training half")
         prediction, target, pred_std, _ = self.common_step(batch)
         return torch.mean(self.loss_fn(prediction, target, pred_std,
                                        mask=self.interior_mask_bool()))

@@ -13,6 +13,12 @@ where the grid side stays in the flat (N, B*h) layout from the embedder
 batched route, where the grid MLPs are plain matrix products and g2m and
 m2g are interaction nets on whichever route `apply_interaction_net` picks
 for them (P2 on the batched route, e.g. at batch 1).
+
+With `compute_dtype="bfloat16"` the model follows the JAX package's bf16
+path: parameters fp32, node, edge and grid representations stored in
+bf16, each product's operands rounded as its JAX call site rounds them,
+the kernels' bf16 instances; the output residual over the fp32 state
+stays fp32 (`_finish_output`: bf16 times fp32 promotes).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from ..ops.message_passing import (
     node_transform_flat,
     unflatten_nodes,
 )
-from ..ops.mlp import apply_mlp, apply_mlp_concat, init_mlp
+from ..ops.mlp import apply_mlp, apply_mlp_concat, init_mlp, store
 from .ar_model import ARModelBase, ModelArgs
 
 
@@ -104,11 +110,15 @@ class BaseGraphModel(ARModelBase):
 
     def _static_edge_ctx(self, inet, embedder, edges):
         """Rollout-invariant edge term of an update_edges=False GNN:
-        ew = emb @ W_e + b0, (M, h)."""
-        emb = apply_mlp(embedder, edges.features)
+        ew = emb @ W_e + b0, (M, h); with a compute_dtype, the stored
+        embedding times the fp32 weight (JAX's `jnp.dot` promotes) and ew
+        stored in the compute dtype."""
+        cd = self.compute_dtype
+        emb = apply_mlp(embedder, edges.features, cd)
         w0 = inet.edge_mlp.layers[0].w
         d = w0.shape[0] // 3
-        return {"ew": emb @ w0[:d] + inet.edge_mlp.layers[0].b}
+        return {"ew": store(emb.float() @ w0[:d] + inet.edge_mlp.layers[0].b,
+                            cd)}
 
     def precompute_rollout_ctx(self):
         """Embeddings of static graph features, computed once per rollout
@@ -144,10 +154,12 @@ class BaseGraphModel(ARModelBase):
 
     def _embed_grid_f(self, prev_state, prev_prev_state, forcing, B):
         """Flat (N, B*h) grid embedding (K1) of concat(prev, prev-prev,
-        forcing, static)."""
+        forcing, static); with a compute_dtype, the input is rounded to it
+        and K1's instance of that dtype stores its output in it."""
         stat = self.statics.grid_static_features
-        xb = torch.cat([prev_state, prev_prev_state, forcing,
-                        expand_to_batch(stat, B)], dim=-1)
+        xb = store(torch.cat([prev_state, prev_prev_state, forcing,
+                              expand_to_batch(stat, B)], dim=-1),
+                   self.compute_dtype)
         emb = self.grid_embedder
         return embed.embed_grid_flat(
             flatten_nodes(xb), emb.layers[0].w, emb.layers[0].b,
@@ -160,6 +172,7 @@ class BaseGraphModel(ARModelBase):
         processor (subclass), fused m2g decoder (K4)."""
         B = batch_size
         h = self.args.hidden_dim
+        cd = self.compute_dtype
         ge_f = self._embed_grid_f(prev_state, prev_prev_state, forcing,
                                   B)  # (N_grid, B*h)
 
@@ -167,13 +180,14 @@ class BaseGraphModel(ARModelBase):
             self.g2m_gnn, self.graph.g2m, ge_f,
             expand_to_batch(ctx["mesh_emb"], B),
             update_edges=False, aggr="sum", ew=ctx["g2m"]["ew"],
+            compute_dtype=cd,
         )  # (B, N_mesh, h)
 
         mesh_rep = self.process_step(mesh_rep, B, ctx)
 
         m2g = self.graph.m2g
         w0m = self.m2g_gnn.edge_mlp.layers[0].w
-        send_tf = node_transform_flat(mesh_rep, w0m[h:2 * h])
+        send_tf = store(node_transform_flat(mesh_rep, w0m[h:2 * h], cd), cd)
         net_f = grid_update.grid_update_flat(
             send_tf, m2g.senders, ctx["m2g"]["ew"], ge_f,
             m2g.mask.view(m2g.num_virt, m2g.dense_k),
@@ -197,10 +211,12 @@ class BaseGraphModel(ARModelBase):
         """update_edges=False interaction net on the rollout-invariant
         edge term ew (M, h)."""
         return apply_interaction_net(inet, edges, send_rep, rec_rep,
-                                     update_edges=False, ew=ctx_entry["ew"])
+                                     update_edges=False, ew=ctx_entry["ew"],
+                                     compute_dtype=self.compute_dtype)
 
     def predict_step(self, prev_state, prev_prev_state, forcing, ctx=None):
         batch_size = prev_state.shape[0]
+        cd = self.compute_dtype
         if ctx is None:
             ctx = self.precompute_rollout_ctx()
         if self._flat_grid_eligible(batch_size):
@@ -211,14 +227,15 @@ class BaseGraphModel(ARModelBase):
             self.grid_embedder,
             [prev_state, prev_prev_state, forcing,
              expand_to_batch(self.statics.grid_static_features, batch_size)],
+            cd,
         )  # (B, N_grid, h)
         mesh_rep = self._inet_static(
             self.g2m_gnn, self.graph.g2m, grid_emb,
             expand_to_batch(ctx["mesh_emb"], batch_size), ctx["g2m"],
         )  # (B, N_mesh, h)
-        grid_rep = grid_emb + apply_mlp(self.encoding_grid_mlp, grid_emb)
+        grid_rep = grid_emb + apply_mlp(self.encoding_grid_mlp, grid_emb, cd)
         mesh_rep = self.process_step(mesh_rep, batch_size, ctx)
         grid_rep = self._inet_static(self.m2g_gnn, self.graph.m2g, mesh_rep,
                                      grid_rep, ctx["m2g"])  # (B, N_grid, h)
-        net_output = apply_mlp(self.output_map, grid_rep)
+        net_output = apply_mlp(self.output_map, grid_rep, cd)
         return self._finish_output(net_output, prev_state)

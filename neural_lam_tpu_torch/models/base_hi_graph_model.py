@@ -71,14 +71,16 @@ class BaseHiGraphModel(BaseGraphModel):
     def embedd_mesh_nodes(self):
         """Bottom level only (ref: base_hi_graph_model.py:115-122)."""
         return apply_mlp(self.mesh_embedders[0],
-                         self.graph.mesh_static_features[0])
+                         self.graph.mesh_static_features[0],
+                         self.compute_dtype)
 
     def precompute_process_ctx(self):
         """Level and edge-set embeddings, once per rollout."""
         g = self.graph
 
         def embed(embedders, feats):
-            return [apply_mlp(e, f) for e, f in zip(embedders, feats)]
+            return [apply_mlp(e, f, self.compute_dtype)
+                    for e, f in zip(embedders, feats)]
 
         return {
             "upper_mesh_emb": embed(self.mesh_embedders[1:],
@@ -111,6 +113,7 @@ class BaseHiGraphModel(BaseGraphModel):
                 apply_interaction_net(
                     gnn, g.up[level_l - 1], mesh_rep_levels[level_l - 1],
                     mesh_rep_levels[level_l], mesh_up_rep[level_l - 1],
+                    compute_dtype=self.compute_dtype,
                 )
             )
 
@@ -124,7 +127,7 @@ class BaseHiGraphModel(BaseGraphModel):
             mesh_rep_levels[level_l] = apply_interaction_net(
                 gnn, g.down[level_l], mesh_rep_levels[level_l + 1],
                 mesh_rep_levels[level_l], mesh_down_rep[level_l],
-                update_edges=False,
+                update_edges=False, compute_dtype=self.compute_dtype,
             )
         return mesh_rep_levels[0]
 

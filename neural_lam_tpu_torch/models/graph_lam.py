@@ -51,10 +51,12 @@ class GraphLAM(BaseGraphModel):
         )
 
     def embedd_mesh_nodes(self):
-        return apply_mlp(self.mesh_embedder, self.mesh_static)
+        return apply_mlp(self.mesh_embedder, self.mesh_static,
+                         self.compute_dtype)
 
     def precompute_process_ctx(self):
-        return {"m2m_emb": apply_mlp(self.m2m_embedder, self.m2m.features)}
+        return {"m2m_emb": apply_mlp(self.m2m_embedder, self.m2m.features,
+                                     self.compute_dtype)}
 
     def process_step(self, mesh_rep, batch_size, ctx):
         """Processor stack sharing the single m2m edge set
@@ -64,5 +66,6 @@ class GraphLAM(BaseGraphModel):
             mesh_rep, edge_rep = apply_interaction_net(
                 layer, self.m2m, mesh_rep, mesh_rep, edge_rep,
                 update_edges=True, aggr=self.args.mesh_aggr,
+                compute_dtype=self.compute_dtype,
             )
         return mesh_rep

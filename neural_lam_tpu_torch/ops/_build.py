@@ -174,6 +174,46 @@ def pointers(device, *specs) -> list[int]:
     return out
 
 
+def io_dtype(what: str, t):
+    """The storage dtype of the kernel instance that takes `t`: float32 or
+    bfloat16 (the bf16 instances read and write bf16 and compute in fp32).
+    Raises TypeError for any other dtype: there is no instance to run."""
+    import torch
+
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what} is {t.dtype}: the kernel has float32 and "
+                        "bfloat16 instances only")
+    return t.dtype
+
+
+def refuse_bf16_grad(what: str, *tensors) -> None:
+    """Raise NotImplementedError when a bf16 input would need a gradient:
+    the backward kernels are fp32 only (bf16 training waits for ROADMAP.md
+    queue 1, item 2's training half), and no wrapper upcasts quietly."""
+    import torch
+
+    if not torch.is_grad_enabled():
+        return
+    ts = [t for t in tensors if isinstance(t, torch.Tensor)]
+    if (any(t.dtype == torch.bfloat16 for t in ts)
+            and any(t.requires_grad for t in ts)):
+        raise NotImplementedError(
+            f"{what}: a gradient through the bf16 forward; bf16 training "
+            "is not ported yet (ROADMAP.md queue 1, item 2's training "
+            "half)")
+
+
+def count_launch(wrapper, dtype) -> None:
+    """One launch of `wrapper`'s kernel instance of `dtype`: counted on
+    `wrapper.launches` (float32) or `wrapper.launches_bf16` (bfloat16)."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def stream_of(device) -> int:
     import torch
 

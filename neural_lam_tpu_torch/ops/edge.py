@@ -20,6 +20,15 @@ materialised-x0 mode. The backward recomputes through the plain version
 with autograd, as the JAX package's reference-recompute VJPs do: it has no
 backward kernel for these three. `<wrapper>.launches` counts kernel
 launches.
+
+bf16 (the bf16 forecast path): P2 and P3 have bf16 instances, taken for a
+bf16 send_t / edge_rep, which read the node table, ew or the edge state
+and rec_rows in bf16, compute in fp32 on the fp32 parameters and store
+their outputs in bf16 (round to nearest even), as the JAX kernels do on
+bf16 inputs; `<wrapper>.launches_bf16` counts them, and a gradient through
+them raises. P1 has none: in the bf16 path its x0 is promoted to fp32 by
+its fp32 first term (`message_passing.edge_messages_and_virt`), so it runs
+its fp32 instance, and a bf16 x0 on the card raises TypeError.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ _SIGNATURES = {
     "nlt_batched_edge_tail": [_P] * 5 + [_I] * 4 + [_P],
     "nlt_batched_edge_tail_sum": [_P] * 8 + [_I] * 5 + [_P],
     "nlt_batched_edge_layer": [_P] * 8 + [_I] * 5 + [_P],
+    "nlt_batched_edge_tail_sum_bf16": [_P] * 8 + [_I] * 5 + [_P],
+    "nlt_batched_edge_layer_bf16": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 
@@ -47,11 +58,12 @@ def _lib():
 
 
 def _tail(x0, w2, b2, ln_scale, ln_bias, mask, K):
-    """(msg (B, M, h), virt (B, M/K, h)) of the tail on x0 (B, M, h)."""
-    msg = layer_norm(F.silu(x0) @ w2 + b2, ln_scale, ln_bias)
+    """(msg (B, M, h), virt (B, M/K, h)) of the tail on x0 (B, M, h), in
+    fp32, both stored in x0's dtype."""
+    msg = layer_norm(F.silu(x0.float()) @ w2 + b2, ln_scale, ln_bias)
     B, M, h = msg.shape
     virt = (msg * mask).view(B, M // K, K, h).sum(dim=2)
-    return msg, virt
+    return msg.to(x0.dtype), virt.to(x0.dtype)
 
 
 def sum_x0(x_e, send_t, senders, rec_rows, K):
@@ -72,18 +84,23 @@ def edge_tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K,
 
 def edge_tail_sum_plain(send_t, senders, ew, rec_rows, w2, b2, ln_scale,
                         ln_bias, mask, K, with_messages=True):
-    """Plain PyTorch version of `edge_tail_sum`'s forward."""
-    x0 = sum_x0(ew, send_t, senders, rec_rows, K)
-    return edge_tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K,
-                           with_messages)
+    """Plain PyTorch version of `edge_tail_sum`'s forward (fp32 math, the
+    outputs in send_t's dtype)."""
+    x0 = sum_x0(ew.float(), send_t.float(), senders, rec_rows.float(), K)
+    msg, virt = edge_tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K,
+                                with_messages)
+    return (None if msg is None else msg.to(send_t.dtype),
+            virt.to(send_t.dtype))
 
 
 def edge_layer_plain(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2,
                      b2, ln_scale, ln_bias, K):
-    """Plain PyTorch version of `edge_layer`'s forward."""
-    x0 = sum_x0(edge_rep @ w_e, send_t, senders, rec_rows, K) + b0
+    """Plain PyTorch version of `edge_layer`'s forward (fp32 math, the
+    outputs in edge_rep's dtype)."""
+    e = edge_rep.float()
+    x0 = sum_x0(e @ w_e, send_t.float(), senders, rec_rows.float(), K) + b0
     msg, virt = _tail(x0, w2, b2, ln_scale, ln_bias, mask, K)
-    return edge_rep + msg, virt
+    return (e + msg).to(edge_rep.dtype), virt.to(edge_rep.dtype)
 
 
 def _plain_grads(fn, inputs, needs, output_grads):
@@ -117,11 +134,10 @@ def _tail_params(w2, b2, ln_scale, ln_bias, *layer):
                      + [t.reshape(-1) for t in layer])
 
 
-def _outputs(dev, B, M, K, with_messages):
-    f32 = torch.float32
-    msg = (torch.empty((B, M, HID), device=dev, dtype=f32)
+def _outputs(dev, B, M, K, with_messages, dtype=torch.float32):
+    msg = (torch.empty((B, M, HID), device=dev, dtype=dtype)
            if with_messages else None)
-    virt = torch.empty((B, M // K, HID), device=dev, dtype=f32)
+    virt = torch.empty((B, M // K, HID), device=dev, dtype=dtype)
     return msg, virt
 
 
@@ -165,21 +181,23 @@ def _tail_sum_fwd(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
                   rec_rows.shape)
     send_t, ew = send_t.contiguous(), ew.contiguous()
     rec_rows, mask = rec_rows.contiguous(), mask.contiguous()
+    dt = _build.io_dtype("send_t", send_t)
     params = _tail_params(w2, b2, ln_scale, ln_bias)
-    msg, virt = _outputs(dev, B, M, K, with_messages)
+    msg, virt = _outputs(dev, B, M, K, with_messages, dt)
     f32, i32 = torch.float32, torch.int32
-    ptrs = _build.pointers(dev, ("send_t", send_t, f32),
-                           ("senders", senders, i32), ("ew", ew, f32),
-                           ("rec_rows", rec_rows, f32), ("mask", mask, f32),
+    ptrs = _build.pointers(dev, ("send_t", send_t, dt),
+                           ("senders", senders, i32), ("ew", ew, dt),
+                           ("rec_rows", rec_rows, dt), ("mask", mask, f32),
                            ("params", params, f32))
     ptrs.append(None if msg is None else
-                _build.pointers(dev, ("msg", msg, f32))[0])
-    ptrs += _build.pointers(dev, ("virt", virt, f32))
+                _build.pointers(dev, ("msg", msg, dt))[0])
+    ptrs += _build.pointers(dev, ("virt", virt, dt))
     lib = _lib()
-    rc = lib.nlt_batched_edge_tail_sum(*ptrs, M // K, K, B, n_send,
-                                       dev.index, _build.stream_of(dev))
+    fn = (lib.nlt_batched_edge_tail_sum_bf16 if dt == torch.bfloat16
+          else lib.nlt_batched_edge_tail_sum)
+    rc = fn(*ptrs, M // K, K, B, n_send, dev.index, _build.stream_of(dev))
     _build.check(lib, rc, "edge_tail_sum")
-    edge_tail_sum.launches += 1
+    _build.count_launch(edge_tail_sum, dt)
     return msg, virt
 
 
@@ -199,20 +217,22 @@ def _layer_fwd(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
                   rec_rows.shape)
     edge_rep, send_t = edge_rep.contiguous(), send_t.contiguous()
     rec_rows, mask = rec_rows.contiguous(), mask.contiguous()
+    dt = _build.io_dtype("edge_rep", edge_rep)
     params = _tail_params(w2, b2, ln_scale, ln_bias, w_e, b0)
-    edge_out = torch.empty((B, M, HID), device=dev, dtype=torch.float32)
-    virt = torch.empty((B, M // K, HID), device=dev, dtype=torch.float32)
+    edge_out, virt = _outputs(dev, B, M, K, True, dt)
     f32, i32 = torch.float32, torch.int32
-    ptrs = _build.pointers(dev, ("edge_rep", edge_rep, f32),
-                           ("send_t", send_t, f32), ("senders", senders, i32),
-                           ("rec_rows", rec_rows, f32), ("mask", mask, f32),
+    ptrs = _build.pointers(dev, ("edge_rep", edge_rep, dt),
+                           ("send_t", send_t, dt), ("senders", senders, i32),
+                           ("rec_rows", rec_rows, dt), ("mask", mask, f32),
                            ("params", params, f32),
-                           ("edge_out", edge_out, f32), ("virt", virt, f32))
+                           ("edge_out", edge_out, dt), ("virt", virt, dt))
     lib = _lib()
-    rc = lib.nlt_batched_edge_layer(*ptrs, M // K, K, B, send_t.shape[1],
-                                    dev.index, _build.stream_of(dev))
+    fn = (lib.nlt_batched_edge_layer_bf16 if dt == torch.bfloat16
+          else lib.nlt_batched_edge_layer)
+    rc = fn(*ptrs, M // K, K, B, send_t.shape[1], dev.index,
+            _build.stream_of(dev))
     _build.check(lib, rc, "edge_layer")
-    edge_layer.launches += 1
+    _build.count_launch(edge_layer, dt)
     return edge_out, virt
 
 
@@ -248,8 +268,10 @@ def edge_tail(x0, w2, b2, ln_scale, ln_bias, mask, K: int,
 
     Replaces pallas_edge.py::_tail_kernel (via _edge_tail_fwd_impl).
     Bound by bytes on the card (x0 in, virt and msg out), its W2 product
-    on tensor cores in 3xTF32; see csrc/edge_tc.cuh.
+    on tensor cores in 3xTF32; see csrc/edge_tc.cuh. fp32 only: a bf16
+    x0 raises TypeError on the card.
     """
+    _build.refuse_bf16_grad("edge_tail", x0, w2, b2, ln_scale, ln_bias)
     out = _EdgeTail.apply(x0, w2, b2, ln_scale, ln_bias, mask, K,
                           with_messages)
     return out if with_messages else (None, out)
@@ -292,8 +314,11 @@ def edge_tail_sum(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
     Replaces pallas_edge.py::_tail_sum_kernel (via _edge_tail_sum_impl).
     Bound by bytes on the card (the gathered sender rows, ew, rec_rows,
     virt and msg), its W2 product on tensor cores in 3xTF32; see
-    csrc/edge_tc.cuh.
+    csrc/edge_tc.cuh. bf16 send_t, ew and rec_rows give bf16 outputs
+    (forward only).
     """
+    _build.refuse_bf16_grad("edge_tail_sum", send_t, ew, rec_rows, w2, b2,
+                            ln_scale, ln_bias)
     out = _EdgeTailSum.apply(send_t, senders, ew, rec_rows, w2, b2,
                              ln_scale, ln_bias, mask, K, with_messages)
     return out if with_messages else (None, out)
@@ -334,8 +359,11 @@ def edge_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
     Replaces pallas_edge.py::_layer_kernel (via _edge_layer_impl), both
     in_gather variants. Bound by bytes on the card (the edge rows in and
     out, the gathered sender rows, rec_rows, virt), its W_e and W2
-    products on tensor cores in 3xTF32; see csrc/edge_tc.cuh.
+    products on tensor cores in 3xTF32; see csrc/edge_tc.cuh. bf16
+    edge_rep, send_t and rec_rows give bf16 outputs (forward only).
     """
+    _build.refuse_bf16_grad("edge_layer", edge_rep, send_t, rec_rows, w_e,
+                            b0, w2, b2, ln_scale, ln_bias)
     return _EdgeLayer.apply(edge_rep, send_t, senders, rec_rows, mask, w_e,
                             b0, w2, b2, ln_scale, ln_bias, K)
 
@@ -343,3 +371,5 @@ def edge_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
 edge_tail.launches = 0
 edge_tail_sum.launches = 0
 edge_layer.launches = 0
+edge_tail_sum.launches_bf16 = 0
+edge_layer.launches_bf16 = 0

@@ -27,6 +27,13 @@ element, in two launches. `<wrapper>.launches` counts kernel launches
 (B2's chain on `edge_tail_sum_flat_bwd.launches`, B3/B4's on
 `edge_layer_flat_bwd.launches`, the weight-gradient pass on
 `weight_grad.xtd_sum.launches` and `weight_grad.xtd_reduce.launches`).
+
+bf16 (the bf16 forecast path): a bf16 table takes the forward kernels'
+bf16 instances, which read table, ew / edge_rep and rec_rows in bf16,
+compute in fp32 on the fp32 parameters and store edge_out and virt in
+bf16 (round to nearest even), as the JAX kernels do on bf16 inputs;
+`<wrapper>.launches_bf16` counts them. They have no backward: a gradient
+through them raises.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ _P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {
     "nlt_edge_tail_sum": [_P] * 7 + [_I] * 4 + [_P],
     "nlt_edge_layer": [_P] * 8 + [_I] * 4 + [_P],
+    "nlt_edge_tail_sum_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    "nlt_edge_layer_bf16": [_P] * 8 + [_I] * 4 + [_P],
 }
 _BWD_SIGNATURES = {
     "nlt_edge_tail_sum_bwd": [_P] * 13 + [_I] * 5 + [_P],
@@ -85,9 +94,11 @@ def _tail_from_gathered(g, ew, rec_rows, mask_p, w2, b2, ln_scale, ln_bias,
 
 def edge_tail_sum_flat_plain(table, senders, ew, rec_rows, mask_p, w2, b2,
                              ln_scale, ln_bias):
-    """Plain PyTorch version of `edge_tail_sum_flat`'s forward."""
-    return _tail_from_gathered(table.index_select(0, senders), ew, rec_rows,
-                               mask_p, w2, b2, ln_scale, ln_bias)
+    """Plain PyTorch version of `edge_tail_sum_flat`'s forward (fp32
+    math, virt in the table's dtype)."""
+    return _tail_from_gathered(table.index_select(0, senders).float(),
+                               ew.float(), rec_rows.float(), mask_p, w2, b2,
+                               ln_scale, ln_bias).to(table.dtype)
 
 
 def _tail_fwd(table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale,
@@ -99,19 +110,21 @@ def _tail_fwd(table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale,
     n_virt, K = mask_p.shape
     W = table.shape[1]
     _check_tail(table, senders, ew, rec_rows, mask_p, w2)
+    dt = _build.io_dtype("table", table)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias])
-    virt = torch.empty((n_virt, W), device=dev, dtype=torch.float32)
+    virt = torch.empty((n_virt, W), device=dev, dtype=dt)
     f32, i32 = torch.float32, torch.int32
-    ptrs = _build.pointers(dev, ("table", table, f32),
-                           ("senders", senders, i32), ("ew", ew, f32),
-                           ("rec_rows", rec_rows, f32),
+    ptrs = _build.pointers(dev, ("table", table, dt),
+                           ("senders", senders, i32), ("ew", ew, dt),
+                           ("rec_rows", rec_rows, dt),
                            ("mask_p", mask_p, f32), ("params", params, f32),
-                           ("virt", virt, f32))
+                           ("virt", virt, dt))
     lib = _lib()
-    rc = lib.nlt_edge_tail_sum(*ptrs, n_virt, K, W // HID, dev.index,
-                               _build.stream_of(dev))
+    fn = (lib.nlt_edge_tail_sum_bf16 if dt == torch.bfloat16
+          else lib.nlt_edge_tail_sum)
+    rc = fn(*ptrs, n_virt, K, W // HID, dev.index, _build.stream_of(dev))
     _build.check(lib, rc, "edge_tail_sum_flat")
-    edge_tail_sum_flat.launches += 1
+    _build.count_launch(edge_tail_sum_flat, dt)
     return virt
 
 
@@ -269,13 +282,17 @@ def edge_tail_sum_flat(table, senders, ew, rec_rows, mask_p, w2, b2,
     Replaces pallas_edge_flat.py::_tail_sum_flat_kernel (via
     edge_tail_sum_flat). Its W2 product runs on tensor cores in 3xTF32
     (K3's tiles with one product), so it is bound by bytes on the card;
-    see csrc/edge_flat.cu and csrc/edge_tc.cuh.
+    see csrc/edge_flat.cu and csrc/edge_tc.cuh. bf16 table, ew and
+    rec_rows give a bf16 virt (forward only).
     """
+    _build.refuse_bf16_grad("edge_tail_sum_flat", table, ew, rec_rows, w2,
+                            b2, ln_scale, ln_bias)
     return _EdgeTailSumFlat.apply(table, senders, ew, rec_rows, mask_p, w2,
                                   b2, ln_scale, ln_bias, fold)
 
 
 edge_tail_sum_flat.launches = 0
+edge_tail_sum_flat.launches_bf16 = 0
 edge_tail_sum_flat_bwd.launches = 0
 
 
@@ -301,10 +318,12 @@ def _layer_from_gathered(edge_rep, g, rec_rows, mask_p, w_e, b0, w2, b2,
 
 def edge_layer_flat_plain(edge_rep, table, senders, rec_rows, mask_p, w_e,
                           b0, w2, b2, ln_scale, ln_bias):
-    """Plain PyTorch version of `edge_layer_flat`'s forward."""
-    return _layer_from_gathered(edge_rep, table.index_select(0, senders),
-                                rec_rows, mask_p, w_e, b0, w2, b2, ln_scale,
-                                ln_bias)
+    """Plain PyTorch version of `edge_layer_flat`'s forward (fp32 math,
+    the outputs in edge_rep's dtype)."""
+    outs = _layer_from_gathered(
+        edge_rep.float(), table.index_select(0, senders).float(),
+        rec_rows.float(), mask_p, w_e, b0, w2, b2, ln_scale, ln_bias)
+    return tuple(t.to(edge_rep.dtype) for t in outs)
 
 
 def _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2):
@@ -330,21 +349,23 @@ def _layer_fwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2, b2,
     n_virt, K = mask_p.shape
     W = edge_rep.shape[1]
     _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
+    dt = _build.io_dtype("edge_rep", edge_rep)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias,
                         w_e.reshape(-1), b0])
     edge_out = torch.empty_like(edge_rep)
-    virt = torch.empty((n_virt, W), device=dev, dtype=torch.float32)
+    virt = torch.empty((n_virt, W), device=dev, dtype=dt)
     f32, i32 = torch.float32, torch.int32
-    ptrs = _build.pointers(dev, ("edge_rep", edge_rep, f32),
-                           ("table", table, f32), ("senders", senders, i32),
-                           ("rec_rows", rec_rows, f32),
+    ptrs = _build.pointers(dev, ("edge_rep", edge_rep, dt),
+                           ("table", table, dt), ("senders", senders, i32),
+                           ("rec_rows", rec_rows, dt),
                            ("mask_p", mask_p, f32), ("params", params, f32),
-                           ("edge_out", edge_out, f32), ("virt", virt, f32))
+                           ("edge_out", edge_out, dt), ("virt", virt, dt))
     lib = _lib()
-    rc = lib.nlt_edge_layer(*ptrs, n_virt, K, W // HID, dev.index,
-                            _build.stream_of(dev))
+    fn = (lib.nlt_edge_layer_bf16 if dt == torch.bfloat16
+          else lib.nlt_edge_layer)
+    rc = fn(*ptrs, n_virt, K, W // HID, dev.index, _build.stream_of(dev))
     _build.check(lib, rc, "edge_layer_flat")
-    edge_layer_flat.launches += 1
+    _build.count_launch(edge_layer_flat, dt)
     return edge_out, virt
 
 
@@ -504,11 +525,15 @@ def edge_layer_flat(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
     Replaces pallas_edge_flat.py::_layer_flat_kernel (edge_layer_flat) and
     ::_layer_flat_win_kernel (edge_layer_flat_win). Its W_e and W2
     products run on tensor cores in 3xTF32, so it is bound by bytes on the
-    card; see csrc/edge_flat.cu and csrc/edge_tc.cuh.
+    card; see csrc/edge_flat.cu and csrc/edge_tc.cuh. bf16 edge_rep,
+    table and rec_rows give bf16 outputs (forward only).
     """
+    _build.refuse_bf16_grad("edge_layer_flat", edge_rep, table, rec_rows,
+                            w_e, b0, w2, b2, ln_scale, ln_bias)
     return _EdgeLayerFlat.apply(edge_rep, table, senders, rec_rows, mask_p,
                                 w_e, b0, w2, b2, ln_scale, ln_bias, fold)
 
 
 edge_layer_flat.launches = 0
+edge_layer_flat.launches_bf16 = 0
 edge_layer_flat_bwd.launches = 0

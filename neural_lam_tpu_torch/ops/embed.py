@@ -15,6 +15,12 @@ forward runs the plain version on a CPU tensor and the CUDA kernel
 The forward saves only its inputs: the backward recomputes it, as the JAX
 residuals do. `embed_grid_flat.launches` and `embed_grid_flat_bwd.launches`
 count kernel launches.
+
+A bf16 x_f (the bf16 forecast path) takes the forward's bf16 instance: x
+read in bf16, every product and the LayerNorm in fp32 on the fp32
+parameters, the output stored in bf16 (round to nearest even), as the JAX
+kernel with `out_dtype=bfloat16` does; `embed_grid_flat.launches_bf16`
+counts its launches. It has no backward: a gradient through it raises.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from .mlp import grads_through, layer_norm
 HID = 64
 
 _P, _I, _LL, _IP = _build.P, _build.I, _build.LL, _build.IP
-_SIGNATURES = {"nlt_embed": [_P] * 3 + [_LL, _I, _I, _P]}
+_SIGNATURES = {"nlt_embed": [_P] * 3 + [_LL, _I, _I, _P],
+               "nlt_embed_bf16": [_P] * 3 + [_LL, _I, _I, _P]}
 _BWD_SIGNATURES = {"nlt_embed_bwd": [_P] * 5 + [_LL, _I, _I, _I, _P],
                    "nlt_embed_bwd_grid": [_LL, _I, _I, _IP]}
 MAX_D_IN = 128  # csrc/embed_bwd.cu stages x rows at up to 128 columns
@@ -44,11 +51,12 @@ def _bwd_lib():
 
 def embed_grid_flat_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
                           batch_size: int):
-    """Plain PyTorch version of `embed_grid_flat`'s forward."""
+    """Plain PyTorch version of `embed_grid_flat`'s forward (fp32 math,
+    the output in x_f's dtype)."""
     N = x_f.shape[0]
-    x = x_f.view(N, batch_size, -1)
+    x = x_f.float().view(N, batch_size, -1)
     y = F.silu(x @ w0 + b0) @ w1 + b1
-    return layer_norm(y, ln_scale, ln_bias).reshape(N, -1)
+    return layer_norm(y, ln_scale, ln_bias).reshape(N, -1).to(x_f.dtype)
 
 
 def _embed_fwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size):
@@ -61,17 +69,18 @@ def _embed_fwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size):
     _build.expect(W_in == batch_size * d_in, "x_f", (x_f.shape, d_in))
     _build.expect(w0.shape == (d_in, HID) and w1.shape == (HID, HID),
                   "w0/w1", (w0.shape, w1.shape))
+    dt = _build.io_dtype("x_f", x_f)
     params = torch.cat([w0.reshape(-1), w1.reshape(-1), b0, b1, ln_scale,
                         ln_bias])
-    out = torch.empty((N, batch_size * HID), device=dev, dtype=torch.float32)
+    out = torch.empty((N, batch_size * HID), device=dev, dtype=dt)
     f32 = torch.float32
-    ptrs = _build.pointers(dev, ("x_f", x_f, f32), ("params", params, f32),
-                           ("out", out, f32))
+    ptrs = _build.pointers(dev, ("x_f", x_f, dt), ("params", params, f32),
+                           ("out", out, dt))
     lib = _lib()
-    rc = lib.nlt_embed(*ptrs, N * batch_size, d_in, dev.index,
-                       _build.stream_of(dev))
+    fn = lib.nlt_embed_bf16 if dt == torch.bfloat16 else lib.nlt_embed
+    rc = fn(*ptrs, N * batch_size, d_in, dev.index, _build.stream_of(dev))
     _build.check(lib, rc, "embed_grid_flat")
-    embed_grid_flat.launches += 1
+    _build.count_launch(embed_grid_flat, dt)
     return out
 
 
@@ -148,11 +157,15 @@ def embed_grid_flat(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
 
     Replaces pallas_embed.py::_embed_fwd_kernel (via embed_grid_flat).
     Both products run on tensor cores in 3xTF32, so it is bound by bytes
-    on the card; see csrc/embed.cu.
+    on the card; see csrc/embed.cu. A bf16 x_f gives a bf16 output
+    (forward only).
     """
+    _build.refuse_bf16_grad("embed_grid_flat", x_f, w0, b0, w1, b1,
+                            ln_scale, ln_bias)
     return _EmbedGridFlat.apply(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
                                 batch_size)
 
 
 embed_grid_flat.launches = 0
+embed_grid_flat.launches_bf16 = 0
 embed_grid_flat_bwd.launches = 0

@@ -24,6 +24,13 @@ activation/gradient pairs of the weight gradients to a scratch, and
 `weight_grad.xtd_sum` over those pairs.
 `grid_update_flat.launches` and `grid_update_flat_bwd.launches` (the chain
 kernel) count kernel launches.
+
+bf16 (the bf16 forecast path): a bf16 table takes the forward kernel's
+bf16 instance, which reads table, ew and grid_emb_f in bf16, computes in
+fp32 on the fp32 parameters and stores its output in bf16 (round to
+nearest even), as the JAX kernel does on bf16 inputs;
+`grid_update_flat.launches_bf16` counts it. It has no backward: a
+gradient through it raises.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ from .mlp import grads_through, layer_norm
 HID = 64
 
 _P, _I, _IP = _build.P, _build.I, _build.IP
-_SIGNATURES = {"nlt_grid_update": [_P] * 7 + [_I] * 6 + [_P]}
+_SIGNATURES = {"nlt_grid_update": [_P] * 7 + [_I] * 6 + [_P],
+               "nlt_grid_update_bf16": [_P] * 7 + [_I] * 6 + [_P]}
 _BWD_SIGNATURES = {"nlt_grid_update_bwd": [_P] * 14 + [_I] * 7 + [_P],
                    "nlt_grid_update_bwd_grid": [_I] * 6 + [_IP]}
 
@@ -140,9 +148,11 @@ def _decoder_from_gathered(g, ew, grid_emb_f, mask_p, pp, keep=None):
 
 
 def grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p, pp):
-    """Plain PyTorch version of `grid_update_flat`'s forward."""
-    return _decoder_from_gathered(table.index_select(0, senders), ew,
-                                  grid_emb_f, mask_p, pp)
+    """Plain PyTorch version of `grid_update_flat`'s forward (fp32 math,
+    the output in the table's dtype)."""
+    return _decoder_from_gathered(table.index_select(0, senders).float(),
+                                  ew.float(), grid_emb_f.float(), mask_p,
+                                  pp).to(table.dtype)
 
 
 def _check(table, senders, ew, grid_emb_f, mask_p, pp):
@@ -176,19 +186,22 @@ def _grid_fwd(table, senders, ew, grid_emb_f, mask_p, pp):
     n_virt, K = mask_p.shape
     B = table.shape[1] // HID
     d_out = pp["o_w1"].shape[1]
+    dt = _build.io_dtype("table", table)
     params = _blob(pp)
-    out = torch.empty((n_virt, B * d_out), device=dev, dtype=torch.float32)
+    out = torch.empty((n_virt, B * d_out), device=dev, dtype=dt)
     f32, i32 = torch.float32, torch.int32
-    ptrs = _build.pointers(dev, ("table", table, f32),
-                           ("senders", senders, i32), ("ew", ew, f32),
-                           ("grid_emb_f", grid_emb_f, f32),
+    ptrs = _build.pointers(dev, ("table", table, dt),
+                           ("senders", senders, i32), ("ew", ew, dt),
+                           ("grid_emb_f", grid_emb_f, dt),
                            ("mask_p", mask_p, f32), ("params", params, f32),
-                           ("out", out, f32))
+                           ("out", out, dt))
     lib = _lib()
-    rc = lib.nlt_grid_update(*ptrs, n_virt, grid_emb_f.shape[0], K, B,
-                             d_out, dev.index, _build.stream_of(dev))
+    fn = (lib.nlt_grid_update_bf16 if dt == torch.bfloat16
+          else lib.nlt_grid_update)
+    rc = fn(*ptrs, n_virt, grid_emb_f.shape[0], K, B, d_out, dev.index,
+            _build.stream_of(dev))
     _build.check(lib, rc, "grid_update_flat")
-    grid_update_flat.launches += 1
+    _build.count_launch(grid_update_flat, dt)
     return out
 
 
@@ -378,11 +391,15 @@ def grid_update_flat(table, senders, ew, grid_emb_f, mask_p, pp, *,
 
     Replaces pallas_grid_update.py::_grid_update_kernel (grid_update_flat)
     and ::_grid_update_win_kernel (grid_update_flat_win). Bound by fp32
-    operations on the card; see csrc/grid_update.cu.
+    operations on the card; see csrc/grid_update.cu. bf16 table, ew and
+    grid_emb_f give a bf16 output (forward only).
     """
+    _build.refuse_bf16_grad("grid_update_flat", table, ew, grid_emb_f,
+                            *pp.values())
     return _GridUpdateFlat.apply(table, senders, ew, grid_emb_f, mask_p,
                                  fold, *(pp[k] for k in _KEYS))
 
 
 grid_update_flat.launches = 0
+grid_update_flat.launches_bf16 = 0
 grid_update_flat_bwd.launches = 0

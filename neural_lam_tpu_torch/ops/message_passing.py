@@ -40,13 +40,17 @@ import torch
 from torch import nn
 
 from . import edge, edge_flat
-from .mlp import MLP, apply_mlp_concat, finish_mlp, init_mlp
+from .mlp import MLP, apply_mlp_concat, finish_mlp, init_mlp, mm, store
 from .segment import build_gather_table
 
 # the JAX package's dispatch between its two kernel families: an edge set
 # takes the flat route when it has at least this many virtual rows (and
 # B*h is a multiple of 128), the batched route otherwise
 _FLAT_MIN_VIRT = 512
+# the most virtual rows a receiver for which the JAX package's flat route
+# folds by gather (`_rec_fold`, fp32 sums of a bf16 virt); past it, as on
+# its batched route, it folds by `segment_sum` in virt's dtype
+_JAX_GATHER_FOLD_MAX = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,19 +241,25 @@ def unflatten_nodes(x_f, batch_size: int):
     return x_f.reshape(N, batch_size, W // batch_size).transpose(0, 1)
 
 
-def node_transform_flat(x, w):
-    """(B, N, h_in) @ (h_in, h_out) -> flat (N, B*h_out)."""
-    return flatten_nodes(x @ w)
+def node_transform_flat(x, w, compute_dtype=None):
+    """(B, N, h_in) @ (h_in, h_out) -> flat (N, B*h_out), fp32.
+
+    With a compute_dtype both operands are rounded to it (`mlp.mm`): the
+    JAX package's `_einsum_f32acc` does so off the CPU only, and the port
+    follows the accelerator."""
+    return flatten_nodes(mm(x, w, compute_dtype))
 
 
-def node_transform_from_flat(x_f, w, batch_size: int):
+def node_transform_from_flat(x_f, w, batch_size: int, compute_dtype=None):
     """Flat (N, B*h_in) -> flat (N, B*h_out): the same (h_in, h_out) matmul
-    on every batch group of columns."""
+    on every batch group of columns (operands rounded as in
+    `node_transform_flat`)."""
     N = x_f.shape[0]
-    return (x_f.reshape(N, batch_size, -1) @ w).reshape(N, -1)
+    return mm(x_f.reshape(N, batch_size, -1), w,
+              compute_dtype).reshape(N, -1)
 
 
-def apply_mlp_concat_flat(mlp: MLP, parts: list):
+def apply_mlp_concat_flat(mlp: MLP, parts: list, compute_dtype=None):
     """apply_mlp_concat emitting flat (N, B*h) node-major output.
 
     parts: (B, N, d_i) batched or (N, d_i) shared-across-batch tensors."""
@@ -258,11 +268,11 @@ def apply_mlp_concat_flat(mlp: MLP, parts: list):
     acc = None
     for p in parts:
         d = p.shape[-1]
-        t = p @ w0[offset:offset + d]
+        t = mm(p, w0[offset:offset + d], compute_dtype)
         t = t.transpose(0, 1) if p.dim() == 3 else t[:, None, :]
         acc = t if acc is None else acc + t
         offset += d
-    x = finish_mlp(mlp, acc + mlp.layers[0].b)  # (N, B, h)
+    x = finish_mlp(mlp, acc + mlp.layers[0].b, compute_dtype)  # (N, B, h)
     return x.reshape(x.shape[0], -1)
 
 
@@ -298,7 +308,8 @@ def _gather_virt_rows(rec_t, edges: EdgeSet):
 def _rec_fold(virt, rec_slots, rec_mask):
     """Gather-based virt->receiver fold over the row axis (-2): R masked
     row gathers summed in a fixed order (deterministic, unlike an atomic
-    scatter-add)."""
+    scatter-add), in the dtype of virt * rec_mask: a bf16 virt times the
+    fp32 mask sums in fp32, times a bf16 mask in bf16."""
     out = None
     for j in range(rec_slots.shape[1]):
         part = virt.index_select(-2, rec_slots[:, j]) * rec_mask[:, j, None]
@@ -306,11 +317,18 @@ def _rec_fold(virt, rec_slots, rec_mask):
     return out
 
 
-def _fold_virt(edges: EdgeSet, virt):
-    """(..., N_virt, W) virtual-row sums -> (..., N_rec, W) receiver sums."""
+def _fold_virt(edges: EdgeSet, virt, in_virt_dtype=False):
+    """(..., N_virt, W) virtual-row sums -> (..., N_rec, W) receiver sums.
+
+    The sums run in fp32, or, with in_virt_dtype, in virt's dtype, one row
+    after the other: the rounding of the JAX package's `segment_sum` fold
+    (bit for bit on a bf16 virt), which its batched route takes, and its
+    flat route past `_JAX_GATHER_FOLD_MAX` rows a receiver. Both are the
+    same gather fold here; only the dtype of the sums differs."""
     if edges.virt_identity:
         return virt[..., :edges.num_rec, :]
-    return _rec_fold(virt, edges.rec_slots, edges.rec_mask)
+    mask = edges.rec_mask.to(virt.dtype) if in_virt_dtype else edges.rec_mask
+    return _rec_fold(virt, edges.rec_slots, mask)
 
 
 def _virt_counts(edges: EdgeSet):
@@ -321,40 +339,46 @@ def _virt_counts(edges: EdgeSet):
     return _fold_virt(edges, per_virt).clamp_min(1.0)
 
 
-def _aggr_mlp_mixed(mlp: MLP, rec_rep, aggregated_f):
+def _aggr_mlp_mixed(mlp: MLP, rec_rep, aggregated_f, compute_dtype=None):
     """AggrMLP(concat(rec_rep, aggregated)) with rec_rep in (B, N, h) and
     aggregated in flat (N, B*h)."""
     w0 = mlp.layers[0].w
     B, N, d = rec_rep.shape
     agg = aggregated_f.reshape(N, B, d).transpose(0, 1)
-    x = rec_rep @ w0[:d] + agg @ w0[d:] + mlp.layers[0].b
-    return finish_mlp(mlp, x)
+    x = (mm(rec_rep, w0[:d], compute_dtype) + mm(agg, w0[d:], compute_dtype)
+         + mlp.layers[0].b)
+    return finish_mlp(mlp, x, compute_dtype)
 
 
 def edge_round_flat(edge_mlp: MLP, edges: EdgeSet, send_rep, rec_rep,
-                    edge_rep_flat=None, *, ew=None):
+                    edge_rep_flat=None, *, ew=None, compute_dtype=None):
     """One flat edge-MLP round: (edge_out_flat | None, virt_flat).
 
     rec_rep in (B, N, h); send_rep either (B, N, h) batched or already flat
     (N_send, B*h). Edge state either static `ew` (M, h) = emb @ W_e + b0
     (rollout-invariant GNNs: K2) or evolving flat `edge_rep_flat` (M, B*h)
-    (processor layers: K3)."""
+    (processor layers: K3). With a compute_dtype, the node transforms and
+    the edge state are stored in it before the kernel, which then runs its
+    instance of that dtype and returns its outputs in it."""
+    cd = compute_dtype
     w0 = edge_mlp.layers[0].w
     b0 = edge_mlp.layers[0].b
     h = w0.shape[0] // 3
     w_e, w_j, w_i = w0[:h], w0[h:2 * h], w0[2 * h:]
     B = rec_rep.shape[0]
     if send_rep.dim() == 2:
-        send_tf = node_transform_from_flat(send_rep, w_j, B)
+        send_tf = node_transform_from_flat(send_rep, w_j, B, cd)
     else:
-        send_tf = node_transform_flat(send_rep, w_j)
-    rec_rows = _gather_virt_rows(node_transform_flat(rec_rep, w_i), edges)
+        send_tf = node_transform_flat(send_rep, w_j, cd)
+    send_tf = store(send_tf, cd)
+    rec_rows = _gather_virt_rows(
+        store(node_transform_flat(rec_rep, w_i, cd), cd), edges)
     mask_p = edges.mask.view(edges.num_virt, edges.dense_k)
     w2, b2 = edge_mlp.layers[1].w, edge_mlp.layers[1].b
     ln = edge_mlp.ln
     if edge_rep_flat is not None:
         return edge_flat.edge_layer_flat(
-            edge_rep_flat, send_tf, edges.senders, rec_rows, mask_p,
+            store(edge_rep_flat, cd), send_tf, edges.senders, rec_rows, mask_p,
             w_e, b0, w2, b2, ln.scale, ln.bias, fold=edges.fold_senders,
         )
     assert ew is not None, "flat static path requires precomputed ew"
@@ -367,17 +391,21 @@ def edge_round_flat(edge_mlp: MLP, edges: EdgeSet, send_rep, rec_rep,
 
 def _apply_inet_flat(inet: InteractionNet, edges: EdgeSet, send_rep,
                      rec_rep, edge_rep_flat=None, *, update_edges, aggr,
-                     ew=None):
+                     ew=None, compute_dtype=None):
     """Flat interaction-net round. rec_rep in (B, N, h); returns rec_out
     (B, N_rec, h) and, when update_edges, the flat edge state."""
     assert aggr in ("sum", "mean"), f"Unknown aggregation method: {aggr}"
     edge_out, virt = edge_round_flat(
         inet.edge_mlp, edges, send_rep, rec_rep, edge_rep_flat, ew=ew,
+        compute_dtype=compute_dtype,
     )
-    aggregated = _fold_virt(edges, virt)
+    aggregated = _fold_virt(
+        edges, virt, in_virt_dtype=edges.rec_slots is not None
+        and edges.rec_slots.shape[1] > _JAX_GATHER_FOLD_MAX)
     if aggr == "mean":
         aggregated = aggregated / _virt_counts(edges)
-    rec_out = rec_rep + _aggr_mlp_mixed(inet.aggr_mlp, rec_rep, aggregated)
+    rec_out = rec_rep + _aggr_mlp_mixed(inet.aggr_mlp, rec_rep, aggregated,
+                                        compute_dtype)
     if update_edges:
         return rec_out, edge_out
     return rec_out
@@ -385,7 +413,7 @@ def _apply_inet_flat(inet: InteractionNet, edges: EdgeSet, send_rep,
 
 def edge_messages_and_virt(edge_mlp: MLP, edges: EdgeSet, send_rep,
                            rec_rep, edge_rep=None, *, update_edges=False,
-                           ew=None):
+                           ew=None, compute_dtype=None):
     """One batched edge-MLP round: (edge_out (B, M, h) | None, virt
     (B, N_virt, h)). The edge term is the evolving state `edge_rep`
     (B, M, h), updated by P3 (`edge.edge_layer`) when update_edges and
@@ -393,23 +421,36 @@ def edge_messages_and_virt(edge_mlp: MLP, edges: EdgeSet, send_rep,
     (hierarchical read-out sweeps), or the static `ew` (M, h) = emb @ W_e +
     b0 of an update_edges=False round, read by P2 (`edge.edge_tail_sum`).
     The JAX function returns the messages where this one returns edge_out
-    = edge_rep + messages, which P3 computes in the kernel."""
+    = edge_rep + messages, which P3 computes in the kernel.
+
+    With a compute_dtype, the casts are the JAX package's call sites': P3's
+    node transforms take the stored activation times the fp32 weight (its
+    `jnp.dot` promotes), P1's and P2's round both operands (`mlp.mm`); P2
+    and P3 get their inputs stored in the compute dtype and run that
+    instance, while P1's x0 = (emb @ W_e + b0) + gathered + rec_rows is
+    promoted to fp32 by its fp32 first term and runs the fp32 instance."""
+    cd = compute_dtype
     w0, b0 = edge_mlp.layers[0].w, edge_mlp.layers[0].b
     h = w0.shape[0] // 3
     w_e, w_j, w_i = w0[:h], w0[h:2 * h], w0[2 * h:]
     K = edges.dense_k
-    send_t = send_rep @ w_j
-    rec_rows = _gather_virt_rows(rec_rep @ w_i, edges)
     tail = (edge_mlp.layers[1].w, edge_mlp.layers[1].b, edge_mlp.ln.scale,
             edge_mlp.ln.bias)
     if update_edges:
-        return edge.edge_layer(edge_rep, send_t, edges.senders, rec_rows,
-                               edges.mask, w_e, b0, *tail, K)
+        # the activation promoted to the fp32 weight (JAX's `jnp.dot`)
+        send_t = store(send_rep.float() @ w_j, cd)
+        rec_rows = _gather_virt_rows(store(rec_rep.float() @ w_i, cd), edges)
+        return edge.edge_layer(store(edge_rep, cd), send_t, edges.senders,
+                               rec_rows, edges.mask, w_e, b0, *tail, K)
+    send_t = store(mm(send_rep, w_j, cd), cd)
+    rec_rows = _gather_virt_rows(store(mm(rec_rep, w_i, cd), cd), edges)
     if ew is not None:
         return edge.edge_tail_sum(send_t, edges.senders, ew, rec_rows, *tail,
                                   edges.mask, K, with_messages=False)
-    x0 = edge.sum_x0(edge_rep @ w_e + b0, send_t, edges.senders, rec_rows, K)
+    x0 = edge.sum_x0(mm(edge_rep, w_e, cd) + b0, send_t, edges.senders,
+                     rec_rows, K)
     return edge.edge_tail(x0, *tail, edges.mask, K, with_messages=False)
+
 
 
 def _check_inet(inet: InteractionNet):
@@ -422,7 +463,7 @@ def _check_inet(inet: InteractionNet):
 
 def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
                           rec_rep, edge_rep=None, *, update_edges=True,
-                          aggr="sum", ew=None):
+                          aggr="sum", ew=None, compute_dtype=None):
     """One interaction-net round on a dense edge set, on the route the JAX
     package takes for it (`flat_eligible`).
 
@@ -433,7 +474,10 @@ def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
 
     Flat route: `_apply_inet_flat` (K2 or K3). Batched route:
     `edge_messages_and_virt` (P1, P2 or P3). Returns rec_out (B, N_rec, h)
-    and, when update_edges, the new edge state in the same layout."""
+    and, when update_edges, the new edge state in the same layout. With
+    compute_dtype=torch.bfloat16 (the JAX package's bf16 path): fp32
+    parameters, node and edge states stored in bf16, and each product
+    rounded as its JAX call site rounds it."""
     if aggr not in ("sum", "mean"):
         raise ValueError(f"Unknown aggregation method: {aggr}")
     _check_inet(inet)
@@ -453,15 +497,17 @@ def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
                 f"{want}: build it with expand_edge_rep")
     if flat:
         return _apply_inet_flat(inet, edges, send_rep, rec_rep, edge_rep,
-                                update_edges=update_edges, aggr=aggr, ew=ew)
+                                update_edges=update_edges, aggr=aggr, ew=ew,
+                                compute_dtype=compute_dtype)
     edge_out, virt = edge_messages_and_virt(
         inet.edge_mlp, edges, send_rep, rec_rep, edge_rep,
-        update_edges=update_edges, ew=ew,
+        update_edges=update_edges, ew=ew, compute_dtype=compute_dtype,
     )
-    aggregated = _fold_virt(edges, virt)
+    aggregated = _fold_virt(edges, virt, in_virt_dtype=True)
     if aggr == "mean":
         aggregated = aggregated / _virt_counts(edges)
-    rec_out = rec_rep + apply_mlp_concat(inet.aggr_mlp, [rec_rep, aggregated])
+    rec_out = rec_rep + apply_mlp_concat(inet.aggr_mlp, [rec_rep, aggregated],
+                                         compute_dtype)
     if update_edges:
         return rec_out, edge_out
     return rec_out

@@ -79,21 +79,67 @@ def layer_norm(x, scale, bias, eps: float = LN_EPS):
     return ((x32 - mean) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
 
 
-def finish_mlp(mlp: MLP, x):
-    """Layers 1..n (+ optional LayerNorm) given the first layer's output x."""
+def mm(x, w, compute_dtype=None):
+    """x @ w. With a compute_dtype (bf16), both operands are rounded to it
+    and the product is taken in fp32, as the JAX package's
+    `jnp.dot(x.astype(cd), w.astype(cd), preferred_element_type=float32)`
+    computes it: bf16 x bf16 products are exact in fp32, so an fp32 matmul
+    (TF32 off) on the rounded operands gives the same product with an fp32
+    sum, where a bf16 GEMM would round its result to bf16. The weight's
+    rounding is made once per parameter (`rounded`)."""
+    if compute_dtype is None:
+        return x @ w
+    return x.to(compute_dtype).float() @ rounded(w, compute_dtype)
+
+
+def rounded(w, dtype):
+    """w rounded to `dtype` and back to fp32. For a parameter, or a view of
+    one (the slices of a first layer's weight), the rounding of the whole
+    parameter is kept on it and reused until the parameter changes (its
+    version counter, storage or the dtype differ), so a rollout rounds each
+    weight once, not at every product. A weight that needs a gradient is
+    rounded afresh, so that the gradient flows."""
+    base = w if w._base is None else w._base
+    if (w.requires_grad and torch.is_grad_enabled()) or not (
+            isinstance(base, nn.Parameter) and base.is_contiguous()):
+        return w.to(dtype).float()
+    key = (dtype, base._version, base.data_ptr(), base.device)
+    hit = getattr(base, "_nlt_rounded", None)
+    if hit is None or hit[0] != key:
+        hit = (key, base.detach().to(dtype).float())
+        base._nlt_rounded = hit
+    if w is base:
+        return hit[1]
+    return hit[1].as_strided(w.shape, w.stride(),
+                             w.storage_offset() - base.storage_offset())
+
+
+def store(x, compute_dtype=None):
+    """x stored in the compute dtype, when there is one."""
+    return x if compute_dtype is None else x.to(compute_dtype)
+
+
+def finish_mlp(mlp: MLP, x, compute_dtype=None):
+    """Layers 1..n (+ optional LayerNorm) given the first layer's output x;
+    with a compute_dtype, the output is stored in it before the LayerNorm
+    (which keeps the input's dtype)."""
     for lyr in list(mlp.layers)[1:]:
-        x = F.silu(x) @ lyr.w + lyr.b
+        x = mm(F.silu(x), lyr.w, compute_dtype) + lyr.b
+    x = store(x, compute_dtype)
     if mlp.ln is not None:
         x = layer_norm(x, mlp.ln.scale, mlp.ln.bias)
     return x
 
 
-def apply_mlp(mlp: MLP, x):
-    """Linear (+ SiLU between layers), optional output LayerNorm."""
-    return finish_mlp(mlp, x @ mlp.layers[0].w + mlp.layers[0].b)
+def apply_mlp(mlp: MLP, x, compute_dtype=None):
+    """Linear (+ SiLU between layers), optional output LayerNorm. With a
+    compute_dtype, every product rounds its operands to it (`mm`) and every
+    layer's output is stored in it, as the JAX package's `apply_mlp`."""
+    return finish_mlp(mlp, mm(x, mlp.layers[0].w, compute_dtype)
+                      + mlp.layers[0].b, compute_dtype)
 
 
-def apply_mlp_concat(mlp: MLP, parts: list):
+def apply_mlp_concat(mlp: MLP, parts: list, compute_dtype=None):
     """apply_mlp(mlp, concat(parts, -1)) without materializing the concat:
     the first Linear decomposes into per-part matmuls summed."""
     w0 = mlp.layers[0].w
@@ -101,10 +147,10 @@ def apply_mlp_concat(mlp: MLP, parts: list):
     x = mlp.layers[0].b
     for part in parts:
         d = part.shape[-1]
-        x = x + part @ w0[off:off + d]
+        x = x + mm(part, w0[off:off + d], compute_dtype)
         off += d
     assert off == w0.shape[0], (off, w0.shape)
-    return finish_mlp(mlp, x)
+    return finish_mlp(mlp, x, compute_dtype)
 
 
 def grads_through(fn, inputs, output_grads):

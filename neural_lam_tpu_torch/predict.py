@@ -23,9 +23,11 @@ zarr (or .npz) with time stamps and feature names:
 Boundary handling matches evaluation: the boundary ring is forced with
 the datastore's stored future states for the forecast window (a real
 deployment feeds these from the host model's forecast instead).
-Everything runs on CUDA unless `--device cpu`; without CUDA the default
-raises. Not ported yet: ensembles (`--ensemble_members`, ROADMAP.md queue
-1, item 5) and bf16 (`--precision bf16*`, item 2).
+`--precision bf16` (or `bf16-mixed`, the same here, as in the JAX CLI)
+forecasts on the bf16 path: fp32 parameters, activations stored in bf16,
+the kernels' bf16 instances. Everything runs on CUDA unless `--device
+cpu`; without CUDA the default raises. Not ported yet: ensembles
+(`--ensemble_members`, ROADMAP.md queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ def add_model_flags(parser):
     parser.add_argument("--latent_dim", type=int, default=32)
     parser.add_argument("--num_past_forcing_steps", type=int, default=1)
     parser.add_argument("--num_future_forcing_steps", type=int, default=1)
-    parser.add_argument("--precision", default="32")
+    parser.add_argument("--precision", default="32",
+                        choices=["32", "bf16", "bf16-mixed"],
+                        help="bf16 and bf16-mixed: the bf16 forecast path")
 
 
 def parse_args(argv=None):
@@ -89,6 +93,12 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def compute_dtype_of(precision: str):
+    """ModelArgs.compute_dtype of a --precision flag, as the JAX CLIs map
+    it: "bfloat16" for bf16 and bf16-mixed, else None (fp32)."""
+    return "bfloat16" if precision.startswith("bf16") else None
+
+
 def check_supported(args):
     """Raise for what the port cannot forecast yet."""
     from .models import MODELS
@@ -97,10 +107,6 @@ def check_supported(args):
         raise NotImplementedError(
             "--ensemble_members: ensemble forecasts are not ported yet "
             "(ROADMAP.md queue 1, item 5)")
-    if args.precision.startswith("bf16"):
-        raise NotImplementedError(
-            f"--precision {args.precision}: the bf16 compute path is not "
-            "ported yet (ROADMAP.md queue 1, item 2)")
     if args.model not in MODELS:
         where = NOT_PORTED_MODELS.get(args.model)
         raise ValueError(
@@ -131,6 +137,7 @@ def prepare(args):
         output_std=args.output_std,
         num_past_forcing_steps=args.num_past_forcing_steps,
         num_future_forcing_steps=args.num_future_forcing_steps,
+        compute_dtype=compute_dtype_of(args.precision),
     )
     graph = load_or_build_graph(datastore, args.graph, device)
     model = MODELS[args.model](model_args, config, datastore, graph,

@@ -27,9 +27,13 @@ holds), their figures (`test_rmse.pdf`, `test_mae.pdf`,
 (`example_{pred,target}_{i}.npy`, `example_{i}_{var}_t{t}.png`);
 matplotlib is imported only to draw.
 
+`--precision bf16` (or `bf16-mixed`) evaluates on the bf16 forecast path
+(fp32 parameters, activations stored in bf16); training in bf16 raises
+before any step (ROADMAP.md queue 1, item 2's training half).
+
 Not ported yet: ensemble evaluation (`--ensemble_members`, ROADMAP.md
-queue 1, item 5), multi-host and spatial sharding, W&B, profiling,
-`--remat`.
+queue 1, item 5), bf16 training, multi-host and spatial sharding, W&B,
+profiling, `--remat`.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from .device import resolve_device
 from .graph.storage import load_or_build_graph
 from .models import MODELS
 from .models.ar_model import ModelArgs
+from .predict import compute_dtype_of
 
 
 @dataclasses.dataclass
@@ -401,6 +406,10 @@ def main(input_args=None):
     parser.add_argument("--batch_size", type=int, default=4)
     parser.add_argument("--load", type=str)
     parser.add_argument("--restore_opt", action="store_true")
+    parser.add_argument("--precision", type=str, default="32",
+                        choices=["32", "bf16", "bf16-mixed"],
+                        help="bf16 and bf16-mixed: the bf16 forward path, "
+                             "with --eval only")
     parser.add_argument("--graph", type=str, default="multiscale")
     parser.add_argument("--hidden_dim", type=int, default=64)
     parser.add_argument("--hidden_layers", type=int, default=1)
@@ -436,6 +445,12 @@ def main(input_args=None):
         raise NotImplementedError(
             "--ensemble_members: ensemble evaluation is not ported yet "
             "(ROADMAP.md queue 1, item 5)")
+    compute_dtype = compute_dtype_of(args.precision)
+    if compute_dtype is not None and args.eval is None:
+        raise NotImplementedError(
+            f"--precision {args.precision} without --eval: bf16 training is "
+            "not ported yet (ROADMAP.md queue 1, item 2's training half); "
+            "bf16 runs with --eval val|test")
 
     device = resolve_device(args.device)
     torch.manual_seed(args.seed)
@@ -452,6 +467,7 @@ def main(input_args=None):
             int(k): v
             for k, v in json.loads(args.var_leads_metrics_watch).items()},
         n_example_pred=args.n_example_pred,
+        compute_dtype=compute_dtype,
     )
     flags = TrainFlags(
         epochs=args.epochs, val_interval=args.val_interval, seed=args.seed,

@@ -100,13 +100,13 @@ __global__ void __launch_bounds__(kLayerWarps * 32, 1)
   const int stride = gridDim.x * kLayerWarps;
   int tile = warp * gridDim.x + blockIdx.x;
   float dsum = 0.f;
-  stage_rows<K, false, false>(stages, edge_in, nullptr, 0, tile, n_tiles,
+  stage_rows<K, false, false, float>(stages, edge_in, nullptr, 0, tile, n_tiles,
                               n_virt, 0, B, lane);
-  stage_rows<K, false, false>(
+  stage_rows<K, false, false, float>(
       X, edge_in, table,
       tile_senders<K>(senders, tile, n_tiles, n_virt, B, lane), tile,
       n_tiles, n_virt, 0, B, lane);
-  stage_rows<K, false, false>(stages + kTileF, edge_in, nullptr, 0,
+  stage_rows<K, false, false, float>(stages + kTileF, edge_in, nullptr, 0,
                               tile + stride, n_tiles, n_virt, 0, B, lane);
   for (int i = 0; tile < n_tiles; tile += stride, ++i) {
     float* E = stages + (i & 1) * kTileF;
@@ -127,9 +127,9 @@ __global__ void __launch_bounds__(kLayerWarps * 32, 1)
     __syncwarp();
     dsum += E[lane] + X[lane];
     __syncwarp();
-    stage_rows<K, false, false>(X, edge_in, table, s_next, tile + stride,
+    stage_rows<K, false, false, float>(X, edge_in, table, s_next, tile + stride,
                                 n_tiles, n_virt, 0, B, lane);
-    stage_rows<K, false, false>(E, edge_in, nullptr, 0, tile + 2 * stride,
+    stage_rows<K, false, false, float>(E, edge_in, nullptr, 0, tile + 2 * stride,
                                 n_tiles, n_virt, 0, B, lane);
   }
   cp_async_wait<0>();

@@ -326,7 +326,7 @@ def test_reference_graph_dirs_convert_as_jax(hier, ref_env, tmp_path):
 
 @pytest.mark.parametrize("flags, error, match", [
     (["--ensemble_members", "1"], NotImplementedError, "item 5"),
-    (["--precision", "bf16-mixed"], NotImplementedError, "item 2"),
+    (["--precision", "16"], SystemExit, "2"),
     (["--model", "hi_lam_parallel"], ValueError, "item 4"),
     (["--model", "nonsense"], ValueError, "not one of"),
     (["--device", "cuda"], RuntimeError, "CUDA is not available"),
