@@ -182,8 +182,7 @@ result line is printed), each printing its seconds:
    0.5-1.5x, the kernel path's bf16-vs-fp32 gap at least half the plain
    path's (bf16 storage makes the raw kernel-vs-plain gap of the order
    of the bf16 effect: one fp32 last-bit difference flips a rounding,
-   and the flip spreads). `entry.train_steps` on the bf16 model must
-   raise NotImplementedError. Last, `predict.main --precision bf16`
+   and the flip spreads). Last, `predict.main --precision bf16`
    forecasts 4 steps at batch 1 on a 268x238 MDP datastore for a seeded
    GraphLAM and HiLAM (launches asserted: P2/P3 2/4 in bf16; P2/P3 2/59
    in bf16 and P1 3 in fp32), held the same way against the plain bf16
@@ -193,9 +192,34 @@ result line is printed), each printing its seconds:
    route, 2 steps each; launches asserted by dtype), its files written
    and its error maps within 1e-3 x state_std and losses within 1e-4
    relative of the plain bf16 path's, the fp32 call's printed beside
-   them; and
-   `train.main --precision bf16` without --eval must raise
-   NotImplementedError before any step.
+   them.
+12. bf16 training (`compute_dtype="bfloat16"`, `train.main --precision
+   bf16`): a. the bf16 instances of the backward kernels at their
+   main-path shapes on the bf16 bench GraphLAM at batch 4 (B1 at the
+   training step's call, no dx, and with dx; B2 at g2m; B3/B4 at m2m[0];
+   B5/B6 at m2g; `xtd_sum` at B3/B4's and the decoder's pairs, whose X is
+   bf16 for dW_e and enc_w0) and, B2, B3/B4, B5/B6 and `xtd_sum` with
+   bf16-X pairs, at every K from 1 to 8 on phase 3's seeded local graphs
+   (batch 4): each must launch its bf16 instance, give bit-identical
+   outputs in two calls, and match its plain version: bf16 outputs within
+   one bf16 ulp (2^-20 of the largest |plain| where a sum cancels), under
+   0.1% not bit-equal, fp32 gradients within 1e-4 + 1e-4 * max|plain|;
+   at the main-path shapes each is timed with its fp32 instance on the
+   same values widened, its plain version and (xtd_sum, B1) its products
+   as torch calls, beside its bound (bf16 bytes, or operations: fp32 for
+   the chains, TF32 products on tensor cores for B1 and xtd_sum, two a
+   term where the A operand is a staged bf16 value). b. One AdamW step of
+   the bf16 bench GraphLAM and HiLAM at batch 4 through
+   `entry.train_steps`, the counters at 0 just before it: phase 7's
+   launches on the bf16 counters (P1 fp32; B2's `xtd_sum` launch fp32,
+   its one pair being the chain's fp32 X1 and DY); the kernel path's
+   bf16-vs-fp32 parameter gradients (each parameter's over its fp32 max
+   abs) the size of the plain bf16 path's (`error_size`); the bf16 and
+   fp32 steps' host ms (median of 7), peak memory and profiles. c.
+   `train.main --precision bf16` trains GraphLAM 2 steps on a 268x238
+   MDP datastore (the backward kernels' bf16 instances must launch, none
+   of their fp32 ones but B2's `xtd_sum`), and `train.main --eval test
+   --precision bf16` scores its checkpoint (finite, files written).
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -230,9 +254,10 @@ PALLAS_EDGE = "neural_lam_tpu/ops/pallas_edge.py"
 # K2, K3, P1, P2, P3: instances of the kernel template in csrc/edge_tc.cuh
 TC_EDGE = ("edge_tail_sum_flat", "edge_layer_flat", "edge_tail",
            "edge_tail_sum", "edge_layer")
-# the kernels with a bf16 instance (K1-K4, P2, P3); P1 runs fp32 in the
-# bf16 path
-BF16 = FWD + ("edge_tail_sum", "edge_layer")
+# the kernels with a bf16 instance (K1-K4, P2, P3, B1, B2, B3/B4, B5/B6
+# and xtd_sum with its reduce kernel); P1 runs fp32 in the bf16 path
+BF16 = (FWD + ("edge_tail_sum", "edge_layer")
+        + tuple(k + "_bwd" for k in FWD) + TRAIN_ONLY)
 
 
 def fail(msg):
@@ -1390,9 +1415,7 @@ def bf16_eval(torch, np, root, cfg, counts, counts_bf16, reset_counts,
     relative of the plain bf16 path's, phase 9's limits (the two paths'
     outputs differ by a bf16 rounding here and there, see `error_size`,
     but a score averages over the grid), the fp32 call's scores printed
-    beside them. Then
-    `train.main --precision bf16` without --eval must raise
-    NotImplementedError before any step."""
+    beside them."""
     import importlib.util
 
     from neural_lam_tpu_torch import train
@@ -1485,19 +1508,6 @@ def bf16_eval(torch, np, root, cfg, counts, counts_bf16, reset_counts,
                for k, g in gaps.items()):
             fail(f"train.main --eval test {kind} --precision bf16: the "
                  "kernel path's scores differ from the plain bf16 path's")
-    try:
-        train.main(["--config_path", str(cfg), *WIDTH, "--model",
-                    "graph_lam", "--graph", "multiscale", "--batch_size",
-                    "4", "--epochs", "1", "--precision", "bf16",
-                    "--save_dir", str(root / "models"), "--run_name",
-                    "bf16_train"])
-    except NotImplementedError as e:
-        print(f"train.main --precision bf16 (training) raises "
-              f"NotImplementedError: {e}")
-    else:
-        fail("train.main trained in bf16")
-    if (root / "models" / "bf16_train").exists():
-        fail("train.main --precision bf16 wrote a run before raising")
 
 
 def mlp_tail(mlp):
@@ -1858,13 +1868,6 @@ def bf16_phase(torch, np, counts, counts_bf16, reset_counts, plain_kernels,
             n = rec["name"][:-len("[bf16]")]
             rec["launches"] = p16[n] if n in BATCHED else c16[n]
 
-    try:
-        entry.train_steps(gm, gds, BATCH, 1, steps=1)
-    except NotImplementedError as e:
-        print(f"entry.train_steps on the bf16 GraphLAM raises "
-              f"NotImplementedError: {e}")
-    else:
-        fail("entry.train_steps trained a bf16 model")
     del gm, hm, gds
     torch.cuda.empty_cache()
 
@@ -1934,6 +1937,465 @@ def bf16_phase(torch, np, counts, counts_bf16, reset_counts, plain_kernels,
             torch.cuda.empty_cache()
         bf16_eval(torch, np, root, cfg, counts, counts_bf16, reset_counts,
                   plain_kernels)
+
+
+def flat_outputs(out):
+    """A wrapper's outputs as a flat tuple: a trailing dict (the decoder's
+    parameter gradients) by sorted key."""
+    out = as_tuple(out)
+    if isinstance(out[-1], dict):
+        out = out[:-1] + tuple(out[-1][k] for k in sorted(out[-1]))
+    return out
+
+
+def bf16_bwd_check(torch, counts_bf16, name, mod, args, what):
+    """The bf16 instance of backward kernel `name` (in `mod`) against its
+    plain version on the same inputs: its bf16 outputs within one bf16
+    ulp, under 0.1% of them not bit-equal, its fp32 outputs (the
+    parameter gradients) within 1e-4 + 1e-4 * max|plain|; two calls
+    bit-identical. Returns (share not bit-equal, max abs gap)."""
+    kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    before = counts_bf16()[name]
+    got = flat_outputs(kern(*args))
+    again = flat_outputs(kern(*args))
+    want = flat_outputs(plain(*args))
+    torch.cuda.synchronize()
+    if counts_bf16()[name] != before + 2:
+        fail(f"{name} [bf16] at {what}: its bf16 instance did not run")
+    if not all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, again)):
+        fail(f"{name} [bf16] at {what}: two calls differ")
+    share, err = 0.0, 0.0
+    for a, b in zip(got, want):
+        if a is None and b is None:
+            continue
+        if (a.shape != b.shape or a.dtype != b.dtype
+                or not torch.isfinite(a.float()).all()):
+            fail(f"{name} [bf16] at {what}: bad output {tuple(a.shape)} "
+                 f"{a.dtype} (plain {b.dtype})")
+        if a.dtype == torch.bfloat16:
+            s, worst, gap = bf16_gap(torch, a, b)
+            if worst > 1.0 or s >= 1e-3:
+                fail(f"{name} [bf16] at {what}: kernel and plain differ by "
+                     f"{worst:.2f} x one bf16 ulp, {s:.5f} not bit-equal")
+            share = max(share, s)
+        else:
+            gap = float((a - b).abs().max())
+            if gap > 1e-4 + 1e-4 * float(b.abs().max()):
+                fail(f"{name} [bf16] at {what}: fp32 gradient gap {gap:.3e}")
+        err = max(err, gap)
+    return share, err
+
+
+def bf16_bwd_cases(torch, gm, rand):
+    """Phase 12's main-path cases of the bf16 backward instances, on the
+    bf16 bench GraphLAM `gm` at batch 4 with bf16 activations and
+    cotangents from `rand`: B1 at the training step's call (no dx) and
+    with dx, B2 at g2m, B3/B4 at m2m[0], B5/B6 at m2g, and `xtd_sum` at
+    B3/B4's and the decoder's pairs (from the bf16 chains). Each is
+    (kernel, module, args, replaces, source, bytes, FLOP, TF32 FLOP on
+    tensor cores (None: fp32 CUDA cores), library call or None). Bytes:
+    each input read and each output written once, in its dtype (B2's
+    fp32 X1 and DY scratch written once, as in phase 4); a 3xTF32 product
+    takes three TF32 products a term, two where its A operand is a staged
+    bf16 value (B1's t0 = x W0 and dW0 = x^T dt0, xtd_sum's bf16-X
+    pairs)."""
+    from neural_lam_tpu_torch.ops import (
+        edge_flat,
+        embed,
+        grid_update,
+        weight_grad,
+    )
+
+    bf = torch.bfloat16
+    W = BATCH * H
+    g = gm.graph
+    pef = "neural_lam_tpu/ops/pallas_edge_flat.py"
+    pgu = "neural_lam_tpu/ops/pallas_grid_update.py"
+    csrc = "neural_lam_tpu_torch/csrc/"
+    emb = gm.grid_embedder
+    d_in = emb.layers[0].w.shape[0]
+    n_grid = g.num_grid_nodes
+    rows = n_grid * BATCH
+    cases = []
+    par1 = tuple(t.detach() for t in (emb.layers[0].w, emb.layers[0].b,
+                                      emb.layers[1].w, emb.layers[1].b,
+                                      emb.ln.scale, emb.ln.bias))
+    x1, d1 = rand(n_grid, BATCH * d_in), rand(n_grid, W)
+    for need_dx in (False, True):
+        args = (x1,) + par1 + (BATCH, d1, need_dx)
+        xw, dw = x1.view(-1, d_in), d1.view(-1, H)
+        w0b, w1b = par1[0].to(bf), par1[2].to(bf)
+
+        def lib(xw=xw, dw=dw, w0b=w0b, w1b=w1b, need_dx=need_dx):
+            out = [torch.mm(xw, w0b), torch.mm(dw, w1b),
+                   torch.mm(dw, w1b.t()), torch.mm(dw.t(), dw),
+                   torch.mm(xw.t(), dw)]
+            return out + [torch.mm(dw, w0b.t())] if need_dx else out
+
+        cases.append((
+            "embed_grid_flat_bwd", embed, args,
+            "neural_lam_tpu/ops/pallas_embed.py:111"
+            + (" (with dx)" if need_dx else ""), csrc + "embed_bwd.cu",
+            nbytes(x1, d1, *par1) + nbytes(*par1)
+            + (nbytes(x1) if need_dx else 0),
+            2.0 * rows * ((3 if need_dx else 2) * d_in * H + 3 * H * H),
+            2.0 * rows * (2 * 2 * d_in * H + 3 * 3 * H * H
+                          + (3 * d_in * H if need_dx else 0)), lib))
+    # B2 at g2m
+    es = g.g2m
+    nv, K = es.num_virt, es.dense_k
+    M = nv * K
+    mask_p = es.mask.view(nv, K)
+    tail = mlp_tail(gm.g2m_gnn.edge_mlp)
+    a2 = (rand(es.num_send, W), es.senders, rand(M, H), rand(nv, W),
+          mask_p) + tail + (rand(nv, W),)
+    cases.append((
+        "edge_tail_sum_flat_bwd", edge_flat, a2, f"{pef}:526",
+        csrc + "edge_flat_bwd.cu",
+        nbytes(*a2) + M * (W + H) * 2 + nv * W * 2 + nbytes(*tail)
+        + 2 * M * W * 4,
+        3 * 2.0 * float(mask_p.sum()) * BATCH * H * H, None, None))
+    # B3/B4 at m2m[0]
+    es = g.m2m[0]
+    nv, K = es.num_virt, es.dense_k
+    M = nv * K
+    mask_p = es.mask.view(nv, K)
+    lay = gm.processor[0].edge_mlp
+    par3 = mlp_first(lay) + mlp_tail(lay)
+    a3 = (rand(M, W), rand(es.num_send, W), es.senders, rand(nv, W),
+          mask_p) + par3 + (rand(M, W), rand(nv, W))
+    cases.append((
+        "edge_layer_flat_bwd", edge_flat, a3, f"{pef}:846",
+        csrc + "edge_flat_bwd.cu",
+        nbytes(*a3) + 2 * M * W * 2 + nv * W * 2 + nbytes(*par3),
+        3 * 2.0 * M * BATCH * 2 * H * H, None, None))
+    b3_pairs = edge_flat.edge_layer_bwd_chain(*a3)[4]
+    # B5/B6 at m2g
+    es = g.m2g
+    nv, K = es.num_virt, es.dense_k
+    mask_p = es.mask.view(nv, K)
+    pp = {k: v.detach() for k, v in
+          grid_update.pack_grid_update_params(gm).items()}
+    d_out = pp["o_w1"].shape[1]
+    a5 = (rand(es.num_send, W), es.senders, rand(nv * K, H),
+          rand(n_grid, W), mask_p, pp, rand(nv, BATCH * d_out))
+    cases.append((
+        "grid_update_flat_bwd", grid_update, a5, f"{pgu}:752",
+        csrc + "grid_update_bwd.cu",
+        nbytes(*a5[:5], a5[6], *pp.values()) + nv * K * (W + H) * 2
+        + n_grid * W * 2 + nbytes(*pp.values()),
+        3 * (2.0 * nv * BATCH * (7 * H * H + H * d_out)
+             + 2.0 * float(mask_p.sum()) * BATCH * H * H), None, None))
+    dec_pairs = grid_update.grid_update_bwd_chain(*a5)[4]
+    for pairs, label in ((b3_pairs, f"{pef}:846 (B3/B4's two pairs at "
+                          "m2m[0], dW_e's X bf16)"),
+                         (dec_pairs, f"{pgu}:752 (the decoder's nine "
+                          "pairs, enc_w0's X bf16)")):
+        if not any(x.dtype == bf for x, _ in pairs):
+            fail(f"xtd_sum at {label}: no bf16 X")
+        cases.append((
+            "xtd_sum", weight_grad, (pairs,), label,
+            csrc + "weight_grad.cu",
+            unique_nbytes([t for p in pairs for t in p])
+            + sum(H * d.shape[1] * 4 for _, d in pairs),
+            sum(2.0 * x.shape[0] * H * d.shape[1] for x, d in pairs),
+            sum((2 if x.dtype == bf else 3) * 2.0 * x.shape[0] * H
+                * d.shape[1] for x, d in pairs),
+            lambda pairs=pairs: [torch.mm(x.float().t(), d)
+                                 for x, d in pairs]))
+    return cases
+
+
+def bf16_bwd_phase(torch, np, gm, counts_bf16, records, peak_flops,
+                   peak_tf32, peak_bw):
+    """Phase 12a: the bf16 backward instances against their plain versions
+    at the main-path shapes (timed) and at K = 1..8, on the bf16 bench
+    GraphLAM `gm` (module doc). Appends their records."""
+    from neural_lam_tpu_torch.ops import edge_flat, grid_update, weight_grad
+    from neural_lam_tpu_torch.ops.message_passing import EdgeSet
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    W = BATCH * H
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(bf)
+
+    def widened(args):
+        return tuple(
+            a.float() if torch.is_tensor(a) and a.dtype == bf
+            else [(x.float(), d) for x, d in a] if isinstance(a, list)
+            else a for a in args)
+
+    # a. the bf16 backward instances at the main-path shapes ...
+    with torch.no_grad():
+        for (name, mod, args, replaces, source, bytes_, flops, tf32,
+             lib) in bf16_bwd_cases(torch, gm, rand):
+            share, err = bf16_bwd_check(torch, counts_bf16, name, mod, args,
+                                        "its main-path shape")
+            kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+            a32 = widened(args)
+            ms16 = cuda_ms(torch, lambda: kern(*args), 10)
+            ms32 = cuda_ms(torch, lambda: kern(*a32), 10)
+            plain_ms = cuda_ms(torch, lambda: plain(*args), 3)
+            lib_ms = None if lib is None else cuda_ms(torch, lib, 10)
+            t_bytes = bytes_ / peak_bw * 1e3
+            t_ops = 1e3 * (tf32 / peak_tf32 if tf32 is not None
+                           else flops / peak_flops)
+            bound = max(t_bytes, t_ops)
+            print(f"{name} [bf16] at {replaces}: bf16 outputs within one "
+                  f"bf16 ulp of its plain version ({share:.5f} not "
+                  f"bit-equal), fp32 gradients within 1e-4 + 1e-4*max, max "
+                  f"abs {err:.3e}; two calls bit-identical; kernel "
+                  f"{ms16:.4f} ms (fp32 instance on the same values "
+                  f"{ms32:.4f} ms, {ms16 / ms32:.3f}x), plain "
+                  f"{plain_ms:.4f} ms, library "
+                  + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+                  + f", bound {bound:.4f} ms (bytes {bytes_ / 1e6:.1f} MB: "
+                  f"{t_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP"
+                  + (f" as {tf32 / flops:.2f} TF32 products a term on "
+                     "tensor cores" if tf32 is not None else " fp32")
+                  + f": {t_ops:.4f} ms)")
+            if "(with dx)" in replaces or (
+                    name == "xtd_sum" and "decoder" not in replaces):
+                continue  # printed, not recorded
+            records.append({
+                "name": name + "[bf16]", "route": "cuda", "source": source,
+                "replaces": replaces.split(" (")[0], "launches": None,
+                "max_abs_err": err, "ms": ms16, "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib_ms})
+
+        # ... and at K = 1..8 on phase 3's seeded local graphs, batch 4
+        rng = np.random.default_rng(0)
+        n_rec, n_send = 20000, 6561
+        centre = (np.arange(n_rec) * n_send // n_rec)[:, None]
+        pp = {k: v.detach() for k, v in
+              grid_update.pack_grid_update_params(gm).items()}
+        d_out = pp["o_w1"].shape[1]
+        lay = gm.processor[0].edge_mlp
+        for K in range(1, 9):
+            send = np.clip(centre + rng.integers(-4, 5, (n_rec, K)), 0,
+                           n_send - 1).reshape(-1)
+            es = EdgeSet.from_local(
+                send, np.repeat(np.arange(n_rec), K),
+                rng.standard_normal((K * n_rec, 3)).astype(np.float32),
+                n_send, n_rec, device="cuda", build_transpose=False)
+            nv, M = es.num_virt, es.num_virt * K
+            mask_p = es.mask.view(nv, K)
+            shares = []
+            a3 = (rand(M, W), rand(n_send, W), es.senders, rand(nv, W),
+                  mask_p) + mlp_first(lay) + mlp_tail(lay) + (
+                      rand(M, W), rand(nv, W))
+            a5 = (rand(n_send, W), es.senders, rand(M, H), rand(n_rec, W),
+                  mask_p, pp, rand(nv, BATCH * d_out))
+            for name, mod, args in (
+                    ("edge_tail_sum_flat_bwd", edge_flat,
+                     (rand(n_send, W), es.senders, rand(M, H), rand(nv, W),
+                      mask_p) + mlp_tail(gm.g2m_gnn.edge_mlp)
+                     + (rand(nv, W),)),
+                    ("edge_layer_flat_bwd", edge_flat, a3),
+                    ("grid_update_flat_bwd", grid_update, a5),
+                    ("xtd_sum", weight_grad,
+                     (edge_flat.edge_layer_bwd_chain(*a3)[4]
+                      + grid_update.grid_update_bwd_chain(*a5)[4][:1],))):
+                shares.append(bf16_bwd_check(torch, counts_bf16, name, mod,
+                                             args, f"local graph K={K}")[0])
+            print(f"bf16 backward instances at K={K} ({nv} rows, batch 4; "
+                  f"B2, B3/B4, B5/B6, xtd_sum at B3/B4's pairs and the "
+                  f"decoder's enc_w0 pair): each within its limits of its "
+                  f"plain version, two calls bit-identical; shares not "
+                  f"bit-equal {', '.join(f'{s:.5f}' for s in shares)}")
+
+
+def bf16_train_phase(torch, np, counts, counts_bf16, reset_counts,
+                     plain_kernels, records, zero_all, peak_flops,
+                     peak_tf32, peak_bw):
+    """Phase 12: bf16 training on the card (module doc)."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    from neural_lam_tpu_torch import entry, train
+
+    t0 = time.time()
+    gm, gds = entry.build_model(**BENCH, device="cuda",
+                                compute_dtype="bfloat16")
+    print(f"bf16 bench GraphLAM built in {time.time() - t0:.1f} s")
+    bf16_bwd_phase(torch, np, gm, counts_bf16, records, peak_flops,
+                   peak_tf32, peak_bw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12a: {time.time() - t0:.1f} s")
+    phase_t = time.time()
+
+    # b. one AdamW step of the bf16 bench GraphLAM and HiLAM at batch 4
+    L = BENCH["processor_layers"]
+
+    def train_check(net, ds, want16, want32, what):
+        """One bf16 AdamW step through entry.train_steps with the counters
+        at 0 just before it (launches `want16` bf16, `want32` fp32, every
+        other 0); the gradients' error size, kernel path against plain
+        path; step ms, peak memory and a profile beside the fp32 twin on
+        the same weights. Returns the bf16 counts."""
+        entry.train_steps(net, ds, BATCH, 1, steps=1, seed=0,
+                          device="cuda")  # warm-up
+        reset_counts()
+        losses = entry.train_steps(net, ds, BATCH, 1, steps=1, seed=1,
+                                   device="cuda")
+        torch.cuda.synchronize()
+        c16, c32 = counts_bf16(), counts()
+        print(f"{what} bf16 training step ({time.time() - phase_t:.1f} s "
+              f"into phase 12b): loss {losses[0]:.6f}; launches "
+              f"bf16 {({k: n for k, n in c16.items() if n})}, fp32 "
+              f"{({k: n for k, n in c32.items() if n})}")
+        if not all(map(math.isfinite, losses)):
+            fail(f"{what} bf16 training loss is not finite: {losses}")
+        if c16 != {k: want16.get(k, 0) for k in c16} or c32 != dict(
+                {k: 0 for k in zero_all}, **want32):
+            fail(f"{what} bf16 training launches {c16} (bf16), {c32} "
+                 f"(fp32); want {want16}, {want32}")
+        trainer, dm = entry.make_trainer(net, ds, BATCH, 1, seed=2)
+        batch = next(trainer.train_batches(dm, 0))
+        net32 = copy.copy(net)  # the same weights, fp32 path
+        net32.compute_dtype = None
+
+        def grads(m):
+            m.zero_grad(set_to_none=True)
+            m.training_loss(batch).backward()
+            return {k: p.grad.detach().clone()
+                    for k, p in m.named_parameters()}
+
+        k16, k32 = grads(net), grads(net32)
+        with plain_kernels():
+            p16 = grads(net)
+        scale = {k: float(v.abs().max()) or 1.0 for k, v in k32.items()}
+
+        def vec(gr):
+            return torch.cat([(gr[k] / scale[k]).flatten() for k in k32])
+
+        error_size(torch, f"{what} bf16 training gradients (each parameter's "
+                   f"over its fp32 max abs, {len(k32)} parameters)",
+                   vec(k16), vec(p16), vec(k32))
+        del k16, k32, p16
+        net.zero_grad(set_to_none=True)
+        print(f"{what}: gradients compared {time.time() - phase_t:.1f} s "
+              "into phase 12b")
+        line = []
+        trainer32, _ = entry.make_trainer(net32, ds, BATCH, 1, seed=2)
+        for tr, m, tag in ((trainer, net, "bf16"), (trainer32, net32,
+                                                    "fp32")):
+            times = []
+            for i in range(9):
+                torch.cuda.synchronize()
+                if i == 2:
+                    torch.cuda.reset_peak_memory_stats()
+                    live = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                tr.train_step(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if i == 2:
+                    peak = torch.cuda.max_memory_allocated()
+            ms = sorted(times[2:])[3] * 1e3
+            line.append(f"{tag} {ms:.3f} ms (median of 7 after 2 warm-up "
+                        f"steps), peak {peak / 2**30:.3f} GiB "
+                        f"({(peak - live) / 2**30:.3f} GiB above the "
+                        f"{live / 2**30:.3f} live)")
+            profile(torch, lambda: tr.train_step(batch),
+                    f"{what} {tag} train step", top=10)
+            m.zero_grad(set_to_none=True)
+        print(f"{what} train step (fwd+bwd+AdamW, ar_steps 1, batch "
+              f"{BATCH}): {'; '.join(line)}")
+        return c16
+
+    fwd = {"embed_grid_flat": 1, "edge_tail_sum_flat": 1,
+           "edge_layer_flat": L, "grid_update_flat": 1}
+    # phase 7's counts on the bf16 counters: the forward's, a backward
+    # kernel for each, xtd_sum with its reduce kernel for the decoder and
+    # each B3/B4 call (their pairs hold a bf16 X); B2's xtd_sum launch is
+    # fp32 (its pair is the chain's fp32 X1, DY)
+    xtd = {"xtd_sum": 1, "xtd_reduce": 1}
+    c16 = train_check(gm, gds, dict(
+        fwd, **{k + "_bwd": n for k, n in fwd.items()},
+        xtd_sum=1 + L, xtd_reduce=1 + L), xtd, "GraphLAM")
+    for rec in records:
+        n = rec["name"][:-len("[bf16]")]
+        if rec["name"].endswith("[bf16]") and (n.endswith("_bwd")
+                                               or n in TRAIN_ONLY):
+            rec["launches"] = c16[n]
+    del gm, gds
+    torch.cuda.empty_cache()
+    hm, hds = entry.build_model(**BENCH, device="cuda",
+                                compute_dtype="bfloat16", model="hi_lam")
+    hfwd = dict(fwd, edge_layer_flat=3 + 7 * L, edge_layer=2 + 7 * L)
+    train_check(hm, hds, dict(
+        hfwd, **{k + "_bwd": n for k, n in hfwd.items() if k in FWD},
+        xtd_sum=1 + hfwd["edge_layer_flat"],
+        xtd_reduce=1 + hfwd["edge_layer_flat"]),
+        dict(xtd, edge_tail=1), "HiLAM")
+    del hm, hds
+    torch.cuda.empty_cache()
+    print(f"phase 12b: {time.time() - phase_t:.1f} s")
+    phase_t = time.time()
+
+    # c. train.main --precision bf16, then --eval test on its checkpoint
+    with tempfile.TemporaryDirectory(prefix="nlt_bf16_train_") as tmp:
+        t0 = time.time()
+        root = Path(tmp)
+        cfg = write_mdp_datastore(root, np)
+        print(f"MDP datastore written in {time.time() - t0:.1f} s")
+        argv = ["--config_path", str(cfg), "--model", "graph_lam", "--graph",
+                "multiscale", *WIDTH, "--batch_size", "4", "--ar_steps_eval",
+                "2", "--val_steps_to_log", "1", "2", "--precision", "bf16",
+                "--save_dir", str(root / "models")]
+        t0 = time.time()
+        reset_counts()
+        quiet(train.main, argv + ["--ar_steps_train", "1", "--max_steps",
+                                  "2", "--seed", "0", "--run_name",
+                                  "bf16_train"])
+        torch.cuda.synchronize()
+        c16 = {k: n for k, n in counts_bf16().items() if n}
+        c32 = {k: n for k, n in counts().items() if n}
+        print(f"train.main --precision bf16: 2 steps and validation in "
+              f"{time.time() - t0:.1f} s; launches bf16 {c16}, fp32 {c32}")
+        want_bwd = dict({k + "_bwd": 2 * n for k, n in fwd.items()},
+                        xtd_sum=2 * (1 + L), xtd_reduce=2 * (1 + L))
+        if any(c16.get(k) != n for k, n in want_bwd.items()) or c32 != {
+                "xtd_sum": 2, "xtd_reduce": 2}:
+            fail(f"train.main --precision bf16: launches {c16} (bf16), "
+                 f"{c32} (fp32); want {want_bwd} among the bf16 ones, and "
+                 "of the fp32 ones B2's xtd_sum alone")
+        run = root / "models" / "bf16_train"
+        log = [json.loads(line) for line in
+               (run / "metrics.jsonl").read_text().splitlines()]
+        loss = [r["train_loss"] for r in log if "train_loss" in r]
+        if not (run / "last").exists() or not loss or not all(
+                map(math.isfinite, loss)):
+            fail(f"train.main --precision bf16: no checkpoint or loss "
+                 f"{loss}")
+        t0 = time.time()
+        reset_counts()
+        res = quiet(train.main, argv + ["--eval", "test", "--load",
+                                        str(run / "last"), "--run_name",
+                                        "bf16_train_test",
+                                        "--n_example_pred", "0"])
+        torch.cuda.synchronize()
+        c16 = {k: n for k, n in counts_bf16().items() if n}
+        rmse = np.loadtxt(root / "models" / "bf16_train_test"
+                          / "test_rmse.csv", delimiter=",", ndmin=2)
+        losses = [float(v) for k, v in res.items() if "loss" in k]
+        print(f"train.main --eval test --precision bf16 on the bf16-trained "
+              f"checkpoint: {time.time() - t0:.1f} s; launches bf16 {c16}; "
+              f"test_rmse.csv {rmse.shape}, losses {losses}")
+        if (not np.isfinite(rmse).all() or not losses
+                or not all(map(math.isfinite, losses))
+                or not all(c16.get(k) for k in FWD)):
+            fail("train.main --eval test --precision bf16 on the bf16-"
+                 "trained checkpoint: not finite, or the bf16 kernels did "
+                 "not run")
 
 
 def disk_mb(path):
@@ -2011,7 +2473,7 @@ def main():
         print(f"  edge_tc_kernel {tag} ({len(use)} instances): "
               f"{min(r for r, _ in use)}-{max(r for r, _ in use)} registers, "
               f"{sum(s for _, s in use)} bytes of spill")
-    sass_counts(_build, libs["edge_flat_bwd"], "edge_layer_bwd_kernelILi8E")
+    sass_counts(_build, libs["edge_flat_bwd"], "edge_layer_bwd_kernelILi8EfE")
     # edge_tc_kernel<K, kMode, kBatched>: K3, K2 (flat), P3, P2, P1 at K=8
     # and P1 at K=1 (batched)
     # (the float instances: "fE" ends their template arguments)
@@ -2023,7 +2485,7 @@ def main():
     sass_counts(_build, libs["embed"], "embed_kernelILi0EfE")  # K1, d_in <= 64
     sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4EfE")
     sass_counts(_build, libs["weight_grad"], "xtd_sum_kernel")
-    sass_counts(_build, libs["embed_bwd"], "embed_bwd_kernelILb0E")  # B1
+    sass_counts(_build, libs["embed_bwd"], "embed_bwd_kernelILb0EfE")  # B1
     phase_end("1 (build)")
 
     # 2. the bench-width models
@@ -2800,6 +3262,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_end("11 (the bf16 forecast path)")
+
+    # 12. bf16 training
+    bf16_train_phase(torch, np, counts, counts_bf16, reset_counts,
+                     plain_kernels, records, zero_all, peak_flops, peak_tf32,
+                     peak_bw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end("12 (bf16 training)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

@@ -63,6 +63,7 @@ struct Io<float> {
   static __device__ __forceinline__ void st2(float* p, float2 v) {
     *reinterpret_cast<float2*>(p) = v;
   }
+  static __device__ __forceinline__ float ld(const float* p) { return *p; }
   static __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 };
 
@@ -74,6 +75,9 @@ struct Io<__nv_bfloat16> {
   }
   static __device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+  }
+  static __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
   }
   static __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
     *p = __float2bfloat16_rn(v);

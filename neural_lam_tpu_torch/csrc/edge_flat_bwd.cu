@@ -45,6 +45,17 @@
 // and batch element, plus the scratch's two (M*B, 64) tensors written
 // once. What holds the chains is the shared-memory traffic of
 // `nlt_mm64`: a weight load and input broadcasts per k for few FFMAs.
+//
+// bf16 instances (`<K, __nv_bfloat16>`, entries nlt_*_bwd_bf16; the bf16
+// training path): table, ew or edge_rep, rec_rows, d_virt and d_edge_out
+// are read in bf16 through `Io<T>` and widened, the chain runs in fp32 as
+// above, and d_x0, d_ew, d_edge and d_rec are stored in bf16, each rounded
+// once from its fp32 value, as the JAX kernels store them in their inputs'
+// dtype. X1, DY and the vector sums stay fp32; so does the d_x0 of B3's
+// dW_e pair, which B3's bf16 instance writes a second time, unrounded, to
+// d_x0_f (the JAX kernel sums dW_e from its fp32 d_x0, while its stored
+// d_gathered, which the sender fold sums, is bf16). Same plain loads,
+// same design: only the types of what is loaded and stored change.
 #include "bwd_common.cuh"
 
 namespace {
@@ -78,17 +89,17 @@ __host__ __device__ constexpr size_t tail_smem_floats() {
 static_assert(32 * N_TAIL_VEC * NLT_H <= 2 * HH,
               "the vector sums reuse the weight region");
 
-template <int K>
+template <int K, typename T>
 __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
-    edge_tail_bwd_kernel(const float* __restrict__ table,
+    edge_tail_bwd_kernel(const T* __restrict__ table,
                          const int* __restrict__ senders,
-                         const float* __restrict__ ew,
-                         const float* __restrict__ rec_rows,
+                         const T* __restrict__ ew,
+                         const T* __restrict__ rec_rows,
                          const float* __restrict__ mask,
                          const float* __restrict__ params,
-                         const float* __restrict__ d_virt,
-                         float* __restrict__ d_x0, float* __restrict__ d_ew,
-                         float* __restrict__ d_rec,
+                         const T* __restrict__ d_virt,
+                         T* __restrict__ d_x0, T* __restrict__ d_ew,
+                         T* __restrict__ d_rec,
                          float* __restrict__ x1_s,  // (M*B, 64)
                          float* __restrict__ dy_s,  // (M*B, 64)
                          float* __restrict__ partial, int n_virt, int B) {
@@ -129,16 +140,16 @@ __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
     for (int k = 0; k < K; ++k) nlt_st2(sd + k * NLT_H, lane, zero);
     for (int b = 0; b < B; ++b) {
       const size_t col = (size_t)b * NLT_H;
-      const float2 rec = nlt_ld2(rec_rows + (size_t)v * W + col, lane);
+      const float2 rec = nlt_ld2t(rec_rows + (size_t)v * W + col, lane);
       // x0 = ew + table[senders] + rec;  y = silu(x0) @ W2 + b2  (sa: x1)
       float2 x0[K];
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        x0[k] = nlt_ld2(ew + (slot0 + k) * NLT_H, lane);
+        x0[k] = nlt_ld2t(ew + (slot0 + k) * NLT_H, lane);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int s = senders[slot0 + k];
-        const float2 g = nlt_ld2(table + (size_t)s * W + col, lane);
+        const float2 g = nlt_ld2t(table + (size_t)s * W + col, lane);
         x0[k] = nlt_add2(nlt_add2(x0[k], g), rec);
         const float2 x1 = nlt_silu2(x0[k]);
         nlt_st2(sa + k * NLT_H, lane, x1);
@@ -149,7 +160,7 @@ __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
       nlt_fill(y, b2v);
       nlt_mm64<K>(sa, NLT_H, w2, NLT_H, lane, y);
       // d_y, LayerNorm backward   (sb: d_y rows)
-      const float2 dv = nlt_ld2(d_virt + (size_t)v * W + col, lane);
+      const float2 dv = nlt_ld2t(d_virt + (size_t)v * W + col, lane);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const float m = mask[slot0 + k];
@@ -172,14 +183,14 @@ __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
         nlt_acc2(drec, d0);
         nlt_st2(sd + k * NLT_H, lane,
                 nlt_add2(nlt_ld2(sd + k * NLT_H, lane), d0));
-        nlt_st2(d_x0 + (slot0 + k) * W + col, lane, d0);
+        nlt_st2t(d_x0 + (slot0 + k) * W + col, lane, d0);
       }
-      nlt_st2(d_rec + (size_t)v * W + col, lane, drec);
+      nlt_st2t(d_rec + (size_t)v * W + col, lane, drec);
     }
 #pragma unroll
     for (int k = 0; k < K; ++k)
-      nlt_st2(d_ew + (slot0 + k) * NLT_H, lane,
-              nlt_ld2(sd + k * NLT_H, lane));
+      nlt_st2t(d_ew + (slot0 + k) * NLT_H, lane,
+               nlt_ld2(sd + k * NLT_H, lane));
   }
 
   __syncthreads();  // every warp is done with the weights: the sums reuse them
@@ -202,19 +213,20 @@ __host__ __device__ constexpr size_t layer_smem_floats() {
 static_assert(32 * N_VEC * NLT_H <= 4 * HH,
               "the vector sums reuse the weight region");
 
-template <int K>
+template <int K, typename T>
 __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
-    edge_layer_bwd_kernel(const float* __restrict__ edge_rep,
-                          const float* __restrict__ table,
+    edge_layer_bwd_kernel(const T* __restrict__ edge_rep,
+                          const T* __restrict__ table,
                           const int* __restrict__ senders,
-                          const float* __restrict__ rec_rows,
+                          const T* __restrict__ rec_rows,
                           const float* __restrict__ mask,
                           const float* __restrict__ params,
-                          const float* __restrict__ d_virt,
-                          const float* __restrict__ d_edge_out,  // or null
-                          float* __restrict__ d_x0,
-                          float* __restrict__ d_edge,
-                          float* __restrict__ d_rec,
+                          const T* __restrict__ d_virt,
+                          const T* __restrict__ d_edge_out,  // or null
+                          T* __restrict__ d_x0,
+                          float* __restrict__ d_x0_f,  // or null
+                          T* __restrict__ d_edge,
+                          T* __restrict__ d_rec,
                           float* __restrict__ x1_s,  // (M*B, 64)
                           float* __restrict__ dy_s,  // (M*B, 64)
                           float* __restrict__ partial, int n_virt, int B) {
@@ -259,12 +271,12 @@ __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
     const size_t slot0 = (size_t)v * K;
     for (int b = 0; b < B; ++b) {
       const size_t col = (size_t)b * NLT_H;
-      const float2 rec = nlt_ld2(rec_rows + (size_t)v * W + col, lane);
+      const float2 rec = nlt_ld2t(rec_rows + (size_t)v * W + col, lane);
       // x0 = edge @ W_e + b0 + table[senders] + rec   (sa: edge rows)
 #pragma unroll
       for (int k = 0; k < K; ++k)
         nlt_st2(sa + k * NLT_H, lane,
-                nlt_ld2(edge_rep + (slot0 + k) * W + col, lane));
+                nlt_ld2t(edge_rep + (slot0 + k) * W + col, lane));
       __syncwarp();
       float2 x0[K];
       nlt_fill(x0, b0v);
@@ -273,7 +285,7 @@ __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int s = senders[slot0 + k];
-        const float2 g = nlt_ld2(table + (size_t)s * W + col, lane);
+        const float2 g = nlt_ld2t(table + (size_t)s * W + col, lane);
         x0[k] = nlt_add2(nlt_add2(x0[k], g), rec);
         const float2 x1 = nlt_silu2(x0[k]);
         nlt_st2(sb + k * NLT_H, lane, x1);
@@ -284,13 +296,13 @@ __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
       nlt_fill(y, b2v);
       nlt_mm64<K>(sb, NLT_H, w2, NLT_H, lane, y);
       // d_y, LayerNorm backward   (sa: d_y rows)
-      const float2 dv = nlt_ld2(d_virt + (size_t)v * W + col, lane);
+      const float2 dv = nlt_ld2t(d_virt + (size_t)v * W + col, lane);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const float m = mask[slot0 + k];
         float2 dmsg = make_float2(m * dv.x, m * dv.y);
         if (d_edge_out != nullptr)
-          nlt_acc2(dmsg, nlt_ld2(d_edge_out + (slot0 + k) * W + col, lane));
+          nlt_acc2(dmsg, nlt_ld2t(d_edge_out + (slot0 + k) * W + col, lane));
         const float2 dy = nlt_ln_grad(nlt_ln_stats(y[k]), lsv, dmsg,
                                       vsum[V_LS], vsum[V_LB]);
         nlt_acc2(vsum[V_B2], dy);
@@ -308,10 +320,12 @@ __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
         const float2 d0 = nlt_mul_silu_grad(dx1[k], x0[k]);
         nlt_acc2(drec, d0);
         nlt_acc2(vsum[V_B0], d0);
-        nlt_st2(d_x0 + (slot0 + k) * W + col, lane, d0);
+        nlt_st2t(d_x0 + (slot0 + k) * W + col, lane, d0);
+        if (d_x0_f != nullptr)
+          nlt_st2(d_x0_f + (slot0 + k) * W + col, lane, d0);
         nlt_st2(sb + k * NLT_H, lane, d0);
       }
-      nlt_st2(d_rec + (size_t)v * W + col, lane, drec);
+      nlt_st2t(d_rec + (size_t)v * W + col, lane, drec);
       __syncwarp();
       // d_edge = d_edge_out + d_x0 @ W_e^T
       float2 de[K];
@@ -320,8 +334,9 @@ __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const size_t at = (slot0 + k) * W + col;
-        if (d_edge_out != nullptr) nlt_acc2(de[k], nlt_ld2(d_edge_out + at, lane));
-        nlt_st2(d_edge + at, lane, de[k]);
+        if (d_edge_out != nullptr)
+          nlt_acc2(de[k], nlt_ld2t(d_edge_out + at, lane));
+        nlt_st2t(d_edge + at, lane, de[k]);
       }
     }
   }
@@ -333,90 +348,159 @@ __global__ void __launch_bounds__(layer_warps<K>() * 32, 1)
 
 // ------------------------------------------------------------ launches ----
 
-template <int K>
+template <int K, typename T>
 cudaError_t tail_grid_for(int n_virt, int* grid) {
-  return nlt_launch_config(edge_tail_bwd_kernel<K>, layer_warps<K>() * 32,
+  return nlt_launch_config(edge_tail_bwd_kernel<K, T>, layer_warps<K>() * 32,
                            sizeof(float) * tail_smem_floats<K>(),
                            (n_virt + layer_warps<K>() - 1) / layer_warps<K>(),
                            grid);
 }
 
-template <int K>
+template <int K, typename T>
 cudaError_t layer_grid_for(int n_virt, int* grid) {
-  return nlt_launch_config(edge_layer_bwd_kernel<K>, layer_warps<K>() * 32,
+  return nlt_launch_config(edge_layer_bwd_kernel<K, T>, layer_warps<K>() * 32,
                            sizeof(float) * layer_smem_floats<K>(),
                            (n_virt + layer_warps<K>() - 1) / layer_warps<K>(),
                            grid);
 }
 
-template <int K>
-cudaError_t tail_launch(const float* table, const int* senders,
-                        const float* ew, const float* rec_rows,
-                        const float* mask, const float* params,
-                        const float* d_virt, float* d_x0, float* d_ew,
-                        float* d_rec, float* x1_s, float* dy_s,
+template <int K, typename T>
+cudaError_t tail_launch(const T* table, const int* senders, const T* ew,
+                        const T* rec_rows, const float* mask,
+                        const float* params, const T* d_virt, T* d_x0,
+                        T* d_ew, T* d_rec, float* x1_s, float* dy_s,
                         float* partial, int n_virt, int B, int grid,
                         cudaStream_t stream) {
   const size_t smem = sizeof(float) * tail_smem_floats<K>();
-  cudaError_t err = nlt_allow_smem(edge_tail_bwd_kernel<K>, smem);
+  cudaError_t err = nlt_allow_smem(edge_tail_bwd_kernel<K, T>, smem);
   if (err != cudaSuccess) return err;
-  edge_tail_bwd_kernel<K><<<grid, layer_warps<K>() * 32, smem, stream>>>(
+  edge_tail_bwd_kernel<K, T><<<grid, layer_warps<K>() * 32, smem, stream>>>(
       table, senders, ew, rec_rows, mask, params, d_virt, d_x0, d_ew, d_rec,
       x1_s, dy_s, partial, n_virt, B);
   return cudaGetLastError();
 }
 
-template <int K>
-cudaError_t layer_launch(const float* edge_rep, const float* table,
-                         const int* senders, const float* rec_rows,
+template <int K, typename T>
+cudaError_t layer_launch(const T* edge_rep, const T* table,
+                         const int* senders, const T* rec_rows,
                          const float* mask, const float* params,
-                         const float* d_virt, const float* d_edge_out,
-                         float* d_x0, float* d_edge, float* d_rec,
-                         float* x1_s, float* dy_s, float* partial, int n_virt,
-                         int B, int grid, cudaStream_t stream) {
+                         const T* d_virt, const T* d_edge_out, T* d_x0,
+                         float* d_x0_f, T* d_edge, T* d_rec, float* x1_s,
+                         float* dy_s, float* partial, int n_virt, int B,
+                         int grid, cudaStream_t stream) {
   const size_t smem = sizeof(float) * layer_smem_floats<K>();
-  cudaError_t err = nlt_allow_smem(edge_layer_bwd_kernel<K>, smem);
+  cudaError_t err = nlt_allow_smem(edge_layer_bwd_kernel<K, T>, smem);
   if (err != cudaSuccess) return err;
-  edge_layer_bwd_kernel<K><<<grid, layer_warps<K>() * 32, smem, stream>>>(
+  edge_layer_bwd_kernel<K, T><<<grid, layer_warps<K>() * 32, smem, stream>>>(
       edge_rep, table, senders, rec_rows, mask, params, d_virt, d_edge_out,
-      d_x0, d_edge, d_rec, x1_s, dy_s, partial, n_virt, B);
+      d_x0, d_x0_f, d_edge, d_rec, x1_s, dy_s, partial, n_virt, B);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Blocks of nlt_edge_tail_sum_bwd / nlt_edge_layer_bwd for these sizes:
-// the rows of their `partial`.
-extern "C" int nlt_edge_tail_sum_bwd_grid(int n_virt, int K, int B,
-                                          int device, int* grid) {
+template <typename T>
+int tail_grid(int n_virt, int K, int device, int* grid) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_virt < 1) return (int)cudaErrorInvalidValue;
 #define NLT_CASE(KK) \
   case KK:           \
-    return (int)tail_grid_for<KK>(n_virt, grid);
+    return (int)tail_grid_for<KK, T>(n_virt, grid);
   switch (K) {
     NLT_FOR_K(NLT_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef NLT_CASE
+}
+
+template <typename T>
+int layer_grid(int n_virt, int K, int device, int* grid) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_virt < 1) return (int)cudaErrorInvalidValue;
+#define NLT_CASE(KK) \
+  case KK:           \
+    return (int)layer_grid_for<KK, T>(n_virt, grid);
+  switch (K) {
+    NLT_FOR_K(NLT_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NLT_CASE
+}
+
+template <typename T>
+int tail_bwd(const T* table, const int* senders, const T* ew,
+             const T* rec_rows, const float* mask, const float* params,
+             const T* d_virt, T* d_x0, T* d_ew, T* d_rec, float* x1_s,
+             float* dy_s, float* partial, int n_virt, int K, int B, int grid,
+             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_virt < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define NLT_CASE(KK)                                                      \
+  case KK:                                                                \
+    return (int)tail_launch<KK, T>(table, senders, ew, rec_rows, mask,    \
+                                   params, d_virt, d_x0, d_ew, d_rec,     \
+                                   x1_s, dy_s, partial, n_virt, B, grid,  \
+                                   s);
+  switch (K) {
+    NLT_FOR_K(NLT_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NLT_CASE
+}
+
+template <typename T>
+int layer_bwd(const T* edge_rep, const T* table, const int* senders,
+              const T* rec_rows, const float* mask, const float* params,
+              const T* d_virt, const T* d_edge_out, T* d_x0, float* d_x0_f,
+              T* d_edge, T* d_rec, float* x1_s, float* dy_s, float* partial,
+              int n_virt, int K, int B, int grid, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_virt < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define NLT_CASE(KK)                                                        \
+  case KK:                                                                  \
+    return (int)layer_launch<KK, T>(edge_rep, table, senders, rec_rows,     \
+                                    mask, params, d_virt, d_edge_out, d_x0, \
+                                    d_x0_f, d_edge, d_rec, x1_s, dy_s,      \
+                                    partial, n_virt, B, grid, s);
+  switch (K) {
+    NLT_FOR_K(NLT_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NLT_CASE
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+// Blocks of nlt_edge_tail_sum_bwd[_bf16] / nlt_edge_layer_bwd[_bf16] for
+// these sizes: the rows of their `partial`.
+extern "C" int nlt_edge_tail_sum_bwd_grid(int n_virt, int K, int B,
+                                          int device, int* grid) {
+  return tail_grid<float>(n_virt, K, device, grid);
+}
+
+extern "C" int nlt_edge_tail_sum_bwd_bf16_grid(int n_virt, int K, int B,
+                                               int device, int* grid) {
+  return tail_grid<bf16>(n_virt, K, device, grid);
 }
 
 extern "C" int nlt_edge_layer_bwd_grid(int n_virt, int K, int B, int device,
                                        int* grid) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_virt < 1) return (int)cudaErrorInvalidValue;
-#define NLT_CASE(KK) \
-  case KK:           \
-    return (int)layer_grid_for<KK>(n_virt, grid);
-  switch (K) {
-    NLT_FOR_K(NLT_CASE)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef NLT_CASE
+  return layer_grid<float>(n_virt, K, device, grid);
+}
+
+extern "C" int nlt_edge_layer_bwd_bf16_grid(int n_virt, int K, int B,
+                                            int device, int* grid) {
+  return layer_grid<bf16>(n_virt, K, device, grid);
 }
 
 // B2's chain pass. d_virt (n_virt, B*64) -> d_x0 (M, B*64), d_ew (M, 64),
@@ -430,50 +514,55 @@ extern "C" int nlt_edge_tail_sum_bwd(const float* table, const int* senders,
                                      float* dy_s, float* partial, int n_virt,
                                      int K, int B, int grid, int device,
                                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_virt < 1 || grid < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define NLT_CASE(KK)                                                        \
-  case KK:                                                                  \
-    return (int)tail_launch<KK>(table, senders, ew, rec_rows, mask, params, \
-                                d_virt, d_x0, d_ew, d_rec, x1_s, dy_s,      \
-                                partial, n_virt, B, grid, s);
-  switch (K) {
-    NLT_FOR_K(NLT_CASE)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef NLT_CASE
+  return tail_bwd<float>(table, senders, ew, rec_rows, mask, params, d_virt,
+                         d_x0, d_ew, d_rec, x1_s, dy_s, partial, n_virt, K,
+                         B, grid, device, stream);
+}
+
+// B2's chain pass, bf16 instance: table, ew, rec_rows, d_virt, d_x0, d_ew
+// and d_rec in bf16; the scratch and partial fp32.
+extern "C" int nlt_edge_tail_sum_bwd_bf16(
+    const bf16* table, const int* senders, const bf16* ew,
+    const bf16* rec_rows, const float* mask, const float* params,
+    const bf16* d_virt, bf16* d_x0, bf16* d_ew, bf16* d_rec, float* x1_s,
+    float* dy_s, float* partial, int n_virt, int K, int B, int grid,
+    int device, void* stream) {
+  return tail_bwd<bf16>(table, senders, ew, rec_rows, mask, params, d_virt,
+                        d_x0, d_ew, d_rec, x1_s, dy_s, partial, n_virt, K, B,
+                        grid, device, stream);
 }
 
 // B3/B4's chain pass. d_virt (n_virt, B*64), d_edge_out (M, B*64) or null
 // -> d_x0, d_edge (M, B*64), d_rec (n_virt, B*64), the scratch x1_s and
 // dy_s (M*B, 64) each (see above), and partial (grid, 4*64): each block's
-// sums of db2, dls, dlb, db0.
+// sums of db2, dls, dlb, db0. d_x0_f: null here (d_x0 is fp32 already).
 extern "C" int nlt_edge_layer_bwd(const float* edge_rep, const float* table,
                                   const int* senders, const float* rec_rows,
                                   const float* mask, const float* params,
                                   const float* d_virt,
                                   const float* d_edge_out, float* d_x0,
-                                  float* d_edge, float* d_rec, float* x1_s,
-                                  float* dy_s, float* partial, int n_virt,
-                                  int K, int B, int grid, int device,
-                                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_virt < 1 || grid < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define NLT_CASE(KK)                                                       \
-  case KK:                                                                 \
-    return (int)layer_launch<KK>(edge_rep, table, senders, rec_rows, mask, \
-                                 params, d_virt, d_edge_out, d_x0, d_edge, \
-                                 d_rec, x1_s, dy_s, partial, n_virt, B,    \
-                                 grid, s);
-  switch (K) {
-    NLT_FOR_K(NLT_CASE)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef NLT_CASE
+                                  float* d_x0_f, float* d_edge, float* d_rec,
+                                  float* x1_s, float* dy_s, float* partial,
+                                  int n_virt, int K, int B, int grid,
+                                  int device, void* stream) {
+  return layer_bwd<float>(edge_rep, table, senders, rec_rows, mask, params,
+                          d_virt, d_edge_out, d_x0, d_x0_f, d_edge, d_rec,
+                          x1_s, dy_s, partial, n_virt, K, B, grid, device,
+                          stream);
+}
+
+// B3/B4's chain pass, bf16 instance: edge_rep, table, rec_rows, d_virt,
+// d_edge_out, d_x0, d_edge and d_rec in bf16; d_x0_f (M, B*64) fp32
+// receives d_x0 unrounded, for the dW_e pair.
+extern "C" int nlt_edge_layer_bwd_bf16(
+    const bf16* edge_rep, const bf16* table, const int* senders,
+    const bf16* rec_rows, const float* mask, const float* params,
+    const bf16* d_virt, const bf16* d_edge_out, bf16* d_x0, float* d_x0_f,
+    bf16* d_edge, bf16* d_rec, float* x1_s, float* dy_s, float* partial,
+    int n_virt, int K, int B, int grid, int device, void* stream) {
+  if (d_x0_f == nullptr) return (int)cudaErrorInvalidValue;
+  return layer_bwd<bf16>(edge_rep, table, senders, rec_rows, mask, params,
+                         d_virt, d_edge_out, d_x0, d_x0_f, d_edge, d_rec,
+                         x1_s, dy_s, partial, n_virt, K, B, grid, device,
+                         stream);
 }

@@ -45,6 +45,18 @@
 //   them in registers over the block's whole row range (step_wgrad). Each
 //   block writes its sums once to its row of the partial-sum scratch (the
 //   parameter blob's layout); the caller sums the rows in a fixed order.
+//
+// bf16 instance (`embed_bwd_kernel<kWide, __nv_bfloat16>`, entry
+// nlt_embed_bwd_bf16; the bf16 training path): x and d_out are read in
+// bf16 and dx stored in bf16 (rounded once from its fp32 value); the
+// weight and vector gradients stay fp32, as the JAX kernel computes them.
+// x is staged raw by the same cp.async copies into a swizzled bf16 tile
+// (stage_x, `at_bf16`) and converted at the A-fragment reads of t0 = x W0
+// and of dW0 = x^T dt0, each of which takes two TF32 products a term (a
+// bf16 value has no small half). d_out is staged raw by cp.async into the
+// second half of the warp's dy buffer, and widened in place to the fp32
+// layout once it has landed (rows 8-15 held in registers while rows 0-7
+// are written), so the LayerNorm backward reads it as in fp32.
 #include "bwd_common.cuh"
 #include "tc_common.cuh"
 
@@ -125,21 +137,45 @@ __device__ __forceinline__ float2 col_sums(const float (&v)[8][2], int lane) {
   return r;
 }
 
+// Where a bf16 d_out tile is staged: the second half of the warp's dy
+// buffer, in the swizzled bf16 layout (`staged_at`, 64 values a row).
+constexpr int kDoutBf16At = kRows * NLT_H / 2;
+
 // Stage rows r0 .. r0+15 of x (d_in columns, zero-padded to a multiple
 // of 8 by stage_x; the columns past that are never written) into xs and
 // of d_out into dys (rows past n_rows as zeros), as two cp.async groups:
 // x, then d_out, which the chain waits for only at its LayerNorm. 16-byte
-// copies where the rows allow them.
-template <int XC>
+// copies where the rows allow them. A bf16 d_out goes raw to dys +
+// kDoutBf16At (`widen_dout` makes it fp32), one value at a time by plain
+// loads where its rows are not 16-byte aligned (bf16 has no 2-byte
+// cp.async).
+template <int XC, typename T>
 __device__ __forceinline__ void stage_tile(float* xs, float* dys,
-                                           const float* __restrict__ x,
-                                           const float* __restrict__ dout,
+                                           const T* __restrict__ x,
+                                           const T* __restrict__ dout,
                                            long long r0, long long n_rows,
                                            int d_in, bool x16, bool d16,
                                            int lane) {
   stage_x<XC>(xs, x, r0, n_rows, d_in, 0, d_in, x16, lane);
   cp_async_commit();
-  if (d16) {
+  if constexpr (sizeof(T) != sizeof(float)) {
+    float* dh = dys + kDoutBf16At;
+    if (d16) {
+      for (int i = lane; i < kRows * NLT_H / 8; i += 32) {
+        const int r = i >> 3, c = 8 * (i & 7);
+        const bool ok = r0 + r < n_rows;
+        cp_async16(staged_at<T>(dh, r, c, NLT_H),
+                   dout + (ok ? r0 + r : 0) * NLT_H + c, ok);
+      }
+    } else {
+      for (int i = lane; i < kRows * NLT_H; i += 32) {
+        const int r = i >> 6, c = i & (NLT_H - 1);
+        const bool ok = r0 + r < n_rows;
+        *staged_at<T>(dh, r, c, NLT_H) =
+            ok ? dout[(r0 + r) * NLT_H + c] : __float2bfloat16_rn(0.f);
+      }
+    }
+  } else if (d16) {
     for (int i = lane; i < kRows * NLT_H / 4; i += 32) {
       const int r = i >> 4, c = 4 * (i & 15);
       const bool ok = r0 + r < n_rows;
@@ -157,14 +193,37 @@ __device__ __forceinline__ void stage_tile(float* xs, float* dys,
   cp_async_commit();
 }
 
-// The chain of one staged tile (rows r0..): writes t to ts, dy to dys
-// (over d_out), dt0 to d0s, dx when asked; adds the tile's column sums of
-// dt0, dy, d_out * chat and d_out to vsum.
-template <int XC>
+// A bf16 d_out tile staged at dys + kDoutBf16At, widened in place to the
+// fp32 tile at dys (`at` layout). Rows 0-7 of the fp32 tile lie below the
+// bf16 tile, rows 8-15 over it: so rows 8-15 are read into registers
+// first, rows 0-7 written, and then rows 8-15. Lane l takes columns 2l and
+// 2l+1 of every row. Whole warp, after the tile has landed.
+__device__ __forceinline__ void widen_dout(float* dys, int lane) {
+  const float* dh = dys + kDoutBf16At;
+  __nv_bfloat162 hi[kRows / 2];
+#pragma unroll
+  for (int r = 0; r < kRows / 2; ++r)
+    hi[r] = *reinterpret_cast<const __nv_bfloat162*>(
+        staged_at<__nv_bfloat16>(dh, r + kRows / 2, 2 * lane, NLT_H));
+#pragma unroll
+  for (int r = 0; r < kRows / 2; ++r)
+    st2s(dys, r, 2 * lane, NLT_H,
+         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+             staged_at<__nv_bfloat16>(dh, r, 2 * lane, NLT_H))));
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kRows / 2; ++r)
+    st2s(dys, r + kRows / 2, 2 * lane, NLT_H, __bfloat1622float2(hi[r]));
+}
+
+// The chain of one staged tile (rows r0..) of x in T: writes t to ts, dy
+// to dys (over d_out), dt0 to d0s, dx when asked; adds the tile's column
+// sums of dt0, dy, d_out * chat and d_out to vsum.
+template <int XC, typename T>
 __device__ __forceinline__ void chain_tile(const float* xs, float* ts,
                                            float* dys, float* d0s,
                                            const float* w0, const float* w1,
-                                           const float* vec, float* dx,
+                                           const float* vec, T* dx,
                                            long long r0, long long n_rows,
                                            int d_in, int lane,
                                            float2 (&vsum)[4]) {
@@ -174,7 +233,7 @@ __device__ __forceinline__ void chain_tile(const float* xs, float* ts,
 
   // t0 = x W0 + b0 -> d0s, t = silu(t0) -> ts
   zero(acc);
-  tile_mma(xs, XC, (d_in + 7) >> 3, SmemW<false>{w0}, 0, lane, acc);
+  tile_mma<T>(xs, XC, (d_in + 7) >> 3, SmemW<false>{w0}, 0, lane, acc);
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -217,6 +276,10 @@ __device__ __forceinline__ void chain_tile(const float* xs, float* ts,
   // g = d_out * ls and g * chat
   cp_async_wait<0>();  // d_out has landed
   __syncwarp();
+  if constexpr (sizeof(T) != sizeof(float)) {
+    widen_dout(dys, lane);
+    __syncwarp();
+  }
   float mg[2], mgc[2];
   {
     float vb[8][2];
@@ -293,61 +356,74 @@ __device__ __forceinline__ void chain_tile(const float* xs, float* ts,
       for (int h = 0; h < 2; ++h) {
         const long long row = r0 + g + 8 * h;
         if (row >= n_rows) continue;
-        float* dst = dx + row * d_in;
+        T* dst = dx + row * d_in;
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
           const int c = 8 * (q0 + q) + 2 * t;
-          if (c < d_in) dst[c] = acc[q][2 * h];
-          if (c + 1 < d_in) dst[c + 1] = acc[q][2 * h + 1];
+          if (c < d_in) Io<T>::st(dst + c, acc[q][2 * h]);
+          if (c + 1 < d_in) Io<T>::st(dst + c + 1, acc[q][2 * h + 1]);
         }
       }
     }
   }
 }
 
+// c = X^T D over one warp's 16 staged rows, for X's columns i0 .. i0+15
+// (X staged in TX, lx columns a row: float `at`, bf16 `at_bf16`; a bf16
+// X takes two TF32 products a term) and D's 64 (fp32, `at`).
+template <typename TX>
+__device__ __forceinline__ void wgrad_tile(const float* X, int lx,
+                                           const float* D, int i0, int lane,
+                                           float (&c)[8][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  zero(c);
+#pragma unroll
+  for (int kk = 0; kk < kRows; kk += 8) {
+    uint32_t ab[4], as[4];
+    split_a(*staged_at<TX>(X, kk + t, i0 + g, lx), ab[0], as[0]);
+    split_a(*staged_at<TX>(X, kk + t, i0 + g + 8, lx), ab[1], as[1]);
+    split_a(*staged_at<TX>(X, kk + t + 4, i0 + g, lx), ab[2], as[2]);
+    split_a(*staged_at<TX>(X, kk + t + 4, i0 + g + 8, lx), ab[3], as[3]);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      uint32_t bb0, bs0, bb1, bs1;
+      split_fast(D[at(kk + t, 8 * q + g, NLT_H)], bb0, bs0);
+      split_fast(D[at(kk + t + 4, 8 * q + g, NLT_H)], bb1, bs1);
+      if constexpr (sizeof(TX) == sizeof(float)) mma_tf32(c[q], as, bb0, bb1);
+      mma_tf32(c[q], ab, bs0, bs1);
+      mma_tf32(c[q], ab, bb0, bb1);
+    }
+  }
+}
+
 // Weight gradients of a block step on tensor cores. The outputs are cut
 // into 16 x 64 strips: dW1 = t^T dy (strips 0-3, of t's columns) and
-// dW0 = x^T dt0 (strips 4.., of x's columns, as far as d_in reaches);
-// warp w sums strips w, w + kWarps, .. over the step's rows, in 3xTF32
-// with the row as the k dimension: A(i, r) = X[r, i0 + i] and B(r, j) =
-// D[r, j], read from each warp's buffers. Each 16-row tile is summed in
-// fresh accumulators, then added to acc (fp32) in warp order.
-template <int XC, int NS, int kWarps>
+// dW0 = x^T dt0 (strips 4.., of x's columns, as far as d_in reaches, x
+// staged in T); warp w sums strips w, w + kWarps, .. over the step's rows,
+// in 3xTF32 with the row as the k dimension: A(i, r) = X[r, i0 + i] and
+// B(r, j) = D[r, j], read from each warp's buffers. Each 16-row tile is
+// summed in fresh accumulators, then added to acc (fp32) in warp order.
+template <int XC, int NS, int kWarps, typename T>
 __device__ __forceinline__ void step_wgrad(const float* bufs, int n_strips,
                                            int warp, int lane,
                                            float (&acc)[NS][8][4]) {
   constexpr int WF = kRows * (XC + 3 * NLT_H);
-  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < NS; ++j) {
     const int s = warp + j * kWarps;
     if (s >= n_strips) break;
     const bool w1s = s < 4;
-    const int xo = w1s ? kRows * XC : 0, lx = w1s ? NLT_H : XC;
+    const int xo = w1s ? kRows * XC : 0;
     const int i0 = 16 * (w1s ? s : s - 4);
     const int dof = kRows * (XC + (w1s ? 1 : 2) * NLT_H);
     for (int w = 0; w < kWarps; ++w) {
       const float* X = bufs + w * WF + xo;
       const float* D = bufs + w * WF + dof;
       float c[8][4];
-      zero(c);
-#pragma unroll
-      for (int kk = 0; kk < kRows; kk += 8) {
-        uint32_t ab[4], as[4];
-        split_fast(X[at(kk + t, i0 + g, lx)], ab[0], as[0]);
-        split_fast(X[at(kk + t, i0 + g + 8, lx)], ab[1], as[1]);
-        split_fast(X[at(kk + t + 4, i0 + g, lx)], ab[2], as[2]);
-        split_fast(X[at(kk + t + 4, i0 + g + 8, lx)], ab[3], as[3]);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          uint32_t bb0, bs0, bb1, bs1;
-          split_fast(D[at(kk + t, 8 * q + g, NLT_H)], bb0, bs0);
-          split_fast(D[at(kk + t + 4, 8 * q + g, NLT_H)], bb1, bs1);
-          mma_tf32(c[q], as, bb0, bb1);
-          mma_tf32(c[q], ab, bs0, bs1);
-          mma_tf32(c[q], ab, bb0, bb1);
-        }
-      }
+      if (w1s)
+        wgrad_tile<float>(X, NLT_H, D, i0, lane, c);
+      else
+        wgrad_tile<T>(X, XC, D, i0, lane, c);
 #pragma unroll
       for (int q = 0; q < 8; ++q)
 #pragma unroll
@@ -381,11 +457,10 @@ __device__ __forceinline__ void store_wgrad(float* part, int d_in,
   }
 }
 
-template <bool kWide>
+template <bool kWide, typename T>
 __global__ void __launch_bounds__(n_warps<kWide>() * 32, 1)
-    embed_bwd_kernel(const float* __restrict__ x,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ params, float* __restrict__ dx,
+    embed_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dout,
+                     const float* __restrict__ params, T* __restrict__ dx,
                      float* __restrict__ partial, long long n_rows,
                      int d_in) {
   constexpr int XC = x_cols<kWide>();
@@ -413,7 +488,7 @@ __global__ void __launch_bounds__(n_warps<kWide>() * 32, 1)
   float* ts = xs + kRows * XC;
   float* dys = ts + kRows * NLT_H;
   float* d0s = dys + kRows * NLT_H;
-  const bool x16 = (d_in & 3) == 0 && (reinterpret_cast<size_t>(x) & 15) == 0;
+  const bool x16 = rows16(x, d_in);
   const bool d16 = (reinterpret_cast<size_t>(dout) & 15) == 0;
   float2 vsum[4];  // db0, db1, dls, dlb
   nlt_fill(vsum, make_float2(0.f, 0.f));
@@ -426,13 +501,13 @@ __global__ void __launch_bounds__(n_warps<kWide>() * 32, 1)
 
   for (long long s = blockIdx.x; s < n_steps; s += gridDim.x) {
     const long long r0 = s * kStep + warp * kRows;
-    stage_tile<XC>(xs, dys, x, dout, r0, n_rows, d_in, x16, d16, lane);
+    stage_tile<XC, T>(xs, dys, x, dout, r0, n_rows, d_in, x16, d16, lane);
     cp_async_wait<1>();  // x has landed
     __syncwarp();
-    chain_tile<XC>(xs, ts, dys, d0s, w0, w1, vec, dx, r0, n_rows, d_in,
-                   lane, vsum);
+    chain_tile<XC, T>(xs, ts, dys, d0s, w0, w1, vec, dx, r0, n_rows, d_in,
+                      lane, vsum);
     __syncthreads();
-    step_wgrad<XC, NS, kWarps>(bufs, n_strips, warp, lane, acc);
+    step_wgrad<XC, NS, kWarps, T>(bufs, n_strips, warp, lane, acc);
     __syncthreads();
   }
 
@@ -441,37 +516,65 @@ __global__ void __launch_bounds__(n_warps<kWide>() * 32, 1)
   nlt_block_vec_sums<4>(bufs, vsum, kWarps, part + d_in * NLT_H + HH);
 }
 
-template <bool kWide>
+template <bool kWide, typename T>
 cudaError_t grid_for(long long n_rows, int* grid) {
   constexpr int kStep = n_warps<kWide>() * kRows;
-  return nlt_launch_config(embed_bwd_kernel<kWide>, n_warps<kWide>() * 32,
+  return nlt_launch_config(embed_bwd_kernel<kWide, T>, n_warps<kWide>() * 32,
                            smem_bytes<kWide>(),
                            (n_rows + kStep - 1) / kStep, grid);
 }
 
-template <bool kWide>
-cudaError_t launch(const float* x, const float* dout, const float* params,
-                   float* dx, float* partial, long long n_rows, int d_in,
-                   int grid, cudaStream_t stream) {
-  cudaError_t err = nlt_allow_smem(embed_bwd_kernel<kWide>,
+template <bool kWide, typename T>
+cudaError_t launch(const T* x, const T* dout, const float* params, T* dx,
+                   float* partial, long long n_rows, int d_in, int grid,
+                   cudaStream_t stream) {
+  cudaError_t err = nlt_allow_smem(embed_bwd_kernel<kWide, T>,
                                    smem_bytes<kWide>());
   if (err != cudaSuccess) return err;
-  embed_bwd_kernel<kWide><<<grid, n_warps<kWide>() * 32, smem_bytes<kWide>(),
-                            stream>>>(x, dout, params, dx, partial, n_rows,
-                                      d_in);
+  embed_bwd_kernel<kWide, T><<<grid, n_warps<kWide>() * 32,
+                               smem_bytes<kWide>(), stream>>>(
+      x, dout, params, dx, partial, n_rows, d_in);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Blocks of nlt_embed_bwd for these sizes: the rows of its `partial`.
-extern "C" int nlt_embed_bwd_grid(long long n_rows, int d_in, int device,
-                                  int* grid) {
+template <typename T>
+int bwd_grid(long long n_rows, int d_in, int device, int* grid) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (d_in < 1 || d_in > kMaxDin) return (int)cudaErrorInvalidValue;
-  return (int)(d_in > NLT_H ? grid_for<true>(n_rows, grid)
-                            : grid_for<false>(n_rows, grid));
+  return (int)(d_in > NLT_H ? grid_for<true, T>(n_rows, grid)
+                            : grid_for<false, T>(n_rows, grid));
+}
+
+template <typename T>
+int bwd(const T* x, const T* dout, const float* params, T* dx,
+        float* partial, long long n_rows, int d_in, int grid, int device,
+        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (d_in < 1 || d_in > kMaxDin || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(d_in > NLT_H ? launch<true, T>(x, dout, params, dx, partial,
+                                              n_rows, d_in, grid, st)
+                            : launch<false, T>(x, dout, params, dx, partial,
+                                               n_rows, d_in, grid, st));
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+// Blocks of nlt_embed_bwd[_bf16] for these sizes: the rows of its
+// `partial`.
+extern "C" int nlt_embed_bwd_grid(long long n_rows, int d_in, int device,
+                                  int* grid) {
+  return bwd_grid<float>(n_rows, d_in, device, grid);
+}
+
+extern "C" int nlt_embed_bwd_bf16_grid(long long n_rows, int d_in,
+                                       int device, int* grid) {
+  return bwd_grid<bf16>(n_rows, d_in, device, grid);
 }
 
 // B1. x (n_rows, d_in), dout (n_rows, 64) -> dx (n_rows, d_in) when dx is
@@ -481,13 +584,15 @@ extern "C" int nlt_embed_bwd(const float* x, const float* dout,
                              const float* params, float* dx, float* partial,
                              long long n_rows, int d_in, int grid,
                              int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (d_in < 1 || d_in > kMaxDin || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return (int)(d_in > NLT_H ? launch<true>(x, dout, params, dx, partial,
-                                           n_rows, d_in, grid, st)
-                            : launch<false>(x, dout, params, dx, partial,
-                                            n_rows, d_in, grid, st));
+  return bwd<float>(x, dout, params, dx, partial, n_rows, d_in, grid, device,
+                    stream);
+}
+
+// B1, bf16 instance: x, dout and dx in bf16; params and partial fp32.
+extern "C" int nlt_embed_bwd_bf16(const bf16* x, const bf16* dout,
+                                  const float* params, bf16* dx,
+                                  float* partial, long long n_rows, int d_in,
+                                  int grid, int device, void* stream) {
+  return bwd<bf16>(x, dout, params, dx, partial, n_rows, d_in, grid, device,
+                   stream);
 }

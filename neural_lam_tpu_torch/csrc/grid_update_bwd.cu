@@ -49,6 +49,14 @@
 // forward's ~11.3 64x64 products per node row and batch element, plus the
 // scratch's ~1.3 GB written once; the chain itself is bound by shared
 // memory reads (one weight read and one broadcast per two FMAs per lane).
+//
+// bf16 instance (`<K, __nv_bfloat16>`, entry nlt_grid_update_bwd_bf16; the
+// bf16 training path): table, ew, ge and d_out are read in bf16 and
+// widened, the chain runs in fp32 as above, and d_x0, d_ew and d_ge are
+// stored in bf16, each rounded once from its fp32 value, as the JAX kernel
+// stores them in its inputs' dtype. The 12 node and 2 slot scratch tensors
+// and the vector sums stay fp32. Same design: only the types of what is
+// loaded and stored change.
 #include "bwd_common.cuh"
 
 namespace {
@@ -109,18 +117,18 @@ __device__ __forceinline__ void load_set(float* dst,
   for (int i = threadIdx.x; i < n / 4; i += blockDim.x) d[i] = __ldg(s + i);
 }
 
-template <int K>
+template <int K, typename T>
 __global__ void __launch_bounds__(warps<K>() * 32, 1)
-    grid_update_bwd_kernel(const float* __restrict__ table,
+    grid_update_bwd_kernel(const T* __restrict__ table,
                            const int* __restrict__ senders,
-                           const float* __restrict__ ew,
-                           const float* __restrict__ ge,
+                           const T* __restrict__ ew,
+                           const T* __restrict__ ge,
                            const float* __restrict__ mask,
                            const float* __restrict__ P,   // parameter blob
                            const float* __restrict__ PT,  // transposed blob
-                           const float* __restrict__ d_out_g,
-                           float* __restrict__ d_x0, float* __restrict__ d_ew,
-                           float* __restrict__ d_ge,
+                           const T* __restrict__ d_out_g,
+                           T* __restrict__ d_x0, T* __restrict__ d_ew,
+                           T* __restrict__ d_ge,
                            float* __restrict__ node_s,  // (N_NODE, n_virt*B, 64)
                            float* __restrict__ slot_s,  // (2, n_virt*K*B, 64)
                            float* __restrict__ partial, int n_virt, int n_ge,
@@ -166,7 +174,7 @@ __global__ void __launch_bounds__(warps<K>() * 32, 1)
       __syncthreads();
       // ---- forward recompute ----
       const float2 gev =
-          v < n_ge ? nlt_ld2(ge + (size_t)v * W + col, lane) : zero;
+          v < n_ge ? nlt_ld2t(ge + (size_t)v * W + col, lane) : zero;
       nlt_st2(row(F_GE), lane, gev);
       __syncwarp();
       const float2 t1p = node_mm(F_GE, wts + kEncW0, vec(ENC_B0));
@@ -185,8 +193,8 @@ __global__ void __launch_bounds__(warps<K>() * 32, 1)
       for (int k = 0; k < K; ++k) {
         const int s = senders[slot0 + k];
         x0[k] = nlt_add2(
-            nlt_add2(nlt_ld2(table + (size_t)s * W + col, lane),
-                     nlt_ld2(ew + (slot0 + k) * NLT_H, lane)),
+            nlt_add2(nlt_ld2t(table + (size_t)s * W + col, lane),
+                     nlt_ld2t(ew + (slot0 + k) * NLT_H, lane)),
             rec);
         const float2 x1 = nlt_silu2(x0[k]);
         nlt_st2(slots + k * NLT_H, lane, x1);
@@ -235,9 +243,10 @@ __global__ void __launch_bounds__(warps<K>() * 32, 1)
 #pragma unroll
       for (int c2 = 0; c2 < 2; ++c2) {
         const int c = lane + 32 * c2;
-        const float d = (ok && c < d_out)
-                            ? d_out_g[((size_t)v * B + b) * d_out + c]
-                            : 0.f;
+        const float d =
+            (ok && c < d_out)
+                ? Io<T>::ld(d_out_g + ((size_t)v * B + b) * d_out + c)
+                : 0.f;
         dout_row[c] = d;
         dob1[c2] += d;
       }
@@ -282,7 +291,7 @@ __global__ void __launch_bounds__(warps<K>() * 32, 1)
         const float2 d0 = nlt_mul_silu_grad(dx1[k], x0[k]);
         nlt_acc2(d_rec, d0);
         nlt_acc2(dew[k], d0);
-        if (ok) nlt_st2(d_x0 + (slot0 + k) * W + col, lane, d0);
+        if (ok) nlt_st2t(d_x0 + (slot0 + k) * W + col, lane, d0);
       }
       nlt_st2(row(B_DREC), lane, d_rec);
       __syncwarp();
@@ -305,13 +314,13 @@ __global__ void __launch_bounds__(warps<K>() * 32, 1)
         put(node_s + N_DREC * n_node * NLT_H, nr, d_rec);
         put(node_s + N_DT2 * n_node * NLT_H, nr, d_t2);
         put(node_s + N_DT1P * n_node * NLT_H, nr, d_t1p);
-        if (v < n_ge) nlt_st2(d_ge + (size_t)v * W + col, lane, d_gev);
+        if (v < n_ge) nlt_st2t(d_ge + (size_t)v * W + col, lane, d_gev);
       }
     }
     if (ok) {
 #pragma unroll
       for (int k = 0; k < K; ++k)
-        nlt_st2(d_ew + (slot0 + k) * NLT_H, lane, dew[k]);
+        nlt_st2t(d_ew + (slot0 + k) * NLT_H, lane, dew[k]);
     }
   }
 
@@ -331,46 +340,85 @@ __global__ void __launch_bounds__(warps<K>() * 32, 1)
   }
 }
 
-template <int K>
+template <int K, typename T>
 cudaError_t grid_for(int n_virt, int* grid) {
-  return nlt_launch_config(grid_update_bwd_kernel<K>, warps<K>() * 32,
+  return nlt_launch_config(grid_update_bwd_kernel<K, T>, warps<K>() * 32,
                            sizeof(float) * smem_floats<K>(),
                            (n_virt + warps<K>() - 1) / warps<K>(), grid);
 }
 
-template <int K>
-cudaError_t launch(const float* table, const int* senders, const float* ew,
-                   const float* ge, const float* mask, const float* params,
-                   const float* tparams, const float* d_out_g, float* d_x0,
-                   float* d_ew, float* d_ge, float* node_s, float* slot_s,
-                   float* partial, int n_virt, int n_ge, int B, int d_out,
-                   int grid, cudaStream_t stream) {
+template <int K, typename T>
+cudaError_t launch(const T* table, const int* senders, const T* ew,
+                   const T* ge, const float* mask, const float* params,
+                   const float* tparams, const T* d_out_g, T* d_x0, T* d_ew,
+                   T* d_ge, float* node_s, float* slot_s, float* partial,
+                   int n_virt, int n_ge, int B, int d_out, int grid,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<K>();
-  cudaError_t err = nlt_allow_smem(grid_update_bwd_kernel<K>, smem);
+  cudaError_t err = nlt_allow_smem(grid_update_bwd_kernel<K, T>, smem);
   if (err != cudaSuccess) return err;
-  grid_update_bwd_kernel<K><<<grid, warps<K>() * 32, smem, stream>>>(
+  grid_update_bwd_kernel<K, T><<<grid, warps<K>() * 32, smem, stream>>>(
       table, senders, ew, ge, mask, params, tparams, d_out_g, d_x0, d_ew,
       d_ge, node_s, slot_s, partial, n_virt, n_ge, B, d_out);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Blocks of nlt_grid_update_bwd for these sizes: the rows of its `partial`.
-extern "C" int nlt_grid_update_bwd_grid(int n_virt, int n_ge, int K, int B,
-                                        int d_out_w, int device, int* grid) {
+template <typename T>
+int bwd_grid(int n_virt, int K, int device, int* grid) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_virt < 1) return (int)cudaErrorInvalidValue;
 #define NLT_GU_BWD_CASE(KK) \
   case KK:                  \
-    return (int)grid_for<KK>(n_virt, grid);
+    return (int)grid_for<KK, T>(n_virt, grid);
   switch (K) {
     NLT_FOR_K(NLT_GU_BWD_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef NLT_GU_BWD_CASE
+}
+
+template <typename T>
+int bwd(const T* table, const int* senders, const T* ew, const T* ge,
+        const float* mask, const float* params, const float* tparams,
+        const T* d_out, T* d_x0, T* d_ew, T* d_ge, float* node_s,
+        float* slot_s, float* partial, int n_virt, int n_ge, int K, int B,
+        int d_out_w, int grid, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_virt < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  if (d_out_w < 1 || d_out_w > NLT_H) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define NLT_GU_BWD_CASE(KK)                                                \
+  case KK:                                                                 \
+    return (int)launch<KK, T>(table, senders, ew, ge, mask, params,        \
+                              tparams, d_out, d_x0, d_ew, d_ge, node_s,    \
+                              slot_s, partial, n_virt, n_ge, B, d_out_w,   \
+                              grid, s);
+  switch (K) {
+    NLT_FOR_K(NLT_GU_BWD_CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef NLT_GU_BWD_CASE
+}
+
+using bf16 = __nv_bfloat16;
+
+}  // namespace
+
+// Blocks of nlt_grid_update_bwd[_bf16] for these sizes: the rows of its
+// `partial`.
+extern "C" int nlt_grid_update_bwd_grid(int n_virt, int n_ge, int K, int B,
+                                        int d_out_w, int device, int* grid) {
+  return bwd_grid<float>(n_virt, K, device, grid);
+}
+
+extern "C" int nlt_grid_update_bwd_bf16_grid(int n_virt, int n_ge, int K,
+                                             int B, int d_out_w, int device,
+                                             int* grid) {
+  return bwd_grid<bf16>(n_virt, K, device, grid);
 }
 
 // B5/B6's chain pass. d_out (n_virt, B*d_out) -> d_x0 (n_virt*K, B*64) per
@@ -387,20 +435,20 @@ extern "C" int nlt_grid_update_bwd(const float* table, const int* senders,
                                    float* partial, int n_virt, int n_ge,
                                    int K, int B, int d_out_w, int grid,
                                    int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_virt < 1 || grid < 1) return (int)cudaErrorInvalidValue;
-  if (d_out_w < 1 || d_out_w > NLT_H) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-#define NLT_GU_BWD_CASE(KK)                                                 \
-  case KK:                                                                  \
-    return (int)launch<KK>(table, senders, ew, ge, mask, params, tparams,   \
-                           d_out, d_x0, d_ew, d_ge, node_s, slot_s,         \
-                           partial, n_virt, n_ge, B, d_out_w, grid, s);
-  switch (K) {
-    NLT_FOR_K(NLT_GU_BWD_CASE)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef NLT_GU_BWD_CASE
+  return bwd<float>(table, senders, ew, ge, mask, params, tparams, d_out,
+                    d_x0, d_ew, d_ge, node_s, slot_s, partial, n_virt, n_ge,
+                    K, B, d_out_w, grid, device, stream);
+}
+
+// B5/B6's chain pass, bf16 instance: table, ew, ge, d_out, d_x0, d_ew and
+// d_ge in bf16; the scratch, the blobs and partial fp32.
+extern "C" int nlt_grid_update_bwd_bf16(
+    const bf16* table, const int* senders, const bf16* ew, const bf16* ge,
+    const float* mask, const float* params, const float* tparams,
+    const bf16* d_out, bf16* d_x0, bf16* d_ew, bf16* d_ge, float* node_s,
+    float* slot_s, float* partial, int n_virt, int n_ge, int K, int B,
+    int d_out_w, int grid, int device, void* stream) {
+  return bwd<bf16>(table, senders, ew, ge, mask, params, tparams, d_out,
+                   d_x0, d_ew, d_ge, node_s, slot_s, partial, n_virt, n_ge,
+                   K, B, d_out_w, grid, device, stream);
 }

@@ -49,6 +49,15 @@
 //   takes 128 registers: two blocks, 16 warps, per SM.
 // - A second kernel sums each pair's partials in segment order (no float
 //   atomics: the same inputs give bit-identical outputs).
+// - bf16 X (the bf16 training path: B3's dW_e pair reads the bf16 edge
+//   state, B5/B6's enc_w0 pair the bf16 grid embeddings), per pair in the
+//   same launch: the pair's rows are staged raw by the same cp.async ring
+//   (8 values a 16-byte copy, rows of kLd bf16 values, so the fragment
+//   reads still hit distinct banks) and converted where the product reads
+//   them. A bf16 value is exact in TF32, its small half zero, so such a
+//   pair takes two TF32 products a term, not three. D is always fp32 (the
+//   chains' deltas, or a cotangent the caller widened): the JAX kernels
+//   sum their weight gradients from fp32 values in the kernel.
 #include "common.cuh"
 #include "tc_common.cuh"
 
@@ -65,24 +74,38 @@ constexpr int HH = NLT_H * NLT_H;
 constexpr size_t kSmem = sizeof(float) * kStages * kStage;
 
 struct Pairs {
-  const float* x[kMaxPairs];
+  const void* x[kMaxPairs];  // float, or bf16 where xbf's bit p is set
   const float* d[kMaxPairs];
   int dw[kMaxPairs];  // D's width
+  unsigned xbf;       // bit p: pair p's X is bf16
 };
 
-// Stage rows [r, r + kTile) of X and D (rows at or past r1 as zeros).
-__device__ __forceinline__ void load_tile(float* st, const float* X,
+// Stage rows [r, r + kTile) of X and D (rows at or past r1 as zeros); a
+// bf16 X raw, kLd bf16 values a row.
+__device__ __forceinline__ void load_tile(float* st, const void* X, bool xb,
                                           const float* D, int dw,
                                           long long r, long long r1) {
   const int tid = threadIdx.x;
   float* xs = st;
   float* ds = st + kTile * kLd;
+  if (xb) {
+    __nv_bfloat16* xh = reinterpret_cast<__nv_bfloat16*>(xs);
+    const __nv_bfloat16* Xh = static_cast<const __nv_bfloat16*>(X);
+    for (int i = tid; i < kTile * NLT_H / 8; i += kThreads) {
+      const int rr = i >> 3, c = 8 * (i & 7);
+      const bool ok = r + rr < r1;
+      const long long row = ok ? r + rr : r;
+      cp_async16(xh + rr * kLd + c, Xh + row * NLT_H + c, ok);
+    }
+  } else {
+    const float* Xf = static_cast<const float*>(X);
 #pragma unroll
-  for (int i = tid; i < kTile * NLT_H / 4; i += kThreads) {
-    const int rr = i >> 4, c = 4 * (i & 15);
-    const bool ok = r + rr < r1;
-    const long long row = ok ? r + rr : r;
-    cp_async16(xs + rr * kLd + c, X + row * NLT_H + c, ok);
+    for (int i = tid; i < kTile * NLT_H / 4; i += kThreads) {
+      const int rr = i >> 4, c = 4 * (i & 15);
+      const bool ok = r + rr < r1;
+      const long long row = ok ? r + rr : r;
+      cp_async16(xs + rr * kLd + c, Xf + row * NLT_H + c, ok);
+    }
   }
   if ((dw & 3) == 0) {
     const int q = dw >> 2;  // 16-byte chunks per D row
@@ -102,32 +125,46 @@ __device__ __forceinline__ void load_tile(float* st, const float* X,
   }
 }
 
+// An X value staged as float (split in two TF32 halves) or bf16 (its own
+// big half, its small half zero).
+__device__ __forceinline__ void split_x(float x, uint32_t& big,
+                                        uint32_t& small) {
+  split_tf32(x, big, small);
+}
+__device__ __forceinline__ void split_x(__nv_bfloat16 x, uint32_t& big,
+                                        uint32_t& small) {
+  big = (uint32_t)__bfloat16_as_ushort(x) << 16;
+  small = 0;
+}
+
 // c[m][q] += the 16x8 tile (32*mi + 16*m .., 32*ni + 8*q ..) of X^T D over
-// rows kk0 .. kk0+15 of the staged tile, m < 2, q < NQ, in 3xTF32; a
-// template on NQ so that the products are straight-line code that the
-// compiler can interleave (each term's products go to 2*NQ independent
-// accumulators). Fragments (g = lane/4, t = lane%4): A (16x8, A(i, r) =
-// X[r, i0 + i]): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
-// B (8x8, B(r, j) = D[r, j0 + j]): b0 (t, g), b1 (t+4, g); C: c0 (g, 2t),
-// c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
-template <int NQ>
+// rows kk0 .. kk0+15 of the staged tile, m < 2, q < NQ, in 3xTF32 (two
+// TF32 products a term for a bf16 X, TX); a template on NQ so that the
+// products are straight-line code that the compiler can interleave (each
+// term's products go to 2*NQ independent accumulators). Fragments (g =
+// lane/4, t = lane%4): A (16x8, A(i, r) = X[r, i0 + i]): a0 (g, t), a1
+// (g+8, t), a2 (g, t+4), a3 (g+8, t+4); B (8x8, B(r, j) = D[r, j0 + j]):
+// b0 (t, g), b1 (t+4, g); C: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3
+// (g+8, 2t+1).
+template <int NQ, typename TX>
 __device__ __forceinline__ void tile_mma(const float* st, int mi, int ni,
                                          int kk0, int lane,
                                          float (&c)[2][kNq][4]) {
   const int g = lane >> 2, t = lane & 3;
-  const float* xs = st + (kk0 + t) * kLd + 32 * mi + g;
+  const TX* xs = reinterpret_cast<const TX*>(st) + (kk0 + t) * kLd +
+                 32 * mi + g;
   const float* ds = st + kTile * kLd + (kk0 + t) * kLd + 32 * ni + g;
 #pragma unroll
   for (int kk = 0; kk < kTile / 2; kk += 8) {
     uint32_t ab[2][4], as[2][4];
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
-      const float* x0 = xs + kk * kLd + 16 * m;
-      const float* x1 = x0 + 4 * kLd;
-      split_tf32(x0[0], ab[m][0], as[m][0]);
-      split_tf32(x0[8], ab[m][1], as[m][1]);
-      split_tf32(x1[0], ab[m][2], as[m][2]);
-      split_tf32(x1[8], ab[m][3], as[m][3]);
+      const TX* x0 = xs + kk * kLd + 16 * m;
+      const TX* x1 = x0 + 4 * kLd;
+      split_x(x0[0], ab[m][0], as[m][0]);
+      split_x(x0[8], ab[m][1], as[m][1]);
+      split_x(x1[0], ab[m][2], as[m][2]);
+      split_x(x1[8], ab[m][3], as[m][3]);
     }
     const float* d0 = ds + kk * kLd;
     const float* d1 = d0 + 4 * kLd;
@@ -137,11 +174,13 @@ __device__ __forceinline__ void tile_mma(const float* st, int mi, int ni,
       split_tf32(d0[8 * q], bb[q][0], bs[q][0]);
       split_tf32(d1[8 * q], bb[q][1], bs[q][1]);
     }
+    if constexpr (sizeof(TX) == sizeof(float)) {
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int q = 0; q < NQ; ++q)
-        mma_tf32(c[m][q], as[m], bb[q][0], bb[q][1]);
+        for (int q = 0; q < NQ; ++q)
+          mma_tf32(c[m][q], as[m], bb[q][0], bb[q][1]);
+    }
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -172,7 +211,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int s = block_first[blockIdx.x]; s < s_end; ++s) {
     const int p = (int)seg[3 * s];
     const long long r0 = seg[3 * s + 1], r1 = seg[3 * s + 2];
-    const float* __restrict__ X = pp.x[p];
+    const void* X = pp.x[p];
+    const bool xb = (pp.xbf >> p) & 1u;
     const float* __restrict__ D = pp.d[p];
     const int dw = pp.dw[p];
     const int n_tiles = (int)((r1 - r0 + kTile - 1) / kTile);
@@ -189,7 +229,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int t = 0; t < kStages - 1; ++t) {
       if (t < n_tiles)
-        load_tile(smem + t * kStage, X, D, dw, r0 + (long long)t * kTile, r1);
+        load_tile(smem + t * kStage, X, xb, D, dw, r0 + (long long)t * kTile,
+                  r1);
       cp_async_commit();
     }
     for (int t = 0; t < n_tiles; ++t) {
@@ -197,7 +238,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       __syncthreads();  // ... everyone's; and tile t-1's stage is free
       const int nt = t + kStages - 1;
       if (nt < n_tiles)
-        load_tile(smem + (nt % kStages) * kStage, X, D, dw,
+        load_tile(smem + (nt % kStages) * kStage, X, xb, D, dw,
                   r0 + (long long)nt * kTile, r1);
       cp_async_commit();
       // The tile's products go to fresh tensor-core accumulators, added to
@@ -207,11 +248,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       float c[2][kNq][4] = {};
       const float* st = smem + (t % kStages) * kStage;
       const int kk0 = kg * (kTile / 2);
-      switch (nq) {
-        case 4: tile_mma<4>(st, mi, ni, kk0, lane, c); break;
-        case 3: tile_mma<3>(st, mi, ni, kk0, lane, c); break;
-        case 2: tile_mma<2>(st, mi, ni, kk0, lane, c); break;
-        case 1: tile_mma<1>(st, mi, ni, kk0, lane, c); break;
+      using bf16 = __nv_bfloat16;
+      switch (xb ? nq + 4 : nq) {
+        case 4: tile_mma<4, float>(st, mi, ni, kk0, lane, c); break;
+        case 3: tile_mma<3, float>(st, mi, ni, kk0, lane, c); break;
+        case 2: tile_mma<2, float>(st, mi, ni, kk0, lane, c); break;
+        case 1: tile_mma<1, float>(st, mi, ni, kk0, lane, c); break;
+        case 8: tile_mma<4, bf16>(st, mi, ni, kk0, lane, c); break;
+        case 7: tile_mma<3, bf16>(st, mi, ni, kk0, lane, c); break;
+        case 6: tile_mma<2, bf16>(st, mi, ni, kk0, lane, c); break;
+        case 5: tile_mma<1, bf16>(st, mi, ni, kk0, lane, c); break;
         default: break;
       }
 #pragma unroll
@@ -285,13 +331,15 @@ extern "C" int nlt_xtd_sum_occupancy(int device, int* sms, int* per_sm) {
 }
 
 // X^T D partial sums for n_pairs pairs: xs[p], ds[p] device pointers (X
-// 16-byte aligned; D 16-byte aligned when d % 4 == 0, else 4-byte), dws[p]
-// in 1..64 the width of D; seg (n_seg, 3) and block_first (n_blocks + 1)
-// device arrays from ops/weight_grad.py::segments. partial: (n_seg, 64*64).
+// 16-byte aligned, float or, where bit p of xbf is set, bf16; D fp32,
+// 16-byte aligned when d % 4 == 0, else 4-byte), dws[p] in 1..64 the width
+// of D; seg (n_seg, 3) and block_first (n_blocks + 1) device arrays from
+// ops/weight_grad.py::segments. partial: (n_seg, 64*64).
 extern "C" int nlt_xtd_sum(const long long* xs, const long long* ds,
-                           const int* dws, int n_pairs, const long long* seg,
-                           const int* block_first, int n_blocks,
-                           float* partial, int device, void* stream) {
+                           const int* dws, int n_pairs, int xbf,
+                           const long long* seg, const int* block_first,
+                           int n_blocks, float* partial, int device,
+                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_pairs < 1 || n_pairs > kMaxPairs || n_blocks < 1)
@@ -302,10 +350,11 @@ extern "C" int nlt_xtd_sum(const long long* xs, const long long* ds,
     if (dws[p] < 1 || dws[p] > NLT_H || (xs[p] & 15) != 0 ||
         (ds[p] & align) != 0)
       return (int)cudaErrorInvalidValue;
-    pp.x[p] = reinterpret_cast<const float*>(xs[p]);
+    pp.x[p] = reinterpret_cast<const void*>(xs[p]);
     pp.d[p] = reinterpret_cast<const float*>(ds[p]);
     pp.dw[p] = dws[p];
   }
+  pp.xbf = (unsigned)xbf;
   if ((err = nlt_allow_smem(xtd_sum_kernel, kSmem)) != cudaSuccess)
     return (int)err;
   xtd_sum_kernel<<<n_blocks, kThreads, kSmem, (cudaStream_t)stream>>>(

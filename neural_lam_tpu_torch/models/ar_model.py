@@ -46,8 +46,7 @@ class ModelArgs:
     var_leads_metrics_watch: dict = dataclasses.field(default_factory=dict)
     n_example_pred: int = 1
     # None = fp32 everywhere; "bfloat16" = the JAX package's bf16 path:
-    # fp32 parameters, activations stored in bf16, forward only in the
-    # port so far (bf16 training: ROADMAP.md queue 1, item 2)
+    # fp32 parameters, activations (and their gradients) stored in bf16
     compute_dtype: str | None = None
 
 
@@ -183,13 +182,9 @@ class ARModelBase(nn.Module):
 
     def training_loss(self, batch):
         """Mean loss over batch and unrolled steps, interior nodes only
-        (ref: ar_model.py:287-309). fp32 only: bf16 raises."""
-        if self.compute_dtype is not None:
-            raise NotImplementedError(
-                "training with compute_dtype='bfloat16': the port runs the "
-                "bf16 forward only; bf16 training (its backward kernels "
-                "and xtd_sum with bf16 inputs) waits for ROADMAP.md queue "
-                "1, item 2's training half")
+        (ref: ar_model.py:287-309). With compute_dtype="bfloat16" the
+        forward and backward run on the bf16 path (the kernels' bf16
+        instances), the loss and the parameter gradients in fp32."""
         prediction, target, pred_std, _ = self.common_step(batch)
         return torch.mean(self.loss_fn(prediction, target, pred_std,
                                        mask=self.interior_mask_bool()))

@@ -186,21 +186,12 @@ def io_dtype(what: str, t):
     return t.dtype
 
 
-def refuse_bf16_grad(what: str, *tensors) -> None:
-    """Raise NotImplementedError when a bf16 input would need a gradient:
-    the backward kernels are fp32 only (bf16 training waits for ROADMAP.md
-    queue 1, item 2's training half), and no wrapper upcasts quietly."""
+def suffix(dtype) -> str:
+    """The suffix of the C entry of the kernel instance of `dtype`: "" for
+    float32, "_bf16" for bfloat16."""
     import torch
 
-    if not torch.is_grad_enabled():
-        return
-    ts = [t for t in tensors if isinstance(t, torch.Tensor)]
-    if (any(t.dtype == torch.bfloat16 for t in ts)
-            and any(t.requires_grad for t in ts)):
-        raise NotImplementedError(
-            f"{what}: a gradient through the bf16 forward; bf16 training "
-            "is not ported yet (ROADMAP.md queue 1, item 2's training "
-            "half)")
+    return "_bf16" if dtype == torch.bfloat16 else ""
 
 
 def count_launch(wrapper, dtype) -> None:

@@ -16,19 +16,25 @@ runs the plain PyTorch version (`*_plain`, same module) on a CPU tensor and
 the CUDA kernel (`csrc/edge.cu`) on a CUDA tensor; there is no fallback
 from one to the other. P1, P2 and P3 are the batched-layout instances of
 K2's and K3's tensor-core kernel (`csrc/edge_tc.cuh`); P1 is its
-materialised-x0 mode. The backward recomputes through the plain version
-with autograd, as the JAX package's reference-recompute VJPs do: it has no
-backward kernel for these three. `<wrapper>.launches` counts kernel
-launches.
+materialised-x0 mode. The backward recomputes with autograd through the
+JAX package's reference math (`_tail_ref`, `_tail_sum_ref`, `_layer_ref`:
+its `_tail_reference`, `_sum_reference` and `_layer_reference`), as the
+JAX package's VJPs do: it has no backward kernel for these three.
+`<wrapper>.launches` counts kernel launches.
 
-bf16 (the bf16 forecast path): P2 and P3 have bf16 instances, taken for a
-bf16 send_t / edge_rep, which read the node table, ew or the edge state
-and rec_rows in bf16, compute in fp32 on the fp32 parameters and store
-their outputs in bf16 (round to nearest even), as the JAX kernels do on
-bf16 inputs; `<wrapper>.launches_bf16` counts them, and a gradient through
-them raises. P1 has none: in the bf16 path its x0 is promoted to fp32 by
-its fp32 first term (`message_passing.edge_messages_and_virt`), so it runs
-its fp32 instance, and a bf16 x0 on the card raises TypeError.
+bf16 (the bf16 path): P2 and P3 have bf16 instances, taken for a bf16
+send_t / edge_rep, which read the node table, ew or the edge state and
+rec_rows in bf16, compute in fp32 on the fp32 parameters and store their
+outputs in bf16 (round to nearest even), as the JAX kernels do on bf16
+inputs; `<wrapper>.launches_bf16` counts them. Their backward recomputes
+on the bf16 residuals as the JAX references do: P2's x0 and silu in bf16,
+op by op (`_silu_ref`), the products on the operands widened to fp32, and
+every sum of a bf16 gradient over slots or batch elements in bf16, one
+term after the other (`_sum_seq`), as XLA reduces a bf16 array; P3's x0
+is fp32 (its edge term is). P1 has no bf16 instance: in the bf16 path its
+x0 is promoted to fp32 by its fp32 first term
+(`message_passing.edge_messages_and_virt`), so it runs its fp32 instance,
+and a bf16 x0 on the card raises TypeError.
 """
 
 from __future__ import annotations
@@ -57,61 +63,155 @@ def _lib():
     return _build.library("edge", _SIGNATURES)
 
 
-def _tail(x0, w2, b2, ln_scale, ln_bias, mask, K):
-    """(msg (B, M, h), virt (B, M/K, h)) of the tail on x0 (B, M, h), in
-    fp32, both stored in x0's dtype."""
-    msg = layer_norm(F.silu(x0.float()) @ w2 + b2, ln_scale, ln_bias)
+def _sum_seq(x, dim):
+    """x summed over `dim`: in fp32 by `sum`; a bf16 x slice after slice in
+    bf16, each partial sum rounded, as XLA reduces a bf16 array (the
+    backward of the JAX package's broadcasts and `jnp.repeat` in bf16)."""
+    if x.dtype != torch.bfloat16:
+        return x.sum(dim)
+    out = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        out = out + x.select(dim, i)
+    return out
+
+
+class _RepeatRows(torch.autograd.Function):
+    """rec_rows (B, N_virt, h) repeated over each row's K slots -> (B, M,
+    h), `jnp.repeat(rec_rows, K, axis=-2)`; its backward sums the K slots'
+    gradients with `_sum_seq`."""
+
+    @staticmethod
+    def forward(ctx, rec_rows, K):
+        ctx.K = K
+        B, n, h = rec_rows.shape
+        return rec_rows[:, :, None, :].expand(B, n, K, h).reshape(B, n * K, h)
+
+    @staticmethod
+    def backward(ctx, d):
+        B, M, h = d.shape
+        return _sum_seq(d.reshape(B, M // ctx.K, ctx.K, h), 2), None
+
+
+class _ExpandBatch(torch.autograd.Function):
+    """ew (M, h) broadcast over B batch elements -> (B, M, h); its backward
+    sums the batch elements' gradients with `_sum_seq`."""
+
+    @staticmethod
+    def forward(ctx, ew, B):
+        return ew[None].expand(B, *ew.shape)
+
+    @staticmethod
+    def backward(ctx, d):
+        return _sum_seq(d, 0), None
+
+
+class _SiluBf16(torch.autograd.Function):
+    """jax.nn.silu on a bf16 tensor as XLA computes it, every operation
+    rounded to bf16: s = 1 / (1 + exp(-x)), x * s; and its VJP, d * s + (x
+    * d) * (s * (1 - s)), with the same roundings."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(x, s, s * (1 - s))
+        return x * s
+
+    @staticmethod
+    def backward(ctx, d):
+        x, s, ds = ctx.saved_tensors
+        return d * s + (x * d) * ds
+
+
+def _silu_ref(x):
+    """silu as the JAX reference computes it: fp32 `F.silu`; bf16 op by op
+    (`_SiluBf16`)."""
+    if x.dtype == torch.bfloat16:
+        return _SiluBf16.apply(x)
+    return F.silu(x)
+
+
+def _tail_ref(x0, w2, b2, ln_scale, ln_bias, mask, K):
+    """(msg, virt), both fp32, of the tail on x0 (B, M, h): the JAX
+    package's `_tail_reference`, silu in x0's dtype, the product on x0
+    widened (its `jnp.dot` promotes)."""
+    msg = layer_norm(_silu_ref(x0).float() @ w2 + b2, ln_scale, ln_bias)
     B, M, h = msg.shape
-    virt = (msg * mask).view(B, M // K, K, h).sum(dim=2)
-    return msg.to(x0.dtype), virt.to(x0.dtype)
+    return msg, (msg * mask).view(B, M // K, K, h).sum(dim=2)
+
+
+def _tail_sum_ref(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
+                  mask, K):
+    """The JAX package's `_sum_reference` on its gathered rows: x0 =
+    send_t[:, senders] + ew + rec_rows repeated, in the inputs' dtype."""
+    g = gather_rows_batched(send_t, senders)
+    x0 = g + _ExpandBatch.apply(ew, g.shape[0]) + _RepeatRows.apply(rec_rows,
+                                                                    K)
+    return _tail_ref(x0, w2, b2, ln_scale, ln_bias, mask, K)
+
+
+def _layer_ref(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
+               ln_scale, ln_bias, K):
+    """The JAX package's `_layer_reference` on its gathered rows: x0 =
+    edge_rep @ w_e (fp32) + send_t[:, senders] + rec_rows repeated + b0,
+    the bf16 terms widened by the fp32 sum; (edge_rep + msg, virt), fp32."""
+    x0 = (edge_rep.float() @ w_e + gather_rows_batched(send_t, senders)
+          + _RepeatRows.apply(rec_rows, K) + b0)
+    msg, virt = _tail_ref(x0, w2, b2, ln_scale, ln_bias, mask, K)
+    return edge_rep + msg, virt
 
 
 def sum_x0(x_e, send_t, senders, rec_rows, K):
     """x_e (B or 1, M, h) + send_t[:, senders] + rec_rows repeated over
-    the K slots of each virtual row: x0 of the batched tail."""
-    g = gather_rows_batched(send_t, senders)
-    B, M, h = g.shape
-    return (x_e + g + rec_rows[:, :, None, :].expand(B, M // K, K, h)
-            .reshape(B, M, h))
+    the K slots of each virtual row (`_RepeatRows`): x0 of the batched
+    tail."""
+    return (x_e + gather_rows_batched(send_t, senders)
+            + _RepeatRows.apply(rec_rows, K))
+
+
+def _widened(*tensors):
+    return tuple(t.float() for t in tensors)
 
 
 def edge_tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K,
                     with_messages=True):
-    """Plain PyTorch version of `edge_tail`'s forward."""
-    msg, virt = _tail(x0, w2, b2, ln_scale, ln_bias, mask, K)
-    return (msg if with_messages else None), virt
+    """Plain PyTorch version of `edge_tail`'s forward (`_tail_ref` on x0
+    widened: fp32 math, the outputs in x0's dtype)."""
+    msg, virt = _tail_ref(x0.float(), w2, b2, ln_scale, ln_bias, mask, K)
+    return (msg.to(x0.dtype) if with_messages else None), virt.to(x0.dtype)
 
 
 def edge_tail_sum_plain(send_t, senders, ew, rec_rows, w2, b2, ln_scale,
                         ln_bias, mask, K, with_messages=True):
-    """Plain PyTorch version of `edge_tail_sum`'s forward (fp32 math, the
-    outputs in send_t's dtype)."""
-    x0 = sum_x0(ew.float(), send_t.float(), senders, rec_rows.float(), K)
-    msg, virt = edge_tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K,
-                                with_messages)
-    return (None if msg is None else msg.to(send_t.dtype),
+    """Plain PyTorch version of `edge_tail_sum`'s forward (`_tail_sum_ref`
+    on its inputs widened: fp32 math, the outputs in send_t's dtype)."""
+    send, ew32, rec = _widened(send_t, ew, rec_rows)
+    msg, virt = _tail_sum_ref(send, senders, ew32, rec, w2, b2, ln_scale,
+                              ln_bias, mask, K)
+    return ((msg.to(send_t.dtype) if with_messages else None),
             virt.to(send_t.dtype))
 
 
 def edge_layer_plain(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2,
                      b2, ln_scale, ln_bias, K):
-    """Plain PyTorch version of `edge_layer`'s forward (fp32 math, the
-    outputs in edge_rep's dtype)."""
-    e = edge_rep.float()
-    x0 = sum_x0(e @ w_e, send_t.float(), senders, rec_rows.float(), K) + b0
-    msg, virt = _tail(x0, w2, b2, ln_scale, ln_bias, mask, K)
-    return (e + msg).to(edge_rep.dtype), virt.to(edge_rep.dtype)
+    """Plain PyTorch version of `edge_layer`'s forward (`_layer_ref` on its
+    inputs widened: fp32 math, the outputs in edge_rep's dtype)."""
+    outs = _layer_ref(*_widened(edge_rep, send_t), senders,
+                      rec_rows.float(), mask, w_e, b0, w2, b2, ln_scale,
+                      ln_bias, K)
+    return tuple(t.to(edge_rep.dtype) for t in outs)
 
 
 def _plain_grads(fn, inputs, needs, output_grads):
     """Gradients of fn(*inputs) for the inputs flagged in `needs` (None for
-    the others), by autograd through the plain forward on detached
-    leaves; output cotangents that are None are skipped."""
+    the others), by autograd through fn on detached leaves; output
+    cotangents that are None are skipped, the others widened to their
+    output's dtype (a reference's fp32 outputs take a bf16 kernel output's
+    cotangent)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() if n else t
                   for t, n in zip(inputs, needs)]
         outs = fn(*leaves)
-        pairs = [(o, g) for o, g in zip(outs, output_grads)
+        pairs = [(o, g.to(o.dtype)) for o, g in zip(outs, output_grads)
                  if o is not None and g is not None]
         wrt = [t for t, n in zip(leaves, needs) if n]
         if not pairs or not wrt:
@@ -252,7 +352,7 @@ class _EdgeTail(torch.autograd.Function):
             grads = (None,) + grads
         K = ctx.K
         d = _plain_grads(
-            lambda *a: _tail(*a, K), ctx.saved_tensors,
+            lambda *a: _tail_ref(*a, K), ctx.saved_tensors,
             ctx.needs_input_grad[:6], grads)
         return (*d, None, None)
 
@@ -269,9 +369,9 @@ def edge_tail(x0, w2, b2, ln_scale, ln_bias, mask, K: int,
     Replaces pallas_edge.py::_tail_kernel (via _edge_tail_fwd_impl).
     Bound by bytes on the card (x0 in, virt and msg out), its W2 product
     on tensor cores in 3xTF32; see csrc/edge_tc.cuh. fp32 only: a bf16
-    x0 raises TypeError on the card.
+    x0 raises TypeError on the card. Its backward recomputes through
+    `_tail_ref`.
     """
-    _build.refuse_bf16_grad("edge_tail", x0, w2, b2, ln_scale, ln_bias)
     out = _EdgeTail.apply(x0, w2, b2, ln_scale, ln_bias, mask, K,
                           with_messages)
     return out if with_messages else (None, out)
@@ -295,7 +395,7 @@ class _EdgeTailSum(torch.autograd.Function):
             grads = (None,) + grads
         K = ctx.K
         d = _plain_grads(
-            lambda *a: edge_tail_sum_plain(*a, K), ctx.saved_tensors,
+            lambda *a: _tail_sum_ref(*a, K), ctx.saved_tensors,
             ctx.needs_input_grad[:9], grads)
         return (*d, None, None)
 
@@ -314,11 +414,9 @@ def edge_tail_sum(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
     Replaces pallas_edge.py::_tail_sum_kernel (via _edge_tail_sum_impl).
     Bound by bytes on the card (the gathered sender rows, ew, rec_rows,
     virt and msg), its W2 product on tensor cores in 3xTF32; see
-    csrc/edge_tc.cuh. bf16 send_t, ew and rec_rows give bf16 outputs
-    (forward only).
+    csrc/edge_tc.cuh. bf16 send_t, ew and rec_rows give bf16 outputs;
+    the backward recomputes through `_tail_sum_ref` on them.
     """
-    _build.refuse_bf16_grad("edge_tail_sum", send_t, ew, rec_rows, w2, b2,
-                            ln_scale, ln_bias)
     out = _EdgeTailSum.apply(send_t, senders, ew, rec_rows, w2, b2,
                              ln_scale, ln_bias, mask, K, with_messages)
     return out if with_messages else (None, out)
@@ -341,7 +439,7 @@ class _EdgeLayer(torch.autograd.Function):
     def backward(ctx, d_edge_out, d_virt):
         K = ctx.K
         d = _plain_grads(
-            lambda *a: edge_layer_plain(*a, K), ctx.saved_tensors,
+            lambda *a: _layer_ref(*a, K), ctx.saved_tensors,
             ctx.needs_input_grad[:11], (d_edge_out, d_virt))
         return (*d, None)
 
@@ -360,10 +458,9 @@ def edge_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
     in_gather variants. Bound by bytes on the card (the edge rows in and
     out, the gathered sender rows, rec_rows, virt), its W_e and W2
     products on tensor cores in 3xTF32; see csrc/edge_tc.cuh. bf16
-    edge_rep, send_t and rec_rows give bf16 outputs (forward only).
+    edge_rep, send_t and rec_rows give bf16 outputs; the backward
+    recomputes through `_layer_ref` on them.
     """
-    _build.refuse_bf16_grad("edge_layer", edge_rep, send_t, rec_rows, w_e,
-                            b0, w2, b2, ln_scale, ln_bias)
     return _EdgeLayer.apply(edge_rep, send_t, senders, rec_rows, mask, w_e,
                             b0, w2, b2, ln_scale, ln_bias, K)
 

@@ -28,12 +28,17 @@ element, in two launches. `<wrapper>.launches` counts kernel launches
 `edge_layer_flat_bwd.launches`, the weight-gradient pass on
 `weight_grad.xtd_sum.launches` and `weight_grad.xtd_reduce.launches`).
 
-bf16 (the bf16 forecast path): a bf16 table takes the forward kernels'
-bf16 instances, which read table, ew / edge_rep and rec_rows in bf16,
-compute in fp32 on the fp32 parameters and store edge_out and virt in
-bf16 (round to nearest even), as the JAX kernels do on bf16 inputs;
-`<wrapper>.launches_bf16` counts them. They have no backward: a gradient
-through them raises.
+bf16 (the bf16 path): a bf16 table takes the bf16 instances, which read
+table, ew / edge_rep and rec_rows (and, backward, d_virt and d_edge_out)
+in bf16, compute in fp32 on the fp32 parameters and store their outputs
+in bf16, each rounded once (round to nearest even), as the JAX kernels do
+on bf16 inputs: edge_out and virt forward; the per-slot d_x0, d_ew,
+d_edge and d_rec_rows backward. The weight and vector gradients stay fp32:
+X1 and DY are fp32 scratch, and B3/B4's dW_e pair takes the bf16 edge
+state with the chain's unrounded fp32 d_x0 (a second, fp32 copy), as the
+JAX kernel sums dW_e from its fp32 d_x0 while it stores the d_gathered
+that the sender fold sums in bf16. `<wrapper>.launches_bf16` counts the
+bf16 instances' launches.
 """
 
 from __future__ import annotations
@@ -54,10 +59,13 @@ _SIGNATURES = {
     "nlt_edge_layer_bf16": [_P] * 8 + [_I] * 4 + [_P],
 }
 _BWD_SIGNATURES = {
-    "nlt_edge_tail_sum_bwd": [_P] * 13 + [_I] * 5 + [_P],
-    "nlt_edge_layer_bwd": [_P] * 14 + [_I] * 5 + [_P],
-    "nlt_edge_tail_sum_bwd_grid": [_I] * 4 + [_IP],
-    "nlt_edge_layer_bwd_grid": [_I] * 4 + [_IP],
+    f"nlt_edge_{name}_bwd{sfx}{grid}": sig
+    for sfx in ("", "_bf16")
+    for name, grid, sig in (
+        ("tail_sum", "", [_P] * 13 + [_I] * 5 + [_P]),
+        ("layer", "", [_P] * 15 + [_I] * 5 + [_P]),
+        ("tail_sum", "_grid", [_I] * 4 + [_IP]),
+        ("layer", "_grid", [_I] * 4 + [_IP]))
 }
 
 
@@ -141,12 +149,14 @@ def _check_tail(table, senders, ew, rec_rows, mask_p, w2):
 def edge_tail_sum_flat_bwd_plain(table, senders, ew, rec_rows, mask_p, w2,
                                  b2, ln_scale, ln_bias, d_virt):
     """Plain PyTorch version of `edge_tail_sum_flat_bwd` (autograd
-    through the plain forward on the gathered rows)."""
+    through the plain forward on the gathered rows: fp32 math, the
+    activation gradients in their inputs' dtype)."""
     g = table.index_select(0, senders)
 
     def fwd(g, ew, rec_rows, w2, b2, ln_scale, ln_bias):
-        return _tail_from_gathered(g, ew, rec_rows, mask_p, w2, b2, ln_scale,
-                                   ln_bias)
+        return _tail_from_gathered(g.float(), ew.float(), rec_rows.float(),
+                                   mask_p, w2, b2, ln_scale,
+                                   ln_bias).to(g.dtype)
 
     return grads_through(fwd, (g, ew, rec_rows, w2, b2, ln_scale, ln_bias),
                           (d_virt,))
@@ -158,22 +168,30 @@ def _tail_pairs(x1, dy):
     return [(x1, dy)]
 
 
+def _fp32_leaves(*tensors):
+    """Detached fp32 copies (widened from bf16) that require a gradient:
+    the plain chains differentiate the fp32 math on them."""
+    return [t.detach().float().requires_grad_() for t in tensors]
+
+
 def edge_tail_bwd_chain_plain(table, senders, ew, rec_rows, mask_p, w2, b2,
                               ln_scale, ln_bias, d_virt):
     """Plain PyTorch version of `edge_tail_bwd_chain`, by autograd through
-    the plain forward with its intermediates kept."""
+    the plain forward (fp32 math) with its intermediates kept; d_x0, d_ew
+    and d_rec_rows in their inputs' dtypes, each rounded once."""
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (
-            table.index_select(0, senders), ew, rec_rows, b2, ln_scale,
-            ln_bias)]
+        leaves = _fp32_leaves(table.index_select(0, senders), ew, rec_rows,
+                              b2, ln_scale, ln_bias)
         g, vew, rec, vb2, vls, vlb = leaves
         keep = {}
         virt = _tail_from_gathered(g, vew, rec, mask_p, w2.detach(), vb2,
                                    vls, vlb, keep)
-        grads = torch.autograd.grad(virt, leaves + [keep["y"]], d_virt)
+        grads = torch.autograd.grad(virt, leaves + [keep["y"]],
+                                    d_virt.float())
     d_x0, d_ew, d_rec, *d_vec, d_y = grads
     h = w2.shape[0]
-    return (d_x0, d_ew, d_rec, tuple(d_vec),
+    return (d_x0.to(table.dtype), d_ew.to(ew.dtype),
+            d_rec.to(rec_rows.dtype), tuple(d_vec),
             _tail_pairs(keep["x1"].detach().reshape(-1, h),
                         d_y.reshape(-1, h)))
 
@@ -183,8 +201,9 @@ def edge_tail_bwd_chain(table, senders, ew, rec_rows, mask_p, w2, b2,
     """B2's chain pass: (d_x0 (M, W) per slot, d_ew (M, h), d_rec_rows,
     (d_b2, d_ln_scale, d_ln_bias), the (X, D) pair of d_w2 for
     `weight_grad.xtd_sum`). `edge_tail_bwd_chain_plain` on a CPU tensor,
-    the chain kernel of csrc/edge_flat_bwd.cu on a CUDA tensor; its
-    launches count on `edge_tail_sum_flat_bwd.launches`."""
+    the chain kernel of csrc/edge_flat_bwd.cu on a CUDA tensor (its
+    instance of the table's dtype; d_virt in that dtype too); its launches
+    count on `edge_tail_sum_flat_bwd.launches` (`launches_bf16`)."""
     if table.device.type == "cpu":
         return edge_tail_bwd_chain_plain(table, senders, ew, rec_rows,
                                          mask_p, w2, b2, ln_scale, ln_bias,
@@ -194,26 +213,27 @@ def edge_tail_bwd_chain(table, senders, ew, rec_rows, mask_p, w2, b2,
     W = table.shape[1]
     _check_tail(table, senders, ew, rec_rows, mask_p, w2)
     _build.expect(d_virt.shape == (n_virt, W), "d_virt", d_virt.shape)
+    dt = _build.io_dtype("table", table)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias])
     d_virt = d_virt.contiguous()
     M = n_virt * K
     f32, i32 = torch.float32, torch.int32
-    d_x0 = torch.empty((M, W), device=dev, dtype=f32)
-    d_ew = torch.empty((M, HID), device=dev, dtype=f32)
-    d_rec = torch.empty_like(d_virt)
+    d_x0 = torch.empty((M, W), device=dev, dtype=dt)
+    d_ew = torch.empty((M, HID), device=dev, dtype=dt)
+    d_rec = torch.empty((n_virt, W), device=dev, dtype=dt)
     x1 = torch.empty((M * (W // HID), HID), device=dev, dtype=f32)
     dy = torch.empty_like(x1)
-    ptrs = _build.pointers(dev, ("table", table, f32),
-                           ("senders", senders, i32), ("ew", ew, f32),
-                           ("rec_rows", rec_rows, f32),
+    ptrs = _build.pointers(dev, ("table", table, dt),
+                           ("senders", senders, i32), ("ew", ew, dt),
+                           ("rec_rows", rec_rows, dt),
                            ("mask_p", mask_p, f32), ("params", params, f32),
-                           ("d_virt", d_virt, f32), ("d_x0", d_x0, f32),
-                           ("d_ew", d_ew, f32), ("d_rec", d_rec, f32),
+                           ("d_virt", d_virt, dt), ("d_x0", d_x0, dt),
+                           ("d_ew", d_ew, dt), ("d_rec", d_rec, dt),
                            ("x1", x1, f32), ("dy", dy, f32))
-    g = _build.run_bwd(_bwd_lib(), "nlt_edge_tail_sum_bwd", ptrs,
-                       [n_virt, K, W // HID], 3 * HID, dev,
+    g = _build.run_bwd(_bwd_lib(), "nlt_edge_tail_sum_bwd" + _build.suffix(dt),
+                       ptrs, [n_virt, K, W // HID], 3 * HID, dev,
                        "edge_tail_sum_flat_bwd")
-    edge_tail_sum_flat_bwd.launches += 1
+    _build.count_launch(edge_tail_sum_flat_bwd, dt)
     d_b2, d_ls, d_lb = g.view(3, HID)
     return d_x0, d_ew, d_rec, (d_b2, d_ls, d_lb), _tail_pairs(x1, dy)
 
@@ -222,7 +242,8 @@ def edge_tail_sum_flat_bwd(table, senders, ew, rec_rows, mask_p, w2, b2,
                            ln_scale, ln_bias, d_virt):
     """Backward of `edge_tail_sum_flat` from d_virt (N_virt, W): (d_x0
     (M, W) per slot, d_ew (M, h), d_rec_rows (N_virt, W), d_w2, d_b2,
-    d_ln_scale, d_ln_bias).
+    d_ln_scale, d_ln_bias); the first three in the inputs' dtype, the
+    parameter gradients fp32.
 
     Replaces pallas_edge_flat.py::_tail_bwd_kernel (via
     _edge_tail_sum_flat_bwd), in two passes: the chain
@@ -239,6 +260,10 @@ def edge_tail_sum_flat_bwd(table, senders, ew, rec_rows, mask_p, w2, b2,
 
 
 def _fold(fold, d_x0, needed):
+    """The table gradient: `fold` of the per-slot cotangent d_x0 (in
+    d_x0's dtype: `EdgeSet.fold_senders` sums a bf16 d_x0 in fp32 and
+    rounds once, as the JAX package's scatter-free gather backward
+    does)."""
     if not needed:
         return None
     if fold is None:
@@ -283,10 +308,9 @@ def edge_tail_sum_flat(table, senders, ew, rec_rows, mask_p, w2, b2,
     edge_tail_sum_flat). Its W2 product runs on tensor cores in 3xTF32
     (K3's tiles with one product), so it is bound by bytes on the card;
     see csrc/edge_flat.cu and csrc/edge_tc.cuh. bf16 table, ew and
-    rec_rows give a bf16 virt (forward only).
+    rec_rows give a bf16 virt, and their gradients run B2's bf16
+    instance.
     """
-    _build.refuse_bf16_grad("edge_tail_sum_flat", table, ew, rec_rows, w2,
-                            b2, ln_scale, ln_bias)
     return _EdgeTailSumFlat.apply(table, senders, ew, rec_rows, mask_p, w2,
                                   b2, ln_scale, ln_bias, fold)
 
@@ -294,6 +318,7 @@ def edge_tail_sum_flat(table, senders, ew, rec_rows, mask_p, w2, b2,
 edge_tail_sum_flat.launches = 0
 edge_tail_sum_flat.launches_bf16 = 0
 edge_tail_sum_flat_bwd.launches = 0
+edge_tail_sum_flat_bwd.launches_bf16 = 0
 
 
 def _layer_from_gathered(edge_rep, g, rec_rows, mask_p, w_e, b0, w2, b2,
@@ -373,12 +398,15 @@ def edge_layer_flat_bwd_plain(edge_rep, table, senders, rec_rows, mask_p,
                               w_e, b0, w2, b2, ln_scale, ln_bias, d_edge_out,
                               d_virt):
     """Plain PyTorch version of `edge_layer_flat_bwd` (autograd through
-    the plain forward on the gathered rows)."""
+    the plain forward on the gathered rows: fp32 math, the activation
+    gradients in their inputs' dtype)."""
     g = table.index_select(0, senders)
 
     def fwd(edge_rep, g, rec_rows, w_e, b0, w2, b2, ln_scale, ln_bias):
-        return _layer_from_gathered(edge_rep, g, rec_rows, mask_p, w_e, b0,
-                                    w2, b2, ln_scale, ln_bias)
+        outs = _layer_from_gathered(edge_rep.float(), g.float(),
+                                    rec_rows.float(), mask_p, w_e, b0, w2,
+                                    b2, ln_scale, ln_bias)
+        return tuple(t.to(edge_rep.dtype) for t in outs)
 
     return grads_through(
         fwd, (edge_rep, g, rec_rows, w_e, b0, w2, b2, ln_scale, ln_bias),
@@ -397,23 +425,25 @@ def edge_layer_bwd_chain_plain(edge_rep, table, senders, rec_rows, mask_p,
                                w_e, b0, w2, b2, ln_scale, ln_bias,
                                d_edge_out, d_virt):
     """Plain PyTorch version of `edge_layer_bwd_chain`, by autograd through
-    the plain forward with its intermediates kept."""
+    the plain forward (fp32 math) with its intermediates kept; d_edge_rep,
+    d_x0 and d_rec_rows in their inputs' dtypes, each rounded once, and
+    the dW_e pair on the unrounded d_x0."""
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (
-            edge_rep, table.index_select(0, senders), rec_rows, b0, b2,
-            ln_scale, ln_bias)]
+        leaves = _fp32_leaves(edge_rep, table.index_select(0, senders),
+                              rec_rows, b0, b2, ln_scale, ln_bias)
         e, g, rec, vb0, vb2, vls, vlb = leaves
         keep = {}
         outs = _layer_from_gathered(e, g, rec, mask_p, w_e.detach(), vb0,
                                     w2.detach(), vb2, vls, vlb, keep)
-        pairs = [(o, d) for o, d in zip(outs, (d_edge_out, d_virt))
+        pairs = [(o, d.float()) for o, d in zip(outs, (d_edge_out, d_virt))
                  if d is not None]
         grads = torch.autograd.grad([o for o, _ in pairs],
                                     leaves + [keep["y"]],
                                     [d for _, d in pairs])
     d_e, d_x0, d_rec, *d_vec, d_y = grads
     h = w2.shape[0]
-    return (d_e, d_x0, d_rec, tuple(d_vec),
+    return (d_e.to(edge_rep.dtype), d_x0.to(table.dtype),
+            d_rec.to(rec_rows.dtype), tuple(d_vec),
             _layer_pairs(edge_rep, d_x0, keep["x1"].detach().reshape(-1, h),
                          d_y.reshape(-1, h)))
 
@@ -423,8 +453,9 @@ def edge_layer_bwd_chain(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
     """B3/B4's chain pass: (d_edge_rep, d_x0 (M, W) per slot, d_rec_rows,
     (d_b0, d_b2, d_ln_scale, d_ln_bias), the (X, D) pairs of (d_w2, d_w_e)
     for `weight_grad.xtd_sum`). `edge_layer_bwd_chain_plain` on a CPU
-    tensor, the chain kernel of csrc/edge_flat_bwd.cu on a CUDA tensor; its
-    launches count on `edge_layer_flat_bwd.launches`."""
+    tensor, the chain kernel of csrc/edge_flat_bwd.cu on a CUDA tensor (its
+    instance of edge_rep's dtype; the cotangents in that dtype too); its
+    launches count on `edge_layer_flat_bwd.launches` (`launches_bf16`)."""
     if edge_rep.device.type == "cpu":
         return edge_layer_bwd_chain_plain(edge_rep, table, senders, rec_rows,
                                           mask_p, w_e, b0, w2, b2, ln_scale,
@@ -434,35 +465,42 @@ def edge_layer_bwd_chain(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
     M, W = edge_rep.shape
     _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
     _build.expect(d_virt.shape == (n_virt, W), "d_virt", d_virt.shape)
+    dt = _build.io_dtype("edge_rep", edge_rep)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias,
                         w_e.reshape(-1), b0])
     d_virt = d_virt.contiguous()
     f32, i32 = torch.float32, torch.int32
     d_x0 = torch.empty_like(edge_rep)
+    # the bf16 instance writes d_x0 once more, unrounded, for dW_e
+    d_x0_f = (torch.empty((M, W), device=dev, dtype=f32)
+              if dt == torch.bfloat16 else None)
     d_e = torch.empty_like(edge_rep)
-    d_rec = torch.empty_like(d_virt)
+    d_rec = torch.empty((n_virt, W), device=dev, dtype=dt)
     x1 = torch.empty((M * (W // HID), HID), device=dev, dtype=f32)
     dy = torch.empty_like(x1)
-    ptrs = _build.pointers(dev, ("edge_rep", edge_rep, f32),
-                           ("table", table, f32), ("senders", senders, i32),
-                           ("rec_rows", rec_rows, f32),
+    ptrs = _build.pointers(dev, ("edge_rep", edge_rep, dt),
+                           ("table", table, dt), ("senders", senders, i32),
+                           ("rec_rows", rec_rows, dt),
                            ("mask_p", mask_p, f32), ("params", params, f32),
-                           ("d_virt", d_virt, f32))
+                           ("d_virt", d_virt, dt))
     if d_edge_out is None:
         ptrs.append(None)
     else:
         d_edge_out = d_edge_out.contiguous()
-        ptrs += _build.pointers(dev, ("d_edge_out", d_edge_out, f32))
-    ptrs += _build.pointers(dev, ("d_x0", d_x0, f32), ("d_e", d_e, f32),
-                            ("d_rec", d_rec, f32), ("x1", x1, f32),
-                            ("dy", dy, f32))
-    g = _build.run_bwd(_bwd_lib(), "nlt_edge_layer_bwd", ptrs,
-                       [n_virt, K, W // HID], 4 * HID, dev,
+        ptrs += _build.pointers(dev, ("d_edge_out", d_edge_out, dt))
+    ptrs += _build.pointers(dev, ("d_x0", d_x0, dt))
+    ptrs.append(None if d_x0_f is None else
+                _build.pointers(dev, ("d_x0_f", d_x0_f, f32))[0])
+    ptrs += _build.pointers(dev, ("d_e", d_e, dt), ("d_rec", d_rec, dt),
+                            ("x1", x1, f32), ("dy", dy, f32))
+    g = _build.run_bwd(_bwd_lib(), "nlt_edge_layer_bwd" + _build.suffix(dt),
+                       ptrs, [n_virt, K, W // HID], 4 * HID, dev,
                        "edge_layer_flat_bwd")
-    edge_layer_flat_bwd.launches += 1
+    _build.count_launch(edge_layer_flat_bwd, dt)
     d_b2, d_ls, d_lb, d_b0 = g.view(4, HID)
     return (d_e, d_x0, d_rec, (d_b0, d_b2, d_ls, d_lb),
-            _layer_pairs(edge_rep, d_x0, x1, dy))
+            _layer_pairs(edge_rep, d_x0 if d_x0_f is None else d_x0_f, x1,
+                         dy))
 
 
 def edge_layer_flat_bwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
@@ -470,7 +508,8 @@ def edge_layer_flat_bwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
     """Backward of `edge_layer_flat` from d_edge_out (M, W) or None (the
     last layer's edge state is unused) and d_virt (N_virt, W): (d_edge_rep,
     d_x0 (M, W) per slot, d_rec_rows, d_w_e, d_b0, d_w2, d_b2, d_ln_scale,
-    d_ln_bias).
+    d_ln_bias); the first three in the inputs' dtype, the parameter
+    gradients fp32.
 
     Replaces pallas_edge_flat.py::_layer_bwd_kernel (via
     _edge_layer_flat_bwd) and ::_layer_bwd_win_kernel (via
@@ -506,7 +545,8 @@ class _EdgeLayerFlat(torch.autograd.Function):
         saved = ctx.saved_tensors
         if d_virt is None:
             d_virt = torch.zeros((saved[4].shape[0], saved[0].shape[1]),
-                                 device=saved[0].device)
+                                 device=saved[0].device,
+                                 dtype=saved[0].dtype)
         d_e, d_x0, d_rec, *d_par = edge_layer_flat_bwd(*saved, d_edge_out,
                                                        d_virt)
         return (d_e, _fold(ctx.fold, d_x0, need[1]), None, d_rec, None,
@@ -526,10 +566,9 @@ def edge_layer_flat(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
     ::_layer_flat_win_kernel (edge_layer_flat_win). Its W_e and W2
     products run on tensor cores in 3xTF32, so it is bound by bytes on the
     card; see csrc/edge_flat.cu and csrc/edge_tc.cuh. bf16 edge_rep,
-    table and rec_rows give bf16 outputs (forward only).
+    table and rec_rows give bf16 outputs, and their gradients run B3/B4's
+    bf16 instance.
     """
-    _build.refuse_bf16_grad("edge_layer_flat", edge_rep, table, rec_rows,
-                            w_e, b0, w2, b2, ln_scale, ln_bias)
     return _EdgeLayerFlat.apply(edge_rep, table, senders, rec_rows, mask_p,
                                 w_e, b0, w2, b2, ln_scale, ln_bias, fold)
 
@@ -537,3 +576,4 @@ def edge_layer_flat(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
 edge_layer_flat.launches = 0
 edge_layer_flat.launches_bf16 = 0
 edge_layer_flat_bwd.launches = 0
+edge_layer_flat_bwd.launches_bf16 = 0

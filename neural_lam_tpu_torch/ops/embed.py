@@ -16,11 +16,13 @@ The forward saves only its inputs: the backward recomputes it, as the JAX
 residuals do. `embed_grid_flat.launches` and `embed_grid_flat_bwd.launches`
 count kernel launches.
 
-A bf16 x_f (the bf16 forecast path) takes the forward's bf16 instance: x
-read in bf16, every product and the LayerNorm in fp32 on the fp32
-parameters, the output stored in bf16 (round to nearest even), as the JAX
-kernel with `out_dtype=bfloat16` does; `embed_grid_flat.launches_bf16`
-counts its launches. It has no backward: a gradient through it raises.
+A bf16 x_f (the bf16 path) takes the bf16 instances: the forward reads x
+in bf16, runs every product and the LayerNorm in fp32 on the fp32
+parameters and stores the output in bf16 (round to nearest even), as the
+JAX kernel with `out_dtype=bfloat16` does; the backward reads x and d_out
+in bf16 and stores dx in bf16, its weight and vector gradients fp32, as
+the JAX backward kernel does. `embed_grid_flat.launches_bf16` and
+`embed_grid_flat_bwd.launches_bf16` count their launches.
 """
 
 from __future__ import annotations
@@ -37,7 +39,9 @@ _P, _I, _LL, _IP = _build.P, _build.I, _build.LL, _build.IP
 _SIGNATURES = {"nlt_embed": [_P] * 3 + [_LL, _I, _I, _P],
                "nlt_embed_bf16": [_P] * 3 + [_LL, _I, _I, _P]}
 _BWD_SIGNATURES = {"nlt_embed_bwd": [_P] * 5 + [_LL, _I, _I, _I, _P],
-                   "nlt_embed_bwd_grid": [_LL, _I, _I, _IP]}
+                   "nlt_embed_bwd_grid": [_LL, _I, _I, _IP],
+                   "nlt_embed_bwd_bf16": [_P] * 5 + [_LL, _I, _I, _I, _P],
+                   "nlt_embed_bwd_bf16_grid": [_LL, _I, _I, _IP]}
 MAX_D_IN = 128  # csrc/embed_bwd.cu stages x rows at up to 128 columns
 
 
@@ -87,8 +91,8 @@ def _embed_fwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size):
 def embed_grid_flat_bwd_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
                               batch_size: int, d_out, need_dx: bool = True):
     """Plain PyTorch version of `embed_grid_flat_bwd`: autograd through
-    the plain forward. Returns (d_x | None, d_w0, d_b0, d_w1, d_b1,
-    d_ln_scale, d_ln_bias)."""
+    the plain forward (fp32 math; d_x in x_f's dtype, rounded once).
+    Returns (d_x | None, d_w0, d_b0, d_w1, d_b1, d_ln_scale, d_ln_bias)."""
     grads = grads_through(
         lambda *t: embed_grid_flat_plain(*t, batch_size),
         (x_f, w0, b0, w1, b1, ln_scale, ln_bias), (d_out,))
@@ -103,7 +107,8 @@ def embed_grid_flat_bwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
 
     Replaces pallas_embed.py::_embed_bwd_kernel (via _embed_bwd). Its
     products, the weight gradients' included, run on tensor cores in
-    3xTF32 in one pass; see csrc/embed_bwd.cu.
+    3xTF32 in one pass; see csrc/embed_bwd.cu. A bf16 x_f takes the bf16
+    instance: d_out bf16 in, d_x bf16 out, the parameter gradients fp32.
     """
     if x_f.device.type == "cpu":
         return embed_grid_flat_bwd_plain(x_f, w0, b0, w1, b1, ln_scale,
@@ -116,18 +121,19 @@ def embed_grid_flat_bwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
     _build.expect(w0.shape == (d_in, HID) and w1.shape == (HID, HID),
                   "w0/w1", (w0.shape, w1.shape))
     _build.expect(d_out.shape == (N, batch_size * HID), "d_out", d_out.shape)
+    dt = _build.io_dtype("x_f", x_f)
     params = torch.cat([w0.reshape(-1), w1.reshape(-1), b0, b1, ln_scale,
                         ln_bias])
     d_out = d_out.contiguous()
     d_x = torch.empty_like(x_f) if need_dx else None
     f32 = torch.float32
-    ptrs = _build.pointers(dev, ("x_f", x_f, f32), ("d_out", d_out, f32),
+    ptrs = _build.pointers(dev, ("x_f", x_f, dt), ("d_out", d_out, dt),
                            ("params", params, f32))
     ptrs.append(None if d_x is None else d_x.data_ptr())
-    g = _build.run_bwd(_bwd_lib(), "nlt_embed_bwd", ptrs,
+    g = _build.run_bwd(_bwd_lib(), "nlt_embed_bwd" + _build.suffix(dt), ptrs,
                        [N * batch_size, d_in], params.numel(), dev,
                        "embed_grid_flat_bwd")
-    embed_grid_flat_bwd.launches += 1
+    _build.count_launch(embed_grid_flat_bwd, dt)
     n0, n1 = d_in * HID, HID * HID
     v = g[n0 + n1:].view(4, HID)
     return (d_x, g[:n0].view(d_in, HID), v[0], g[n0:n0 + n1].view(HID, HID),
@@ -157,11 +163,9 @@ def embed_grid_flat(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
 
     Replaces pallas_embed.py::_embed_fwd_kernel (via embed_grid_flat).
     Both products run on tensor cores in 3xTF32, so it is bound by bytes
-    on the card; see csrc/embed.cu. A bf16 x_f gives a bf16 output
-    (forward only).
+    on the card; see csrc/embed.cu. A bf16 x_f gives a bf16 output, and
+    its gradient runs the backward's bf16 instance.
     """
-    _build.refuse_bf16_grad("embed_grid_flat", x_f, w0, b0, w1, b1,
-                            ln_scale, ln_bias)
     return _EmbedGridFlat.apply(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
                                 batch_size)
 
@@ -169,3 +173,4 @@ def embed_grid_flat(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
 embed_grid_flat.launches = 0
 embed_grid_flat.launches_bf16 = 0
 embed_grid_flat_bwd.launches = 0
+embed_grid_flat_bwd.launches_bf16 = 0

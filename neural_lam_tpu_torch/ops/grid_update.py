@@ -25,12 +25,16 @@ activation/gradient pairs of the weight gradients to a scratch, and
 `grid_update_flat.launches` and `grid_update_flat_bwd.launches` (the chain
 kernel) count kernel launches.
 
-bf16 (the bf16 forecast path): a bf16 table takes the forward kernel's
-bf16 instance, which reads table, ew and grid_emb_f in bf16, computes in
-fp32 on the fp32 parameters and stores its output in bf16 (round to
-nearest even), as the JAX kernel does on bf16 inputs;
-`grid_update_flat.launches_bf16` counts it. It has no backward: a
-gradient through it raises.
+bf16 (the bf16 path): a bf16 table takes the bf16 instances, which read
+table, ew and grid_emb_f (and, backward, d_out) in bf16, compute in fp32
+on the fp32 parameters and store their outputs in bf16, each rounded once
+(round to nearest even), as the JAX kernels do on bf16 inputs: the
+output forward; the per-slot d_x0, d_ew and d_grid_emb_f backward. The
+weight and vector gradients stay fp32: the chain's scratch is fp32, the
+enc_w0 pair takes the bf16 grid_emb_f as it is, and the o_w1 pair a
+widened copy of d_out (its D must be fp32; the JAX kernel widens d_out
+as it reads it). `grid_update_flat.launches_bf16` and
+`grid_update_flat_bwd.launches_bf16` count the bf16 instances' launches.
 """
 
 from __future__ import annotations
@@ -46,8 +50,12 @@ HID = 64
 _P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {"nlt_grid_update": [_P] * 7 + [_I] * 6 + [_P],
                "nlt_grid_update_bf16": [_P] * 7 + [_I] * 6 + [_P]}
-_BWD_SIGNATURES = {"nlt_grid_update_bwd": [_P] * 14 + [_I] * 7 + [_P],
-                   "nlt_grid_update_bwd_grid": [_I] * 6 + [_IP]}
+_BWD_SIGNATURES = {
+    f"nlt_grid_update_bwd{sfx}{grid}": sig
+    for sfx in ("", "_bf16")
+    for grid, sig in (("", [_P] * 14 + [_I] * 7 + [_P]),
+                      ("_grid", [_I] * 6 + [_IP]))
+}
 
 # order of the parameter blob csrc/grid_update.cu reads
 _MATS = ("enc_w0", "enc_w1", "w_i", "w2", "a_w0", "a_w1", "o_w0")
@@ -208,12 +216,14 @@ def _grid_fwd(table, senders, ew, grid_emb_f, mask_p, pp):
 def grid_update_flat_bwd_plain(table, senders, ew, grid_emb_f, mask_p, pp,
                                d_out):
     """Plain PyTorch version of `grid_update_flat_bwd`: autograd through
-    the plain forward on the gathered rows."""
+    the plain forward on the gathered rows (fp32 math, the activation
+    gradients in their inputs' dtype)."""
     keys = list(pp)
 
     def fwd(g, ew, grid_emb_f, *params):
-        return _decoder_from_gathered(g, ew, grid_emb_f, mask_p,
-                                      dict(zip(keys, params)))
+        return _decoder_from_gathered(g.float(), ew.float(),
+                                      grid_emb_f.float(), mask_p,
+                                      dict(zip(keys, params))).to(g.dtype)
 
     grads = grads_through(
         fwd, [table.index_select(0, senders), ew, grid_emb_f]
@@ -240,10 +250,11 @@ _PAIRS = (("enc_w0", "ge", "dt1p"), ("enc_w1", "t1", "dt2"),
 def _weight_pairs(node, slot, grid_emb_f, d_out, B):
     """The (X, D) pairs of `_PAIRS`, as views of the chain's scratch
     (node (12, n_virt*B, 64), slot (2, n_virt*K*B, 64)) and the inputs;
-    ge's pair over grid_emb_f's real rows only."""
+    ge's pair over grid_emb_f's real rows only (a bf16 grid_emb_f as it
+    is), dout's on d_out widened to fp32."""
     rows = dict(zip(_NODE + _SLOT, [*node, *slot]),
                 ge=grid_emb_f.view(-1, HID),
-                dout=d_out.reshape(-1, d_out.shape[1] // B))
+                dout=d_out.float().reshape(-1, d_out.shape[1] // B))
     return [(rows[x], rows[d][:rows[x].shape[0]]) for _, x, d in _PAIRS]
 
 
@@ -251,13 +262,14 @@ def grid_update_bwd_chain_plain(table, senders, ew, grid_emb_f, mask_p, pp,
                                 d_out):
     """Plain PyTorch version of the chain pass: (d_x0, d_ew, d_grid_emb_f,
     {name: gradient} for the 13 vector parameters, the weight-gradient
-    pairs of `_PAIRS`), by autograd through the plain forward with its
-    intermediates kept."""
+    pairs of `_PAIRS`), by autograd through the plain forward (fp32 math)
+    with its intermediates kept; d_x0, d_ew and d_grid_emb_f in their
+    inputs' dtypes, each rounded once."""
     n_virt, K = mask_p.shape
     B = table.shape[1] // HID
     vec_keys = _VECS + ("o_b1",)
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (
+        leaves = [t.detach().float().requires_grad_() for t in (
             table.index_select(0, senders), ew, grid_emb_f)]
         vecs = {k: pp[k].detach().requires_grad_() for k in vec_keys}
         act = {}
@@ -269,20 +281,22 @@ def grid_update_bwd_chain_plain(table, senders, ew, grid_emb_f, mask_p, pp,
                    "du2": "u2", "dy0p": "y0p", "dx2": "y2"}
         grads = torch.autograd.grad(
             out, leaves + [act[k] for k in grad_of.values()]
-            + [vecs[k] for k in vec_keys], d_out.reshape(out.shape))
+            + [vecs[k] for k in vec_keys], d_out.float().reshape(out.shape))
     rows = dict(act, **dict(zip(grad_of, grads[3:])))
     node = [rows[k].detach().reshape(-1, HID) for k in _NODE]
     slot = [rows[k].detach().reshape(-1, HID) for k in _SLOT]
-    return (grads[0], grads[1], grads[2],
+    return (grads[0].to(table.dtype), grads[1].to(ew.dtype),
+            grads[2].to(grid_emb_f.dtype),
             dict(zip(vec_keys, grads[3 + len(grad_of):])),
             _weight_pairs(node, slot, grid_emb_f, d_out, B))
 
 
 def grid_update_bwd_chain(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
     """B5/B6's chain pass: `grid_update_bwd_chain_plain` on a CPU tensor,
-    the kernel of csrc/grid_update_bwd.cu on a CUDA tensor. Its launches
-    count on `grid_update_flat_bwd.launches`: the chain kernel is the
-    decoder backward's own kernel."""
+    the kernel of csrc/grid_update_bwd.cu on a CUDA tensor (its instance of
+    the table's dtype; d_out in that dtype too). Its launches count on
+    `grid_update_flat_bwd.launches` (`launches_bf16`): the chain kernel is
+    the decoder backward's own kernel."""
     if table.device.type == "cpu":
         return grid_update_bwd_chain_plain(table, senders, ew, grid_emb_f,
                                            mask_p, pp, d_out)
@@ -293,6 +307,7 @@ def grid_update_bwd_chain(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
     B = W // HID
     d_o = pp["o_w1"].shape[1]
     _build.expect(d_out.shape == (n_virt, B * d_o), "d_out", d_out.shape)
+    dt = _build.io_dtype("table", table)
     params = _blob(pp)
     aw0 = pp["a_w0"]
     mats_t = [pp["enc_w0"], pp["enc_w1"], pp["w_i"], pp["w2"], aw0[:HID],
@@ -301,25 +316,25 @@ def grid_update_bwd_chain(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
                         + [pp["o_w1"].t().reshape(-1)])
     d_out = d_out.contiguous()
     f32, i32 = torch.float32, torch.int32
-    d_x0 = torch.empty((n_virt * K, W), device=dev, dtype=f32)
+    d_x0 = torch.empty((n_virt * K, W), device=dev, dtype=dt)
     d_ew = torch.empty_like(ew)
     d_ge = torch.empty_like(grid_emb_f)
     node = torch.empty((len(_NODE), n_virt * B, HID), device=dev, dtype=f32)
     slot = torch.empty((len(_SLOT), n_virt * K * B, HID), device=dev,
                        dtype=f32)
-    ptrs = _build.pointers(dev, ("table", table, f32),
-                           ("senders", senders, i32), ("ew", ew, f32),
-                           ("grid_emb_f", grid_emb_f, f32),
+    ptrs = _build.pointers(dev, ("table", table, dt),
+                           ("senders", senders, i32), ("ew", ew, dt),
+                           ("grid_emb_f", grid_emb_f, dt),
                            ("mask_p", mask_p, f32), ("params", params, f32),
-                           ("tparams", tparams, f32), ("d_out", d_out, f32),
-                           ("d_x0", d_x0, f32), ("d_ew", d_ew, f32),
-                           ("d_ge", d_ge, f32), ("node", node, f32),
+                           ("tparams", tparams, f32), ("d_out", d_out, dt),
+                           ("d_x0", d_x0, dt), ("d_ew", d_ew, dt),
+                           ("d_ge", d_ge, dt), ("node", node, f32),
                            ("slot", slot, f32))
     n_vec = len(_VECS) * HID
-    g = _build.run_bwd(_bwd_lib(), "nlt_grid_update_bwd", ptrs,
-                       [n_virt, grid_emb_f.shape[0], K, B, d_o],
+    g = _build.run_bwd(_bwd_lib(), "nlt_grid_update_bwd" + _build.suffix(dt),
+                       ptrs, [n_virt, grid_emb_f.shape[0], K, B, d_o],
                        n_vec + d_o, dev, "grid_update_flat_bwd")
-    grid_update_flat_bwd.launches += 1
+    _build.count_launch(grid_update_flat_bwd, dt)
     vecs = {k: g[i * HID:(i + 1) * HID] for i, k in enumerate(_VECS)}
     vecs["o_b1"] = g[n_vec:]
     return d_x0, d_ew, d_ge, vecs, _weight_pairs(node, slot, grid_emb_f,
@@ -337,7 +352,8 @@ def _assemble(vecs, mats):
 def grid_update_flat_bwd(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
     """Backward of `grid_update_flat` from d_out (N_virt, B*d_out):
     (d_x0 (M, W) per slot, d_ew (M, h), d_grid_emb_f (N_rows, W), {name:
-    gradient} for every parameter, in `_KEYS` order).
+    gradient} for every parameter, in `_KEYS` order); the first three in
+    the inputs' dtype, the parameter gradients fp32.
 
     Replaces pallas_grid_update.py::_grid_update_bwd_kernel (via
     _grid_update_bwd) and ::_grid_update_win_bwd_kernel (via
@@ -371,7 +387,7 @@ class _GridUpdateFlat(torch.autograd.Function):
             if ctx.fold is None:
                 raise ValueError("the table gradient needs the edge set's "
                                  "sender fold: pass fold=EdgeSet.fold_senders")
-            d_table = ctx.fold(d_x0)
+            d_table = ctx.fold(d_x0)  # in d_x0's dtype
         return (d_table, None, d_ew, d_ge, None, None,
                 *(d_pp[k] for k in _KEYS))
 
@@ -392,10 +408,9 @@ def grid_update_flat(table, senders, ew, grid_emb_f, mask_p, pp, *,
     Replaces pallas_grid_update.py::_grid_update_kernel (grid_update_flat)
     and ::_grid_update_win_kernel (grid_update_flat_win). Bound by fp32
     operations on the card; see csrc/grid_update.cu. bf16 table, ew and
-    grid_emb_f give a bf16 output (forward only).
+    grid_emb_f give a bf16 output, and their gradients run B5/B6's bf16
+    instance.
     """
-    _build.refuse_bf16_grad("grid_update_flat", table, ew, grid_emb_f,
-                            *pp.values())
     return _GridUpdateFlat.apply(table, senders, ew, grid_emb_f, mask_p,
                                  fold, *(pp[k] for k in _KEYS))
 
@@ -403,3 +418,4 @@ def grid_update_flat(table, senders, ew, grid_emb_f, mask_p, pp, *,
 grid_update_flat.launches = 0
 grid_update_flat.launches_bf16 = 0
 grid_update_flat_bwd.launches = 0
+grid_update_flat_bwd.launches_bf16 = 0

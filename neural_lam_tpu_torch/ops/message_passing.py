@@ -192,7 +192,10 @@ class EdgeSet:
         Counterpart of the backward of the JAX package's `gather_send_flat`
         (`_gather_rows_T_bwd`): masked row gathers over the transposed
         layout, summed in a fixed order, then the virtual-row fold. No
-        scatter and no float atomics, so the card repeats its sums."""
+        scatter and no float atomics, so the card repeats its sums. The
+        sums run in fp32 (the fp32 mask widens a bf16 d_slots) and the
+        result is rounded once to d_slots' dtype, as the JAX function
+        does."""
         t = self.transposed
         if t is None:
             return d_slots.new_zeros((self.num_send, d_slots.shape[1]))
@@ -202,7 +205,7 @@ class EdgeSet:
         for k in range(t.dense_k):
             part = d_slots.index_select(0, slots[:, k]) * masks[:, k, None]
             virt = part if virt is None else virt + part
-        return _fold_virt(t, virt)
+        return _fold_virt(t, virt).to(d_slots.dtype)
 
 
 class InteractionNet(nn.Module):

@@ -18,6 +18,13 @@ written apart (`xtd_partials`, the main kernel). `xtd_reduce` (a second,
 small kernel) sums each pair's partials in segment order: no float
 atomics, so a run repeats itself bit for bit. `xtd_sum.launches` counts
 the main kernel's launches, `xtd_reduce.launches` the reduce kernel's.
+
+bf16 (the bf16 training path): a pair's X may be bf16 (B3's dW_e pair
+reads the bf16 edge state, B5/B6's enc_w0 pair the bf16 grid embeddings);
+the kernel stages it raw and converts it where the product reads it, in
+the same launch as the fp32 pairs. D is always fp32. A launch with a bf16
+X counts on `xtd_sum.launches_bf16`, and the reduce launch that finishes
+it on `xtd_reduce.launches_bf16`.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ _LLP = ctypes.POINTER(_build.LL)
 _IP = _build.IP
 _P, _I = _build.P, _build.I
 _SIGNATURES = {
-    "nlt_xtd_sum": [_LLP, _LLP, _IP, _I, _P, _P, _I, _P, _I, _P],
+    "nlt_xtd_sum": [_LLP, _LLP, _IP, _I, _I, _P, _P, _I, _P, _I, _P],
     "nlt_xtd_reduce": [_P, _IP, _IP, _I, _P, _I, _P],
     "nlt_xtd_sum_occupancy": [_I, _IP, _IP],
 }
@@ -51,8 +58,8 @@ def _lib():
 
 
 def xtd_sum_plain(pairs):
-    """Plain PyTorch version of `xtd_sum`."""
-    return tuple(x.t() @ d for x, d in pairs)
+    """Plain PyTorch version of `xtd_sum` (a bf16 X widened to fp32)."""
+    return tuple(x.float().t() @ d for x, d in pairs)
 
 
 def segments(ns, n_blocks):
@@ -130,6 +137,7 @@ def _check(pairs, blocks):
                       tuple(x.shape))
         _build.expect(d.dim() == 2 and d.shape[0] == x.shape[0]
                       and 1 <= d.shape[1] <= HID, f"D[{i}]", tuple(d.shape))
+        _build.io_dtype(f"X[{i}]", x)
         _build.expect(x.data_ptr() % 16 == 0, f"X[{i}] alignment",
                       x.data_ptr())
         align = 16 if d.shape[1] % 4 == 0 else 4
@@ -153,7 +161,8 @@ def xtd_partials_plain(pairs, blocks):
     partial = pairs[0][0].new_zeros((max(1, len(segs)), HID * HID))
     for s, (_, p, lo, hi) in enumerate(segs):
         x, d = pairs[p]
-        partial[s, :HID * d.shape[1]] = (x[lo:hi].t() @ d[lo:hi]).reshape(-1)
+        partial[s, :HID * d.shape[1]] = (
+            x[lo:hi].float().t() @ d[lo:hi]).reshape(-1)
     return partial, _pair_first(segs, len(pairs))
 
 
@@ -166,9 +175,12 @@ def xtd_partials(pairs, blocks):
     dev = _build.require_cuda(pairs[0][0])
     _check(pairs, blocks)
     f32 = torch.float32
-    ptrs = _build.pointers(dev, *((f"{n}[{i}]", t, f32)
-                                  for i, p in enumerate(pairs)
-                                  for n, t in zip("XD", p)))
+    ptrs = _build.pointers(dev, *((f"{n}[{i}]", t, x.dtype if n == "X"
+                                   else f32)
+                                  for i, (x, d) in enumerate(pairs)
+                                  for n, t in zip("XD", (x, d))))
+    xbf = sum(1 << i for i, (x, _) in enumerate(pairs)
+              if x.dtype == torch.bfloat16)
     ns = [x.shape[0] for x, _ in pairs]
     seg, block_first, pair_first = _segment_tensors(ns, blocks, dev)
     partial = torch.empty((max(1, pair_first[-1]), HID * HID), device=dev,
@@ -178,12 +190,20 @@ def xtd_partials(pairs, blocks):
         lib = _lib()
         rc = lib.nlt_xtd_sum(
             (_build.LL * n)(*ptrs[0::2]), (_build.LL * n)(*ptrs[1::2]),
-            (ctypes.c_int * n)(*(d.shape[1] for _, d in pairs)), n,
+            (ctypes.c_int * n)(*(d.shape[1] for _, d in pairs)), n, xbf,
             seg.data_ptr(), block_first.data_ptr(), blocks,
             partial.data_ptr(), dev.index, _build.stream_of(dev))
         _build.check(lib, rc, "xtd_sum")
-        xtd_sum.launches += 1
+        _build.count_launch(xtd_sum, _launch_dtype(pairs))
     return partial, pair_first
+
+
+def _launch_dtype(pairs):
+    """The instance a launch over `pairs` counts on: bfloat16 when any X
+    is bf16."""
+    if any(x.dtype == torch.bfloat16 for x, _ in pairs):
+        return torch.bfloat16
+    return torch.float32
 
 
 def xtd_reduce_plain(partial, pair_first, widths):
@@ -192,10 +212,11 @@ def xtd_reduce_plain(partial, pair_first, widths):
                  for a, b, d in zip(pair_first, pair_first[1:], widths))
 
 
-def xtd_reduce(partial, pair_first, widths):
+def xtd_reduce(partial, pair_first, widths, dtype=torch.float32):
     """Each pair's (64, d) sum of its segments' partials (rows
     pair_first[p] .. pair_first[p+1]-1 of `partial`), in segment order, in
-    one launch on a CUDA tensor."""
+    one launch on a CUDA tensor, counted on the counter of `dtype`, the
+    instance of the `xtd_partials` launch it finishes."""
     if partial.device.type == "cpu":
         return xtd_reduce_plain(partial, pair_first, widths)
     dev = _build.require_cuda(partial)
@@ -211,16 +232,16 @@ def xtd_reduce(partial, pair_first, widths):
                             (ctypes.c_int * n)(*widths), n, out.data_ptr(),
                             dev.index, _build.stream_of(dev))
     _build.check(lib, rc, "xtd_reduce")
-    xtd_reduce.launches += 1
+    _build.count_launch(xtd_reduce, dtype)
     return tuple(m.view(HID, d)
                  for m, d in zip(out.split([HID * d for d in widths]), widths))
 
 
 def xtd_sum(pairs):
     """X^T @ D, summed over the rows, for each (X (n, 64), D (n, d)) pair
-    with 1 <= d <= 64: a tuple of (64, d) matrices. On a CUDA device two
-    launches for all pairs (`xtd_partials` over `n_blocks` blocks, then
-    `xtd_reduce`).
+    with 1 <= d <= 64 (X fp32 or bf16, D fp32): a tuple of fp32 (64, d)
+    matrices. On a CUDA device two launches for all pairs (`xtd_partials`
+    over `n_blocks` blocks, then `xtd_reduce`).
 
     Bound by the bytes of the pairs on the card (each row of X and D read
     once); see csrc/weight_grad.cu."""
@@ -229,8 +250,11 @@ def xtd_sum(pairs):
         return xtd_sum_plain(pairs)
     blocks = n_blocks([x.shape[0] for x, _ in pairs], _build.require_cuda(x0))
     partial, pair_first = xtd_partials(pairs, blocks)
-    return xtd_reduce(partial, pair_first, [d.shape[1] for _, d in pairs])
+    return xtd_reduce(partial, pair_first, [d.shape[1] for _, d in pairs],
+                      _launch_dtype(pairs))
 
 
 xtd_sum.launches = 0
+xtd_sum.launches_bf16 = 0
 xtd_reduce.launches = 0
+xtd_reduce.launches_bf16 = 0

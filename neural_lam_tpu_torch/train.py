@@ -27,13 +27,15 @@ holds), their figures (`test_rmse.pdf`, `test_mae.pdf`,
 (`example_{pred,target}_{i}.npy`, `example_{i}_{var}_t{t}.png`);
 matplotlib is imported only to draw.
 
-`--precision bf16` (or `bf16-mixed`) evaluates on the bf16 forecast path
-(fp32 parameters, activations stored in bf16); training in bf16 raises
-before any step (ROADMAP.md queue 1, item 2's training half).
+`--precision bf16` (or `bf16-mixed`) trains and evaluates on the bf16
+path, as the JAX trainer maps both to compute_dtype="bfloat16": fp32
+parameters and AdamW state, activations and their gradients stored in
+bf16 (the kernels' bf16 instances forward and backward), the loss and
+the parameter gradients fp32. Its checkpoints have the fp32 format.
 
 Not ported yet: ensemble evaluation (`--ensemble_members`, ROADMAP.md
-queue 1, item 5), bf16 training, multi-host and spatial sharding, W&B,
-profiling, `--remat`.
+queue 1, item 5), multi-host and spatial sharding, W&B, profiling,
+`--remat`.
 """
 
 from __future__ import annotations
@@ -408,8 +410,9 @@ def main(input_args=None):
     parser.add_argument("--restore_opt", action="store_true")
     parser.add_argument("--precision", type=str, default="32",
                         choices=["32", "bf16", "bf16-mixed"],
-                        help="bf16 and bf16-mixed: the bf16 forward path, "
-                             "with --eval only")
+                        help="bf16 and bf16-mixed: the bf16 path "
+                             "(fp32 parameters, bf16 activations), in "
+                             "training and evaluation")
     parser.add_argument("--graph", type=str, default="multiscale")
     parser.add_argument("--hidden_dim", type=int, default=64)
     parser.add_argument("--hidden_layers", type=int, default=1)
@@ -446,11 +449,6 @@ def main(input_args=None):
             "--ensemble_members: ensemble evaluation is not ported yet "
             "(ROADMAP.md queue 1, item 5)")
     compute_dtype = compute_dtype_of(args.precision)
-    if compute_dtype is not None and args.eval is None:
-        raise NotImplementedError(
-            f"--precision {args.precision} without --eval: bf16 training is "
-            "not ported yet (ROADMAP.md queue 1, item 2's training half); "
-            "bf16 runs with --eval val|test")
 
     device = resolve_device(args.device)
     torch.manual_seed(args.seed)

@@ -19,8 +19,9 @@ magnitude) instead.
 Ops: the rounding rules of the JAX package's bf16 call sites (`mlp.mm`,
 `apply_mlp`, the node transforms, the folds), and the wrappers: a bf16
 tensor takes the plain version on the CPU, a gradient through a bf16
-forward raises, `_build.pointers` holds bf16 as strictly as float32, and
-P1 stays fp32 in a HiLAM bf16 step.
+forward runs there (the backward kernels' bf16 instances are held against
+JAX in tests/test_torch_port_bf16_train*.py), `_build.pointers` holds
+bf16 as strictly as float32, and P1 stays fp32 in a HiLAM bf16 step.
 """
 
 import numpy as np
@@ -40,7 +41,7 @@ from neural_lam_tpu.ops.message_passing import EdgeSet as JEdgeSet
 from neural_lam_tpu_torch import entry
 from neural_lam_tpu_torch.convert import params_from_jax
 from neural_lam_tpu_torch.ops import _build, edge, edge_flat, embed
-from neural_lam_tpu_torch.ops import grid_update
+from neural_lam_tpu_torch.ops import grid_update, weight_grad
 from neural_lam_tpu_torch.ops import message_passing as tmp
 from neural_lam_tpu_torch.ops import mlp as tmlp
 from neural_lam_tpu_torch.ops.message_passing import EdgeSet
@@ -419,42 +420,77 @@ def test_bf16_takes_the_plain_version_on_cpu(monkeypatch):
 
 @pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4", "P1", "P2", "P3"])
 def test_gradient_through_bf16_forward_raises(which):
-    """A bf16 forward with an input that needs a gradient raises
-    NotImplementedError naming the training slice: no wrapper upcasts
-    quietly."""
+    """A gradient through a bf16 forward (the bf16 training path, which
+    once raised here) runs on the CPU: every input and parameter that
+    needs one gets a finite gradient of its own dtype, through the plain
+    versions, and no bf16 launch is counted (forward or backward)."""
     rng = np.random.default_rng(7)
     _, t = _local_graph(3, rng)
     n_virt, K = t.num_virt, 3
     p = {k: v.requires_grad_() for k, v in _tail_params(rng).items()}
     mask_p = t.mask.view(n_virt, K)
     tail = (p["w2"], p["b2"], p["ls"], p["lb"])
+
+    def bf(*shape):
+        return _bf16(rng, *shape).requires_grad_()
+
+    w0 = _f32(rng, 7, H).requires_grad_()
+    pp = {k: _f32(rng, *s, scale=0.1).requires_grad_()
+          for k, s in _decoder_shapes(5)}
     calls = {
-        "K1": lambda: embed.embed_grid_flat(
-            _bf16(rng, 10, 2 * 7), _f32(rng, 7, H).requires_grad_(),
-            p["b0"], p["w2"], p["b2"], p["ls"], p["lb"], 2),
-        "K2": lambda: edge_flat.edge_tail_sum_flat(
-            _bf16(rng, N_SEND, 2 * H), t.senders, _bf16(rng, n_virt * K, H),
-            _bf16(rng, n_virt, 2 * H), mask_p, *tail),
-        "K3": lambda: edge_flat.edge_layer_flat(
-            _bf16(rng, n_virt * K, 2 * H), _bf16(rng, N_SEND, 2 * H),
-            t.senders, _bf16(rng, n_virt, 2 * H), mask_p, p["w_e"], p["b0"],
-            *tail),
-        "K4": lambda: grid_update.grid_update_flat(
-            _bf16(rng, N_SEND, 2 * H), t.senders, _bf16(rng, n_virt * K, H),
-            _bf16(rng, N_REC, 2 * H), mask_p,
-            {"w2": p["w2"]}),
-        "P1": lambda: edge.edge_tail(_bf16(rng, 1, n_virt * K, H), *tail,
-                                     t.mask, K),
-        "P2": lambda: edge.edge_tail_sum(
-            _bf16(rng, 1, N_SEND, H), t.senders, _bf16(rng, n_virt * K, H),
-            _bf16(rng, 1, n_virt, H), *tail, t.mask, K),
-        "P3": lambda: edge.edge_layer(
-            _bf16(rng, 1, n_virt * K, H), _bf16(rng, 1, N_SEND, H),
-            t.senders, _bf16(rng, 1, n_virt, H), t.mask, p["w_e"], p["b0"],
-            *tail, K),
+        "K1": lambda: ([x := bf(10, 2 * 7), w0], embed.embed_grid_flat(
+            x, w0, p["b0"], p["w2"], p["b2"], p["ls"], p["lb"], 2)),
+        "K2": lambda: ([tb := bf(N_SEND, 2 * H), e := bf(n_virt * K, H),
+                        r := bf(n_virt, 2 * H)],
+                       edge_flat.edge_tail_sum_flat(
+                           tb, t.senders, e, r, mask_p, *tail,
+                           fold=t.fold_senders)),
+        "K3": lambda: ([e := bf(n_virt * K, 2 * H), tb := bf(N_SEND, 2 * H),
+                        r := bf(n_virt, 2 * H)],
+                       edge_flat.edge_layer_flat(
+                           e, tb, t.senders, r, mask_p, p["w_e"], p["b0"],
+                           *tail, fold=t.fold_senders)),
+        "K4": lambda: ([tb := bf(N_SEND, 2 * H), e := bf(n_virt * K, H),
+                        g := bf(N_REC, 2 * H)],
+                       grid_update.grid_update_flat(
+                           tb, t.senders, e, g, mask_p, pp,
+                           fold=t.fold_senders)),
+        "P1": lambda: ([x := _f32(rng, 1, n_virt * K, H).requires_grad_()],
+                       edge.edge_tail(x, *tail, t.mask, K)),
+        "P2": lambda: ([s := bf(1, N_SEND, H), e := bf(n_virt * K, H),
+                        r := bf(1, n_virt, H)],
+                       edge.edge_tail_sum(s, t.senders, e, r, *tail, t.mask,
+                                          K)),
+        "P3": lambda: ([e := bf(1, n_virt * K, H), s := bf(1, N_SEND, H),
+                        r := bf(1, n_virt, H)],
+                       edge.edge_layer(e, s, t.senders, r, t.mask, p["w_e"],
+                                       p["b0"], *tail, K)),
     }
-    with pytest.raises(NotImplementedError, match="training half"):
-        calls[which]()
+    wrappers = (embed.embed_grid_flat, embed.embed_grid_flat_bwd,
+                edge_flat.edge_tail_sum_flat, edge_flat.edge_tail_sum_flat_bwd,
+                edge_flat.edge_layer_flat, edge_flat.edge_layer_flat_bwd,
+                grid_update.grid_update_flat,
+                grid_update.grid_update_flat_bwd, edge.edge_tail_sum,
+                edge.edge_layer, weight_grad.xtd_sum, weight_grad.xtd_reduce)
+    before = [w.launches_bf16 for w in wrappers]
+    inputs, out = calls[which]()
+    outs = [o for o in (out if isinstance(out, tuple) else (out,))
+            if o is not None]
+    sum(o.float().square().sum() for o in outs).backward()
+    weight = pp["enc_w0"] if which == "K4" else p["w2"]
+    for i, x in enumerate(inputs + [weight]):
+        assert x.grad is not None, (which, i)
+        assert x.grad.dtype == x.dtype, (which, i, x.grad.dtype)
+        assert bool(torch.isfinite(x.grad.float()).all()), (which, i)
+    assert [w.launches_bf16 for w in wrappers] == before
+
+
+def _decoder_shapes(d_out):
+    """(name, shape) of the fused decoder's parameters, d_out outputs."""
+    return [(k, (2 * H, H) if k == "a_w0" else (H, d_out) if k == "o_w1"
+             else (d_out,) if k == "o_b1" else (H, H) if k.endswith(
+                 ("w0", "w1", "w_i", "w2")) else (H,))
+            for k in grid_update._KEYS]
 
 
 def test_pointers_hold_bf16_as_strictly_as_float32():

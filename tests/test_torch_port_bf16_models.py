@@ -47,6 +47,7 @@ raises before any step, naming the training slice.
 """
 
 import contextlib
+import json
 
 import numpy as np
 import pytest
@@ -402,8 +403,8 @@ def test_train_cli_evaluates_in_bf16_and_refuses_to_train(mdp_checkpoint,
                                                           tmp_path):
     """`train.main --eval test --precision bf16` scores the checkpoint on
     the bf16 path and writes its maps; `--precision bf16` without --eval
-    raises NotImplementedError before any step, naming the training
-    slice."""
+    (which once refused) trains on the bf16 path, and its checkpoint
+    scores again in bf16."""
     cfg, ckpt = mdp_checkpoint
     common = ["--config_path", str(cfg), "--device", "cpu", "--graph",
               "g1level", "--hidden_dim", str(H), "--processor_layers", "1",
@@ -423,7 +424,17 @@ def test_train_cli_evaluates_in_bf16_and_refuses_to_train(mdp_checkpoint,
                        delimiter=",") for p in ("32", "bf16"))
     assert np.isfinite(b).all() and not np.array_equal(a, b)
     np.testing.assert_allclose(b, a, rtol=5e-2)
-    with pytest.raises(NotImplementedError, match="training half"):
-        train.main(common + ["--precision", "bf16", "--epochs", "1",
-                             "--run_name", "train_bf16"])
-    assert not (tmp_path / "models" / "train_bf16").exists()
+    train.main(common + ["--precision", "bf16", "--epochs", "1",
+                         "--max_steps", "2", "--load", str(ckpt),
+                         "--run_name", "train_bf16"])
+    run = tmp_path / "models" / "train_bf16"
+    assert (run / "last").exists() and (run / "metrics.jsonl").exists()
+    logged = [json.loads(line) for line in
+              (run / "metrics.jsonl").read_text().splitlines()]
+    assert any(np.isfinite(r.get("train_loss", np.nan)) for r in logged)
+    res["trained"] = train.main(common + [
+        "--eval", "test", "--load", str(run / "last"), "--precision", "bf16",
+        "--run_name", "eval_trained", "--n_example_pred", "0"])
+    c = np.loadtxt(tmp_path / "models" / "eval_trained" / "test_rmse.csv",
+                   delimiter=",")
+    assert np.isfinite(c).all() and not np.array_equal(b, c)
