@@ -31,7 +31,8 @@ result line is printed), each printing its seconds:
    (for K1, K2, K3, P1, P2 and P3, whose products run on tensor cores in
    3xTF32, max(bytes, 3 x FLOP / TF32 peak), with the fp32 CUDA-core
    bound printed beside it, and their products as `torch.mm` calls, TF32
-   off, as their library time); K1, K2, K3, P1, P2 and P3 also give
+   off, as their library time; K4's products as three `torch.mm` calls,
+   TF32 off, its library time); K1, K2, K3, P1, P2 and P3 also give
    bit-identical outputs in two calls. K1-K4 at GraphLAM's batch-4
    shapes; K1 also at d_in 23, 100 and 160 on a row count that is not a
    multiple of 16; K3 also at HiLAM's K=1 down[0] and non-identity up[0]
@@ -220,6 +221,30 @@ result line is printed), each printing its seconds:
    MDP datastore (the backward kernels' bf16 instances must launch, none
    of their fp32 ones but B2's `xtd_sum`), and `train.main --eval test
    --precision bf16` scores its checkpoint (finite, files written).
+
+13. The rest of training. a. `--remat`: one AdamW step without and with
+   `ModelArgs.remat` on the same weights and batch: the bench GraphLAM
+   at ar_steps 4 in fp32 and on the bf16 path (the same weights), the
+   bench HiLAM at ar_steps 2 in fp32. The losses within 1e-6 relative;
+   the fp32 gradients within 1e-4 + 1e-4 * max abs per tensor, the bf16
+   ones held by phase 12's error-size limits against the fp32 gradients;
+   with remat each forward kernel launches twice its count without it,
+   each backward kernel (and `xtd_sum`) as often. Each way's busy ms (a
+   profile), host ms and peak memory above the live set. b. `train.main`
+   on a 268x238 MDP datastore (32 train steps: 6 batches of 4) for 6
+   steps at ar_steps 2, with `--num_workers 0 --prefetch_batches 0`, with
+   `--num_workers 4 --prefetch_batches 2`, and with those and `--remat
+   --profile_steps 2`, the chunk cache emptied before each: the same
+   batches in the same order as the first run (checksums of every batch
+   tensor equal), the first loss equal and the others within 1e-4
+   relative; the same number of chunks decoded (each chunk once); the
+   launches of the first two equal, and in the third the forward kernels
+   twice, the backward ones once as often; its trace written and a port
+   kernel among its top device ops; the epoch s, batches/s and input wait
+   a step (and the gaps between steps) of each. c. `train.main` in a subprocess on the card gets
+   SIGTERM after its first logged epoch: exit code 0 and `last` saved
+   with "preempted": true; `train.main --load auto --restore_opt` then
+   resumes from its step and one epoch later saves `last` 6 steps on.
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -479,18 +504,23 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def profile(torch, step, what, steps=3, top=12):
+def profile(torch, step, what, steps=3, top=12, cpu=True):
     """Device time by kernel over `steps` calls of `step` (torch.profiler),
     and the device's busy share of the profiled window's wall time (the
-    profiler's own host overhead lengthens that window). Returns (busy ms,
-    wall ms) a call, or None when the profiler saw no device time."""
+    profiler's own host overhead lengthens that window; `cpu=False` traces
+    the device alone, which costs the host less). Prints the seconds the
+    profile took. Returns (busy ms, wall ms) a call, or None when the
+    profiler saw no device time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
+    t_start = time.perf_counter()
     step()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with tprofile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
@@ -519,18 +549,22 @@ def profile(torch, step, what, steps=3, top=12):
     busy_ms = sum(r[0] for r in rows) / 1e3 / steps
     print(f"profile of {steps} {what}s: device busy {busy_ms:.3f} "
           f"ms/{what} of {wall_ms:.3f} ms wall/{what} under the profiler "
-          f"(idle share {1 - busy_ms / wall_ms:.3f})")
+          f"(idle share {1 - busy_ms / wall_ms:.3f}; "
+          f"{'CPU and ' if cpu else ''}CUDA traced; profiled in "
+          f"{time.perf_counter() - t_start:.1f} s)")
     for us, count, key in rows[:top]:
         print(f"  {us / 1e3 / steps:.4f} ms/{what}  {count / steps:g} "
               f"calls/{what}  {key[:90]}")
     return busy_ms, wall_ms
 
 
-def write_mdp_datastore(root, np, nx=268, ny=238, n_t=28, seed=0):
+def write_mdp_datastore(root, np, nx=268, ny=238, n_t=28, seed=0,
+                        n_train=12):
     """An MDP ("training-ready" zarr) datastore laid out as the repo's test
     fixture lays it out, at the bench grid: 17 state, 6 forcing and 4
-    static features, 3-hourly times split 12/6/10 into train/val/test,
-    statistics over the train split, chunks zlib-compressed (level 1).
+    static features, 3-hourly times split n_train/6/rest (12/6/10) into
+    train/val/test, statistics over the train split, chunks of two time
+    steps zlib-compressed (level 1).
     Writes <root>/mdp.datastore.{yaml,zarr} and <root>/config.yaml (JSON,
     which YAML readers take); returns the config's path."""
     from neural_lam_tpu_torch.datastore.zarr_reader import (
@@ -572,7 +606,8 @@ def write_mdp_datastore(root, np, nx=268, ny=238, n_t=28, seed=0):
             write_zarr_array(zarr, f"{cat}_feature{suffix}",
                              np.array(vals, dtype=object),
                              dims=[f"{cat}_feature"], compressor=None)
-    bounds = [(0, 11), (12, 17), (18, n_t - 1)]
+    bounds = [(0, n_train - 1), (n_train, n_train + 5),
+              (n_train + 6, n_t - 1)]
     write_zarr_array(zarr, "splits", np.array(
         [[str(times[i].astype("datetime64[s]")) for i in b] for b in bounds],
         dtype=object), dims=["split_name", "split_part"], compressor=None)
@@ -582,16 +617,16 @@ def write_mdp_datastore(root, np, nx=268, ny=238, n_t=28, seed=0):
     write_zarr_array(zarr, "split_part", np.array(
         ["start", "end"], dtype=object), dims=["split_part"],
         compressor=None)
-    train = state[:12]
+    train = state[:n_train]
     diffs = np.diff(train, axis=0)
     for name, arr, dim in (
             ("state__train__mean", train.mean(axis=(0, 1)), "state"),
             ("state__train__std", train.std(axis=(0, 1)), "state"),
             ("state__train__diff_mean", diffs.mean(axis=(0, 1)), "state"),
             ("state__train__diff_std", diffs.std(axis=(0, 1)), "state"),
-            ("forcing__train__mean", forcing[:12].mean(axis=(0, 1)),
+            ("forcing__train__mean", forcing[:n_train].mean(axis=(0, 1)),
              "forcing"),
-            ("forcing__train__std", forcing[:12].std(axis=(0, 1)),
+            ("forcing__train__std", forcing[:n_train].std(axis=(0, 1)),
              "forcing")):
         write_zarr_array(zarr, name, arr, dims=[f"{dim}_feature"],
                          compressor=zlib)
@@ -624,19 +659,25 @@ def median_ms(torch, fn, n=3):
     return sorted(times)[n // 2] * 1e3
 
 
-def quiet(fn, *args):
-    """fn(*args) with its standard output printed after it, each line
-    prefixed (the CLIs print JSON lines of their own), also when it
-    raises."""
+def captured(fn, *args):
+    """(fn(*args), its standard output), the output printed after the call
+    with each line prefixed (the CLIs print JSON lines of their own), also
+    when it raises."""
     import io
 
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
-            return fn(*args)
+            result = fn(*args)
     finally:
         for line in buf.getvalue().splitlines():
             print(f"  | {line}")
+    return result, buf.getvalue()
+
+
+def quiet(fn, *args):
+    """fn(*args), its standard output printed as `captured` prints it."""
+    return captured(fn, *args)[0]
 
 
 def eval_phase(torch, np, root, cfg, width, counts, reset_counts,
@@ -2305,7 +2346,7 @@ def bf16_train_phase(torch, np, counts, counts_bf16, reset_counts,
                         f"({(peak - live) / 2**30:.3f} GiB above the "
                         f"{live / 2**30:.3f} live)")
             profile(torch, lambda: tr.train_step(batch),
-                    f"{what} {tag} train step", top=10)
+                    f"{what} {tag} train step", top=10, cpu=False)
             m.zero_grad(set_to_none=True)
         print(f"{what} train step (fwd+bwd+AdamW, ar_steps 1, batch "
               f"{BATCH}): {'; '.join(line)}")
@@ -2398,6 +2439,318 @@ def bf16_train_phase(torch, np, counts, counts_bf16, reset_counts,
                  "not run")
 
 
+# the port's CUDA kernels by name, as the profiler shows them
+PORT_KERNELS = ("embed_kernel", "embed_bwd_kernel", "edge_tc_kernel",
+                "edge_tail_bwd_kernel", "edge_layer_bwd_kernel",
+                "grid_update_kernel", "grid_update_bwd_kernel",
+                "xtd_sum_kernel", "xtd_reduce_kernel")
+
+
+def step_stats(torch, trainer, batch, what, n=5, prof_steps=2):
+    """(host ms, the median of n synchronised training steps after one,
+    peak memory above the live set in bytes, device busy ms a step from a
+    profile of prof_steps steps, or None) of `trainer` on `batch`."""
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    above = torch.cuda.max_memory_allocated() - live
+    prof = profile(torch, lambda: trainer.train_step(batch), what,
+                   steps=prof_steps, top=6, cpu=False)
+    return sorted(times)[n // 2] * 1e3, above, prof[0] if prof else None
+
+
+def remat_phase(torch, counts, counts_bf16, reset_counts):
+    """Phase 13a: one AdamW step with and without `remat` on the same
+    weights and batch (module doc)."""
+    import copy
+    import dataclasses
+
+    from neural_lam_tpu_torch import entry
+
+    fwd_names = set(FWD + BATCHED) | {k + "[bf16]" for k in FWD + BATCHED}
+
+    def launches():
+        return dict(counts(), **{k + "[bf16]": n
+                                 for k, n in counts_bf16().items()})
+
+    def case(net, ds, ar, what, n, prof_steps):
+        """Both ways on the same weights and batch: (loss, launches,
+        gradients) each, with their step stats printed."""
+        trainer, dm = entry.make_trainer(net, ds, BATCH, ar, seed=0)
+        batch = next(trainer.train_batches(dm, 0))
+        state0 = {k: v.clone() for k, v in net.state_dict().items()}
+        out, stats = {}, []
+        for remat in (False, True):
+            net.load_state_dict(state0)
+            reset_counts()
+            # the first batch of epoch 0 shuffled from seed 0: `batch`
+            (loss,) = entry.train_steps(net, ds, BATCH, ar, steps=1, seed=0,
+                                        device="cuda", remat=remat)
+            torch.cuda.synchronize()
+            got = launches()
+            grads = {k: p.grad.detach().clone()
+                     for k, p in net.named_parameters()}
+            tag = "remat" if remat else "no remat"
+            net.args = dataclasses.replace(net.args, remat=remat)
+            host, above, busy = step_stats(
+                torch, trainer, batch, f"{what} {tag} train step", n,
+                prof_steps)
+            stats.append(f"{tag}: busy "
+                         f"{'not measured' if busy is None else f'{busy:.3f}'}"
+                         f" ms, host {host:.3f} ms (median of {n}), peak "
+                         f"{above / 2**30:.3f} GiB above the live set")
+            out[remat] = (loss, got, grads)
+            net.zero_grad(set_to_none=True)
+        net.load_state_dict(state0)
+        net.args = dataclasses.replace(net.args, remat=False)
+        print(f"{what} train step (ar_steps {ar}, batch {BATCH}): "
+              f"{'; '.join(stats)}")
+        (l0, c0, g0), (l1, c1, g1) = out[False], out[True]
+        rel = abs(l1 - l0) / abs(l0)
+        print(f"{what}: loss {l0:.7f} / {l1:.7f} without / with remat "
+              f"(rel gap {rel:.2e}, limit 1e-6); launches without "
+              f"{({k: v for k, v in c0.items() if v})}, with "
+              f"{({k: v for k, v in c1.items() if v})}")
+        if not (math.isfinite(l0) and rel <= 1e-6):
+            fail(f"{what}: the losses with and without remat differ")
+        want = {k: 2 * v if k in fwd_names else v for k, v in c0.items()}
+        if c1 != want or not any(c0.get(k) for k in fwd_names) or not any(
+                v for k, v in c0.items() if k not in fwd_names):
+            fail(f"{what}: launches with remat {c1}, want each forward "
+                 f"kernel twice and each backward kernel once: {want}")
+        return g0, g1
+
+    def fp32_check(g0, g1, what):
+        worst = max((float((g1[k] - g0[k]).abs().max())
+                     / (1e-4 + 1e-4 * float(g0[k].abs().max())), k)
+                    for k in g0)
+        print(f"{what}: gradients with remat against without, worst max "
+              f"abs gap / (1e-4 + 1e-4 * max abs) {worst[0]:.3e} "
+              f"({worst[1]}; limit 1), {len(g0)} parameters")
+        if not worst[0] <= 1.0:
+            fail(f"{what}: the gradients with and without remat disagree")
+
+    t0 = time.time()
+    gm, gds = entry.build_model(**BENCH, device="cuda")
+    g0, g1 = case(gm, gds, 4, "GraphLAM fp32", 3, 2)
+    fp32_check(g0, g1, "GraphLAM fp32")
+    del g1
+    print(f"phase 13a, GraphLAM fp32: {time.time() - t0:.1f} s")
+    gm16 = copy.copy(gm)  # the same weights on the bf16 path
+    gm16.compute_dtype = torch.bfloat16
+    k0, k1 = case(gm16, gds, 4, "GraphLAM bf16", 3, 2)
+    scale = {k: float(v.abs().max()) or 1.0 for k, v in g0.items()}
+
+    def vec(gr):
+        return torch.cat([(gr[k] / scale[k]).flatten() for k in g0])
+
+    # phase 12's limits: the remat step's bf16 error against the fp32
+    # gradients the size of the step's without remat
+    error_size(torch, "GraphLAM bf16 gradients with remat (each "
+               "parameter's over its fp32 max abs) against without",
+               vec(k1), vec(k0), vec(g0))
+    del gm, gm16, gds, g0, k0, k1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13a, GraphLAM bf16: {time.time() - t0:.1f} s")
+    hm, hds = entry.build_model(**BENCH, device="cuda", model="hi_lam")
+    h0, h1 = case(hm, hds, 2, "HiLAM fp32", 3, 1)
+    fp32_check(h0, h1, "HiLAM fp32")
+    del hm, hds, h0, h1
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 13a: {time.time() - t0:.1f} s")
+
+
+def cli_training_phase(torch, np, counts, reset_counts, root):
+    """Phase 13b: train.main on a 268x238 MDP datastore, serially and with
+    the pooled loader, the prefetcher, remat and a trace (module doc)."""
+    from neural_lam_tpu_torch import native, train
+    from neural_lam_tpu_torch.datastore import zarr_reader
+
+    t0 = time.time()
+    cfg = write_mdp_datastore(root, np, n_t=40, n_train=32)
+    print(f"MDP datastore (32 train steps: 27 samples, 6 batches of 4) "
+          f"written in {time.time() - t0:.1f} s")
+    argv = ["--config_path", str(cfg), "--model", "graph_lam", "--graph",
+            "multiscale", *WIDTH, "--batch_size", str(BATCH),
+            "--ar_steps_train", "2", "--ar_steps_eval", "2",
+            "--val_interval", "1000", "--seed", "0",
+            "--save_dir", str(root / "models")]
+    runs = {"serial": ["--num_workers", "0", "--prefetch_batches", "0"],
+            "pooled": ["--num_workers", "4", "--prefetch_batches", "2"],
+            "pooled_remat_traced": ["--num_workers", "4",
+                                    "--prefetch_batches", "2", "--remat",
+                                    "--profile_steps", "2"]}
+    steps = {}  # run -> [(batch checksums, loss, t_in, t_out)] in order
+    real_step = train.Trainer.train_step
+
+    def recording_step(self, batch):
+        t_in = time.perf_counter()
+        loss = real_step(self, batch)
+        sums = torch.stack([b.double().sum() for b in batch]).tolist()
+        steps[run].append((sums, float(loss), t_in, time.perf_counter()))
+        return loss
+
+    train.Trainer.train_step = recording_step
+    got, outs, decoded, logs = {}, {}, {}, {}
+    try:
+        for run, extra in runs.items():
+            zarr_reader._chunk_cache.clear()
+            before = native.decoded_chunks
+            steps[run] = []
+            reset_counts()
+            t0 = time.time()
+            _, outs[run] = captured(train.main, argv + extra + [
+                "--max_steps", "6", "--run_name", run])
+            torch.cuda.synchronize()
+            decoded[run] = native.decoded_chunks - before
+            got[run] = counts()
+            logs[run] = [json.loads(line) for line in
+                         (root / "models" / run / "metrics.jsonl")
+                         .read_text().splitlines()]
+            print(f"train.main {' '.join(extra)}: {time.time() - t0:.1f} s")
+    finally:
+        train.Trainer.train_step = real_step
+    for run in runs:
+        ep = [r for r in logs[run] if "train_loss" in r]
+        n = len(steps[run])
+        wait = sum(r["input_wait_s"] for r in ep)
+        # from the end of one step to the start of the next: the wait for
+        # the next batch (and the loop's own host work)
+        gaps = [b[2] - a[3] for a, b in zip(steps[run], steps[run][1:])]
+        print(f"{run} ({' '.join(runs[run])}): {n} steps; epoch "
+              f"{sum(r['epoch_s'] for r in ep):.3f} s, "
+              f"{n / sum(r['epoch_s'] for r in ep):.3f} batches/s, input "
+              f"wait {wait / n * 1e3:.3f} ms a step ({wait:.3f} s in all; "
+              f"steps 2-{n}: {', '.join(f'{g * 1e3:.1f}' for g in gaps)} ms "
+              f"from one step's end to the next's start); {decoded[run]} "
+              f"chunks decoded (cache emptied before the run); launches "
+              f"{({k: v for k, v in got[run].items() if v})}")
+    a = steps["serial"]
+    for run in list(runs)[1:]:
+        b = steps[run]
+        if len(a) != 6 or len(b) != 6:
+            fail(f"train.main ran {len(a)} and {len(b)} steps, want 6 each")
+        if [s[0] for s in a] != [s[0] for s in b]:
+            fail(f"the serial and the {run} runs saw different batches")
+        rel = [abs(sb[1] - sa[1]) / abs(sa[1]) for sa, sb in zip(a, b)]
+        print(f"losses serial {[s[1] for s in a]}, {run} "
+              f"{[s[1] for s in b]}; the same 6 batches in the same order "
+              f"(checksums equal); relative gaps "
+              f"{', '.join(f'{r:.2e}' for r in rel)} (first 0, the others "
+              "within 1e-4)")
+        if rel[0] != 0 or max(rel) > 1e-4:
+            fail(f"the serial and {run} runs' losses differ beyond their "
+                 "limits")
+        if decoded[run] != decoded["serial"] or not decoded["serial"]:
+            fail(f"chunks decoded: {decoded}; every run must decode each "
+                 "chunk once, as the serial run does")
+    if got["pooled"] != got["serial"]:
+        fail(f"launches: serial {got['serial']}, pooled {got['pooled']}")
+    want = {k: 2 * v if k in FWD + BATCHED else v
+            for k, v in got["serial"].items()}
+    if got["pooled_remat_traced"] != want or not all(
+            got["serial"][k] for k in FWD) or not all(
+            got["serial"][k + "_bwd"] for k in FWD):
+        fail(f"launches: serial {got['serial']}, with remat "
+             f"{got['pooled_remat_traced']}; want every forward kernel of "
+             f"the serial run twice, every backward kernel once: {want}")
+    traces = list((root / "models" / "pooled_remat_traced" / "profile")
+                  .glob("*.json"))
+    top = outs["pooled_remat_traced"].split("top device ops:", 1)
+    named = [k for k in PORT_KERNELS if len(top) == 2 and k in top[1]]
+    print(f"profile: {[p.name for p in traces]} "
+          f"({sum(p.stat().st_size for p in traces) / 1e6:.1f} MB); port "
+          f"kernels among the top device ops: {named}")
+    if not traces or not named:
+        fail("--profile_steps 2: no trace, or no port kernel among its top "
+             "device ops")
+    return cfg, argv
+
+
+def preemption_phase(torch, counts, reset_counts, root, argv):
+    """Phase 13c: SIGTERM to train.main in a subprocess on the card, then
+    `--load auto --restore_opt` (module doc)."""
+    import signal
+
+    from neural_lam_tpu_torch import train
+
+    t0 = time.time()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    run = root / "models" / "pre"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "neural_lam_tpu_torch.train", *argv,
+         "--epochs", "10000", "--val_interval", "1000000", "--run_name",
+         "pre"], cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        deadline = time.time() + 300
+        while not ((run / "metrics.jsonl").exists()
+                   and "train_loss" in (run / "metrics.jsonl").read_text()):
+            if proc.poll() is not None or time.time() > deadline:
+                fail("train.main exited or logged no epoch in 300 s")
+            time.sleep(0.2)
+        t_sig = time.time()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    for line in out.splitlines():
+        print(f"  | {line}")
+    meta_path = run / "last.meta.json"
+    meta = json.loads(meta_path.read_text()) if meta_path.exists() else {}
+    print(f"train.main in a subprocess: SIGTERM {t_sig - t0:.1f} s after "
+          f"its start, exit code {proc.returncode} "
+          f"{time.time() - t_sig:.1f} s later; last.meta.json {meta}")
+    if (proc.returncode != 0 or "Preemption signal received" not in out
+            or meta.get("preempted") is not True or not meta.get("step")):
+        fail("SIGTERM did not save a preempted `last` checkpoint")
+    reset_counts()
+    t0 = time.time()
+    _, out = captured(train.main, argv + ["--epochs", "1", "--val_interval",
+                                          "1", "--load", "auto",
+                                          "--restore_opt", "--run_name",
+                                          "pre"])
+    torch.cuda.synchronize()
+    meta2 = json.loads(meta_path.read_text())
+    print(f"train.main --load auto --restore_opt: {time.time() - t0:.1f} s; "
+          f"resumed from step {meta['step']}, now at {meta2['step']}; "
+          f"launches {({k: v for k, v in counts().items() if v})}")
+    if (f"(step {meta['step']})" not in out or "preempted" in meta2
+            or meta2["step"] != meta["step"] + 6
+            or not all(counts()[k] for k in FWD)):
+        fail("--load auto did not resume the preempted run from its step")
+
+
+def rest_of_training_phase(torch, np, counts, counts_bf16, reset_counts):
+    """Phase 13: the rest of training (module doc)."""
+    import tempfile
+    from pathlib import Path
+
+    remat_phase(torch, counts, counts_bf16, reset_counts)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="nlt_train_rt_") as tmp:
+        root = Path(tmp)
+        _, argv = cli_training_phase(torch, np, counts, reset_counts, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 13b: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        preemption_phase(torch, counts, reset_counts, root, argv)
+    print(f"phase 13c: {time.time() - t0:.1f} s")
+
+
 def disk_mb(path):
     """MB of the files under path."""
     return sum(f.stat().st_size for f in path.rglob("*")
@@ -2427,6 +2780,9 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # where wandb is installed, the trainer's W&B calls run in its disabled
+    # mode: no login, no network (the subprocess of phase 13c inherits it)
+    os.environ["WANDB_MODE"] = "disabled"
     smi = smi_line()
     print(smi)
     name = torch.cuda.get_device_name(0)
@@ -2708,6 +3064,26 @@ def main():
     library["edge_layer_flat"] = lambda edge_rep, table, senders, rec, mask, \
         w_e, b0, w2, *rest: (torch.mm(edge_rep.view(-1, H), w_e),
                              torch.mm(edge_rep.view(-1, H), w2))
+    # K4's products as three torch.mm calls, as phase 11 times its bf16
+    # instance: the six 64x64 node products (encoder 2, w_i, aggregation 3
+    # with its 128 inputs as two) in one, the edge product on the gathered
+    # sender rows, the output map; operands built once per case
+    k4_operands = {}
+
+    def k4_products(table, senders, ew, node, mask, pp):
+        key = (table.data_ptr(), node.data_ptr())
+        if key not in k4_operands:
+            k4_operands.clear()
+            wn = torch.cat([pp[k] for k in ("enc_w0", "enc_w1", "w_i",
+                                            "a_w1", "o_w0")]
+                           + [pp["a_w0"][:H], pp["a_w0"][H:]], 1)
+            k4_operands[key] = (node.view(-1, H), wn,
+                                table.index_select(0, senders).view(-1, H),
+                                pp["w2"], pp["o_w1"])
+        n4, wn4, g4, w24, wo4 = k4_operands[key]
+        return torch.mm(n4, wn4), torch.mm(g4, w24), torch.mm(n4, wo4)
+
+    library["grid_update_flat"] = k4_products
     # xtd_sum's reduce kernel at the decoder's partials
     partial, pair_first = weight_grad.xtd_partials(
         xtd_pairs, weight_grad.n_blocks([x.shape[0] for x, _ in xtd_pairs],
@@ -2987,6 +3363,7 @@ def main():
     del cases, args, a4, a5, h_a4, h_pp, h_mask, hm2g, k1, xtd_pairs
     del b3_args, b3_pairs, b2_args, b2_pairs, partial, library, seg_pair
     del red_zeros, a, d_emb, bk, gathered, read_out, edges, inet
+    del k4_operands, k4_products
     torch.cuda.empty_cache()
     phase_end("3-4 (every kernel against its plain version)")
 
@@ -3169,7 +3546,7 @@ def main():
               f"device memory {peak / 2**30:.3f} GiB (max_memory_allocated "
               f"over one step; {live / 2**30:.3f} GiB live before it)")
         profile(torch, lambda: trainer.train_step(batch),
-                f"{what} train step")
+                f"{what} train step", cpu=False)
         return got
 
     # GraphLAM: K1-K4 1/1/4/1 and their backward kernels B1/B2/B3/B5 once
@@ -3270,6 +3647,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_end("12 (bf16 training)")
+
+    # 13. the rest of training: remat, the input pipeline, preemption
+    rest_of_training_phase(torch, np, counts, counts_bf16, reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end("13 (the rest of training)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

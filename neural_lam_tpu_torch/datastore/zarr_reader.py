@@ -16,7 +16,8 @@ implementation:
 
 The writer covers the same subset; it writes the forecasts of the predict
 CLI and builds datasets for tests. Decoded chunks go through a
-process-wide LRU cache. The chunks a read misses of a blosc, zlib, gzip
+process-wide LRU cache; a chunk that one thread is decoding, another
+waits for instead of decoding it again. The chunks a read misses of a blosc, zlib, gzip
 or uncompressed array decode together in the native decoder's thread pool
 (`neural_lam_tpu_torch/native`); a zstd chunk and a string array decode
 here, in Python.
@@ -50,6 +51,7 @@ class _ChunkCache:
         self._d: OrderedDict = OrderedDict()
         self._bytes = 0
         self._lock = threading.Lock()
+        self._inflight: dict = {}
 
     def get(self, key):
         with self._lock:
@@ -57,6 +59,33 @@ class _ChunkCache:
             if v is not None:
                 self._d.move_to_end(key)
             return v
+
+    def begin(self, key):
+        """Claim a key for decoding: ('hit', chunk) if cached, ('compute',
+        event) if this thread should decode it (call finish after), or
+        ('wait', event) if another thread is already decoding it: wait on
+        the event, then get(). Keeps the pooled loader's threads from
+        decoding again the chunks their overlapping windows share."""
+        with self._lock:
+            v = self._d.get(key)
+            if v is not None:
+                self._d.move_to_end(key)
+                return "hit", v
+            ev = self._inflight.get(key)
+            if ev is not None:
+                return "wait", ev
+            ev = threading.Event()
+            self._inflight[key] = ev
+            return "compute", ev
+
+    def finish(self, key, chunk, event):
+        """Complete a 'compute' claim (chunk=None releases it without
+        caching, as after a failed decode)."""
+        if chunk is not None:
+            self.put(key, chunk)
+        with self._lock:
+            self._inflight.pop(key, None)
+        event.set()
 
     def clear(self):
         """Drop every cached chunk."""
@@ -281,17 +310,35 @@ class ZarrArray:
                 for ok in present]
 
     def _read_chunks_batch(self, idx_list) -> list:
-        """The chunks `idx_list` through the LRU cache; the misses are
-        decoded together (`_decode_list`)."""
+        """The chunks `idx_list` through the LRU cache, with in-flight
+        dedup across threads: the misses this thread claims are decoded
+        together (`_decode_list`); a chunk another thread is decoding is
+        waited for, not decoded again."""
         if self.is_object:  # strings are not cached
             return self._decode_list(idx_list)
-        out = {}
+        out, mine, waits = {}, [], []
         for idx in dict.fromkeys(idx_list):
-            out[idx] = _chunk_cache.get((self.path, idx))
-        misses = [idx for idx, chunk in out.items() if chunk is None]
-        for idx, chunk in zip(misses, self._decode_list(misses)):
-            _chunk_cache.put((self.path, idx), chunk)
-            out[idx] = chunk
+            state, val = _chunk_cache.begin((self.path, idx))
+            if state == "hit":
+                out[idx] = val
+            elif state == "compute":
+                mine.append((idx, val))
+            else:
+                waits.append((idx, val))
+        done = 0
+        try:
+            decoded = self._decode_list([idx for idx, _ in mine])
+            for (idx, ev), chunk in zip(mine, decoded):
+                _chunk_cache.finish((self.path, idx), chunk, ev)
+                out[idx] = chunk
+                done += 1
+        finally:
+            for idx, ev in mine[done:]:  # release the claims on failure
+                _chunk_cache.finish((self.path, idx), None, ev)
+        for idx, ev in waits:
+            ev.wait()
+            hit = _chunk_cache.get((self.path, idx))
+            out[idx] = hit if hit is not None else self._decode_list([idx])[0]
         return [out[idx] for idx in idx_list]
 
     def read_full(self) -> np.ndarray:

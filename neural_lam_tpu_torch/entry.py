@@ -22,6 +22,7 @@ pass device="cpu" to run the plain PyTorch versions of the kernels.
 
 from __future__ import annotations
 
+import dataclasses
 import tempfile
 
 import numpy as np
@@ -109,24 +110,33 @@ def make_trainer(model, datastore, batch_size: int, ar_steps: int,
 
 
 def train_steps(model, datastore, batch_size: int = 4, ar_steps: int = 1,
-                steps: int = 10, seed: int = 0, device="cuda"):
+                steps: int = 10, seed: int = 0, device="cuda",
+                remat: bool | None = None):
     """Run `steps` AdamW steps of the model's training loss over the
     datastore's train split (shuffled from `seed`, epochs repeated as
     needed) and return the per-step losses as floats. The model must be
-    on `device`, which defaults to CUDA and raises without it."""
+    on `device`, which defaults to CUDA and raises without it. `remat`,
+    when given, sets the model's `ModelArgs.remat` (gradient
+    checkpointing of the unroll) for these steps only."""
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model is on {model.device}, expected {device}")
-    trainer, datamodule = make_trainer(model, datastore, batch_size,
-                                       ar_steps, seed)
-    if len(datamodule.train_dataloader()) == 0:
-        raise ValueError(f"the train split has fewer than {batch_size} "
-                         "samples")
-    losses, epoch = [], 0
-    while len(losses) < steps:
-        for batch in trainer.train_batches(datamodule, epoch):
-            if len(losses) == steps:
-                break
-            losses.append(float(trainer.train_step(batch)))
-        epoch += 1
+    args = model.args
+    if remat is not None:
+        model.args = dataclasses.replace(args, remat=bool(remat))
+    try:
+        trainer, datamodule = make_trainer(model, datastore, batch_size,
+                                           ar_steps, seed)
+        if len(datamodule.train_dataloader()) == 0:
+            raise ValueError(f"the train split has fewer than {batch_size} "
+                             "samples")
+        losses, epoch = [], 0
+        while len(losses) < steps:
+            for batch in trainer.train_batches(datamodule, epoch):
+                if len(losses) == steps:
+                    break
+                losses.append(float(trainer.train_step(batch)))
+            epoch += 1
+    finally:
+        model.args = args
     return losses

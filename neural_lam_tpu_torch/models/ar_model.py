@@ -6,7 +6,9 @@ hyperparameters, `ARStatics` the non-trainable tensors built from a
 datastore, `ARModelBase.unroll_prediction` the rollout, `training_loss`
 the loss the trainer differentiates (ref: ar_model.py:287-309) and
 `eval_step_metrics` what a validation step computes
-(ref: ar_model.py:324-454).
+(ref: ar_model.py:324-454). With `ModelArgs.remat` each predict step of
+a differentiated unroll runs under `torch.utils.checkpoint` (JAX:
+`jax.checkpoint` in `unroll_prediction`).
 
 As in the JAX package, the grid input width counts the two raw states
 (2*num_state_vars) also when `output_std` doubles the output (the
@@ -20,6 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import metrics
 from ..device import resolve_device
@@ -48,6 +51,10 @@ class ModelArgs:
     # None = fp32 everywhere; "bfloat16" = the JAX package's bf16 path:
     # fp32 parameters, activations (and their gradients) stored in bf16
     compute_dtype: str | None = None
+    # gradient-checkpoint each predict step of the unroll: the backward
+    # recomputes a step's activations instead of keeping them (training
+    # memory O(T + step) instead of O(T * step), ~one extra forward a step)
+    remat: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,10 +156,18 @@ class ARModelBase(nn.Module):
         """
         statics = self.statics
         ctx = self.precompute_rollout_ctx()
+        predict = self.predict_step
+        if self.args.remat and torch.is_grad_enabled():
+            # gradient checkpointing over the unroll, as the JAX package's
+            # jax.checkpoint of predict_step: the context is computed once,
+            # outside, and passed in, so its gradient flows back to it
+            def predict(s, ps, f, c):
+                return checkpoint(self.predict_step, s, ps, f, c,
+                                  use_reentrant=False)
         prev_prev_state, prev_state = init_states[:, 0], init_states[:, 1]
         preds, stds = [], []
         for t in range(forcing_features.shape[1]):
-            pred_state, pred_std = self.predict_step(
+            pred_state, pred_std = predict(
                 prev_state, prev_prev_state, forcing_features[:, t], ctx
             )
             new_state = (

@@ -2,7 +2,8 @@
 
 Counterpart of neural_lam_tpu/native. `decode_chunks_parallel` decodes a
 batch of compressed zarr chunks (blosc, zlib, gzip or raw) across a C++
-thread pool outside the GIL, one thread per hardware thread;
+thread pool outside the GIL, one thread per hardware thread unless
+NLT_DECODE_THREADS sets the budget of a call;
 `datastore/zarr_reader.py` sends every chunk it misses of those codecs
 through it.
 
@@ -47,6 +48,15 @@ ERRORS = {
 _lock = threading.Lock()
 _lib = None
 decoded_chunks = 0
+
+
+def decode_threads() -> int:
+    """The thread budget of one decode call: NLT_DECODE_THREADS, or 0 (one
+    thread per hardware thread) where it is unset: a manual override, so
+    that the concurrent calls of a pooled loader's threads need not
+    oversubscribe the cores (the chunk cache's in-flight dedup keeps them
+    off each other's chunks, so their calls rarely overlap)."""
+    return int(os.environ.get("NLT_DECODE_THREADS", "0") or 0)
 
 
 def lib_path() -> Path:
@@ -118,7 +128,7 @@ def decode_chunks_parallel(buffers: list, codecs: list,
     sizes = (ctypes.c_int64 * n)(*[len(b) for b in buffers])
     ids = (ctypes.c_int32 * n)(*codecs)
     rc = lib.decode_chunks(srcs, sizes, ids, n, out.ctypes.data,
-                           chunk_nbytes, 0)
+                           chunk_nbytes, decode_threads())
     if rc != 0:
         raise ValueError(f"native chunk decode failed (code {rc}: "
                          f"{ERRORS.get(rc, 'unknown error')})")

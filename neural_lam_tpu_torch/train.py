@@ -33,9 +33,27 @@ parameters and AdamW state, activations and their gradients stored in
 bf16 (the kernels' bf16 instances forward and backward), the loss and
 the parameter gradients fp32. Its checkpoints have the fp32 format.
 
+The runtime around the steps (JAX: train.py:53-470):
+- `--remat` checkpoints each predict step of the unroll
+  (`ModelArgs.remat`): the backward recomputes a step's forward.
+- `--num_workers` threads fill the batches' rows, `--prefetch_batches`
+  batches ahead (`dataset.WeatherDataLoader`), and `DevicePrefetcher`
+  copies them to the card from pinned memory on a side stream while the
+  step before runs. Every setting gives the same batches in the same
+  order. The epoch log adds `input_wait_s`: the time the steps waited for
+  their batch.
+- SIGTERM or SIGINT finishes the current step, saves `last` with
+  `"preempted": true` and stops; `--load auto` resumes from
+  <run_dir>/last when it exists. `TrainFlags.ckpt_every_steps` also
+  saves `last` every that many steps.
+- `--profile_steps N` runs steps [profile_start, profile_start + N)
+  under `torch.profiler` (CPU, and CUDA on the card), writes the trace to
+  <run_dir>/profile/ and prints the ops that took the most device time
+  (CPU time on the CPU), from the profiler's own averages.
+- Metrics also go to W&B (`--wandb_project`) where `wandb` imports.
+
 Not ported yet: ensemble evaluation (`--ensemble_members`, ROADMAP.md
-queue 1, item 5), multi-host and spatial sharding, W&B, profiling,
-`--remat`.
+queue 1, item 5), multi-host and spatial sharding.
 """
 
 from __future__ import annotations
@@ -44,6 +62,9 @@ import dataclasses
 import importlib.util
 import json
 import math
+import re
+import signal
+import threading
 import time
 from argparse import ArgumentParser
 from pathlib import Path
@@ -51,9 +72,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .checkpoint import load_checkpoint, save_checkpoint
+from .checkpoint import (checkpoint_exists, load_checkpoint,
+                         save_checkpoint)
 from .config import load_config_and_datastore
-from .dataset import WeatherDataModule
+from .dataset import BackgroundIterator, WeatherDataModule
 from .device import resolve_device
 from .graph.storage import load_or_build_graph
 from .models import MODELS
@@ -80,6 +102,15 @@ class TrainFlags:
     decay_steps: int = 100_000
     # stop after this many optimizer steps (0 = no cap)
     max_steps: int = 0
+    # also save "last" every this many optimizer steps (0 = off)
+    ckpt_every_steps: int = 0
+    # trace steps [profile_start, profile_start + profile_steps) with
+    # torch.profiler into <run_dir>/profile (0 = off)
+    profile_steps: int = 0
+    profile_start: int = 3
+    # batches copied to the device ahead of the step (0 = synchronous)
+    prefetch_batches: int = 2
+    wandb_project: str = "neural_lam_tpu"
 
 
 def lr_at(step: int, lr: float, schedule: str = "constant",
@@ -102,12 +133,88 @@ def lr_at(step: int, lr: float, schedule: str = "constant",
     raise ValueError(f"unknown lr_schedule {schedule!r}")
 
 
-class MetricsLogger:
-    """stdout + JSONL metrics sink (<run_dir>/metrics.jsonl)."""
+class DevicePrefetcher:
+    """Iterate the loader's batches as tensors on `device`, placed by a
+    daemon thread up to `depth` batches ahead of the consumer, in the
+    loader's order (`dataset.BackgroundIterator`). On CUDA each batch is
+    copied from pinned host memory with non_blocking=True on a side
+    stream; the consuming stream waits on that copy's event, and each
+    tensor records the consuming stream, so its memory is not reused
+    before the step that reads it is done. On the CPU the arrays are
+    wrapped as they are. An error of the loader is raised again on the
+    consuming thread. `close()` (idempotent) stops and joins the thread,
+    and the loader's own threads with it: call it when leaving the loop
+    early."""
 
-    def __init__(self, run_dir: Path):
+    def __init__(self, loader, device, depth: int = 2):
+        self.device = torch.device(device)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._batches = BackgroundIterator(self._placed(loader), depth)
+
+    def _placed(self, loader):
+        it = iter(loader)
+        try:
+            for batch in it:
+                yield self._place(batch)
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:  # stops the loader's own threads
+                close()
+
+    def _place(self, batch):
+        if self._stream is None:
+            return tuple(torch.as_tensor(b) for b in batch), None
+        with torch.cuda.stream(self._stream):
+            out = tuple(torch.from_numpy(b).pin_memory().to(
+                self.device, non_blocking=True) for b in batch)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return out, event
+
+    def __iter__(self):
+        for batch, event in self._batches:
+            if event is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                for t in batch:
+                    t.record_stream(stream)
+            yield batch
+
+    def close(self):
+        self._batches.close()
+
+
+class MetricsLogger:
+    """stdout + JSONL metrics sink (<run_dir>/metrics.jsonl), forwarded to
+    W&B where the `wandb` package imports (the reference's sink,
+    ref: train_model.py:271-275): the run is started in __init__ with the
+    summary metrics defined (ref: utils.py:236-243), `log` sends the
+    scalars and `log_image` a figure. Without wandb one line says so."""
+
+    def __init__(self, run_dir: Path, run_name: str | None = None,
+                 config: dict | None = None, val_steps=(),
+                 project: str = "neural_lam_tpu"):
         self.path = Path(run_dir) / "metrics.jsonl"
         self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._wandb = None
+        try:
+            import wandb
+        except ImportError:
+            print(f"wandb is not installed: metrics go to {self.path} and "
+                  "stdout only", flush=True)
+            return
+        try:
+            wandb.init(project=project, name=run_name, config=config or {},
+                       dir=str(self.path.parent))
+            wandb.define_metric("val_mean_loss", summary="min")
+            for step in val_steps:
+                wandb.define_metric(f"val_loss_unroll{step}", summary="min")
+        except Exception as e:  # no login, no network
+            print(f"W&B logging could not start ({type(e).__name__}: {e}): "
+                  f"metrics go to {self.path} and stdout only", flush=True)
+            return
+        self._wandb = wandb
 
     def log(self, metrics: dict, step: int | None = None):
         rec = {"_time": time.time()}
@@ -120,10 +227,17 @@ class MetricsLogger:
             f.write(json.dumps(rec) + "\n")
         print(json.dumps({k: v for k, v in rec.items()
                           if not k.startswith("_")}), flush=True)
+        if self._wandb is not None:
+            self._wandb.log({k: v for k, v in rec.items()
+                             if not k.startswith("_") and np.ndim(v) == 0},
+                            step=step)
 
     def log_image(self, name: str, fig):
-        """Where the JAX trainer forwards a figure to W&B; the port has no
-        W&B sink yet (ROADMAP.md queue 1, item 3), so this does nothing."""
+        """Send a matplotlib figure to W&B as an image (the reference logs
+        its example and error figures so, ref: ar_model.py:420-566);
+        nothing without wandb."""
+        if self._wandb is not None:
+            self._wandb.log({name: self._wandb.Image(fig)})
 
 
 class Trainer:
@@ -144,13 +258,33 @@ class Trainer:
 
     @property
     def logger(self) -> MetricsLogger:
+        """The run's MetricsLogger, started at its first use (its run
+        config: the model args and the flags, as the JAX trainer's)."""
         if self._logger is None:
-            self._logger = MetricsLogger(self.run_dir)
+            config = {
+                **{f"model.{k}": v for k, v in vars(self.model.args).items()},
+                **{f"train.{k}": v for k, v in vars(self.flags).items()},
+            }
+            self._logger = MetricsLogger(
+                self.run_dir, run_name=self.flags.run_name, config=config,
+                val_steps=self.model.args.val_steps_to_log,
+                project=self.flags.wandb_project)
         return self._logger
 
     def init_state(self):
         """Restore `flags.load` (model, and the optimizer with
-        `restore_opt`) when given."""
+        `restore_opt`) when given; "auto" is <run_dir>/last where it has
+        a committed save, also one that a save killed midway moved aside
+        (a relaunch after preemption; needs a stable --run_name), else a
+        fresh start."""
+        if self.flags.load == "auto":
+            last = self.run_dir / "last"
+            self.flags = dataclasses.replace(
+                self.flags,
+                load=str(last) if checkpoint_exists(last) else None)
+            if self.flags.load is None:
+                print(f"--load auto: no checkpoint at {last}, starting "
+                      "fresh", flush=True)
         if not self.flags.load:
             return
         model_state, opt_state, meta = load_checkpoint(self.flags.load,
@@ -199,48 +333,175 @@ class Trainer:
         save_checkpoint(self.run_dir, name, self.model.state_dict(),
                         self.optimizer.state_dict(), meta)
 
+    def _maybe_profile(self):
+        """Start a torch.profiler trace before step `profile_start`; stop
+        it before step `profile_start + profile_steps`, write it to
+        <run_dir>/profile/ and print the top ops. A profiler that fails
+        to start or stop is reported and training goes on untraced."""
+        f = self.flags
+        if not f.profile_steps:
+            return
+        prof = getattr(self, "_profiler", None)
+        if prof is None and self.global_step == f.profile_start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            try:
+                prof = torch.profiler.profile(activities=activities)
+                prof.start()
+            except Exception as e:
+                print(f"profiling unavailable: {type(e).__name__}: {e}",
+                      flush=True)
+                self.flags = dataclasses.replace(f, profile_steps=0)
+                return
+            self._profiler = prof
+        elif (prof is not None
+              and self.global_step >= f.profile_start + f.profile_steps):
+            self._finish_profile()
+
+    def _finish_profile(self):
+        """Stop an open trace (also when training ends inside the window),
+        export it and print the ops with the most self time."""
+        prof = getattr(self, "_profiler", None)
+        if prof is None:
+            return
+        self._profiler = None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = self.run_dir / "profile"
+        out.mkdir(parents=True, exist_ok=True)
+        trace = out / f"trace_step{self.flags.profile_start}.json"
+        prof.export_chrome_trace(str(trace))
+        print(f"profiler trace written to {trace}", flush=True)
+        rows = list(prof.key_averages())
+        if self.device.type == "cuda":
+            # the kernels themselves: not the host ops that launched them,
+            # nor the device ranges of annotations (such as
+            # "Optimizer.step#AdamW.step") that repeat their time
+            key, what = "self_device_time_total", "device"
+            rows = [e for e in rows
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)
+                    and re.fullmatch(r"[\w.]+#[\w.]+", e.key) is None]
+        else:
+            key, what = "self_cpu_time_total", "CPU"
+        rows = sorted(rows, key=lambda e: getattr(e, key, 0),
+                      reverse=True)[:8]
+        print(f"top {what} ops:", flush=True)
+        for e in rows:
+            print(f"  {getattr(e, key, 0) / 1e3:10.3f} ms  x{e.count:<6d} "
+                  f"{e.key}", flush=True)
+
     def fit(self, datamodule):
         """Train for `flags.epochs` (or until `flags.max_steps`), validating
-        every `val_interval` epochs. Returns the per-step losses."""
+        every `val_interval` epochs. On SIGTERM or SIGINT the current step
+        finishes, `last` is saved with "preempted": true and training
+        stops; the earlier handlers are back when fit returns. Returns the
+        per-step losses."""
         datamodule.setup("fit")
         flags = self.flags
+        logger = self.logger  # started (W&B with it) before the first step
+        stop = threading.Event()
+        prev_handlers = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                prev_handlers[sig] = signal.signal(
+                    sig, lambda signum, frame: stop.set())
+            except ValueError:  # not the main thread
+                pass
         losses = []
-        for epoch in range(flags.epochs):
-            t0 = time.time()
-            epoch_losses = []
-            for batch in self.train_batches(datamodule, epoch):
-                if flags.max_steps and self.global_step >= flags.max_steps:
+        try:
+            for epoch in range(flags.epochs):
+                t0 = time.time()
+                epoch_losses, wait = self._train_epoch(datamodule, epoch,
+                                                       stop)
+                dt = time.time() - t0
+                losses += epoch_losses
+                n = len(epoch_losses)
+                logger.log({
+                    "epoch": epoch,
+                    "train_loss": float(np.mean(epoch_losses)) if n
+                    else float("nan"),
+                    "epoch_s": dt,
+                    "batches_per_s": n / dt if dt > 0 else 0.0,
+                    "input_wait_s": wait}, step=self.global_step)
+                capped = bool(flags.max_steps
+                              and self.global_step >= flags.max_steps)
+                if (flags.val_interval
+                        and (epoch + 1) % flags.val_interval == 0):
+                    self._validate_and_save(datamodule, epoch)
+                if stop.is_set():
+                    print("Preemption signal received: saving last "
+                          "checkpoint and stopping.", flush=True)
+                    self.save("last", {"step": self.global_step,
+                                       "epoch": epoch,
+                                       "best_val_loss": self.best_val_loss,
+                                       "preempted": True})
                     break
-                epoch_losses.append(float(self.train_step(batch)))
-            dt = time.time() - t0
-            losses += epoch_losses
-            self.logger.log({"epoch": epoch,
-                             "train_loss": float(np.mean(epoch_losses))
-                             if epoch_losses else float("nan"),
-                             "epoch_s": dt,
-                             "batches_per_s": len(epoch_losses) / dt
-                             if dt > 0 else 0.0}, step=self.global_step)
-            capped = bool(flags.max_steps
-                          and self.global_step >= flags.max_steps)
-            if flags.val_interval and (epoch + 1) % flags.val_interval == 0:
-                val = self.validate(datamodule)
-                val_loss = val["val_mean_loss"]
-                log = {"epoch": epoch, "val_mean_loss": val_loss}
-                tsl = val["time_step_loss"]
-                for step in self.model.args.val_steps_to_log:
-                    if step <= len(tsl):
-                        log[f"val_loss_unroll{step}"] = tsl[step - 1]
-                self.logger.log(log, step=self.global_step)
-                meta = {"step": self.global_step, "epoch": epoch,
-                        "val_mean_loss": val_loss,
-                        "best_val_loss": min(self.best_val_loss, val_loss)}
-                if val_loss < self.best_val_loss:
-                    self.best_val_loss = val_loss
-                    self.save("min_val_loss", meta)
-                self.save("last", meta)
-            if capped:
-                break
+                if capped:
+                    break
+        finally:
+            self._finish_profile()
+            for sig, handler in prev_handlers.items():
+                signal.signal(sig, handler)
         return losses
+
+    def _train_epoch(self, datamodule, epoch, stop):
+        """The steps of one epoch, through the prefetcher when
+        `prefetch_batches` > 0; stops at `max_steps` or after the step in
+        which `stop` was set. Returns (losses, seconds waited for
+        batches)."""
+        flags = self.flags
+        loader = datamodule.train_dataloader(seed=flags.seed)
+        loader.set_epoch(epoch)
+        if flags.prefetch_batches > 0:
+            batches = DevicePrefetcher(loader, self.device,
+                                       flags.prefetch_batches)
+        else:
+            batches = map(self.to_device, loader)
+        it = iter(batches)
+        losses, wait = [], 0.0
+        try:
+            while not (flags.max_steps
+                       and self.global_step >= flags.max_steps):
+                t_wait = time.perf_counter()
+                batch = next(it, None)
+                wait += time.perf_counter() - t_wait
+                if batch is None:
+                    break
+                self._maybe_profile()
+                losses.append(float(self.train_step(batch)))
+                if (flags.ckpt_every_steps
+                        and self.global_step % flags.ckpt_every_steps == 0):
+                    self.save("last", {"step": self.global_step,
+                                       "epoch": epoch,
+                                       "best_val_loss": self.best_val_loss})
+                if stop.is_set():
+                    break
+        finally:
+            if isinstance(batches, DevicePrefetcher):
+                batches.close()
+        return losses, wait
+
+    def _validate_and_save(self, datamodule, epoch):
+        """Validate, log, and save `min_val_loss` (on improvement) and
+        `last`."""
+        val = self.validate(datamodule)
+        val_loss = val["val_mean_loss"]
+        log = {"epoch": epoch, "val_mean_loss": val_loss}
+        tsl = val["time_step_loss"]
+        for step in self.model.args.val_steps_to_log:
+            if step <= len(tsl):
+                log[f"val_loss_unroll{step}"] = tsl[step - 1]
+        self.logger.log(log, step=self.global_step)
+        meta = {"step": self.global_step, "epoch": epoch,
+                "val_mean_loss": val_loss,
+                "best_val_loss": min(self.best_val_loss, val_loss)}
+        if val_loss < self.best_val_loss:
+            self.best_val_loss = val_loss
+            self.save("min_val_loss", meta)
+        self.save("last", meta)
 
     @torch.no_grad()
     def validate(self, datamodule):
@@ -406,7 +667,11 @@ def main(input_args=None):
     parser.add_argument("--epochs", type=int, default=200)
     parser.add_argument("--max_steps", type=int, default=0)
     parser.add_argument("--batch_size", type=int, default=4)
-    parser.add_argument("--load", type=str)
+    parser.add_argument("--load", type=str,
+                        help="checkpoint path to load, or 'auto' to resume "
+                             "from <save_dir>/<run_name>/last when it "
+                             "exists (pair with --restore_opt for a true "
+                             "resume)")
     parser.add_argument("--restore_opt", action="store_true")
     parser.add_argument("--precision", type=str, default="32",
                         choices=["32", "bf16", "bf16-mixed"],
@@ -420,6 +685,9 @@ def main(input_args=None):
     parser.add_argument("--mesh_aggr", type=str, default="sum",
                         choices=["sum", "mean"])
     parser.add_argument("--output_std", action="store_true")
+    parser.add_argument("--remat", action="store_true",
+                        help="gradient-checkpoint each unroll step "
+                             "(memory for compute in long-AR training)")
     parser.add_argument("--ar_steps_train", type=int, default=1)
     parser.add_argument("--ar_steps_eval", type=int, default=10)
     parser.add_argument("--loss", type=str, default="wmse")
@@ -428,9 +696,19 @@ def main(input_args=None):
                         choices=["constant", "cosine", "warmup_cosine"])
     parser.add_argument("--warmup_steps", type=int, default=1000)
     parser.add_argument("--decay_steps", type=int, default=100_000)
+    parser.add_argument("--profile_steps", type=int, default=0,
+                        help="capture a torch.profiler trace of N train "
+                             "steps into <run_dir>/profile")
     parser.add_argument("--val_interval", type=int, default=1)
     parser.add_argument("--num_past_forcing_steps", type=int, default=1)
     parser.add_argument("--num_future_forcing_steps", type=int, default=1)
+    parser.add_argument("--prefetch_batches", type=int, default=2,
+                        help="device-prefetch depth: batches transferred "
+                             "ahead of the step (0 = synchronous)")
+    parser.add_argument("--num_workers", type=int, default=4,
+                        help="loader worker threads (ref: torch DataLoader "
+                        "num_workers); <=1 fills batches ahead on one "
+                        "thread")
     parser.add_argument("--val_steps_to_log", nargs="+", type=int,
                         default=[1, 2, 3, 5, 10, 15, 19])
     parser.add_argument("--eval", type=str, choices=["val", "test"])
@@ -442,6 +720,10 @@ def main(input_args=None):
     parser.add_argument("--ensemble_members", type=int, default=0,
                         help="ensemble evaluation; not ported yet")
     parser.add_argument("--run_name", type=str, default=None)
+    parser.add_argument("--wandb_project", type=str,
+                        default="neural_lam_tpu",
+                        help="W&B project to log to (when wandb is "
+                             "importable; ref: train_model.py:169)")
     parser.add_argument("--save_dir", type=str, default="saved_models")
     args = parser.parse_args(input_args)
     if args.ensemble_members > 0:
@@ -466,6 +748,7 @@ def main(input_args=None):
             for k, v in json.loads(args.var_leads_metrics_watch).items()},
         n_example_pred=args.n_example_pred,
         compute_dtype=compute_dtype,
+        remat=args.remat,
     )
     flags = TrainFlags(
         epochs=args.epochs, val_interval=args.val_interval, seed=args.seed,
@@ -475,7 +758,9 @@ def main(input_args=None):
            f"{time.strftime('%m_%d_%H_%M')}",
         save_dir=args.save_dir, lr_schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
-        max_steps=args.max_steps,
+        max_steps=args.max_steps, profile_steps=args.profile_steps,
+        prefetch_batches=args.prefetch_batches,
+        wandb_project=args.wandb_project,
     )
     graph = load_or_build_graph(datastore, args.graph, device)
     model = MODELS[args.model](
@@ -486,7 +771,7 @@ def main(input_args=None):
         ar_steps_eval=args.ar_steps_eval, standardize=True,
         num_past_forcing_steps=args.num_past_forcing_steps,
         num_future_forcing_steps=args.num_future_forcing_steps,
-        batch_size=args.batch_size,
+        batch_size=args.batch_size, num_workers=args.num_workers,
     )
     trainer = Trainer(model, flags)
     trainer.init_state()
