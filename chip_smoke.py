@@ -246,6 +246,37 @@ result line is printed), each printing its seconds:
    with "preempted": true; `train.main --load auto --restore_opt` then
    resumes from its step and one epoch later saves `last` 6 steps on.
 
+14. HiLAMParallel at `benchmarks.py`'s hi_lam_parallel_meps_ar19
+   configuration (268x238, `n_max_levels=3`: 6,561 / 729 / 81 mesh
+   nodes, 7 chunks a layer, hidden 64, 4 layers, seeded weights), its
+   levels, chunks and each chunk's route printed first. a. A 19-step
+   rollout at batch 4 and a predict step at batch 1, the counters at 0
+   just before each: the launches a step equal to the table
+   `hier_table` computes from `flat_eligible` per edge set (K3 on every
+   flat chunk, P1 with its messages, counted apart, on every batched
+   one); kernel path against plain path, one step within 1e-3 and the
+   rollout within `HLP_ROLLOUT_LIMIT` (gaps at steps 1, 4 and 19); host
+   ms a step (19-step minus 1-step, median of 3), mesh-node updates/s
+   (all levels), busy ms and idle share (a profile), peak memory above
+   the live set, beside a 3-level HiLAM on the same graph (its launches
+   held to its own table too). b. P1 with messages at each batched
+   chunk's shape (batch 4 and 1) against its plain version (1e-4 +
+   1e-4 * |plain|), two calls bit-identical, timed beside its plain
+   version, its W2 product as `torch.mm` (TF32 off) and its bound. c.
+   One AdamW step at batch 4 (ar_steps 1) with the counters at 0: the
+   forward's launches and a backward kernel for each flat one, xtd_sum
+   for the decoder, B2 and each B3/B4; gradients kernel vs plain within
+   1e-3 * max abs per parameter; the fp32 and bf16 steps' host ms, busy
+   ms and peak memory; the bf16 step's and the bf16 predict step's
+   launches (P1 and B2's xtd_sum fp32, the rest bf16); their bf16 error
+   the plain path's size (`error_size`); the bf16 instances at this
+   model's shapes (K3, B3/B4 and xtd_sum on each flat chunk, P3 on the
+   batched mesh-init set, K2 and B2 at g2m, K4 and B5/B6 at m2g) within
+   one bf16 ulp of their plain versions. d. `train.main --model
+   hi_lam_parallel` 2 steps at ar_steps 2 on a 268x238 MDP datastore,
+   a finite loss and a saved `last`; `predict.main` forecasts 4 steps
+   from it (`forecast_check`: launches, plain path within 1e-3).
+
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -317,8 +348,9 @@ def kernel_registry():
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
-            if hasattr(w, "launches_bf16"):
-                w.launches_bf16 = 0
+            for extra in ("launches_bf16", "launches_with_messages"):
+                if hasattr(w, extra):
+                    setattr(w, extra, 0)
 
     def counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -2751,6 +2783,497 @@ def rest_of_training_phase(torch, np, counts, counts_bf16, reset_counts):
     print(f"phase 13c: {time.time() - t0:.1f} s")
 
 
+# phase 14: HiLAMParallel at benchmarks.py's hi_lam_parallel_meps_ar19
+HLP_STEPS = 19  # the configuration's rollout length
+HLP_LEVELS = 3  # its n_max_levels
+# the 19-step rollout's kernel-vs-plain limit (PERF.md, set before the
+# first run on the card)
+HLP_ROLLOUT_LIMIT = 1e-3
+
+
+def chunk_names(net):
+    """HiLAMParallel's chunk names in chunk order: m2m levels, up, down."""
+    g = net.graph
+    return ([f"m2m[{i}]" for i in range(len(g.m2m))]
+            + [f"up[{i}]" for i in range(len(g.up))]
+            + [f"down[{i}]" for i in range(len(g.down))])
+
+
+def hier_table(net, B):
+    """(launches a predict step by kernel, P1's launches with messages) of
+    hierarchical model `net` at batch B, from `flat_eligible` per edge
+    set: the grid side (K1, K2, K4 on the flat-grid route, else K2 or P2
+    for g2m and m2g), the mesh-init rounds over the up sets (K3 or P3),
+    the processor (HiLAM: its sweeps' rounds, K3 or P3; HiLAMParallel:
+    each chunk, K3 or P1 with messages) and the read-out over the down
+    sets (K3 or P1)."""
+    from neural_lam_tpu_torch.models.hi_lam_parallel import HiLAMParallel
+    from neural_lam_tpu_torch.ops.message_passing import flat_eligible
+
+    g = net.graph
+    t = dict.fromkeys(FWD + BATCHED, 0)
+
+    def count(es, batched):
+        t["edge_layer_flat" if flat_eligible(es, B, H) else batched] += 1
+
+    if net._flat_grid_eligible(B):
+        t.update(embed_grid_flat=1, edge_tail_sum_flat=1, grid_update_flat=1)
+    else:
+        for es in (g.g2m, g.m2g):
+            t["edge_tail_sum_flat" if flat_eligible(es, B, H)
+              else "edge_tail_sum"] += 1
+    for es in g.up:
+        count(es, "edge_layer")
+    L, n = BENCH["processor_layers"], len(g.m2m)
+    if isinstance(net, HiLAMParallel):
+        chunks = net._chunk_edge_sets()
+        msg = L * sum(not flat_eligible(es, B, H) for es in chunks)
+        for es in chunks * L:
+            count(es, "edge_tail")
+    else:
+        msg = 0
+        down = [g.m2m[-1]] + [s for lv in range(n - 2, -1, -1)
+                              for s in (g.down[lv], g.m2m[lv])]
+        up = [g.m2m[0]] + [s for lv in range(1, n)
+                           for s in (g.up[lv - 1], g.m2m[lv])]
+        for es in (down + up) * L:
+            count(es, "edge_layer")
+    for es in g.down:
+        count(es, "edge_tail")
+    return t, msg
+
+
+def hlp_step_stats(torch, entry, net, B, what):
+    """Host ms a predict step (19-step minus 1-step rollout, median of 3),
+    mesh-node updates/s, peak memory above the live set over one step,
+    and the device's busy ms and idle share (a profile of 3 steps)."""
+    init, forcing, true = entry.make_inputs(net, B, HLP_STEPS, seed=0)
+
+    def rollout_s(steps):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            entry.forecast(net, init, forcing[:, :steps], true[:, :steps])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[1]
+
+    entry.forecast(net, init, forcing[:, :2], true[:, :2])  # warm-up
+    ms = (rollout_s(HLP_STEPS) - rollout_s(1)) / (HLP_STEPS - 1) * 1e3
+    updates = (net.num_mesh_nodes * BENCH["processor_layers"] * B * 1e3
+               / ms)
+    with torch.no_grad():
+        ctx = net.precompute_rollout_ctx()
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        net.predict_step(init[:, 1], init[:, 0], forcing[:, 0], ctx)
+        torch.cuda.synchronize()
+        above = torch.cuda.max_memory_allocated() - live
+        prof = profile(torch, lambda: net.predict_step(
+            init[:, 1], init[:, 0], forcing[:, 0], ctx),
+            f"{what} predict step", top=8)
+    busy = prof[0] if prof else None
+    print(f"{what}: predict step {ms:.3f} ms (host clock, {HLP_STEPS}-step "
+          f"minus 1-step rollout, median of 3); {updates:.4e} mesh-node "
+          f"updates/s ({net.num_mesh_nodes} mesh nodes, all levels, x "
+          f"{BENCH['processor_layers']} layers x batch {B}); device busy "
+          + (f"{busy:.3f} ms a step (idle share {1 - busy / ms:.3f} of the "
+             "host-clock step)" if busy else "not measured")
+          + f"; peak memory {above / 2**30:.3f} GiB above the "
+          f"{live / 2**30:.3f} GiB live")
+    return {"ms": ms, "updates": updates, "busy": busy, "above": above}
+
+
+def hilam_parallel_phase(torch, np, counts, counts_bf16, reset_counts,
+                         plain_kernels, zero_all, peak_tf32, peak_bw):
+    """Phase 14: HiLAMParallel at benchmarks.py's hi_lam_parallel_meps_ar19
+    configuration (module doc)."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    from neural_lam_tpu_torch import entry, predict, train
+    from neural_lam_tpu_torch.config import (
+        DatastoreSelection,
+        NeuralLAMConfig,
+        TrainingConfig,
+    )
+    from neural_lam_tpu_torch.models import MODELS
+    from neural_lam_tpu_torch.ops import (
+        edge,
+        edge_flat,
+        grid_update,
+        weight_grad,
+    )
+    from neural_lam_tpu_torch.ops.message_passing import flat_eligible
+
+    t_phase = time.time()
+    net, ds = entry.build_model(**BENCH, device="cuda",
+                                model="hi_lam_parallel",
+                                n_max_levels=HLP_LEVELS)
+    config = NeuralLAMConfig(
+        datastore=DatastoreSelection(kind="dummydata", config_path=""),
+        training=TrainingConfig())
+    # the 3-level HiLAM on the same graph and weights' seed
+    hilam = MODELS["hi_lam"](net.args, config, ds, net.graph, device="cuda",
+                             generator=torch.Generator().manual_seed(0))
+    g = net.graph
+    L = BENCH["processor_layers"]
+    names, chunks = chunk_names(net), net._chunk_edge_sets()
+    print(f"HiLAMParallel (hi_lam_parallel_meps_ar19: 268x238 grid, "
+          f"n_max_levels={HLP_LEVELS}, hidden 64, {L} processor layers) and "
+          f"a 3-level HiLAM on its graph built in "
+          f"{time.time() - t_phase:.1f} s: levels {g.level_sizes} (N_mesh="
+          f"{net.num_mesh_nodes}), {len(chunks)} chunks a layer")
+    for B in (BATCH, 1):
+        print(f"  routes at batch {B}: " + ", ".join(
+            f"{n} (K={es.dense_k}, {es.num_virt} rows) "
+            f"{'K3' if flat_eligible(es, B, H) else 'P1 with messages'}"
+            for n, es in zip(names, chunks)))
+
+    # a. the forecast: launches, kernel path against plain path, step time
+    def forecast_counted(m, B, steps, what):
+        """A `steps`-step rollout through entry.forecast with every
+        counter at 0 just before it: the launches must be `hier_table`'s
+        a step, P1's with-messages launches among them; returns (the
+        inputs, the rollout)."""
+        init, forcing, true = entry.make_inputs(m, B, steps, seed=0)
+        entry.forecast(m, init, forcing[:, :1], true[:, :1])  # warm-up
+        reset_counts()
+        pred = entry.forecast(m, init, forcing, true)
+        torch.cuda.synchronize()
+        got, msg = counts(), edge.edge_tail.launches_with_messages
+        table, want_msg = hier_table(m, B)
+        want = dict(zero_all, **{k: n * steps for k, n in table.items()})
+        per_step = {k: n / steps for k, n in got.items() if n}
+        print(f"{what}: {steps}-step rollout, output {tuple(pred.shape)}; "
+              f"launches a step {per_step}"
+              f", P1 with messages {msg / steps:g} (table "
+              f"{({k: n for k, n in table.items() if n})}, {want_msg})")
+        if got != want or msg != want_msg * steps:
+            fail(f"{what}: launches {got} ({msg} P1 with messages), want "
+                 f"{want} ({want_msg * steps})")
+        if tuple(pred.shape) != (B, steps, g.num_grid_nodes, 17) or not bool(
+                torch.isfinite(pred).all()):
+            fail(f"{what}: rollout {tuple(pred.shape)}, not finite")
+        return (init, forcing, true), pred
+
+    def step_gap(m, inputs, what):
+        init, forcing, _ = inputs
+        with torch.no_grad():
+            k = m.predict_step(init[:, 1], init[:, 0], forcing[:, 0])[0]
+            with plain_kernels():
+                p = m.predict_step(init[:, 1], init[:, 0], forcing[:, 0])[0]
+        gap = float((k - p).abs().max())
+        print(f"{what}: predict step, kernels vs plain versions on the card: "
+              f"max abs gap {gap:.3e} (limit 1e-3)")
+        if not gap <= 1e-3:
+            fail(f"{what}: kernel path and plain path disagree")
+
+    inputs, pred = forecast_counted(net, BATCH, HLP_STEPS,
+                                    "HiLAMParallel batch 4")
+    step_gap(net, inputs, "HiLAMParallel batch 4")
+    with plain_kernels():
+        pred_p = entry.forecast(net, *inputs)
+    gaps = [float((pred[:, s - 1] - pred_p[:, s - 1]).abs().max())
+            for s in (1, 4, HLP_STEPS)]
+    print(f"HiLAMParallel batch 4 {HLP_STEPS}-step rollout, kernels vs plain "
+          f"versions: max abs gap at steps 1, 4, {HLP_STEPS}: "
+          f"{', '.join(f'{x:.3e}' for x in gaps)} (limit "
+          f"{HLP_ROLLOUT_LIMIT:g}); largest |output| "
+          f"{float(pred.abs().max()):.3f}")
+    if not max(gaps) <= HLP_ROLLOUT_LIMIT:
+        fail("HiLAMParallel: the kernel path's rollout left the plain "
+             "path's")
+    del pred, pred_p
+    inputs1, _ = forecast_counted(net, 1, 1, "HiLAMParallel batch 1")
+    step_gap(net, inputs1, "HiLAMParallel batch 1")
+    forecast_counted(hilam, BATCH, 1, "HiLAM (3 levels) batch 4")
+    stats = {}
+    for m, B, what in ((net, BATCH, "HiLAMParallel batch 4"),
+                       (hilam, BATCH, "HiLAM (3 levels) batch 4"),
+                       (net, 1, "HiLAMParallel batch 1")):
+        stats[what] = hlp_step_stats(torch, entry, m, B, what)
+    a, b = stats["HiLAMParallel batch 4"], stats["HiLAM (3 levels) batch 4"]
+    print(f"HiLAMParallel against HiLAM, 3 levels, batch 4: host ms a step "
+          f"{a['ms'] / b['ms']:.3f}x, updates/s "
+          f"{a['updates'] / b['updates']:.3f}x"
+          + (f", busy {a['busy'] / b['busy']:.3f}x" if a["busy"] and b["busy"]
+             else ""))
+    print(f"phase 14a: {time.time() - t_phase:.1f} s")
+
+    # b. P1 with messages at each batched chunk's shape
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    with torch.no_grad():
+        for B in (BATCH, 1):
+            for c, (n, es) in enumerate(zip(names, chunks)):
+                if flat_eligible(es, B, H):
+                    continue
+                K, nv = es.dense_k, es.num_virt
+                M = nv * K
+                args = ((rand(B, M, H),) + mlp_tail(net.processor[0]
+                                                    .edge_mlps[c])
+                        + (es.mask, K, True))
+                before = edge.edge_tail.launches_with_messages
+                got = edge.edge_tail(*args)
+                again = edge.edge_tail(*args)
+                want = edge.edge_tail_plain(*args)
+                torch.cuda.synchronize()
+                if edge.edge_tail.launches_with_messages != before + 2:
+                    fail(f"P1 with messages at {n}: no launch with messages")
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    fail(f"P1 with messages at {n}: two calls differ")
+                err = 0.0
+                for x, y in zip(got, want):
+                    gap = (x - y).abs()
+                    if x.shape != y.shape or not bool(
+                            (gap <= 1e-4 + 1e-4 * y.abs()).all()):
+                        fail(f"P1 with messages at {n}, B={B}: kernel and "
+                             f"plain disagree, {float(gap.max()):.3e}")
+                    err = max(err, float(gap.max()))
+                ms = cuda_ms(torch, lambda: edge.edge_tail(*args), 20)
+                plain_ms = cuda_ms(torch, lambda: edge.edge_tail_plain(*args),
+                                   5)
+                x0, w2 = args[0], args[1]
+                lib_ms = cuda_ms(torch, lambda: torch.mm(x0.view(-1, H), w2),
+                                 10)
+                bytes_ = (nbytes(*(t for t in args if torch.is_tensor(t)))
+                          + B * M * H * 4 + B * nv * H * 4)
+                flops = 2.0 * B * M * H * H
+                t_bytes = bytes_ / peak_bw * 1e3
+                t_ops = 3 * flops / peak_tf32 * 1e3
+                print(f"edge_tail (P1) with messages at HiLAMParallel {n} "
+                      f"(K={K}, {nv} rows, B={B}): max_abs_err {err:.3e} "
+                      f"(tol 1e-4 + 1e-4*|plain|), two calls bit-identical; "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                      f"{lib_ms:.4f} ms (torch.mm for its W2 product, TF32 "
+                      f"off), bound {max(t_bytes, t_ops):.4f} ms ("
+                      f"{'bytes' if t_bytes >= t_ops else 'operations'}; "
+                      f"{bytes_ / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP as "
+                      "3xTF32)")
+    print(f"phase 14b: {time.time() - t_phase:.1f} s")
+
+    # c. training, fp32 and bf16; the bf16 forecast
+    table = hier_table(net, BATCH)[0]
+    k3 = table["edge_layer_flat"]
+    train_want = dict(table, **{k + "_bwd": table[k] for k in FWD},
+                      xtd_sum=2 + k3, xtd_reduce=2 + k3)
+    entry.train_steps(net, ds, BATCH, 1, steps=1, seed=0,
+                      device="cuda")  # warm-up
+    reset_counts()
+    losses = entry.train_steps(net, ds, BATCH, 1, steps=1, seed=1,
+                               device="cuda")
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"HiLAMParallel training step: loss {losses[0]:.6f}; launches "
+          f"{({k: n for k, n in got.items() if n})}")
+    if not all(map(math.isfinite, losses)) or got != dict(zero_all,
+                                                           **train_want):
+        fail(f"HiLAMParallel training: loss {losses}, launches {got}, want "
+             f"{train_want}")
+    trainer, dm = entry.make_trainer(net, ds, BATCH, 1, seed=2)
+    batch = next(trainer.train_batches(dm, 0))
+
+    def grads(m):
+        m.zero_grad(set_to_none=True)
+        m.training_loss(batch).backward()
+        return {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+
+    g_k = grads(net)
+    with plain_kernels():
+        g_p = grads(net)
+    worst = max((float((g_k[k] - g_p[k]).abs().max())
+                 / max(float(g_p[k].abs().max()), 1e-30), k) for k in g_p)
+    print(f"HiLAMParallel training gradients, kernels vs plain versions on "
+          f"the card: worst max abs gap / max abs {worst[0]:.3e} "
+          f"({worst[1]}; limit 1e-3), {len(g_p)} parameters")
+    if not worst[0] <= 1e-3:
+        fail("HiLAMParallel: kernel-path and plain-path gradients disagree")
+    net16 = copy.copy(net)  # the same weights, the bf16 path
+    net16.compute_dtype = torch.bfloat16
+    g16 = grads(net16)
+    with plain_kernels():
+        p16 = grads(net16)
+    scale = {k: float(v.abs().max()) or 1.0 for k, v in g_k.items()}
+
+    def vec(gr):
+        return torch.cat([(gr[k] / scale[k]).flatten() for k in g_k])
+
+    error_size(torch, "HiLAMParallel bf16 training gradients (each "
+               f"parameter's over its fp32 max abs, {len(g_k)} parameters)",
+               vec(g16), vec(p16), vec(g_k))
+    del g_k, g_p, g16, p16
+    net.zero_grad(set_to_none=True)
+    trainer16, _ = entry.make_trainer(net16, ds, BATCH, 1, seed=2)
+    for tr, tag in ((trainer, "fp32"), (trainer16, "bf16")):
+        ms, above, busy = step_stats(torch, tr, batch,
+                                     f"HiLAMParallel {tag} train step")
+        busy = "not measured" if busy is None else f"{busy:.3f} ms"
+        print(f"HiLAMParallel {tag} train step (fwd+bwd+AdamW, ar_steps 1, "
+              f"batch {BATCH}): {ms:.3f} ms (host clock, median of 5), "
+              f"device busy {busy}"
+              f", peak {above / 2**30:.3f} GiB above the live set")
+        net.zero_grad(set_to_none=True)
+    # the bf16 training step's launches: the bf16 instances, P1 and B2's
+    # xtd_sum in fp32
+    reset_counts()
+    trainer16.train_step(batch)
+    torch.cuda.synchronize()
+    c16, c32 = counts_bf16(), counts()
+    want16 = {k: n for k, n in train_want.items() if k != "edge_tail"}
+    want16.update(xtd_sum=1 + k3, xtd_reduce=1 + k3)
+    want32 = {"edge_tail": table["edge_tail"], "xtd_sum": 1,
+              "xtd_reduce": 1}
+    print(f"HiLAMParallel bf16 training step: launches bf16 "
+          f"{({k: n for k, n in c16.items() if n})}, fp32 "
+          f"{({k: n for k, n in c32.items() if n})}")
+    if c16 != {k: want16.get(k, 0) for k in c16} or c32 != dict(
+            zero_all, **want32):
+        fail(f"HiLAMParallel bf16 training: launches {c16} (bf16), {c32} "
+             f"(fp32); want {want16}, {want32}")
+    # the bf16 predict step beside its fp32 twin
+    init, forcing, true = inputs
+    reset_counts()
+    with torch.no_grad():
+        k16 = net16.predict_step(init[:, 1], init[:, 0], forcing[:, 0])[0]
+        torch.cuda.synchronize()
+        c16, c32 = counts_bf16(), counts()
+        k32 = net.predict_step(init[:, 1], init[:, 0], forcing[:, 0])[0]
+        with plain_kernels():
+            pp16 = net16.predict_step(init[:, 1], init[:, 0],
+                                      forcing[:, 0])[0]
+    want16 = {k: n for k, n in table.items() if k != "edge_tail" and n}
+    print(f"HiLAMParallel bf16 predict step, batch 4: launches bf16 "
+          f"{({k: n for k, n in c16.items() if n})}, fp32 "
+          f"{({k: n for k, n in c32.items() if n})}")
+    if c16 != {k: want16.get(k, 0) for k in c16} or c32 != dict(
+            zero_all, edge_tail=table["edge_tail"]):
+        fail(f"HiLAMParallel bf16 predict step: launches {c16} (bf16), {c32}"
+             f" (fp32); want {want16}, P1 {table['edge_tail']} fp32")
+    error_size(torch, "HiLAMParallel bf16 predict step", k16, pp16, k32)
+    hlp_step_stats(torch, entry, net16, BATCH, "HiLAMParallel bf16 batch 4")
+    # each bf16 instance at this model's shapes: K3 and B3/B4 (with its
+    # xtd_sum) on every flat chunk, P3 on the batched mesh-init set, K2
+    # and B2 at g2m, K4 and B5/B6 at m2g (K1's and B1's shapes are
+    # GraphLAM's, held in phases 11-12)
+    bf = torch.bfloat16
+    W = BATCH * H
+
+    def rand16(*shape):
+        return rand(*shape).to(bf)
+
+    checked = []
+    with torch.no_grad():
+        for c, (n, es) in enumerate(zip(names, chunks)):
+            if not flat_eligible(es, BATCH, H):
+                continue
+            nv, K = es.num_virt, es.dense_k
+            M, mask_p = nv * K, es.mask.view(nv, K)
+            lay = net.processor[0].edge_mlps[c]
+            a3 = (rand16(M, W), rand16(es.num_send, W), es.senders,
+                  rand16(nv, W), mask_p) + mlp_first(lay) + mlp_tail(lay)
+            checked.append(("edge_layer_flat", n, bf16_check(
+                torch, counts_bf16, "edge_layer_flat", edge_flat, a3, n)))
+            b3 = a3 + (rand16(M, W), rand16(nv, W))
+            checked.append(("edge_layer_flat_bwd", n, bf16_bwd_check(
+                torch, counts_bf16, "edge_layer_flat_bwd", edge_flat, b3,
+                n)))
+            pairs = edge_flat.edge_layer_bwd_chain(*b3)[4]
+            checked.append(("xtd_sum", n, bf16_bwd_check(
+                torch, counts_bf16, "xtd_sum", weight_grad, (pairs,), n)))
+        for lv, es in enumerate(g.up):
+            if flat_eligible(es, BATCH, H):
+                continue
+            nv, K = es.num_virt, es.dense_k
+            lay = net.mesh_init_gnns[lv].edge_mlp
+            a6 = (rand16(BATCH, nv * K, H), rand16(BATCH, es.num_send, H),
+                  es.senders, rand16(BATCH, nv, H), es.mask) + mlp_first(
+                      lay) + mlp_tail(lay) + (K,)
+            checked.append(("edge_layer", f"up[{lv}]", bf16_check(
+                torch, counts_bf16, "edge_layer", edge, a6, f"up[{lv}]")))
+        es = g.g2m
+        nv, K = es.num_virt, es.dense_k
+        a2 = (rand16(es.num_send, W), es.senders, rand16(nv * K, H),
+              rand16(nv, W), es.mask.view(nv, K)) + mlp_tail(
+                  net.g2m_gnn.edge_mlp)
+        checked.append(("edge_tail_sum_flat", "g2m", bf16_check(
+            torch, counts_bf16, "edge_tail_sum_flat", edge_flat, a2, "g2m")))
+        checked.append(("edge_tail_sum_flat_bwd", "g2m", bf16_bwd_check(
+            torch, counts_bf16, "edge_tail_sum_flat_bwd", edge_flat,
+            a2 + (rand16(nv, W),), "g2m")))
+        es = g.m2g
+        nv, K = es.num_virt, es.dense_k
+        pp = {k: v.detach() for k, v in
+              grid_update.pack_grid_update_params(net).items()}
+        a4 = (rand16(es.num_send, W), es.senders, rand16(nv * K, H),
+              rand16(g.num_grid_nodes, W), es.mask.view(nv, K), pp)
+        checked.append(("grid_update_flat", "m2g", bf16_check(
+            torch, counts_bf16, "grid_update_flat", grid_update, a4, "m2g")))
+        checked.append(("grid_update_flat_bwd", "m2g", bf16_bwd_check(
+            torch, counts_bf16, "grid_update_flat_bwd", grid_update,
+            a4 + (rand16(nv, BATCH * pp["o_w1"].shape[1]),), "m2g")))
+    print("bf16 instances at HiLAMParallel's batch-4 shapes, each within one "
+          "bf16 ulp of its plain version, two calls bit-identical (share not "
+          "bit-equal, max abs): " + "; ".join(
+              f"{k} {n} {s:.5f} {e:.2e}" for k, n, (s, e) in checked))
+    del trainer, trainer16, net16, batch, dm
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 14c: {time.time() - t_phase:.1f} s")
+
+    # d. the CLIs on a 268x238 MDP datastore: train 2 steps, then forecast
+    with tempfile.TemporaryDirectory(prefix="nlt_hlp_") as tmp:
+        root = Path(tmp)
+        t0 = time.time()
+        cfg = write_mdp_datastore(root, np, n_t=32, n_train=16)
+        argv = ["--config_path", str(cfg), "--model", "hi_lam_parallel",
+                "--graph", "hierarchical", *WIDTH, "--batch_size",
+                str(BATCH), "--ar_steps_train", "2", "--ar_steps_eval", "2",
+                "--val_steps_to_log", "1", "2", "--max_steps", "2",
+                "--seed", "0", "--save_dir", str(root / "models"),
+                "--run_name", "hlp"]
+        reset_counts()
+        quiet(train.main, argv)
+        torch.cuda.synchronize()
+        got = {k: n for k, n in counts().items() if n}
+        run = root / "models" / "hlp"
+        log = [json.loads(line) for line in
+               (run / "metrics.jsonl").read_text().splitlines()]
+        loss = [r["train_loss"] for r in log if "train_loss" in r]
+        print(f"train.main --model hi_lam_parallel: 2 steps at ar_steps 2 "
+              f"and validation on the MDP datastore in {time.time() - t0:.1f}"
+              f" s (datastore written included); losses {loss}; launches "
+              f"{got}")
+        if not (run / "last").exists() or not loss or not all(
+                map(math.isfinite, loss)) or not all(
+                    got.get(k) for k in FWD + ("edge_layer_flat_bwd",
+                                               "edge_tail")):
+            fail("train.main --model hi_lam_parallel: no checkpoint, a loss "
+                 "that is not finite, or a kernel of the path not launched")
+        out = root / "hlp.zarr"
+        pargv = ["--config_path", str(cfg), "--model", "hi_lam_parallel",
+                 "--graph", "hierarchical", *WIDTH, "--load",
+                 str(run / "last"), "--split", "test", "--sample_idx", "-1",
+                 "--ar_steps", str(STEPS), "--out", str(out)]
+        # the launch table of the CLI's model (its graph is the CLI's own)
+        cli_net = predict.prepare(predict.parse_args(pargv))[0]
+        want, msg = hier_table(cli_net, 1)
+        print(f"the predict CLI's HiLAMParallel: levels "
+              f"{cli_net.graph.level_sizes}, {len(cli_net._chunk_edge_sets())}"
+              f" chunks; at batch 1 {msg} P1 launches with messages a step")
+        del cli_net
+        forecast_check(torch, np, pargv, {k: n for k, n in want.items() if n},
+                       counts, reset_counts, plain_kernels, zero_all,
+                       "hi_lam_parallel")
+    print(f"phase 14d: {time.time() - t_phase:.1f} s")
+
+
 def disk_mb(path):
     """MB of the files under path."""
     return sum(f.stat().st_size for f in path.rglob("*")
@@ -3653,6 +4176,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_end("13 (the rest of training)")
+
+    # 14. HiLAMParallel
+    hilam_parallel_phase(torch, np, counts, counts_bf16, reset_counts,
+                         plain_kernels, zero_all, peak_tf32, peak_bw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end("14 (HiLAMParallel)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

@@ -1,10 +1,10 @@
-"""Entry points: build a GraphLAM or HiLAM, run a forecast rollout, and
-train it for a few steps.
+"""Entry points: build a GraphLAM, HiLAM or HiLAMParallel, run a forecast
+rollout, and train it for a few steps.
 
 Counterpart of `_build_model` in the repository's `__graft_entry__.py`
 and of the rollout `bench.py` times: a DummyDatastore of the given grid
 and feature counts, the mesh graph built for it (multiscale for GraphLAM,
-hierarchical for HiLAM), and the model with weights drawn from a seeded
+hierarchical for HiLAM and HiLAMParallel), and the model with weights drawn from a seeded
 `torch.Generator`.
 
     model, datastore = build_model(nx=268, ny=238,
@@ -15,6 +15,8 @@ hierarchical for HiLAM), and the model with weights drawn from a seeded
     losses = train_steps(model, datastore, batch_size=4, ar_steps=1,
                          steps=10)
     hilam, _ = build_model(model="hi_lam", nx=268, ny=238)
+    parallel, _ = build_model(model="hi_lam_parallel", nx=268, ny=238,
+                              n_max_levels=3)
 
 Everything defaults to device="cuda" and raises when CUDA is absent;
 pass device="cpu" to run the plain PyTorch versions of the kernels.
@@ -34,17 +36,19 @@ from .datastore.dummy import DummyDatastore
 from .device import resolve_device
 from .graph.build import create_graph
 from .graph.storage import graph_from_bundle
-from .models import MODELS
+from .models import MODELS, is_hierarchical
 from .models.ar_model import ModelArgs
 from .train import Trainer, TrainFlags
 
 
 def build_model(nx=60, ny=60, hidden_dim=64, processor_layers=4,
                 n_features=None, n_timesteps=20, seed=0, device="cuda",
-                compute_dtype=None, model="graph_lam"):
+                compute_dtype=None, model="graph_lam", n_max_levels=None):
     """(model, DummyDatastore) on `device`, weights from `seed`: `model`
-    is "graph_lam" (multiscale mesh graph) or "hi_lam" (hierarchical mesh
-    graph, which needs at least 27 grid points per side)."""
+    is "graph_lam" (multiscale mesh graph), "hi_lam" or "hi_lam_parallel"
+    (hierarchical mesh graph, which needs at least 27 grid points per
+    side). `n_max_levels` caps the mesh levels (None: as many as the grid
+    takes)."""
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}; one of {sorted(MODELS)}")
     device = resolve_device(device)
@@ -57,8 +61,8 @@ def build_model(nx=60, ny=60, hidden_dim=64, processor_layers=4,
     )
     with tempfile.TemporaryDirectory() as gdir:
         bundle = create_graph(gdir, datastore.get_xy("state", stacked=False),
-                              n_max_levels=None,
-                              hierarchical=model == "hi_lam")
+                              n_max_levels=n_max_levels,
+                              hierarchical=is_hierarchical(model))
     graph = graph_from_bundle(bundle, device)
     args = ModelArgs(hidden_dim=hidden_dim, processor_layers=processor_layers,
                      compute_dtype=compute_dtype)

@@ -20,7 +20,9 @@ materialised-x0 mode. The backward recomputes with autograd through the
 JAX package's reference math (`_tail_ref`, `_tail_sum_ref`, `_layer_ref`:
 its `_tail_reference`, `_sum_reference` and `_layer_reference`), as the
 JAX package's VJPs do: it has no backward kernel for these three.
-`<wrapper>.launches` counts kernel launches.
+`<wrapper>.launches` counts kernel launches, and of P1's,
+`edge_tail.launches_with_messages` those that write the messages
+(HiLAMParallel's processor chunks).
 
 bf16 (the bf16 path): P2 and P3 have bf16 instances, taken for a bf16
 send_t / edge_rep, which read the node table, ew or the edge state and
@@ -263,6 +265,8 @@ def _tail_fwd(x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
                                    _build.stream_of(dev))
     _build.check(lib, rc, "edge_tail")
     edge_tail.launches += 1
+    if msg is not None:
+        edge_tail.launches_with_messages += 1
     return msg, virt
 
 
@@ -466,6 +470,7 @@ def edge_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
 
 
 edge_tail.launches = 0
+edge_tail.launches_with_messages = 0
 edge_tail_sum.launches = 0
 edge_layer.launches = 0
 edge_tail_sum.launches_bf16 = 0

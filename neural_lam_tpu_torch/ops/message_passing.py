@@ -218,17 +218,54 @@ class InteractionNet(nn.Module):
         self.aggr_mlp = aggr_mlp
 
 
+def _inet_recipes(input_dim: int, hidden_layers: int, hidden_dim):
+    """(edge MLP recipe [3h, ...], aggregation MLP recipe [2h, ...])."""
+    if hidden_dim is None:
+        hidden_dim = input_dim
+    return ([3 * input_dim] + [hidden_dim] * (hidden_layers + 1),
+            [2 * input_dim] + [hidden_dim] * (hidden_layers + 1))
+
+
 def init_interaction_net(input_dim: int, *, hidden_layers: int = 1,
                          hidden_dim: int | None = None,
                          generator: torch.Generator | None = None
                          ) -> InteractionNet:
-    if hidden_dim is None:
-        hidden_dim = input_dim
-    edge_recipe = [3 * input_dim] + [hidden_dim] * (hidden_layers + 1)
-    aggr_recipe = [2 * input_dim] + [hidden_dim] * (hidden_layers + 1)
+    edge_recipe, aggr_recipe = _inet_recipes(input_dim, hidden_layers,
+                                             hidden_dim)
     return InteractionNet(
         init_mlp(edge_recipe, layer_norm=True, generator=generator),
         init_mlp(aggr_recipe, layer_norm=True, generator=generator),
+    )
+
+
+class ChunkedInteractionNet(nn.Module):
+    """Parameters of a chunked interaction net (HiLAMParallel's processor
+    layer; the reference's SplitMLPs): one edge MLP per edge chunk and one
+    aggregation MLP per node chunk (mesh level), with the recipes of
+    `InteractionNet`'s. The state-dict keys are the JAX package's pytree
+    (`edge_mlps.{c}.layers.{i}.w`, `aggr_mlps.{l}.ln.scale`, ...)."""
+
+    def __init__(self, edge_mlps: list, aggr_mlps: list):
+        super().__init__()
+        self.edge_mlps = nn.ModuleList(edge_mlps)
+        self.aggr_mlps = nn.ModuleList(aggr_mlps)
+
+
+def init_interaction_net_chunked(input_dim: int, n_edge_chunks: int,
+                                 n_node_chunks: int, *,
+                                 hidden_layers: int = 1,
+                                 hidden_dim: int | None = None,
+                                 generator: torch.Generator | None = None
+                                 ) -> ChunkedInteractionNet:
+    """A chunked interaction net: one MLP per chunk (the JAX package's
+    `init_interaction_net_chunked`)."""
+    edge_recipe, aggr_recipe = _inet_recipes(input_dim, hidden_layers,
+                                             hidden_dim)
+    return ChunkedInteractionNet(
+        [init_mlp(edge_recipe, layer_norm=True, generator=generator)
+         for _ in range(n_edge_chunks)],
+        [init_mlp(aggr_recipe, layer_norm=True, generator=generator)
+         for _ in range(n_node_chunks)],
     )
 
 
@@ -334,6 +371,15 @@ def _fold_virt(edges: EdgeSet, virt, in_virt_dtype=False):
     return _rec_fold(virt, edges.rec_slots, mask)
 
 
+def _fold_virt_flat(edges: EdgeSet, virt_f):
+    """(N_virt, W) flat virtual-row sums -> (N_rec, W): the JAX package's
+    flat-route fold, a gather fold in fp32 up to `_JAX_GATHER_FOLD_MAX`
+    rows a receiver and a `segment_sum` in virt's dtype past it."""
+    return _fold_virt(
+        edges, virt_f, in_virt_dtype=edges.rec_slots is not None
+        and edges.rec_slots.shape[1] > _JAX_GATHER_FOLD_MAX)
+
+
 def _virt_counts(edges: EdgeSet):
     """(N_rec, 1) real in-degree per receiver (min 1)."""
     per_virt = edges.mask.view(edges.num_virt, edges.dense_k).sum(
@@ -402,9 +448,7 @@ def _apply_inet_flat(inet: InteractionNet, edges: EdgeSet, send_rep,
         inet.edge_mlp, edges, send_rep, rec_rep, edge_rep_flat, ew=ew,
         compute_dtype=compute_dtype,
     )
-    aggregated = _fold_virt(
-        edges, virt, in_virt_dtype=edges.rec_slots is not None
-        and edges.rec_slots.shape[1] > _JAX_GATHER_FOLD_MAX)
+    aggregated = _fold_virt_flat(edges, virt)
     if aggr == "mean":
         aggregated = aggregated / _virt_counts(edges)
     rec_out = rec_rep + _aggr_mlp_mixed(inet.aggr_mlp, rec_rep, aggregated,
@@ -416,22 +460,25 @@ def _apply_inet_flat(inet: InteractionNet, edges: EdgeSet, send_rep,
 
 def edge_messages_and_virt(edge_mlp: MLP, edges: EdgeSet, send_rep,
                            rec_rep, edge_rep=None, *, update_edges=False,
-                           ew=None, compute_dtype=None):
-    """One batched edge-MLP round: (edge_out (B, M, h) | None, virt
-    (B, N_virt, h)). The edge term is the evolving state `edge_rep`
+                           with_messages=False, ew=None, compute_dtype=None):
+    """One batched edge-MLP round: (edge_out or messages (B, M, h) | None,
+    virt (B, N_virt, h)). The edge term is the evolving state `edge_rep`
     (B, M, h), updated by P3 (`edge.edge_layer`) when update_edges and
-    read by P1 (`edge.edge_tail` on a materialised x0) otherwise
-    (hierarchical read-out sweeps), or the static `ew` (M, h) = emb @ W_e +
-    b0 of an update_edges=False round, read by P2 (`edge.edge_tail_sum`).
-    The JAX function returns the messages where this one returns edge_out
-    = edge_rep + messages, which P3 computes in the kernel.
+    read by P1 (`edge.edge_tail` on a materialised x0) otherwise, or the
+    static `ew` (M, h) = emb @ W_e + b0 of an update_edges=False round,
+    read by P2 (`edge.edge_tail_sum`). With update_edges the first output
+    is edge_out = edge_rep + messages, which P3 computes in the kernel;
+    with with_messages (P1 on an evolving state: HiLAMParallel's chunks)
+    it is the messages, as the JAX function returns them; else None
+    (hierarchical read-out sweeps).
 
     With a compute_dtype, the casts are the JAX package's call sites': P3's
     node transforms take the stored activation times the fp32 weight (its
     `jnp.dot` promotes), P1's and P2's round both operands (`mlp.mm`); P2
     and P3 get their inputs stored in the compute dtype and run that
     instance, while P1's x0 = (emb @ W_e + b0) + gathered + rec_rows is
-    promoted to fp32 by its fp32 first term and runs the fp32 instance."""
+    promoted to fp32 by its fp32 first term and runs the fp32 instance
+    (its messages and virt are fp32)."""
     cd = compute_dtype
     w0, b0 = edge_mlp.layers[0].w, edge_mlp.layers[0].b
     h = w0.shape[0] // 3
@@ -452,16 +499,36 @@ def edge_messages_and_virt(edge_mlp: MLP, edges: EdgeSet, send_rep,
                                   edges.mask, K, with_messages=False)
     x0 = edge.sum_x0(mm(edge_rep, w_e, cd) + b0, send_t, edges.senders,
                      rec_rows, K)
-    return edge.edge_tail(x0, *tail, edges.mask, K, with_messages=False)
+    return edge.edge_tail(x0, *tail, edges.mask, K,
+                          with_messages=with_messages)
 
 
-
-def _check_inet(inet: InteractionNet):
-    for name, mlp in (("edge", inet.edge_mlp), ("aggregation", inet.aggr_mlp)):
+def _check_inet(inet):
+    """The kernels' rule, on an InteractionNet or on every chunk of a
+    ChunkedInteractionNet: 2-layer MLPs with an output LayerNorm."""
+    if isinstance(inet, ChunkedInteractionNet):
+        mlps = ([("edge", m) for m in inet.edge_mlps]
+                + [("aggregation", m) for m in inet.aggr_mlps])
+    else:
+        mlps = [("edge", inet.edge_mlp), ("aggregation", inet.aggr_mlp)]
+    for name, mlp in mlps:
         if len(mlp.layers) != 2 or mlp.ln is None:
             raise NotImplementedError(
                 f"the port's interaction nets need 2-layer {name} MLPs with "
                 "an output LayerNorm (hidden_layers=1)")
+
+
+def check_edge_layout(edges: EdgeSet, edge_rep, batch_size: int, h: int,
+                      flat: bool):
+    """Raise unless edge_rep has the layout of its set's route: flat (M,
+    B*h) or batched (B, M, h), as `expand_edge_rep` lays it out."""
+    M = edges.senders.shape[0]
+    want = (M, batch_size * h) if flat else (batch_size, M, h)
+    if tuple(edge_rep.shape) != want:
+        raise ValueError(
+            f"edge state of shape {tuple(edge_rep.shape)} for a set on the "
+            f"{'flat' if flat else 'batched'} route, which takes {want}: "
+            "build it with expand_edge_rep")
 
 
 def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
@@ -489,15 +556,9 @@ def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
                          "update_edges=False")
     B, h = rec_rep.shape[0], rec_rep.shape[-1]
     flat = flat_eligible(edges, B, h)
-    M = edges.senders.shape[0]
     if edge_rep is not None:
         ew = None  # an edge state takes precedence
-        want = (M, B * h) if flat else (B, M, h)
-        if tuple(edge_rep.shape) != want:
-            raise ValueError(
-                f"edge state of shape {tuple(edge_rep.shape)} for a set on "
-                f"the {'flat' if flat else 'batched'} route, which takes "
-                f"{want}: build it with expand_edge_rep")
+        check_edge_layout(edges, edge_rep, B, h, flat)
     if flat:
         return _apply_inet_flat(inet, edges, send_rep, rec_rep, edge_rep,
                                 update_edges=update_edges, aggr=aggr, ew=ew,

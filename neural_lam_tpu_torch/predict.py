@@ -42,7 +42,6 @@ import torch
 
 # models of the JAX package the port does not have yet, and where they wait
 NOT_PORTED_MODELS = {
-    "hi_lam_parallel": "ROADMAP.md queue 1, item 4",
     "graph_efm": "ROADMAP.md queue 1, item 5",
     "hi_efm": "ROADMAP.md queue 1, item 5",
 }

@@ -10,12 +10,14 @@ its own module tree:
   g2m_gnn.edge_mlp.0.weight ...          output LayerNorm at 2n-1;
   processor.module_0.edge_mlp...         ref: neural_lam/utils.py:191-214)
   mesh_down_gnns.{p}.{l}.aggr_mlp...    (HiLAM nested ModuleLists)
+  processor.module_0.edge_mlp.mlps.{c}  (HiLAMParallel SplitMLPs)
 
 Linear weights are transposed ((out, in) <-> (in, out)). Handles the
 legacy `g2m_gnn.grid_mlp.*` -> `encoding_grid_mlp.*` rename the reference
 applies on checkpoint load (ref: neural_lam/models/ar_model.py:698-721).
-HiLAMParallel's SplitMLPs (`...edge_mlp.mlps.{c}...`) wait for that model
-(ROADMAP.md queue 1, item 4).
+HiLAMParallel's chunked processor (`processor.{p}.edge_mlps.{c}...`,
+`.aggr_mlps.{l}...`) maps to the reference's SplitMLPs
+(`processor.module_{p}.edge_mlp.mlps.{c}...`, `.aggr_mlp.mlps.{l}...`).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ _PARAM = re.compile(r"^(.*)\.(layers\.(\d+)\.(w|b)|ln\.(scale|bias))$")
 
 def param_key_map(state_dict: dict) -> list:
     """(reference key, port key, transpose) for every entry of a port state
-    dict (GraphLAM or HiLAM)."""
+    dict (GraphLAM, HiLAM or HiLAMParallel)."""
     n_layers = {}
     for key in state_dict:
         m = _PARAM.match(key)
@@ -44,6 +46,8 @@ def param_key_map(state_dict: dict) -> list:
         prefix, _, layer, wb, ln = _PARAM.match(key).groups()
         ref = re.sub(r"^processor\.(\d+)\.", r"processor.module_\1.",
                      prefix)
+        # HiLAMParallel's chunks: the reference's SplitMLP children
+        ref = re.sub(r"\.(edge|aggr)_mlps\.(\d+)$", r".\1_mlp.mlps.\2", ref)
         if layer is not None:
             pairs.append((f"{ref}.{2 * int(layer)}."
                           f"{'weight' if wb == 'w' else 'bias'}", key,
@@ -76,11 +80,6 @@ def import_state_dict(template: dict, state_dict: dict) -> dict:
     state_dict = migrate_legacy_keys(
         {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
          for k, v in state_dict.items()})
-    split = [k for k in state_dict if ".mlps." in k]
-    if split:
-        raise NotImplementedError(
-            f"{split[0]}: HiLAMParallel's SplitMLPs are not ported yet "
-            "(ROADMAP.md queue 1, item 4)")
     out, used, missing = {}, set(), []
     for ref_key, key, transpose in param_key_map(template):
         alt = ref_key.replace(".module_", ".")

@@ -655,7 +655,8 @@ class _EvalAggregator:
 
 def main(input_args=None):
     """CLI mirroring `python -m neural_lam_tpu.train` for what the port
-    runs: GraphLAM and HiLAM (`--model hi_lam --graph hierarchical`)
+    runs: GraphLAM, HiLAM and HiLAMParallel (`--model hi_lam --graph
+    hierarchical`, `--model hi_lam_parallel --graph hierarchical`)
     training and evaluation on one device. Returns what `--eval` printed
     (None when training)."""
     parser = ArgumentParser(description="Train the PyTorch port's models")

@@ -141,7 +141,7 @@ def build_models(tmp_path_factory, kind, nx):
     "bfloat16"}) on an nx x nx DummyDatastore, hidden 64."""
     jds = JDummyDatastore(grid_shape=(nx, nx), n_timesteps=10)
     tds = DummyDatastore(grid_shape=(nx, nx), n_timesteps=10)
-    hier = kind == "hi_lam"
+    hier = kind.startswith("hi_")
     jg = j_graph_from_bundle(j_create_graph(
         str(tmp_path_factory.mktemp("jg")), jds.get_xy("state", stacked=False),
         n_max_levels=None, hierarchical=hier))

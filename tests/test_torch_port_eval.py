@@ -16,7 +16,8 @@ batch (the JAX CLI pads it, the port runs it as it is). Held:
   same limits; the metrics logs with the same keys line by line, the
   `--metrics_watch` values within 5e-4 x state_std;
 * `--eval val` likewise (its printed keys, the mean loss within 1e-4
-  relative, mse/mae within 5e-4 x state_std, squared for mse).
+  relative, mse/mae within 5e-4 x state_std, squared for mse), and for
+  HiLAMParallel on the 30x30 dummydata too.
 
 Where matplotlib does not import, the port's `--eval test` says so, draws
 no figure and writes the same csv and npy files. `--ensemble_members`
@@ -51,7 +52,8 @@ H = 16
 # (ar_steps_eval, batch size) per case: each split's sample count leaves
 # a partial last batch at this batch size
 SIZES = {"mdp": (1, 3), "meps": (1, 2), "hilam": (2, 2),
-         "output_std": (2, 2)}
+         "hilam_parallel": (2, 2), "output_std": (2, 2)}
+CASES = ["mdp", "meps", "hilam", "output_std"]
 
 
 def _printed_keys(text):
@@ -117,8 +119,7 @@ def _argv(case, cfg, model, graph, extra, ckpt, save_dir, run, split):
 
 @pytest.mark.filterwarnings("ignore:only using first ensemble member")
 @pytest.mark.filterwarnings("ignore:Could not load diff mean/std")
-@pytest.mark.parametrize("converted", ["mdp", "meps", "hilam", "output_std"],
-                         indirect=True)
+@pytest.mark.parametrize("converted", CASES, indirect=True)
 def test_eval_test_matches_jax(converted, tmp_path, monkeypatch, capsys):
     case, cfg, model, graph, extra, jckpt, ckpt = converted
     ar, batch = SIZES[case]
@@ -181,7 +182,7 @@ def test_eval_test_matches_jax(converted, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.filterwarnings("ignore:only using first ensemble member")
 @pytest.mark.filterwarnings("ignore:Could not load diff mean/std")
-@pytest.mark.parametrize("converted", ["mdp", "meps", "hilam", "output_std"],
+@pytest.mark.parametrize("converted", CASES + ["hilam_parallel"],
                          indirect=True)
 def test_eval_val_matches_jax(converted, tmp_path, monkeypatch, capsys):
     case, cfg, model, graph, extra, jckpt, ckpt = converted

@@ -5,13 +5,16 @@ package, on the CPU.
   forecast by the port's `predict.main` matches the JAX `predict.main` on
   the same checkpoint and sample: (port - JAX) / state_std within 5e-4 per
   element over 3 steps, for GraphLAM on the MDP fixture, GraphLAM on the
-  MEPS fixture, HiLAM on a 30x30 dummydata (2 levels), and GraphLAM with
-  `--output_std`. The .zarr and .npz files carry the same arrays, dims,
+  MEPS fixture, HiLAM and HiLAMParallel on a 30x30 dummydata (2 levels),
+  and GraphLAM with `--output_std`. The .zarr and .npz files carry the same arrays, dims,
   attrs (apart from paths) and int64 valid times.
 * A reference Neural-LAM state dict (`tests/torch_reference.py`) turns
   into the same port state dict as `params_from_jax` of the JAX
   `import_state_dict` of it, and the rollouts agree within 1e-4; the
-  predict CLI forecasts from its Lightning `.ckpt`.
+  predict CLI forecasts from its Lightning `.ckpt`. HiLAMParallel's
+  SplitMLP keys export and import as the JAX package's `torch_compat`
+  maps them, and a reference-style `.ckpt` of it forecasts as the port
+  checkpoint it was exported from.
 * Reference `.pt` graph directories convert both ways as the JAX
   package's do.
 * What the port cannot forecast yet raises.
@@ -53,8 +56,11 @@ from neural_lam_tpu.graph.torch_io import (
 from neural_lam_tpu.models import MODELS as J_MODELS
 from neural_lam_tpu.models.ar_model import ModelArgs as JModelArgs
 from neural_lam_tpu.predict import main as j_predict_main
+from neural_lam_tpu.torch_compat import export_state_dict as j_export_state_dict
 from neural_lam_tpu.torch_compat import import_state_dict as j_import_state_dict
+from neural_lam_tpu.torch_compat import param_key_map as j_param_key_map
 from neural_lam_tpu_torch import predict, torch_compat, train
+from neural_lam_tpu_torch.checkpoint import save_checkpoint
 from neural_lam_tpu_torch.config import load_config_and_datastore
 from neural_lam_tpu_torch.convert import params_from_jax
 from neural_lam_tpu_torch.datastore.mdp import MDPDatastore
@@ -107,8 +113,9 @@ def _setup(case, root, monkeypatch):
         cfg.write_text(yaml.safe_dump({"datastore": {
             "kind": "npyfilesmeps", "config_path": ds_cfg.name}}))
         return cfg, "graph_lam", "1level", "test", []
-    if case == "hilam":
-        return _dummy(root, 30), "hi_lam", "hierarchical", "test", []
+    if case in ("hilam", "hilam_parallel"):
+        model = {"hilam": "hi_lam", "hilam_parallel": "hi_lam_parallel"}
+        return _dummy(root, 30), model[case], "hierarchical", "test", []
     return _dummy(root, 10), "graph_lam", "g1level", "test", ["--output_std"]
 
 
@@ -118,7 +125,8 @@ def _last_json(text):
 
 @pytest.mark.filterwarnings("ignore:only using first ensemble member")
 @pytest.mark.filterwarnings("ignore:Could not load diff mean/std")
-@pytest.mark.parametrize("case", ["mdp", "meps", "hilam", "output_std"])
+@pytest.mark.parametrize("case", ["mdp", "meps", "hilam", "hilam_parallel",
+                                  "output_std"])
 def test_converted_jax_checkpoint_forecasts_as_jax(case, tmp_path,
                                                    monkeypatch, capsys):
     """JAX checkpoint -> convert_jax_checkpoint.py -> the port's predict
@@ -290,11 +298,82 @@ def test_reference_state_dict_loads_as_jax(model, ref_env, tmp_path):
     np.testing.assert_allclose(got, pred_ref[0], atol=1e-4, rtol=0)
 
 
-def test_split_mlps_wait_for_hilam_parallel():
-    with pytest.raises(NotImplementedError, match="item 4"):
+def _hilam_parallel(ref_env, hidden_dim=8):
+    """(JAX HiLAMParallel params, port HiLAMParallel, neural-lam config)
+    on ref_env's 2-level hierarchical graph, 2 processor layers."""
+    cfg, jds, bundles = ref_env
+    jconfig = JNeuralLAMConfig(datastore=JDatastoreSelection("dummydata", ""))
+    jmodel = J_MODELS["hi_lam_parallel"](
+        JModelArgs(hidden_dim=hidden_dim, processor_layers=2), jconfig, jds,
+        j_graph_from_bundle(bundles["hierarchical"]))
+    config, tds = load_config_and_datastore(cfg)
+    from neural_lam_tpu_torch.models.ar_model import ModelArgs
+
+    tmodel = MODELS["hi_lam_parallel"](
+        ModelArgs(hidden_dim=hidden_dim, processor_layers=2), config, tds,
+        graph_from_bundle(load_graph_bundle(
+            str(tds.root_path / "graph" / "hierarchical")), "cpu"),
+        device="cpu", generator=torch.Generator().manual_seed(5))
+    return jmodel.init_params(jax.random.PRNGKey(2)), tmodel, cfg
+
+
+def test_split_mlps_wait_for_hilam_parallel(ref_env):
+    """HiLAMParallel's SplitMLP keys (`processor.module_{p}.edge_mlp.mlps.
+    {c}...`, `.aggr_mlp.mlps.{l}...`), which waited for that model: the
+    port's export of a JAX tree's weights has the JAX package's
+    `torch_compat` keys and values, key for key, and import of the export
+    gives the port's state dict back bit for bit."""
+    params, tmodel, _ = _hilam_parallel(ref_env)
+    state = params_from_jax(jax.tree.map(np.asarray, params))
+    assert sorted(state) == sorted(tmodel.state_dict())
+    exported = torch_compat.export_state_dict(state)
+    want = j_export_state_dict(jax.tree.map(np.asarray, params))
+    assert sorted(exported) == sorted(want) == sorted(
+        k for k, _, _ in j_param_key_map(params))
+    assert "processor.module_1.edge_mlp.mlps.3.2.weight" in exported
+    assert "processor.module_0.aggr_mlp.mlps.1.0.bias" in exported
+    for k, v in want.items():
+        np.testing.assert_array_equal(exported[k], v, k)
+    back = torch_compat.import_state_dict(tmodel.state_dict(), exported)
+    assert sorted(back) == sorted(state)
+    for k in state:
+        torch.testing.assert_close(back[k], state[k], rtol=0, atol=0)
+    plain = {k.replace(".module_", "."): v for k, v in exported.items()}
+    torch.testing.assert_close(
+        torch_compat.import_state_dict(tmodel.state_dict(), plain), back,
+        rtol=0, atol=0)
+    with pytest.raises(KeyError, match="missing"):
         torch_compat.import_state_dict(
-            {"processor.0.edge_mlp.layers.0.w": torch.zeros(2, 2)},
-            {"processor.module_0.edge_mlp.mlps.0.0.weight": np.zeros((2, 2))})
+            tmodel.state_dict(), {k: v for k, v in exported.items()
+                                  if ".mlps.3." not in k})
+
+
+def test_reference_ckpt_of_hilam_parallel_forecasts(ref_env, tmp_path):
+    """A reference-style Lightning `.ckpt` of HiLAMParallel (the SplitMLP
+    keys, exported from a port checkpoint) forecasts through the predict
+    CLI within 1e-6 x state_std of that port checkpoint."""
+    _, tmodel, cfg = _hilam_parallel(ref_env)
+    sd = tmodel.state_dict()
+    save_checkpoint(tmp_path / "port", "best", sd, meta={"step": 1})
+    ckpt = tmp_path / "min_val_loss.ckpt"
+    torch.save({"state_dict": {k: torch.tensor(v) for k, v in
+                               torch_compat.export_state_dict(sd).items()},
+                "epoch": 1, "global_step": 3}, ckpt)
+    fc = {}
+    for name, load in (("port", tmp_path / "port" / "best"), ("ref", ckpt)):
+        predict.main(["--config_path", str(cfg), "--model",
+                      "hi_lam_parallel", "--graph", "hierarchical",
+                      "--hidden_dim", "8", "--processor_layers", "2",
+                      "--load", str(load), "--ar_steps", str(STEPS),
+                      "--device", "cpu", "--out",
+                      str(tmp_path / f"{name}.npz")])
+        fc[name] = np.load(tmp_path / f"{name}.npz")["state"]
+    _, tds = load_config_and_datastore(cfg)
+    std = np.asarray(tds.get_standardization_dataarray("state")["state_std"])
+    assert fc["port"].shape[-2:] == (tds.num_grid_points, std.size)
+    assert np.isfinite(fc["port"]).all()
+    gap = np.abs(fc["ref"] - fc["port"]) / std
+    assert gap.max() <= 1e-6, gap.max()
 
 
 @pytest.mark.parametrize("hier", [False, True])
@@ -327,7 +406,7 @@ def test_reference_graph_dirs_convert_as_jax(hier, ref_env, tmp_path):
 @pytest.mark.parametrize("flags, error, match", [
     (["--ensemble_members", "1"], NotImplementedError, "item 5"),
     (["--precision", "16"], SystemExit, "2"),
-    (["--model", "hi_lam_parallel"], ValueError, "item 4"),
+    (["--model", "graph_efm"], ValueError, "item 5"),
     (["--model", "nonsense"], ValueError, "not one of"),
     (["--device", "cuda"], RuntimeError, "CUDA is not available"),
 ])
