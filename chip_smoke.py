@@ -252,7 +252,7 @@ result line is printed), each printing its seconds:
    levels, chunks and each chunk's route printed first. a. A 19-step
    rollout at batch 4 and a predict step at batch 1, the counters at 0
    just before each: the launches a step equal to the table
-   `hier_table` computes from `flat_eligible` per edge set (K3 on every
+   `step_table` computes from `flat_eligible` per edge set (K3 on every
    flat chunk, P1 with its messages, counted apart, on every batched
    one); kernel path against plain path, one step within 1e-3 and the
    rollout within `HLP_ROLLOUT_LIMIT` (gaps at steps 1, 4 and 19); host
@@ -276,6 +276,40 @@ result line is printed), each printing its seconds:
    hi_lam_parallel` 2 steps at ar_steps 2 on a 268x238 MDP datastore,
    a finite loss and a saved `last`; `predict.main` forecasts 4 steps
    from it (`forecast_check`: launches, plain path within 1e-3).
+
+15. GraphEFM and HiEFM at `benchmarks.py`'s graph_efm_meps_ar4 (268x238,
+   multiscale) and prob_model_global_0p7deg (a 512x256 global grid,
+   icosahedral mesh at 5 refinements, 3 levels of 10,242 / 2,562 / 642
+   nodes), hidden 64, 4 layers, latent_dim 32, seeded weights. a. A
+   4-step prior-mean rollout at batch 4, the counters at 0 just before
+   it: the launches a step, and the virtual-row fold's row gathers a step
+   (the global g2m's polar receivers own 128 virtual rows), equal to the
+   table `step_table` computes from `flat_eligible` per round; one step
+   (1e-3) and the rollout (`EFM_ROLLOUT_LIMIT`) against the plain path;
+   host ms a step (4-step minus 1-step), mesh-node updates/s, busy ms and
+   idle share, peak memory above the live set (`hlp_step_stats`). b.
+   `entry.sample_ensemble`, 5 members over 2 steps at batch 1 (the
+   batched route) and 4 (the flat route), the same draws on both paths:
+   members within `EFM_ROLLOUT_LIMIT`, CRPS, spread, ensemble-mean RMSE and
+   SSR within `EFM_SCORE_LIMIT` of their largest magnitude, the rank
+   histogram within `EFM_RANK_LIMIT` of its counts. c. An ELBO AdamW step
+   at batch 4 (ar_steps 1) with the counters at 0: the forward's launches
+   with the posterior's rounds, a backward kernel for each flat one and
+   xtd_sum for the decoder, each B2 and each B3/B4; fp32 gradients kernels
+   vs plain within 1e-3 x max abs, the bf16 gradients' error the plain
+   path's size; fp32 and bf16 step host ms, busy ms and peak memory; one
+   `--loss crps_ens` AdamW step with 4 members, its launches equal to the
+   prior's table at batch 4 x 4 members (the backward kernels at 16 batch
+   columns, W = 1024), and its gradients kernels vs plain within 1e-3 x
+   max abs per parameter, from the loss and from the plain path's
+   cotangent on the members through both paths (the kernels alone:
+   the loss's sort turns where members nearly tie). d. On a 64x32
+   dummydata_global datastore whose graph the train CLI builds:
+   `train.main --model hi_efm` 2 steps, `--eval test --ensemble_members
+   3` and `predict.main --ensemble_members 3` (a `member` dim), each
+   against the plain path with the same seed (losses within 1e-3
+   relative, the scores and the members within the limits above); the
+   launches printed.
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -2123,12 +2157,17 @@ def bf16_bwd_cases(torch, gm, rand):
     tail = mlp_tail(gm.g2m_gnn.edge_mlp)
     a2 = (rand(es.num_send, W), es.senders, rand(M, H), rand(nv, W),
           mask_p) + tail + (rand(nv, W),)
+    # B2's, B3/B4's and B5/B6's library call: their weight-gradient
+    # products, one torch.mm(X.float().t(), D) a pair of their bf16 chain
+    # pass, as the fp32 column's (phase 4's xtd_sum cases)
+    b2_pairs = edge_flat.edge_tail_bwd_chain(*a2)[4]
     cases.append((
         "edge_tail_sum_flat_bwd", edge_flat, a2, f"{pef}:526",
         csrc + "edge_flat_bwd.cu",
         nbytes(*a2) + M * (W + H) * 2 + nv * W * 2 + nbytes(*tail)
         + 2 * M * W * 4,
-        3 * 2.0 * float(mask_p.sum()) * BATCH * H * H, None, None))
+        3 * 2.0 * float(mask_p.sum()) * BATCH * H * H, None,
+        lambda: [torch.mm(x.float().t(), d) for x, d in b2_pairs]))
     # B3/B4 at m2m[0]
     es = g.m2m[0]
     nv, K = es.num_virt, es.dense_k
@@ -2138,12 +2177,13 @@ def bf16_bwd_cases(torch, gm, rand):
     par3 = mlp_first(lay) + mlp_tail(lay)
     a3 = (rand(M, W), rand(es.num_send, W), es.senders, rand(nv, W),
           mask_p) + par3 + (rand(M, W), rand(nv, W))
+    b3_pairs = edge_flat.edge_layer_bwd_chain(*a3)[4]
     cases.append((
         "edge_layer_flat_bwd", edge_flat, a3, f"{pef}:846",
         csrc + "edge_flat_bwd.cu",
         nbytes(*a3) + 2 * M * W * 2 + nv * W * 2 + nbytes(*par3),
-        3 * 2.0 * M * BATCH * 2 * H * H, None, None))
-    b3_pairs = edge_flat.edge_layer_bwd_chain(*a3)[4]
+        3 * 2.0 * M * BATCH * 2 * H * H, None,
+        lambda: [torch.mm(x.float().t(), d) for x, d in b3_pairs]))
     # B5/B6 at m2g
     es = g.m2g
     nv, K = es.num_virt, es.dense_k
@@ -2153,14 +2193,15 @@ def bf16_bwd_cases(torch, gm, rand):
     d_out = pp["o_w1"].shape[1]
     a5 = (rand(es.num_send, W), es.senders, rand(nv * K, H),
           rand(n_grid, W), mask_p, pp, rand(nv, BATCH * d_out))
+    dec_pairs = grid_update.grid_update_bwd_chain(*a5)[4]
     cases.append((
         "grid_update_flat_bwd", grid_update, a5, f"{pgu}:752",
         csrc + "grid_update_bwd.cu",
         nbytes(*a5[:5], a5[6], *pp.values()) + nv * K * (W + H) * 2
         + n_grid * W * 2 + nbytes(*pp.values()),
         3 * (2.0 * nv * BATCH * (7 * H * H + H * d_out)
-             + 2.0 * float(mask_p.sum()) * BATCH * H * H), None, None))
-    dec_pairs = grid_update.grid_update_bwd_chain(*a5)[4]
+             + 2.0 * float(mask_p.sum()) * BATCH * H * H), None,
+        lambda: [torch.mm(x.float().t(), d) for x, d in dec_pairs]))
     for pairs, label in ((b3_pairs, f"{pef}:846 (B3/B4's two pairs at "
                           "m2m[0], dW_e's X bf16)"),
                          (dec_pairs, f"{pgu}:752 (the decoder's nine "
@@ -2799,55 +2840,90 @@ def chunk_names(net):
             + [f"down[{i}]" for i in range(len(g.down))])
 
 
-def hier_table(net, B):
-    """(launches a predict step by kernel, P1's launches with messages) of
-    hierarchical model `net` at batch B, from `flat_eligible` per edge
-    set: the grid side (K1, K2, K4 on the flat-grid route, else K2 or P2
-    for g2m and m2g), the mesh-init rounds over the up sets (K3 or P3),
-    the processor (HiLAM: its sweeps' rounds, K3 or P3; HiLAMParallel:
-    each chunk, K3 or P1 with messages) and the read-out over the down
-    sets (K3 or P1)."""
+def step_rounds(net, B, posterior=False):
+    """The rounds of a predict step of `net` (a hierarchical or a latent
+    model) at batch B, as (edge set, kind, name): kind "static"
+    (update_edges=False on a static edge term: K2 flat, P2 batched),
+    "layer" (the edge state updated: K3 or P3), "tail" (an edge state
+    read, not updated: K3 or P1), "chunk" (a HiLAMParallel chunk: K3 or
+    P1 with messages), and on the flat-grid route "embed" (K1) and
+    "decoder" (K4). The grid side, a latent model's prior on m2m[0] (with
+    `posterior`, the posterior's g2m and m2m[0] rounds of a training step
+    too), then a hierarchical model's mesh init over the up sets, its
+    processor (HiLAM: the sweeps; HiLAMParallel: each chunk) and its
+    read-out over the down sets, or GraphEFM's m2m[0] layers; m2g last."""
+    from neural_lam_tpu_torch.models.base_hi_graph_model import (
+        BaseHiGraphModel,
+    )
     from neural_lam_tpu_torch.models.hi_lam_parallel import HiLAMParallel
-    from neural_lam_tpu_torch.ops.message_passing import flat_eligible
 
     g = net.graph
-    t = dict.fromkeys(FWD + BATCHED, 0)
-
-    def count(es, batched):
-        t["edge_layer_flat" if flat_eligible(es, B, H) else batched] += 1
-
+    L = net.args.processor_layers
     if net._flat_grid_eligible(B):
-        t.update(embed_grid_flat=1, edge_tail_sum_flat=1, grid_update_flat=1)
+        head = [(None, "embed", "grid"), (g.g2m, "static", "g2m")]
+        tail = [(g.m2g, "decoder", "m2g")]
     else:
-        for es in (g.g2m, g.m2g):
-            t["edge_tail_sum_flat" if flat_eligible(es, B, H)
-              else "edge_tail_sum"] += 1
-    for es in g.up:
-        count(es, "edge_layer")
-    L, n = BENCH["processor_layers"], len(g.m2m)
+        head, tail = [(g.g2m, "static", "g2m")], [(g.m2g, "static", "m2g")]
+    rounds = head
+    if getattr(net, "is_latent", False):
+        rounds += [(g.m2m[0], "static", "prior m2m[0]")]
+        if posterior:
+            rounds += [(g.g2m, "static", "posterior g2m"),
+                       (g.m2m[0], "static", "posterior m2m[0]")]
+    if not isinstance(net, BaseHiGraphModel):
+        return rounds + [(g.m2m[0], "layer", "m2m[0]")] * L + tail
+    n = len(g.m2m)
+    rounds += [(es, "layer", f"up[{i}]") for i, es in enumerate(g.up)]
     if isinstance(net, HiLAMParallel):
-        chunks = net._chunk_edge_sets()
-        msg = L * sum(not flat_eligible(es, B, H) for es in chunks)
-        for es in chunks * L:
-            count(es, "edge_tail")
+        rounds += [(es, "chunk", nm) for es, nm in zip(
+            net._chunk_edge_sets(), chunk_names(net))] * L
     else:
-        msg = 0
-        down = [g.m2m[-1]] + [s for lv in range(n - 2, -1, -1)
-                              for s in (g.down[lv], g.m2m[lv])]
-        up = [g.m2m[0]] + [s for lv in range(1, n)
-                           for s in (g.up[lv - 1], g.m2m[lv])]
-        for es in (down + up) * L:
-            count(es, "edge_layer")
-    for es in g.down:
-        count(es, "edge_tail")
-    return t, msg
+        down = [(g.m2m[-1], f"m2m[{n - 1}]")] + [
+            s for lv in range(n - 2, -1, -1)
+            for s in ((g.down[lv], f"down[{lv}]"), (g.m2m[lv], f"m2m[{lv}]"))]
+        up = [(g.m2m[0], "m2m[0]")] + [
+            s for lv in range(1, n)
+            for s in ((g.up[lv - 1], f"up[{lv - 1}]"),
+                      (g.m2m[lv], f"m2m[{lv}]"))]
+        rounds += [(es, "layer", nm) for es, nm in (down + up) * L]
+    rounds += [(g.down[lv], "tail", f"read-out down[{lv}]")
+               for lv in range(n - 2, -1, -1)]
+    return rounds + tail
 
 
-def hlp_step_stats(torch, entry, net, B, what):
-    """Host ms a predict step (19-step minus 1-step rollout, median of 3),
-    mesh-node updates/s, peak memory above the live set over one step,
-    and the device's busy ms and idle share (a profile of 3 steps)."""
-    init, forcing, true = entry.make_inputs(net, B, HLP_STEPS, seed=0)
+def step_table(net, B, posterior=False):
+    """(launches a predict step by kernel, P1's launches with messages,
+    the virtual-row fold's row gathers) of `step_rounds`, each round's
+    route from `flat_eligible`: each round on a set that is not
+    virt_identity folds its receivers' R virtual rows by R gathers (the
+    global g2m's polar receivers: R = 128)."""
+    from neural_lam_tpu_torch.ops.message_passing import flat_eligible
+
+    names = {"static": ("edge_tail_sum_flat", "edge_tail_sum"),
+             "layer": ("edge_layer_flat", "edge_layer"),
+             "tail": ("edge_layer_flat", "edge_tail"),
+             "chunk": ("edge_layer_flat", "edge_tail")}
+    t = dict.fromkeys(FWD + BATCHED, 0)
+    msg = gathers = 0
+    for es, kind, _ in step_rounds(net, B, posterior):
+        if kind in ("embed", "decoder"):
+            t["embed_grid_flat" if kind == "embed"
+              else "grid_update_flat"] += 1
+            continue
+        flat = flat_eligible(es, B, H)
+        t[names[kind][0 if flat else 1]] += 1
+        msg += kind == "chunk" and not flat
+        if es.rec_slots is not None:
+            gathers += es.rec_slots.shape[1]
+    return t, msg, gathers
+
+
+def hlp_step_stats(torch, entry, net, B, what, steps=HLP_STEPS):
+    """Host ms a predict step (`steps`-step minus 1-step rollout, median
+    of 3), mesh-node updates/s, peak memory above the live set over one
+    step, and the device's busy ms and idle share (a profile of 3
+    steps)."""
+    init, forcing, true = entry.make_inputs(net, B, steps, seed=0)
 
     def rollout_s(steps):
         times = []
@@ -2860,7 +2936,7 @@ def hlp_step_stats(torch, entry, net, B, what):
         return sorted(times)[1]
 
     entry.forecast(net, init, forcing[:, :2], true[:, :2])  # warm-up
-    ms = (rollout_s(HLP_STEPS) - rollout_s(1)) / (HLP_STEPS - 1) * 1e3
+    ms = (rollout_s(steps) - rollout_s(1)) / (steps - 1) * 1e3
     updates = (net.num_mesh_nodes * BENCH["processor_layers"] * B * 1e3
                / ms)
     with torch.no_grad():
@@ -2875,7 +2951,7 @@ def hlp_step_stats(torch, entry, net, B, what):
             init[:, 1], init[:, 0], forcing[:, 0], ctx),
             f"{what} predict step", top=8)
     busy = prof[0] if prof else None
-    print(f"{what}: predict step {ms:.3f} ms (host clock, {HLP_STEPS}-step "
+    print(f"{what}: predict step {ms:.3f} ms (host clock, {steps}-step "
           f"minus 1-step rollout, median of 3); {updates:.4e} mesh-node "
           f"updates/s ({net.num_mesh_nodes} mesh nodes, all levels, x "
           f"{BENCH['processor_layers']} layers x batch {B}); device busy "
@@ -2936,7 +3012,7 @@ def hilam_parallel_phase(torch, np, counts, counts_bf16, reset_counts,
     # a. the forecast: launches, kernel path against plain path, step time
     def forecast_counted(m, B, steps, what):
         """A `steps`-step rollout through entry.forecast with every
-        counter at 0 just before it: the launches must be `hier_table`'s
+        counter at 0 just before it: the launches must be `step_table`'s
         a step, P1's with-messages launches among them; returns (the
         inputs, the rollout)."""
         init, forcing, true = entry.make_inputs(m, B, steps, seed=0)
@@ -2945,7 +3021,7 @@ def hilam_parallel_phase(torch, np, counts, counts_bf16, reset_counts,
         pred = entry.forecast(m, init, forcing, true)
         torch.cuda.synchronize()
         got, msg = counts(), edge.edge_tail.launches_with_messages
-        table, want_msg = hier_table(m, B)
+        table, want_msg, _ = step_table(m, B)
         want = dict(zero_all, **{k: n * steps for k, n in table.items()})
         per_step = {k: n / steps for k, n in got.items() if n}
         print(f"{what}: {steps}-step rollout, output {tuple(pred.shape)}; "
@@ -3060,7 +3136,7 @@ def hilam_parallel_phase(torch, np, counts, counts_bf16, reset_counts,
     print(f"phase 14b: {time.time() - t_phase:.1f} s")
 
     # c. training, fp32 and bf16; the bf16 forecast
-    table = hier_table(net, BATCH)[0]
+    table = step_table(net, BATCH)[0]
     k3 = table["edge_layer_flat"]
     train_want = dict(table, **{k + "_bwd": table[k] for k in FWD},
                       xtd_sum=2 + k3, xtd_reduce=2 + k3)
@@ -3263,7 +3339,7 @@ def hilam_parallel_phase(torch, np, counts, counts_bf16, reset_counts,
                  "--ar_steps", str(STEPS), "--out", str(out)]
         # the launch table of the CLI's model (its graph is the CLI's own)
         cli_net = predict.prepare(predict.parse_args(pargv))[0]
-        want, msg = hier_table(cli_net, 1)
+        want, msg, _ = step_table(cli_net, 1)
         print(f"the predict CLI's HiLAMParallel: levels "
               f"{cli_net.graph.level_sizes}, {len(cli_net._chunk_edge_sets())}"
               f" chunks; at batch 1 {msg} P1 launches with messages a step")
@@ -3272,6 +3348,477 @@ def hilam_parallel_phase(torch, np, counts, counts_bf16, reset_counts,
                        counts, reset_counts, plain_kernels, zero_all,
                        "hi_lam_parallel")
     print(f"phase 14d: {time.time() - t_phase:.1f} s")
+
+
+# phase 15: the latent models GraphEFM and HiEFM at benchmarks.py's
+# graph_efm_meps_ar4 and prob_model_global_0p7deg, their ensembles, their
+# training and the CLIs on a global datastore
+EFM_STEPS = 4  # both configurations' rollout length (benchmarks.py)
+EFM_MEMBERS = 5  # 15b's members: B x 5 rows picks the routes
+EFM_CRPS_MEMBERS = 4  # 15c's --loss crps_ens step
+EFM_CLI_MEMBERS = 3  # 15d
+# entry.build_model keywords of each configuration (benchmarks.py's
+# run_config and run_global_config: 268x238 MEPS-shaped grid, multiscale;
+# 512x256 global grid, icosahedral mesh at 5 refinements, 3 levels)
+EFM_CONFIGS = {
+    "graph_efm_meps_ar4": dict(BENCH, model="graph_efm"),
+    "prob_model_global_0p7deg": dict(BENCH, nx=512, ny=256, model="hi_efm",
+                                     global_grid=True, refinements=5,
+                                     n_max_levels=3),
+}
+EFM_CLI_GRID = (64, 32)  # 15d's global datastore, lon x lat
+# kernel path against plain path (PERF.md, set before the first run on
+# the card): the 4-step rollouts and the members; the scores (relative to
+# their largest magnitude); the share of rank-histogram counts that move
+EFM_ROLLOUT_LIMIT = 1e-3
+EFM_SCORE_LIMIT = 1e-3
+EFM_RANK_LIMIT = 1e-3
+
+
+@contextlib.contextmanager
+def counted_folds():
+    """Counts the virtual-row fold's row gathers (`_rec_fold`'s
+    index_selects) while it is open, into the yielded one-item list."""
+    from neural_lam_tpu_torch.ops import message_passing
+
+    orig, n = message_passing._rec_fold, [0]
+
+    def counted(virt, rec_slots, rec_mask):
+        n[0] += rec_slots.shape[1]
+        return orig(virt, rec_slots, rec_mask)
+
+    message_passing._rec_fold = counted
+    try:
+        yield n
+    finally:
+        message_passing._rec_fold = orig
+
+
+def efm_scores(torch, net, ens, batch):
+    """ensemble.score_ensemble's averaged scores of the members `ens`."""
+    from neural_lam_tpu_torch import ensemble
+
+    with torch.no_grad():
+        return ensemble.score_ensemble(ens, batch[1], net.interior_mask_bool())
+
+
+def score_gaps(torch, np, k, p, what):
+    """Kernel-path scores `k` against plain-path scores `p`: each score's
+    max abs gap over its largest magnitude (limit EFM_SCORE_LIMIT), and
+    the share of rank-histogram counts that moved (EFM_RANK_LIMIT)."""
+    rel = {}
+    for name in ("crps", "spread", "ens_rmse", "ssr"):
+        a, b = (np.asarray(x.cpu() if torch.is_tensor(x) else x, np.float64)
+                for x in (k[name], p[name]))
+        rel[name] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    rk, rp = k["rank_hist"].double(), p["rank_hist"].double()
+    moved = float((rk - rp).abs().sum() / (2 * rp.sum()))
+    print(f"{what}: kernels vs plain, scores' max gap / max "
+          + ", ".join(f"{n} {v:.2e}" for n, v in rel.items())
+          + f" (limit {EFM_SCORE_LIMIT:g}); rank histogram {moved:.2e} of "
+          f"the counts moved (limit {EFM_RANK_LIMIT:g}); crps "
+          f"{np.round(np.asarray(p['crps'].cpu()), 5).tolist()}, ssr "
+          f"{np.round(np.asarray(p['ssr']), 5).tolist()}")
+    if max(rel.values()) > EFM_SCORE_LIMIT or moved > EFM_RANK_LIMIT:
+        fail(f"{what}: the kernel path's ensemble scores left the plain "
+             "path's")
+
+
+def efm_forecast(torch, entry, net, B, what, counts, reset_counts,
+                 plain_kernels, zero_all):
+    """15a for one model at batch B: a counted EFM_STEPS-step prior-mean
+    rollout (launches and fold gathers against `step_table`), one step
+    and the rollout against the plain path, then `hlp_step_stats`."""
+    init, forcing, true = entry.make_inputs(net, B, EFM_STEPS, seed=0)
+    entry.forecast(net, init, forcing[:, :1], true[:, :1])  # warm-up
+    with counted_folds() as gathers:
+        reset_counts()
+        pred = entry.forecast(net, init, forcing, true)
+        torch.cuda.synchronize()
+    got = counts()
+    table, _, want_g = step_table(net, B)
+    want = dict(zero_all, **{k: n * EFM_STEPS for k, n in table.items()})
+    print(f"{what}: {EFM_STEPS}-step prior-mean rollout, output "
+          f"{tuple(pred.shape)}; launches a step "
+          f"{ {k: n / EFM_STEPS for k, n in got.items() if n} }, fold "
+          f"gathers a step {gathers[0] / EFM_STEPS:g} (table "
+          f"{ {k: n for k, n in table.items() if n} }, {want_g})")
+    if got != want or gathers[0] != want_g * EFM_STEPS:
+        fail(f"{what}: launches {got}, fold gathers {gathers[0]}; want "
+             f"{want}, {want_g * EFM_STEPS}")
+    if tuple(pred.shape) != (B, EFM_STEPS, net.num_grid_nodes, 17) or not \
+            bool(torch.isfinite(pred).all()):
+        fail(f"{what}: rollout {tuple(pred.shape)}, not finite")
+    with torch.no_grad():
+        k = net.predict_step(init[:, 1], init[:, 0], forcing[:, 0])[0]
+        with plain_kernels():
+            p = net.predict_step(init[:, 1], init[:, 0], forcing[:, 0])[0]
+            pred_p = entry.forecast(net, init, forcing, true)
+    gaps = [float((pred[:, s] - pred_p[:, s]).abs().max())
+            for s in range(EFM_STEPS)]
+    print(f"{what}: kernels vs plain versions on the card: predict step "
+          f"{float((k - p).abs().max()):.3e} (limit 1e-3), rollout steps "
+          f"1-{EFM_STEPS} {', '.join(f'{x:.3e}' for x in gaps)} (limit "
+          f"{EFM_ROLLOUT_LIMIT:g}); largest |output| "
+          f"{float(pred.abs().max()):.3f}")
+    if not (float((k - p).abs().max()) <= 1e-3
+            and max(gaps) <= EFM_ROLLOUT_LIMIT):
+        fail(f"{what}: kernel path and plain path disagree")
+    del pred, pred_p, k, p
+    return hlp_step_stats(torch, entry, net, B, what, steps=EFM_STEPS)
+
+
+def efm_members(torch, np, entry, net, what, counts, reset_counts,
+                plain_kernels):
+    """15b for one model: `entry.sample_ensemble`, EFM_MEMBERS members
+    over 2 steps, at batch 1 (B x h = 320: the batched route) and batch
+    4 (the flat route), the same draws on the kernel and the plain path
+    (generators of one seed); members and scores against the plain
+    path's."""
+    from neural_lam_tpu_torch.ops.message_passing import flat_eligible
+
+    m = EFM_MEMBERS
+    for B in (1, BATCH):
+        init, forcing, true = entry.make_inputs(net, B, 2, seed=1)
+
+        def members():
+            return entry.sample_ensemble(net, init, forcing, true, m,
+                                         seed=15)
+
+        flat = flat_eligible(net.graph.m2m[0], B * m, H)
+        if flat != (B == BATCH):
+            fail(f"{what}: m2m[0] at {B} x {m} rows: flat {flat}")
+        t0 = time.perf_counter()
+        reset_counts()
+        ens = members()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        got = {k: n for k, n in counts().items() if n}
+        with plain_kernels():
+            ens_p = members()
+        gap = float((ens - ens_p).abs().max())
+        spread = float(ens.std(dim=1).mean())
+        print(f"{what}: sample_rollout, batch {B} x {m} members ("
+              f"{'flat' if flat else 'batched'} route), 2 steps in "
+              f"{sec:.2f} s, launches {got}; members kernels vs plain "
+              f"{gap:.3e} (limit {EFM_ROLLOUT_LIMIT:g}); mean member "
+              f"spread {spread:.4f}")
+        if tuple(ens.shape) != (B, m, 2, net.num_grid_nodes, 17) or not (
+                gap <= EFM_ROLLOUT_LIMIT and spread > 0):
+            fail(f"{what}: members {tuple(ens.shape)} disagree with the "
+                 "plain path's, or do not spread")
+        batch = (init, true, forcing, None)
+        score_gaps(torch, np, efm_scores(torch, net, ens, batch),
+                   efm_scores(torch, net, ens_p, batch),
+                   f"{what} batch {B}")
+        del ens, ens_p
+
+
+def efm_training(torch, entry, net, ds, what, counts, counts_bf16,
+                 reset_counts, plain_kernels, zero_all):
+    """15c for one model: an ELBO AdamW step at batch 4 (ar_steps 1) with
+    the counters at 0 (the forward's launches with the posterior's rounds,
+    a backward kernel for each flat one, xtd_sum for the decoder, each B2
+    and each B3/B4); fp32 gradients kernels vs plain (the same draws,
+    1e-3 x max abs per parameter), the bf16 gradients' error by size
+    (`error_size`); fp32 and bf16 step host ms, busy ms and peak memory;
+    then one --loss crps_ens AdamW step with EFM_CRPS_MEMBERS members
+    (its launches against the prior's table at B x m rows) and its
+    gradients kernels vs plain (the same draws, 1e-3 x max abs), also
+    under one cotangent on the members."""
+    import copy
+
+    from neural_lam_tpu_torch import ensemble
+
+    table = step_table(net, BATCH, posterior=True)[0]
+    n23 = table["edge_tail_sum_flat"] + table["edge_layer_flat"]
+    want = dict(zero_all, **table,
+                **{k + "_bwd": table[k] for k in FWD},
+                xtd_sum=table["grid_update_flat"] + n23,
+                xtd_reduce=table["grid_update_flat"] + n23)
+    trainer, dm = entry.make_trainer(net, ds, BATCH, 1, seed=2)
+    batch = next(trainer.train_batches(dm, 0))
+    trainer.train_step(batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    loss = float(trainer.train_step(batch))
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"{what} ELBO training step: loss {loss:.6f}; launches "
+          f"{ {k: n for k, n in got.items() if n} }")
+    if not math.isfinite(loss) or got != want:
+        fail(f"{what} ELBO training: loss {loss}, launches {got}, want "
+             f"{want}")
+
+    def grads(m):
+        m.zero_grad(set_to_none=True)
+        m.training_loss(batch, generator=ensemble.step_generator(
+            0, 0, "cuda")).backward()
+        return {k: (p.grad.detach().clone() if p.grad is not None
+                    else torch.zeros_like(p))
+                for k, p in m.named_parameters()}
+
+    g_k = grads(net)
+    with plain_kernels():
+        g_p = grads(net)
+    worst = max((float((g_k[k] - g_p[k]).abs().max())
+                 / max(float(g_p[k].abs().max()), 1e-30), k) for k in g_p)
+    print(f"{what} ELBO gradients, kernels vs plain versions on the card: "
+          f"worst max abs gap / max abs {worst[0]:.3e} ({worst[1]}; limit "
+          f"1e-3), {len(g_p)} parameters")
+    if not worst[0] <= 1e-3:
+        fail(f"{what}: kernel-path and plain-path gradients disagree")
+    net16 = copy.copy(net)  # the same weights, the bf16 path
+    net16.compute_dtype = torch.bfloat16
+    g16 = grads(net16)
+    with plain_kernels():
+        p16 = grads(net16)
+    scale = {k: float(v.abs().max()) or 1.0 for k, v in g_k.items()}
+
+    def vec(gr):
+        return torch.cat([(gr[k] / scale[k]).flatten() for k in g_k])
+
+    error_size(torch, f"{what} bf16 ELBO gradients (each parameter's over "
+               f"its fp32 max abs, {len(g_k)} parameters)", vec(g16),
+               vec(p16), vec(g_k))
+    del g_k, g_p, g16, p16
+    net.zero_grad(set_to_none=True)
+    trainer16, _ = entry.make_trainer(net16, ds, BATCH, 1, seed=2)
+    for tr, tag in ((trainer, "fp32"), (trainer16, "bf16")):
+        ms, above, busy = step_stats(torch, tr, batch,
+                                     f"{what} {tag} ELBO train step")
+        busy = "not measured" if busy is None else f"{busy:.3f} ms"
+        print(f"{what} {tag} ELBO train step (fwd+bwd+AdamW, ar_steps 1, "
+              f"batch {BATCH}): {ms:.3f} ms (host clock, median of 5), "
+              f"device busy {busy}, peak {above / 2**30:.3f} GiB above the "
+              "live set")
+        net.zero_grad(set_to_none=True)
+    del trainer16, net16
+    net.crps_train, net.crps_members = True, EFM_CRPS_MEMBERS
+    # the members fold into the batch: the prior's rounds at B x m rows
+    table = step_table(net, BATCH * EFM_CRPS_MEMBERS)[0]
+    n23 = table["edge_tail_sum_flat"] + table["edge_layer_flat"]
+    want = dict(zero_all, **table,
+                **{k + "_bwd": table[k] for k in FWD},
+                xtd_sum=table["grid_update_flat"] + n23,
+                xtd_reduce=table["grid_update_flat"] + n23)
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"{what} --loss crps_ens AdamW step ({EFM_CRPS_MEMBERS} "
+              f"members, batch {BATCH}): loss {loss:.6f} in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches "
+              f"{ {k: n for k, n in got.items() if n} }")
+        if not math.isfinite(loss) or got != want:
+            fail(f"{what} crps_ens step: loss {loss}, launches {got}, want "
+                 f"{want}")
+        # the backward kernels at B x m = 16 batch columns (W = 1024)
+        g_k = grads(net)
+        with plain_kernels():
+            g_p = grads(net)
+        worst = max((float((g_k[k] - g_p[k]).abs().max())
+                     / max(float(g_p[k].abs().max()), 1e-30), k)
+                    for k in g_p)
+        print(f"{what} --loss crps_ens gradients ({EFM_CRPS_MEMBERS} "
+              f"members, batch {BATCH}), kernels vs plain versions on the "
+              f"card: worst max abs gap / max abs {worst[0]:.3e} "
+              f"({worst[1]}; limit 1e-3), {len(g_p)} parameters")
+        if not worst[0] <= 1e-3:
+            fail(f"{what}: kernel-path and plain-path crps_ens gradients "
+                 "disagree")
+        del g_k, g_p
+
+        # the loss's sort and |.| turn where two members (or a member and
+        # the target) are nearly equal: its cotangent on the members may
+        # differ between the paths at such points. The same cotangent
+        # through both paths holds the kernels alone at W = 1024.
+        def member_grads(m, cot=None):
+            m.zero_grad(set_to_none=True)
+            ens = ensemble.sample_rollout(
+                m, batch[0], batch[2], batch[1],
+                ensemble.step_generator(0, 0, "cuda"), EFM_CRPS_MEMBERS)
+            own = torch.autograd.grad(
+                torch.mean(ensemble.crps_ensemble(
+                    ens, batch[1], mask=m.interior_mask_bool())),
+                ens, retain_graph=True)[0]
+            ens.backward(own if cot is None else cot)
+            return own, {k: (p.grad.detach().clone() if p.grad is not None
+                             else torch.zeros_like(p))
+                         for k, p in m.named_parameters()}
+
+        with plain_kernels():
+            cot_p, g_p = member_grads(net)
+        cot_k, g_k = member_grads(net, cot_p)
+        turned = float((cot_k != cot_p).float().mean())
+        worst = max((float((g_k[k] - g_p[k]).abs().max())
+                     / max(float(g_p[k].abs().max()), 1e-30), k)
+                    for k in g_p)
+        print(f"{what} --loss crps_ens, the plain path's cotangent on the "
+              f"members through both paths: worst max abs gap / max abs "
+              f"{worst[0]:.3e} ({worst[1]}; limit 1e-3); the two paths' own "
+              f"cotangents differ at {turned:.3e} of the "
+              f"{cot_p.numel()} member entries")
+        if not worst[0] <= 1e-3:
+            fail(f"{what}: kernel-path and plain-path crps_ens gradients "
+                 "disagree under the same cotangent")
+        del g_k, g_p, cot_k, cot_p
+    finally:
+        net.crps_train, net.crps_members = False, 4
+    net.zero_grad(set_to_none=True)
+    del trainer, batch, dm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def efm_cli_phase(torch, np, root, counts, reset_counts, plain_kernels):
+    """15d: the CLIs on a small global datastore whose graph the train CLI
+    builds (hierarchical: 2 icosahedral levels), each run again on the
+    plain path with the same seed: `train.main --model hi_efm` 2 steps,
+    `--eval test --ensemble_members` and `predict.main
+    --ensemble_members` (a `member` dim in the output)."""
+    from neural_lam_tpu_torch import predict, train
+    from neural_lam_tpu_torch.config import load_config_and_datastore
+    from neural_lam_tpu_torch.datastore.zarr_reader import ZarrGroup
+
+    n_lon, n_lat = EFM_CLI_GRID
+    (root / "g.yaml").write_text(json.dumps(dict(
+        n_lon=n_lon, n_lat=n_lat, n_timesteps=40, root="dsroot")))
+    cfg = root / "config.yaml"
+    cfg.write_text(json.dumps({"datastore": {
+        "kind": "dummydata_global", "config_path": "g.yaml"}}))
+    common = ["--config_path", str(cfg), "--model", "hi_efm", "--graph",
+              "hierarchical", *WIDTH]
+    runs = root / "models"
+
+    def run(fn, argv, plain):
+        reset_counts()
+        if plain:
+            with plain_kernels():
+                out = quiet(fn, argv)
+        else:
+            out = quiet(fn, argv)
+        torch.cuda.synchronize()
+        return out, {k: n for k, n in counts().items() if n}
+
+    t0 = time.time()
+    losses = {}
+    for plain in (False, True):
+        name = "efm_plain" if plain else "efm"
+        _, got = run(train.main, common + [
+            "--batch_size", str(BATCH), "--ar_steps_train", "1",
+            "--ar_steps_eval", "2", "--val_steps_to_log", "1", "2",
+            "--max_steps", "2", "--seed", "0", "--save_dir", str(runs),
+            "--run_name", name], plain)
+        log = [json.loads(line) for line in
+               (runs / name / "metrics.jsonl").read_text().splitlines()]
+        losses[plain] = [r[k] for r in log for k in ("train_loss",
+                                                     "val_mean_loss")
+                         if k in r]
+        if not plain:
+            print(f"train.main --model hi_efm ({n_lon}x{n_lat} global, graph"
+                  f" built by the CLI): 2 ELBO steps and validation in "
+                  f"{time.time() - t0:.1f} s; launches {got}")
+            if not (runs / name / "last").exists() or not all(
+                    got.get(k) for k in FWD + ("edge_tail_sum_flat_bwd",)):
+                fail("train.main --model hi_efm: no checkpoint, or a kernel "
+                     "of the path not launched")
+    a, b = np.asarray(losses[False]), np.asarray(losses[True])
+    rel = float(np.abs(a - b).max() / np.abs(b).max())
+    print(f"train.main --model hi_efm: losses {a.tolist()}, plain path "
+          f"{b.tolist()}: max gap {rel:.2e} relative (limit 1e-3)")
+    if a.shape != b.shape or not np.isfinite(a).all() or rel > 1e-3:
+        fail("train.main --model hi_efm: the kernel path's losses left the "
+             "plain path's")
+    last = str(runs / "efm" / "last")
+    res = {}
+    for plain in (False, True):
+        out, got = run(train.main, common + [
+            "--batch_size", str(BATCH), "--ar_steps_eval", "2",
+            "--val_steps_to_log", "1", "2", "--eval", "test",
+            "--ensemble_members", str(EFM_CLI_MEMBERS), "--n_example_pred",
+            "0", "--load", last, "--save_dir", str(runs), "--run_name",
+            "eval_plain" if plain else "eval"], plain)
+        res[plain] = out["ensemble"]
+        if not plain:
+            print(f"train.main --eval test --ensemble_members "
+                  f"{EFM_CLI_MEMBERS}: launches {got}; scores {out['ensemble']}")
+    rank = {p: np.load(runs / ("eval_plain" if p else "eval")
+                       / "ens_rank_hist.npy") for p in (False, True)}
+    rel = {k: float(np.abs(np.asarray(res[False][k]) - res[True][k]).max()
+                    / max(np.abs(np.asarray(res[True][k])).max(), 1e-30))
+           for k in ("crps", "spread", "ens_rmse", "ssr")}
+    moved = float(np.abs(rank[False] - rank[True]).sum() / 2
+                  / rank[True].sum())
+    print(f"--eval test --ensemble_members {EFM_CLI_MEMBERS}, kernels vs "
+          f"plain: {rel} (limit {EFM_SCORE_LIMIT:g}); ens_rank_hist.npy "
+          f"{rank[False].shape}, {moved:.2e} of the frequency moved (limit "
+          f"{EFM_RANK_LIMIT:g})")
+    if max(rel.values()) > EFM_SCORE_LIMIT or moved > EFM_RANK_LIMIT:
+        fail("--eval test --ensemble_members: the kernel path's scores left "
+             "the plain path's")
+    outs = {}
+    for plain in (False, True):
+        out = root / ("efm_plain.zarr" if plain else "efm.zarr")
+        summary, got = run(predict.main, common + [
+            "--load", last, "--ar_steps", "2", "--ensemble_members",
+            str(EFM_CLI_MEMBERS), "--seed", "0", "--out", str(out)], plain)
+        outs[plain] = ZarrGroup(out)["state"]
+        if not plain:
+            print(f"predict.main --ensemble_members {EFM_CLI_MEMBERS}: "
+                  f"dims {summary['dims']}, shape {summary['shape']}, "
+                  f"launches a step {({k: n / 2 for k, n in got.items()})}")
+    std = np.asarray(load_config_and_datastore(cfg)[1]
+                     .get_standardization_dataarray("state")["state_std"])
+    a, b = outs[False].read_full(), outs[True].read_full()
+    gap = float(np.abs((a - b) / std).max())
+    print(f"predict.main --ensemble_members: members {a.shape}, dims "
+          f"{outs[False].dims}, standardized within {gap:.3e} of the plain "
+          "path (limit 1e-3)")
+    if outs[False].dims[0] != "member" or a.shape[0] != EFM_CLI_MEMBERS \
+            or not np.isfinite(a).all() or gap > 1e-3:
+        fail("predict.main --ensemble_members: no member dim, or the "
+             "members left the plain path's")
+
+
+def latent_phase(torch, np, counts, counts_bf16, reset_counts,
+                 plain_kernels, zero_all):
+    """Phase 15: GraphEFM and HiEFM (module doc)."""
+    import tempfile
+    from pathlib import Path
+
+    from neural_lam_tpu_torch import entry
+
+    t_phase = time.time()
+    for name, kw in EFM_CONFIGS.items():
+        t0 = time.time()
+        net, ds = entry.build_model(**kw, device="cuda")
+        g = net.graph
+        print(f"{name}: {kw['model']} built in {time.time() - t0:.1f} s: "
+              f"{g.num_grid_nodes} grid points, levels {g.level_sizes} "
+              f"(N_mesh={net.num_mesh_nodes}), latent {net.latent_dim} on "
+              f"{net.latent_num_nodes} nodes; g2m K={g.g2m.dense_k}, "
+              f"{g.g2m.num_virt} rows, fold R="
+              f"{0 if g.g2m.rec_slots is None else g.g2m.rec_slots.shape[1]};"
+              f" m2g K={g.m2g.dense_k}, identity {g.m2g.virt_identity}")
+        efm_forecast(torch, entry, net, BATCH, f"{name} batch 4", counts,
+                     reset_counts, plain_kernels, zero_all)
+        print(f"phase 15a ({name}): {time.time() - t_phase:.1f} s")
+        efm_members(torch, np, entry, net, name, counts, reset_counts,
+                    plain_kernels)
+        print(f"phase 15b ({name}): {time.time() - t_phase:.1f} s")
+        efm_training(torch, entry, net, ds, name, counts, counts_bf16,
+                     reset_counts, plain_kernels, zero_all)
+        print(f"phase 15c ({name}): {time.time() - t_phase:.1f} s")
+        del net, ds, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="nlt_efm_") as tmp:
+        efm_cli_phase(torch, np, Path(tmp), counts, reset_counts,
+                      plain_kernels)
+    print(f"phase 15d: {time.time() - t_phase:.1f} s")
 
 
 def disk_mb(path):
@@ -4183,6 +4730,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_end("14 (HiLAMParallel)")
+
+    # 15. GraphEFM and HiEFM, ensembles, the global configuration
+    latent_phase(torch, np, counts, counts_bf16, reset_counts, plain_kernels,
+                 zero_all)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end("15 (GraphEFM, HiEFM and ensembles)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

@@ -111,7 +111,8 @@ class NeuralLAMConfig:
 
 def load_config_and_datastore(config_path):
     """Load the neural-lam config and construct the datastore it selects
-    (ref: config.py:139-171): mdp, npyfilesmeps or dummydata; the
+    (ref: config.py:139-171): mdp, npyfilesmeps, dummydata or
+    dummydata_global; the
     datastore's config path resolves against the config file's directory."""
     from .datastore import init_datastore
 

@@ -1,11 +1,14 @@
-"""Entry points: build a GraphLAM, HiLAM or HiLAMParallel, run a forecast
-rollout, and train it for a few steps.
+"""Entry points: build a GraphLAM, HiLAM, HiLAMParallel, GraphEFM or
+HiEFM, run a forecast rollout or an ensemble, and train it for a few
+steps.
 
 Counterpart of `_build_model` in the repository's `__graft_entry__.py`
-and of the rollout `bench.py` times: a DummyDatastore of the given grid
-and feature counts, the mesh graph built for it (multiscale for GraphLAM,
-hierarchical for HiLAM and HiLAMParallel), and the model with weights drawn from a seeded
-`torch.Generator`.
+and of the rollouts `bench.py` and `benchmarks.py` time: a DummyDatastore
+of the given grid and feature counts (or, with `global_grid=True`, a
+DummyGlobalDatastore of nx longitudes by ny latitudes), the mesh graph
+built for it (multiscale for GraphLAM and GraphEFM, hierarchical for the
+others; icosahedral on the global grid), and the model with weights drawn
+from a seeded `torch.Generator`.
 
     model, datastore = build_model(nx=268, ny=238,
                                    n_features={"state": 17, "forcing": 6,
@@ -17,6 +20,9 @@ hierarchical for HiLAM and HiLAMParallel), and the model with weights drawn from
     hilam, _ = build_model(model="hi_lam", nx=268, ny=238)
     parallel, _ = build_model(model="hi_lam_parallel", nx=268, ny=238,
                               n_max_levels=3)
+    efm, _ = build_model(model="hi_efm", nx=512, ny=256, global_grid=True,
+                         refinements=5, n_max_levels=3)
+    members = sample_ensemble(efm, *make_inputs(efm, 1, 4), n_members=5)
 
 Everything defaults to device="cuda" and raises when CUDA is absent;
 pass device="cpu" to run the plain PyTorch versions of the kernels.
@@ -33,8 +39,11 @@ import torch
 from .config import DatastoreSelection, NeuralLAMConfig, TrainingConfig
 from .dataset import WeatherDataModule
 from .datastore.dummy import DummyDatastore
+from .datastore.dummy_global import DummyGlobalDatastore
 from .device import resolve_device
+from .ensemble import sample_rollout
 from .graph.build import create_graph
+from .graph.global_mesh import create_global_graph
 from .graph.storage import graph_from_bundle
 from .models import MODELS, is_hierarchical
 from .models.ar_model import ModelArgs
@@ -43,26 +52,45 @@ from .train import Trainer, TrainFlags
 
 def build_model(nx=60, ny=60, hidden_dim=64, processor_layers=4,
                 n_features=None, n_timesteps=20, seed=0, device="cuda",
-                compute_dtype=None, model="graph_lam", n_max_levels=None):
-    """(model, DummyDatastore) on `device`, weights from `seed`: `model`
-    is "graph_lam" (multiscale mesh graph), "hi_lam" or "hi_lam_parallel"
-    (hierarchical mesh graph, which needs at least 27 grid points per
-    side). `n_max_levels` caps the mesh levels (None: as many as the grid
-    takes)."""
+                compute_dtype=None, model="graph_lam", n_max_levels=None,
+                global_grid=False, refinements=3):
+    """(model, datastore) on `device`, weights from `seed`: `model` is
+    "graph_lam" or "graph_efm" (multiscale mesh graph), "hi_lam",
+    "hi_lam_parallel" or "hi_efm" (hierarchical mesh graph, which needs
+    at least 27 grid points per side on a LAM grid). `n_max_levels` caps
+    the mesh levels (None: as many as the grid takes). `global_grid`:
+    an nx x ny (longitude x latitude) DummyGlobalDatastore and an
+    icosahedral mesh refined `refinements` times (`n_max_levels` levels
+    from the finest up)."""
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}; one of {sorted(MODELS)}")
     device = resolve_device(device)
-    datastore = DummyDatastore(
-        grid_shape=(nx, ny), n_timesteps=n_timesteps, n_features=n_features
-    )
+    hierarchical = is_hierarchical(model)
+    if global_grid:
+        datastore = DummyGlobalDatastore(n_lon=nx, n_lat=ny,
+                                         n_timesteps=n_timesteps,
+                                         n_features=n_features)
+        kind = "dummydata_global"
+    else:
+        datastore = DummyDatastore(grid_shape=(nx, ny),
+                                   n_timesteps=n_timesteps,
+                                   n_features=n_features)
+        kind = "dummydata"
     config = NeuralLAMConfig(
-        datastore=DatastoreSelection(kind="dummydata", config_path=""),
+        datastore=DatastoreSelection(kind=kind, config_path=""),
         training=TrainingConfig(),
     )
     with tempfile.TemporaryDirectory() as gdir:
-        bundle = create_graph(gdir, datastore.get_xy("state", stacked=False),
-                              n_max_levels=n_max_levels,
-                              hierarchical=is_hierarchical(model))
+        if global_grid:
+            bundle = create_global_graph(
+                gdir, datastore.get_xy("state", stacked=True),
+                refinements=refinements, n_levels=n_max_levels,
+                hierarchical=hierarchical)
+        else:
+            bundle = create_graph(gdir,
+                                  datastore.get_xy("state", stacked=False),
+                                  n_max_levels=n_max_levels,
+                                  hierarchical=hierarchical)
     graph = graph_from_bundle(bundle, device)
     args = ModelArgs(hidden_dim=hidden_dim, processor_layers=processor_layers,
                      compute_dtype=compute_dtype)
@@ -99,6 +127,22 @@ def forecast(model, init_states, forcing_features, true_states):
             torch.as_tensor(true_states, device=dev),
         )
     return prediction
+
+
+def sample_ensemble(model, init_states, forcing_features, true_states,
+                    n_members: int = 5, seed: int = 0):
+    """(B, n_members, T, N, d) ensemble of an output_std or latent model
+    (`ensemble.sample_rollout`), without autograd, its noise from a
+    generator on the model's device seeded with `seed`. Inputs are moved
+    to the model's device."""
+    dev = model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        return sample_rollout(
+            model, torch.as_tensor(init_states, device=dev),
+            torch.as_tensor(forcing_features, device=dev),
+            torch.as_tensor(true_states, device=dev), gen, n_members)
 
 
 def make_trainer(model, datastore, batch_size: int, ar_steps: int,

@@ -25,6 +25,11 @@ so node orderings and edge sets are fully determined by index math:
 Grid-node ordering: grid_index g = ix*Ny + iy with position xy[ix, iy] —
 the datastores' stack("x", "y") convention (x-major). See the note in
 `create_graph` about the reference's own (transposed) builder ordering.
+
+`create_graph_from_datastore` and the CLI (`cli`, `python -m
+neural_lam_tpu_torch.graph.build`) build a datastore's graph: this
+module's lattice, or with `--mesh global_icosahedral` the spherical mesh
+of `global_mesh.py`.
 """
 
 from __future__ import annotations
@@ -263,3 +268,85 @@ def _build_hierarchical(level_n, level_pos, level_edges):
         m2g_features=None,
         g2m_mesh_pos=level_pos[0],
     )
+
+
+def create_graph_from_datastore(datastore, output_root_path: str,
+                                n_max_levels: int | None = None,
+                                hierarchical: bool = False,
+                                mesh: str = "lattice",
+                                refinements: int = 3) -> GraphBundle:
+    """Build and save the graph for a regular-grid datastore
+    (ref: create_graph.py:538-558). mesh="global_icosahedral" builds a
+    spherical mesh instead: the datastore must be global, with get_xy in
+    [lon, lat] degrees (`global_mesh.create_global_graph`)."""
+    from ..datastore.base import BaseRegularGridDatastore
+
+    if not isinstance(datastore, BaseRegularGridDatastore):
+        raise NotImplementedError(
+            "Only graph creation for BaseRegularGridDatastore is supported"
+        )
+    if mesh == "global_icosahedral":
+        from .global_mesh import create_global_graph
+
+        if not getattr(datastore, "is_global", False):
+            raise ValueError("the global_icosahedral mesh needs a global "
+                             "datastore (get_xy in [lon, lat] degrees)")
+        return create_global_graph(
+            graph_dir_path=output_root_path,
+            latlon_deg=datastore.get_xy(category="state", stacked=True),
+            refinements=refinements, n_levels=n_max_levels,
+            hierarchical=hierarchical,
+        )
+    if mesh != "lattice":
+        raise ValueError(f"unknown mesh {mesh!r}: lattice or "
+                         "global_icosahedral")
+    return create_graph(
+        graph_dir_path=output_root_path,
+        xy=datastore.get_xy(category="state", stacked=False),
+        n_max_levels=n_max_levels, hierarchical=hierarchical,
+    )
+
+
+def cli(input_args=None):
+    """Graph CLI, as `python -m neural_lam_tpu.graph.build` (ref:
+    create_graph.py:561-606): builds the graph of the datastore a
+    neural-lam config selects into <datastore root>/graph/<name>/.
+
+        python -m neural_lam_tpu_torch.graph.build --config_path cfg.yaml \\
+            --name hierarchical --hierarchical [--levels 3] \\
+            [--mesh global_icosahedral --refinements 5]
+    """
+    from argparse import ArgumentParser
+
+    from ..config import load_config_and_datastore
+
+    parser = ArgumentParser(description="Graph generation arguments")
+    parser.add_argument("--config_path", type=str, required=True,
+                        help="Path to neural-lam configuration file")
+    parser.add_argument("--name", type=str, default="multiscale",
+                        help="Name to save graph as (default: multiscale)")
+    parser.add_argument("--levels", type=int,
+                        help="Limit multi-scale mesh to given number of "
+                             "levels, from bottom up (default: no limit)")
+    parser.add_argument("--hierarchical", action="store_true",
+                        help="Generate hierarchical mesh graph")
+    parser.add_argument("--mesh", type=str, default="lattice",
+                        choices=["lattice", "global_icosahedral"],
+                        help="Mesh family: LAM lattice (reference) or a "
+                             "global icosahedral sphere mesh")
+    parser.add_argument("--refinements", type=int, default=3,
+                        help="Icosahedron subdivision count for the finest "
+                             "level (global_icosahedral only)")
+    args = parser.parse_args(input_args)
+
+    _, datastore = load_config_and_datastore(args.config_path)
+    out_dir = os.path.join(datastore.root_path, "graph", args.name)
+    return create_graph_from_datastore(
+        datastore=datastore, output_root_path=out_dir,
+        n_max_levels=args.levels, hierarchical=args.hierarchical,
+        mesh=args.mesh, refinements=args.refinements,
+    )
+
+
+if __name__ == "__main__":
+    cli()

@@ -200,20 +200,33 @@ def load_or_build_graph(datastore, name: str, device="cuda") -> LoadedGraph:
     """The graph under <datastore root>/graph/<name> on `device`, built
     there first when absent, as the JAX package's models do: hierarchical
     when the name holds "hier", one level when it holds "1level",
-    multiscale otherwise. The build goes to a directory unique to the
+    multiscale otherwise; a global datastore (`is_global`) gets an
+    icosahedral mesh instead (`global_mesh.create_global_graph` at its
+    default refinements, two levels when the name holds "hier", every
+    level otherwise). The build goes to a directory unique to the
     process and is renamed into place, so processes that share the root
     (a trainer and a forecaster, or two of either) never read a
     half-written graph: the first rename wins, the others discard theirs."""
-    from .build import create_graph
-
     graph_dir = Path(datastore.root_path) / "graph" / name
     if not (graph_dir / "meta.json").exists():
         print(f"graph '{name}' not found under {graph_dir.parent}; "
               "building it", flush=True)
         tmp = graph_dir.parent / f".{name}.tmp{os.getpid()}"
-        create_graph(str(tmp), datastore.get_xy("state", stacked=False),
-                     n_max_levels=1 if "1level" in name.lower() else None,
-                     hierarchical="hier" in name.lower())
+        hier = "hier" in name.lower()
+        if getattr(datastore, "is_global", False):
+            # planar lattices are wrong on the sphere
+            from .global_mesh import create_global_graph
+
+            create_global_graph(str(tmp),
+                                datastore.get_xy("state", stacked=True),
+                                n_levels=2 if hier else None,
+                                hierarchical=hier)
+        else:
+            from .build import create_graph
+
+            create_graph(str(tmp), datastore.get_xy("state", stacked=False),
+                         n_max_levels=1 if "1level" in name.lower() else None,
+                         hierarchical=hier)
         try:
             os.rename(tmp, graph_dir)
         except OSError:  # another process renamed its build first

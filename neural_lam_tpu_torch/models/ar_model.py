@@ -6,9 +6,10 @@ hyperparameters, `ARStatics` the non-trainable tensors built from a
 datastore, `ARModelBase.unroll_prediction` the rollout, `training_loss`
 the loss the trainer differentiates (ref: ar_model.py:287-309) and
 `eval_step_metrics` what a validation step computes
-(ref: ar_model.py:324-454). With `ModelArgs.remat` each predict step of
-a differentiated unroll runs under `torch.utils.checkpoint` (JAX:
-`jax.checkpoint` in `unroll_prediction`).
+(ref: ar_model.py:324-454). `ModelArgs` also holds the latent models'
+`latent_dim`, `kl_beta` and `crps_members` (models/graph_efm.py). With
+`ModelArgs.remat` each predict step of a differentiated unroll runs under
+`torch.utils.checkpoint` (JAX: `jax.checkpoint` in `unroll_prediction`).
 
 As in the JAX package, the grid input width counts the two raw states
 (2*num_state_vars) also when `output_std` doubles the output (the
@@ -51,6 +52,12 @@ class ModelArgs:
     # None = fp32 everywhere; "bfloat16" = the JAX package's bf16 path:
     # fp32 parameters, activations (and their gradients) stored in bf16
     compute_dtype: str | None = None
+    # latent-variable models (graph_efm, hi_efm): latent width per mesh
+    # node, the ELBO's KL weight, and the members per training sample of
+    # --loss crps_ens
+    latent_dim: int = 32
+    kl_beta: float = 1e-3
+    crps_members: int = 4
     # gradient-checkpoint each predict step of the unroll: the backward
     # recomputes a step's activations instead of keeping them (training
     # memory O(T + step) instead of O(T * step), ~one extra forward a step)
@@ -195,11 +202,14 @@ class ARModelBase(nn.Module):
         )
         return prediction, target_states, pred_std, batch_times
 
-    def training_loss(self, batch):
+    def training_loss(self, batch, generator=None):
         """Mean loss over batch and unrolled steps, interior nodes only
         (ref: ar_model.py:287-309). With compute_dtype="bfloat16" the
         forward and backward run on the bf16 path (the kernels' bf16
-        instances), the loss and the parameter gradients in fp32."""
+        instances), the loss and the parameter gradients in fp32.
+        `generator` (a torch.Generator on the model's device) is the
+        noise source of latent models, which draw from it; the trainer
+        passes one only to latent models, and the others ignore it."""
         prediction, target, pred_std, _ = self.common_step(batch)
         return torch.mean(self.loss_fn(prediction, target, pred_std,
                                        mask=self.interior_mask_bool()))

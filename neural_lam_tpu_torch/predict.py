@@ -26,8 +26,12 @@ deployment feeds these from the host model's forecast instead).
 `--precision bf16` (or `bf16-mixed`, the same here, as in the JAX CLI)
 forecasts on the bf16 path: fp32 parameters, activations stored in bf16,
 the kernels' bf16 instances. Everything runs on CUDA unless `--device
-cpu`; without CUDA the default raises. Not ported yet: ensembles
-(`--ensemble_members`, ROADMAP.md queue 1, item 5).
+cpu`; without CUDA the default raises.
+
+`--ensemble_members N` samples N members (`ensemble.sample_rollout`, its
+noise from a generator seeded with `--seed`) of an `--output_std` or
+latent model (`--model graph_efm|hi_efm`, `--latent_dim`); the written
+array then has a leading `member` dim.
 """
 
 from __future__ import annotations
@@ -39,13 +43,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-# models of the JAX package the port does not have yet, and where they wait
-NOT_PORTED_MODELS = {
-    "graph_efm": "ROADMAP.md queue 1, item 5",
-    "hi_efm": "ROADMAP.md queue 1, item 5",
-}
-
 
 def add_model_flags(parser):
     """Architecture flags (those of the JAX predict and export CLIs). They
@@ -82,8 +79,8 @@ def parse_args(argv=None):
                              "(-1 = latest available)")
     parser.add_argument("--ar_steps", type=int, default=10)
     parser.add_argument("--ensemble_members", type=int, default=0,
-                        help="sample N members; not ported yet (0 = "
-                             "deterministic forecast)")
+                        help="sample N members (needs an output_std or "
+                             "latent model); 0 = deterministic forecast")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", required=True,
                         help="output path: *.zarr directory or *.npz")
@@ -99,19 +96,19 @@ def compute_dtype_of(precision: str):
 
 
 def check_supported(args):
-    """Raise for what the port cannot forecast yet."""
+    """Raise for a model the port does not have, and for an ensemble of a
+    model that cannot sample one."""
     from .models import MODELS
 
-    if args.ensemble_members > 0:
-        raise NotImplementedError(
-            "--ensemble_members: ensemble forecasts are not ported yet "
-            "(ROADMAP.md queue 1, item 5)")
     if args.model not in MODELS:
-        where = NOT_PORTED_MODELS.get(args.model)
         raise ValueError(
             f"--model {args.model!r} is not one of the port's models "
-            f"{sorted(MODELS)}"
-            + (f"; it waits for {where}" if where else ""))
+            f"{sorted(MODELS)}")
+    if args.ensemble_members > 0 and not (
+            args.output_std or getattr(MODELS[args.model], "is_latent",
+                                       False)):
+        raise ValueError("--ensemble_members: ensemble sampling needs an "
+                         "--output_std or latent model (graph_efm, hi_efm)")
 
 
 def prepare(args):
@@ -134,6 +131,7 @@ def prepare(args):
         processor_layers=args.processor_layers,
         mesh_aggr=args.mesh_aggr,
         output_std=args.output_std,
+        latent_dim=args.latent_dim,
         num_past_forcing_steps=args.num_past_forcing_steps,
         num_future_forcing_steps=args.num_future_forcing_steps,
         compute_dtype=compute_dtype_of(args.precision),
@@ -152,7 +150,8 @@ def prepare(args):
 
 
 def rollout(model, datastore, args):
-    """Standardized forecast (ar_steps, N, d) as numpy, and the valid
+    """Standardized forecast (ar_steps, N, d) as numpy, or with
+    `args.ensemble_members` the members (m, ar_steps, N, d), and the valid
     times as int64 epoch-ns, from sample `args.sample_idx` of
     `args.split`."""
     from .dataset import WeatherDataset, collate
@@ -164,19 +163,29 @@ def rollout(model, datastore, args):
     init_states, target_states, forcing = (
         torch.as_tensor(b, device=model.device) for b in raw[:3])
     with torch.no_grad():
-        pred, _ = model.unroll_prediction(init_states, forcing,
-                                          target_states)
+        if args.ensemble_members > 0:
+            from .ensemble import sample_rollout
+
+            gen = torch.Generator(device=model.device)
+            gen.manual_seed(args.seed)
+            pred = sample_rollout(model, init_states, forcing, target_states,
+                                  gen, n_members=args.ensemble_members)
+        else:
+            pred, _ = model.unroll_prediction(init_states, forcing,
+                                              target_states)
     # valid times stay on the host as int64 ns
     return pred[0].cpu().numpy(), np.asarray(raw[3][0])
 
 
 def write_forecast(out, prediction, times, names, attrs):
     """Write the forecast as a .npz or a consolidated zarr group (chunks
-    zlib-compressed, so no system libblosc is needed); returns its dims."""
+    zlib-compressed, so no system libblosc is needed); returns its dims,
+    with a leading "member" for an ensemble's 4-dim prediction."""
     from .datastore.zarr_reader import consolidate_metadata, write_zarr_array
 
     out = Path(out)
-    dims = ["time", "grid_index", "state_feature"]
+    dims = (["member"] if prediction.ndim == 4 else []) + [
+        "time", "grid_index", "state_feature"]
     if out.suffix == ".npz":
         np.savez_compressed(out, state=prediction, time=times.astype("int64"),
                             state_feature=np.array(names))
@@ -205,7 +214,10 @@ def main(argv=None):
     t0 = time.time()
     prediction, times = rollout(model, datastore, args)
     rollout_s = time.time() - t0
-    print(f"rollout ({args.ar_steps} steps) in {rollout_s:.1f}s", flush=True)
+    members = (f", {args.ensemble_members} members"
+               if args.ensemble_members > 0 else "")
+    print(f"rollout ({args.ar_steps} steps{members}) in {rollout_s:.1f}s",
+          flush=True)
 
     # un-standardize to physical units
     stats = datastore.get_standardization_dataarray(category="state")

@@ -52,8 +52,19 @@ The runtime around the steps (JAX: train.py:53-470):
   (CPU time on the CPU), from the profiler's own averages.
 - Metrics also go to W&B (`--wandb_project`) where `wandb` imports.
 
-Not ported yet: ensemble evaluation (`--ensemble_members`, ROADMAP.md
-queue 1, item 5), multi-host and spatial sharding.
+The latent models (`--model graph_efm|hi_efm`, `--latent_dim`) train on
+their per-step ELBO (`--kl_beta`) or, with `--loss crps_ens`, on the fair
+CRPS of `--crps_members` prior-sampled rollouts. Their noise comes from a
+generator seeded with (`--seed`, the optimizer step) alone
+(`ensemble.step_generator`), so a resumed run draws what an uninterrupted
+one draws. `--eval test --ensemble_members N` (an `--output_std` or latent
+model) then scores an N-member ensemble over the test split
+(`Trainer.evaluate_ensemble`: CRPS, spread, the ensemble mean's RMSE, the
+spread-skill ratio, and the rank histogram in `ens_rank_hist.npy`, drawn
+as `ens_rank_hist.png` where matplotlib imports).
+
+Not ported yet: multi-host and spatial sharding (ROADMAP.md queue 1,
+item 6).
 """
 
 from __future__ import annotations
@@ -77,6 +88,7 @@ from .checkpoint import (checkpoint_exists, load_checkpoint,
 from .config import load_config_and_datastore
 from .dataset import BackgroundIterator, WeatherDataModule
 from .device import resolve_device
+from .ensemble import evaluate_ensemble, spread_skill_ratio, step_generator
 from .graph.storage import load_or_build_graph
 from .models import MODELS
 from .models.ar_model import ModelArgs
@@ -316,7 +328,11 @@ class Trainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.model.training_loss(batch)
+        # a latent model's noise: a function of the seed and the step alone
+        # (the JAX trainer's fold_in(PRNGKey(seed), step))
+        gen = (step_generator(f.seed, self.global_step, self.device)
+               if getattr(self.model, "is_latent", False) else None)
+        loss = self.model.training_loss(batch, generator=gen)
         loss.backward()
         self.optimizer.step()
         self.global_step += 1
@@ -619,6 +635,60 @@ class Trainer:
                     vis.plt.close("all")
 
 
+    @torch.no_grad()
+    def evaluate_ensemble(self, datamodule, n_members=5, seed=0,
+                          make_plots=True):
+        """Ensemble scores over the test split (an output_std or latent
+        model; ensemble.evaluate_ensemble per batch, its noise from
+        `step_generator(seed, batch index)`): per lead time crps, ens_rmse,
+        spread, ens_var, ens_se and the spread-skill ratio ssr of the
+        averaged variance and squared error, and the rank histogram's
+        frequencies (T, m + 1), saved as ens_rank_hist.npy and, with
+        `make_plots`, drawn as ens_rank_hist.png. Means over the samples
+        of every batch, a partial last batch included."""
+        datamodule.setup("test")
+        sums, n = None, 0
+        for i, batch in enumerate(datamodule.test_dataloader()):
+            out = evaluate_ensemble(
+                self.model, self.to_device(batch),
+                step_generator(seed, i, self.device), n_members,
+                per_sample=True)
+            out = {k: v.double().sum(dim=0).cpu().numpy()
+                   for k, v in out.items()}
+            sums = out if sums is None else {k: sums[k] + out[k]
+                                             for k in out}
+            n += batch[0].shape[0]
+        if not n:
+            raise ValueError(
+                "no evaluation batches were produced: the split has fewer "
+                "samples than one unroll needs")
+        result = {k: (v / n).astype(np.float32) for k, v in sums.items()}
+        result["ssr"] = spread_skill_ratio(result["ens_var"],
+                                           result["ens_se"], n_members)
+        rank = result.pop("rank_hist")
+        freq = rank / np.maximum(rank.sum(axis=-1, keepdims=True), 1.0)
+        np.save(self.run_dir / "ens_rank_hist.npy", freq)  # (T, m + 1)
+        result = {k: np.asarray(v).tolist() for k, v in result.items()}
+        result["rank_hist"] = freq.tolist()
+        if make_plots:
+            from . import vis
+
+            fig, ax = vis.plt.subplots(figsize=(5, 3))
+            ax.bar(np.arange(freq.shape[-1]), freq.mean(axis=0))
+            ax.axhline(1.0 / freq.shape[-1], color="k", ls="--", lw=0.8)
+            ax.set_xlabel("rank of observation")
+            ax.set_ylabel("frequency")
+            ax.set_title(f"{n_members}-member rank histogram (all lead "
+                         "times)")
+            fig.tight_layout()
+            fig.savefig(self.run_dir / "ens_rank_hist.png")
+            self.logger.log_image("ens_rank_hist", fig)
+            vis.plt.close(fig)
+        self.logger.log({f"ens_{k}_mean": float(np.mean(v))
+                         for k, v in result.items() if k != "rank_hist"})
+        return result
+
+
 class _EvalAggregator:
     """Per-sample sums of what `eval_step_metrics` gives over the batches
     of a split, divided by the sample count (ref: ar_model.py:610-644:
@@ -655,10 +725,11 @@ class _EvalAggregator:
 
 def main(input_args=None):
     """CLI mirroring `python -m neural_lam_tpu.train` for what the port
-    runs: GraphLAM, HiLAM and HiLAMParallel (`--model hi_lam --graph
-    hierarchical`, `--model hi_lam_parallel --graph hierarchical`)
-    training and evaluation on one device. Returns what `--eval` printed
-    (None when training)."""
+    runs: GraphLAM, HiLAM, HiLAMParallel, GraphEFM and HiEFM (the
+    hierarchical ones with `--graph hierarchical`) training and
+    evaluation on one device. Returns what `--eval` printed (None when
+    training); with `--ensemble_members` the ensemble scores under
+    "ensemble"."""
     parser = ArgumentParser(description="Train the PyTorch port's models")
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--model", type=str, default="graph_lam",
@@ -691,7 +762,17 @@ def main(input_args=None):
                              "(memory for compute in long-AR training)")
     parser.add_argument("--ar_steps_train", type=int, default=1)
     parser.add_argument("--ar_steps_eval", type=int, default=10)
-    parser.add_argument("--loss", type=str, default="wmse")
+    parser.add_argument("--loss", type=str, default="wmse",
+                        help="wmse, mse, wmae, mae, nll, crps_gauss; "
+                             "crps_ens (graph_efm, hi_efm): fair CRPS over "
+                             "--crps_members prior-sampled rollouts")
+    parser.add_argument("--latent_dim", type=int, default=32,
+                        help="graph_efm, hi_efm: latent width per mesh node")
+    parser.add_argument("--kl_beta", type=float, default=1e-3,
+                        help="graph_efm, hi_efm: the ELBO's KL weight")
+    parser.add_argument("--crps_members", type=int, default=4,
+                        help="graph_efm, hi_efm with --loss crps_ens: "
+                             "members per training sample")
     parser.add_argument("--lr", type=float, default=1e-3)
     parser.add_argument("--lr_schedule", default="constant",
                         choices=["constant", "cosine", "warmup_cosine"])
@@ -719,7 +800,8 @@ def main(input_args=None):
     parser.add_argument("--var_leads_metrics_watch", type=str, default="{}",
                         help="JSON dict var_index -> [lead steps] to watch")
     parser.add_argument("--ensemble_members", type=int, default=0,
-                        help="ensemble evaluation; not ported yet")
+                        help="with --eval test, also score an N-member "
+                             "ensemble (an --output_std or latent model)")
     parser.add_argument("--run_name", type=str, default=None)
     parser.add_argument("--wandb_project", type=str,
                         default="neural_lam_tpu",
@@ -727,10 +809,11 @@ def main(input_args=None):
                              "importable; ref: train_model.py:169)")
     parser.add_argument("--save_dir", type=str, default="saved_models")
     args = parser.parse_args(input_args)
-    if args.ensemble_members > 0:
-        raise NotImplementedError(
-            "--ensemble_members: ensemble evaluation is not ported yet "
-            "(ROADMAP.md queue 1, item 5)")
+    if args.ensemble_members > 0 and not (
+            args.output_std or getattr(MODELS[args.model], "is_latent",
+                                       False)):
+        raise ValueError("--ensemble_members: ensemble sampling needs an "
+                         "--output_std or latent model (graph_efm, hi_efm)")
     compute_dtype = compute_dtype_of(args.precision)
 
     device = resolve_device(args.device)
@@ -749,6 +832,8 @@ def main(input_args=None):
             for k, v in json.loads(args.var_leads_metrics_watch).items()},
         n_example_pred=args.n_example_pred,
         compute_dtype=compute_dtype,
+        latent_dim=args.latent_dim, kl_beta=args.kl_beta,
+        crps_members=args.crps_members,
         remat=args.remat,
     )
     flags = TrainFlags(
@@ -788,6 +873,13 @@ def main(input_args=None):
                                  "installed, no figures are drawn"),
               flush=True)
         result = trainer.test(datamodule, make_plots=make_plots)
+        if args.ensemble_members > 0:
+            print(result, flush=True)
+            result = dict(result, ensemble=trainer.evaluate_ensemble(
+                datamodule, n_members=args.ensemble_members,
+                make_plots=make_plots))
+            print(result["ensemble"], flush=True)
+            return result
     else:
         trainer.fit(datamodule)
         return None

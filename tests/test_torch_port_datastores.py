@@ -230,12 +230,14 @@ def test_weather_dataset_items_match_jax(kind, mdp_path, meps_path):
 
 
 def test_registry_and_config(mdp_path, tmp_path):
-    """The registry holds the three datastores, the global one raises
-    naming its queue item, and a neural-lam config selecting mdp loads it
-    with the datastore path resolved against the config's directory."""
-    assert sorted(DATASTORES) == ["dummydata", "mdp", "npyfilesmeps"]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        init_datastore("dummydata_global", tmp_path / "x.yaml")
+    """The registry holds the four datastores (the global dummy one
+    builds from its defaults without a config file), and a neural-lam
+    config selecting mdp loads it with the datastore path resolved against
+    the config's directory."""
+    assert sorted(DATASTORES) == ["dummydata", "dummydata_global", "mdp",
+                                  "npyfilesmeps"]
+    glob = init_datastore("dummydata_global", tmp_path / "x.yaml")
+    assert glob.is_global and glob.num_grid_points == 36 * 18
     with pytest.raises(NotImplementedError):
         init_datastore("nonsense", tmp_path / "x.yaml")
     cfg = mdp_path.parent / "config.yaml"

@@ -21,7 +21,8 @@ batch (the JAX CLI pads it, the port runs it as it is). Held:
 
 Where matplotlib does not import, the port's `--eval test` says so, draws
 no figure and writes the same csv and npy files. `--ensemble_members`
-raises. Both sides run their plain CPU routes at
+on a model that samples no ensemble raises (the ensemble evaluation is
+held in test_torch_port_ensemble.py). Both sides run their plain CPU routes at
 hidden width 16, 1 processor layer.
 """
 
@@ -214,11 +215,13 @@ def test_eval_val_matches_jax(converted, tmp_path, monkeypatch, capsys):
 
 
 def test_ensemble_members_raise(tmp_path, monkeypatch):
+    """`--ensemble_members` on a model that cannot sample an ensemble
+    (neither --output_std nor latent) raises before any work."""
     cfg, model, graph, _, extra = _setup("output_std", tmp_path / "ds",
                                          monkeypatch)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(ValueError, match="output_std or latent"):
         train.main(["--config_path", str(cfg), "--device", "cpu",
-                    "--graph", graph, "--output_std", "--eval", "test",
+                    "--graph", graph, "--eval", "test",
                     "--ensemble_members", "2"])
 
 

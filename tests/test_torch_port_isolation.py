@@ -3,7 +3,9 @@
 * No module of `neural_lam_tpu_torch/`, and not `chip_smoke.py`, imports
   JAX, optax or the JAX package; `convert_jax_checkpoint.py` imports JAX
   and orbax but nothing of the JAX package.
-* Entry points default to CUDA and raise without it.
+* Entry points default to CUDA and raise without it, for the latent
+  models and the global grid too; on the CPU when asked they build and
+  sample.
 * Each kernel wrapper, forward and backward, takes its plain version only
   for CPU tensors, and counts a launch only when it launches its kernel.
 """
@@ -48,6 +50,9 @@ def test_port_imports_no_jax():
     for tool in ("datastore/create_dataset.py",
                  "datastore/compute_standardization_stats.py"):
         assert f"neural_lam_tpu_torch/{tool}" in names, tool
+    for latent in ("ensemble.py", "models/graph_efm.py",
+                   "graph/global_mesh.py", "datastore/dummy_global.py"):
+        assert f"neural_lam_tpu_torch/{latent}" in names, latent
     bad = []
     for path in _port_files():
         for name in _imports(path):
@@ -65,12 +70,29 @@ def test_convert_script_imports_no_jax_package():
 
 
 def test_build_model_defaults_to_cuda_and_raises_without_it():
-    from neural_lam_tpu_torch.entry import build_model
+    from neural_lam_tpu_torch.entry import build_model, sample_ensemble
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(nx=9, ny=9, processor_layers=1)
+    for kw in (dict(model="graph_efm"),
+               dict(model="hi_efm", nx=12, ny=6, global_grid=True,
+                    refinements=1, n_max_levels=2)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build_model(**dict(dict(nx=9, ny=9, processor_layers=1), **kw))
+    # the latent models and the global grid on the CPU when asked
+    net, ds = build_model(nx=12, ny=6, hidden_dim=8, processor_layers=1,
+                          model="hi_efm", global_grid=True, refinements=1,
+                          n_max_levels=2, device="cpu")
+    assert ds.is_global and net.graph.level_sizes == (42, 12)
+    assert not bool(net.statics.boundary_mask.any())
+    init = torch.zeros(1, 2, 72, net.num_state_vars)
+    forcing = torch.zeros(1, 2, 72, net.grid_dim - 2 * net.num_state_vars
+                          - net.grid_static_dim)
+    ens = sample_ensemble(net, init, forcing, init, n_members=2)
+    assert ens.shape == (1, 2, 2, 72, net.num_state_vars)
+    assert torch.isfinite(ens).all()
 
 
 def _calls():

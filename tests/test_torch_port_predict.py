@@ -17,7 +17,10 @@ package, on the CPU.
   checkpoint it was exported from.
 * Reference `.pt` graph directories convert both ways as the JAX
   package's do.
-* What the port cannot forecast yet raises.
+* What the port cannot forecast raises: an ensemble of a model that
+  samples none, a hierarchical model on a multiscale graph, an unknown
+  model or precision, CUDA where there is none (the ensemble CLI is held
+  in test_torch_port_ensemble.py).
 
 Both sides run their plain CPU routes at hidden width 16, 1 processor
 layer.
@@ -404,9 +407,9 @@ def test_reference_graph_dirs_convert_as_jax(hier, ref_env, tmp_path):
 
 
 @pytest.mark.parametrize("flags, error, match", [
-    (["--ensemble_members", "1"], NotImplementedError, "item 5"),
+    (["--ensemble_members", "1"], ValueError, "output_std or latent"),
     (["--precision", "16"], SystemExit, "2"),
-    (["--model", "graph_efm"], ValueError, "item 5"),
+    (["--model", "hi_efm"], ValueError, "hierarchical graph"),
     (["--model", "nonsense"], ValueError, "not one of"),
     (["--device", "cuda"], RuntimeError, "CUDA is not available"),
 ])
