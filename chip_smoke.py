@@ -311,6 +311,39 @@ result line is printed), each printing its seconds:
    relative, the scores and the members within the limits above); the
    launches printed.
 
+16. Data parallelism and the grid scheme (`parallel/`) on two rank
+   processes of the one card, which share it through the gloo backend
+   (NCCL refuses two ranks on one card; gloo stages each collective
+   through host memory, so no time here is an NCCL or multi-GPU figure).
+   A dummydata datastore at the bench grid and features (30 time steps).
+   a. `train.main` with phase 7's GraphLAM (hidden 64, 4 layers, the
+   multiscale graph, fp32): 3 AdamW steps at batch 4 in this process,
+   then the same on `--num_nodes 2` ranks x batch 2 (rows 0-1 and 2-3 of
+   each global batch): the losses (mean over the ranks) within 1e-5
+   relative, the gradients of the first step (reduced over the ranks)
+   within 1e-4 x max abs + 1e-6 of the single process's per parameter
+   (AdamW's update would hide a gradient scaled by a constant), the
+   parameters after the steps within 2e-3 relative, each
+   rank's launches of its second step phase 7's table (no count depends
+   on the batch); one step as a one-rank world (`--num_nodes 1
+   --coordinator_address`), which runs nccl, its loss the single
+   process's. b. GraphLAM at full depth grid-sharded over the 2 ranks
+   (`spatialize`) against the unsharded model on the same rank: a
+   predict step and a 2-step rollout within 1e-5 x state_std, a training
+   step's gradients within 1e-4 + 1e-4 x max abs per parameter. c. HiLAM,
+   HiLAMParallel (3 levels), GraphEFM and HiEFM at
+   prob_model_global_0p7deg (phase 15's global configuration, whose polar
+   g2m receivers take edges from both grid blocks) at one processor
+   layer, held the same way, and a bf16 GraphLAM (one layer) whose bf16 error
+   against the fp32 model is the unsharded bf16 model's size (phase 11's
+   limits, outputs and gradients). In b and c each rank's launches of a
+   predict and a training step equal the per-rank table `step_table`
+   gives for its twin (its part of the graph), and each rank prints the
+   routes of its sets, the collectives of a step and their bytes, host ms
+   (median of 3) beside the unsharded step's, and device busy ms (a
+   profile of 2). Each rank process has its own 300 s limit; any failure
+   fails the run.
+
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -3827,6 +3860,503 @@ def disk_mb(path):
                if f.is_file()) / 1e6
 
 
+# phase 16: data parallelism and the grid scheme, 2 ranks on the one card
+PAR_RANKS = 2
+PAR_TIMEOUT_S = 300  # each rank process's own limit
+PAR_STEPS = 3  # 16a's AdamW steps
+PAR_PARAM_LIMIT = 2e-3  # 16a: parameters after PAR_STEPS steps, relative
+PAR_LOSS_LIMIT = 1e-5  # 16a: losses, relative
+# 16a: the first step's gradients, reduced over the ranks, against the
+# single process's: max abs gap <= this x max abs + 1e-6, per parameter
+# (AdamW's update hides a gradient scaled by a constant)
+PAR_GRAD_LIMIT = 1e-4
+PAR_STEP_LIMIT = 1e-5  # 16b-c: predict step and rollout, x state_std
+# 16b (full depth) and 16c (processor layers cut to 1); HiLAMParallel at
+# phase 14's levels, HiEFM at phase 15's global configuration
+PAR_CASES = {
+    "GraphLAM": dict(model="graph_lam"),
+    "HiLAM": dict(model="hi_lam", processor_layers=1),
+    "HiLAMParallel": dict(model="hi_lam_parallel", processor_layers=1,
+                          n_max_levels=HLP_LEVELS),
+    "GraphEFM": dict(model="graph_efm", processor_layers=1),
+    "HiEFM global": dict(EFM_CONFIGS["prob_model_global_0p7deg"],
+                         processor_layers=1),
+    "GraphLAM bf16": dict(model="graph_lam", processor_layers=1,
+                          compute_dtype="bfloat16"),
+}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def write_dummy_config(root):
+    """A dummydata datastore at the bench grid and feature counts, 30 time
+    steps (a train split of 16: 14 samples), under <root>/dsroot; returns
+    the config's path."""
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "dummy.yaml").write_text(json.dumps({
+        "grid_shape": [BENCH["nx"], BENCH["ny"]],
+        "n_features": BENCH["n_features"], "n_timesteps": 30,
+        "root": "dsroot"}))
+    cfg = root / "config.yaml"
+    cfg.write_text(json.dumps({"datastore": {
+        "kind": "dummydata", "config_path": "dummy.yaml"}}))
+    return cfg
+
+
+def par_argv(cfg, root):
+    """16a's train.main arguments, without the batch size and the run."""
+    return ["--config_path", str(cfg), "--model", "graph_lam", "--graph",
+            "multiscale", *WIDTH, "--ar_steps_train", "1",
+            "--ar_steps_eval", "1", "--epochs", "1",
+            "--max_steps", str(PAR_STEPS), "--val_interval", "0", "--seed",
+            "0", "--num_workers", "0", "--prefetch_batches", "0",
+            "--save_dir", str(root / "models")]
+
+
+@contextlib.contextmanager
+def training_recorder(torch, counts, reset_counts, params_out,
+                      grads_out=None):
+    """Within it, each `Trainer.train_step` records its loss and host ms,
+    the first one its gradients (after their reduction over the ranks) to
+    `grads_out` (.npz) when given, the second one its launches (every
+    counter at 0 just before it), and `Trainer.fit` writes the parameters
+    it ends with to `params_out` (.npz) on rank 0. Yields the record."""
+    import numpy as np
+
+    from neural_lam_tpu_torch import train
+
+    rec = {"losses": [], "ms": [], "launches": None}
+    real_step, real_fit = train.Trainer.train_step, train.Trainer.fit
+
+    def step(self, batch):
+        if len(rec["losses"]) == 1:
+            reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = real_step(self, batch)
+        rec["losses"].append(float(loss))
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        if len(rec["losses"]) == 1 and grads_out is not None:
+            np.savez(grads_out, **{
+                k: p.grad.detach().cpu().numpy()
+                for k, p in self.model.named_parameters()
+                if p.grad is not None})
+        if len(rec["losses"]) == 2:
+            rec["launches"] = counts()
+        return loss
+
+    def fit(self, datamodule):
+        out = real_fit(self, datamodule)
+        if self.rank == 0:
+            np.savez(params_out, **{k: v.detach().cpu().numpy() for k, v in
+                                    self.model.state_dict().items()})
+        return out
+
+    train.Trainer.train_step, train.Trainer.fit = step, fit
+    try:
+        yield rec
+    finally:
+        train.Trainer.train_step, train.Trainer.fit = real_step, real_fit
+
+
+def train_table(fwd):
+    """The launches of a training step (ar_steps 1) from its forward's:
+    a backward kernel for each flat forward launch (B1-B6; P1-P3's
+    backward recomputes through the plain versions), and xtd_sum with its
+    reduce kernel for the decoder, each B2 and each B3/B4."""
+    want = dict(fwd, **{k + "_bwd": fwd[k] for k in FWD})
+    n = fwd["grid_update_flat"] + fwd["edge_tail_sum_flat"] \
+        + fwd["edge_layer_flat"]
+    return dict(want, xtd_sum=n, xtd_reduce=n)
+
+
+def grid_case(torch, entry, mesh, what, case, counts, counts_bf16,
+              reset_counts):
+    """16b/16c on this rank: the model of `case` unsharded and grid-sharded
+    over `mesh`'s space group, on the same inputs and weights. Returns a
+    JSON-able record of the gaps, the launches against the per-rank
+    tables, the collectives and the timings."""
+    from neural_lam_tpu_torch.ensemble import step_generator
+    from neural_lam_tpu_torch.parallel import collectives
+    from neural_lam_tpu_torch.parallel.grid_sharded import spatialize
+
+    t0 = time.time()
+    cfg = dict(BENCH, **case)
+    net, _ = entry.build_model(**cfg, device="cuda")
+    init, forcing, true = entry.make_inputs(net, BATCH, 2, seed=0)
+    batch = (init, true[:, :1], forcing[:, :1],
+             torch.zeros((BATCH, 1), dtype=torch.long, device="cuda"))
+    latent = bool(getattr(net, "is_latent", False))
+    bf16 = case.get("compute_dtype") == "bfloat16"
+
+    def step(m):
+        with torch.no_grad():
+            return m.predict_step(init[:, 1], init[:, 0],
+                                  forcing[:, 0])[0].float()
+
+    def rollout(m):
+        with torch.no_grad():
+            return entry.forecast(m, init, forcing, true).float()
+
+    def grads(m, sharded):
+        owner = net if sharded else m  # the sharded copy shares net's
+        owner.zero_grad(set_to_none=True)
+        gen = step_generator(0, 0, "cuda") if latent else None
+        loss = m.training_loss(batch, generator=gen)
+        loss.backward()
+        if sharded:
+            collectives.reduce_gradients(net.parameters(), mesh.world_group,
+                                         mesh.n_data)
+        return float(loss), {k: p.grad.detach().clone()
+                             for k, p in owner.named_parameters()
+                             if p.grad is not None}
+
+    def total():
+        c = counts()
+        for k, v in counts_bf16().items():
+            c[k] += v
+        return c
+
+    ref_step, ref_roll = step(net), rollout(net)
+    ref_loss, ref_grads = grads(net, False)
+    sp = spatialize(net, mesh)
+    rec = {"build_s": time.time() - t0}
+    step(sp)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    collectives.reset_counts()
+    got_step = step(sp)
+    torch.cuda.synchronize()
+    rec["step_launches"] = total()
+    rec["step_collectives"] = dict(collectives.counts)
+    got_roll = rollout(sp)
+    reset_counts()
+    collectives.reset_counts()
+    got_loss, got_grads = grads(sp, True)
+    torch.cuda.synchronize()
+    rec["train_launches"] = total()
+    rec["train_collectives"] = dict(collectives.counts)
+    twin = sp._twin
+    fwd, _, _ = step_table(twin, BATCH)
+    fwd_post, _, _ = step_table(twin, BATCH, posterior=latent)
+    zero_all = {k: 0 for k in rec["train_launches"]}
+    rec["step_want"] = dict(zero_all, **fwd)
+    rec["train_want"] = dict(zero_all, **train_table(fwd_post))
+    rec["routes"] = {
+        nm: ("flat" if flat_eligible_of(es) else "batched")
+        for nm, es in (("g2m", twin.graph.g2m), ("m2g", twin.graph.m2g),
+                       *[(f"m2m[{i}]", es) for i, es in
+                         enumerate(twin.graph.m2m)],
+                       *[(f"up[{i}]", es) for i, es in
+                         enumerate(twin.graph.up)],
+                       *[(f"down[{i}]", es) for i, es in
+                         enumerate(twin.graph.down)])}
+    rec["loss"], rec["ref_loss"] = got_loss, ref_loss
+    if bf16:
+        fp32, _ = entry.build_model(**dict(cfg, compute_dtype=None),
+                                    device="cuda")
+        step32 = step(fp32)
+        e_k, e_r = (got_step - step32).abs(), (ref_step - step32).abs()
+        rec["bf16_mean_ratio"] = float(e_k.mean() / e_r.mean())
+        rec["bf16_max_ratio"] = float(e_k.max() / e_r.max())
+        _, g32 = grads(fp32, False)
+        keys = sorted(g32)
+        v32 = torch.cat([g32[k].flatten() for k in keys])
+        vk = torch.cat([got_grads[k].flatten() for k in keys])
+        vr = torch.cat([ref_grads[k].flatten() for k in keys])
+        rec["bf16_grad_mean_ratio"] = float((vk - v32).abs().mean()
+                                            / (vr - v32).abs().mean())
+        rec["bf16_grad_max_ratio"] = float((vk - v32).abs().max()
+                                           / (vr - v32).abs().max())
+        del fp32
+    else:
+        rec["step_gap"] = float((got_step - ref_step).abs().max())
+        rec["rollout_gap"] = float((got_roll - ref_roll).abs().max())
+        rec["grad_excess"] = max(
+            (float((got_grads[k] - g).abs().max()
+                   - (1e-4 + 1e-4 * g.abs().max())), k)
+            for k, g in ref_grads.items())
+        rec["grad_rel"] = max(
+            (float((got_grads[k] - g).abs().max()
+                   / g.abs().max().clamp_min(1e-30)), k)
+            for k, g in ref_grads.items())
+        rec["grad_keys"] = [len(got_grads), len(ref_grads)]
+    # timings on this rank: host ms (median of 3) and device busy ms (a
+    # profile of 2) of the sharded predict and training steps, and the
+    # unsharded steps' host ms beside them
+    for name, fn in (("step", lambda: step(sp)),
+                     ("train", lambda: grads(sp, True)),
+                     ("step_unsharded", lambda: step(net)),
+                     ("train_unsharded", lambda: grads(net, False))):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        rec[f"{name}_ms"] = sorted(times)[1]
+    for name, fn in (("step", lambda: step(sp)),
+                     ("train", lambda: grads(sp, True))):
+        prof = profile(torch, fn, f"{what} sharded {name} (rank "
+                       f"{mesh.space_index})", steps=2, top=0, cpu=False)
+        rec[f"{name}_busy_ms"] = prof[0] if prof else None
+    rec["seconds"] = time.time() - t0
+    del sp, net
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flat_eligible_of(es):
+    from neural_lam_tpu_torch.ops.message_passing import flat_eligible
+
+    return flat_eligible(es, BATCH, H)
+
+
+def parallel_rank_main(argv):
+    """A rank process of phase 16: `chip_smoke.py --parallel-rank RANK
+    PORT_A PORT_B OUT CONFIG`. 16a through train.main on a 2-rank gloo
+    world at PORT_A, then 16b-c on a 2-rank gloo world at PORT_B; writes
+    OUT/rank{RANK}.json (and rank 0 OUT/dp_params.npz)."""
+    from pathlib import Path
+
+    import torch
+
+    rank, port_a, port_b = (int(a) for a in argv[:3])
+    out, cfg = Path(argv[3]), Path(argv[4])
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from neural_lam_tpu_torch import entry, train
+    from neural_lam_tpu_torch.parallel import collectives, distributed
+    from neural_lam_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts, counts, counts_bf16, _ = kernel_registry()
+    res = {"rank": rank}
+    t0 = time.time()
+    collectives.reset_counts()
+    with training_recorder(torch, counts, reset_counts,
+                           out / "dp_params.npz",
+                           out / f"dp_grads{rank}.npz") as rec:
+        train.main(par_argv(cfg, out) + [
+            "--batch_size", str(BATCH // PAR_RANKS), "--run_name", "dp",
+            "--num_nodes", str(PAR_RANKS), "--node_rank", str(rank),
+            "--coordinator_address", f"127.0.0.1:{port_a}",
+            "--dist_backend", "gloo"])
+    res["16a"] = dict(rec, collectives=dict(collectives.counts),
+                      seconds=time.time() - t0)
+    distributed.init_multihost(f"127.0.0.1:{port_b}", PAR_RANKS, rank,
+                               backend="gloo", device="cuda",
+                               timeout_s=PAR_TIMEOUT_S)
+    mesh = make_mesh(n_space=PAR_RANKS)
+    for what, case in PAR_CASES.items():
+        res[what] = grid_case(torch, entry, mesh, what, case, counts,
+                              counts_bf16, reset_counts)
+    distributed.barrier()
+    distributed.shutdown()
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def parallel_phase(torch, np, counts, reset_counts):
+    """Phase 16 (module doc): 16a-c on 2 rank processes of the one card,
+    against the single process on the card."""
+    import tempfile
+    from pathlib import Path
+
+    from neural_lam_tpu_torch import train
+    from neural_lam_tpu_torch.parallel import distributed
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="nlt_par_") as tmp:
+        root = Path(tmp)
+        cfg = write_dummy_config(root)
+        argv = par_argv(cfg, root)
+        # the single process at batch 4 (it builds the graph the ranks read)
+        with training_recorder(torch, counts, reset_counts,
+                               root / "single_params.npz",
+                               root / "single_grads.npz") as single:
+            train.main(argv + ["--batch_size", str(BATCH), "--run_name",
+                               "single"])
+        print(f"16a single process, batch {BATCH}: losses "
+              f"{single['losses']}, host ms a step "
+              f"{[round(t, 3) for t in single['ms']]} "
+              f"({time.time() - t_phase:.1f} s into phase 16)")
+        # a one-rank world: the nccl backend
+        port = free_port()
+        with training_recorder(torch, counts, reset_counts,
+                               root / "nccl_params.npz") as one:
+            _, out = captured(train.main, argv + [
+                "--batch_size", str(BATCH), "--run_name", "nccl",
+                "--max_steps", "1", "--num_nodes", "1",
+                "--coordinator_address", f"127.0.0.1:{port}"])
+        if distributed.world() is not None or "backend nccl" not in out:
+            fail("the one-rank world did not run on nccl, or stayed open")
+        rel = abs(one["losses"][0] - single["losses"][0]) / abs(
+            single["losses"][0])
+        print(f"16a one-rank world (nccl): loss {one['losses'][0]:.7f}, "
+              f"{rel:.2e} relative to the single process's first "
+              f"(limit {PAR_LOSS_LIMIT}); {time.time() - t_phase:.1f} s "
+              "into phase 16")
+        if not rel <= PAR_LOSS_LIMIT:
+            fail("the one-rank nccl world's loss differs")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        ports = (free_port(), free_port())
+        t_ranks = time.time()
+        env = dict(os.environ, OMP_NUM_THREADS="4")
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), str(ports[0]), str(ports[1]), str(root), str(cfg)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(PAR_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=PAR_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            tail = "\n".join(o.splitlines()[-12:])
+            print(f"rank {r}: exit code {p.returncode}, "
+                  f"{time.time() - t_ranks:.1f} s; its last lines:\n  | "
+                  + tail.replace("\n", "\n  | "))
+        if any(p.returncode != 0 for p in procs):
+            fail("a rank process of phase 16 failed")
+        ranks = [json.loads((root / f"rank{r}.json").read_text())
+                 for r in range(PAR_RANKS)]
+
+        # 16a: the data-parallel trajectory against the single process's
+        dp = [r["16a"] for r in ranks]
+        losses = [float(np.mean([d["losses"][i] for d in dp]))
+                  for i in range(PAR_STEPS)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                      single["losses"]))
+        pa = np.load(root / "dp_params.npz")
+        pb = np.load(root / "single_params.npz")
+        worst = max((float(np.abs(pa[k] - pb[k]).max())
+                     / max(float(np.abs(pb[k]).max()), 1e-30), k)
+                    for k in pb.files)
+        print(f"16a data parallelism, {PAR_RANKS} ranks x batch "
+              f"{BATCH // PAR_RANKS} (gloo on one card) against 1 x batch "
+              f"{BATCH}, {PAR_STEPS} AdamW steps: losses (mean over the "
+              f"ranks) {losses} vs {single['losses']}, worst relative gap "
+              f"{rel:.2e} (limit {PAR_LOSS_LIMIT}); parameters after the "
+              f"steps: worst max abs gap / max abs {worst[0]:.2e} "
+              f"({worst[1]}; limit {PAR_PARAM_LIMIT})")
+        gs = np.load(root / "single_grads.npz")
+        excess = -math.inf
+        for r in range(PAR_RANKS):
+            gr = np.load(root / f"dp_grads{r}.npz")
+            if set(gr.files) != set(gs.files):
+                fail(f"16a rank {r}: gradients of other parameters than "
+                     "the single process's")
+            gaps = {k: (float(np.abs(gr[k] - gs[k]).max()),
+                        float(np.abs(gs[k]).max())) for k in gs.files}
+            g_rel = max((g / max(m, 1e-30), k) for k, (g, m) in gaps.items())
+            g_exc = max((g - (PAR_GRAD_LIMIT * m + 1e-6), k)
+                        for k, (g, m) in gaps.items())
+            excess = max(excess, g_exc[0])
+            print(f"16a rank {r}: the first step's gradients (summed over "
+                  f"the ranks, averaged over the data groups) against the "
+                  f"single process's at batch {BATCH}: worst max abs gap / "
+                  f"max abs {g_rel[0]:.3e} ({g_rel[1]}); worst excess over "
+                  f"{PAR_GRAD_LIMIT} x max abs + 1e-6 {g_exc[0]:.3e} "
+                  f"({g_exc[1]}; must be <= 0); {len(gaps)} parameters, "
+                  f"the smallest max abs gradient "
+                  f"{min(m for _, m in gaps.values()):.3e}")
+        if not (rel <= PAR_LOSS_LIMIT and worst[0] <= PAR_PARAM_LIMIT
+                and excess <= 0):
+            fail("16a: the data-parallel run and the single process "
+                 "disagree")
+        L = BENCH["processor_layers"]
+        want = dict({k: 0 for k in single["launches"]}, **train_table({
+            "embed_grid_flat": 1, "edge_tail_sum_flat": 1,
+            "edge_layer_flat": L, "grid_update_flat": 1}))
+        for r, d in enumerate(dp):
+            nz = {k: v for k, v in d["launches"].items() if v}
+            print(f"16a rank {r}: launches of its second step {nz}; host ms "
+                  f"a step {[round(t, 3) for t in d['ms']]}; collectives in "
+                  f"train.main {d['collectives']}; {d['seconds']:.1f} s")
+            if d["launches"] != want:
+                fail(f"16a rank {r}: launches {d['launches']}, want {want} "
+                     "(phase 7's table: no count depends on the batch)")
+        if single["launches"] != want:
+            fail(f"16a single process: launches {single['launches']}, "
+                 f"want {want}")
+
+        # 16b-c: the grid scheme against the unsharded model
+        for what, case in PAR_CASES.items():
+            for r, rank in enumerate(ranks):
+                c = rank[what]
+                nz = {k: v for k, v in c["train_launches"].items() if v}
+                print(f"16{'b' if what == 'GraphLAM' else 'c'} {what} "
+                      f"({case}) rank {r}: routes {c['routes']}; predict "
+                      f"step launches "
+                      f"{({k: v for k, v in c['step_launches'].items() if v})}"
+                      f", training step {nz}; collectives a predict step "
+                      f"{c['step_collectives']}, a training step "
+                      f"{c['train_collectives']} (gloo, staged through "
+                      f"host memory); host ms: predict step "
+                      f"{c['step_ms']:.3f} (unsharded "
+                      f"{c['step_unsharded_ms']:.3f}), training step "
+                      f"{c['train_ms']:.3f} (unsharded "
+                      f"{c['train_unsharded_ms']:.3f}); device busy ms: "
+                      f"predict step {c['step_busy_ms']}, training step "
+                      f"{c['train_busy_ms']}; built and sharded in "
+                      f"{c['build_s']:.1f} s, {c['seconds']:.1f} s in all")
+                if c["step_launches"] != c["step_want"] or \
+                        c["train_launches"] != c["train_want"]:
+                    fail(f"{what} rank {r}: launches, want predict "
+                         f"{c['step_want']} and training "
+                         f"{c['train_want']}")
+                if not math.isfinite(c["loss"]):
+                    fail(f"{what} rank {r}: the sharded loss is not finite")
+            c = ranks[0][what]
+            if "step_gap" in c:
+                print(f"  {what}: sharded vs unsharded on the card: predict "
+                      f"step max abs gap {c['step_gap']:.3e}, 2-step "
+                      f"rollout {c['rollout_gap']:.3e} (limit "
+                      f"{PAR_STEP_LIMIT} x state_std, the states being "
+                      f"standardized); loss {c['loss']:.7f} vs "
+                      f"{c['ref_loss']:.7f}; gradients: worst max abs gap "
+                      f"over 1e-4 + 1e-4 x max abs {c['grad_excess'][0]:.3e}"
+                      f" ({c['grad_excess'][1]}; must be <= 0), worst max "
+                      f"abs gap / max abs {c['grad_rel'][0]:.3e} "
+                      f"({c['grad_rel'][1]}), {c['grad_keys']} parameters")
+                if not (c["step_gap"] <= PAR_STEP_LIMIT
+                        and c["rollout_gap"] <= PAR_STEP_LIMIT
+                        and c["grad_excess"][0] <= 0
+                        and c["grad_keys"][0] == c["grad_keys"][1]):
+                    fail(f"{what}: the sharded model and the unsharded one "
+                         "disagree")
+            else:
+                print(f"  {what}: bf16 error against fp32, sharded / "
+                      f"unsharded: predict step mean "
+                      f"{c['bf16_mean_ratio']:.4f} (limit 0.9-1.1), max "
+                      f"{c['bf16_max_ratio']:.4f} (limit 0.5-1.5); "
+                      f"gradients mean {c['bf16_grad_mean_ratio']:.4f}, "
+                      f"max {c['bf16_grad_max_ratio']:.4f} (the same "
+                      "limits)")
+                if not (0.9 <= c["bf16_mean_ratio"] <= 1.1
+                        and 0.5 <= c["bf16_max_ratio"] <= 1.5
+                        and 0.9 <= c["bf16_grad_mean_ratio"] <= 1.1
+                        and 0.5 <= c["bf16_grad_max_ratio"] <= 1.5):
+                    fail(f"{what}: the sharded bf16 error is not the "
+                         "unsharded one's size")
+    print(f"phase 16 took {time.time() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -4738,6 +5268,12 @@ def main():
     torch.cuda.empty_cache()
     phase_end("15 (GraphEFM, HiEFM and ensembles)")
 
+    # 16. data parallelism and the grid scheme on 2 ranks of the one card
+    parallel_phase(torch, np, counts, reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end("16 (data parallelism and the grid scheme, 2 ranks)")
+
     print(json.dumps({"kernels": records}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -4747,4 +5283,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -418,10 +418,18 @@ class WeatherDataLoader:
     numpy's large loops release the GIL; the threads share the chunk and
     slab caches). Batches come in order either way. Leaving the iteration
     early (closing the generator) stops its threads.
+
+    `shard` = (num_shards, shard_id) gives each data-parallel group a
+    disjoint strided subset of the batches, as the JAX package's loader
+    does: shard k takes full batches k, k + num_shards, ..., truncated to
+    the same count on every shard (the training steps run in lockstep);
+    with drop_last off (evaluation) shard 0 also takes the leftover full
+    batches and the partial one.
     """
 
     def __init__(self, dataset: WeatherDataset, batch_size=4, shuffle=False,
-                 seed=0, drop_last=True, prefetch=2, num_workers=0):
+                 seed=0, drop_last=True, prefetch=2, num_workers=0,
+                 shard=(1, 0)):
         _tune_malloc()
         self.dataset = dataset
         self.batch_size = batch_size
@@ -430,13 +438,16 @@ class WeatherDataLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.num_workers = num_workers
+        self.num_shards, self.shard_id = (int(v) for v in shard)
         self.epoch = 0
 
     def __len__(self):
-        n = len(self.dataset)
-        if self.drop_last:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+        n_full = len(self.dataset) // self.batch_size
+        n = n_full // self.num_shards
+        if not self.drop_last and self.shard_id == 0:
+            remainder = len(self.dataset) - n_full * self.batch_size
+            n += n_full - n * self.num_shards + (1 if remainder else 0)
+        return n
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -446,9 +457,17 @@ class WeatherDataLoader:
         order = np.arange(n)
         if self.shuffle:
             order = np.random.default_rng((self.seed, self.epoch)).permutation(n)
-        return [order[i:i + self.batch_size]
-                for i in range(0, len(self) * self.batch_size,
-                               self.batch_size)]
+        n_batches = n // self.batch_size
+        batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
+                   for i in range(n_batches)]
+        n_even = n_batches // self.num_shards * self.num_shards
+        mine = batches[self.shard_id:n_even:self.num_shards]
+        if not self.drop_last and self.shard_id == 0:
+            mine += batches[n_even:]
+            remainder = order[n_batches * self.batch_size:]
+            if remainder.size:
+                mine.append(remainder)
+        return mine
 
     def _alloc_batch(self, n_rows):
         """Empty batch arrays for `n_rows` samples."""
@@ -526,8 +545,10 @@ class WeatherDataModule:
 
     def __init__(self, datastore: BaseDatastore, ar_steps_train=3,
                  ar_steps_eval=25, standardize=True, num_past_forcing_steps=1,
-                 num_future_forcing_steps=1, batch_size=4, num_workers=0):
+                 num_future_forcing_steps=1, batch_size=4, num_workers=0,
+                 shard=(1, 0)):
         self._datastore = datastore
+        self.shard = shard
         self.ar_steps_train = ar_steps_train
         self.ar_steps_eval = ar_steps_eval
         self.standardize = standardize
@@ -561,14 +582,17 @@ class WeatherDataModule:
     def train_dataloader(self, seed=0):
         return WeatherDataLoader(self.train_dataset,
                                  batch_size=self.batch_size, shuffle=True,
-                                 seed=seed, num_workers=self.num_workers)
+                                 seed=seed, num_workers=self.num_workers,
+                                 shard=self.shard)
 
     def val_dataloader(self):
         return WeatherDataLoader(self.val_dataset, batch_size=self.batch_size,
                                  drop_last=False,
-                                 num_workers=self.num_workers)
+                                 num_workers=self.num_workers,
+                                 shard=self.shard)
 
     def test_dataloader(self):
         return WeatherDataLoader(self.test_dataset,
                                  batch_size=self.batch_size, drop_last=False,
-                                 num_workers=self.num_workers)
+                                 num_workers=self.num_workers,
+                                 shard=self.shard)

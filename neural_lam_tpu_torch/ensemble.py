@@ -44,6 +44,21 @@ def draw_normal(shape, generator: torch.Generator):
                        device=generator.device, dtype=torch.float32)
 
 
+def draw_rows(model, shape, generator: torch.Generator, members: int = 1):
+    """`draw_normal(shape)` for the model's rows of a batch (shape[0] =
+    rows x members): when data parallelism gives this rank rows
+    [offset, offset + b) of a global batch of B (`model.batch_rows`), the
+    global batch's draw is made and this rank's rows kept, so every row
+    draws what a single process draws for it."""
+    rows = getattr(model, "batch_rows", None)
+    if rows is None:
+        return draw_normal(shape, generator)
+    offset, global_b = rows
+    b = shape[0] // members
+    full = draw_normal((global_b * members,) + tuple(shape[1:]), generator)
+    return full[offset * members:(offset + b) * members]
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """A generator on `device` whose stream is a function of (seed, step)
     alone, as the JAX trainer's `fold_in(PRNGKey(seed), step)`: a run
@@ -81,15 +96,17 @@ def sample_rollout(model, init_states, forcing_features, true_states,
     preds = []
     for t in range(forcing_r.shape[1]):
         if is_latent:
-            eps = draw_normal((prev_state.shape[0], model.latent_num_nodes,
-                               model.latent_dim), generator)
+            eps = draw_rows(model, (prev_state.shape[0],
+                                    model.latent_num_nodes, model.latent_dim),
+                            generator, n_members)
             sampled, _ = model.predict_step(
                 prev_state, prev_prev_state, forcing_r[:, t],
                 {**ctx, "latent_eps": eps})
         else:
             mean, std = model.predict_step(prev_state, prev_prev_state,
                                            forcing_r[:, t], ctx)
-            sampled = mean + std * draw_normal(mean.shape, generator)
+            sampled = mean + std * draw_rows(model, mean.shape, generator,
+                                             n_members)
         new_state = (statics.boundary_mask * true_r[:, t]
                      + statics.interior_mask * sampled)
         preds.append(new_state)

@@ -47,6 +47,14 @@ def expand_to_batch(x, batch_size):
 
 
 class BaseGraphModel(ARModelBase):
+    # set on a rank's twin by the grid scheme (parallel/grid_sharded.py):
+    # _g2m_psum_axis -- the process group to all-reduce the partial g2m
+    # aggregations over; _mesh_psum_axis -- the group to all-reduce the
+    # partial mesh-level (m2m/up/down) aggregations over, set when those
+    # edge sets are per-rank edge chunks. None outside a sharded run.
+    _g2m_psum_axis = None
+    _mesh_psum_axis = None
+
     def __init__(self, args: ModelArgs, config, datastore,
                  graph: LoadedGraph, device="cuda",
                  generator: torch.Generator | None = None):
@@ -180,7 +188,7 @@ class BaseGraphModel(ARModelBase):
             self.g2m_gnn, self.graph.g2m, ge_f,
             expand_to_batch(ctx["mesh_emb"], B),
             update_edges=False, aggr="sum", ew=ctx["g2m"]["ew"],
-            compute_dtype=cd,
+            compute_dtype=cd, psum_axis=self._g2m_psum_axis,
         )  # (B, N_mesh, h)
 
         mesh_rep = self.process_step(mesh_rep, B, ctx)
@@ -207,12 +215,14 @@ class BaseGraphModel(ARModelBase):
                 and flat_eligible(g.m2g, batch_size, h)
                 and flat_eligible(g.g2m, batch_size, h))
 
-    def _inet_static(self, inet, edges, send_rep, rec_rep, ctx_entry):
+    def _inet_static(self, inet, edges, send_rep, rec_rep, ctx_entry,
+                     psum_axis=None):
         """update_edges=False interaction net on the rollout-invariant
         edge term ew (M, h)."""
         return apply_interaction_net(inet, edges, send_rep, rec_rep,
                                      update_edges=False, ew=ctx_entry["ew"],
-                                     compute_dtype=self.compute_dtype)
+                                     compute_dtype=self.compute_dtype,
+                                     psum_axis=psum_axis)
 
     def predict_step(self, prev_state, prev_prev_state, forcing, ctx=None):
         batch_size = prev_state.shape[0]
@@ -232,6 +242,7 @@ class BaseGraphModel(ARModelBase):
         mesh_rep = self._inet_static(
             self.g2m_gnn, self.graph.g2m, grid_emb,
             expand_to_batch(ctx["mesh_emb"], batch_size), ctx["g2m"],
+            psum_axis=self._g2m_psum_axis,
         )  # (B, N_mesh, h)
         grid_rep = grid_emb + apply_mlp(self.encoding_grid_mlp, grid_emb, cd)
         mesh_rep = self.process_step(mesh_rep, batch_size, ctx)

@@ -114,6 +114,7 @@ class BaseHiGraphModel(BaseGraphModel):
                     gnn, g.up[level_l - 1], mesh_rep_levels[level_l - 1],
                     mesh_rep_levels[level_l], mesh_up_rep[level_l - 1],
                     compute_dtype=self.compute_dtype,
+                    psum_axis=self._mesh_psum_axis,
                 )
             )
 
@@ -128,6 +129,7 @@ class BaseHiGraphModel(BaseGraphModel):
                 gnn, g.down[level_l], mesh_rep_levels[level_l + 1],
                 mesh_rep_levels[level_l], mesh_down_rep[level_l],
                 update_edges=False, compute_dtype=self.compute_dtype,
+                psum_axis=self._mesh_psum_axis,
             )
         return mesh_rep_levels[0]
 

@@ -81,6 +81,11 @@ class LatentMeshMixin:
         self.latent_num_nodes = int(self.graph.level_sizes[0])
         self.kl_beta = float(args.kl_beta)
         self.crps_members = int(args.crps_members)
+        # (row offset, global batch) of this rank's rows when data
+        # parallelism splits the batch (set by the trainer): a rank draws
+        # the global batch's noise and keeps its own rows, so each row
+        # draws what one process would draw for it
+        self.batch_rows = None
 
     @property
     def _latent_edges(self):
@@ -128,7 +133,7 @@ class LatentMeshMixin:
         """One bottom-m2m interaction round and an MLP head ->
         (mu, sigma), sigma = softplus + 1e-4, in the compute dtype."""
         rep = self._inet_static(inet, self._latent_edges, mesh_rep, mesh_rep,
-                                edge_ctx)
+                                edge_ctx, psum_axis=self._mesh_psum_axis)
         mu, sigma_raw = apply_mlp(head, rep, self.compute_dtype).chunk(
             2, dim=-1)
         return mu, _softplus(sigma_raw) + _SIGMA_FLOOR
@@ -140,7 +145,8 @@ class LatentMeshMixin:
                             self.compute_dtype)
         return self._inet_static(
             self.post_g2m_gnn, self.graph.g2m, tgt_emb,
-            expand_to_batch(ctx["mesh_emb"], batch_size), ctx["post_g2m"])
+            expand_to_batch(ctx["mesh_emb"], batch_size), ctx["post_g2m"],
+            psum_axis=self._g2m_psum_axis)
 
     def process_step(self, mesh_rep, batch_size, ctx):
         """Prior (and, given a target, posterior and KL), then z = mu +
@@ -203,8 +209,8 @@ class LatentMeshMixin:
         preds, stds, kls = [], [], []
         for t in range(target_states.shape[1]):
             target_t = target_states[:, t]
-            eps = ensemble.draw_normal(
-                (B, self.latent_num_nodes, self.latent_dim), generator)
+            eps = ensemble.draw_rows(
+                self, (B, self.latent_num_nodes, self.latent_dim), generator)
             # the target rides in the step's ctx; process_step encodes it
             ctx_t = {**ctx, "latent_eps": eps, "latent_target": target_t}
             pred, pred_std = self.predict_step(

@@ -67,5 +67,6 @@ class GraphLAM(BaseGraphModel):
                 layer, self.m2m, mesh_rep, mesh_rep, edge_rep,
                 update_edges=True, aggr=self.args.mesh_aggr,
                 compute_dtype=self.compute_dtype,
+                psum_axis=self._mesh_psum_axis,
             )
         return mesh_rep

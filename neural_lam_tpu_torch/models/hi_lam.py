@@ -38,6 +38,7 @@ class HiLAM(BaseHiGraphModel):
         mesh_rep_levels[-1], mesh_same_rep[-1] = apply_interaction_net(
             same_gnns[-1], g.m2m[-1], mesh_rep_levels[-1],
             mesh_rep_levels[-1], mesh_same_rep[-1], compute_dtype=cd,
+            psum_axis=self._mesh_psum_axis,
         )
         for level_l, down_gnn, same_gnn in zip(
                 range(self.num_levels - 2, -1, -1), reversed(down_gnns),
@@ -45,12 +46,13 @@ class HiLAM(BaseHiGraphModel):
             new_node_rep, mesh_down_rep[level_l] = apply_interaction_net(
                 down_gnn, g.down[level_l], mesh_rep_levels[level_l + 1],
                 mesh_rep_levels[level_l], mesh_down_rep[level_l],
-                compute_dtype=cd,
+                compute_dtype=cd, psum_axis=self._mesh_psum_axis,
             )
             mesh_rep_levels[level_l], mesh_same_rep[level_l] = (
                 apply_interaction_net(same_gnn, g.m2m[level_l], new_node_rep,
                                       new_node_rep, mesh_same_rep[level_l],
-                                      compute_dtype=cd)
+                                      compute_dtype=cd,
+                                      psum_axis=self._mesh_psum_axis)
             )
         return mesh_rep_levels, mesh_same_rep, mesh_down_rep
 
@@ -62,18 +64,20 @@ class HiLAM(BaseHiGraphModel):
         mesh_rep_levels[0], mesh_same_rep[0] = apply_interaction_net(
             same_gnns[0], g.m2m[0], mesh_rep_levels[0], mesh_rep_levels[0],
             mesh_same_rep[0], compute_dtype=cd,
+            psum_axis=self._mesh_psum_axis,
         )
         for level_l, (up_gnn, same_gnn) in enumerate(
                 zip(up_gnns, same_gnns[1:]), start=1):
             new_node_rep, mesh_up_rep[level_l - 1] = apply_interaction_net(
                 up_gnn, g.up[level_l - 1], mesh_rep_levels[level_l - 1],
                 mesh_rep_levels[level_l], mesh_up_rep[level_l - 1],
-                compute_dtype=cd,
+                compute_dtype=cd, psum_axis=self._mesh_psum_axis,
             )
             mesh_rep_levels[level_l], mesh_same_rep[level_l] = (
                 apply_interaction_net(same_gnn, g.m2m[level_l], new_node_rep,
                                       new_node_rep, mesh_same_rep[level_l],
-                                      compute_dtype=cd)
+                                      compute_dtype=cd,
+                                      psum_axis=self._mesh_psum_axis)
             )
         return mesh_rep_levels, mesh_same_rep, mesh_up_rep
 

@@ -21,10 +21,13 @@ aggregation MLP. The parameters nest as the JAX package's
 (`processor.{layer}.edge_mlps.{chunk}`, `.aggr_mlps.{level}`), so
 `convert.params_from_jax` loads a JAX HiLAMParallel tree key for key.
 
-Left out: the JAX model's sharded hooks (its `SplitSend` branch, the
-per-level `psum`, `_hi_sender_rep`, `_hi_psum_axis`, `split_send_tf`), which
-belong to the spatial schemes (ROADMAP.md queue 1, item 6), and its TPU
-window layout (`win=`), which the port dropped for every model.
+Under the grid scheme (`parallel/grid_sharded.py`) each chunk is a rank's
+part of its edge set, and each level's partial sums are all-reduced once
+a layer (over `_mesh_psum_axis`) before its aggregation MLP. Left out:
+the JAX model's `SplitSend` branch and `split_send_tf`, which belong to
+the mesh-node-sharded schemes (`mesh_rs`, `mesh_halo`: ROADMAP.md queue
+1, item 6), and its TPU window layout (`win=`), which the port dropped
+for every model.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from ..ops.message_passing import (
     unflatten_nodes,
 )
 from ..ops.mlp import apply_mlp_concat
+from ..parallel.collectives import psum
 from .base_hi_graph_model import BaseHiGraphModel
 
 
@@ -75,7 +79,9 @@ class HiLAMParallel(BaseHiGraphModel):
         """The edge half of one fused round of the chunked interaction net
         `inet`: (per-level receiver sums (B, N_l, h), new chunk edge
         states), every chunk's sums added into its level in chunk order
-        (ref: hi_lam_parallel.py:59-82)."""
+        (ref: hi_lam_parallel.py:59-82), then each level's sums
+        all-reduced over `_mesh_psum_axis` (one collective a level, under
+        the grid scheme)."""
         _check_inet(inet)
         cd = self.compute_dtype
         B, h = mesh_rep_levels[0].shape[0], mesh_rep_levels[0].shape[-1]
@@ -104,6 +110,7 @@ class HiLAMParallel(BaseHiGraphModel):
             aggregated[rec_l] = (agg_c if aggregated[rec_l] is None
                                  else aggregated[rec_l] + agg_c)
             new_edge_reps.append(new_edge)
+        aggregated = [psum(a, self._mesh_psum_axis) for a in aggregated]
         return aggregated, new_edge_reps
 
     def processor_layer(self, inet, mesh_rep_levels, edge_reps):

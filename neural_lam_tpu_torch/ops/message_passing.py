@@ -39,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.collectives import psum
 from . import edge, edge_flat
 from .mlp import MLP, apply_mlp_concat, finish_mlp, init_mlp, mm, store
 from .segment import build_gather_table
@@ -51,6 +52,18 @@ _FLAT_MIN_VIRT = 512
 # folds by gather (`_rec_fold`, fp32 sums of a bf16 virt); past it, as on
 # its batched route, it folds by `segment_sum` in virt's dtype
 _JAX_GATHER_FOLD_MAX = 16
+
+
+def virt_rows(counts: np.ndarray, K: int, dense_min_virt: int = 1):
+    """(virtual rows per receiver, their total, the total padded) of a
+    dense layout with K slots a row over receivers of in-degree `counts`
+    (`EdgeSet.from_local`). The rows are padded (all-masked) to a multiple
+    of 256 (64 for small sets): the JAX package's layout, kept so both
+    packages agree on every shape."""
+    n_virt_per_rec = np.maximum(-(-counts // K), dense_min_virt)
+    num_virt = int(n_virt_per_rec.sum())
+    tile = 256 if num_virt >= 2048 else 64
+    return n_virt_per_rec, num_virt, -(-max(num_virt, 1) // tile) * tile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +105,9 @@ class EdgeSet:
     def from_local(senders: np.ndarray, receivers: np.ndarray,
                    features: np.ndarray, num_send: int, num_rec: int,
                    dense_cap: int | None = None, device="cuda",
-                   build_transpose: bool = True):
+                   build_transpose: bool = True,
+                   dense_force_k: int | None = None,
+                   dense_min_virt: int = 1):
         """Build the dense layout from already-local index arrays.
 
         Pads the edge list so every receiver owns contiguous K-slot virtual
@@ -100,6 +115,13 @@ class EdgeSet:
         degree d owns ceil(d/K) virtual rows. Padding slots have sender 0,
         zero features and mask 0. The slot order and padding are those of
         the JAX package's `EdgeSet.from_local(dense=True)`.
+
+        dense_force_k pins K (the per-shard sets of one sharded edge set
+        share it; any K is valid, a higher degree just takes more virtual
+        rows). dense_min_virt=0 gives a receiver of degree 0 no virtual
+        row at all (the per-shard edge chunks of `parallel/grid_sharded.py`,
+        which see every receiver but few of their edges): its fold sums
+        nothing and it aggregates to 0.
         """
         senders = np.asarray(senders)
         receivers = np.asarray(receivers)
@@ -107,15 +129,12 @@ class EdgeSet:
         K = dense_cap or 8
         counts = np.bincount(receivers, minlength=num_rec)
         K = min(K, max(int(counts.max()), 1))
-        n_virt_per_rec = np.maximum(-(-counts // K), 1)
+        if dense_force_k is not None:
+            K = int(dense_force_k)
+        n_virt_per_rec, num_virt, num_virt_pad = virt_rows(
+            counts, K, dense_min_virt)
         virt_start = np.concatenate(([0], np.cumsum(n_virt_per_rec)))[:-1]
-        num_virt = int(n_virt_per_rec.sum())
         virt_identity = bool(np.all(n_virt_per_rec == 1))
-        # virtual rows padded (all-masked) to a multiple of 256 (64 for
-        # small sets): the JAX package's layout, kept so both packages
-        # agree on every shape
-        tile = 256 if num_virt >= 2048 else 64
-        num_virt_pad = -(-max(num_virt, 1) // tile) * tile
         order = np.argsort(receivers, kind="stable")
         starts = np.concatenate(([0], np.cumsum(counts)))[:-1]
         within = np.arange(len(receivers)) - starts[receivers[order]]
@@ -135,15 +154,18 @@ class EdgeSet:
         ])
         # gather-based virt->receiver fold layout. The JAX package caps
         # this at 16 rows per receiver (beyond it a TPU scatter was
-        # cheaper); the port always folds by gather, so it has no cap.
+        # cheaper); the port always folds by gather, so it has no cap. A
+        # receiver without virtual rows (dense_min_virt=0) reads row 0, or
+        # the last row past the end, masked: it sums nothing.
         rec_slots = rec_mask = None
-        r_fold = int(n_virt_per_rec.max()) if num_rec else 0
-        if not virt_identity and r_fold > 0:
+        if not virt_identity and num_rec:
+            r_fold = max(int(n_virt_per_rec.max()), 1)
             jj = np.arange(r_fold)[None, :]
             cnt = n_virt_per_rec[:, None]
             rec_slots = torch.as_tensor(
-                (virt_start[:, None]
-                 + np.minimum(jj, np.maximum(cnt - 1, 0))).astype(np.int64),
+                np.minimum(virt_start[:, None]
+                           + np.minimum(jj, np.maximum(cnt - 1, 0)),
+                           num_virt_pad - 1).astype(np.int64),
                 device=device,
             )
             rec_mask = torch.as_tensor((jj < cnt).astype(np.float32),
@@ -440,15 +462,17 @@ def edge_round_flat(edge_mlp: MLP, edges: EdgeSet, send_rep, rec_rep,
 
 def _apply_inet_flat(inet: InteractionNet, edges: EdgeSet, send_rep,
                      rec_rep, edge_rep_flat=None, *, update_edges, aggr,
-                     ew=None, compute_dtype=None):
+                     ew=None, compute_dtype=None, psum_axis=None):
     """Flat interaction-net round. rec_rep in (B, N, h); returns rec_out
-    (B, N_rec, h) and, when update_edges, the flat edge state."""
+    (B, N_rec, h) and, when update_edges, the flat edge state. psum_axis:
+    the process group whose ranks each hold a part of the edge set; their
+    partial receiver sums are all-reduced after the fold."""
     assert aggr in ("sum", "mean"), f"Unknown aggregation method: {aggr}"
     edge_out, virt = edge_round_flat(
         inet.edge_mlp, edges, send_rep, rec_rep, edge_rep_flat, ew=ew,
         compute_dtype=compute_dtype,
     )
-    aggregated = _fold_virt_flat(edges, virt)
+    aggregated = psum(_fold_virt_flat(edges, virt), psum_axis)
     if aggr == "mean":
         aggregated = aggregated / _virt_counts(edges)
     rec_out = rec_rep + _aggr_mlp_mixed(inet.aggr_mlp, rec_rep, aggregated,
@@ -533,7 +557,8 @@ def check_edge_layout(edges: EdgeSet, edge_rep, batch_size: int, h: int,
 
 def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
                           rec_rep, edge_rep=None, *, update_edges=True,
-                          aggr="sum", ew=None, compute_dtype=None):
+                          aggr="sum", ew=None, compute_dtype=None,
+                          psum_axis=None):
     """One interaction-net round on a dense edge set, on the route the JAX
     package takes for it (`flat_eligible`).
 
@@ -547,7 +572,13 @@ def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
     and, when update_edges, the new edge state in the same layout. With
     compute_dtype=torch.bfloat16 (the JAX package's bf16 path): fp32
     parameters, node and edge states stored in bf16, and each product
-    rounded as its JAX call site rounds it."""
+    rounded as its JAX call site rounds it.
+
+    psum_axis (a process group, or None): the set is one rank's part of a
+    sharded edge set (`parallel/grid_sharded.py`), and the ranks' partial
+    receiver sums are all-reduced over the group after the virtual-row
+    fold, before the aggregation MLP (`parallel.collectives.psum`, whose
+    backward all-reduces the cotangent)."""
     if aggr not in ("sum", "mean"):
         raise ValueError(f"Unknown aggregation method: {aggr}")
     _check_inet(inet)
@@ -562,12 +593,13 @@ def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
     if flat:
         return _apply_inet_flat(inet, edges, send_rep, rec_rep, edge_rep,
                                 update_edges=update_edges, aggr=aggr, ew=ew,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype,
+                                psum_axis=psum_axis)
     edge_out, virt = edge_messages_and_virt(
         inet.edge_mlp, edges, send_rep, rec_rep, edge_rep,
         update_edges=update_edges, ew=ew, compute_dtype=compute_dtype,
     )
-    aggregated = _fold_virt(edges, virt, in_virt_dtype=True)
+    aggregated = psum(_fold_virt(edges, virt, in_virt_dtype=True), psum_axis)
     if aggr == "mean":
         aggregated = aggregated / _virt_counts(edges)
     rec_out = rec_rep + apply_mlp_concat(inet.aggr_mlp, [rec_rep, aggregated],

@@ -1,7 +1,7 @@
 """Training runtime and CLI.
 
 Counterpart of neural_lam_tpu/train.py (ref: neural_lam/train_model.py:
-27-300) for one device:
+27-300):
 
     python -m neural_lam_tpu_torch.train --config_path config.yaml \\
         --hidden_dim 64 --processor_layers 4 --epochs 1 --batch_size 4
@@ -63,8 +63,24 @@ model) then scores an N-member ensemble over the test split
 spread-skill ratio, and the rank histogram in `ens_rank_hist.npy`, drawn
 as `ens_rank_hist.png` where matplotlib imports).
 
-Not ported yet: multi-host and spatial sharding (ROADMAP.md queue 1,
-item 6).
+Several processes (`parallel/distributed.py`): one process a device,
+`--num_nodes` ranks in all, each started with its `--node_rank` and the
+`--coordinator_address` host:port that rank 0 serves; `--dist_backend`
+(nccl on CUDA, gloo on the CPU by default; gloo for several ranks on one
+card). The ranks form n_data x n_space groups, `--spatial_shards` =
+n_space consecutive ranks a group. A space group trains one model on one
+batch with the grid scheme (`--spatial_scheme grid`,
+`parallel/grid_sharded.py`: grid blocks, edge chunks, all-reduced partial
+sums); the data groups read disjoint strided shards of the batches
+(`--batch_size` rows each, so the global batch is batch_size x n_data)
+and average their gradients. Rank 0's parameters are broadcast at the
+start; files, figures and W&B are rank 0's; evaluation runs per data
+group and merges its sums over the data groups; a latent model's rows
+draw the noise one process would draw for them. A multi-process run
+installs no preemption handler (a signal ends every rank; `--load auto`
+resumes from the last epoch's save). Not ported: the mesh-node-sharded
+schemes `mesh_rs` and `mesh_halo` (with the JAX package's `SplitSend`),
+ROADMAP.md queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -92,6 +108,10 @@ from .ensemble import evaluate_ensemble, spread_skill_ratio, step_generator
 from .graph.storage import load_or_build_graph
 from .models import MODELS
 from .models.ar_model import ModelArgs
+from .parallel import distributed as dist
+from .parallel.collectives import reduce_gradients
+from .parallel.grid_sharded import check_scheme, spatialize_scheme
+from .parallel.mesh import make_mesh, replicate
 from .predict import compute_dtype_of
 
 
@@ -252,13 +272,29 @@ class MetricsLogger:
             self._wandb.log({name: self._wandb.Image(fig)})
 
 
-class Trainer:
-    """Training loop over a model and a datamodule, on the model's device."""
+class _NullLogger:
+    """The logger of a rank other than 0: it writes nothing."""
 
-    def __init__(self, model, flags: TrainFlags, run_dir=None):
+    def log(self, metrics: dict, step: int | None = None):
+        pass
+
+    def log_image(self, name: str, fig):
+        pass
+
+
+class Trainer:
+    """Training loop over a model and a datamodule, on the model's device.
+
+    mesh (`parallel.mesh.make_mesh`; by default the world's, one rank in a
+    single process): the ranks' data and space groups."""
+
+    def __init__(self, model, flags: TrainFlags, run_dir=None, mesh=None):
         self.model = model
         self.flags = flags
         self.device = model.device
+        self.mesh = mesh if mesh is not None else make_mesh()
+        w = dist.world()
+        self.rank = w.rank if w is not None else 0
         self.run_dir = Path(run_dir or Path(flags.save_dir) / flags.run_name)
         self._logger = None
         self.optimizer = torch.optim.AdamW(
@@ -271,7 +307,10 @@ class Trainer:
     @property
     def logger(self) -> MetricsLogger:
         """The run's MetricsLogger, started at its first use (its run
-        config: the model args and the flags, as the JAX trainer's)."""
+        config: the model args and the flags, as the JAX trainer's); on a
+        rank other than 0 a logger that writes nothing."""
+        if self._logger is None and self.rank != 0:
+            self._logger = _NullLogger()
         if self._logger is None:
             config = {
                 **{f"model.{k}": v for k, v in vars(self.model.args).items()},
@@ -288,17 +327,22 @@ class Trainer:
         `restore_opt`) when given; "auto" is <run_dir>/last where it has
         a committed save, also one that a save killed midway moved aside
         (a relaunch after preemption; needs a stable --run_name), else a
-        fresh start."""
+        fresh start. Several processes: rank 0 decides what "auto" finds,
+        every rank reads that save, and rank 0's parameters and optimizer
+        state are broadcast to all (`parallel.mesh.replicate`)."""
         if self.flags.load == "auto":
             last = self.run_dir / "last"
+            found = dist.broadcast_object(checkpoint_exists(last))
             self.flags = dataclasses.replace(
-                self.flags,
-                load=str(last) if checkpoint_exists(last) else None)
+                self.flags, load=str(last) if found else None)
             if self.flags.load is None:
                 print(f"--load auto: no checkpoint at {last}, starting "
                       "fresh", flush=True)
-        if not self.flags.load:
-            return
+        if self.flags.load:
+            self._restore()
+        replicate(self.model, self.mesh, self.optimizer)
+
+    def _restore(self):
         model_state, opt_state, meta = load_checkpoint(self.flags.load,
                                                        self.device)
         self.model.load_state_dict(model_state)
@@ -321,7 +365,11 @@ class Trainer:
 
     def train_step(self, batch):
         """One AdamW step on a device batch; returns the loss (a 0-dim
-        tensor on the device, not synchronised)."""
+        tensor on the device, not synchronised). Several processes: the
+        gradients are summed over the space group and averaged over the
+        data groups before the update (`collectives.reduce_gradients`),
+        and a latent model's noise rows are this data group's rows of the
+        global batch's draw."""
         f = self.flags
         lr = lr_at(self.global_step, self.model.args.lr, f.lr_schedule,
                    f.warmup_steps, f.decay_steps)
@@ -332,8 +380,19 @@ class Trainer:
         # (the JAX trainer's fold_in(PRNGKey(seed), step))
         gen = (step_generator(f.seed, self.global_step, self.device)
                if getattr(self.model, "is_latent", False) else None)
-        loss = self.model.training_loss(batch, generator=gen)
-        loss.backward()
+        mesh = self.mesh
+        split = gen is not None and mesh.n_data > 1
+        if split:
+            b = batch[0].shape[0]
+            self.model.batch_rows = (mesh.data_index * b, mesh.n_data * b)
+        try:
+            loss = self.model.training_loss(batch, generator=gen)
+            loss.backward()
+        finally:
+            if split:
+                self.model.batch_rows = None
+        reduce_gradients(self.model.parameters(), mesh.world_group,
+                         mesh.n_data)
         self.optimizer.step()
         self.global_step += 1
         return loss.detach()
@@ -346,6 +405,10 @@ class Trainer:
             yield self.to_device(batch)
 
     def save(self, name: str, meta: dict):
+        """Save a checkpoint (rank 0's alone: every rank holds the same
+        parameters)."""
+        if self.rank != 0:
+            return
         save_checkpoint(self.run_dir, name, self.model.state_dict(),
                         self.optimizer.state_dict(), meta)
 
@@ -413,14 +476,17 @@ class Trainer:
         """Train for `flags.epochs` (or until `flags.max_steps`), validating
         every `val_interval` epochs. On SIGTERM or SIGINT the current step
         finishes, `last` is saved with "preempted": true and training
-        stops; the earlier handlers are back when fit returns. Returns the
-        per-step losses."""
+        stops; the earlier handlers are back when fit returns. A run of
+        several processes installs no handler: a step interrupted on one
+        rank would leave the others waiting in a collective. Returns the
+        per-step losses (means over the data groups)."""
         datamodule.setup("fit")
         flags = self.flags
         logger = self.logger  # started (W&B with it) before the first step
         stop = threading.Event()
         prev_handlers = {}
-        for sig in (signal.SIGTERM, signal.SIGINT):
+        for sig in ((signal.SIGTERM, signal.SIGINT)
+                    if not dist.is_multiprocess() else ()):
             try:
                 prev_handlers[sig] = signal.signal(
                     sig, lambda signum, frame: stop.set())
@@ -487,7 +553,8 @@ class Trainer:
                 if batch is None:
                     break
                 self._maybe_profile()
-                losses.append(float(self.train_step(batch)))
+                losses.append(dist.mean_across_data(
+                    float(self.train_step(batch)), self.mesh))
                 if (flags.ckpt_every_steps
                         and self.global_step % flags.ckpt_every_steps == 0):
                     self.save("last", {"step": self.global_step,
@@ -519,15 +586,35 @@ class Trainer:
             self.save("min_val_loss", meta)
         self.save("last", meta)
 
+    def _zero_eval_batch(self, ar_steps):
+        """An all-zeros batch of one row with the evaluation shapes. A
+        data group whose shard of the split yields no batch evaluates it
+        and adds no row (n_valid 0), so that it still reaches the merge of
+        the sums over the data groups with sums of the right shapes."""
+        m = self.model
+        N, d = m.num_grid_nodes, m.num_state_vars
+        d_f = m.grid_dim - 2 * d - m.grid_static_dim
+
+        def z(*shape):
+            return np.zeros(shape, np.float32)
+
+        return (z(1, 2, N, d), z(1, ar_steps, N, d), z(1, ar_steps, N, d_f),
+                np.zeros((1, ar_steps), np.int64))
+
     @torch.no_grad()
     def validate(self, datamodule):
         """Mean loss per unroll step over the val split
         (ref: ar_model.py:324-373): time_step_loss (T,), val_mean_loss,
-        and per-(T, d) mse / mae."""
+        and per-(T, d) mse / mae. Several processes: each data group
+        evaluates its shard of the split, and the sums are merged over
+        the data groups."""
         agg = _EvalAggregator()
         for batch in datamodule.val_dataloader():
             agg.add(self.model.eval_step_metrics(self.to_device(batch)))
-        return agg.summarize()
+        if not agg.n and dist.is_multiprocess():
+            agg.add(self.model.eval_step_metrics(self.to_device(
+                self._zero_eval_batch(datamodule.ar_steps_eval))), 0)
+        return agg.summarize(self.mesh)
 
     @torch.no_grad()
     def test(self, datamodule, make_plots=True):
@@ -542,7 +629,12 @@ class Trainer:
             if example_batch is None:
                 example_batch = batch
             agg.add(self.model.eval_step_metrics(self.to_device(batch)))
-        summary = agg.summarize()
+        if example_batch is None and dist.is_multiprocess():
+            agg.add(self.model.eval_step_metrics(self.to_device(
+                self._zero_eval_batch(datamodule.ar_steps_eval))), 0)
+        summary = agg.summarize(self.mesh)
+        # files are rank 0's: every rank holds the same merged summary
+        write = self.rank == 0
 
         model = self.model
         datastore = model.datastore
@@ -562,8 +654,9 @@ class Trainer:
             rescaled = arr * state_std  # (T, d)
             full_name = f"test_{name}"
             artifacts[full_name] = rescaled
-            np.savetxt(self.run_dir / f"{full_name}.csv", rescaled,
-                       delimiter=",")
+            if write:
+                np.savetxt(self.run_dir / f"{full_name}.csv", rescaled,
+                           delimiter=",")
             # watched metrics: chosen variables at chosen lead times
             # (ref: ar_model.py:599-606)
             if full_name in args.metrics_watch:
@@ -581,11 +674,13 @@ class Trainer:
         spatial = summary["mean_spatial_loss"]
         lead_times = [t for t in args.val_steps_to_log
                       if 1 <= t <= spatial.shape[0]]
-        np.save(self.run_dir / "mean_spatial_loss.npy", spatial)
-        for t in lead_times:
-            np.save(self.run_dir / f"spatial_loss_t{t}.npy", spatial[t - 1])
+        if write:
+            np.save(self.run_dir / "mean_spatial_loss.npy", spatial)
+            for t in lead_times:
+                np.save(self.run_dir / f"spatial_loss_t{t}.npy",
+                        spatial[t - 1])
 
-        if make_plots:
+        if make_plots and write:
             from . import vis
 
             for name, arr in artifacts.items():
@@ -599,6 +694,8 @@ class Trainer:
                 fig.savefig(self.run_dir / f"spatial_loss_t{t}.pdf")
                 self.logger.log_image(f"test_loss_t{t}", fig)
             vis.plt.close("all")
+        if make_plots and self.mesh.data_index == 0:
+            # rank 0's space group forecasts the examples together
             self.plot_examples(example_batch, n_examples=min(
                 args.n_example_pred, example_batch[0].shape[0]))
         return {**log, **{k: v.tolist() for k, v in artifacts.items()}}
@@ -607,12 +704,16 @@ class Trainer:
     def plot_examples(self, batch, n_examples=1):
         """Per-variable, per-step prediction/target figures and arrays of
         the first `n_examples` samples of `batch`
-        (ref: ar_model.py:456-566)."""
-        from . import vis
-
+        (ref: ar_model.py:456-566). Every rank of rank 0's space group
+        forecasts (a sharded model's collectives need them all); rank 0
+        writes."""
         model = self.model
         datastore = model.datastore
         prediction, target, _, _ = model.common_step(self.to_device(batch))
+        if self.rank != 0:
+            return
+        from . import vis
+
         mean = model.statics.state_mean.cpu().numpy()
         std = model.statics.state_std.cpu().numpy()
         pred = prediction.cpu().numpy() * std + mean
@@ -645,19 +746,34 @@ class Trainer:
         averaged variance and squared error, and the rank histogram's
         frequencies (T, m + 1), saved as ens_rank_hist.npy and, with
         `make_plots`, drawn as ens_rank_hist.png. Means over the samples
-        of every batch, a partial last batch included."""
+        of every batch, a partial last batch included. Several processes:
+        each data group scores its shard with the seed `seed` + its index
+        (the JAX trainer's per-process key) and the sums are merged over
+        the data groups."""
         datamodule.setup("test")
+        seed = seed + self.mesh.data_index
         sums, n = None, 0
+
+        def score(batch, gen, n_valid):
+            out = evaluate_ensemble(self.model, self.to_device(batch),
+                                    gen, n_members, per_sample=True)
+            return {k: v[:n_valid].double().sum(dim=0).cpu().numpy()
+                    for k, v in out.items()}
+
         for i, batch in enumerate(datamodule.test_dataloader()):
-            out = evaluate_ensemble(
-                self.model, self.to_device(batch),
-                step_generator(seed, i, self.device), n_members,
-                per_sample=True)
-            out = {k: v.double().sum(dim=0).cpu().numpy()
-                   for k, v in out.items()}
+            out = score(batch, step_generator(seed, i, self.device),
+                        batch[0].shape[0])
             sums = out if sums is None else {k: sums[k] + out[k]
                                              for k in out}
             n += batch[0].shape[0]
+        if dist.is_multiprocess():
+            if sums is None:
+                sums = score(self._zero_eval_batch(datamodule.ar_steps_eval),
+                             step_generator(seed, 0, self.device), 0)
+            merged = dist.psum_across_hosts({**sums, "n": np.asarray(n)},
+                                            self.mesh)
+            n = int(round(float(merged.pop("n"))))
+            sums = merged
         if not n:
             raise ValueError(
                 "no evaluation batches were produced: the split has fewer "
@@ -667,10 +783,11 @@ class Trainer:
                                            result["ens_se"], n_members)
         rank = result.pop("rank_hist")
         freq = rank / np.maximum(rank.sum(axis=-1, keepdims=True), 1.0)
-        np.save(self.run_dir / "ens_rank_hist.npy", freq)  # (T, m + 1)
+        if self.rank == 0:
+            np.save(self.run_dir / "ens_rank_hist.npy", freq)  # (T, m + 1)
         result = {k: np.asarray(v).tolist() for k, v in result.items()}
         result["rank_hist"] = freq.tolist()
-        if make_plots:
+        if make_plots and self.rank == 0:
             from . import vis
 
             fig, ax = vis.plt.subplots(figsize=(5, 3))
@@ -700,15 +817,25 @@ class _EvalAggregator:
         self.n = 0
         self.sums = {}
 
-    def add(self, out):
+    def add(self, out, n_valid=None):
+        """Add a batch's outputs: all its rows, or its first `n_valid`."""
         keys = ["time_step_loss", "mse", "mae"] + (
             ["spatial_loss"] if self.keep_spatial else [])
-        self.n += out["time_step_loss"].shape[0]
+        if n_valid is None:
+            n_valid = out["time_step_loss"].shape[0]
+        self.n += n_valid
         for k in keys:
-            s = out[k].double().sum(dim=0).cpu().numpy()
+            s = out[k][:n_valid].double().sum(dim=0).cpu().numpy()
             self.sums[k] = self.sums[k] + s if k in self.sums else s
 
-    def summarize(self):
+    def summarize(self, mesh=None):
+        """Means over the samples; with a mesh of several data groups,
+        over every data group's samples (the sums merged first)."""
+        if mesh is not None and dist.is_multiprocess():
+            merged = dist.psum_across_hosts(
+                {**self.sums, "n": np.asarray(self.n)}, mesh)
+            self.n = int(round(float(merged.pop("n"))))
+            self.sums = merged
         if not self.n:
             raise ValueError(
                 "no evaluation batches were produced: the split has fewer "
@@ -727,15 +854,40 @@ def main(input_args=None):
     """CLI mirroring `python -m neural_lam_tpu.train` for what the port
     runs: GraphLAM, HiLAM, HiLAMParallel, GraphEFM and HiEFM (the
     hierarchical ones with `--graph hierarchical`) training and
-    evaluation on one device. Returns what `--eval` printed (None when
-    training); with `--ensemble_members` the ensemble scores under
-    "ensemble"."""
+    evaluation, on one device or on `--num_nodes` processes (one a
+    device; `--spatial_shards` of them to a grid-sharded model). Returns
+    what `--eval` printed (None when training); with `--ensemble_members`
+    the ensemble scores under "ensemble"."""
     parser = ArgumentParser(description="Train the PyTorch port's models")
     parser.add_argument("--config_path", type=str, required=True)
     parser.add_argument("--model", type=str, default="graph_lam",
                         choices=sorted(MODELS))
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--seed", type=int, default=42)
+    # several processes (ref: train_model.py:276-286, DDP over num_nodes):
+    # one process a device, rank r on cuda:{r % device_count}
+    parser.add_argument("--num_nodes", type=int, default=1,
+                        help="number of processes in the job (one a "
+                             "device)")
+    parser.add_argument("--node_rank", type=int, default=None,
+                        help="this process's rank, 0 .. num_nodes - 1")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="host:port where rank 0 serves the processes' "
+                             "meeting point")
+    parser.add_argument("--dist_backend", type=str, default=None,
+                        choices=["nccl", "gloo"],
+                        help="torch.distributed backend (default: nccl on "
+                             "CUDA, gloo on the CPU; gloo for several ranks "
+                             "on one card, which NCCL refuses)")
+    parser.add_argument("--spatial_shards", type=int, default=1,
+                        help="shard each model's grid over this many "
+                             "processes (the 'space' groups of consecutive "
+                             "ranks)")
+    parser.add_argument("--spatial_scheme", type=str, default="grid",
+                        choices=["grid", "mesh_rs", "mesh_halo"],
+                        help="grid: grid-sharded, mesh-replicated (every "
+                             "family); mesh_rs and mesh_halo are not ported "
+                             "yet and raise")
     parser.add_argument("--epochs", type=int, default=200)
     parser.add_argument("--max_steps", type=int, default=0)
     parser.add_argument("--batch_size", type=int, default=4)
@@ -816,7 +968,33 @@ def main(input_args=None):
                          "--output_std or latent model (graph_efm, hi_efm)")
     compute_dtype = compute_dtype_of(args.precision)
 
-    device = resolve_device(args.device)
+    n_space = args.spatial_shards
+    if n_space > 1:
+        check_scheme(args.spatial_scheme)
+    multihost = args.num_nodes > 1 or args.coordinator_address is not None
+    if n_space > 1 and not multihost:
+        raise ValueError(
+            f"--spatial_shards {n_space}: the port runs one process a "
+            f"shard; start {n_space} x n_data processes with --num_nodes, "
+            "--node_rank and --coordinator_address")
+    if multihost and args.num_nodes % n_space:
+        raise ValueError(f"--num_nodes {args.num_nodes} is not a multiple "
+                         f"of --spatial_shards {n_space}")
+    if multihost:
+        rank, world = dist.init_multihost(
+            coordinator_address=args.coordinator_address,
+            num_processes=args.num_nodes, process_id=args.node_rank,
+            backend=args.dist_backend, device=args.device)
+        device = dist.world().device
+        print(f"multi-process: process {rank}/{world} on {device}, "
+              f"backend {dist.world().backend}", flush=True)
+    else:
+        device = resolve_device(args.device)
+    mesh = make_mesh(n_space=n_space)
+    if multihost:
+        # the global batch: each data group reads --batch_size rows
+        print(f"mesh: {mesh.n_data} data x {mesh.n_space} space ranks; "
+              f"global batch {args.batch_size * mesh.n_data}", flush=True)
     torch.manual_seed(args.seed)
     config, datastore = load_config_and_datastore(args.config_path)
     model_args = ModelArgs(
@@ -839,9 +1017,10 @@ def main(input_args=None):
     flags = TrainFlags(
         epochs=args.epochs, val_interval=args.val_interval, seed=args.seed,
         load=args.load, restore_opt=args.restore_opt,
-        run_name=args.run_name
-        or f"{args.model}-{args.processor_layers}x{args.hidden_dim}-"
-           f"{time.strftime('%m_%d_%H_%M')}",
+        # one name for every rank: rank 0's clock
+        run_name=args.run_name or dist.broadcast_object(
+            f"{args.model}-{args.processor_layers}x{args.hidden_dim}-"
+            f"{time.strftime('%m_%d_%H_%M')}"),
         save_dir=args.save_dir, lr_schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
         max_steps=args.max_steps, profile_steps=args.profile_steps,
@@ -852,14 +1031,34 @@ def main(input_args=None):
     model = MODELS[args.model](
         model_args, config, datastore, graph, device=device,
         generator=torch.Generator().manual_seed(args.seed))
+    if n_space > 1:
+        model = spatialize_scheme(model, mesh, args.spatial_scheme)
     datamodule = WeatherDataModule(
         datastore, ar_steps_train=args.ar_steps_train,
         ar_steps_eval=args.ar_steps_eval, standardize=True,
         num_past_forcing_steps=args.num_past_forcing_steps,
         num_future_forcing_steps=args.num_future_forcing_steps,
         batch_size=args.batch_size, num_workers=args.num_workers,
+        # one shard a data group: a space group's ranks read one batch
+        shard=(mesh.n_data, mesh.data_index),
     )
-    trainer = Trainer(model, flags)
+    trainer = Trainer(model, flags, mesh=mesh)
+    try:
+        result = _run(args, trainer, datamodule)
+    except BaseException:
+        # leave at once: the other ranks fail in their next collective
+        # (or at its timeout) instead of waiting here
+        dist.shutdown()
+        raise
+    if multihost:
+        dist.barrier()
+        dist.shutdown()
+    return result
+
+
+def _run(args, trainer, datamodule):
+    """What `main` does once the trainer is built: evaluate (printing and
+    returning the result) or train."""
     trainer.init_state()
     if args.eval == "val":
         datamodule.setup("fit")
