@@ -344,6 +344,28 @@ result line is printed), each printing its seconds:
    profile of 2). Each rank process has its own 300 s limit; any failure
    fails the run.
 
+17. The mesh-node-sharded schemes `mesh_rs` and `mesh_halo`
+   (`parallel/grid_sharded.py`'s `spatialize_rs`) on two rank processes of
+   the one card (gloo; its point-to-point calls staged through host
+   memory, `collectives.HOST_STAGED`), on phase 16's datastore, each
+   model against its unsharded run on the same rank. a. GraphLAM at full
+   depth under each scheme: a predict step and a 2-step rollout within
+   1e-5 x state_std, a training step's gradients within 1e-4 + 1e-4 x
+   max abs per parameter, host ms (median of 3) beside the unsharded
+   step's and device busy ms (a profile of 2). b. The other models of
+   16c (HiLAM, HiLAMParallel, GraphEFM, HiEFM at
+   prob_model_global_0p7deg, one processor layer; a bf16 GraphLAM by its
+   error's size) under each scheme, held the same way. In a and b each
+   rank's launches of a predict and a training step equal the table
+   `step_table` gives for its twin (a split set's interior and frontier
+   rounds), and its collectives by kind those `collective_table` derives
+   from its sets and halo plans; each rank prints its routes and its
+   collectives by kind and bytes, beside the grid scheme's of 16b. c.
+   `train.main --spatial_shards 2 --spatial_scheme mesh_halo` on the two
+   ranks, 2 AdamW steps at batch 4: each rank's losses within 1e-5
+   relative of 16a's single process's. Each rank process has its own
+   300 s limit.
+
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -2929,7 +2951,11 @@ def step_table(net, B, posterior=False):
     the virtual-row fold's row gathers) of `step_rounds`, each round's
     route from `flat_eligible`: each round on a set that is not
     virt_identity folds its receivers' R virtual rows by R gathers (the
-    global g2m's polar receivers: R = 128)."""
+    global g2m's polar receivers: R = 128). A round on a split set of the
+    mesh-node schemes (`es.frontier`) runs twice, the frontier on the
+    interior's route, and an edge-state update there on the batched route
+    is P1 with its messages (the JAX package's `_apply_inet_split`), not
+    P3."""
     from neural_lam_tpu_torch.ops.message_passing import flat_eligible
 
     names = {"static": ("edge_tail_sum_flat", "edge_tail_sum"),
@@ -2944,10 +2970,14 @@ def step_table(net, B, posterior=False):
               else "grid_update_flat"] += 1
             continue
         flat = flat_eligible(es, B, H)
-        t[names[kind][0 if flat else 1]] += 1
-        msg += kind == "chunk" and not flat
-        if es.rec_slots is not None:
-            gathers += es.rec_slots.shape[1]
+        split = es.frontier is not None
+        if split and kind == "layer" and not flat:
+            kind = "chunk"  # P1 with its messages
+        for part in (es, es.frontier) if split else (es,):
+            t[names[kind][0 if flat else 1]] += 1
+            msg += kind == "chunk" and not flat
+            if part.rec_slots is not None:
+                gathers += part.rec_slots.shape[1]
     return t, msg, gathers
 
 
@@ -3886,6 +3916,12 @@ PAR_CASES = {
 }
 
 
+# phase 17: the mesh-node-sharded schemes, 2 ranks on the one card, on
+# PAR_CASES' models and limits
+RS_SCHEMES = ("mesh_rs", "mesh_halo")
+RS_CLI_STEPS = 2  # 17c's AdamW steps through train.main
+
+
 def free_port():
     import socket
 
@@ -3977,14 +4013,16 @@ def train_table(fwd):
 
 
 def grid_case(torch, entry, mesh, what, case, counts, counts_bf16,
-              reset_counts):
-    """16b/16c on this rank: the model of `case` unsharded and grid-sharded
-    over `mesh`'s space group, on the same inputs and weights. Returns a
-    JSON-able record of the gaps, the launches against the per-rank
-    tables, the collectives and the timings."""
+              reset_counts, schemes=("grid",), timed=True):
+    """16b/16c (and, with `schemes`, 17a/17b) on this rank: the model of
+    `case` unsharded, then sharded over `mesh`'s space group under each of
+    `schemes` (`spatialize_scheme`), on the same inputs and weights.
+    Returns {scheme: a JSON-able record of the gaps, the launches against
+    the per-rank tables, the collectives (against their table, for the
+    mesh-node schemes) and, when `timed`, the timings}."""
     from neural_lam_tpu_torch.ensemble import step_generator
     from neural_lam_tpu_torch.parallel import collectives
-    from neural_lam_tpu_torch.parallel.grid_sharded import spatialize
+    from neural_lam_tpu_torch.parallel.grid_sharded import spatialize_scheme
 
     t0 = time.time()
     cfg = dict(BENCH, **case)
@@ -4025,92 +4063,164 @@ def grid_case(torch, entry, mesh, what, case, counts, counts_bf16,
 
     ref_step, ref_roll = step(net), rollout(net)
     ref_loss, ref_grads = grads(net, False)
-    sp = spatialize(net, mesh)
-    rec = {"build_s": time.time() - t0}
-    step(sp)  # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    collectives.reset_counts()
-    got_step = step(sp)
-    torch.cuda.synchronize()
-    rec["step_launches"] = total()
-    rec["step_collectives"] = dict(collectives.counts)
-    got_roll = rollout(sp)
-    reset_counts()
-    collectives.reset_counts()
-    got_loss, got_grads = grads(sp, True)
-    torch.cuda.synchronize()
-    rec["train_launches"] = total()
-    rec["train_collectives"] = dict(collectives.counts)
-    twin = sp._twin
-    fwd, _, _ = step_table(twin, BATCH)
-    fwd_post, _, _ = step_table(twin, BATCH, posterior=latent)
-    zero_all = {k: 0 for k in rec["train_launches"]}
-    rec["step_want"] = dict(zero_all, **fwd)
-    rec["train_want"] = dict(zero_all, **train_table(fwd_post))
-    rec["routes"] = {
-        nm: ("flat" if flat_eligible_of(es) else "batched")
-        for nm, es in (("g2m", twin.graph.g2m), ("m2g", twin.graph.m2g),
-                       *[(f"m2m[{i}]", es) for i, es in
-                         enumerate(twin.graph.m2m)],
-                       *[(f"up[{i}]", es) for i, es in
-                         enumerate(twin.graph.up)],
-                       *[(f"down[{i}]", es) for i, es in
-                         enumerate(twin.graph.down)])}
-    rec["loss"], rec["ref_loss"] = got_loss, ref_loss
     if bf16:
         fp32, _ = entry.build_model(**dict(cfg, compute_dtype=None),
                                     device="cuda")
         step32 = step(fp32)
-        e_k, e_r = (got_step - step32).abs(), (ref_step - step32).abs()
-        rec["bf16_mean_ratio"] = float(e_k.mean() / e_r.mean())
-        rec["bf16_max_ratio"] = float(e_k.max() / e_r.max())
         _, g32 = grads(fp32, False)
-        keys = sorted(g32)
-        v32 = torch.cat([g32[k].flatten() for k in keys])
-        vk = torch.cat([got_grads[k].flatten() for k in keys])
-        vr = torch.cat([ref_grads[k].flatten() for k in keys])
-        rec["bf16_grad_mean_ratio"] = float((vk - v32).abs().mean()
-                                            / (vr - v32).abs().mean())
-        rec["bf16_grad_max_ratio"] = float((vk - v32).abs().max()
-                                           / (vr - v32).abs().max())
         del fp32
-    else:
-        rec["step_gap"] = float((got_step - ref_step).abs().max())
-        rec["rollout_gap"] = float((got_roll - ref_roll).abs().max())
-        rec["grad_excess"] = max(
-            (float((got_grads[k] - g).abs().max()
-                   - (1e-4 + 1e-4 * g.abs().max())), k)
-            for k, g in ref_grads.items())
-        rec["grad_rel"] = max(
-            (float((got_grads[k] - g).abs().max()
-                   / g.abs().max().clamp_min(1e-30)), k)
-            for k, g in ref_grads.items())
-        rec["grad_keys"] = [len(got_grads), len(ref_grads)]
-    # timings on this rank: host ms (median of 3) and device busy ms (a
-    # profile of 2) of the sharded predict and training steps, and the
-    # unsharded steps' host ms beside them
-    for name, fn in (("step", lambda: step(sp)),
-                     ("train", lambda: grads(sp, True)),
-                     ("step_unsharded", lambda: step(net)),
-                     ("train_unsharded", lambda: grads(net, False))):
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t1) * 1e3)
-        rec[f"{name}_ms"] = sorted(times)[1]
-    for name, fn in (("step", lambda: step(sp)),
-                     ("train", lambda: grads(sp, True))):
-        prof = profile(torch, fn, f"{what} sharded {name} (rank "
-                       f"{mesh.space_index})", steps=2, top=0, cpu=False)
-        rec[f"{name}_busy_ms"] = prof[0] if prof else None
-    rec["seconds"] = time.time() - t0
-    del sp, net
+    build_s = time.time() - t0
+    recs = {}
+    for scheme in schemes:
+        t_scheme = time.time()
+        sp = spatialize_scheme(net, mesh, scheme)
+        rec = {"build_s": build_s, "shard_s": time.time() - t_scheme}
+        step(sp)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        collectives.reset_counts()
+        got_step = step(sp)
+        torch.cuda.synchronize()
+        rec["step_launches"] = total()
+        rec["step_collectives"] = dict(collectives.counts)
+        got_roll = rollout(sp)
+        reset_counts()
+        collectives.reset_counts()
+        got_loss, got_grads = grads(sp, True)
+        torch.cuda.synchronize()
+        rec["train_launches"] = total()
+        rec["train_collectives"] = dict(collectives.counts)
+        twin = sp._twin
+        fwd, _, _ = step_table(twin, BATCH)
+        fwd_post, _, _ = step_table(twin, BATCH, posterior=latent)
+        zero_all = {k: 0 for k in rec["train_launches"]}
+        rec["step_want"] = dict(zero_all, **fwd)
+        rec["train_want"] = dict(zero_all, **train_table(fwd_post))
+        if scheme != "grid":
+            rec["step_coll_want"] = collective_table(twin, sp.spatial,
+                                                     BATCH, train=False)
+            rec["train_coll_want"] = collective_table(twin, sp.spatial,
+                                                      BATCH, train=True)
+        rec["routes"] = {
+            nm: ("flat" if flat_eligible_of(es) else "batched")
+            + (" split" if es.frontier is not None else "")
+            for nm, es in (("g2m", twin.graph.g2m), ("m2g", twin.graph.m2g),
+                           *[(f"m2m[{i}]", es) for i, es in
+                             enumerate(twin.graph.m2m)],
+                           *[(f"up[{i}]", es) for i, es in
+                             enumerate(twin.graph.up)],
+                           *[(f"down[{i}]", es) for i, es in
+                             enumerate(twin.graph.down)])}
+        rec["loss"], rec["ref_loss"] = got_loss, ref_loss
+        if bf16:
+            e_k, e_r = (got_step - step32).abs(), (ref_step - step32).abs()
+            rec["bf16_mean_ratio"] = float(e_k.mean() / e_r.mean())
+            rec["bf16_max_ratio"] = float(e_k.max() / e_r.max())
+            keys = sorted(g32)
+            v32 = torch.cat([g32[k].flatten() for k in keys])
+            vk = torch.cat([got_grads[k].flatten() for k in keys])
+            vr = torch.cat([ref_grads[k].flatten() for k in keys])
+            rec["bf16_grad_mean_ratio"] = float((vk - v32).abs().mean()
+                                                / (vr - v32).abs().mean())
+            rec["bf16_grad_max_ratio"] = float((vk - v32).abs().max()
+                                               / (vr - v32).abs().max())
+        else:
+            rec["step_gap"] = float((got_step - ref_step).abs().max())
+            rec["rollout_gap"] = float((got_roll - ref_roll).abs().max())
+            rec["grad_excess"] = max(
+                (float((got_grads[k] - g).abs().max()
+                       - (1e-4 + 1e-4 * g.abs().max())), k)
+                for k, g in ref_grads.items())
+            rec["grad_rel"] = max(
+                (float((got_grads[k] - g).abs().max()
+                       / g.abs().max().clamp_min(1e-30)), k)
+                for k, g in ref_grads.items())
+            rec["grad_keys"] = [len(got_grads), len(ref_grads)]
+        del got_grads
+        if timed:
+            # timings on this rank: host ms (median of 3) and device busy
+            # ms (a profile of 2) of the sharded predict and training
+            # steps, and the unsharded steps' host ms beside them
+            for name, fn in (("step", lambda: step(sp)),
+                             ("train", lambda: grads(sp, True)),
+                             ("step_unsharded", lambda: step(net)),
+                             ("train_unsharded", lambda: grads(net, False))):
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t1) * 1e3)
+                rec[f"{name}_ms"] = sorted(times)[1]
+            for name, fn in (("step", lambda: step(sp)),
+                             ("train", lambda: grads(sp, True))):
+                prof = profile(torch, fn, f"{what} {scheme} {name} (rank "
+                               f"{mesh.space_index})", steps=2, top=0,
+                               cpu=False)
+                rec[f"{name}_busy_ms"] = prof[0] if prof else None
+        rec["seconds"] = time.time() - t_scheme + build_s
+        recs[scheme] = rec
+        del sp, twin
+    del net
     torch.cuda.empty_cache()
-    return rec
+    return recs
+
+
+def collective_table(twin, part, B, train):
+    """The collectives by kind of one predict step of a rank's twin under
+    a mesh-node-sharded scheme (`part`: its RSShard), from its sets; with
+    `train`, of a training step at ar_steps 1 (the posterior's rounds of a
+    latent model and its KL's gather, each body collective's backward,
+    and the gradients' all-reduce). mesh_rs: the g2m sums'
+    reduce-scatter; an all-gather for each round on a split set (its
+    frontier's table) and for the decoder's table; an all-reduce for each
+    round into an upper level (HiLAMParallel: one a level a layer).
+    mesh_halo: a ppermute for each round of the plan of g2m, of m2g and of
+    each split set. Both: the prediction's gather by blocks, whose
+    backward moves nothing."""
+    from neural_lam_tpu_torch.models.base_hi_graph_model import (
+        BaseHiGraphModel,
+    )
+    from neural_lam_tpu_torch.models.hi_lam_parallel import HiLAMParallel
+    from neural_lam_tpu_torch.parallel.collectives import KINDS
+
+    halo = part.halo
+    latent = bool(getattr(twin, "is_latent", False))
+    hier = isinstance(twin, BaseHiGraphModel)
+    plans = {"m2m": part.mm_plans, "up": part.up_plans,
+             "down": part.down_plans}
+    c = dict.fromkeys(KINDS, 0)
+    for es, kind, name in step_rounds(twin, B, posterior=train and latent):
+        if kind == "embed":
+            continue
+        if kind == "decoder" or name == "m2g":
+            c["ppermute" if halo else "all_gather"] += (
+                len(part.mg_plan) if halo else 1)
+            continue
+        if name.endswith("g2m"):
+            c["ppermute" if halo else "reduce_scatter"] += (
+                len(part.g2m_plan) if halo else 1)
+            continue
+        sets, idx = re.search(r"(m2m|up|down)\[(\d+)\]", name).groups()
+        idx = int(idx)
+        if es.frontier is not None:
+            c["ppermute" if halo else "all_gather"] += (
+                len(plans[sets][idx]) if halo else 1)
+        rec_level = idx + 1 if sets == "up" else idx
+        if hier and not halo and kind != "chunk" and rec_level > 0:
+            c["all_reduce"] += 1
+    if isinstance(twin, HiLAMParallel) and not halo:
+        c["all_reduce"] += (twin.num_levels - 1) * len(twin.processor)
+    blocks = 1 + (train and latent)  # the prediction's and the KL's
+    c["all_gather"] += blocks
+    if not train:
+        return c
+    return {"all_reduce": 2 * c["all_reduce"] + 1,
+            "all_gather": c["all_gather"] + c["reduce_scatter"],
+            "reduce_scatter": c["reduce_scatter"] + c["all_gather"]
+            - blocks,
+            "ppermute": 2 * c["ppermute"]}
 
 
 def flat_eligible_of(es):
@@ -4157,16 +4267,196 @@ def parallel_rank_main(argv):
     mesh = make_mesh(n_space=PAR_RANKS)
     for what, case in PAR_CASES.items():
         res[what] = grid_case(torch, entry, mesh, what, case, counts,
-                              counts_bf16, reset_counts)
+                              counts_bf16, reset_counts)["grid"]
     distributed.barrier()
     distributed.shutdown()
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     return 0
 
 
+def rs_rank_main(argv):
+    """A rank process of phase 17: `chip_smoke.py --rs-rank RANK PORT_A
+    PORT_B OUT CONFIG`. 17a-b on a 2-rank gloo world at PORT_A (every
+    PAR_CASES model under both mesh-node schemes), then 17c through
+    train.main on a 2-rank world at PORT_B; writes OUT/rs{RANK}.json."""
+    from pathlib import Path
+
+    import torch
+
+    rank, port_a, port_b = (int(a) for a in argv[:3])
+    out, cfg = Path(argv[3]), Path(argv[4])
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from neural_lam_tpu_torch import entry, train
+    from neural_lam_tpu_torch.parallel import collectives, distributed
+    from neural_lam_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts, counts, counts_bf16, _ = kernel_registry()
+    res = {"rank": rank}
+    distributed.init_multihost(f"127.0.0.1:{port_a}", PAR_RANKS, rank,
+                               backend="gloo", device="cuda",
+                               timeout_s=PAR_TIMEOUT_S)
+    mesh = make_mesh(n_space=PAR_RANKS)
+    for what, case in PAR_CASES.items():
+        res[what] = grid_case(torch, entry, mesh, what, case, counts,
+                              counts_bf16, reset_counts, schemes=RS_SCHEMES,
+                              timed=what == "GraphLAM")
+    distributed.barrier()
+    distributed.shutdown()
+    t0 = time.time()
+    collectives.reset_counts()
+    with training_recorder(torch, counts, reset_counts,
+                           out / "halo_params.npz") as rec:
+        train.main(par_argv(cfg, out) + [
+            "--batch_size", str(BATCH), "--run_name", "halo",
+            "--max_steps", str(RS_CLI_STEPS), "--num_nodes", str(PAR_RANKS),
+            "--node_rank", str(rank), "--coordinator_address",
+            f"127.0.0.1:{port_b}", "--dist_backend", "gloo",
+            "--spatial_shards", str(PAR_RANKS), "--spatial_scheme",
+            "mesh_halo"])
+    res["17c"] = dict(rec, collectives=dict(collectives.counts),
+                      seconds=time.time() - t0)
+    (out / f"rs{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def mesh_node_phase(np, root, cfg, single_losses, grid_collectives):
+    """Phase 17 (module doc): 17a-c on 2 rank processes of the one card,
+    against the single process on the card (17c: phase 16a's losses);
+    `grid_collectives`, 16b's rank 0 collectives a GraphLAM predict step
+    under the grid scheme, printed beside."""
+    t_phase = time.time()
+    run_rank_processes("--rs-rank", (free_port(), free_port(), root, cfg),
+                       "phase 17")
+    ranks = [json.loads((root / f"rs{r}.json").read_text())
+             for r in range(PAR_RANKS)]
+
+    def coll(c):
+        return ", ".join(f"{k} {c[k]} ({c[k + '_bytes'] / 1e6:.3f} MB)"
+                         for k in ("all_reduce", "all_gather",
+                                   "reduce_scatter", "ppermute") if c[k]) \
+            + f"; {c['bytes'] / 1e6:.3f} MB in all, {c['host_staged']} " \
+            "staged through host memory"
+
+    print(f"17 grid scheme (16b, rank 0), GraphLAM predict step: "
+          f"{coll(grid_collectives)}")
+    for what, case in PAR_CASES.items():
+        for scheme in RS_SCHEMES:
+            sub = "a" if what == "GraphLAM" else "b"
+            for r, rank in enumerate(ranks):
+                c = rank[what][scheme]
+                nz = {k: v for k, v in c["train_launches"].items() if v}
+                timing = (
+                    f"; host ms: predict step {c['step_ms']:.3f} "
+                    f"(unsharded {c['step_unsharded_ms']:.3f}), training "
+                    f"step {c['train_ms']:.3f} (unsharded "
+                    f"{c['train_unsharded_ms']:.3f}); device busy ms: "
+                    f"predict step {c['step_busy_ms']}, training step "
+                    f"{c['train_busy_ms']}" if "step_ms" in c else "")
+                print(f"17{sub} {what} {scheme} ({case}) rank {r}: routes "
+                      f"{c['routes']}; predict step launches "
+                      f"{({k: v for k, v in c['step_launches'].items() if v})}"
+                      f", training step {nz}; collectives a predict step "
+                      f"{coll(c['step_collectives'])}; a training step "
+                      f"{coll(c['train_collectives'])}{timing}; sharded in "
+                      f"{c['shard_s']:.2f} s, {c['seconds']:.1f} s")
+                if c["step_launches"] != c["step_want"] or \
+                        c["train_launches"] != c["train_want"]:
+                    fail(f"17 {what} {scheme} rank {r}: launches, want "
+                         f"predict {c['step_want']} and training "
+                         f"{c['train_want']}")
+                for step in ("step", "train"):
+                    got = {k: c[f"{step}_collectives"][k]
+                           for k in c[f"{step}_coll_want"]}
+                    if got != c[f"{step}_coll_want"]:
+                        fail(f"17 {what} {scheme} rank {r}: {step} "
+                             f"collectives {got}, want "
+                             f"{c[f'{step}_coll_want']}")
+                if not math.isfinite(c["loss"]):
+                    fail(f"17 {what} {scheme} rank {r}: the loss is not "
+                         "finite")
+            c = ranks[0][what][scheme]
+            if "step_gap" in c:
+                print(f"  {what} {scheme}: sharded vs unsharded on the card:"
+                      f" predict step max abs gap {c['step_gap']:.3e}, "
+                      f"2-step rollout {c['rollout_gap']:.3e} (limit "
+                      f"{PAR_STEP_LIMIT} x state_std); loss "
+                      f"{c['loss']:.7f} vs {c['ref_loss']:.7f}; gradients: "
+                      f"worst max abs gap over 1e-4 + 1e-4 x max abs "
+                      f"{c['grad_excess'][0]:.3e} ({c['grad_excess'][1]}; "
+                      f"must be <= 0), worst max abs gap / max abs "
+                      f"{c['grad_rel'][0]:.3e} ({c['grad_rel'][1]}), "
+                      f"{c['grad_keys']} parameters")
+                if not (c["step_gap"] <= PAR_STEP_LIMIT
+                        and c["rollout_gap"] <= PAR_STEP_LIMIT
+                        and c["grad_excess"][0] <= 0
+                        and c["grad_keys"][0] == c["grad_keys"][1]):
+                    fail(f"17 {what} {scheme}: the sharded model and the "
+                         "unsharded one disagree")
+            else:
+                print(f"  {what} {scheme}: bf16 error against fp32, sharded"
+                      f" / unsharded: predict step mean "
+                      f"{c['bf16_mean_ratio']:.4f} (limit 0.9-1.1), max "
+                      f"{c['bf16_max_ratio']:.4f} (limit 0.5-1.5); "
+                      f"gradients mean {c['bf16_grad_mean_ratio']:.4f}, "
+                      f"max {c['bf16_grad_max_ratio']:.4f} (the same "
+                      "limits)")
+                if not (0.9 <= c["bf16_mean_ratio"] <= 1.1
+                        and 0.5 <= c["bf16_max_ratio"] <= 1.5
+                        and 0.9 <= c["bf16_grad_mean_ratio"] <= 1.1
+                        and 0.5 <= c["bf16_grad_max_ratio"] <= 1.5):
+                    fail(f"17 {what} {scheme}: the sharded bf16 error is "
+                         "not the unsharded one's size")
+    # 17c: train.main under mesh_halo against 16a's single process
+    for r, rank in enumerate(ranks):
+        d = rank["17c"]
+        got, want = d["losses"], single_losses[:RS_CLI_STEPS]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"17c train.main --spatial_shards {PAR_RANKS} "
+              f"--spatial_scheme mesh_halo rank {r}: losses {got} vs the "
+              f"single process's {want}, worst relative gap {rel:.2e} "
+              f"(limit {PAR_LOSS_LIMIT}); host ms a step "
+              f"{[round(t, 3) for t in d['ms']]}; collectives in "
+              f"train.main {d['collectives']}; {d['seconds']:.1f} s")
+        if len(got) != RS_CLI_STEPS or not rel <= PAR_LOSS_LIMIT:
+            fail("17c: the mesh_halo CLI run and the single process "
+                 "disagree")
+    print(f"phase 17 took {time.time() - t_phase:.1f} s")
+
+
+def run_rank_processes(flag, args, what):
+    """Start PAR_RANKS processes `chip_smoke.py FLAG RANK *args`, each
+    with its own PAR_TIMEOUT_S limit, print each one's last lines, and
+    fail unless each exits with 0."""
+    t_ranks = time.time()
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), flag, str(r),
+         *map(str, args)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(PAR_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PAR_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        tail = "\n".join(o.splitlines()[-12:])
+        print(f"rank {r}: exit code {p.returncode}, "
+              f"{time.time() - t_ranks:.1f} s; its last lines:\n  | "
+              + tail.replace("\n", "\n  | "))
+    if any(p.returncode != 0 for p in procs):
+        fail(f"a rank process of {what} failed")
+
+
 def parallel_phase(torch, np, counts, reset_counts):
     """Phase 16 (module doc): 16a-c on 2 rank processes of the one card,
-    against the single process on the card."""
+    against the single process on the card; then phase 17 in the same
+    datastore (its 17c against 16a's single process)."""
     import tempfile
     from pathlib import Path
 
@@ -4209,30 +4499,8 @@ def parallel_phase(torch, np, counts, reset_counts):
         gc.collect()
         torch.cuda.empty_cache()
 
-        ports = (free_port(), free_port())
-        t_ranks = time.time()
-        env = dict(os.environ, OMP_NUM_THREADS="4")
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
-             str(r), str(ports[0]), str(ports[1]), str(root), str(cfg)],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) for r in range(PAR_RANKS)]
-        outs = []
-        try:
-            for p in procs:
-                outs.append(p.communicate(timeout=PAR_TIMEOUT_S)[0])
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, (p, o) in enumerate(zip(procs, outs)):
-            tail = "\n".join(o.splitlines()[-12:])
-            print(f"rank {r}: exit code {p.returncode}, "
-                  f"{time.time() - t_ranks:.1f} s; its last lines:\n  | "
-                  + tail.replace("\n", "\n  | "))
-        if any(p.returncode != 0 for p in procs):
-            fail("a rank process of phase 16 failed")
+        run_rank_processes("--parallel-rank", (free_port(), free_port(),
+                                                root, cfg), "phase 16")
         ranks = [json.loads((root / f"rank{r}.json").read_text())
                  for r in range(PAR_RANKS)]
 
@@ -4354,7 +4622,9 @@ def parallel_phase(torch, np, counts, reset_counts):
                         and 0.5 <= c["bf16_grad_max_ratio"] <= 1.5):
                     fail(f"{what}: the sharded bf16 error is not the "
                          "unsharded one's size")
-    print(f"phase 16 took {time.time() - t_phase:.1f} s")
+        print(f"phase 16 took {time.time() - t_phase:.1f} s")
+        mesh_node_phase(np, root, cfg, single["losses"],
+                        ranks[0]["GraphLAM"]["step_collectives"])
 
 
 def main():
@@ -5268,11 +5538,12 @@ def main():
     torch.cuda.empty_cache()
     phase_end("15 (GraphEFM, HiEFM and ensembles)")
 
-    # 16. data parallelism and the grid scheme on 2 ranks of the one card
+    # 16. data parallelism and the grid scheme on 2 ranks of the one card;
+    # 17. the mesh-node-sharded schemes on 2 ranks
     parallel_phase(torch, np, counts, reset_counts)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_end("16 (data parallelism and the grid scheme, 2 ranks)")
+    phase_end("16-17 (data parallelism and the spatial schemes, 2 ranks)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())
@@ -5285,4 +5556,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--rs-rank"]:
+        sys.exit(rs_rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -47,13 +47,41 @@ def expand_to_batch(x, batch_size):
 
 
 class BaseGraphModel(ARModelBase):
-    # set on a rank's twin by the grid scheme (parallel/grid_sharded.py):
-    # _g2m_psum_axis -- the process group to all-reduce the partial g2m
-    # aggregations over; _mesh_psum_axis -- the group to all-reduce the
-    # partial mesh-level (m2m/up/down) aggregations over, set when those
-    # edge sets are per-rank edge chunks. None outside a sharded run.
+    # set on a rank's twin by the sharded schemes (parallel/grid_sharded.py):
+    # _g2m_psum_axis -- the process group over which the ranks' partial g2m
+    # aggregations are combined; _mesh_psum_axis -- the group to all-reduce
+    # the partial mesh-level (m2m/up/down) aggregations over, set when
+    # those edge sets are per-rank edge chunks. None outside a sharded run.
     _g2m_psum_axis = None
     _mesh_psum_axis = None
+    # how the g2m partials combine (`apply_interaction_net`'s psum_mode):
+    # "allreduce" (grid scheme); "scatter" (mesh_rs: reduce-scattered to
+    # the owners of the bottom mesh rows, mesh state the rank's owned rows
+    # from there on) or a halo fold (mesh_halo), each paired with sender
+    # hooks below that bring the other ranks' rows in
+    _g2m_psum_mode = "allreduce"
+
+    def _mesh_sender_rep(self, mesh_rep):
+        """Hook: the table the bottom mesh level's edge SENDERS read.
+        Identity while mesh state is whole on every rank; the
+        mesh-node-sharded schemes return a `SplitSend` of the owned rows
+        and their all-gather or halo imports."""
+        return mesh_rep
+
+    def _m2g_sender_rep(self, mesh_rep):
+        """Hook: the m2g decoder's sender table (batched route).
+        `_mesh_sender_rep` by default; the sharded schemes give the whole
+        all-gathered table (mesh_rs) or [owned ++ m2g halo imports]
+        (mesh_halo)."""
+        return self._mesh_sender_rep(mesh_rep)
+
+    def _m2g_sender_tf(self, mesh_rep, w_j, cd):
+        """Hook: the transformed flat m2g sender table (N_send, B*h) that
+        the fused decoder (K4) gathers from, stored in the compute dtype.
+        mesh_rs transforms the owned rows first and all-gathers the
+        transformed table."""
+        return store(node_transform_flat(self._m2g_sender_rep(mesh_rep),
+                                         w_j, cd), cd)
 
     def __init__(self, args: ModelArgs, config, datastore,
                  graph: LoadedGraph, device="cuda",
@@ -120,13 +148,21 @@ class BaseGraphModel(ARModelBase):
         """Rollout-invariant edge term of an update_edges=False GNN:
         ew = emb @ W_e + b0, (M, h); with a compute_dtype, the stored
         embedding times the fp32 weight (JAX's `jnp.dot` promotes) and ew
-        stored in the compute dtype."""
+        stored in the compute dtype. A split set's frontier gets its own
+        ("ew_f")."""
         cd = self.compute_dtype
-        emb = apply_mlp(embedder, edges.features, cd)
         w0 = inet.edge_mlp.layers[0].w
         d = w0.shape[0] // 3
-        return {"ew": store(emb.float() @ w0[:d] + inet.edge_mlp.layers[0].b,
-                            cd)}
+
+        def ew(es):
+            emb = apply_mlp(embedder, es.features, cd)
+            return store(emb.float() @ w0[:d] + inet.edge_mlp.layers[0].b,
+                         cd)
+
+        ctx = {"ew": ew(edges)}
+        if edges.frontier is not None:
+            ctx["ew_f"] = ew(edges.frontier)
+        return ctx
 
     def precompute_rollout_ctx(self):
         """Embeddings of static graph features, computed once per rollout
@@ -189,13 +225,14 @@ class BaseGraphModel(ARModelBase):
             expand_to_batch(ctx["mesh_emb"], B),
             update_edges=False, aggr="sum", ew=ctx["g2m"]["ew"],
             compute_dtype=cd, psum_axis=self._g2m_psum_axis,
-        )  # (B, N_mesh, h)
+            psum_mode=self._g2m_psum_mode,
+        )  # (B, N_mesh, h); the owned rows under the mesh-node schemes
 
         mesh_rep = self.process_step(mesh_rep, B, ctx)
 
         m2g = self.graph.m2g
         w0m = self.m2g_gnn.edge_mlp.layers[0].w
-        send_tf = store(node_transform_flat(mesh_rep, w0m[h:2 * h], cd), cd)
+        send_tf = self._m2g_sender_tf(mesh_rep, w0m[h:2 * h], cd)
         net_f = grid_update.grid_update_flat(
             send_tf, m2g.senders, ctx["m2g"]["ew"], ge_f,
             m2g.mask.view(m2g.num_virt, m2g.dense_k),
@@ -216,13 +253,18 @@ class BaseGraphModel(ARModelBase):
                 and flat_eligible(g.g2m, batch_size, h))
 
     def _inet_static(self, inet, edges, send_rep, rec_rep, ctx_entry,
-                     psum_axis=None):
+                     psum_axis=None, psum_mode="allreduce"):
         """update_edges=False interaction net on the rollout-invariant
-        edge term ew (M, h)."""
+        edge term ew (M, h) (an (interior, frontier) pair on a split
+        set)."""
+        ew = ctx_entry["ew"]
+        if edges.frontier is not None:
+            ew = (ew, ctx_entry["ew_f"])
         return apply_interaction_net(inet, edges, send_rep, rec_rep,
-                                     update_edges=False, ew=ctx_entry["ew"],
+                                     update_edges=False, ew=ew,
                                      compute_dtype=self.compute_dtype,
-                                     psum_axis=psum_axis)
+                                     psum_axis=psum_axis,
+                                     psum_mode=psum_mode)
 
     def predict_step(self, prev_state, prev_prev_state, forcing, ctx=None):
         batch_size = prev_state.shape[0]
@@ -242,11 +284,12 @@ class BaseGraphModel(ARModelBase):
         mesh_rep = self._inet_static(
             self.g2m_gnn, self.graph.g2m, grid_emb,
             expand_to_batch(ctx["mesh_emb"], batch_size), ctx["g2m"],
-            psum_axis=self._g2m_psum_axis,
-        )  # (B, N_mesh, h)
+            psum_axis=self._g2m_psum_axis, psum_mode=self._g2m_psum_mode,
+        )  # (B, N_mesh, h); the owned rows under the mesh-node schemes
         grid_rep = grid_emb + apply_mlp(self.encoding_grid_mlp, grid_emb, cd)
         mesh_rep = self.process_step(mesh_rep, batch_size, ctx)
-        grid_rep = self._inet_static(self.m2g_gnn, self.graph.m2g, mesh_rep,
+        grid_rep = self._inet_static(self.m2g_gnn, self.graph.m2g,
+                                     self._m2g_sender_rep(mesh_rep),
                                      grid_rep, ctx["m2g"])  # (B, N_grid, h)
         net_output = apply_mlp(self.output_map, grid_rep, cd)
         return self._finish_output(net_output, prev_state)

@@ -16,6 +16,7 @@ from torch import nn
 
 from ..ops.message_passing import (
     apply_interaction_net,
+    embed_edge_features,
     expand_edge_rep,
     init_interaction_net,
 )
@@ -33,6 +34,24 @@ class BaseHiGraphModel(BaseGraphModel):
     @property
     def num_levels(self) -> int:
         return len(self.graph.level_sizes)
+
+    # --- sharding hooks (parallel/grid_sharded.py). Unsharded and under
+    # the grid scheme every hierarchical GNN combines its partial sums
+    # over `_mesh_psum_axis` and reads its senders as they are; the
+    # mesh-node-sharded schemes override both by level and edge set ---
+
+    def _hi_psum_axis(self, rec_level):
+        """The group to all-reduce a hierarchical GNN's partial sums over,
+        by its RECEIVERS' level (mesh_rs: None at the receiver-owned
+        bottom level; mesh_halo: None at every level)."""
+        return self._mesh_psum_axis
+
+    def _hi_sender_rep(self, rep, kind, idx):
+        """Hook: the table the edge set `kind` ("m2m", "up" or "down")
+        `idx` reads its SENDERS from; `rep` by default, a `SplitSend` where
+        the senders' level is distributed (mesh_rs: m2m[0]; mesh_halo:
+        every set with a halo plan)."""
+        return rep
 
     def get_num_mesh(self):
         """All mesh nodes; all but the bottom level are ignored in
@@ -76,21 +95,20 @@ class BaseHiGraphModel(BaseGraphModel):
 
     def precompute_process_ctx(self):
         """Level and edge-set embeddings, once per rollout."""
-        g = self.graph
+        g, cd = self.graph, self.compute_dtype
 
-        def embed(embedders, feats):
-            return [apply_mlp(e, f, self.compute_dtype)
-                    for e, f in zip(embedders, feats)]
+        def embed(embedders, sets):
+            # (interior, frontier) pairs where the sharded sets are split
+            return [embed_edge_features(e, es, cd)
+                    for e, es in zip(embedders, sets)]
 
         return {
-            "upper_mesh_emb": embed(self.mesh_embedders[1:],
-                                    g.mesh_static_features[1:]),
-            "same_emb": embed(self.mesh_same_embedders,
-                              [es.features for es in g.m2m]),
-            "up_emb": embed(self.mesh_up_embedders,
-                            [es.features for es in g.up]),
-            "down_emb": embed(self.mesh_down_embedders,
-                              [es.features for es in g.down]),
+            "upper_mesh_emb": [
+                apply_mlp(e, f, cd) for e, f in zip(
+                    self.mesh_embedders[1:], g.mesh_static_features[1:])],
+            "same_emb": embed(self.mesh_same_embedders, g.m2m),
+            "up_emb": embed(self.mesh_up_embedders, g.up),
+            "down_emb": embed(self.mesh_down_embedders, g.down),
         }
 
     def process_step(self, mesh_rep, batch_size, ctx):
@@ -111,10 +129,12 @@ class BaseHiGraphModel(BaseGraphModel):
         for level_l, gnn in enumerate(self.mesh_init_gnns, start=1):
             mesh_rep_levels[level_l], mesh_up_rep[level_l - 1] = (
                 apply_interaction_net(
-                    gnn, g.up[level_l - 1], mesh_rep_levels[level_l - 1],
+                    gnn, g.up[level_l - 1],
+                    self._hi_sender_rep(mesh_rep_levels[level_l - 1], "up",
+                                        level_l - 1),
                     mesh_rep_levels[level_l], mesh_up_rep[level_l - 1],
                     compute_dtype=self.compute_dtype,
-                    psum_axis=self._mesh_psum_axis,
+                    psum_axis=self._hi_psum_axis(level_l),
                 )
             )
 
@@ -126,10 +146,12 @@ class BaseHiGraphModel(BaseGraphModel):
         for level_l, gnn in zip(range(self.num_levels - 2, -1, -1),
                                 reversed(self.mesh_read_gnns)):
             mesh_rep_levels[level_l] = apply_interaction_net(
-                gnn, g.down[level_l], mesh_rep_levels[level_l + 1],
+                gnn, g.down[level_l],
+                self._hi_sender_rep(mesh_rep_levels[level_l + 1], "down",
+                                    level_l),
                 mesh_rep_levels[level_l], mesh_down_rep[level_l],
                 update_edges=False, compute_dtype=self.compute_dtype,
-                psum_axis=self._mesh_psum_axis,
+                psum_axis=self._hi_psum_axis(level_l),
             )
         return mesh_rep_levels[0]
 

@@ -132,7 +132,10 @@ class LatentMeshMixin:
     def _gauss_head(self, inet, head, edge_ctx, mesh_rep):
         """One bottom-m2m interaction round and an MLP head ->
         (mu, sigma), sigma = softplus + 1e-4, in the compute dtype."""
-        rep = self._inet_static(inet, self._latent_edges, mesh_rep, mesh_rep,
+        # the senders through `_mesh_sender_rep`: the owned rows and their
+        # all-gather or halo imports under the mesh-node-sharded schemes
+        rep = self._inet_static(inet, self._latent_edges,
+                                self._mesh_sender_rep(mesh_rep), mesh_rep,
                                 edge_ctx, psum_axis=self._mesh_psum_axis)
         mu, sigma_raw = apply_mlp(head, rep, self.compute_dtype).chunk(
             2, dim=-1)
@@ -146,7 +149,7 @@ class LatentMeshMixin:
         return self._inet_static(
             self.post_g2m_gnn, self.graph.g2m, tgt_emb,
             expand_to_batch(ctx["mesh_emb"], batch_size), ctx["post_g2m"],
-            psum_axis=self._g2m_psum_axis)
+            psum_axis=self._g2m_psum_axis, psum_mode=self._g2m_psum_mode)
 
     def process_step(self, mesh_rep, batch_size, ctx):
         """Prior (and, given a target, posterior and KL), then z = mu +

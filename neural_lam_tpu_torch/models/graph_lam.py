@@ -13,6 +13,7 @@ from torch import nn
 
 from ..ops.message_passing import (
     apply_interaction_net,
+    embed_edge_features,
     expand_edge_rep,
     init_interaction_net,
 )
@@ -55,8 +56,9 @@ class GraphLAM(BaseGraphModel):
                          self.compute_dtype)
 
     def precompute_process_ctx(self):
-        return {"m2m_emb": apply_mlp(self.m2m_embedder, self.m2m.features,
-                                     self.compute_dtype)}
+        # an (interior, frontier) pair on a split m2m (mesh_rs, mesh_halo)
+        return {"m2m_emb": embed_edge_features(self.m2m_embedder, self.m2m,
+                                               self.compute_dtype)}
 
     def process_step(self, mesh_rep, batch_size, ctx):
         """Processor stack sharing the single m2m edge set
@@ -64,7 +66,8 @@ class GraphLAM(BaseGraphModel):
         edge_rep = expand_edge_rep(self.m2m, ctx["m2m_emb"], batch_size)
         for layer in self.processor:
             mesh_rep, edge_rep = apply_interaction_net(
-                layer, self.m2m, mesh_rep, mesh_rep, edge_rep,
+                layer, self.m2m, self._mesh_sender_rep(mesh_rep), mesh_rep,
+                edge_rep,
                 update_edges=True, aggr=self.args.mesh_aggr,
                 compute_dtype=self.compute_dtype,
                 psum_axis=self._mesh_psum_axis,

@@ -21,13 +21,16 @@ aggregation MLP. The parameters nest as the JAX package's
 (`processor.{layer}.edge_mlps.{chunk}`, `.aggr_mlps.{level}`), so
 `convert.params_from_jax` loads a JAX HiLAMParallel tree key for key.
 
-Under the grid scheme (`parallel/grid_sharded.py`) each chunk is a rank's
-part of its edge set, and each level's partial sums are all-reduced once
-a layer (over `_mesh_psum_axis`) before its aggregation MLP. Left out:
-the JAX model's `SplitSend` branch and `split_send_tf`, which belong to
-the mesh-node-sharded schemes (`mesh_rs`, `mesh_halo`: ROADMAP.md queue
-1, item 6), and its TPU window layout (`win=`), which the port dropped
-for every model.
+Under the sharded schemes (`parallel/grid_sharded.py`) each chunk is a
+rank's part of its edge set. Each level's partial sums are all-reduced
+once a layer (over `_hi_psum_axis(level)`: every level under the grid
+scheme, the upper levels under mesh_rs, none under mesh_halo) before its
+aggregation MLP. A chunk whose senders come through a collective (its
+`_hi_sender_rep` a `SplitSend`: m2m[0] under mesh_rs, every chunk with a
+halo plan under mesh_halo) runs as the JAX model's `SplitSend` branch: an
+interior and a frontier round on the interior's route, from the split
+sender transforms (`split_send_tf`) on the flat route. The JAX model's
+TPU window layout (`win=`) is dropped, as for every model.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from __future__ import annotations
 from torch import nn
 
 from ..ops.message_passing import (
+    _SPLIT_SEND_TYPES,
     _check_inet,
     _fold_virt,
     _fold_virt_flat,
@@ -43,6 +47,7 @@ from ..ops.message_passing import (
     edge_round_flat,
     flat_eligible,
     init_interaction_net_chunked,
+    split_send_tf,
     unflatten_nodes,
 )
 from ..ops.mlp import apply_mlp_concat
@@ -62,6 +67,10 @@ class HiLAMParallel(BaseHiGraphModel):
             list(range(L)) + list(range(L - 1)) + list(range(1, L)))
         self._chunk_rec_level = (
             list(range(L)) + list(range(1, L)) + list(range(L - 1)))
+        # (kind, index) of each chunk, for `_hi_sender_rep`
+        self._chunk_kinds = ([("m2m", i) for i in range(L)]
+                             + [("up", i) for i in range(L - 1)]
+                             + [("down", i) for i in range(L - 1)])
 
     def _chunk_edge_sets(self):
         g = self.graph
@@ -80,21 +89,26 @@ class HiLAMParallel(BaseHiGraphModel):
         `inet`: (per-level receiver sums (B, N_l, h), new chunk edge
         states), every chunk's sums added into its level in chunk order
         (ref: hi_lam_parallel.py:59-82), then each level's sums
-        all-reduced over `_mesh_psum_axis` (one collective a level, under
-        the grid scheme)."""
+        all-reduced over `_hi_psum_axis(level)` (one collective a level
+        where the level's chunks are split over the ranks)."""
         _check_inet(inet)
         cd = self.compute_dtype
         B, h = mesh_rep_levels[0].shape[0], mesh_rep_levels[0].shape[-1]
         aggregated = [None] * self.num_levels
         new_edge_reps = []
         for c, es in enumerate(self._chunk_edge_sets()):
-            send = mesh_rep_levels[self._chunk_send_level[c]]
+            send = self._hi_sender_rep(
+                mesh_rep_levels[self._chunk_send_level[c]],
+                *self._chunk_kinds[c])
             rec_l = self._chunk_rec_level[c]
             rec = mesh_rep_levels[rec_l]
             mlp = inet.edge_mlps[c]
             flat = flat_eligible(es, B, h)
-            check_edge_layout(es, edge_reps[c], B, h, flat)
-            if flat:
+            if isinstance(send, _SPLIT_SEND_TYPES):
+                agg_c, new_edge = self._split_chunk(mlp, es, send, rec,
+                                                    edge_reps[c], flat)
+            elif flat:
+                check_edge_layout(es, edge_reps[c], B, h, flat)
                 # the level accumulators stay batched, so that flat and
                 # batched chunks sum into the same level
                 new_edge, virt = edge_round_flat(mlp, es, send, rec,
@@ -102,6 +116,7 @@ class HiLAMParallel(BaseHiGraphModel):
                                                  compute_dtype=cd)
                 agg_c = unflatten_nodes(_fold_virt_flat(es, virt), B)
             else:
+                check_edge_layout(es, edge_reps[c], B, h, flat)
                 messages, virt = edge_messages_and_virt(
                     mlp, es, send, rec, edge_reps[c], with_messages=True,
                     compute_dtype=cd)
@@ -110,8 +125,39 @@ class HiLAMParallel(BaseHiGraphModel):
             aggregated[rec_l] = (agg_c if aggregated[rec_l] is None
                                  else aggregated[rec_l] + agg_c)
             new_edge_reps.append(new_edge)
-        aggregated = [psum(a, self._mesh_psum_axis) for a in aggregated]
+        aggregated = [psum(a, self._hi_psum_axis(lvl))
+                      for lvl, a in enumerate(aggregated)]
         return aggregated, new_edge_reps
+
+    def _split_chunk(self, mlp, es, send, rec, edge_rep, flat):
+        """A split chunk's (receiver sums (B, N, h), new (interior,
+        frontier) edge states) (ref: the JAX model's SplitSend branch):
+        the interior round reads the owned rows, the frontier round the
+        imports, both on the interior's route (`flat`)."""
+        cd = self.compute_dtype
+        B, h = rec.shape[0], rec.shape[-1]
+        fr = es.frontier
+        er_i, er_f = edge_rep
+        check_edge_layout(es, er_i, B, h, flat)
+        check_edge_layout(fr, er_f, B, h, flat)
+        if flat:
+            tf_o, tf_i = split_send_tf(mlp, send, B, cd)
+            ne_i, virt_i = edge_round_flat(mlp, es, None, rec, er_i,
+                                           compute_dtype=cd, send_tf=tf_o)
+            ne_f, virt_f = edge_round_flat(mlp, fr, None, rec, er_f,
+                                           compute_dtype=cd, send_tf=tf_i)
+            return unflatten_nodes(_fold_virt_flat(es, virt_i)
+                                   + _fold_virt_flat(fr, virt_f),
+                                   B), (ne_i, ne_f)
+        m_i, virt_i = edge_messages_and_virt(mlp, es, send.owned, rec, er_i,
+                                             with_messages=True,
+                                             compute_dtype=cd)
+        m_f, virt_f = edge_messages_and_virt(mlp, fr, send.imports, rec,
+                                             er_f, with_messages=True,
+                                             compute_dtype=cd)
+        return (_fold_virt(es, virt_i, in_virt_dtype=True)
+                + _fold_virt(fr, virt_f, in_virt_dtype=True),
+                (er_i + m_i, er_f + m_f))
 
     def processor_layer(self, inet, mesh_rep_levels, edge_reps):
         """One fused round over every chunk (ref: hi_lam_parallel.py:

@@ -34,14 +34,17 @@ the transposed layout (`EdgeSet.fold_senders`).
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
-from ..parallel.collectives import psum
+from ..parallel.collectives import psum, reduce_scatter
 from . import edge, edge_flat
-from .mlp import MLP, apply_mlp_concat, finish_mlp, init_mlp, mm, store
+from .mlp import (MLP, apply_mlp, apply_mlp_concat, finish_mlp, init_mlp,
+                  mm, store)
 from .segment import build_gather_table
 
 # the JAX package's dispatch between its two kernel families: an edge set
@@ -82,6 +85,13 @@ class EdgeSet:
     edges and its senders as receivers (the JAX package's
     `EdgeSet.transposed`), for the scatter-free sender-gradient fold
     `fold_senders`; None when the set has no real slot.
+    frontier: on a rank's part of a receiver-owned set of the
+    mesh-node-sharded schemes (`parallel/grid_sharded.py`), this set holds
+    the INTERIOR edges (senders the rank owns, indexed in its owned rows)
+    and `frontier` the edges whose senders come through the collective
+    (indexed in the all-gathered table or the halo import buffer); a
+    round over such a set takes a `SplitSend` sender table. None
+    elsewhere.
     """
 
     senders: torch.Tensor
@@ -100,6 +110,7 @@ class EdgeSet:
     # order: aggregation is then virt[:num_rec]
     virt_identity: bool
     transposed: "EdgeSet | None" = None
+    frontier: "EdgeSet | None" = None
 
     @staticmethod
     def from_local(senders: np.ndarray, receivers: np.ndarray,
@@ -291,6 +302,78 @@ def init_interaction_net_chunked(input_dim: int, n_edge_chunks: int,
     )
 
 
+class SplitSend(NamedTuple):
+    """Sender tables of a split (interior/frontier) sharded edge set:
+    `owned`, the rank's own sender rows (the interior edges' table), and
+    `imports`, the rows the FRONTIER edges index (a halo import buffer).
+    The sharded sender hooks return it instead of the concatenated
+    [owned ++ imports] table, so that the interior round does not wait
+    for the collective (the JAX package's overlap structure)."""
+
+    owned: torch.Tensor
+    imports: torch.Tensor
+
+
+class SplitSendLazy:
+    """A SplitSend whose imports come from a deferred collective:
+    `gather(x, axis)` all-gathers x along its node axis over the space
+    ranks. Deferring lets the round transform the owned rows first and
+    gather the transformed (and, in bf16, rounded) table
+    (`split_send_tf`): no rank transforms rows it does not own, and bf16
+    halves the gathered bytes; transform-then-gather is row for row the
+    same math as gather-then-transform."""
+
+    __slots__ = ("owned", "gather")
+
+    def __init__(self, owned, gather):
+        self.owned = owned
+        self.gather = gather
+
+    @property
+    def imports(self):
+        """The raw rows gathered (for a round that cannot transform
+        first: the batched route)."""
+        return self.gather(self.owned, 1 if self.owned.dim() == 3 else 0)
+
+    def imports_tf(self, tf_owned):
+        """The gathered table of already-transformed flat (n_owned, W)
+        rows."""
+        return self.gather(tf_owned, 0)
+
+
+_SPLIT_SEND_TYPES = (SplitSend, SplitSendLazy)
+
+
+def split_send_tf(edge_mlp: MLP, send, batch_size: int, compute_dtype=None):
+    """(tf_owned, tf_imports): the flat sender transforms x @ W_j of a
+    split sender table, stored in the compute dtype. A `SplitSendLazy`
+    gathers the transformed owned rows; a `SplitSend`'s imports (a few
+    halo rows) are transformed where they are."""
+    w0 = edge_mlp.layers[0].w
+    h = w0.shape[0] // 3
+    w_j = w0[h:2 * h]
+
+    def tf(x):
+        t = (node_transform_from_flat(x, w_j, batch_size, compute_dtype)
+             if x.dim() == 2 else node_transform_flat(x, w_j, compute_dtype))
+        return store(t, compute_dtype)
+
+    tf_owned = tf(send.owned)
+    if isinstance(send, SplitSendLazy):
+        return tf_owned, send.imports_tf(tf_owned)
+    return tf_owned, tf(send.imports)
+
+
+def embed_edge_features(embedder: MLP, edges: EdgeSet, compute_dtype=None):
+    """The edge-feature embedding (M, h); an (interior, frontier) pair for
+    a split set."""
+    emb = apply_mlp(embedder, edges.features, compute_dtype)
+    if edges.frontier is not None:
+        return emb, apply_mlp(embedder, edges.frontier.features,
+                              compute_dtype)
+    return emb
+
+
 def flatten_nodes(x):
     """(B, N, h) -> (N, B*h)."""
     B, N, h = x.shape
@@ -347,7 +430,15 @@ def flat_eligible(edges: EdgeSet, batch_size: int, h: int) -> bool:
 def expand_edge_rep(edges: EdgeSet, emb, batch_size: int):
     """Initial edge state from the static embedding (M, h), in the layout
     `apply_interaction_net` uses for this set: flat (M, B*h) on the flat
-    route, else batched (B, M, h) (a broadcast view)."""
+    route, else batched (B, M, h) (a broadcast view). A split set takes
+    and gives (interior, frontier) pairs, the frontier in the interior's
+    layout (its sums then add to the interior's without a transpose)."""
+    if edges.frontier is not None:
+        emb_i, emb_f = emb
+        if flat_eligible(edges, batch_size, emb_i.shape[-1]):
+            return emb_i.repeat(1, batch_size), emb_f.repeat(1, batch_size)
+        return (emb_i[None].expand(batch_size, *emb_i.shape),
+                emb_f[None].expand(batch_size, *emb_f.shape))
     if flat_eligible(edges, batch_size, emb.shape[-1]):
         return emb.repeat(1, batch_size)
     return emb[None].expand(batch_size, *emb.shape)
@@ -422,7 +513,8 @@ def _aggr_mlp_mixed(mlp: MLP, rec_rep, aggregated_f, compute_dtype=None):
 
 
 def edge_round_flat(edge_mlp: MLP, edges: EdgeSet, send_rep, rec_rep,
-                    edge_rep_flat=None, *, ew=None, compute_dtype=None):
+                    edge_rep_flat=None, *, ew=None, compute_dtype=None,
+                    send_tf=None):
     """One flat edge-MLP round: (edge_out_flat | None, virt_flat).
 
     rec_rep in (B, N, h); send_rep either (B, N, h) batched or already flat
@@ -430,18 +522,21 @@ def edge_round_flat(edge_mlp: MLP, edges: EdgeSet, send_rep, rec_rep,
     (rollout-invariant GNNs: K2) or evolving flat `edge_rep_flat` (M, B*h)
     (processor layers: K3). With a compute_dtype, the node transforms and
     the edge state are stored in it before the kernel, which then runs its
-    instance of that dtype and returns its outputs in it."""
+    instance of that dtype and returns its outputs in it. send_tf: the
+    sender transform x @ W_j already made (flat, stored in the compute
+    dtype: `split_send_tf`); send_rep is then ignored."""
     cd = compute_dtype
     w0 = edge_mlp.layers[0].w
     b0 = edge_mlp.layers[0].b
     h = w0.shape[0] // 3
     w_e, w_j, w_i = w0[:h], w0[h:2 * h], w0[2 * h:]
     B = rec_rep.shape[0]
-    if send_rep.dim() == 2:
-        send_tf = node_transform_from_flat(send_rep, w_j, B, cd)
-    else:
-        send_tf = node_transform_flat(send_rep, w_j, cd)
-    send_tf = store(send_tf, cd)
+    if send_tf is None:
+        if send_rep.dim() == 2:
+            send_tf = node_transform_from_flat(send_rep, w_j, B, cd)
+        else:
+            send_tf = node_transform_flat(send_rep, w_j, cd)
+        send_tf = store(send_tf, cd)
     rec_rows = _gather_virt_rows(
         store(node_transform_flat(rec_rep, w_i, cd), cd), edges)
     mask_p = edges.mask.view(edges.num_virt, edges.dense_k)
@@ -460,19 +555,60 @@ def edge_round_flat(edge_mlp: MLP, edges: EdgeSet, send_rep, rec_rep,
     return None, virt
 
 
+def _scatter_to_owner(aggregated, rec_rep, group, agg_axis, rec_axis):
+    """Reduce-scatter the ranks' partial sums to the receivers' owner
+    ranks (contiguous equal blocks; `build_rs_shard` pads the receivers to a
+    multiple of the group's size) and cut rec_rep to the owned rows, so
+    that the aggregation MLP runs on the rank's rows alone. agg_axis and
+    rec_axis name the receiver axis of each (flat (N, B*h) sums beside a
+    batched (B, N, h) rec_rep on the flat route)."""
+    block = aggregated.shape[agg_axis] // dist.get_world_size(group)
+    return (reduce_scatter(aggregated, group, agg_axis),
+            rec_rep.narrow(rec_axis, dist.get_rank(group) * block, block))
+
+
+def _combine_partial(aggregated, rec_rep, psum_axis, psum_mode, aggr,
+                     agg_axis, rec_axis):
+    """(receiver sums, rec_rep) after the ranks' partial sums over
+    `psum_axis` are combined: all-reduced ("allreduce"), reduce-scattered
+    to their owners ("scatter", rec_rep cut to the owned rows), or by a
+    callable `psum_mode(aggregated, rec_rep, agg_axis=, rec_axis=)` (the
+    halo scheme's push fold). The last two implement sum aggregation
+    alone, as the JAX package asserts."""
+    if psum_axis is None:
+        return aggregated, rec_rep
+    if psum_mode != "allreduce" and aggr != "sum":
+        raise ValueError("the scatter and fold modes implement sum "
+                         "aggregation (mesh_aggr must be 'sum')")
+    if callable(psum_mode):
+        return psum_mode(aggregated, rec_rep, agg_axis=agg_axis,
+                         rec_axis=rec_axis)
+    if psum_mode == "scatter":
+        return _scatter_to_owner(aggregated, rec_rep, psum_axis, agg_axis,
+                                 rec_axis)
+    if psum_mode != "allreduce":
+        raise ValueError(f"unknown psum_mode {psum_mode!r}")
+    return psum(aggregated, psum_axis), rec_rep
+
+
 def _apply_inet_flat(inet: InteractionNet, edges: EdgeSet, send_rep,
                      rec_rep, edge_rep_flat=None, *, update_edges, aggr,
-                     ew=None, compute_dtype=None, psum_axis=None):
+                     ew=None, compute_dtype=None, psum_axis=None,
+                     psum_mode="allreduce"):
     """Flat interaction-net round. rec_rep in (B, N, h); returns rec_out
     (B, N_rec, h) and, when update_edges, the flat edge state. psum_axis:
     the process group whose ranks each hold a part of the edge set; their
-    partial receiver sums are all-reduced after the fold."""
+    partial receiver sums are combined after the fold as `psum_mode`
+    says (`_combine_partial`; "scatter" and a fold return the owned
+    rows' rec_out)."""
     assert aggr in ("sum", "mean"), f"Unknown aggregation method: {aggr}"
     edge_out, virt = edge_round_flat(
         inet.edge_mlp, edges, send_rep, rec_rep, edge_rep_flat, ew=ew,
         compute_dtype=compute_dtype,
     )
-    aggregated = psum(_fold_virt_flat(edges, virt), psum_axis)
+    aggregated, rec_rep = _combine_partial(
+        _fold_virt_flat(edges, virt), rec_rep, psum_axis, psum_mode, aggr,
+        agg_axis=0, rec_axis=1)
     if aggr == "mean":
         aggregated = aggregated / _virt_counts(edges)
     rec_out = rec_rep + _aggr_mlp_mixed(inet.aggr_mlp, rec_rep, aggregated,
@@ -555,10 +691,68 @@ def check_edge_layout(edges: EdgeSet, edge_rep, batch_size: int, h: int,
             "build it with expand_edge_rep")
 
 
+def _apply_inet_split(inet: InteractionNet, edges: EdgeSet, send, rec_rep,
+                      edge_rep=None, *, update_edges, aggr, ew=None,
+                      compute_dtype=None):
+    """One round over a split (interior/frontier) set of the
+    mesh-node-sharded schemes, the counterpart of the JAX package's
+    `_apply_inet_split`: the interior round reads `send.owned`, the
+    frontier round `send.imports`; the receiver sums of both add up
+    (receiver-owned sets: no collective on the sums). The frontier takes
+    the interior's route, whatever its own size: on the flat route K2 or
+    K3 on each, from the split sender transforms (`split_send_tf`); on
+    the batched route P2 (static ew) or P1 on a materialised x0 (an edge
+    state; with its messages when update_edges, which the glue adds to the
+    state), as the JAX function's `edge_messages_and_virt` calls. The
+    edge state, ew and the new edge state are (interior, frontier)
+    pairs. The message set is the unsplit set's; only the order of the
+    receiver sums differs."""
+    fr = edges.frontier
+    if aggr != "sum":
+        raise ValueError("split sets implement sum aggregation "
+                         "(mesh_aggr must be 'sum')")
+    cd = compute_dtype
+    er_i, er_f = edge_rep if edge_rep is not None else (None, None)
+    ew_i, ew_f = ew if ew is not None else (None, None)
+    B, h = rec_rep.shape[0], rec_rep.shape[-1]
+    flat = flat_eligible(edges, B, h)
+    if edge_rep is not None:
+        check_edge_layout(edges, er_i, B, h, flat)
+        check_edge_layout(fr, er_f, B, h, flat)
+    if flat:
+        tf_o, tf_i = split_send_tf(inet.edge_mlp, send, B, cd)
+        eo_i, virt_i = edge_round_flat(inet.edge_mlp, edges, None, rec_rep,
+                                       er_i, ew=ew_i, compute_dtype=cd,
+                                       send_tf=tf_o)
+        eo_f, virt_f = edge_round_flat(inet.edge_mlp, fr, None, rec_rep,
+                                       er_f, ew=ew_f, compute_dtype=cd,
+                                       send_tf=tf_i)
+        aggregated = _fold_virt_flat(edges, virt_i) + _fold_virt_flat(
+            fr, virt_f)
+        rec_out = rec_rep + _aggr_mlp_mixed(inet.aggr_mlp, rec_rep,
+                                            aggregated, cd)
+    else:
+        m_i, virt_i = edge_messages_and_virt(
+            inet.edge_mlp, edges, send.owned, rec_rep, er_i,
+            with_messages=update_edges, ew=ew_i, compute_dtype=cd)
+        m_f, virt_f = edge_messages_and_virt(
+            inet.edge_mlp, fr, send.imports, rec_rep, er_f,
+            with_messages=update_edges, ew=ew_f, compute_dtype=cd)
+        aggregated = (_fold_virt(edges, virt_i, in_virt_dtype=True)
+                      + _fold_virt(fr, virt_f, in_virt_dtype=True))
+        rec_out = rec_rep + apply_mlp_concat(inet.aggr_mlp,
+                                             [rec_rep, aggregated], cd)
+        eo_i = None if m_i is None else er_i + m_i
+        eo_f = None if m_f is None else er_f + m_f
+    if update_edges:
+        return rec_out, (eo_i, eo_f)
+    return rec_out
+
+
 def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
                           rec_rep, edge_rep=None, *, update_edges=True,
                           aggr="sum", ew=None, compute_dtype=None,
-                          psum_axis=None):
+                          psum_axis=None, psum_mode="allreduce"):
     """One interaction-net round on a dense edge set, on the route the JAX
     package takes for it (`flat_eligible`).
 
@@ -576,30 +770,51 @@ def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
 
     psum_axis (a process group, or None): the set is one rank's part of a
     sharded edge set (`parallel/grid_sharded.py`), and the ranks' partial
-    receiver sums are all-reduced over the group after the virtual-row
-    fold, before the aggregation MLP (`parallel.collectives.psum`, whose
-    backward all-reduces the cotangent)."""
+    receiver sums are combined over the group after the virtual-row fold,
+    before the aggregation MLP: all-reduced (`parallel.collectives.psum`,
+    whose backward all-reduces the cotangent), or with psum_mode=
+    "scatter" reduce-scattered to the receivers' owners and the rank's
+    owned rows of rec_out returned (the mesh_rs scheme), or folded by a
+    callable psum_mode (the mesh_halo scheme's push fold).
+
+    send_rep may be a `SplitSend` (or `SplitSendLazy`) for a split set
+    (`edges.frontier`): `_apply_inet_split`, with no collective on the
+    sums (receiver-owned sets)."""
     if aggr not in ("sum", "mean"):
         raise ValueError(f"Unknown aggregation method: {aggr}")
     _check_inet(inet)
     if edge_rep is None and (ew is None or update_edges):
         raise ValueError("pass an edge state, or a static ew with "
                          "update_edges=False")
+    if isinstance(send_rep, _SPLIT_SEND_TYPES) != (edges.frontier
+                                                  is not None):
+        raise ValueError("a split set (edges.frontier) takes a SplitSend "
+                         "sender table, and a SplitSend a split set")
+    if edge_rep is not None:
+        ew = None  # an edge state takes precedence
+    if edges.frontier is not None:
+        if psum_axis is not None:
+            raise ValueError("split sets are receiver-owned: their sums "
+                             "need no collective")
+        return _apply_inet_split(inet, edges, send_rep, rec_rep, edge_rep,
+                                 update_edges=update_edges, aggr=aggr, ew=ew,
+                                 compute_dtype=compute_dtype)
     B, h = rec_rep.shape[0], rec_rep.shape[-1]
     flat = flat_eligible(edges, B, h)
     if edge_rep is not None:
-        ew = None  # an edge state takes precedence
         check_edge_layout(edges, edge_rep, B, h, flat)
     if flat:
         return _apply_inet_flat(inet, edges, send_rep, rec_rep, edge_rep,
                                 update_edges=update_edges, aggr=aggr, ew=ew,
                                 compute_dtype=compute_dtype,
-                                psum_axis=psum_axis)
+                                psum_axis=psum_axis, psum_mode=psum_mode)
     edge_out, virt = edge_messages_and_virt(
         inet.edge_mlp, edges, send_rep, rec_rep, edge_rep,
         update_edges=update_edges, ew=ew, compute_dtype=compute_dtype,
     )
-    aggregated = psum(_fold_virt(edges, virt, in_virt_dtype=True), psum_axis)
+    aggregated, rec_rep = _combine_partial(
+        _fold_virt(edges, virt, in_virt_dtype=True), rec_rep, psum_axis,
+        psum_mode, aggr, agg_axis=1, rec_axis=1)
     if aggr == "mean":
         aggregated = aggregated / _virt_counts(edges)
     rec_out = rec_rep + apply_mlp_concat(inet.aggr_mlp, [rec_rep, aggregated],

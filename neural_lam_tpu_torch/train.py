@@ -69,18 +69,22 @@ Several processes (`parallel/distributed.py`): one process a device,
 (nccl on CUDA, gloo on the CPU by default; gloo for several ranks on one
 card). The ranks form n_data x n_space groups, `--spatial_shards` =
 n_space consecutive ranks a group. A space group trains one model on one
-batch with the grid scheme (`--spatial_scheme grid`,
-`parallel/grid_sharded.py`: grid blocks, edge chunks, all-reduced partial
-sums); the data groups read disjoint strided shards of the batches
-(`--batch_size` rows each, so the global batch is batch_size x n_data)
-and average their gradients. Rank 0's parameters are broadcast at the
-start; files, figures and W&B are rank 0's; evaluation runs per data
-group and merges its sums over the data groups; a latent model's rows
-draw the noise one process would draw for them. A multi-process run
-installs no preemption handler (a signal ends every rank; `--load auto`
-resumes from the last epoch's save). Not ported: the mesh-node-sharded
-schemes `mesh_rs` and `mesh_halo` (with the JAX package's `SplitSend`),
-ROADMAP.md queue 1, item 6.
+batch with a spatial scheme (`--spatial_scheme`,
+`parallel/grid_sharded.py`): grid (grid blocks, edge chunks, all-reduced
+partial sums, the mesh replicated), mesh_rs (the bottom mesh level's
+rows sharded too: the g2m sums reduce-scattered to their owners, the
+senders all-gathered) or mesh_halo (every level's rows sharded, the
+senders of other ranks and the g2m sums exchanged in cut-edge halo
+rounds), for every family. The data groups read disjoint strided shards
+of the batches (`--batch_size` rows each, so the global batch is
+batch_size x n_data) and average their gradients. Rank 0's parameters
+are broadcast at the start; files, figures and W&B are rank 0's;
+evaluation runs the sharded model per data group, whatever the scheme,
+and merges its sums over the data groups; a latent model's rows (and,
+under mesh_rs and mesh_halo, its mesh rows) draw the noise one process
+would draw for them. A multi-process run installs no preemption handler
+(a signal ends every rank; `--load auto` resumes from the last epoch's
+save).
 """
 
 from __future__ import annotations
@@ -855,7 +859,7 @@ def main(input_args=None):
     runs: GraphLAM, HiLAM, HiLAMParallel, GraphEFM and HiEFM (the
     hierarchical ones with `--graph hierarchical`) training and
     evaluation, on one device or on `--num_nodes` processes (one a
-    device; `--spatial_shards` of them to a grid-sharded model). Returns
+    device; `--spatial_shards` of them to a sharded model). Returns
     what `--eval` printed (None when training); with `--ensemble_members`
     the ensemble scores under "ensemble"."""
     parser = ArgumentParser(description="Train the PyTorch port's models")
@@ -885,9 +889,15 @@ def main(input_args=None):
                              "ranks)")
     parser.add_argument("--spatial_scheme", type=str, default="grid",
                         choices=["grid", "mesh_rs", "mesh_halo"],
-                        help="grid: grid-sharded, mesh-replicated (every "
-                             "family); mesh_rs and mesh_halo are not ported "
-                             "yet and raise")
+                        help="grid: grid-sharded mesh-replicated; "
+                             "mesh_rs: mesh-node sharding via reduce-"
+                             "scatter/all-gather (hierarchical graphs "
+                             "shard the bottom level) and sharded "
+                             "mesh-node MLPs; mesh_halo: mesh_rs with "
+                             "cut-edge halo exchange (ppermute of the "
+                             "boundary rows instead of full-table "
+                             "all-gathers). Every scheme supports every "
+                             "family, the latent graph_efm/hi_efm too")
     parser.add_argument("--epochs", type=int, default=200)
     parser.add_argument("--max_steps", type=int, default=0)
     parser.add_argument("--batch_size", type=int, default=4)

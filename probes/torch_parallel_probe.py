@@ -1,5 +1,5 @@
-"""Data parallelism and the grid scheme alone on one CUDA card: phase 16
-of `chip_smoke.py` without phases 2-15.
+"""Data parallelism and the spatial schemes alone on one CUDA card:
+phases 16-17 of `chip_smoke.py` without phases 2-15.
 
     python3 probes/torch_parallel_probe.py
 
@@ -9,8 +9,11 @@ train.main on one process at batch 4 and as a one-rank nccl world, then
 two rank processes on the card with gloo (16a: 3 data-parallel AdamW
 steps through train.main; 16b-c: every family grid-sharded against its
 unsharded run, launches against the per-rank tables, collectives and
-timings). Ends with the card's name and power limit. Exits non-zero
-without a card or when a check fails.
+timings), then two more (17a-b: every family under mesh_rs and
+mesh_halo, held the same way, its collectives against their tables;
+17c: train.main under mesh_halo against 16a's losses). Ends with the
+card's name and power limit. Exits non-zero without a card or when a
+check fails.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ def main():
     reset_counts, counts, _, _ = cs.kernel_registry()
     t0 = time.time()
     cs.parallel_phase(torch, np, counts, reset_counts)
-    print(f"phase 16: {time.time() - t0:.1f} s")
+    print(f"phases 16-17: {time.time() - t0:.1f} s")
     print(cs.smi_line())
     return 0
 

@@ -65,7 +65,12 @@ FLAT_MIN_VIRT = 100
 
 def build(case, graph_dir):
     """(port model, datastore) of `case`, weights from seed 0."""
-    name, graph, dtype = CASES[case]
+    return build_model(*CASES[case], graph_dir)
+
+
+def build_model(name, graph, dtype, graph_dir):
+    """(port model `name` on graph kind `graph`, datastore), weights from
+    seed 0."""
     if graph == "global":
         kind = "dummydata_global"
         ds = DummyGlobalDatastore(n_lon=GLOBAL[0], n_lat=GLOBAL[1],

@@ -13,9 +13,10 @@ second process, against the JAX package on the CPU.
 * `WeatherDataLoader(shard=...)`: the JAX loader's batches bit for bit for
   2 and 3 shards, shuffled training and evaluation splits, with 0 and 2
   worker threads.
-* What raises: the mesh-node-sharded schemes, a sharded model with mean
-  aggregation, the train CLI asked for spatial shards in one process, and
-  a world asked for nccl on the CPU or without its ranks or its address.
+* What raises: an unknown spatial scheme, a sharded model with mean
+  aggregation under each scheme, the train CLI asked for spatial shards
+  in one process (with either scheme), and a world asked for nccl on the
+  CPU or without its ranks or its address.
 """
 
 import jax
@@ -198,27 +199,30 @@ def test_loader_shards_match_jax(n_shards, num_workers, loader_stores):
 
 
 def test_unported_schemes_and_mean_aggregation_raise(tmp_path):
-    """mesh_rs and mesh_halo raise naming the ROADMAP item; a sharded
-    model with mesh_aggr="mean" raises, as the JAX package's asserts; the
-    CLI does not run spatial shards in one process."""
+    """An unknown scheme raises; a sharded model with mesh_aggr="mean"
+    raises under grid, mesh_rs and mesh_halo, as the JAX package's
+    asserts; the CLI does not run spatial shards in one process."""
     model, _ = entry.build_model(nx=10, ny=10, hidden_dim=8,
                                  processor_layers=1, device="cpu")
     mesh = Mesh(1, 1, 0, 0)
-    for scheme in ("mesh_rs", "mesh_halo"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            spatialize_scheme(model, mesh, scheme)
+    with pytest.raises(ValueError, match="unknown spatial scheme"):
+        spatialize_scheme(model, mesh, "mesh_psum")
     model.args.mesh_aggr = "mean"
     with pytest.raises(ValueError, match="mesh_aggr"):
         spatialize(model, mesh)
+    for scheme in ("grid", "mesh_rs", "mesh_halo"):
+        with pytest.raises(ValueError, match="mesh_aggr"):
+            spatialize_scheme(model, mesh, scheme)
     cfg = tmp_path / "config.yaml"
     cfg.write_text("datastore:\n  kind: dummydata\n  config_path: d.yaml\n")
     (tmp_path / "d.yaml").write_text("n_points_1d: 10\nn_timesteps: 20\n")
     base = ["--config_path", str(cfg), "--device", "cpu"]
     with pytest.raises(ValueError, match="one process a shard"):
         train.main(base + ["--spatial_shards", "2"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train.main(base + ["--spatial_shards", "2", "--spatial_scheme",
-                           "mesh_rs"])
+    for scheme in ("mesh_rs", "mesh_halo"):
+        with pytest.raises(ValueError, match="one process a shard"):
+            train.main(base + ["--spatial_shards", "2", "--spatial_scheme",
+                               scheme])
     assert jax.device_count() == 8  # the JAX side's virtual devices
 
 

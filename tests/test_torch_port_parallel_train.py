@@ -27,6 +27,10 @@ test's):
 * 4 processes as 2 data x 2 space groups (`--spatial_shards 2`, the grid
   scheme): the train and val losses and the first step's gradients of 1
   process at batch 8;
+* 2 space ranks under `--spatial_scheme mesh_rs` and `mesh_halo` (the
+  JAX package's test_two_process_spatial_halo_matches_single) at batch
+  8: the train and val losses and the first step's gradients of 1
+  process at batch 8;
 * a rank that fails makes every rank fail, with a nonzero exit.
 """
 
@@ -255,6 +259,23 @@ def test_four_processes_data_and_space(single):
         np.testing.assert_allclose(m4[key], m1[key], rtol=5e-5, err_msg=key)
     assert params_gap(root / "m1" / "single" / "last",
                       root / "m4" / "sp" / "last") <= 2e-3
+
+
+@pytest.mark.parametrize("scheme", ["mesh_rs", "mesh_halo"])
+def test_two_space_ranks_mesh_node_schemes(scheme, single):
+    """1 data x 2 space ranks under a mesh-node-sharded scheme at batch 8,
+    against one process at batch 8."""
+    root, cfg = single
+    outs = launch_world(args_of(cfg, root / scheme, "sp", 8), 2, root,
+                        ["--spatial_shards", "2", "--spatial_scheme", scheme,
+                         "--record_grads", str(root / f"g_{scheme}_")])
+    assert any("1 data x 2 space ranks" in o for o in outs)
+    assert_grads_match(root / "g1_0.npz",
+                       [root / f"g_{scheme}_{r}.npz" for r in range(2)])
+    m1 = read_metrics(root / "m1" / "single")
+    ms = read_metrics(root / scheme / "sp")
+    for key in ("train_loss", "val_mean_loss", "val_loss_unroll1"):
+        np.testing.assert_allclose(ms[key], m1[key], rtol=5e-5, err_msg=key)
 
 
 def test_a_failed_rank_fails_every_rank(single):
