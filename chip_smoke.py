@@ -366,6 +366,32 @@ result line is printed), each printing its seconds:
    relative of 16a's single process's. Each rank process has its own
    300 s limit.
 
+18. The serving export and the kernels' operators (`ops/library.py`:
+   K1-K4 and P1-P3 are `nlt::` operators of PyTorch's dispatcher). a.
+   Each operator's host us a call through the dispatcher against its
+   CUDA implementation called directly (at its first call's arguments in
+   a GraphLAM batch-4 or HiLAM batch-1 predict step; enqueue time behind
+   a sleep kernel, median of 3 rounds of 100), and the bench GraphLAM's
+   and HiLAM's batch-4 predict steps' host and busy ms
+   (`hlp_step_stats`, 4-step minus 1-step rollouts). b. `export.
+   export_predict_step` of the bench GraphLAM at batch 4 in fp32 and
+   bf16 and of the 4-level HiLAM at batch 1, each saved with
+   `torch.export.save`; a fresh process (`chip_smoke.py --export-load`)
+   that imports `neural_lam_tpu_torch.export` and nothing of the models
+   loads each (`load_exported`) and runs it on the eager step's inputs:
+   its output must equal the eager step's bit for bit, its launches a
+   step (the bf16 instances' for bf16) equal `step_table`, as the eager
+   step's must; printed: export, save and load s, the artifact's MB, and
+   host and busy ms a step of the loaded program beside the eager
+   step's. c. A `--hidden_layers 2` GraphLAM at bench width: a 2-step
+   rollout at batch 1 launches no kernel (the JAX package's gates send
+   3-layer MLPs to the plain route) and is within 1e-5 x max abs of the
+   same weights' rollout on the CPU (TF32 off); 3 AdamW steps at batch 4
+   launch no kernel and give finite losses. d. The bench GraphLAM's and
+   HiLAM's graph scene (`plot_graph.graph_scene`, numpy only, from the
+   graph on the card) and interactive page (`graph/html_viz.py`): every
+   point and edge set embedded whole.
+
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -4627,6 +4653,343 @@ def parallel_phase(torch, np, counts, reset_counts):
                         ranks[0]["GraphLAM"]["step_collectives"])
 
 
+# phase 18: the export path, the dispatcher's operators, deeper MLPs
+EXPORT_CASES = (  # (what, model, batch, compute dtype)
+    ("GraphLAM batch 4", "graph_lam", 4, None),
+    ("GraphLAM batch 4 bf16", "graph_lam", 4, "bfloat16"),
+    ("HiLAM batch 1", "hi_lam", 1, None),
+)
+# each forward operator's CUDA implementation, by operator name
+OP_IMPLS = {"embed_grid_flat": ("embed", "_embed_cuda"),
+            "edge_tail_sum_flat": ("edge_flat", "_tail_cuda"),
+            "edge_layer_flat": ("edge_flat", "_layer_cuda"),
+            "grid_update_flat": ("grid_update", "_grid_cuda"),
+            "edge_tail": ("edge", "_tail_cuda"),
+            "edge_tail_sum": ("edge", "_tail_sum_cuda"),
+            "edge_layer": ("edge", "_layer_cuda")}
+HIDDEN_LAYERS_LIMIT = 1e-5  # 18c: card vs CPU, x the CPU output's max abs
+
+
+def op_calls(torch, step):
+    """{operator name: (operator, args)} of the first call of each `nlt::`
+    operator in `step()`."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = {}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "nlt":
+                seen.setdefault(func._schema.name.split("::")[1],
+                                (func, args))
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Record():
+        step()
+    return seen
+
+
+def host_us(torch, fn, args, n=50):
+    """Host microseconds a call of fn(*args), its `n` calls queued behind
+    a ~25 ms sleep kernel (the host's enqueue time, not the device's);
+    fails if the host did not finish first."""
+    fn(*args)
+    torch.cuda.synchronize()
+    done = torch.cuda.Event()
+    torch.cuda._sleep(SLEEP_CYCLES // 4)
+    done.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    us = (time.perf_counter() - t0) / n * 1e6
+    if done.query():
+        fail(f"host_us: {n} calls took longer to queue than the sleep")
+    torch.cuda.synchronize()
+    return us
+
+
+def step_ms(torch, step, what):
+    """(host ms a call of `step`, median of 5 synchronised calls; device
+    busy ms a call, from a device-only profile of 3, or None)."""
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = profile(torch, step, what, top=4, cpu=False)
+    return sorted(times[1:])[2], (prof[0] if prof else None)
+
+
+def export_load_main(argv):
+    """`chip_smoke.py --export-load MANIFEST`: in a fresh process that
+    imports `neural_lam_tpu_torch.export` (and, through it, the kernels'
+    operators) and nothing of the models, load each exported artifact of
+    the manifest, run it on its saved inputs, and print one JSON line a
+    case: load s, the launches of one step by kernel, host and busy ms a
+    step, whether the model code was imported."""
+    import torch
+
+    from neural_lam_tpu_torch.export import load_exported
+
+    with open(argv[0]) as f:
+        manifest = json.load(f)
+    for case in manifest:
+        t0 = time.perf_counter()
+        step = load_exported(case["path"])
+        load_s = time.perf_counter() - t0
+        inputs = torch.load(case["inputs"])
+        step(*inputs)  # the first call loads the kernels' libraries
+        torch.cuda.synchronize()
+        reset_counts, counts, counts_bf16, _ = kernel_registry()
+        reset_counts()
+        pred, _ = step(*inputs)
+        torch.cuda.synchronize()
+        launches, launches_bf16 = counts(), counts_bf16()
+        torch.save(pred, case["out"])
+        host, busy = step_ms(torch, lambda: step(*inputs),
+                             f"loaded {case['what']} step")
+        print(json.dumps({
+            "what": case["what"], "load_s": load_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "launches_bf16": {k: v for k, v in launches_bf16.items() if v},
+            "host_ms": host, "busy_ms": busy,
+            "models_imported": any(m.startswith("neural_lam_tpu_torch.models")
+                                   for m in sys.modules)}), flush=True)
+    return 0
+
+
+def op_overhead(torch, nets):
+    """18a: host us a call of each operator through the dispatcher
+    against its CUDA implementation called directly, at the shapes of the
+    first call in a predict step of each (what, net, batch)."""
+    import importlib
+
+    from neural_lam_tpu_torch import entry
+
+    calls = {}
+    for what, net, B in nets:
+        init, forcing, _ = entry.make_inputs(net, B, 1, seed=0)
+        with torch.no_grad():
+            ctx = net.precompute_rollout_ctx()
+        for name, call in op_calls(torch, lambda: net.predict_step(
+                init[:, 1], init[:, 0], forcing[:, 0], ctx)).items():
+            calls.setdefault(name, (what, call))
+    if sorted(calls) != sorted(OP_IMPLS):
+        fail(f"18a: the steps called the operators {sorted(calls)}, want "
+             f"{sorted(OP_IMPLS)}")
+    for name in sorted(OP_IMPLS):
+        what, (op, args) = calls[name]
+        mod, fn = OP_IMPLS[name]
+        impl = getattr(importlib.import_module(
+            f"neural_lam_tpu_torch.ops.{mod}"), fn)
+        rounds = [(host_us(torch, op, args), host_us(torch, impl, args))
+                  for _ in range(3)]
+        via, direct = (sorted(r[i] for r in rounds)[1] for i in (0, 1))
+        print(f"18a: nlt::{name} ({what}'s first call): {via:.1f} us a call "
+              f"through the dispatcher, {direct:.1f} us its CUDA "
+              f"implementation called directly (+{via - direct:.1f} us; host "
+              "enqueue time behind a sleep kernel, median of 3 rounds of "
+              "50)")
+
+
+def export_cases(torch, np, tmp, counts, counts_bf16, reset_counts, nets):
+    """18b: export, save and reload each of `EXPORT_CASES` at full width
+    (the fp32 models from `nets`, {kind: model}, which it empties); the
+    fresh process's output against the eager step's, its launches
+    against `step_table`, and the export, load and step times."""
+    from neural_lam_tpu_torch import entry, export
+
+    manifest, eager = [], {}
+    for what, kind, B, cd in EXPORT_CASES:
+        net = nets.pop(kind) if cd is None else entry.build_model(
+            **BENCH, model=kind, compute_dtype=cd, device="cuda")[0]
+        init, forcing, _ = entry.make_inputs(net, B, 1, seed=0)
+        inputs = (init[:, 1], init[:, 0], forcing[:, 0])
+        t0 = time.perf_counter()
+        program, meta = export.export_predict_step(net, B)
+        export_s = time.perf_counter() - t0
+        stem = tmp / f"{kind}_{B}_{cd or 'fp32'}"
+        path = stem.with_suffix(".pt2")
+        t0 = time.perf_counter()
+        torch.export.save(program, str(path))
+        save_s = time.perf_counter() - t0
+        del program
+        with torch.no_grad():
+            ctx = net.precompute_rollout_ctx()
+            net.predict_step(*inputs, ctx)
+            reset_counts()
+            pred, _ = net.predict_step(*inputs, ctx)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in counts().items() if v}
+            got16 = {k: v for k, v in counts_bf16().items() if v}
+            host, busy = step_ms(torch, lambda: net.predict_step(
+                *inputs, ctx), f"eager {what} step")
+        table = {k: v for k, v in step_table(net, B)[0].items() if v}
+        both = {k: got.get(k, 0) + got16.get(k, 0) for k in set(got) | set(
+            got16)}
+        if both != table:
+            fail(f"18b {what}: the eager step launched {both}, the table "
+                 f"says {table}")
+        torch.save(inputs, stem.with_suffix(".in.pt"))
+        manifest.append({"what": what, "path": str(path),
+                         "inputs": str(stem.with_suffix(".in.pt")),
+                         "out": str(stem.with_suffix(".out.pt"))})
+        eager[what] = (pred, table, bool(got16), host, busy, export_s,
+                       save_s, path.stat().st_size / 1e6, meta)
+        print(f"18b {what}: exported in {export_s:.2f} s, saved in "
+              f"{save_s:.2f} s ({path.stat().st_size / 1e6:.1f} MB); eager "
+              f"step launches {table}")
+        del net, ctx
+        gc.collect()
+        torch.cuda.empty_cache()
+    (tmp / "manifest.json").write_text(json.dumps(manifest))
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--export-load",
+         str(tmp / "manifest.json")], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in res.stdout.splitlines():
+        if not line.startswith("{"):
+            print(f"  | {line}")
+    if res.returncode != 0:
+        fail(f"18b: the loading process failed:\n{res.stderr[-4000:]}")
+    loaded = [json.loads(x) for x in res.stdout.splitlines()
+              if x.startswith("{")]
+    if len(loaded) != len(EXPORT_CASES):
+        fail(f"18b: the loading process reported {len(loaded)} cases")
+    for rec in loaded:
+        what = rec["what"]
+        pred, table, bf16, host, busy, export_s, save_s, mb, meta = \
+            eager[what]
+        got = torch.load(next(c["out"] for c in manifest
+                              if c["what"] == what))
+        gap = float((got.float() - pred.float()).abs().max())
+        launched = (rec["launches_bf16"] if bf16 else rec["launches"])
+        if rec["models_imported"]:
+            fail(f"18b {what}: loading the program imported the model code")
+        if not torch.equal(got, pred):
+            fail(f"18b {what}: the loaded program's output is not the eager "
+                 f"step's bit for bit (max abs gap {gap:.3e})")
+        if launched != table or (bf16 and rec["launches"]):
+            fail(f"18b {what}: the loaded program launched "
+                 f"{rec['launches']} (bf16 {rec['launches_bf16']}), the "
+                 f"table says {table}")
+        print(f"18b {what}: export {export_s:.2f} s, save {save_s:.2f} s, "
+              f"load {rec['load_s']:.2f} s in a fresh process (no model "
+              f"code imported), artifact {mb:.1f} MB; output bit-equal to "
+              f"the eager step's, {meta['n_grid']} x {meta['n_state_vars']}"
+              f" x batch {meta['batch_size']}; launches "
+              f"{'(bf16) ' if bf16 else ''}{launched} = step_table; host ms "
+              f"a step {rec['host_ms']:.3f} loaded vs {host:.3f} eager, "
+              f"busy ms {rec['busy_ms'] or float('nan'):.3f} vs "
+              f"{busy or float('nan'):.3f}")
+
+
+def hidden_layers_case(torch, np, counts, reset_counts):
+    """18c: a --hidden_layers 2 GraphLAM at bench width: no kernel
+    launches (the JAX package's gates take none), its forecast against
+    the same weights on the CPU (TF32 off), and a few training steps."""
+    from neural_lam_tpu_torch import entry
+
+    kw = dict(BENCH, hidden_layers=2)
+    net, ds = entry.build_model(**kw, device="cuda")
+    cpu, _ = entry.build_model(**kw, device="cpu")
+    init, forcing, true = entry.make_inputs(net, 1, 2, seed=0)
+    reset_counts()
+    pred = entry.forecast(net, init, forcing, true)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    t0 = time.perf_counter()
+    want = entry.forecast(cpu, init.cpu(), forcing.cpu(), true.cpu())
+    cpu_s = time.perf_counter() - t0
+    gap = float((pred.cpu() - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"18c: GraphLAM hidden_layers 2 (268x238, hidden 64, 4 layers), "
+          f"2-step rollout at batch 1: launches {launched or 'none'}; card "
+          f"vs CPU max abs gap {gap:.3e} = {gap / scale:.3e} x max "
+          f"{scale:.3f} (limit {HIDDEN_LAYERS_LIMIT:g}; CPU rollout "
+          f"{cpu_s:.1f} s)")
+    if launched:
+        fail(f"18c: a hidden_layers 2 model launched {launched}")
+    if not gap <= HIDDEN_LAYERS_LIMIT * scale:
+        fail("18c: the card's hidden_layers 2 forecast is off the CPU's")
+    del cpu, want
+    reset_counts()
+    losses = entry.train_steps(net, ds, batch_size=4, steps=3,
+                               device=net.device)
+    launched = {k: v for k, v in counts().items() if v}
+    print(f"18c: 3 AdamW steps at batch 4: losses {losses}, launches "
+          f"{launched or 'none'}")
+    if launched or not all(math.isfinite(x) for x in losses):
+        fail("18c: hidden_layers 2 training launched kernels or lost "
+             "finiteness")
+
+
+def graph_page_case(tmp):
+    """18d: the bench graph's scene (numpy only) and its interactive page
+    from the graph on the card, every set embedded."""
+    import base64
+
+    import numpy as np
+
+    from neural_lam_tpu_torch import entry
+    from neural_lam_tpu_torch.graph.html_viz import save_interactive_html
+    from neural_lam_tpu_torch.plot_graph import graph_scene
+
+    for kind in ("graph_lam", "hi_lam"):
+        net, ds = entry.build_model(**BENCH, model=kind, device="cuda")
+        t0 = time.perf_counter()
+        points, edges = graph_scene(net.graph, ds.get_xy("state"))
+        page = save_interactive_html(points, edges, tmp / f"{kind}.html",
+                                     title=kind)
+        html = page.read_text()
+        s = time.perf_counter() - t0
+        sets = json.loads(re.search(r"const SETS = (\[.*?\]);\n", html,
+                                    re.S).group(1))
+        arrays = [e["segs"] for e in edges] + [p["pos"] for p in points]
+        if len(sets) != len(arrays) or any(
+                np.frombuffer(base64.b64decode(e["data"]), np.float32).size
+                != a.size for e, a in zip(sets, arrays)):
+            fail(f"18d: the {kind} page does not embed every set whole")
+        print(f"18d: {kind} graph page in {s:.2f} s: {len(edges)} edge sets "
+              f"({sum(len(e['segs']) for e in edges)} segments), "
+              f"{len(points)} point sets, {page.stat().st_size / 1e6:.1f} "
+              "MB, every set embedded")
+
+
+def export_phase(torch, np, counts, counts_bf16, reset_counts):
+    """Phase 18 (see the module doc)."""
+    import tempfile
+    from pathlib import Path
+
+    from neural_lam_tpu_torch import entry
+
+    t0 = time.time()
+    gl, _ = entry.build_model(**BENCH, device="cuda")
+    hl, _ = entry.build_model(**BENCH, model="hi_lam", device="cuda")
+    op_overhead(torch, [("GraphLAM batch 4", gl, 4),
+                        ("HiLAM batch 1", hl, 1)])
+    for what, net in (("GraphLAM", gl), ("HiLAM", hl)):
+        hlp_step_stats(torch, entry, net, 4, f"18a {what} batch 4", steps=4)
+    nets = {"graph_lam": gl, "hi_lam": hl}
+    del gl, hl
+    print(f"phase 18a: {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="nlt_export_") as tmp:
+        t0 = time.time()
+        export_cases(torch, np, Path(tmp), counts, counts_bf16, reset_counts,
+                     nets)
+        print(f"phase 18b: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        graph_page_case(Path(tmp))
+        print(f"phase 18d: {time.time() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    hidden_layers_case(torch, np, counts, reset_counts)
+    print(f"phase 18c: {time.time() - t0:.1f} s")
+
+
 def main():
     import torch
 
@@ -5545,6 +5908,13 @@ def main():
     torch.cuda.empty_cache()
     phase_end("16-17 (data parallelism and the spatial schemes, 2 ranks)")
 
+    # 18. the export path, the kernels' operators, hidden_layers 2, the
+    # graph page
+    export_phase(torch, np, counts, counts_bf16, reset_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end("18 (export, operators, hidden_layers 2, graph page)")
+
     print(json.dumps({"kernels": records}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -5558,4 +5928,6 @@ if __name__ == "__main__":
         sys.exit(parallel_rank_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--rs-rank"]:
         sys.exit(rs_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--export-load"]:
+        sys.exit(export_load_main(sys.argv[2:]))
     sys.exit(main())

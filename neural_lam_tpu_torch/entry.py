@@ -53,7 +53,7 @@ from .train import Trainer, TrainFlags
 def build_model(nx=60, ny=60, hidden_dim=64, processor_layers=4,
                 n_features=None, n_timesteps=20, seed=0, device="cuda",
                 compute_dtype=None, model="graph_lam", n_max_levels=None,
-                global_grid=False, refinements=3):
+                global_grid=False, refinements=3, hidden_layers=1):
     """(model, datastore) on `device`, weights from `seed`: `model` is
     "graph_lam" or "graph_efm" (multiscale mesh graph), "hi_lam",
     "hi_lam_parallel" or "hi_efm" (hierarchical mesh graph, which needs
@@ -61,7 +61,8 @@ def build_model(nx=60, ny=60, hidden_dim=64, processor_layers=4,
     the mesh levels (None: as many as the grid takes). `global_grid`:
     an nx x ny (longitude x latitude) DummyGlobalDatastore and an
     icosahedral mesh refined `refinements` times (`n_max_levels` levels
-    from the finest up)."""
+    from the finest up). `hidden_layers` other than 1 gives MLPs that the
+    fused kernels do not take: every round runs the plain route."""
     if model not in MODELS:
         raise ValueError(f"unknown model {model!r}; one of {sorted(MODELS)}")
     device = resolve_device(device)
@@ -92,7 +93,8 @@ def build_model(nx=60, ny=60, hidden_dim=64, processor_layers=4,
                                   n_max_levels=n_max_levels,
                                   hierarchical=hierarchical)
     graph = graph_from_bundle(bundle, device)
-    args = ModelArgs(hidden_dim=hidden_dim, processor_layers=processor_layers,
+    args = ModelArgs(hidden_dim=hidden_dim, hidden_layers=hidden_layers,
+                     processor_layers=processor_layers,
                      compute_dtype=compute_dtype)
     net = MODELS[model](args, config, datastore, graph, device=device,
                         generator=torch.Generator().manual_seed(seed))

@@ -314,7 +314,10 @@ def cli(input_args=None):
 
         python -m neural_lam_tpu_torch.graph.build --config_path cfg.yaml \\
             --name hierarchical --hierarchical [--levels 3] \\
-            [--mesh global_icosahedral --refinements 5]
+            [--mesh global_icosahedral --refinements 5] [--plot]
+
+    `--plot` saves a 3D figure of the graph as graph.png beside it
+    (`plot_graph.make_graph_figure`; needs matplotlib).
     """
     from argparse import ArgumentParser
 
@@ -337,15 +340,28 @@ def cli(input_args=None):
     parser.add_argument("--refinements", type=int, default=3,
                         help="Icosahedron subdivision count for the finest "
                              "level (global_icosahedral only)")
+    parser.add_argument("--plot", action="store_true",
+                        help="Save a 3D figure of the generated graph next "
+                             "to it (ref create_graph.py renders each level "
+                             "interactively)")
     args = parser.parse_args(input_args)
 
     _, datastore = load_config_and_datastore(args.config_path)
     out_dir = os.path.join(datastore.root_path, "graph", args.name)
-    return create_graph_from_datastore(
+    bundle = create_graph_from_datastore(
         datastore=datastore, output_root_path=out_dir,
         n_max_levels=args.levels, hierarchical=args.hierarchical,
         mesh=args.mesh, refinements=args.refinements,
     )
+    if args.plot:
+        from ..plot_graph import load_plot_graph, make_graph_figure
+
+        fig = make_graph_figure(load_plot_graph(out_dir),
+                                datastore.get_xy("state"))
+        fig_path = os.path.join(out_dir, "graph.png")
+        fig.savefig(fig_path, dpi=150, bbox_inches="tight")
+        print(f"Saved graph figure to {fig_path}")
+    return bundle
 
 
 if __name__ == "__main__":

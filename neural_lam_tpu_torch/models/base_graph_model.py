@@ -34,6 +34,7 @@ from ..ops.message_passing import (
     flat_eligible,
     flatten_nodes,
     init_interaction_net,
+    kernel_mlp,
     node_transform_flat,
     unflatten_nodes,
 )
@@ -87,10 +88,6 @@ class BaseGraphModel(ARModelBase):
                  graph: LoadedGraph, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__(args, config, datastore, device)
-        if args.hidden_layers != 1:
-            raise NotImplementedError(
-                "the port's kernels need 2-layer MLPs (hidden_layers=1)"
-            )
         self.graph = graph
         assert graph.num_grid_nodes == self.num_grid_nodes, (
             f"graph has {graph.num_grid_nodes} grid nodes but datastore has "
@@ -140,6 +137,10 @@ class BaseGraphModel(ARModelBase):
         self.output_map = init_mlp([h] * (hl + 1) + [self.grid_output_dim],
                                    layer_norm=False, generator=generator)
         self.init_extra_params(generator)
+        # every MLP of the model has one depth: whether they are the fused
+        # kernels' 2-layer MLPs (hidden_layers=1), or every round takes
+        # the plain route, as the JAX package's XLA route
+        self.kernel_mlps = kernel_mlp(self.g2m_gnn.edge_mlp)
         self.to(self.device)
 
     # --- forward (ref: base_graph_model.py:106-177) ---
@@ -243,12 +244,16 @@ class BaseGraphModel(ARModelBase):
         return self._finish_output(net_output, prev_state)
 
     def _flat_grid_eligible(self, batch_size: int) -> bool:
-        """Whether the flat-grid route applies: g2m and m2g both on the
-        flat route and the fused decoder's structure (a virt_identity m2g,
-        2-layer MLPs with the reference LayerNorm layout)."""
+        """Whether the flat-grid route applies (the JAX package's gates):
+        g2m and m2g both on the flat route, the fused decoder's structure
+        (a virt_identity m2g, 2-layer MLPs with the reference LayerNorm
+        layout) and K1's and K2's (`embed_applicable`, a 2-layer g2m edge
+        MLP with LayerNorm)."""
         h = self.args.hidden_dim
         g = self.graph
         return (grid_update.grid_update_applicable(self, g.m2g)
+                and kernel_mlp(self.grid_embedder)
+                and kernel_mlp(self.g2m_gnn.edge_mlp)
                 and flat_eligible(g.m2g, batch_size, h)
                 and flat_eligible(g.g2m, batch_size, h))
 

@@ -120,7 +120,8 @@ class BaseHiGraphModel(BaseGraphModel):
         # edge states in the layout apply_interaction_net uses per edge set
         # (flat (M, B*h) on the flat route, batched (B, M, h) otherwise)
         mesh_same_rep, mesh_up_rep, mesh_down_rep = (
-            [expand_edge_rep(es, e, batch_size) for es, e in zip(sets, embs)]
+            [expand_edge_rep(es, e, batch_size, self.kernel_mlps)
+             for es, e in zip(sets, embs)]
             for sets, embs in ((g.m2m, ctx["same_emb"]), (g.up, ctx["up_emb"]),
                                (g.down, ctx["down_emb"]))
         )

@@ -63,7 +63,8 @@ class GraphLAM(BaseGraphModel):
     def process_step(self, mesh_rep, batch_size, ctx):
         """Processor stack sharing the single m2m edge set
         (ref: graph_lam.py:73-91)."""
-        edge_rep = expand_edge_rep(self.m2m, ctx["m2m_emb"], batch_size)
+        edge_rep = expand_edge_rep(self.m2m, ctx["m2m_emb"], batch_size,
+                                   self.kernel_mlps)
         for layer in self.processor:
             mesh_rep, edge_rep = apply_interaction_net(
                 layer, self.m2m, self._mesh_sender_rep(mesh_rep), mesh_rep,

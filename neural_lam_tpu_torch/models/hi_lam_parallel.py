@@ -12,12 +12,13 @@ level (SplitMLPs). Per processor layer:
     edges_c    += messages_c
 
 As in the JAX package, node states stay per-level tensors and each chunk
-is its graph's dense EdgeSet, on the route `flat_eligible` gives it: a
+is its graph's dense EdgeSet, on the route `flat_route` gives it: a
 flat chunk runs `edge_round_flat` (K3, edge state (M, B*h)), a batched
 one P1 on a materialised x0 with its messages (`edge_messages_and_virt`,
-edge state (B, M, h)). Each chunk's receiver sums go into its level's
-batched accumulator in chunk order, and each level then takes its
-aggregation MLP. The parameters nest as the JAX package's
+edge state (B, M, h); with MLPs of another depth every chunk is batched
+and takes the plain tail, as on the JAX package's XLA route). Each
+chunk's receiver sums go into its level's batched accumulator in chunk
+order, and each level then takes its aggregation MLP. The parameters nest as the JAX package's
 (`processor.{layer}.edge_mlps.{chunk}`, `.aggr_mlps.{level}`), so
 `convert.params_from_jax` loads a JAX HiLAMParallel tree key for key.
 
@@ -39,13 +40,12 @@ from torch import nn
 
 from ..ops.message_passing import (
     _SPLIT_SEND_TYPES,
-    _check_inet,
     _fold_virt,
     _fold_virt_flat,
     check_edge_layout,
     edge_messages_and_virt,
     edge_round_flat,
-    flat_eligible,
+    flat_route,
     init_interaction_net_chunked,
     split_send_tf,
     unflatten_nodes,
@@ -91,7 +91,6 @@ class HiLAMParallel(BaseHiGraphModel):
         (ref: hi_lam_parallel.py:59-82), then each level's sums
         all-reduced over `_hi_psum_axis(level)` (one collective a level
         where the level's chunks are split over the ranks)."""
-        _check_inet(inet)
         cd = self.compute_dtype
         B, h = mesh_rep_levels[0].shape[0], mesh_rep_levels[0].shape[-1]
         aggregated = [None] * self.num_levels
@@ -103,7 +102,7 @@ class HiLAMParallel(BaseHiGraphModel):
             rec_l = self._chunk_rec_level[c]
             rec = mesh_rep_levels[rec_l]
             mlp = inet.edge_mlps[c]
-            flat = flat_eligible(es, B, h)
+            flat = flat_route(es, B, h, mlp)
             if isinstance(send, _SPLIT_SEND_TYPES):
                 agg_c, new_edge = self._split_chunk(mlp, es, send, rec,
                                                     edge_reps[c], flat)

@@ -12,8 +12,10 @@ take `send_t[:, senders]` (and `edge_layer` covers both of its `in_gather`
 variants). mask is the EdgeSet's (M, 1) slot validity.
 
 Each function is a `torch.autograd.Function` on both devices. Its forward
-runs the plain PyTorch version (`*_plain`, same module) on a CPU tensor and
-the CUDA kernel (`csrc/edge.cu`) on a CUDA tensor; there is no fallback
+calls its operator (`nlt::edge_tail`, `nlt::edge_tail_sum`,
+`nlt::edge_layer`; `ops/library.py`), which runs the plain PyTorch version
+(`*_plain`, same module) on a CPU tensor and the CUDA kernel
+(`csrc/edge.cu`) on a CUDA tensor; there is no fallback
 from one to the other. P1, P2 and P3 are the batched-layout instances of
 K2's and K3's tensor-core kernel (`csrc/edge_tc.cuh`); P1 is its
 materialised-x0 mode. The backward recomputes with autograd through the
@@ -44,7 +46,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, library
 from .mlp import layer_norm
 from .segment import gather_rows_batched
 
@@ -243,14 +245,23 @@ def _outputs(dev, B, M, K, with_messages, dtype=torch.float32):
     return msg, virt
 
 
-def _tail_fwd(x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
-    if x0.device.type == "cpu":
-        return edge_tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K,
-                               with_messages)
-    dev = _build.require_cuda(x0)
+def _msg_or_empty(msg, like):
+    """An operator's messages output: `msg`, or an empty tensor where the
+    call asked for none."""
+    return like.new_empty(0) if msg is None else msg
+
+
+def _check_tail(x0, w2, mask, K):
+    """P1's shapes (fp32 only: it has no bf16 instance)."""
     B, M, h = x0.shape
     _build.expect(h == HID, "x0", x0.shape)
     _check_common(mask, [("w2", w2)], K, M)
+
+
+def _tail_cuda(x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
+    dev = _build.require_cuda(x0)
+    _check_tail(x0, w2, mask, K)
+    B, M, _ = x0.shape
     x0, mask = x0.contiguous(), mask.contiguous()
     params = _tail_params(w2, b2, ln_scale, ln_bias)
     msg, virt = _outputs(dev, B, M, K, with_messages)
@@ -267,15 +278,40 @@ def _tail_fwd(x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
     edge_tail.launches += 1
     if msg is not None:
         edge_tail.launches_with_messages += 1
-    return msg, virt
+    return _msg_or_empty(msg, virt), virt
 
 
-def _tail_sum_fwd(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
-                  mask, K, with_messages):
-    if send_t.device.type == "cpu":
-        return edge_tail_sum_plain(send_t, senders, ew, rec_rows, w2, b2,
-                                   ln_scale, ln_bias, mask, K, with_messages)
-    dev = _build.require_cuda(send_t)
+def _tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
+    msg, virt = edge_tail_plain(x0, w2, b2, ln_scale, ln_bias, mask, K,
+                                with_messages)
+    return _msg_or_empty(msg, virt), virt
+
+
+def _tail_fake(x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
+    if library.on_card(x0):
+        _check_tail(x0, w2, mask, K)
+    B, M, _ = x0.shape
+    h = w2.shape[1]
+    msg = x0.new_empty((B, M, h) if with_messages else (0,))
+    return msg, x0.new_empty((B, M // K, h))
+
+
+# P1's operator (ops/library.py)
+_tail_op = library.define(
+    "edge_tail",
+    "(Tensor x0, Tensor w2, Tensor b2, Tensor ln_scale, Tensor ln_bias, "
+    "Tensor mask, int K, bool with_messages) -> (Tensor, Tensor)",
+    cpu=_tail_plain, cuda=_tail_cuda, fake=_tail_fake)
+
+
+def _tail_fwd(x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
+    msg, virt = _tail_op(x0, w2, b2, ln_scale, ln_bias, mask, K,
+                         with_messages)
+    return (msg if with_messages else None), virt
+
+
+def _check_tail_sum(send_t, senders, ew, rec_rows, w2, mask, K):
+    """P2's shapes; returns its instance's dtype."""
     B, n_send, h = send_t.shape
     M = senders.shape[0]
     _check_common(mask, [("w2", w2)], K, M)
@@ -283,9 +319,17 @@ def _tail_sum_fwd(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
     _build.expect(ew.shape == (M, HID), "ew", ew.shape)
     _build.expect(rec_rows.shape == (B, M // K, HID), "rec_rows",
                   rec_rows.shape)
+    return _build.io_dtype("send_t", send_t)
+
+
+def _tail_sum_cuda(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
+                   mask, K, with_messages):
+    dev = _build.require_cuda(send_t)
+    dt = _check_tail_sum(send_t, senders, ew, rec_rows, w2, mask, K)
+    B, n_send, _ = send_t.shape
+    M = senders.shape[0]
     send_t, ew = send_t.contiguous(), ew.contiguous()
     rec_rows, mask = rec_rows.contiguous(), mask.contiguous()
-    dt = _build.io_dtype("send_t", send_t)
     params = _tail_params(w2, b2, ln_scale, ln_bias)
     msg, virt = _outputs(dev, B, M, K, with_messages, dt)
     f32, i32 = torch.float32, torch.int32
@@ -302,15 +346,46 @@ def _tail_sum_fwd(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
     rc = fn(*ptrs, M // K, K, B, n_send, dev.index, _build.stream_of(dev))
     _build.check(lib, rc, "edge_tail_sum")
     _build.count_launch(edge_tail_sum, dt)
-    return msg, virt
+    return _msg_or_empty(msg, virt), virt
 
 
-def _layer_fwd(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
-               ln_scale, ln_bias, K):
-    if edge_rep.device.type == "cpu":
-        return edge_layer_plain(edge_rep, send_t, senders, rec_rows, mask,
-                                w_e, b0, w2, b2, ln_scale, ln_bias, K)
-    dev = _build.require_cuda(edge_rep)
+def _tail_sum_plain(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
+                    mask, K, with_messages):
+    msg, virt = edge_tail_sum_plain(send_t, senders, ew, rec_rows, w2, b2,
+                                    ln_scale, ln_bias, mask, K,
+                                    with_messages)
+    return _msg_or_empty(msg, virt), virt
+
+
+def _tail_sum_fake(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
+                   mask, K, with_messages):
+    if library.on_card(send_t):
+        _check_tail_sum(send_t, senders, ew, rec_rows, w2, mask, K)
+    B = send_t.shape[0]
+    M = senders.shape[0]
+    h = w2.shape[1]
+    msg = send_t.new_empty((B, M, h) if with_messages else (0,))
+    return msg, send_t.new_empty((B, M // K, h))
+
+
+# P2's operator (ops/library.py)
+_tail_sum_op = library.define(
+    "edge_tail_sum",
+    "(Tensor send_t, Tensor senders, Tensor ew, Tensor rec_rows, Tensor w2, "
+    "Tensor b2, Tensor ln_scale, Tensor ln_bias, Tensor mask, int K, "
+    "bool with_messages) -> (Tensor, Tensor)",
+    cpu=_tail_sum_plain, cuda=_tail_sum_cuda, fake=_tail_sum_fake)
+
+
+def _tail_sum_fwd(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
+                  mask, K, with_messages):
+    msg, virt = _tail_sum_op(send_t, senders, ew, rec_rows, w2, b2,
+                             ln_scale, ln_bias, mask, K, with_messages)
+    return (msg if with_messages else None), virt
+
+
+def _check_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, w2, K):
+    """P3's shapes; returns its instance's dtype."""
     B, M, h = edge_rep.shape
     _check_common(mask, [("w_e", w_e), ("w2", w2)], K, M)
     _build.expect(h == HID, "edge_rep", edge_rep.shape)
@@ -319,9 +394,16 @@ def _layer_fwd(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
     _build.expect(senders.shape == (M,), "senders", senders.shape)
     _build.expect(rec_rows.shape == (B, M // K, HID), "rec_rows",
                   rec_rows.shape)
+    return _build.io_dtype("edge_rep", edge_rep)
+
+
+def _layer_cuda(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
+                ln_scale, ln_bias, K):
+    dev = _build.require_cuda(edge_rep)
+    dt = _check_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, w2, K)
+    B, M, _ = edge_rep.shape
     edge_rep, send_t = edge_rep.contiguous(), send_t.contiguous()
     rec_rows, mask = rec_rows.contiguous(), mask.contiguous()
-    dt = _build.io_dtype("edge_rep", edge_rep)
     params = _tail_params(w2, b2, ln_scale, ln_bias, w_e, b0)
     edge_out, virt = _outputs(dev, B, M, K, True, dt)
     f32, i32 = torch.float32, torch.int32
@@ -338,6 +420,24 @@ def _layer_fwd(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
     _build.check(lib, rc, "edge_layer")
     _build.count_launch(edge_layer, dt)
     return edge_out, virt
+
+
+def _layer_fake(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
+                ln_scale, ln_bias, K):
+    if library.on_card(edge_rep):
+        _check_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, w2, K)
+    B, M, h = edge_rep.shape
+    return (edge_rep.new_empty((B, M, h)),
+            edge_rep.new_empty((B, M // K, h)))
+
+
+# P3's operator (ops/library.py)
+_layer_fwd = library.define(
+    "edge_layer",
+    "(Tensor edge_rep, Tensor send_t, Tensor senders, Tensor rec_rows, "
+    "Tensor mask, Tensor w_e, Tensor b0, Tensor w2, Tensor b2, "
+    "Tensor ln_scale, Tensor ln_bias, int K) -> (Tensor, Tensor)",
+    cpu=edge_layer_plain, cuda=_layer_cuda, fake=_layer_fake)
 
 
 class _EdgeTail(torch.autograd.Function):

@@ -10,7 +10,9 @@ Layout: node and edge activations are flat (rows, W) with W = B*h; mask_p
 is the (N_virt, K) dense-slot validity of the EdgeSet.
 
 `edge_tail_sum_flat` and `edge_layer_flat` are `torch.autograd.Function`s
-on both devices. Forward and backward each run their plain PyTorch
+on both devices; their forwards call the operators
+`nlt::edge_tail_sum_flat` and `nlt::edge_layer_flat` (`ops/library.py`).
+Forward and backward each run their plain PyTorch
 version (`*_plain`, same module) on a CPU tensor and their CUDA kernels
 (`csrc/edge_flat.cu`, `csrc/edge_flat_bwd.cu`, `csrc/weight_grad.cu`) on a
 CUDA tensor; there is no fallback from one to the other. The forward saves
@@ -46,7 +48,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build, weight_grad
+from . import _build, library, weight_grad
 from .mlp import grads_through, layer_norm
 
 HID = 64  # hidden width the CUDA kernels are written for
@@ -109,16 +111,12 @@ def edge_tail_sum_flat_plain(table, senders, ew, rec_rows, mask_p, w2, b2,
                                ln_scale, ln_bias).to(table.dtype)
 
 
-def _tail_fwd(table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale,
-              ln_bias):
-    if table.device.type == "cpu":
-        return edge_tail_sum_flat_plain(table, senders, ew, rec_rows, mask_p,
-                                        w2, b2, ln_scale, ln_bias)
+def _tail_cuda(table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale,
+               ln_bias):
     dev = _build.require_cuda(table)
     n_virt, K = mask_p.shape
     W = table.shape[1]
-    _check_tail(table, senders, ew, rec_rows, mask_p, w2)
-    dt = _build.io_dtype("table", table)
+    dt = _check_tail(table, senders, ew, rec_rows, mask_p, w2)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias])
     virt = torch.empty((n_virt, W), device=dev, dtype=dt)
     f32, i32 = torch.float32, torch.int32
@@ -136,7 +134,24 @@ def _tail_fwd(table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale,
     return virt
 
 
+def _tail_fake(table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale,
+               ln_bias):
+    if library.on_card(table):
+        _check_tail(table, senders, ew, rec_rows, mask_p, w2)
+    return table.new_empty((mask_p.shape[0], table.shape[1]))
+
+
+# K2's operator (ops/library.py)
+_tail_fwd = library.define(
+    "edge_tail_sum_flat",
+    "(Tensor table, Tensor senders, Tensor ew, Tensor rec_rows, "
+    "Tensor mask_p, Tensor w2, Tensor b2, Tensor ln_scale, Tensor ln_bias)"
+    " -> Tensor",
+    cpu=edge_tail_sum_flat_plain, cuda=_tail_cuda, fake=_tail_fake)
+
+
 def _check_tail(table, senders, ew, rec_rows, mask_p, w2):
+    """K2's and B2's shapes; returns their instance's dtype."""
     n_virt, K = mask_p.shape
     W = table.shape[1]
     _build.expect(ew.shape == (n_virt * K, HID), "ew", ew.shape)
@@ -144,6 +159,7 @@ def _check_tail(table, senders, ew, rec_rows, mask_p, w2):
                   "rec_rows", rec_rows.shape)
     _build.expect(senders.shape == (n_virt * K,), "senders", senders.shape)
     _build.expect(w2.shape == (HID, HID), "w2", w2.shape)
+    return _build.io_dtype("table", table)
 
 
 def edge_tail_sum_flat_bwd_plain(table, senders, ew, rec_rows, mask_p, w2,
@@ -211,9 +227,8 @@ def edge_tail_bwd_chain(table, senders, ew, rec_rows, mask_p, w2, b2,
     dev = _build.require_cuda(table)
     n_virt, K = mask_p.shape
     W = table.shape[1]
-    _check_tail(table, senders, ew, rec_rows, mask_p, w2)
+    dt = _check_tail(table, senders, ew, rec_rows, mask_p, w2)
     _build.expect(d_virt.shape == (n_virt, W), "d_virt", d_virt.shape)
-    dt = _build.io_dtype("table", table)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias])
     d_virt = d_virt.contiguous()
     M = n_virt * K
@@ -352,6 +367,7 @@ def edge_layer_flat_plain(edge_rep, table, senders, rec_rows, mask_p, w_e,
 
 
 def _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2):
+    """K3's and B3/B4's shapes; returns their instance's dtype."""
     n_virt, K = mask_p.shape
     M, W = edge_rep.shape
     _build.expect(M == n_virt * K and W % HID == 0, "edge_rep",
@@ -362,19 +378,15 @@ def _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2):
     _build.expect(senders.shape == (M,), "senders", senders.shape)
     _build.expect(w_e.shape == (HID, HID) and w2.shape == (HID, HID),
                   "w_e/w2", (w_e.shape, w2.shape))
+    return _build.io_dtype("edge_rep", edge_rep)
 
 
-def _layer_fwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2, b2,
-               ln_scale, ln_bias):
-    if edge_rep.device.type == "cpu":
-        return edge_layer_flat_plain(edge_rep, table, senders, rec_rows,
-                                     mask_p, w_e, b0, w2, b2, ln_scale,
-                                     ln_bias)
+def _layer_cuda(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
+                b2, ln_scale, ln_bias):
     dev = _build.require_cuda(edge_rep)
     n_virt, K = mask_p.shape
     W = edge_rep.shape[1]
-    _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
-    dt = _build.io_dtype("edge_rep", edge_rep)
+    dt = _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias,
                         w_e.reshape(-1), b0])
     edge_out = torch.empty_like(edge_rep)
@@ -392,6 +404,23 @@ def _layer_fwd(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2, b2,
     _build.check(lib, rc, "edge_layer_flat")
     _build.count_launch(edge_layer_flat, dt)
     return edge_out, virt
+
+
+def _layer_fake(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2, b2,
+                ln_scale, ln_bias):
+    if library.on_card(edge_rep):
+        _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
+    return (torch.empty_like(edge_rep),
+            edge_rep.new_empty((mask_p.shape[0], edge_rep.shape[1])))
+
+
+# K3's operator (ops/library.py)
+_layer_fwd = library.define(
+    "edge_layer_flat",
+    "(Tensor edge_rep, Tensor table, Tensor senders, Tensor rec_rows, "
+    "Tensor mask_p, Tensor w_e, Tensor b0, Tensor w2, Tensor b2, "
+    "Tensor ln_scale, Tensor ln_bias) -> (Tensor, Tensor)",
+    cpu=edge_layer_flat_plain, cuda=_layer_cuda, fake=_layer_fake)
 
 
 def edge_layer_flat_bwd_plain(edge_rep, table, senders, rec_rows, mask_p,
@@ -463,9 +492,8 @@ def edge_layer_bwd_chain(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
     dev = _build.require_cuda(edge_rep)
     n_virt, K = mask_p.shape
     M, W = edge_rep.shape
-    _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
+    dt = _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
     _build.expect(d_virt.shape == (n_virt, W), "d_virt", d_virt.shape)
-    dt = _build.io_dtype("edge_rep", edge_rep)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias,
                         w_e.reshape(-1), b0])
     d_virt = d_virt.contiguous()

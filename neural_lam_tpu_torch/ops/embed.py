@@ -9,7 +9,8 @@ and one pass computes per (node, batch element) row
 Unlike the TPU kernel, d_in is not zero-padded to a lane multiple.
 
 `embed_grid_flat` is a `torch.autograd.Function` on both devices. Its
-forward runs the plain version on a CPU tensor and the CUDA kernel
+forward calls the operator `nlt::embed_grid_flat` (`ops/library.py`),
+which runs the plain version on a CPU tensor and the CUDA kernel
 (`csrc/embed.cu`) on a CUDA tensor; its backward, likewise, runs
 `embed_grid_flat_bwd_plain` or the backward kernel (`csrc/embed_bwd.cu`).
 The forward saves only its inputs: the backward recomputes it, as the JAX
@@ -30,7 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, library
 from .mlp import grads_through, layer_norm
 
 HID = 64
@@ -63,17 +64,22 @@ def embed_grid_flat_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
     return layer_norm(y, ln_scale, ln_bias).reshape(N, -1).to(x_f.dtype)
 
 
-def _embed_fwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size):
-    if x_f.device.type == "cpu":
-        return embed_grid_flat_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
-                                     batch_size)
-    dev = _build.require_cuda(x_f)
-    N, W_in = x_f.shape
+def _check_embed(x_f, w0, w1, batch_size):
+    """The kernel's shapes: x_f (N, B*d_in), w0 (d_in, 64), w1 (64, 64);
+    its dtype (float32 or bfloat16)."""
     d_in = w0.shape[0]
-    _build.expect(W_in == batch_size * d_in, "x_f", (x_f.shape, d_in))
+    _build.expect(x_f.shape[1] == batch_size * d_in, "x_f",
+                  (x_f.shape, d_in))
     _build.expect(w0.shape == (d_in, HID) and w1.shape == (HID, HID),
                   "w0/w1", (w0.shape, w1.shape))
-    dt = _build.io_dtype("x_f", x_f)
+    return _build.io_dtype("x_f", x_f)
+
+
+def _embed_cuda(x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size):
+    dev = _build.require_cuda(x_f)
+    dt = _check_embed(x_f, w0, w1, batch_size)
+    N = x_f.shape[0]
+    d_in = w0.shape[0]
     params = torch.cat([w0.reshape(-1), w1.reshape(-1), b0, b1, ln_scale,
                         ln_bias])
     out = torch.empty((N, batch_size * HID), device=dev, dtype=dt)
@@ -86,6 +92,21 @@ def _embed_fwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size):
     _build.check(lib, rc, "embed_grid_flat")
     _build.count_launch(embed_grid_flat, dt)
     return out
+
+
+def _embed_fake(x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size):
+    if library.on_card(x_f):
+        _check_embed(x_f, w0, w1, batch_size)
+    return x_f.new_empty((x_f.shape[0], batch_size * w1.shape[1]))
+
+
+# K1's operator (ops/library.py): the plain version on the CPU, the
+# kernel on the card
+_embed_fwd = library.define(
+    "embed_grid_flat",
+    "(Tensor x_f, Tensor w0, Tensor b0, Tensor w1, Tensor b1, "
+    "Tensor ln_scale, Tensor ln_bias, int batch_size) -> Tensor",
+    cpu=embed_grid_flat_plain, cuda=_embed_cuda, fake=_embed_fake)
 
 
 def embed_grid_flat_bwd_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,

@@ -14,7 +14,9 @@ a `virt_identity` m2g edge set (one K-slot virtual row per grid node):
 One function covers the JAX package's pre-gathered kernel and its windowed
 twin (`grid_update_flat` / `grid_update_flat_win`): the sender rows are
 read by index from the (N_send, W) table. `grid_update_flat` is a
-`torch.autograd.Function` on both devices: forward and backward run their
+`torch.autograd.Function` on both devices, whose forward calls the
+operator `nlt::grid_update_flat` (`ops/library.py`): forward and backward
+run their
 plain versions on a CPU tensor and the CUDA kernels (`csrc/grid_update.cu`,
 `csrc/grid_update_bwd.cu` and `csrc/weight_grad.cu`) on a CUDA tensor.
 The forward saves only its inputs; the backward recomputes it and yields
@@ -42,7 +44,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build, weight_grad
+from . import _build, library, weight_grad
 from .mlp import grads_through, layer_norm
 
 HID = 64
@@ -178,6 +180,7 @@ def _check(table, senders, ew, grid_emb_f, mask_p, pp):
         rows = 2 * HID if name == "a_w0" else HID
         _build.expect(pp[name].shape == (rows, HID), name, pp[name].shape)
     _build.expect(pp["o_w1"].shape[0] == HID, "o_w1", pp["o_w1"].shape)
+    return _build.io_dtype("table", table)
 
 
 def _blob(pp):
@@ -185,23 +188,20 @@ def _blob(pp):
     return torch.cat([pp[n].reshape(-1) for n in _KEYS])
 
 
-def _grid_fwd(table, senders, ew, grid_emb_f, mask_p, pp):
-    if table.device.type == "cpu":
-        return grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p,
-                                      pp)
+def _grid_cuda(table, senders, ew, grid_emb_f, mask_p, params):
     dev = _build.require_cuda(table)
-    _check(table, senders, ew, grid_emb_f, mask_p, pp)
+    pp = dict(zip(_KEYS, params))
+    dt = _check(table, senders, ew, grid_emb_f, mask_p, pp)
     n_virt, K = mask_p.shape
     B = table.shape[1] // HID
     d_out = pp["o_w1"].shape[1]
-    dt = _build.io_dtype("table", table)
-    params = _blob(pp)
+    blob = _blob(pp)
     out = torch.empty((n_virt, B * d_out), device=dev, dtype=dt)
     f32, i32 = torch.float32, torch.int32
     ptrs = _build.pointers(dev, ("table", table, dt),
                            ("senders", senders, i32), ("ew", ew, dt),
                            ("grid_emb_f", grid_emb_f, dt),
-                           ("mask_p", mask_p, f32), ("params", params, f32),
+                           ("mask_p", mask_p, f32), ("params", blob, f32),
                            ("out", out, dt))
     lib = _lib()
     fn = (lib.nlt_grid_update_bf16 if dt == torch.bfloat16
@@ -211,6 +211,32 @@ def _grid_fwd(table, senders, ew, grid_emb_f, mask_p, pp):
     _build.check(lib, rc, "grid_update_flat")
     _build.count_launch(grid_update_flat, dt)
     return out
+
+
+def _grid_plain(table, senders, ew, grid_emb_f, mask_p, params):
+    return grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p,
+                                  dict(zip(_KEYS, params)))
+
+
+def _grid_fake(table, senders, ew, grid_emb_f, mask_p, params):
+    pp = dict(zip(_KEYS, params))
+    if library.on_card(table):
+        _check(table, senders, ew, grid_emb_f, mask_p, pp)
+    B = table.shape[1] // ew.shape[1]
+    return table.new_empty((mask_p.shape[0], B * pp["o_w1"].shape[1]))
+
+
+# K4's operator (ops/library.py); `params` in `_KEYS` order
+_grid_op = library.define(
+    "grid_update_flat",
+    "(Tensor table, Tensor senders, Tensor ew, Tensor grid_emb_f, "
+    "Tensor mask_p, Tensor[] params) -> Tensor",
+    cpu=_grid_plain, cuda=_grid_cuda, fake=_grid_fake)
+
+
+def _grid_fwd(table, senders, ew, grid_emb_f, mask_p, pp):
+    return _grid_op(table, senders, ew, grid_emb_f, mask_p,
+                    [pp[k] for k in _KEYS])
 
 
 def grid_update_flat_bwd_plain(table, senders, ew, grid_emb_f, mask_p, pp,

@@ -427,19 +427,40 @@ def flat_eligible(edges: EdgeSet, batch_size: int, h: int) -> bool:
     return (batch_size * h) % 128 == 0 and edges.num_virt >= _FLAT_MIN_VIRT
 
 
-def expand_edge_rep(edges: EdgeSet, emb, batch_size: int):
+def kernel_mlp(mlp: MLP) -> bool:
+    """The JAX package's gate for its fused kernels (`two_layer_ln` and
+    `fused_layer` in `apply_interaction_net`, `fusable` in
+    `edge_messages_and_virt`, `embed_applicable`,
+    `grid_update_applicable`): a 2-layer MLP with an output LayerNorm
+    (`hidden_layers=1`). Any other MLP takes the plain route on either
+    device, as the JAX package's takes its XLA route."""
+    return len(mlp.layers) == 2 and mlp.ln is not None
+
+
+def flat_route(edges: EdgeSet, batch_size: int, h: int, mlp: MLP) -> bool:
+    """Whether a round of the edge MLP `mlp` over `edges` takes the flat
+    route: a kernel MLP on a `flat_eligible` set. Deeper MLPs keep every
+    set batched, as on the JAX package's XLA route, where no set is
+    flat."""
+    return kernel_mlp(mlp) and flat_eligible(edges, batch_size, h)
+
+
+def expand_edge_rep(edges: EdgeSet, emb, batch_size: int,
+                    kernels: bool = True):
     """Initial edge state from the static embedding (M, h), in the layout
     `apply_interaction_net` uses for this set: flat (M, B*h) on the flat
-    route, else batched (B, M, h) (a broadcast view). A split set takes
-    and gives (interior, frontier) pairs, the frontier in the interior's
-    layout (its sums then add to the interior's without a transpose)."""
+    route, else batched (B, M, h) (a broadcast view). `kernels`: whether
+    the rounds that read the state have kernel MLPs (`kernel_mlp`); if
+    not, the state is batched on every set. A split set takes and gives
+    (interior, frontier) pairs, the frontier in the interior's layout
+    (its sums then add to the interior's without a transpose)."""
     if edges.frontier is not None:
         emb_i, emb_f = emb
-        if flat_eligible(edges, batch_size, emb_i.shape[-1]):
+        if kernels and flat_eligible(edges, batch_size, emb_i.shape[-1]):
             return emb_i.repeat(1, batch_size), emb_f.repeat(1, batch_size)
         return (emb_i[None].expand(batch_size, *emb_i.shape),
                 emb_f[None].expand(batch_size, *emb_f.shape))
-    if flat_eligible(edges, batch_size, emb.shape[-1]):
+    if kernels and flat_eligible(edges, batch_size, emb.shape[-1]):
         return emb.repeat(1, batch_size)
     return emb[None].expand(batch_size, *emb.shape)
 
@@ -638,7 +659,15 @@ def edge_messages_and_virt(edge_mlp: MLP, edges: EdgeSet, send_rep,
     and P3 get their inputs stored in the compute dtype and run that
     instance, while P1's x0 = (emb @ W_e + b0) + gathered + rec_rows is
     promoted to fp32 by its fp32 first term and runs the fp32 instance
-    (its messages and virt are fp32)."""
+    (its messages and virt are fp32).
+
+    An edge MLP that is not a `kernel_mlp` takes the JAX package's XLA
+    tail instead (`_plain_edge_round`), on either device."""
+    if not kernel_mlp(edge_mlp):
+        return _plain_edge_round(edge_mlp, edges, send_rep, rec_rep, edge_rep,
+                                 update_edges=update_edges,
+                                 with_messages=with_messages, ew=ew,
+                                 compute_dtype=compute_dtype)
     cd = compute_dtype
     w0, b0 = edge_mlp.layers[0].w, edge_mlp.layers[0].b
     h = w0.shape[0] // 3
@@ -663,19 +692,33 @@ def edge_messages_and_virt(edge_mlp: MLP, edges: EdgeSet, send_rep,
                           with_messages=with_messages)
 
 
-def _check_inet(inet):
-    """The kernels' rule, on an InteractionNet or on every chunk of a
-    ChunkedInteractionNet: 2-layer MLPs with an output LayerNorm."""
-    if isinstance(inet, ChunkedInteractionNet):
-        mlps = ([("edge", m) for m in inet.edge_mlps]
-                + [("aggregation", m) for m in inet.aggr_mlps])
-    else:
-        mlps = [("edge", inet.edge_mlp), ("aggregation", inet.aggr_mlp)]
-    for name, mlp in mlps:
-        if len(mlp.layers) != 2 or mlp.ln is None:
-            raise NotImplementedError(
-                f"the port's interaction nets need 2-layer {name} MLPs with "
-                "an output LayerNorm (hidden_layers=1)")
+def _plain_edge_round(edge_mlp: MLP, edges: EdgeSet, send_rep, rec_rep,
+                      edge_rep=None, *, update_edges, with_messages, ew,
+                      compute_dtype=None):
+    """`edge_messages_and_virt` for an edge MLP of any depth: the JAX
+    function's XLA tail, in plain PyTorch. Both node transforms round
+    their operands (`mlp.mm`); x0 = ew (or edge_rep @ W_e + b0) +
+    send_t[senders] + rec_rows repeated, fp32; then the later layers
+    (`finish_mlp`: the output stored in the compute dtype before the
+    LayerNorm), the messages times the fp32 mask summed over each
+    virtual row's K slots."""
+    cd = compute_dtype
+    w0, b0 = edge_mlp.layers[0].w, edge_mlp.layers[0].b
+    h = w0.shape[0] // 3
+    w_e, w_j, w_i = w0[:h], w0[h:2 * h], w0[2 * h:]
+    K = edges.dense_k
+    send_t = mm(send_rep, w_j, cd)
+    rec_rows = _gather_virt_rows(mm(rec_rep, w_i, cd), edges)
+    if ew is None:
+        ew = mm(edge_rep, w_e, cd) + b0
+    messages = finish_mlp(edge_mlp, edge.sum_x0(ew, send_t, edges.senders,
+                                                rec_rows, K), cd)
+    masked = messages * edges.mask
+    virt = masked.reshape(*masked.shape[:-2], edges.num_virt, K,
+                          masked.shape[-1]).sum(dim=-2)
+    if update_edges:
+        return edge_rep + messages, virt
+    return (messages if with_messages else None), virt
 
 
 def check_edge_layout(edges: EdgeSet, edge_rep, batch_size: int, h: int,
@@ -715,7 +758,7 @@ def _apply_inet_split(inet: InteractionNet, edges: EdgeSet, send, rec_rep,
     er_i, er_f = edge_rep if edge_rep is not None else (None, None)
     ew_i, ew_f = ew if ew is not None else (None, None)
     B, h = rec_rep.shape[0], rec_rep.shape[-1]
-    flat = flat_eligible(edges, B, h)
+    flat = flat_route(edges, B, h, inet.edge_mlp)
     if edge_rep is not None:
         check_edge_layout(edges, er_i, B, h, flat)
         check_edge_layout(fr, er_f, B, h, flat)
@@ -754,7 +797,7 @@ def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
                           aggr="sum", ew=None, compute_dtype=None,
                           psum_axis=None, psum_mode="allreduce"):
     """One interaction-net round on a dense edge set, on the route the JAX
-    package takes for it (`flat_eligible`).
+    package takes for it (`flat_route`: `flat_eligible` and a kernel MLP).
 
     send_rep (B, N_send, h), rec_rep (B, N_rec, h). The edge term is either
     the evolving state `edge_rep` (flat (M, B*h) on the flat route, batched
@@ -762,7 +805,8 @@ def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
     update_edges=False, the static `ew` (M, h) = emb @ W_e + b0.
 
     Flat route: `_apply_inet_flat` (K2 or K3). Batched route:
-    `edge_messages_and_virt` (P1, P2 or P3). Returns rec_out (B, N_rec, h)
+    `edge_messages_and_virt` (P1, P2 or P3; the plain tail for an edge MLP
+    of another depth). Returns rec_out (B, N_rec, h)
     and, when update_edges, the new edge state in the same layout. With
     compute_dtype=torch.bfloat16 (the JAX package's bf16 path): fp32
     parameters, node and edge states stored in bf16, and each product
@@ -782,7 +826,6 @@ def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
     sums (receiver-owned sets)."""
     if aggr not in ("sum", "mean"):
         raise ValueError(f"Unknown aggregation method: {aggr}")
-    _check_inet(inet)
     if edge_rep is None and (ew is None or update_edges):
         raise ValueError("pass an edge state, or a static ew with "
                          "update_edges=False")
@@ -800,7 +843,7 @@ def apply_interaction_net(inet: InteractionNet, edges: EdgeSet, send_rep,
                                  update_edges=update_edges, aggr=aggr, ew=ew,
                                  compute_dtype=compute_dtype)
     B, h = rec_rep.shape[0], rec_rep.shape[-1]
-    flat = flat_eligible(edges, B, h)
+    flat = flat_route(edges, B, h, inet.edge_mlp)
     if edge_rep is not None:
         check_edge_layout(edges, edge_rep, B, h, flat)
     if flat:

@@ -98,10 +98,13 @@ def rounded(w, dtype):
     parameter is kept on it and reused until the parameter changes (its
     version counter, storage or the dtype differ), so a rollout rounds each
     weight once, not at every product. A weight that needs a gradient is
-    rounded afresh, so that the gradient flows."""
+    rounded afresh, so that the gradient flows, and so is a weight under
+    tracing (`torch.export`: its fake tensors have no storage to key on),
+    where the rounding becomes part of the program."""
     base = w if w._base is None else w._base
     if (w.requires_grad and torch.is_grad_enabled()) or not (
-            isinstance(base, nn.Parameter) and base.is_contiguous()):
+            isinstance(base, nn.Parameter) and base.is_contiguous()) or (
+            torch.compiler.is_compiling()):
         return w.to(dtype).float()
     key = (dtype, base._version, base.data_ptr(), base.device)
     hit = getattr(base, "_nlt_rounded", None)

@@ -197,7 +197,8 @@ def test_params_from_jax_loads_strictly(models):
 def test_chunked_interaction_net_layout():
     """The chunked net's state-dict keys and recipes: edge MLPs [3h, h,
     h] and aggregation MLPs [2h, h, h], each with an output LayerNorm, as
-    the JAX package's `init_interaction_net_chunked`."""
+    the JAX package's `init_interaction_net_chunked`; at hidden_layers 2
+    one Linear more each, and no kernel MLP."""
     inet = init_interaction_net_chunked(8, 3, 2)
     assert isinstance(inet, ChunkedInteractionNet)
     jp = jmp.init_interaction_net_chunked(jax.random.PRNGKey(0), 8, 3, 2)
@@ -208,9 +209,11 @@ def test_chunked_interaction_net_layout():
         assert tuple(got[k].shape) == tuple(want[k].shape), k
     assert got["edge_mlps.2.layers.0.w"].shape == (24, 8)
     assert got["aggr_mlps.1.layers.0.w"].shape == (16, 8)
-    bad = init_interaction_net_chunked(8, 3, 2, hidden_layers=2)
-    with pytest.raises(NotImplementedError, match="2-layer edge MLPs"):
-        tmp._check_inet(bad)
+    # hidden_layers 2: 3-layer MLPs, which no kernel takes (the plain
+    # route, `kernel_mlp`)
+    deep = init_interaction_net_chunked(8, 3, 2, hidden_layers=2)
+    assert all(len(m.layers) == 3 and not tmp.kernel_mlp(m)
+               for m in [*deep.edge_mlps, *deep.aggr_mlps])
 
 
 _JAX_STEPS = {}

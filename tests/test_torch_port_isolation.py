@@ -7,7 +7,9 @@
   models and the global grid too; on the CPU when asked they build and
   sample.
 * Each kernel wrapper, forward and backward, takes its plain version only
-  for CPU tensors, and counts a launch only when it launches its kernel.
+  for CPU tensors, and counts a launch only when it launches its kernel;
+  each forward kernel is an operator of the dispatcher with a CPU, a CUDA
+  and a fake implementation, and the export CLI defaults to CUDA.
 """
 
 import ast
@@ -53,6 +55,9 @@ def test_port_imports_no_jax():
     for latent in ("ensemble.py", "models/graph_efm.py",
                    "graph/global_mesh.py", "datastore/dummy_global.py"):
         assert f"neural_lam_tpu_torch/{latent}" in names, latent
+    for export in ("export.py", "ops/library.py", "plot_graph.py",
+                   "graph/html_viz.py"):
+        assert f"neural_lam_tpu_torch/{export}" in names, export
     bad = []
     for path in _port_files():
         for name in _imports(path):
@@ -151,6 +156,35 @@ def test_wrapper_takes_plain_version_on_cpu(index, monkeypatch):
     with pytest.raises(ValueError, match="CPU or CUDA"):
         wrapper(*meta_args)
     assert wrapper.launches == before
+
+
+def test_forward_kernels_are_dispatcher_operators():
+    """K1-K4 and P1-P3 are `nlt::` operators with CPU and CUDA kernels and
+    a fake implementation (the meta key), one each."""
+    from neural_lam_tpu_torch.ops import library
+
+    library.load_all()
+    assert len(library.OPS) == 7
+    for name in library.OPS:
+        op = f"{library.NAMESPACE}::{name}"
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(op, key), (
+                op, key)
+
+
+def test_export_cli_defaults_to_cuda_and_raises_without_it(tmp_path):
+    """`python -m neural_lam_tpu_torch.export` without --device asks for
+    CUDA, and raises where there is none."""
+    from neural_lam_tpu_torch import export
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    (tmp_path / "config.yaml").write_text(
+        "datastore:\n  kind: dummydata\n  config_path: ''\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.main(["--config_path", str(tmp_path / "config.yaml"),
+                     "--load", str(tmp_path / "ckpt"),
+                     "--out", str(tmp_path / "m.pt2")])
 
 
 def test_train_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
