@@ -7,8 +7,10 @@ Phases, each of which must pass (any failure exits non-zero, and no
 result line is printed), each printing its seconds:
 
 1. Build every CUDA kernel of the forecast and training paths from `csrc/`
-   with nvcc (one process per source, all started together); print the
-   build time and each source's ptxas registers and spills (per kernel
+   with nvcc (one process per source and hidden width, all started
+   together: the forward sources at widths 32, 64 and 128, the backward
+   sources at 64); print the build time and each library's ptxas
+   registers and spills (and, at width 64, per kernel
    for K1's three (d_in up to 64, up to 128, above), K2's, K3's, P1's,
    P2's and P3's per K, with the registers and spill of K2/K3/P1/P2/P3's
    `edge_tc_kernel` instances summed per kernel, and the backward sources
@@ -19,7 +21,7 @@ result line is printed), each printing its seconds:
    tensor-core products (HMMA) and the async copies (LDGSTS) in the SASS
    of B3/B4's K=8 chain kernel, of K3's, K2's, P3's, P2's and P1's K=8
    kernels and P1's K=1 kernel, of K1's kernel for d_in up to 64, of K4's K=4 kernel
-   (`grid_update_kernel<4>`), of `xtd_sum`'s main kernel and of B1's
+   (`grid_update_kernel<4, float, true>`), of `xtd_sum`'s main kernel and of B1's
    kernel for d_in up to 64.
 2. Build the bench-width GraphLAM and HiLAM through
    `neural_lam_tpu_torch.entry` (268x238 grid, 17 state / 6x3 forcing / 4
@@ -392,6 +394,31 @@ result line is printed), each printing its seconds:
    graph on the card) and interactive page (`graph/html_viz.py`): every
    point and edge set embedded whole.
 
+19. The forward kernels at hidden widths 32 and 128 (each forward source
+   built once per width). a. Each width-32 and width-128 instance's
+   ptxas registers and spill. b. At each width, the bench GraphLAM
+   (batch 4) and 4-level HiLAM (batch 1) built at that width: every
+   forward kernel's fp32 and bf16 instances (P1 fp32) at their shapes
+   (`main_path_cases`) against the plain versions (fp32 1e-4 + 1e-4 *
+   |plain|, bf16 one ulp), two calls bit-identical, timed beside the
+   plain version, the products as `torch.mm` and the bound; K4 with
+   output maps wider than its width (d_out 80 and 200 at 64, 34 at 32,
+   160 at 128). c. 4-step rollouts through `entry.forecast`, the
+   counters at 0 just before each, launches a step equal to
+   `step_table`'s: at 32 GraphLAM batch 4 (the flat route) and batch 1
+   (every set batched: P2/P3) in fp32 and bf16, HiLAM batch 1; at 128
+   GraphLAM batch 4 and HiLAM batch 1 (mixed) in fp32 and bf16; fp32
+   predict steps within 1e-3 of the plain path, bf16 ones by phase 11's
+   error size. At 128 on a 268x238 MDP datastore, from checkpoints the
+   port writes at --hidden_dim 128: `predict.main` for GraphLAM and
+   HiLAM (`forecast_check`) and GraphLAM `--precision bf16`, and
+   `train.main --eval val` against the plain path (1e-4 relative). d.
+   Width 48 raises in K1, K2, K4 and P2 (naming the built widths),
+   training at 128 (`train.main`) and the decoder's backward at 128
+   raise naming ROADMAP.md item 8c, with no launch. Its records are
+   named `<kernel>[bf16]@h<width>`, their launches those of 19c's runs
+   (P2 at 128 runs on no bench path: every static set is flat there).
+
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -514,17 +541,21 @@ def cuda_ms(torch, fn, reps, queued=True):
     warm-up call.
 
     queued: the calls are queued behind a sleep kernel (`torch.cuda._sleep`)
-    long enough for the host to enqueue all of them, so the events time the
-    device work alone; fails if the host did not finish in time. Without
-    it, a call whose host side (argument checks, ctypes, allocation) takes
-    longer than its kernel is timed at its host cost."""
+    long enough for the host to enqueue all of them (4x the warm-up call's
+    host time for each call, 25-100 ms), so the events time the device
+    work alone; fails if the host did not finish in time. Without it, a
+    call whose host side (argument checks, ctypes, allocation) takes longer
+    than its kernel is timed at its host cost."""
+    t0 = time.perf_counter()
     fn()
+    warm_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     t0 = time.perf_counter()
     if queued:
         events[0].record()
-        torch.cuda._sleep(SLEEP_CYCLES)
+        sleep_s = min(max(4 * reps * warm_s, 0.025), 0.1)
+        torch.cuda._sleep(int(SLEEP_CYCLES * sleep_s / 0.1))
     events[1].record()
     for _ in range(reps):
         fn()
@@ -1708,22 +1739,27 @@ def mlp_first(mlp):
     """A processor edge MLP's W_e (the edge rows of its first layer) and
     b0, detached."""
     w0 = mlp.layers[0].w.detach()
-    return w0[:H], mlp.layers[0].b.detach()
+    return w0[:w0.shape[1]], mlp.layers[0].b.detach()
 
 
-def bf16_cases(torch, gm, hm, rand):
-    """Phase 11's main-path cases of the bf16 instances, on the bf16
-    bench GraphLAM `gm` and HiLAM `hm` with bf16 inputs from `rand`: K1-K4
-    at GraphLAM's batch 4, P2 at HiLAM's m2g and P3 at its m2m[0], batch
-    1. Each is (kernel, module, args, replaces, source, bytes, FLOP, TF32
-    FLOP on tensor cores (None: fp32 CUDA cores), the library call for its
-    products on bf16 operands); a 3xTF32 product takes three TF32 products
-    a term, two where its A operand is a bf16 value (its small half is
-    zero: the first products of K1, K3 and P3)."""
+def main_path_cases(torch, gm, hm, rand, dt):
+    """The main-path cases of the forward kernels' instances of dtype
+    `dt` at the hidden width h of the bench GraphLAM `gm` and HiLAM `hm`
+    (phase 11's bf16 cases at 64; phase 19's at 32 and 128), inputs of
+    `dt` from `rand`: K1-K4 at GraphLAM's batch 4, P2 at HiLAM's m2g and
+    P3 at its m2m[0], batch 1, and, for fp32 (P1 has no bf16 instance), P1
+    at HiLAM's down[0], batch 1. Each is (kernel, module, args, replaces,
+    source, bytes, FLOP, TF32 FLOP on tensor cores (None: fp32 CUDA
+    cores), the library call for its products on operands of `dt`); a
+    3xTF32 product takes three TF32 products a term, two where its A
+    operand is a bf16 value (its small half is zero: the first products
+    of K1, K3 and P3)."""
     from neural_lam_tpu_torch.ops import edge, edge_flat, embed, grid_update
 
-    bf = torch.bfloat16
-    W = BATCH * H
+    h = gm.args.hidden_dim
+    isz = torch.finfo(dt).bits // 8  # bytes a stored value
+    a = 2 if dt == torch.bfloat16 else 3  # TF32 products of a staged A
+    W = BATCH * h
     tail, first = mlp_tail, mlp_first
     g, hg = gm.graph, hm.graph
     emb = gm.grid_embedder
@@ -1740,25 +1776,25 @@ def bf16_cases(torch, gm, hm, rand):
         t.detach() for t in (emb.layers[0].w, emb.layers[0].b,
                              emb.layers[1].w, emb.layers[1].b, emb.ln.scale,
                              emb.ln.bias)) + (BATCH,)
-    w0b, w1b = k1[1].to(bf), k1[3].to(bf)
+    w0b, w1b = k1[1].to(dt), k1[3].to(dt)
     cases.append((
         "embed_grid_flat", embed, k1, "neural_lam_tpu/ops/pallas_embed.py:99",
-        csrc + "embed.cu", nbytes(*k1[:7]) + rows * H * 2,
-        2.0 * rows * (d_in * H + H * H),
-        2.0 * rows * (2 * d_in + 3 * H) * H,
+        csrc + "embed.cu", nbytes(*k1[:7]) + rows * h * isz,
+        2.0 * rows * (d_in * h + h * h),
+        2.0 * rows * (a * d_in + 3 * h) * h,
         lambda: torch.mm(torch.mm(k1[0].view(-1, d_in), w0b), w1b)))
     es = g.g2m
     nv, K = es.num_virt, es.dense_k
     mask_p = es.mask.view(nv, K)
-    a2 = (rand(es.num_send, W), es.senders, rand(nv * K, H), rand(nv, W),
+    a2 = (rand(es.num_send, W), es.senders, rand(nv * K, h), rand(nv, W),
           mask_p) + tail(gm.g2m_gnn.edge_mlp)
-    g2 = a2[0].index_select(0, es.senders).view(-1, H)
-    w2b = a2[5].to(bf)
+    g2 = a2[0].index_select(0, es.senders).view(-1, h)
+    w2b = a2[5].to(dt)
     cases.append((
         "edge_tail_sum_flat", edge_flat, a2, f"{pef}:373",
-        csrc + "edge_tc.cuh", nbytes(*a2) + nv * W * 2,
-        2.0 * float(mask_p.sum()) * BATCH * H * H,
-        3 * 2.0 * float(mask_p.sum()) * BATCH * H * H,
+        csrc + "edge_tc.cuh", nbytes(*a2) + nv * W * isz,
+        2.0 * float(mask_p.sum()) * BATCH * h * h,
+        3 * 2.0 * float(mask_p.sum()) * BATCH * h * h,
         lambda: torch.mm(g2, w2b)))
     es = g.m2m[0]
     nv, K = es.num_virt, es.dense_k
@@ -1766,63 +1802,73 @@ def bf16_cases(torch, gm, hm, rand):
     lay = gm.processor[0].edge_mlp
     a3 = (rand(nv * K, W), rand(es.num_send, W), es.senders, rand(nv, W),
           mask_p) + first(lay) + tail(lay)
-    e3, web3, w2b3 = a3[0].view(-1, H), a3[5].to(bf), a3[7].to(bf)
+    e3, web3, w2b3 = a3[0].view(-1, h), a3[5].to(dt), a3[7].to(dt)
     cases.append((
         "edge_layer_flat", edge_flat, a3, f"{pef}:727", csrc + "edge_tc.cuh",
-        nbytes(*a3) + nv * K * W * 2 + nv * W * 2,
-        2.0 * nv * K * BATCH * 2 * H * H,
-        (2 + 3) * 2.0 * nv * K * BATCH * H * H,
+        nbytes(*a3) + nv * K * W * isz + nv * W * isz,
+        2.0 * nv * K * BATCH * 2 * h * h,
+        (a + 3) * 2.0 * nv * K * BATCH * h * h,
         lambda: (torch.mm(e3, web3), torch.mm(e3, w2b3))))
     es = g.m2g
     nv, K = es.num_virt, es.dense_k
     mask_p = es.mask.view(nv, K)
-    a4 = (rand(es.num_send, W), es.senders, rand(nv * K, H), rand(n_grid, W),
+    a4 = (rand(es.num_send, W), es.senders, rand(nv * K, h), rand(n_grid, W),
           mask_p, pp)
-    # K4's products as three torch.mm calls: the six 64x64 node products
-    # (encoder 2, w_i, aggregation 3 with its 128 inputs as two) in one,
+    # K4's products as three torch.mm calls: the six hxh node products
+    # (encoder 2, w_i, aggregation 3 with its 2h inputs as two) in one,
     # the edge product, the output map
-    node4 = a4[3].view(-1, H)
+    node4 = a4[3].view(-1, h)
     wn4 = torch.cat([pp[k] for k in ("enc_w0", "enc_w1", "w_i", "a_w1",
-                                     "o_w0")] + [pp["a_w0"][:H],
-                                                 pp["a_w0"][H:]], 1).to(bf)
-    g4 = a4[0].index_select(0, es.senders).view(-1, H)
-    w24, wo4 = pp["w2"].to(bf), pp["o_w1"].to(bf)
+                                     "o_w0")] + [pp["a_w0"][:h],
+                                                 pp["a_w0"][h:]], 1).to(dt)
+    g4 = a4[0].index_select(0, es.senders).view(-1, h)
+    w24, wo4 = pp["w2"].to(dt), pp["o_w1"].to(dt)
     cases.append((
         "grid_update_flat", grid_update, a4,
         "neural_lam_tpu/ops/pallas_grid_update.py:174",
         csrc + "grid_update.cu",
-        nbytes(*a4[:5], *pp.values()) + nv * BATCH * d_out * 2,
-        2.0 * nv * BATCH * (7 * H * H + H * d_out)
-        + 2.0 * float(mask_p.sum()) * BATCH * H * H, None,
+        nbytes(*a4[:5], *pp.values()) + nv * BATCH * d_out * isz,
+        2.0 * nv * BATCH * (7 * h * h + h * d_out)
+        + 2.0 * float(mask_p.sum()) * BATCH * h * h, None,
         lambda: (torch.mm(node4, wn4), torch.mm(g4, w24),
                  torch.mm(node4, wo4))))
     es = hg.m2g
     nv, K = es.num_virt, es.dense_k
     mlp = hm.m2g_gnn.edge_mlp
-    a5 = (rand(1, es.num_send, H), es.senders, rand(nv * K, H),
-          rand(1, nv, H)) + tail(mlp) + (es.mask, K, False)
-    g5 = a5[0].index_select(1, es.senders).view(-1, H)
-    w2b5 = a5[4].to(bf)
+    a5 = (rand(1, es.num_send, h), es.senders, rand(nv * K, h),
+          rand(1, nv, h)) + tail(mlp) + (es.mask, K, False)
+    g5 = a5[0].index_select(1, es.senders).view(-1, h)
+    w2b5 = a5[4].to(dt)
     cases.append((
         "edge_tail_sum", edge, a5, f"{PALLAS_EDGE}:182",
         csrc + "edge_tc.cuh",
-        nbytes(*(t for t in a5 if torch.is_tensor(t))) + nv * H * 2,
-        2.0 * float(es.mask.sum()) * H * H,
-        3 * 2.0 * float(es.mask.sum()) * H * H,
+        nbytes(*(t for t in a5 if torch.is_tensor(t))) + nv * h * isz,
+        2.0 * float(es.mask.sum()) * h * h,
+        3 * 2.0 * float(es.mask.sum()) * h * h,
         lambda: torch.mm(g5, w2b5)))
     es = hg.m2m[0]
     nv, K = es.num_virt, es.dense_k
     lay = hm.mesh_up_same_gnns[0][0].edge_mlp
-    a6 = (rand(1, nv * K, H), rand(1, es.num_send, H), es.senders,
-          rand(1, nv, H), es.mask) + first(lay) + tail(lay) + (K,)
-    e6, web6, w2b6 = a6[0].view(-1, H), a6[5].to(bf), a6[7].to(bf)
+    a6 = (rand(1, nv * K, h), rand(1, es.num_send, h), es.senders,
+          rand(1, nv, h), es.mask) + first(lay) + tail(lay) + (K,)
+    e6, web6, w2b6 = a6[0].view(-1, h), a6[5].to(dt), a6[7].to(dt)
     cases.append((
         "edge_layer", edge, a6, f"{PALLAS_EDGE}:304", csrc + "edge_tc.cuh",
-        nbytes(*(t for t in a6 if torch.is_tensor(t))) + nv * K * H * 2
-        + nv * H * 2, 2.0 * nv * K * 2 * H * H,
-        (2 + 3) * 2.0 * nv * K * H * H,
+        nbytes(*(t for t in a6 if torch.is_tensor(t))) + nv * K * h * isz
+        + nv * h * isz, 2.0 * nv * K * 2 * h * h,
+        (a + 3) * 2.0 * nv * K * h * h,
         lambda: (torch.mm(e6, web6), torch.mm(e6, w2b6))))
-
+    if dt == torch.float32:
+        es = hg.down[0]
+        nv, K = es.num_virt, es.dense_k
+        a7 = (rand(1, nv * K, h),) + tail(hm.mesh_read_gnns[0].edge_mlp) + (
+            es.mask, K, False)
+        cases.append((
+            "edge_tail", edge, a7, f"{PALLAS_EDGE}:54", csrc + "edge_tc.cuh",
+            nbytes(*(t for t in a7 if torch.is_tensor(t))) + nv * h * isz,
+            2.0 * float(es.mask.sum()) * h * h,
+            3 * 2.0 * float(es.mask.sum()) * h * h,
+            lambda: torch.mm(a7[0].view(-1, h), a7[1])))
     return cases
 
 
@@ -1889,7 +1935,7 @@ def bf16_phase(torch, np, counts, counts_bf16, reset_counts, plain_kernels,
     n_grid = gm.graph.num_grid_nodes
     pp = {k: v.detach() for k, v in
           grid_update.pack_grid_update_params(gm).items()}
-    cases = bf16_cases(torch, gm, hm, rand)
+    cases = main_path_cases(torch, gm, hm, rand, bf)
 
     def check(name, mod, args, what):
         return bf16_check(torch, counts_bf16, name, mod, args, what)
@@ -2995,7 +3041,7 @@ def step_table(net, B, posterior=False):
             t["embed_grid_flat" if kind == "embed"
               else "grid_update_flat"] += 1
             continue
-        flat = flat_eligible(es, B, H)
+        flat = flat_eligible(es, B, net.args.hidden_dim)
         split = es.frontier is not None
         if split and kind == "layer" and not flat:
             kind = "chunk"  # P1 with its messages
@@ -4990,6 +5036,533 @@ def export_phase(torch, np, counts, counts_bf16, reset_counts):
     print(f"phase 18c: {time.time() - t0:.1f} s")
 
 
+NEW_WIDTHS = (32, 128)  # phase 19's hidden widths beside 64
+
+
+def width_build(_build):
+    """19a: the forward libraries at widths 32 and 128 (one nvcc per
+    source and width, all started together; from `main` phase 1 has built
+    them already), their seconds, and each kernel instance's ptxas
+    registers and spill."""
+    t0 = time.time()
+    libs = _build.build_all(_build.FORWARD, widths=NEW_WIDTHS)
+    print(f"phase 19a: {len(libs)} forward libraries at widths "
+          f"{NEW_WIDTHS} ready in {time.time() - t0:.1f} s")
+    for key in libs:
+        log = _build.build_log(key)
+        found = re.findall(r"Compiling entry function '(\w+)'.*?\n(.*?Used "
+                           r"\d+ registers[^\n]*)", log, re.S)
+        if not found:
+            fail(f"no ptxas lines in the build log of {key}")
+        for fn, info in sorted(found):
+            regs = int(re.search(r"Used (\d+) registers", info).group(1))
+            spill = sum(int(b) for b in re.findall(r"(\d+) bytes spill",
+                                                   info))
+            print(f"  {key} {kernel_name(fn)}: {regs} registers, {spill} "
+                  "bytes of spill")
+
+
+def fp32_check(torch, counts, name, mod, args, what):
+    """The fp32 instance of kernel `name` (in `mod`) against its plain
+    version within 1e-4 + 1e-4 * |plain| (phase 3's limit), two calls
+    bit-identical; returns the max abs error."""
+    kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    before = counts()[name]
+    got, again = as_tuple(kern(*args)), as_tuple(kern(*args))
+    want = as_tuple(plain(*args))
+    torch.cuda.synchronize()
+    if counts()[name] != before + 2:
+        fail(f"{name} at {what}: its kernel did not run")
+    if not all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, again)):
+        fail(f"{name} at {what}: two calls differ")
+    err = 0.0
+    for a, b in zip(got, want):
+        if a is None and b is None:
+            continue
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            fail(f"{name} at {what}: bad output {tuple(a.shape)}")
+        gap = (a - b).abs()
+        if not bool((gap <= 1e-4 + 1e-4 * b.abs()).all()):
+            fail(f"{name} at {what}: kernel and plain disagree, max abs err "
+                 f"{float(gap.max()):.3e}")
+        err = max(err, float(gap.max()))
+    return err
+
+
+def width_kernel_cases(torch, h, counts, counts_bf16, records, peaks):
+    """19b: each forward kernel's fp32 and bf16 instances (P1: fp32) at
+    hidden width h, at the shapes of the bench GraphLAM (batch 4) and
+    4-level HiLAM (batch 1) of that width (`main_path_cases`), against its
+    plain version (fp32: phase 3's limit; bf16: one bf16 ulp, phase 11's),
+    two calls bit-identical; each timed beside its plain version, its
+    products as torch.mm calls and its bound; a record a kernel instance,
+    named `<kernel>[bf16]@h<h>`. Returns the two models."""
+    from neural_lam_tpu_torch import entry
+
+    peak_flops, peak_tf32, peak_bw = peaks
+    t0 = time.time()
+    cfg = dict(BENCH, hidden_dim=h)
+    gm, _ = entry.build_model(**cfg, device="cuda")
+    hm, _ = entry.build_model(**cfg, device="cuda", model="hi_lam")
+    print(f"hidden {h}: bench GraphLAM and 4-level HiLAM built in "
+          f"{time.time() - t0:.1f} s")
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(19)
+
+            def rand(*shape):
+                return torch.randn(*shape, device="cuda",
+                                   generator=gen).to(dt)
+
+            bf = dt == torch.bfloat16
+            for (name, mod, args, replaces, source, bytes_, flops, tf32,
+                 lib) in main_path_cases(torch, gm, hm, rand, dt):
+                what = f"hidden {h}"
+                if bf:
+                    share, err = bf16_check(torch, counts_bf16, name, mod,
+                                            args, what)
+                    rule = (f"within one bf16 ulp ({share:.5f} of the "
+                            "outputs not bit-equal)")
+                else:
+                    err = fp32_check(torch, counts, name, mod, args, what)
+                    rule = "within 1e-4 + 1e-4*|plain|"
+                kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+                ms = cuda_ms(torch, lambda: kern(*args), 20)
+                plain_ms = cuda_ms(torch, lambda: plain(*args), 5)
+                lib_ms = cuda_ms(torch, lib, 10)
+                t_bytes = bytes_ / peak_bw * 1e3
+                t_ops = 1e3 * (tf32 / peak_tf32 if tf32 is not None
+                               else flops / peak_flops)
+                bound = max(t_bytes, t_ops)
+                tag = f"{name}{'[bf16]' if bf else ''}@h{h}"
+                print(f"{tag}: {rule}, max abs err {err:.3e}, two calls "
+                      f"bit-identical; kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (torch.mm "
+                      f"on {'bf16' if bf else 'fp32'} operands), bound "
+                      f"{bound:.4f} ms ({bytes_ / 1e6:.1f} MB: "
+                      f"{t_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP"
+                      + (f" as {tf32 / flops:.2f} TF32 products a term"
+                         if tf32 is not None else " fp32")
+                      + f": {t_ops:.4f} ms)")
+                records.append({
+                    "name": tag, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": None,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": lib_ms})
+    return gm, hm
+
+
+def k4_d_out_cases(torch, np, counts, counts_bf16):
+    """19b: K4 with output maps wider than its hidden width, on a seeded
+    local graph (20,000 receivers, K = 4 senders each among 6,561) at batch
+    4 with seeded weights: d_out 80 (two 64-column chunks, o_w1 in shared
+    memory) and 200 (o_w1 read from device memory) at width 64, 34 at 32,
+    160 at 128 (streamed per chunk); each against its plain version
+    (fp32: 1e-4 + 1e-4 * |plain|; bf16: one bf16 ulp), two calls
+    bit-identical, timed beside it."""
+    from neural_lam_tpu_torch.ops import grid_update
+    from neural_lam_tpu_torch.ops.message_passing import EdgeSet
+
+    rng = np.random.default_rng(3)
+    n_rec, n_send, K = 20000, 6561, 4
+    centre = (np.arange(n_rec) * n_send // n_rec)[:, None]
+    send = np.clip(centre + rng.integers(-4, 5, (n_rec, K)), 0,
+                   n_send - 1).reshape(-1)
+    es = EdgeSet.from_local(
+        send, np.repeat(np.arange(n_rec), K),
+        rng.standard_normal((K * n_rec, 3)).astype(np.float32), n_send,
+        n_rec, device="cuda", build_transpose=False)
+    mask_p = es.mask.view(es.num_virt, K)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=gen)
+
+    with torch.no_grad():
+        for h, d_out in ((64, 80), (64, 200), (32, 34), (128, 160)):
+            pp = {k: rand(2 * h if k == "a_w0" else h, h, scale=0.1)
+                  for k in ("enc_w0", "enc_w1", "w_i", "w2", "a_w0", "a_w1",
+                            "o_w0")}
+            pp.update({k: rand(h, scale=0.1) for k in (
+                "enc_b0", "enc_b1", "enc_lb", "b2", "e_lb", "a_b0", "a_b1",
+                "a_lb", "o_b0")})
+            pp.update({k: 1 + rand(h, scale=0.1)
+                       for k in ("enc_ls", "e_ls", "a_ls")})
+            pp.update(o_w1=rand(h, d_out, scale=0.1),
+                      o_b1=rand(d_out, scale=0.1))
+            base = (rand(n_send, BATCH * h), es.senders,
+                    rand(es.num_virt * K, h), rand(n_rec, BATCH * h), mask_p,
+                    pp)
+            for dt in (torch.float32, torch.bfloat16):
+                args = tuple(t.to(dt) if i in (0, 2, 3) else t
+                             for i, t in enumerate(base))
+                what = f"hidden {h}, d_out {d_out}"
+                if dt == torch.bfloat16:
+                    share, err = bf16_check(torch, counts_bf16,
+                                            "grid_update_flat", grid_update,
+                                            args, what)
+                    rule = (f"within one bf16 ulp ({share:.5f} not "
+                            "bit-equal)")
+                else:
+                    err = fp32_check(torch, counts, "grid_update_flat",
+                                     grid_update, args, what)
+                    rule = "within 1e-4 + 1e-4*|plain|"
+                ms = cuda_ms(torch, lambda: grid_update.grid_update_flat(
+                    *args), 10)
+                plain_ms = cuda_ms(
+                    torch, lambda: grid_update.grid_update_flat_plain(*args),
+                    3)
+                print(f"grid_update_flat{'[bf16]' if dt != torch.float32 else ''}"
+                      f" at {what} (local graph K={K}, {es.num_virt} rows, "
+                      f"B=4): {rule}, max abs err {err:.3e}, two calls "
+                      f"bit-identical; kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms")
+
+
+def width_rollout(torch, entry, net, B, what, counts, counts_bf16,
+                  reset_counts, plain_kernels, launched, net32=None):
+    """A 4-step rollout through `entry.forecast` with every counter at 0
+    just before it: the launches a step equal `step_table`'s (a bf16
+    model's on the bf16 counters, P1's on the fp32 ones), a finite output
+    of the bench's shape; fp32: one predict step through the kernels
+    within 1e-3 of the plain path's; bf16 (`net32` its fp32 twin): the
+    kernel path's bf16 error against the fp32 step the plain path's size
+    (`error_size`). The launches are added to `launched` ({record name:
+    count})."""
+    h = net.args.hidden_dim
+    bf = net.compute_dtype is not None
+    init, forcing, true = entry.make_inputs(net, B, STEPS, seed=0)
+    entry.forecast(net, init, forcing[:, :1], true[:, :1])  # warm-up
+    reset_counts()
+    pred = entry.forecast(net, init, forcing, true)
+    torch.cuda.synchronize()
+    c32, c16 = counts(), counts_bf16()
+    table = step_table(net, B)[0]
+    if bf:
+        want16 = {k: n for k, n in table.items() if k != "edge_tail"}
+        want32 = {"edge_tail": table["edge_tail"]}
+    else:
+        want16, want32 = {}, table
+    ok = (all(c32[k] == want32.get(k, 0) * STEPS for k in c32)
+          and all(c16[k] == want16.get(k, 0) * STEPS for k in c16))
+    shape = (B, STEPS, net.graph.num_grid_nodes, 17)
+    print(f"{what}: {STEPS}-step rollout {tuple(pred.shape)}, finite "
+          f"{bool(torch.isfinite(pred.float()).all())}; launches a step "
+          f"{ {k: n / STEPS for k, n in c32.items() if n} } (fp32)"
+          + (f", { {k: n / STEPS for k, n in c16.items() if n} } (bf16)"
+             if bf else "") + f"; step_table {table}")
+    if not ok:
+        fail(f"{what}: launches differ from the step table")
+    if tuple(pred.shape) != shape or not bool(
+            torch.isfinite(pred.float()).all()):
+        fail(f"{what}: rollout {tuple(pred.shape)} not finite")
+    for k, n in c32.items():
+        if k in FWD + BATCHED and n:
+            launched[f"{k}@h{h}"] = launched.get(f"{k}@h{h}", 0) + n
+    for k, n in c16.items():
+        if k in FWD + BATCHED and n:
+            launched[f"{k}[bf16]@h{h}"] = (
+                launched.get(f"{k}[bf16]@h{h}", 0) + n)
+    with torch.no_grad():
+        step_k = net.predict_step(init[:, 1], init[:, 0], forcing[:, 0])[0]
+        with plain_kernels():
+            step_p = net.predict_step(init[:, 1], init[:, 0],
+                                      forcing[:, 0])[0]
+        if not bf:
+            gap = float((step_k - step_p).abs().max())
+            print(f"{what}: predict step, kernels vs plain on the card: max "
+                  f"abs gap {gap:.3e} (limit 1e-3)")
+            if not gap <= 1e-3:
+                fail(f"{what}: kernel path and plain path disagree")
+        else:
+            step32 = net32.predict_step(init[:, 1], init[:, 0],
+                                        forcing[:, 0])[0]
+            error_size(torch, f"{what} predict step", step_k, step_p, step32)
+    step_ms = median_ms(torch, lambda: entry.forecast(
+        net, init, forcing, true)) / STEPS
+    print(f"{what}: {step_ms:.3f} ms a step (host clock, a 4-step rollout, "
+          "median of 3)")
+
+
+def width_cli_phase(torch, np, counts, counts_bf16, reset_counts,
+                    plain_kernels, zero, launched):
+    """19c's CLIs at width 128 on a 268x238 MDP datastore: seeded GraphLAM
+    and HiLAM checkpoints written by the port at --hidden_dim 128;
+    `predict.main` forecasts 4 steps from each (batch 1, where B*h = 128
+    takes the flat-grid route: `forecast_check`, launches from
+    `step_table`) and from the GraphLAM's with `--precision bf16` (the bf16
+    counters, its error against the fp32 forecast the plain bf16 path's
+    size); `train.main --eval val` scores the GraphLAM through the kernels
+    and the plain versions (within 1e-4 relative)."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    from neural_lam_tpu_torch import predict, train
+    from neural_lam_tpu_torch.checkpoint import save_checkpoint
+    from neural_lam_tpu_torch.config import load_config_and_datastore
+    from neural_lam_tpu_torch.datastore.zarr_reader import ZarrGroup
+    from neural_lam_tpu_torch.graph.storage import load_or_build_graph
+    from neural_lam_tpu_torch.models import MODELS
+    from neural_lam_tpu_torch.models.ar_model import ModelArgs
+
+    L = BENCH["processor_layers"]
+    width = ("--hidden_dim", "128", "--processor_layers", str(L))
+    with tempfile.TemporaryDirectory(prefix="nlt_widths_") as tmp:
+        root = Path(tmp)
+        t0 = time.time()
+        cfg = write_mdp_datastore(root, np)
+        config, ds = load_config_and_datastore(cfg)
+        tables = {}
+        for kind, graph in (("graph_lam", "multiscale"),
+                            ("hi_lam", "hierarchical")):
+            net = MODELS[kind](
+                ModelArgs(hidden_dim=128, processor_layers=L), config, ds,
+                load_or_build_graph(ds, graph, "cuda"), device="cuda",
+                generator=torch.Generator().manual_seed(0))
+            save_checkpoint(root / "models", kind, net.state_dict(),
+                            meta={"step": 0})
+            tables[kind] = {k: n for k, n in step_table(net, 1)[0].items()
+                            if n}
+        del net
+        print(f"MDP datastore and seeded GraphLAM and HiLAM checkpoints at "
+              f"hidden 128 written in {time.time() - t0:.1f} s; launches a "
+              f"step at batch 1: {tables}")
+
+        def argv(kind, graph, out, *extra):
+            return ["--config_path", str(cfg), "--model", kind, "--graph",
+                    graph, *width, "--load", str(root / "models" / kind),
+                    "--split", "test", "--sample_idx", "-1", "--ar_steps",
+                    str(STEPS), "--out", str(out), *extra]
+
+        for kind, graph in (("graph_lam", "multiscale"),
+                            ("hi_lam", "hierarchical")):
+            reset_counts()
+            forecast_check(torch, np, argv(kind, graph,
+                                           root / f"{kind}.zarr"),
+                           tables[kind], counts, reset_counts,
+                           plain_kernels, zero, f"{kind} --hidden_dim 128")
+            for k, n in tables[kind].items():
+                launched[f"{k}@h128"] = launched.get(f"{k}@h128", 0) + (
+                    n * STEPS)
+        # --precision bf16
+        out = root / "graph_lam16.zarr"
+        a16 = argv("graph_lam", "multiscale", out, "--precision", "bf16")
+        reset_counts()
+        summary = quiet(predict.main, a16)
+        torch.cuda.synchronize()
+        c16, c32 = counts_bf16(), counts()
+        want = tables["graph_lam"]
+        if c16 != {k: want.get(k, 0) * STEPS for k in c16} or any(
+                c32.values()):
+            fail(f"predict.main graph_lam --hidden_dim 128 --precision bf16: "
+                 f"launches {c16} (bf16), {c32} (fp32); want {want} a step "
+                 "in bf16")
+        for k, n in c16.items():
+            if n:
+                launched[f"{k}[bf16]@h128"] = (
+                    launched.get(f"{k}[bf16]@h128", 0) + n)
+        pred = ZarrGroup(out)["state"].read_full()
+        if pred.shape != (STEPS, 268 * 238, 17) or not np.isfinite(
+                pred).all():
+            fail(f"predict.main --hidden_dim 128 --precision bf16: forecast "
+                 f"{pred.shape}, finite {np.isfinite(pred).all()}")
+        args = predict.parse_args(a16)
+        net, nds, _ = predict.prepare(args)
+        net32 = copy.copy(net)
+        net32.compute_dtype = None
+        stats = nds.get_standardization_dataarray("state")
+        k16 = (pred - stats["state_mean"]) / stats["state_std"]
+        p32, _ = predict.rollout(net32, nds, args)
+        with plain_kernels():
+            pp16, _ = predict.rollout(net, nds, args)
+        print(f"predict.main graph_lam --hidden_dim 128 --precision bf16: "
+              f"init {summary['init_s']:.2f} s, rollout "
+              f"{summary['rollout_s'] * 1e3 / STEPS:.1f} ms a step; "
+              f"launches a step { {k: n / STEPS for k, n in c16.items() if n} }"
+              " in bf16")
+        error_size(torch, "predict.main --hidden_dim 128 --precision bf16 "
+                   "forecast", k16, pp16, p32)
+        del net, net32, nds, pp16, p32
+        torch.cuda.empty_cache()
+        # train.main --eval val: the val split's one sample, batch 1 (the
+        # flat-grid route at B*h = 128), 2 steps
+        val_argv = ["--config_path", str(cfg), *width, "--batch_size", "4",
+                    "--ar_steps_eval", "2", "--val_steps_to_log", "1", "2",
+                    "--save_dir", str(root / "models"), "--model",
+                    "graph_lam", "--graph", "multiscale", "--load",
+                    str(root / "models" / "graph_lam"), "--eval", "val"]
+        val = {}
+        for path, ctx in (("kernels", contextlib.nullcontext),
+                          ("plain", plain_kernels)):
+            reset_counts()
+            with ctx():
+                val[path] = quiet(train.main,
+                                  val_argv + ["--run_name", f"val_{path}"])
+            torch.cuda.synchronize()
+            if path == "kernels":
+                got = {k: n for k, n in counts().items() if n}
+                w2 = {k: 2 * n for k, n in want.items()}
+                print(f"train.main --eval val --hidden_dim 128: launches "
+                      f"{got}")
+                if got != w2:
+                    fail(f"train.main --eval val --hidden_dim 128: launches "
+                         f"{got}, want {w2}")
+        v, w = val["kernels"]["val_mean_loss"], val["plain"]["val_mean_loss"]
+        print(f"train.main --eval val --hidden_dim 128: val_mean_loss {v!r}, "
+              f"within {abs(v - w) / abs(w):.3e} relative of the plain path "
+              "(limit 1e-4)")
+        if not (math.isfinite(v) and abs(v - w) <= 1e-4 * abs(w)):
+            fail("train.main --eval val --hidden_dim 128: kernels and plain "
+                 "path disagree")
+        # training at 128 on the card raises before its first step
+        reset_counts()
+        try:
+            quiet(train.main, val_argv[:-2] + ["--epochs", "1",
+                                               "--run_name", "train128"])
+        except ValueError as e:
+            if "8c" not in str(e):
+                fail(f"train.main --hidden_dim 128: raised {e!r}, which does "
+                     "not name ROADMAP.md item 8c")
+            print(f"train.main --hidden_dim 128 (training) raises: {e}")
+        else:
+            fail("train.main --hidden_dim 128 trained on the card")
+        if any(counts().values()):
+            fail(f"train.main --hidden_dim 128: launches {counts()} before "
+                 "it raised")
+
+
+def width_raises(torch, np, counts, reset_counts):
+    """19d: hidden width 48 (no library) raises ValueError on the card,
+    naming the built widths, in K1, K2, K4 and P2 (each module's check),
+    with no launch; a backward kernel at 128 raises naming item 8c."""
+    from neural_lam_tpu_torch.ops import edge, edge_flat, embed, grid_update
+    from neural_lam_tpu_torch.ops.message_passing import EdgeSet
+
+    h, B, K = 48, 4, 2
+    es = EdgeSet.from_local(np.repeat(np.arange(20), K),
+                            np.repeat(np.arange(20), K),
+                            np.zeros((20 * K, 3), np.float32), 20, 20,
+                            device="cuda", build_transpose=False)
+    M, nv = es.num_virt * K, es.num_virt
+    mask_p = es.mask.view(nv, K)
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda")
+
+    def dec(hh):
+        pp = {k: r(2 * hh if k == "a_w0" else hh, hh)
+              for k in grid_update._MATS}
+        pp.update({k: r(hh) for k in grid_update._VECS})
+        return dict(pp, o_w1=r(hh, 17), o_b1=r(17))
+
+    tail = (r(h, h), r(h), r(h), r(h))
+    calls = {
+        "embed_grid_flat": lambda: embed.embed_grid_flat(
+            r(20, B * 5), r(5, h), r(h), r(h, h), r(h), r(h), r(h), B),
+        "edge_tail_sum_flat": lambda: edge_flat.edge_tail_sum_flat(
+            r(20, B * h), es.senders, r(M, h), r(nv, B * h), mask_p, *tail),
+        "grid_update_flat": lambda: grid_update.grid_update_flat(
+            r(20, B * h), es.senders, r(M, h), r(20, B * h), mask_p, dec(h)),
+        "edge_tail_sum": lambda: edge.edge_tail_sum(
+            r(1, 20, h), es.senders, r(M, h), r(1, nv, h), *tail, es.mask,
+            K),
+    }
+    for name, call in calls.items():
+        reset_counts()
+        try:
+            call()
+        except ValueError as e:
+            if "32, 64, 128" not in str(e):
+                fail(f"{name} at hidden 48 raised {e!r}, which does not "
+                     "name the built widths")
+            print(f"{name} at hidden 48 raises: {e}")
+        else:
+            fail(f"{name} ran at hidden 48")
+        if any(counts().values()):
+            fail(f"{name} at hidden 48 counted launches {counts()}")
+    h = 128
+    try:
+        grid_update.grid_update_flat_bwd(
+            r(20, B * h), es.senders, r(M, h), r(20, B * h), mask_p, dec(h),
+            r(nv, B * 17))
+    except ValueError as e:
+        if "8c" not in str(e):
+            fail(f"grid_update_flat_bwd at hidden 128 raised {e!r}")
+        print(f"grid_update_flat_bwd at hidden 128 raises: {e}")
+    else:
+        fail("grid_update_flat_bwd ran at hidden 128")
+
+
+def widths_phase(torch, np, counts, counts_bf16, reset_counts,
+                 plain_kernels, zero, records, peaks):
+    """Phase 19 (see the module doc)."""
+    from neural_lam_tpu_torch import entry
+    from neural_lam_tpu_torch.ops import _build
+
+    t0 = time.time()
+    width_build(_build)
+    launched = {}
+    first = len(records)
+    for h in NEW_WIDTHS:
+        t1 = time.time()
+        gm, hm = width_kernel_cases(torch, h, counts, counts_bf16, records,
+                                    peaks)
+        print(f"phase 19b (hidden {h}): {time.time() - t1:.1f} s")
+        t1 = time.time()
+        gm16 = copy_with_dtype(gm, torch.bfloat16)
+        runs = [(gm, BATCH, "GraphLAM batch 4", None),
+                (gm16, BATCH, "bf16 GraphLAM batch 4", gm)]
+        if h == 32:  # B*h = 32: every set batched (P2, P3; HiLAM's P1)
+            runs += [(gm, 1, "GraphLAM batch 1", None),
+                     (gm16, 1, "bf16 GraphLAM batch 1", gm),
+                     (hm, 1, "HiLAM batch 1", None)]
+        else:  # B*h = 128: HiLAM's mixed route (P1, P3 on its small sets)
+            runs += [(hm, 1, "HiLAM batch 1", None),
+                     (copy_with_dtype(hm, torch.bfloat16), 1,
+                      "bf16 HiLAM batch 1", hm)]
+        for net, B, what, net32 in runs:
+            width_rollout(torch, entry, net, B, f"hidden {h} {what}", counts,
+                          counts_bf16, reset_counts, plain_kernels, launched,
+                          net32)
+        del gm, hm, gm16, runs, net, net32
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase 19c (hidden {h}, entry.forecast): "
+              f"{time.time() - t1:.1f} s")
+    t1 = time.time()
+    k4_d_out_cases(torch, np, counts, counts_bf16)
+    print(f"phase 19b (K4's output widths): {time.time() - t1:.1f} s")
+    t1 = time.time()
+    width_cli_phase(torch, np, counts, counts_bf16, reset_counts,
+                    plain_kernels, zero, launched)
+    print(f"phase 19c (the CLIs at hidden 128): {time.time() - t1:.1f} s")
+    t1 = time.time()
+    width_raises(torch, np, counts, reset_counts)
+    print(f"phase 19d: {time.time() - t1:.1f} s")
+    # the main-path launches of each instance; P2's at 128 are 0: at B*h
+    # >= 128 every static round of the bench graphs is flat (K2)
+    for rec in records[first:]:
+        rec["launches"] = launched.get(rec["name"], 0)
+        if not rec["launches"] and rec["name"] not in (
+                "edge_tail_sum@h128", "edge_tail_sum[bf16]@h128"):
+            fail(f"{rec['name']}: no launch on phase 19's main paths")
+    print(f"phase 19: {time.time() - t0:.1f} s")
+
+
+def copy_with_dtype(net, dtype):
+    """A shallow copy of `net` that computes in `dtype` (None: fp32) on the
+    same weights and graph."""
+    import copy
+
+    twin = copy.copy(net)
+    twin.compute_dtype = dtype
+    return twin
+
+
 def main():
     import torch
 
@@ -5031,10 +5604,10 @@ def main():
         print(f"phase {what}: {now - phase_t0[0]:.1f} s")
         phase_t0[0] = now
 
-    # 1. build
+    # 1. build (the forward sources at every width: phase 19's too)
     t0 = time.time()
-    libs = _build.build_all()
-    print(f"kernel build: {time.time() - t0:.1f} s for {len(libs)} sources "
+    libs = _build.build_all(widths=_build.WIDTHS)
+    print(f"kernel build: {time.time() - t0:.1f} s for {len(libs)} libraries "
           f"({', '.join(p.name for p in libs.values())})")
     tc_usage = {}  # K2/K3/P1/P2/P3 tag -> [(registers, spill bytes)]
     for src in libs:
@@ -5062,6 +5635,15 @@ def main():
         print(f"  edge_tc_kernel {tag} ({len(use)} instances): "
               f"{min(r for r, _ in use)}-{max(r for r, _ in use)} registers, "
               f"{sum(s for _, s in use)} bytes of spill")
+    # every listing below at once (cuobjdump, one thread a library)
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if os.path.exists(tool):
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(lambda k: sass_of(tool, libs[k]), (
+                "edge_flat_bwd", "edge_flat", "edge", "embed", "grid_update",
+                "weight_grad", "embed_bwd")))
     sass_counts(_build, libs["edge_flat_bwd"], "edge_layer_bwd_kernelILi8EfE")
     # edge_tc_kernel<K, kMode, kBatched>: K3, K2 (flat), P3, P2, P1 at K=8
     # and P1 at K=1 (batched)
@@ -5072,7 +5654,7 @@ def main():
                "ILi1ELi2ELb1EfE"):
         sass_counts(_build, libs["edge"], "edge_tc_kernel" + fn)
     sass_counts(_build, libs["embed"], "embed_kernelILi0EfE")  # K1, d_in <= 64
-    sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4EfE")
+    sass_counts(_build, libs["grid_update"], "grid_update_kernelILi4EfLb1EE")
     sass_counts(_build, libs["weight_grad"], "xtd_sum_kernel")
     sass_counts(_build, libs["embed_bwd"], "embed_bwd_kernelILb0EfE")  # B1
     phase_end("1 (build)")
@@ -5914,6 +6496,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_end("18 (export, operators, hidden_layers 2, graph page)")
+
+    # 19. the forward kernels at hidden widths 32 and 128
+    widths_phase(torch, np, counts, counts_bf16, reset_counts, plain_kernels,
+                 zero_all, records, (peak_flops, peak_tf32, peak_bw))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end("19 (the forward kernels at hidden widths 32 and 128)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

@@ -1,19 +1,29 @@
-// Shared device helpers for the flat-layout kernels (hidden width 64).
+// Shared device helpers for the flat-layout kernels (hidden width NLT_H).
 //
-// Work split used by every kernel here: one warp owns whole 64-wide rows;
-// lane l holds features 2l and 2l+1 of each row as a float2. A row of the
-// flat (rows, B*64) layout for batch element b is 64 contiguous floats at
-// column b*64, so each row load or store is 256 contiguous bytes.
-// Matrix products x @ w (w stored (in, out) row-major, as the parameters
-// are) stage the warp's input rows in shared memory and read each input
-// value as a broadcast: every lane accumulates its two output columns over
-// all inputs (`nlt_mm64`). LayerNorm statistics are fp32 warp-shuffle sums.
+// NLT_H is the hidden width a library is compiled for (`-DNLT_H=<h>`, one
+// library a width: ops/_build.py); 64 when the compiler is given none.
+// The backward sources are built at 64 only.
+//
+// Work split used by the 64-wide helpers (the backward kernels): one warp
+// owns whole 64-wide rows; lane l holds features 2l and 2l+1 of each row
+// as a float2. A row of the flat (rows, B*64) layout for batch element b
+// is 64 contiguous floats at column b*64, so each row load or store is 256
+// contiguous bytes. Matrix products x @ w (w stored (in, out) row-major,
+// as the parameters are) stage the warp's input rows in shared memory and
+// read each input value as a broadcast: every lane accumulates its two
+// output columns over all inputs (`nlt_mm64`). LayerNorm statistics are
+// fp32 warp-shuffle sums. The width-H helpers (`Cols`, K4's) split a row
+// the same way at NLT_C = H/32 columns a lane.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#ifndef NLT_H
 #define NLT_H 64
+#endif
+static_assert(NLT_H == 32 || NLT_H == 64 || NLT_H == 128,
+              "the hidden widths a library is built for: 32, 64, 128");
 
 // X(K) for each slot count the K-templated kernels are instantiated for.
 #define NLT_FOR_K(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
@@ -130,6 +140,136 @@ __device__ __forceinline__ float2 nlt_layer_norm(float2 y, float2 scale,
   const float var = nlt_warp_sum(cx * cx + cy * cy) * (1.0f / NLT_H);
   const float inv = rsqrtf(var + NLT_LN_EPS);
   return make_float2(cx * inv * scale.x + bias.x, cy * inv * scale.y + bias.y);
+}
+
+// ---------------------------------------- width-H rows (K4) ----------
+//
+// Lane l holds the NLT_C = H/32 consecutive features NLT_C*l .. of a row:
+// a float at width 32, a float2 at 64 (the 64-wide helpers' split), a
+// float4 at 128, so a row load or store is one coalesced access.
+
+constexpr int NLT_C = NLT_H / 32;
+
+struct Cols {
+  float v[NLT_C];
+};
+
+__device__ __forceinline__ Cols cols_fill(float x) {
+  Cols c;
+#pragma unroll
+  for (int i = 0; i < NLT_C; ++i) c.v[i] = x;
+  return c;
+}
+
+// This lane's features of the fp32 row at p (shared or device memory).
+__device__ __forceinline__ Cols cols_ld(const float* p, int lane) {
+  Cols c;
+  p += NLT_C * lane;
+  if constexpr (NLT_C == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    c.v[0] = v.x, c.v[1] = v.y, c.v[2] = v.z, c.v[3] = v.w;
+  } else if constexpr (NLT_C == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    c.v[0] = v.x, c.v[1] = v.y;
+  } else {
+    c.v[0] = *p;
+  }
+  return c;
+}
+
+__device__ __forceinline__ void cols_st(float* p, int lane, const Cols& c) {
+  p += NLT_C * lane;
+  if constexpr (NLT_C == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(c.v[0], c.v[1], c.v[2],
+                                                c.v[3]);
+  else if constexpr (NLT_C == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(c.v[0], c.v[1]);
+  else
+    *p = c.v[0];
+}
+
+// The same for a row of T (float, or bf16 converted to fp32).
+template <typename T>
+__device__ __forceinline__ Cols cols_ldt(const T* __restrict__ row,
+                                         int lane) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    return cols_ld(reinterpret_cast<const float*>(row), lane);
+  } else {
+    Cols c;
+    const T* p = row + NLT_C * lane;
+    if constexpr (NLT_C == 1) {
+      c.v[0] = Io<T>::ld(p);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NLT_C; i += 2) {
+        const float2 v = Io<T>::ld2(p + i);
+        c.v[i] = v.x, c.v[i + 1] = v.y;
+      }
+    }
+    return c;
+  }
+}
+
+__device__ __forceinline__ Cols cols_add(const Cols& a, const Cols& b) {
+  Cols c;
+#pragma unroll
+  for (int i = 0; i < NLT_C; ++i) c.v[i] = a.v[i] + b.v[i];
+  return c;
+}
+
+__device__ __forceinline__ Cols cols_silu(const Cols& a) {
+  Cols c;
+#pragma unroll
+  for (int i = 0; i < NLT_C; ++i) c.v[i] = nlt_silu(a.v[i]);
+  return c;
+}
+
+// acc[r] += xs[r*ldx + k] * w[k, NLT_C*lane ..] for k < nk.
+// xs: R staged input rows in shared memory; w: (nk, H) row-major, shared.
+template <int R>
+__device__ __forceinline__ void cols_mm(const float* __restrict__ xs,
+                                        int ldx,
+                                        const float* __restrict__ w, int nk,
+                                        int lane, Cols (&acc)[R]) {
+#pragma unroll 4
+  for (int k = 0; k < nk; ++k) {
+    const Cols wv = cols_ld(w + k * NLT_H, lane);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float xv = xs[r * ldx + k];
+#pragma unroll
+      for (int i = 0; i < NLT_C; ++i)
+        acc[r].v[i] = fmaf(xv, wv.v[i], acc[r].v[i]);
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void cols_fill(Cols (&acc)[R], const Cols& v) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = v;
+}
+
+// LayerNorm of one H-wide row held as Cols per lane; fp32 statistics, in
+// nlt_layer_norm's order of operations at width 64.
+__device__ __forceinline__ Cols cols_layer_norm(const Cols& y,
+                                                const Cols& scale,
+                                                const Cols& bias) {
+  float s = y.v[0];
+#pragma unroll
+  for (int i = 1; i < NLT_C; ++i) s += y.v[i];
+  const float mean = nlt_warp_sum(s) * (1.0f / NLT_H);
+  Cols c;
+#pragma unroll
+  for (int i = 0; i < NLT_C; ++i) c.v[i] = y.v[i] - mean;
+  float var = c.v[0] * c.v[0];
+#pragma unroll
+  for (int i = 1; i < NLT_C; ++i) var += c.v[i] * c.v[i];
+  const float inv = rsqrtf(nlt_warp_sum(var) * (1.0f / NLT_H) + NLT_LN_EPS);
+#pragma unroll
+  for (int i = 0; i < NLT_C; ++i)
+    c.v[i] = c.v[i] * inv * scale.v[i] + bias.v[i];
+  return c;
 }
 
 // Copy n floats from device memory into shared memory, whole block.

@@ -1,5 +1,6 @@
 // Batched-layout edge-MLP tails (kernels P1, P2) and processor edge layer
-// (kernel P3): the JAX package's (B, rows, 64) layout.
+// (kernel P3): the JAX package's (B, rows, H) layout (H = NLT_H, the
+// width a library is built for).
 //
 // Replaces, from neural_lam_tpu/ops/pallas_edge.py:
 //   P1  _tail_kernel (edge_tail): the tail on a materialised x0
@@ -29,7 +30,7 @@
 
 using bf16 = __nv_bfloat16;
 
-// P1. msg (B, n_virt*K, 64) when msg is not null, virt (B, n_virt, 64).
+// P1. msg (B, n_virt*K, H) when msg is not null, virt (B, n_virt, H).
 extern "C" int nlt_batched_edge_tail(const float* x0, const float* mask,
                                      const float* params, float* msg,
                                      float* virt, int n_virt, int K, int B,
@@ -39,7 +40,7 @@ extern "C" int nlt_batched_edge_tail(const float* x0, const float* mask,
       device, stream);
 }
 
-// P2. msg (B, n_virt*K, 64) when msg is not null, virt (B, n_virt, 64).
+// P2. msg (B, n_virt*K, H) when msg is not null, virt (B, n_virt, H).
 extern "C" int nlt_batched_edge_tail_sum(const float* send_t,
                                          const int* senders, const float* ew,
                                          const float* rec_rows,
@@ -53,7 +54,7 @@ extern "C" int nlt_batched_edge_tail_sum(const float* send_t,
       n_send, device, stream);
 }
 
-// P3. edge_out (B, n_virt*K, 64), virt (B, n_virt, 64).
+// P3. edge_out (B, n_virt*K, H), virt (B, n_virt, H).
 extern "C" int nlt_batched_edge_layer(const float* edge_rep,
                                       const float* send_t, const int* senders,
                                       const float* rec_rows,

@@ -11,8 +11,8 @@
 // edge_tc.cuh, whose note gives the design: K3 = `edge_tc_kernel<K,
 // LAYER, false>`, K2 = `edge_tc_kernel<K, TAIL_SUM, false>`. The flat
 // layout keeps
-// every array as (rows, B*64): a slot row of batch element b is 64
-// floats at column b*64.
+// every array as (rows, B*H): a slot row of batch element b is H
+// floats at column b*H (H = NLT_H, the width a library is built for).
 //
 // Bound on this card: the bytes. K3 at GraphLAM's m2m[0], B = 4: 144 MB
 // (0.043 ms) against 3 x 3.9 GFLOP at the TF32 peak (0.024 ms). K2 at
@@ -30,7 +30,7 @@
 
 using bf16 = __nv_bfloat16;
 
-// K2. virt (n_virt, B*64).
+// K2. virt (n_virt, B*H).
 extern "C" int nlt_edge_tail_sum(const float* table, const int* senders,
                                  const float* ew, const float* rec_rows,
                                  const float* mask, const float* params,
@@ -41,7 +41,7 @@ extern "C" int nlt_edge_tail_sum(const float* table, const int* senders,
       0, device, stream);
 }
 
-// K3. edge_out (n_virt*K, B*64), virt (n_virt, B*64).
+// K3. edge_out (n_virt*K, B*H), virt (n_virt, B*H).
 extern "C" int nlt_edge_layer(const float* edge_rep, const float* table,
                               const int* senders, const float* rec_rows,
                               const float* mask, const float* params,

@@ -105,6 +105,19 @@
 //   five TF32 products a term), and K2's and P2's one product, on fp32
 //   X1, makes theirs about even; each warp's chain holds them all the
 //   same (PERF.md, section 6).
+//
+// Widths (NLT_H, one library a width; the note above gives 64's). At 32
+// the same design, at 16 warps a block for every mode: a tile and the
+// split weights (8 KB a matrix) are small, and a lane holds 8 of a row's
+// 32 columns. At 128 the split weights (128 KB a matrix in fragment
+// order) do not fit: W2 is kept as fp32 pairs in fragment order (64 KB,
+// FragF32) and split at each use, LAYER's W_e is read from device memory
+// (GlobalW; L2 holds it) and split at each use, and the warps a block are
+// what the shared memory holds beside W2 (6 for LAYER and TAIL_SUM, 9 for
+// X0). A lane then holds 32 of a row's 128 columns (64 fp32 accumulators)
+// and the k-step loop of a product is unrolled by 2, not whole, to bound
+// the code. The products (4x 64's per row) rather than the bytes (2x)
+// may bound it there.
 #pragma once
 
 #include "common.cuh"
@@ -113,39 +126,65 @@
 namespace {
 
 constexpr int HH = NLT_H * NLT_H;
+constexpr int NQ = NLT_NQ;  // 8-column tiles of a row, k steps of a product
+// Weights split once into fragment order (uint4, FragW) at widths 32 and
+// 64; at 128, W2 as fp32 pairs (FragF32) and W_e from device memory.
+constexpr bool kSplitOnce = NLT_H <= 64;
+// k steps of a product unrolled together (whole at 32 and 64)
+constexpr int kKsUnroll = NLT_H > 64 ? 2 : NQ;
 
 // What x0 is made of (see the note above); LAYER = 1 and TAIL_SUM = 0, so
 // a bool kLayer names the same mode.
 enum { TAIL_SUM, LAYER, X0 };
 
-// Parameter blob (floats): w2[64*64] | b2 | ls | lb  [| we[64*64] | b0]
+// Parameter blob (floats): w2[H*H] | b2 | ls | lb  [| we[H*H] | b0]
 // (the LAYER blob; the others stop at lb).
 
-// Warps per block (probes/torch_k3_probe.py times 8 and 10 for LAYER,
-// probes/torch_k1k2_probe.py 12 for TAIL_SUM).
+// Warps per block at width 64 (probes/torch_k3_probe.py times 8 and 10
+// for LAYER, probes/torch_k1k2_probe.py 12 for TAIL_SUM).
 constexpr int kLayerWarps = 12;
 constexpr int kTailWarps = 14;
 constexpr int kX0Warps = 16;
 constexpr int kRows = 16;               // slot rows of a tile
 constexpr int kLd = NLT_H + 4;          // padded stride of a staged row
 constexpr int kTileF = kRows * kLd;     // floats of one staged tile
-constexpr int kFrag = 8 * 8 * 32;       // (k step, 8-column tile, lane)
+constexpr int kFrag = NQ * NQ * 32;     // (k step, 8-column tile, lane)
 enum { V_B0, V_B2, V_LS, V_LB, N_VEC };  // vectors in shared memory
+
+// Shared memory of the weights: W_e's (LAYER) and W2's split fragments,
+// or, at 128, W2's fp32 pairs alone.
+template <int kMode>
+__host__ __device__ constexpr size_t weight_bytes() {
+  return kSplitOnce ? (kMode == LAYER ? 2 : 1) * kFrag * sizeof(uint4)
+                    : kFrag * sizeof(float2);
+}
+
+// Staged tiles a warp: two edge (ew, x0) buffers and, but for X0, a
+// sender buffer.
+template <int kMode>
+__host__ __device__ constexpr int n_bufs() {
+  return kMode == X0 ? 2 : 3;
+}
 
 template <int kMode>
 __host__ __device__ constexpr int n_warps() {
-  return kMode == LAYER ? kLayerWarps
-         : kMode == X0  ? kX0Warps
-                        : kTailWarps;
+  if (NLT_H == 64)
+    return kMode == LAYER ? kLayerWarps
+           : kMode == X0  ? kX0Warps
+                          : kTailWarps;
+  if (NLT_H == 32) return 16;
+  // 128: what the shared memory holds beside the weights, at most 16
+  const size_t fit = (232448 - weight_bytes<kMode>() -
+                      N_VEC * NLT_H * sizeof(float)) /
+                     (n_bufs<kMode>() * kTileF * sizeof(float));
+  return fit < 16 ? (int)fit : 16;
 }
 
-// Weights in fragment order (W_e and W2, or W2 alone), the vectors, and
-// per warp two edge (ew, x0) buffers and, but for X0, a sender buffer.
+// The weights, the vectors and the warps' staged tiles.
 template <int kMode>
 constexpr size_t smem_bytes() {
-  return (kMode == LAYER ? 2 : 1) * kFrag * sizeof(uint4) +
-         N_VEC * NLT_H * sizeof(float) +
-         (size_t)n_warps<kMode>() * (kMode == X0 ? 2 : 3) * kTileF *
+  return weight_bytes<kMode>() + N_VEC * NLT_H * sizeof(float) +
+         (size_t)n_warps<kMode>() * n_bufs<kMode>() * kTileF *
              sizeof(float);
 }
 static_assert(smem_bytes<TAIL_SUM>() <= 232448 &&
@@ -161,7 +200,7 @@ __device__ __forceinline__ size_t row_at(size_t row, int b, size_t rows,
                   : (row * B + b) * NLT_H;
 }
 
-// B fragments of W (64 x 64, (in, out) row-major) for (k step ks, 8-column
+// B fragments of W (H x H, (in, out) row-major) for (k step ks, 8-column
 // tile q, lane): {big(b0), big(b1), small(b0), small(b1)} with b0 =
 // W[8ks + t, 8q + g], b1 = W[8ks + t + 4, 8q + g]. Unrolled over the
 // block's kThreads threads, so that every thread's loads are in flight at
@@ -173,7 +212,9 @@ __device__ __forceinline__ void split_weights(uint4* frag,
   for (int i0 = 0; i0 < kFrag; i0 += kThreads) {
     const int i = i0 + threadIdx.x;
     if (i < kFrag) {
-      const int ln = i & 31, q = (i >> 5) & 7, ks = i >> 8;
+      // unsigned: a power-of-two NQ divides by shifts
+      const unsigned i5 = (unsigned)i >> 5;
+      const int ln = i & 31, q = i5 % NQ, ks = i5 / NQ;
       const float* p = w + (8 * ks + (ln & 3)) * NLT_H + 8 * q + (ln >> 2);
       uint32_t bb0, bs0, bb1, bs1;
       split_tf32(p[0], bb0, bs0);
@@ -211,24 +252,25 @@ __device__ __forceinline__ void split_staged(__nv_bfloat16 x, uint32_t& big,
 }
 
 // acc[q] += A @ W over the 8-column tiles q, in 3xTF32: A the staged
-// 16 x 64 tile `a` of T (`staged_stride`), W in fragment order
-// (`split_weights`). A bf16 A has no small half: two products a term.
-template <typename T>
-__device__ __forceinline__ void tile_product(const float* a,
-                                             const uint4* __restrict__ frag,
-                                             int lane, float (&acc)[8][4]) {
+// 16 x H tile `a` of T (`staged_stride`), W from the reader wb (FragW on
+// the fragments of `split_weights`; at 128, FragF32 or GlobalW, tc_common.cuh).
+// A bf16 A has no small half: two products a term.
+template <typename T, class WB>
+__device__ __forceinline__ void tile_product(const float* a, WB wb,
+                                             int lane, float (&acc)[NQ][4]) {
   constexpr int ld = staged_stride<T>();
   const T* a0 = reinterpret_cast<const T*>(a) + (lane >> 2) * ld + (lane & 3);
-#pragma unroll
-  for (int ks = 0; ks < 8; ++ks) {
+#pragma unroll kKsUnroll
+  for (int ks = 0; ks < NQ; ++ks) {
     uint32_t ab[4], as[4];
     split_staged(a0[8 * ks], ab[0], as[0]);               // (g, t)
     split_staged(a0[8 * ld + 8 * ks], ab[1], as[1]);      // (g + 8, t)
     split_staged(a0[8 * ks + 4], ab[2], as[2]);           // (g, t + 4)
     split_staged(a0[8 * ld + 8 * ks + 4], ab[3], as[3]);  // (g + 8, t + 4)
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const uint4 w = frag[(ks * 8 + q) * 32 + lane];
+    for (int q = 0; q < NQ; ++q) {
+      const uint4 w =
+          wb(8 * ks + (lane & 3), 8 * q + (lane >> 2), ks, q, lane);
       if constexpr (sizeof(T) == sizeof(float))
         mma_tf32(acc[q], as, w.x, w.y);
       mma_tf32(acc[q], ab, w.z, w.w);
@@ -264,7 +306,7 @@ __device__ __forceinline__ int tile_senders(const int* __restrict__ senders,
 
 // Stage tile t's rows into `dst`, raw, by 16-byte cp.async copies (rows
 // of `staged_stride<T>()` values): its edge rows (table == nullptr; with
-// kShared, rows of the (M, 64) ew that every batch element shares) or its
+// kShared, rows of the (M, H) ew that every batch element shares) or its
 // sender rows table[s] (s from `tile_senders`, in s_l; n_send rows a batch
 // element); rows past the tile's n_rows as zeros, nothing past the last
 // tile. Commits one cp.async group either way.
@@ -276,7 +318,7 @@ __device__ __forceinline__ void stage_rows(float* dst,
                                            int n_virt, int n_send, int B,
                                            int lane) {
   constexpr int kPer = 16 / sizeof(T);  // values a copy
-  constexpr int kCopies = NLT_H / kPer;  // copies a row: 16 or 8
+  constexpr int kCopies = NLT_H / kPer;  // copies a row: 4 to 32
   if (t < n_tiles) {
     const Tile<K> tl(t, n_virt, B);
     const size_t slot0 = (size_t)tl.v0 * K, M = (size_t)n_virt * K;
@@ -319,10 +361,28 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
   extern __shared__ __align__(16) float smem[];
   uint4* we_f = reinterpret_cast<uint4*>(smem);  // kLayer only
   uint4* w2_f = we_f + (kLayer ? kFrag : 0);
-  float* vec = reinterpret_cast<float*>(w2_f + kFrag);
-  if constexpr (kLayer)
-    split_weights<kWarps * 32>(we_f, params + HH + 3 * NLT_H);
-  split_weights<kWarps * 32>(w2_f, params);
+  float2* w2_p = reinterpret_cast<float2*>(smem);  // at 128
+  float* vec = smem + weight_bytes<kMode>() / sizeof(float);
+  if constexpr (kSplitOnce) {
+    if constexpr (kLayer)
+      split_weights<kWarps * 32>(we_f, params + HH + 3 * NLT_H);
+    split_weights<kWarps * 32>(w2_f, params);
+  } else {
+    frags_f32(w2_p, params, NLT_H, NQ);
+  }
+  // the readers of W_e (LAYER's first product) and W2
+  const auto we_r = [&] {
+    if constexpr (kSplitOnce)
+      return FragW{we_f};
+    else
+      return GlobalW{params + HH + 3 * NLT_H, NLT_H};
+  }();
+  const auto w2_r = [&] {
+    if constexpr (kSplitOnce)
+      return FragW{w2_f};
+    else
+      return FragF32{w2_p};
+  }();
   for (int i = threadIdx.x; i < N_VEC * NLT_H; i += blockDim.x)  // b0 | b2..
     vec[i] = i >= NLT_H ? params[HH + i - NLT_H]
              : kLayer   ? params[2 * HH + 3 * NLT_H + i]
@@ -364,7 +424,7 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
     if constexpr (!kX0)
       s_next =
           tile_senders<K>(senders, tile + stride, n_tiles, n_virt, B, lane);
-    float2 rec[2][8];
+    float2 rec[2][NQ];
     float m[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -374,7 +434,7 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
         const T* rp =
             rec_rows + row_at<kBatched>(v, tl.b, n_virt, B) + 2 * t;
 #pragma unroll
-        for (int q = 0; q < 8; ++q) rec[h][q] = Io<T>::ld2(rp + 8 * q);
+        for (int q = 0; q < NQ; ++q) rec[h][q] = Io<T>::ld2(rp + 8 * q);
       }
       m[h] = row < tl.n_rows ? mask[slot0 + row] : 0.f;
     }
@@ -382,10 +442,12 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
     if constexpr (kX0) {
       // X1 = silu(x0) in place: each lane over the 16-byte groups it
       // staged (`stage_rows`), which its own wait has made visible to it
+      constexpr int kCp = NLT_H / 4;  // 16-byte groups a row
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float4* p = reinterpret_cast<float4*>(E + (2 * j + (lane >> 4)) * kLd +
-                                              4 * (lane & 15));
+      for (int j = 0; j < kRows * kCp / 32; ++j) {
+        const unsigned ul = lane;
+        float4* p = reinterpret_cast<float4*>(
+            E + (j * (32 / kCp) + ul / kCp) * kLd + 4 * (ul % kCp));
         const float4 v = *p;
         const float2 lo = silu_fast(make_float2(v.x, v.y));
         const float2 hi = silu_fast(make_float2(v.z, v.w));
@@ -394,19 +456,19 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
     }
     __syncwarp();
 
-    float acc[8][4];
+    float acc[NQ][4];
     if constexpr (!kX0) {
       // x0 = E @ W_e + b0 (LAYER) or ew, + table[senders] + rec;
       // X1 = silu(x0) -> X
       zero(acc);
-      if constexpr (kLayer) tile_product<T>(E, we_f, lane, acc);
+      if constexpr (kLayer) tile_product<T>(E, we_r, lane, acc);
       // X1 into acc, then over the staged sender rows (a staged bf16 row
       // lies under fp32 columns that other lanes of its quad write)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = g + 8 * h;
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
+        for (int q = 0; q < NQ; ++q) {
           const int c = 8 * q + 2 * t;
           float2 e;
           if constexpr (kLayer) {
@@ -426,7 +488,7 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
+        for (int q = 0; q < NQ; ++q)
           *reinterpret_cast<float2*>(X + (g + 8 * h) * kLd + 8 * q + 2 * t) =
               make_float2(acc[q][2 * h], acc[q][2 * h + 1]);
       __syncwarp();
@@ -434,7 +496,7 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
 
     // y = X1 @ W2 + b2
     zero(acc);
-    tile_product<float>(kX0 ? E : X, w2_f, lane, acc);
+    tile_product<float>(kX0 ? E : X, w2_r, lane, acc);
     if constexpr (!kX0) {
       __syncwarp();  // every lane has read X1: X takes the next sender rows
       stage_rows<K, kSh, kBatched, T>(X, edge_in, table, s_next,
@@ -442,14 +504,14 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
                                       B, lane);
     }
 
-    // msg = LN(y) over the quad's 64 columns; out = edge + msg (LAYER)
+    // msg = LN(y) over the quad's H columns; out = edge + msg (LAYER)
     // or msg (P1, P2, when asked)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = g + 8 * h;
       float s = 0.f;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
+      for (int q = 0; q < NQ; ++q) {
         const float2 b2 =
             *reinterpret_cast<const float2*>(vec + V_B2 * NLT_H + 8 * q + 2 * t);
         acc[q][2 * h] += b2.x;
@@ -459,7 +521,7 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
       const float mean = quad_sum(s) * (1.0f / NLT_H);
       float var = 0.f;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
+      for (int q = 0; q < NQ; ++q) {
         const float cx = acc[q][2 * h] - mean, cy = acc[q][2 * h + 1] - mean;
         var += cx * cx + cy * cy;
       }
@@ -467,7 +529,7 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
       const bool ok = row < tl.n_rows;
       T* op = out + row_at<kBatched>(slot0 + row, tl.b, M, B);
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
+      for (int q = 0; q < NQ; ++q) {
         const int c = 8 * q + 2 * t;
         const float2 ls =
             *reinterpret_cast<const float2*>(vec + V_LS * NLT_H + c);
@@ -494,7 +556,7 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
 #pragma unroll
       for (int o = 4; o < 4 * K; o <<= 1)
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
+        for (int q = 0; q < NQ; ++q)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             acc[q][e] += __shfl_xor_sync(0xffffffffu, acc[q][e], o);
@@ -506,7 +568,7 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
             T* dst =
                 virt + row_at<kBatched>(tl.v0 + j, tl.b, n_virt, B) + 2 * t;
 #pragma unroll
-            for (int q = 0; q < 8; ++q)
+            for (int q = 0; q < NQ; ++q)
               Io<T>::st2(dst + 8 * q,
                          make_float2(acc[q][2 * h], acc[q][2 * h + 1]));
           }
@@ -517,17 +579,26 @@ __global__ void __launch_bounds__(n_warps<kMode>() * 32, 1)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
+        for (int q = 0; q < NQ; ++q)
           *reinterpret_cast<float2*>(E + (g + 8 * h) * kLd + 8 * q + 2 * t) =
               make_float2(acc[q][2 * h], acc[q][2 * h + 1]);
       __syncwarp();
       for (int j = 0; j < kVpt && tl.v0 + j < n_virt; ++j) {
-        float2 sum = make_float2(0.f, 0.f);
+        // columns c, c + 1 of the row, c = 2*lane + 64*i
 #pragma unroll
-        for (int k = 0; k < K; ++k)
-          sum = nlt_add2(sum, nlt_ld2(E + (j * K + k) * kLd, lane));
-        nlt_st2t(virt + row_at<kBatched>(tl.v0 + j, tl.b, n_virt, B), lane,
-                 sum);
+        for (int i = 0; i < (NLT_H + 63) / 64; ++i) {
+          const int c = 2 * lane + 64 * i;
+          if (c < NLT_H) {
+            float2 sum = make_float2(0.f, 0.f);
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              sum = nlt_add2(sum, *reinterpret_cast<const float2*>(
+                                      E + (j * K + k) * kLd + c));
+            Io<T>::st2(virt + row_at<kBatched>(tl.v0 + j, tl.b, n_virt, B) +
+                           c,
+                       sum);
+          }
+        }
       }
     }
     __syncwarp();  // E is free: it takes the tile two ahead

@@ -4,7 +4,7 @@
 // neural_lam_tpu/ops/pallas_embed.py. Per row i = (node n, batch b) of the
 // flat input x (N, B*d_in) == (N*B, d_in):
 //   out[i] = LayerNorm(silu(x[i] @ W0 + b0) @ W1 + b1)
-// out (N, B*64) == (N*B, 64). The TPU kernel's zero-padding of d_in to a
+// out (N, B*H) == (N*B, H). The TPU kernel's zero-padding of d_in to a
 // lane multiple and its kron-widened weights are not needed here.
 //
 // Bound (bench shapes: 255,136 rows, d_in 56): 3.9 GFLOP against 122 MB
@@ -35,6 +35,17 @@
 //   split at each use (it need not fit in shared memory): any d_in runs.
 // Rows past n_rows are staged as zeros and never stored.
 //
+// Widths (NLT_H, one library a width; the note above gives 64's; out is
+// (n_rows, H)). At 32 the same design: a lane holds 8 of a row's 32
+// columns, the weights' fragments are 8 KB (W1) and up to 16 KB (W0, 64
+// columns), and every kind runs 16 warps a block; the bench's d_in 56
+// takes the wide kind. At 128, W1's split fragments (128 KB) and W0's do
+// not fit beside the warps' buffers: W1 is kept as fp32 pairs in fragment
+// order (64 KB, FragF32) and split at each use, and W0 is always read
+// from device memory (GlobalW, L2 holds it) and split at each use; x is
+// staged at 128 columns (d_in <= 128, two buffers a warp, 10 warps a
+// block) or in 128-column chunks. A lane holds 32 of a row's 128 columns.
+//
 // bf16 instance (`embed_kernel<kKind, __nv_bfloat16>`, entry
 // nlt_embed_bf16): x read in bf16, staged raw by the same cp.async copies
 // into a swizzled bf16 tile (`at_bf16`, one value at a time when d_in is
@@ -50,20 +61,19 @@
 namespace {
 
 constexpr int HH = NLT_H * NLT_H;  // W1's floats
+// Weights split once into fragment order (FragW) at widths 32 and 64; at
+// 128, W1 as fp32 pairs (FragF32) and W0 from device memory (GlobalW).
+constexpr bool kSplitOnce = NLT_H <= 64;
 
-// How x is staged: 64 columns (d_in <= 64), 128 (d_in <= 128), or in
-// 64-column chunks with W0 read from device memory.
+// How x is staged: H columns (d_in <= H), 2H (d_in <= 2H; widths 32 and
+// 64), or in H-column chunks with W0 read from device memory (GlobalW,
+// tc_common.cuh; tile_mma's reader of B(k, n) = W0[k, n], zero from row
+// `rows` on, offset to a chunk's first row, split at each use).
 enum { kNarrow, kWide, kChunked };
 
 template <int kKind>
 __host__ __device__ constexpr int x_cols() {
   return kKind == kWide ? 2 * NLT_H : NLT_H;
-}
-
-// Warps a block, one block a SM.
-template <int kKind>
-__host__ __device__ constexpr int n_warps() {
-  return kKind == kWide ? 8 : 16;
 }
 
 // x buffers a warp: two (double-buffered), one when chunked.
@@ -72,20 +82,39 @@ __host__ __device__ constexpr int n_bufs() {
   return kKind == kChunked ? 1 : 2;
 }
 
-// Fragments (split_frags) of one 8-row k step of a (rows, 64) weight.
-constexpr int kStepFrags = 8 * 32;
+// Fragments (split_frags) of one 8-row k step of a (rows, H) weight.
+constexpr int kStepFrags = NLT_NQ * 32;
 
-// k steps of W0 in shared memory: x_cols / 8, none when chunked.
+// k steps of W0 in shared memory: x_cols / 8, none when chunked or at 128.
 template <int kKind>
 __host__ __device__ constexpr int w0_steps() {
-  return kKind == kChunked ? 0 : x_cols<kKind>() / 8;
+  return kKind == kChunked || !kSplitOnce ? 0 : x_cols<kKind>() / 8;
 }
 
-// W1's and W0's fragments, b0 | b1 | ls | lb, and the warps' x buffers
-// (16 x x_cols each).
+// Shared memory of the weights: W1's and W0's fragments, or, at 128, W1's
+// fp32 pairs.
+template <int kKind>
+__host__ __device__ constexpr size_t weight_bytes() {
+  return kSplitOnce
+             ? sizeof(uint4) * kStepFrags * (NLT_NQ + w0_steps<kKind>())
+             : sizeof(float2) * kStepFrags * NLT_NQ;
+}
+
+// Warps a block, one block a SM: what the shared memory holds beside the
+// weights, at most 16 (at 64: 16, 8 for the wide kind).
+template <int kKind>
+__host__ __device__ constexpr int n_warps() {
+  const size_t fit =
+      (232448 - weight_bytes<kKind>() - sizeof(float) * 4 * NLT_H) /
+      (sizeof(float) * n_bufs<kKind>() * kTcRows * x_cols<kKind>());
+  return fit < 16 ? (int)fit : 16;
+}
+
+// The weights, b0 | b1 | ls | lb, and the warps' x buffers (16 x x_cols
+// each).
 template <int kKind>
 constexpr size_t smem_bytes() {
-  return sizeof(uint4) * kStepFrags * (8 + w0_steps<kKind>()) +
+  return weight_bytes<kKind>() +
          sizeof(float) * (4 * NLT_H + (size_t)n_warps<kKind>() *
                                           n_bufs<kKind>() * kTcRows *
                                           x_cols<kKind>());
@@ -94,20 +123,10 @@ static_assert(smem_bytes<kNarrow>() <= 232448 &&
                   smem_bytes<kWide>() <= 232448 &&
                   smem_bytes<kChunked>() <= 232448,
               "shared memory of a block");
-
-// tile_mma's reader of B(k, n) = W0[k, n] from device memory, zero from
-// row `rows` on (W0 offset to a chunk's first row), split at each use.
-struct GlobalW {
-  const float* w;
-  int rows;
-  __device__ __forceinline__ float ld(int k, int n) const {
-    return k < rows ? __ldg(w + k * NLT_H + n) : 0.f;
-  }
-  __device__ __forceinline__ uint4 operator()(int c, int n, int, int,
-                                              int) const {
-    return split_pair(ld(c, n), ld(c + 4, n));
-  }
-};
+static_assert(NLT_H != 64 || (n_warps<kNarrow>() == 16 &&
+                              n_warps<kWide>() == 8 &&
+                              n_warps<kChunked>() == 16),
+              "width 64's warps a block");
 
 // Stage tile `tile`'s x rows into xs (nothing past the last tile) and
 // commit one cp.async group either way.
@@ -131,15 +150,28 @@ __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
   constexpr bool kChunk = kKind == kChunked;
   extern __shared__ __align__(16) float smem[];
   uint4* w1f = reinterpret_cast<uint4*>(smem);  // W1's fragments
-  uint4* w0f = w1f + 8 * kStepFrags;            // W0's, unless chunked
-  float* vec = reinterpret_cast<float*>(w0f + w0_steps<kKind>() * kStepFrags);
+  uint4* w0f = w1f + NLT_NQ * kStepFrags;       // W0's, if in shared memory
+  float2* w1p = reinterpret_cast<float2*>(smem);  // W1's pairs, at 128
+  float* vec = smem + weight_bytes<kKind>() / sizeof(float);
   float* bufs = vec + 4 * NLT_H;                // after b0 | b1 | ls | lb
   const float* pw1 = params + (size_t)d_in * NLT_H;
-  split_frags(w1f, pw1, NLT_H, 8);
-  if constexpr (!kChunk) split_frags(w0f, params, d_in, w0_steps<kKind>());
+  if constexpr (kSplitOnce) {
+    split_frags(w1f, pw1, NLT_H, NLT_NQ);
+    if constexpr (w0_steps<kKind>() > 0)
+      split_frags(w0f, params, d_in, w0_steps<kKind>());
+  } else {
+    frags_f32(w1p, pw1, NLT_H, NLT_NQ);
+  }
   for (int i = threadIdx.x; i < 4 * NLT_H; i += blockDim.x)
     vec[i] = pw1[HH + i];
   __syncthreads();
+  // the reader of W1
+  const auto w1_r = [&] {
+    if constexpr (kSplitOnce)
+      return FragW{w1f};
+    else
+      return FragF32{w1p};
+  }();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -159,7 +191,7 @@ __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
   for (int i = 0; tile < n_tiles; tile += stride, ++i) {
     const long long r0 = tile * kTcRows;
     float* xs = xb + (kChunk ? 0 : (i & 1) * kBuf);
-    float acc[8][4];
+    float acc[NLT_NQ][4];
     zero(acc);
     // t0 = x W0
     if constexpr (kChunk) {
@@ -177,15 +209,19 @@ __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
     } else {
       cp_async_wait<1>();  // X(i) has landed
       __syncwarp();
-      tile_mma<T>(xs, XC, (d_in + 7) >> 3, FragW{w0f}, 0, lane, acc);
+      if constexpr (kSplitOnce)
+        tile_mma<T>(xs, XC, (d_in + 7) >> 3, FragW{w0f}, 0, lane, acc);
+      else
+        tile_mma<T>(xs, XC, (d_in + 7) >> 3, GlobalW{params, d_in}, 0, lane,
+                    acc);
     }
     __syncwarp();  // every lane has read x: xs takes t
 
-    // t = silu(t0 + b0) -> xs (16 x 64)
+    // t = silu(t0 + b0) -> xs (16 x H)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
+      for (int q = 0; q < NLT_NQ; ++q) {
         const float2 b0 = nlt_ld2(vec + 8 * q, t);
         st2s(xs, g + 8 * h, 8 * q + 2 * t, NLT_H,
              silu_fast(make_float2(acc[q][2 * h] + b0.x,
@@ -195,19 +231,19 @@ __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
 
     // y = t W1 + b1
     zero(acc);
-    tile_mma(xs, NLT_H, 8, FragW{w1f}, 0, lane, acc);
+    tile_mma(xs, NLT_H, NLT_NQ, w1_r, 0, lane, acc);
     if constexpr (!kChunk) {
       __syncwarp();  // every lane has read t: xs takes the tile two ahead
       stage_tile<XC>(xs, x, tile + 2 * stride, n_tiles, n_rows, d_in, x16,
                      lane);
     }
 
-    // out = LN(y) over the quad's 64 columns, rows g and g + 8
+    // out = LN(y) over the quad's H columns, rows g and g + 8
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float s = 0.f;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
+      for (int q = 0; q < NLT_NQ; ++q) {
         const float2 b1 = nlt_ld2(vec + NLT_H + 8 * q, t);
         acc[q][2 * h] += b1.x;
         acc[q][2 * h + 1] += b1.y;
@@ -216,7 +252,7 @@ __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
       const float mean = quad_sum(s) * (1.0f / NLT_H);
       float var = 0.f;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
+      for (int q = 0; q < NLT_NQ; ++q) {
         const float cx = acc[q][2 * h] - mean;
         const float cy = acc[q][2 * h + 1] - mean;
         var += cx * cx + cy * cy;
@@ -226,7 +262,7 @@ __global__ void __launch_bounds__(n_warps<kKind>() * 32, 1)
       if (row < n_rows) {
         T* dst = out + row * NLT_H + 2 * t;
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
+        for (int q = 0; q < NLT_NQ; ++q) {
           const float2 ls = nlt_ld2(vec + 2 * NLT_H + 8 * q, t);
           const float2 lb = nlt_ld2(vec + 3 * NLT_H + 8 * q, t);
           Io<T>::st2(dst + 8 * q,
@@ -266,15 +302,17 @@ int dispatch(const T* x, const float* params, T* out, long long n_rows,
   cudaStream_t s = (cudaStream_t)stream;
   if (d_in <= NLT_H)
     return (int)launch<kNarrow>(x, params, out, n_rows, d_in, s);
-  if (d_in <= 2 * NLT_H)
-    return (int)launch<kWide>(x, params, out, n_rows, d_in, s);
+  if constexpr (kSplitOnce) {
+    if (d_in <= 2 * NLT_H)
+      return (int)launch<kWide>(x, params, out, n_rows, d_in, s);
+  }
   return (int)launch<kChunked>(x, params, out, n_rows, d_in, s);
 }
 
 }  // namespace
 
-// K1. x (n_rows, d_in) -> out (n_rows, 64), n_rows = N*B; params is the
-// blob w0[d_in*64] | w1[64*64] | b0 | b1 | ls | lb.
+// K1. x (n_rows, d_in) -> out (n_rows, H), n_rows = N*B; params is the
+// blob w0[d_in*H] | w1[H*H] | b0 | b1 | ls | lb.
 extern "C" int nlt_embed(const float* x, const float* params, float* out,
                          long long n_rows, int d_in, int device,
                          void* stream) {

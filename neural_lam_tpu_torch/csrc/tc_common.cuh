@@ -89,12 +89,16 @@ __device__ __forceinline__ int at(int r, int c, int ld) {
 }
 
 // Column c of row r of a staged tile of bf16 values (ld columns, ld a
-// multiple of 64) lies at r*ld + (c ^ ((r & 7) << 3)): the xor moves
-// whole 8-value (16-byte) groups, so a cp.async copy stays whole, and
-// reads of (row g.., column t..) across a warp hit 16 distinct words, two
-// lanes a word.
+// multiple of 32) lies at r*ld + (c ^ ((r & 7) << 3)) when ld is a
+// multiple of 64, else (ld = 32, K1's narrow tile at width 32) at r*ld +
+// (c ^ (((r >> 1) & 3) << 3)), which stays inside the row's 32 columns:
+// the xor moves whole 8-value (16-byte) groups, so a cp.async copy stays
+// whole, and reads of (row g.., column t..) across a warp hit 16 distinct
+// words, two lanes a word (a 32-value row is 16 words: rows g and g + 2
+// differ in the group the xor gives them).
 __device__ __forceinline__ int at_bf16(int r, int c, int ld) {
-  return r * ld + (c ^ ((r & 7) << 3));
+  return ld % 64 == 0 ? r * ld + (c ^ ((r & 7) << 3))
+                      : r * ld + (c ^ (((r >> 1) & 3) << 3));
 }
 
 // Value (r, c) of a staged tile of T (float: `at`; bf16: `at_bf16`), the
@@ -138,9 +142,13 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+// 8-column tiles (and 8-row k steps) of an H-wide row or weight.
+constexpr int NLT_NQ = NLT_H / 8;
+
+template <int NQ>
+__device__ __forceinline__ void zero(float (&acc)[NQ][4]) {
 #pragma unroll
-  for (int q = 0; q < 8; ++q)
+  for (int q = 0; q < NQ; ++q)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
 }
@@ -159,7 +167,10 @@ __device__ __forceinline__ uint4 split_pair(float b0, float b1) {
 // and n = 8(q0 + q) + g. SmemW reads the swizzled (rows, 64) matrix w in
 // shared memory, B(k, n) = w[k, n] or, kTrans, w[n, k], and splits at
 // each use; FragW reads fragments split once into fragment order
-// (split_frags).
+// (split_frags); FragF32 reads fp32 pairs in fragment order (frags_f32)
+// and splits at each use: half FragW's shared memory, where a width-128
+// weight's split fragments (128 KB) do not fit beside the warps'
+// buffers.
 template <bool kTrans>
 struct SmemW {
   const float* w;
@@ -174,26 +185,64 @@ struct FragW {
   const uint4* f;
   __device__ __forceinline__ uint4 operator()(int, int, int ks, int q,
                                               int lane) const {
-    return f[(ks * 8 + q) * 32 + lane];
+    return f[(ks * NLT_NQ + q) * 32 + lane];
   }
 };
 
-// The B fragments of W (rows x 64, (in, out) row-major; zero from row
-// `rows` on) for k steps ks < nks in fragment order: frag[(ks*8 + q)*32 +
-// lane] = {big(b0), big(b1), small(b0), small(b1)}, b0 = W[8ks + t, 8q +
-// g], b1 = W[8ks + t + 4, 8q + g], split by split_tf32. Whole block.
+struct FragF32 {
+  const float2* f;
+  __device__ __forceinline__ uint4 operator()(int, int, int ks, int q,
+                                              int lane) const {
+    const float2 b = f[(ks * NLT_NQ + q) * 32 + lane];
+    return split_pair(b.x, b.y);
+  }
+};
+
+// The B fragments of W (rows x H, (in, out) row-major; zero from row
+// `rows` on) for k steps ks < nks in fragment order: frag[(ks*H/8 + q)*32
+// + lane] = {big(b0), big(b1), small(b0), small(b1)}, b0 = W[8ks + t, 8q
+// + g], b1 = W[8ks + t + 4, 8q + g], split by split_tf32. Whole block.
 __device__ __forceinline__ void split_frags(uint4* frag,
                                             const float* __restrict__ w,
                                             int rows, int nks) {
-  for (int i = threadIdx.x; i < nks * 256; i += blockDim.x) {
-    const int ln = i & 31, k = 8 * (i >> 8) + (ln & 3);
-    const int n = 8 * ((i >> 5) & 7) + (ln >> 2);
+  for (int i = threadIdx.x; i < nks * NLT_NQ * 32; i += blockDim.x) {
+    const unsigned i5 = (unsigned)i >> 5;  // shifts for a power-of-two
+    const int ln = i & 31, k = 8 * (i5 / NLT_NQ) + (ln & 3);
+    const int n = 8 * (i5 % NLT_NQ) + (ln >> 2);
     uint32_t bb0, bs0, bb1, bs1;
     split_tf32(k < rows ? w[k * NLT_H + n] : 0.f, bb0, bs0);
     split_tf32(k + 4 < rows ? w[(k + 4) * NLT_H + n] : 0.f, bb1, bs1);
     frag[i] = make_uint4(bb0, bb1, bs0, bs1);
   }
 }
+
+// The same pairs {b0, b1} unsplit, for FragF32. Whole block.
+__device__ __forceinline__ void frags_f32(float2* frag,
+                                          const float* __restrict__ w,
+                                          int rows, int nks) {
+  for (int i = threadIdx.x; i < nks * NLT_NQ * 32; i += blockDim.x) {
+    const unsigned i5 = (unsigned)i >> 5;  // shifts for a power-of-two
+    const int ln = i & 31, k = 8 * (i5 / NLT_NQ) + (ln & 3);
+    const int n = 8 * (i5 % NLT_NQ) + (ln >> 2);
+    frag[i] = make_float2(k < rows ? w[k * NLT_H + n] : 0.f,
+                          k + 4 < rows ? w[(k + 4) * NLT_H + n] : 0.f);
+  }
+}
+
+// B(k, n) = W[k, n] of an (rows, H) weight in device memory (L2 holds it),
+// zero from row `rows` on, split at each use: the reader of a weight that
+// does not fit in shared memory beside the warps' buffers.
+struct GlobalW {
+  const float* w;
+  int rows;
+  __device__ __forceinline__ float ld(int k, int n) const {
+    return k < rows ? __ldg(w + k * NLT_H + n) : 0.f;
+  }
+  __device__ __forceinline__ uint4 operator()(int c, int n, int, int,
+                                              int) const {
+    return split_pair(ld(c, n), ld(c + 4, n));
+  }
+};
 
 // A staged value of T as a TF32 operand: float by split_fast; a bf16
 // value is its own big half (8 mantissa bits), its small half zero.
@@ -210,12 +259,12 @@ __device__ __forceinline__ void split_a(__nv_bfloat16 x, uint32_t& big,
 // acc[q] += A @ B over k steps ks < nks, in 3xTF32: A the 16-row tile `a`
 // of TA (ld columns, swizzled: `staged_at`) at columns 8ks.., split at
 // each use (`split_a`; a bf16 A has no small half, so two products a
-// term); B from the reader wb (SmemW, FragW, or one of device memory) at
-// the 8-column tiles q0 + q.
-template <typename TA = float, class WB>
+// term); B from the reader wb (SmemW, FragW, FragF32 or GlobalW) at the
+// 8-column tiles q0 + q, q < NQ.
+template <typename TA = float, class WB, int NQ>
 __device__ __forceinline__ void tile_mma(const float* a, int ld, int nks,
                                          WB wb, int q0, int lane,
-                                         float (&acc)[8][4]) {
+                                         float (&acc)[NQ][4]) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll 2
   for (int ks = 0; ks < nks; ++ks) {
@@ -226,7 +275,7 @@ __device__ __forceinline__ void tile_mma(const float* a, int ld, int nks,
     split_a(*staged_at<TA>(a, g, c + 4, ld), ab[2], as[2]);
     split_a(*staged_at<TA>(a, g + 8, c + 4, ld), ab[3], as[3]);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
+    for (int q = 0; q < NQ; ++q) {
       const uint4 w = wb(c, 8 * (q0 + q) + g, ks, q, lane);
       if constexpr (sizeof(TA) == sizeof(float))
         mma_tf32(acc[q], as, w.x, w.y);

@@ -1,11 +1,18 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
 Each `csrc/<name>.cu` compiles on its own into a plain-C shared library
-(`nvcc -gencode arch=compute_90a,code=sm_90a -shared`), named after the
-hash of its sources, under `neural_lam_tpu_torch/_kernels/` (listed in
-.gitignore). A library is built at first use and rebuilt when a source's
-hash changes; `build_all` starts one nvcc per source at once. Nothing is
+(`nvcc -gencode arch=compute_90a,code=sm_90a -shared`), once per hidden
+width it is built for (`-DNLT_H=<h>`: the forward sources at 32, 64 and
+128, `WIDTHS`; the backward sources at 64 only), named after the source,
+the width and the hash of its sources and flags, under
+`neural_lam_tpu_torch/_kernels/` (listed in .gitignore). A library is
+built at first use of its width and rebuilt when a source's hash changes;
+`build_all` starts one nvcc per source and width at once. Nothing is
 compiled when the package is imported.
+
+A width with no library raises (`require_width`), and so does a backward
+kernel at any width but 64 (`require_bwd_width`: ROADMAP.md item 8c);
+neither falls back to the plain versions.
 
 The C entry points take device pointers, sizes and a stream as plain
 values; every launch returns `cudaGetLastError()` and the Python wrapper
@@ -30,13 +37,17 @@ NVCC_FLAGS = [
 ]
 SOURCES = ("embed", "edge_flat", "grid_update", "edge",
            "embed_bwd", "edge_flat_bwd", "grid_update_bwd", "weight_grad")
+# the forward sources (K1-K4, P1-P3), built at every width of WIDTHS; the
+# others at 64 only
+FORWARD = SOURCES[:4]
+WIDTHS = (32, 64, 128)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
 IP = ctypes.POINTER(ctypes.c_int)
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}  # (source, width) -> library
 _GRIDS: dict[tuple, int] = {}  # (backward entry, *sizes, device) -> blocks
 _INCLUDE = re.compile(r'^\s*#include\s+"([\w.]+)"', re.MULTILINE)
 
@@ -65,69 +76,125 @@ def _headers(name: str) -> list[Path]:
     return sorted(seen)
 
 
-def _lib_path(name: str) -> Path:
+def require_width(h: int, what: str) -> int:
+    """`h` if the forward kernels have a library at hidden width h, else
+    ValueError naming the built widths (no plain fallback on the card)."""
+    if h not in WIDTHS:
+        raise ValueError(
+            f"{what}: no kernel library at hidden width {h}; the forward "
+            f"kernels are built for widths {', '.join(map(str, WIDTHS))} "
+            "(other widths: ROADMAP.md item 8d)")
+    return h
+
+
+def require_bwd_width(h: int, what: str) -> int:
+    """`h` if it is 64, the one width the backward kernels are built for,
+    else ValueError naming ROADMAP.md item 8c."""
+    if h != 64:
+        raise ValueError(
+            f"{what}: the backward kernels are built for hidden width 64 "
+            f"only, not {h} (ROADMAP.md item 8c); training on the card "
+            "needs width 64")
+    return h
+
+
+def nvcc_flags(width: int) -> list[str]:
+    """nvcc's flags for a library of hidden width `width`."""
+    return [*NVCC_FLAGS, f"-DNLT_H={width}"]
+
+
+def _check_source(name: str, width: int) -> None:
+    if name not in SOURCES:
+        raise ValueError(f"no kernel source {name!r}")
+    if width != 64 and name not in FORWARD:
+        require_bwd_width(width, f"csrc/{name}.cu")
+    require_width(width, f"csrc/{name}.cu")
+
+
+def lib_path(name: str, width: int = 64) -> Path:
+    """The library of csrc/<name>.cu at hidden width `width`: its name
+    holds the source, the width and the hash of the sources it includes
+    and of its nvcc flags."""
+    _check_source(name, width)
     h = hashlib.sha256()
     for src in _headers(name) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libnlt_{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(nvcc_flags(width)).encode())
+    return BUILD_DIR / f"libnlt_{name}_h{width}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """Start nvcc for one source; None when its library is up to date."""
-    out = _lib_path(name)
+def lib_key(name: str, width: int = 64) -> str:
+    """The key of a library in `build_all`'s result: the source's name at
+    width 64, `<name>@<width>` at another width."""
+    return name if width == 64 else f"{name}@{width}"
+
+
+def _split_key(key: str) -> tuple[str, int]:
+    name, _, width = key.partition("@")
+    return name, int(width or 64)
+
+
+def _start(name: str, width: int):
+    """Start nvcc for one source at one width; None when its library is up
+    to date."""
+    out = lib_path(name, width)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+    cmd = [_nvcc(), *nvcc_flags(width), "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish(name: str, job) -> None:
+def _finish(key: str, job) -> None:
     proc, tmp, out = job
     log, _ = proc.communicate()
     out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {key}:\n{log}")
     os.replace(tmp, out)
 
 
-def build_all(names=SOURCES) -> dict[str, Path]:
-    """Build every stale library, one nvcc per source, all started
-    together. Returns {name: library path}."""
-    jobs = {name: _start(name) for name in names}
+def build_all(names=SOURCES, widths=(64,)) -> dict[str, Path]:
+    """Build every stale library of `names` at each of `widths` (the
+    backward sources at 64 only: they are skipped at other widths), one
+    nvcc per source and width, all started together. Returns {lib_key:
+    library path}."""
+    pairs = [(n, w) for w in widths for n in names
+             if w == 64 or n in FORWARD]
+    jobs = {lib_key(n, w): _start(n, w) for n, w in pairs}
     errors = []
-    for name, job in jobs.items():
+    for key, job in jobs.items():
         if job is None:
             continue
         try:
-            _finish(name, job)
+            _finish(key, job)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
-    return {name: _lib_path(name) for name in names}
+    return {lib_key(n, w): lib_path(n, w) for n, w in pairs}
 
 
-def build_log(name: str) -> str:
+def build_log(key: str) -> str:
     """nvcc's output (with ptxas register/shared-memory usage) from the
-    build of `name`'s current library."""
-    log = _lib_path(name).with_suffix(".log")
+    build of the current library of `key` (`lib_key`)."""
+    log = lib_path(*_split_key(key)).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def library(name: str, signatures: dict) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built if stale, with
-    argtypes/restype set from `signatures` ({function: [argtypes]})."""
-    lib = _LIBS.get(name)
+def library(name: str, signatures: dict, width: int = 64) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu at hidden width `width`, built
+    if stale, with argtypes/restype set from `signatures` ({function:
+    [argtypes]})."""
+    lib = _LIBS.get((name, width))
     if lib is None:
-        path = build_all((name,))[name]
+        path = build_all((name,), (width,))[lib_key(name, width)]
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in signatures.items():
             f = getattr(lib, fn)
@@ -135,7 +202,7 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         lib.nlt_error_string.argtypes = [ctypes.c_int]
         lib.nlt_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        _LIBS[name, width] = lib
     return lib
 
 

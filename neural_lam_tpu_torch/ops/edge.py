@@ -39,6 +39,10 @@ is fp32 (its edge term is). P1 has no bf16 instance: in the bf16 path its
 x0 is promoted to fp32 by its fp32 first term
 (`message_passing.edge_messages_and_virt`), so it runs its fp32 instance,
 and a bf16 x0 on the card raises TypeError.
+
+Widths: each kernel takes h = w2's width at every width it is built for
+(`_build.WIDTHS`: 32, 64, 128), from that width's library; any other h
+raises on a CUDA tensor. The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -50,7 +54,6 @@ from . import _build, library
 from .mlp import layer_norm
 from .segment import gather_rows_batched
 
-HID = 64  # hidden width the CUDA kernels are written for
 MAX_K = 8  # slots per virtual row the kernels are instantiated for
 
 _P, _I = _build.P, _build.I
@@ -63,8 +66,8 @@ _SIGNATURES = {
 }
 
 
-def _lib():
-    return _build.library("edge", _SIGNATURES)
+def _lib(h):
+    return _build.library("edge", _SIGNATURES, h)
 
 
 def _sum_seq(x, dim):
@@ -226,11 +229,15 @@ def _plain_grads(fn, inputs, needs, output_grads):
     return [next(got) if n else None for n in needs]
 
 
-def _check_common(mask, params_hh, K, M):
+def _check_common(mask, params_hh, K, M, what):
+    """The checks every P kernel shares; returns h (the width of its
+    (h, h) weights, a built width)."""
     _build.expect(1 <= K <= MAX_K and M % K == 0, "K", (K, M))
     _build.expect(mask.numel() == M, "mask", mask.shape)
+    h = _build.require_width(params_hh[0][1].shape[-1], what)
     for name, w in params_hh:
-        _build.expect(w.shape == (HID, HID), name, w.shape)
+        _build.expect(w.shape == (h, h), name, w.shape)
+    return h
 
 
 def _tail_params(w2, b2, ln_scale, ln_bias, *layer):
@@ -238,10 +245,10 @@ def _tail_params(w2, b2, ln_scale, ln_bias, *layer):
                      + [t.reshape(-1) for t in layer])
 
 
-def _outputs(dev, B, M, K, with_messages, dtype=torch.float32):
-    msg = (torch.empty((B, M, HID), device=dev, dtype=dtype)
+def _outputs(dev, B, M, K, h, with_messages, dtype=torch.float32):
+    msg = (torch.empty((B, M, h), device=dev, dtype=dtype)
            if with_messages else None)
-    virt = torch.empty((B, M // K, HID), device=dev, dtype=dtype)
+    virt = torch.empty((B, M // K, h), device=dev, dtype=dtype)
     return msg, virt
 
 
@@ -252,26 +259,26 @@ def _msg_or_empty(msg, like):
 
 
 def _check_tail(x0, w2, mask, K):
-    """P1's shapes (fp32 only: it has no bf16 instance)."""
+    """P1's shapes (fp32 only: it has no bf16 instance); returns h."""
     B, M, h = x0.shape
-    _build.expect(h == HID, "x0", x0.shape)
-    _check_common(mask, [("w2", w2)], K, M)
+    _build.expect(h == w2.shape[-1], "x0", x0.shape)
+    return _check_common(mask, [("w2", w2)], K, M, "edge_tail")
 
 
 def _tail_cuda(x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
     dev = _build.require_cuda(x0)
-    _check_tail(x0, w2, mask, K)
+    h = _check_tail(x0, w2, mask, K)
     B, M, _ = x0.shape
     x0, mask = x0.contiguous(), mask.contiguous()
     params = _tail_params(w2, b2, ln_scale, ln_bias)
-    msg, virt = _outputs(dev, B, M, K, with_messages)
+    msg, virt = _outputs(dev, B, M, K, h, with_messages)
     f32 = torch.float32
     ptrs = _build.pointers(dev, ("x0", x0, f32), ("mask", mask, f32),
                            ("params", params, f32))
     ptrs.append(None if msg is None else
                 _build.pointers(dev, ("msg", msg, f32))[0])
     ptrs += _build.pointers(dev, ("virt", virt, f32))
-    lib = _lib()
+    lib = _lib(h)
     rc = lib.nlt_batched_edge_tail(*ptrs, M // K, K, B, dev.index,
                                    _build.stream_of(dev))
     _build.check(lib, rc, "edge_tail")
@@ -311,27 +318,27 @@ def _tail_fwd(x0, w2, b2, ln_scale, ln_bias, mask, K, with_messages):
 
 
 def _check_tail_sum(send_t, senders, ew, rec_rows, w2, mask, K):
-    """P2's shapes; returns its instance's dtype."""
-    B, n_send, h = send_t.shape
+    """P2's shapes; returns its instance's dtype and h."""
+    B, n_send, hs = send_t.shape
     M = senders.shape[0]
-    _check_common(mask, [("w2", w2)], K, M)
-    _build.expect(h == HID, "send_t", send_t.shape)
-    _build.expect(ew.shape == (M, HID), "ew", ew.shape)
-    _build.expect(rec_rows.shape == (B, M // K, HID), "rec_rows",
+    h = _check_common(mask, [("w2", w2)], K, M, "edge_tail_sum")
+    _build.expect(hs == h, "send_t", send_t.shape)
+    _build.expect(ew.shape == (M, h), "ew", ew.shape)
+    _build.expect(rec_rows.shape == (B, M // K, h), "rec_rows",
                   rec_rows.shape)
-    return _build.io_dtype("send_t", send_t)
+    return _build.io_dtype("send_t", send_t), h
 
 
 def _tail_sum_cuda(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
                    mask, K, with_messages):
     dev = _build.require_cuda(send_t)
-    dt = _check_tail_sum(send_t, senders, ew, rec_rows, w2, mask, K)
+    dt, h = _check_tail_sum(send_t, senders, ew, rec_rows, w2, mask, K)
     B, n_send, _ = send_t.shape
     M = senders.shape[0]
     send_t, ew = send_t.contiguous(), ew.contiguous()
     rec_rows, mask = rec_rows.contiguous(), mask.contiguous()
     params = _tail_params(w2, b2, ln_scale, ln_bias)
-    msg, virt = _outputs(dev, B, M, K, with_messages, dt)
+    msg, virt = _outputs(dev, B, M, K, h, with_messages, dt)
     f32, i32 = torch.float32, torch.int32
     ptrs = _build.pointers(dev, ("send_t", send_t, dt),
                            ("senders", senders, i32), ("ew", ew, dt),
@@ -340,7 +347,7 @@ def _tail_sum_cuda(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
     ptrs.append(None if msg is None else
                 _build.pointers(dev, ("msg", msg, dt))[0])
     ptrs += _build.pointers(dev, ("virt", virt, dt))
-    lib = _lib()
+    lib = _lib(h)
     fn = (lib.nlt_batched_edge_tail_sum_bf16 if dt == torch.bfloat16
           else lib.nlt_batched_edge_tail_sum)
     rc = fn(*ptrs, M // K, K, B, n_send, dev.index, _build.stream_of(dev))
@@ -385,34 +392,35 @@ def _tail_sum_fwd(send_t, senders, ew, rec_rows, w2, b2, ln_scale, ln_bias,
 
 
 def _check_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, w2, K):
-    """P3's shapes; returns its instance's dtype."""
-    B, M, h = edge_rep.shape
-    _check_common(mask, [("w_e", w_e), ("w2", w2)], K, M)
-    _build.expect(h == HID, "edge_rep", edge_rep.shape)
+    """P3's shapes; returns its instance's dtype and h."""
+    B, M, he = edge_rep.shape
+    h = _check_common(mask, [("w_e", w_e), ("w2", w2)], K, M, "edge_layer")
+    _build.expect(he == h, "edge_rep", edge_rep.shape)
     _build.expect(send_t.dim() == 3 and send_t.shape[0] == B
-                  and send_t.shape[2] == HID, "send_t", send_t.shape)
+                  and send_t.shape[2] == h, "send_t", send_t.shape)
     _build.expect(senders.shape == (M,), "senders", senders.shape)
-    _build.expect(rec_rows.shape == (B, M // K, HID), "rec_rows",
+    _build.expect(rec_rows.shape == (B, M // K, h), "rec_rows",
                   rec_rows.shape)
-    return _build.io_dtype("edge_rep", edge_rep)
+    return _build.io_dtype("edge_rep", edge_rep), h
 
 
 def _layer_cuda(edge_rep, send_t, senders, rec_rows, mask, w_e, b0, w2, b2,
                 ln_scale, ln_bias, K):
     dev = _build.require_cuda(edge_rep)
-    dt = _check_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, w2, K)
+    dt, h = _check_layer(edge_rep, send_t, senders, rec_rows, mask, w_e, w2,
+                         K)
     B, M, _ = edge_rep.shape
     edge_rep, send_t = edge_rep.contiguous(), send_t.contiguous()
     rec_rows, mask = rec_rows.contiguous(), mask.contiguous()
     params = _tail_params(w2, b2, ln_scale, ln_bias, w_e, b0)
-    edge_out, virt = _outputs(dev, B, M, K, True, dt)
+    edge_out, virt = _outputs(dev, B, M, K, h, True, dt)
     f32, i32 = torch.float32, torch.int32
     ptrs = _build.pointers(dev, ("edge_rep", edge_rep, dt),
                            ("send_t", send_t, dt), ("senders", senders, i32),
                            ("rec_rows", rec_rows, dt), ("mask", mask, f32),
                            ("params", params, f32),
                            ("edge_out", edge_out, dt), ("virt", virt, dt))
-    lib = _lib()
+    lib = _lib(h)
     fn = (lib.nlt_batched_edge_layer_bf16 if dt == torch.bfloat16
           else lib.nlt_batched_edge_layer)
     rc = fn(*ptrs, M // K, K, B, send_t.shape[1], dev.index,

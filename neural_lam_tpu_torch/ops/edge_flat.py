@@ -41,6 +41,12 @@ state with the chain's unrounded fp32 d_x0 (a second, fp32 copy), as the
 JAX kernel sums dW_e from its fp32 d_x0 while it stores the d_gathered
 that the sender fold sums in bf16. `<wrapper>.launches_bf16` counts the
 bf16 instances' launches.
+
+Widths: the forward kernels take h = w2's width at every width they are
+built for (`_build.WIDTHS`: 32, 64, 128), from that width's library; any
+other h raises on a CUDA tensor. The backward kernels are built for h = 64
+only and raise at any other h on a CUDA tensor. The plain versions take
+any width.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ import torch.nn.functional as F
 from . import _build, library, weight_grad
 from .mlp import grads_through, layer_norm
 
-HID = 64  # hidden width the CUDA kernels are written for
+HID = 64  # the backward kernels' hidden width
 
 _P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {
@@ -71,8 +77,8 @@ _BWD_SIGNATURES = {
 }
 
 
-def _lib():
-    return _build.library("edge_flat", _SIGNATURES)
+def _lib(h):
+    return _build.library("edge_flat", _SIGNATURES, h)
 
 
 def _bwd_lib():
@@ -116,7 +122,7 @@ def _tail_cuda(table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale,
     dev = _build.require_cuda(table)
     n_virt, K = mask_p.shape
     W = table.shape[1]
-    dt = _check_tail(table, senders, ew, rec_rows, mask_p, w2)
+    dt, h = _check_tail(table, senders, ew, rec_rows, mask_p, w2)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias])
     virt = torch.empty((n_virt, W), device=dev, dtype=dt)
     f32, i32 = torch.float32, torch.int32
@@ -125,10 +131,10 @@ def _tail_cuda(table, senders, ew, rec_rows, mask_p, w2, b2, ln_scale,
                            ("rec_rows", rec_rows, dt),
                            ("mask_p", mask_p, f32), ("params", params, f32),
                            ("virt", virt, dt))
-    lib = _lib()
+    lib = _lib(h)
     fn = (lib.nlt_edge_tail_sum_bf16 if dt == torch.bfloat16
           else lib.nlt_edge_tail_sum)
-    rc = fn(*ptrs, n_virt, K, W // HID, dev.index, _build.stream_of(dev))
+    rc = fn(*ptrs, n_virt, K, W // h, dev.index, _build.stream_of(dev))
     _build.check(lib, rc, "edge_tail_sum_flat")
     _build.count_launch(edge_tail_sum_flat, dt)
     return virt
@@ -151,15 +157,17 @@ _tail_fwd = library.define(
 
 
 def _check_tail(table, senders, ew, rec_rows, mask_p, w2):
-    """K2's and B2's shapes; returns their instance's dtype."""
+    """K2's and B2's shapes; returns their instance's dtype and h, a built
+    width."""
     n_virt, K = mask_p.shape
     W = table.shape[1]
-    _build.expect(ew.shape == (n_virt * K, HID), "ew", ew.shape)
-    _build.expect(W % HID == 0 and rec_rows.shape == (n_virt, W),
+    h = _build.require_width(w2.shape[-1], "edge_tail_sum_flat")
+    _build.expect(ew.shape == (n_virt * K, h), "ew", ew.shape)
+    _build.expect(W % h == 0 and rec_rows.shape == (n_virt, W),
                   "rec_rows", rec_rows.shape)
     _build.expect(senders.shape == (n_virt * K,), "senders", senders.shape)
-    _build.expect(w2.shape == (HID, HID), "w2", w2.shape)
-    return _build.io_dtype("table", table)
+    _build.expect(w2.shape == (h, h), "w2", w2.shape)
+    return _build.io_dtype("table", table), h
 
 
 def edge_tail_sum_flat_bwd_plain(table, senders, ew, rec_rows, mask_p, w2,
@@ -225,9 +233,10 @@ def edge_tail_bwd_chain(table, senders, ew, rec_rows, mask_p, w2, b2,
                                          mask_p, w2, b2, ln_scale, ln_bias,
                                          d_virt)
     dev = _build.require_cuda(table)
+    _build.require_bwd_width(w2.shape[-1], "edge_tail_sum_flat_bwd")
     n_virt, K = mask_p.shape
     W = table.shape[1]
-    dt = _check_tail(table, senders, ew, rec_rows, mask_p, w2)
+    dt, _ = _check_tail(table, senders, ew, rec_rows, mask_p, w2)
     _build.expect(d_virt.shape == (n_virt, W), "d_virt", d_virt.shape)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias])
     d_virt = d_virt.contiguous()
@@ -367,18 +376,20 @@ def edge_layer_flat_plain(edge_rep, table, senders, rec_rows, mask_p, w_e,
 
 
 def _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2):
-    """K3's and B3/B4's shapes; returns their instance's dtype."""
+    """K3's and B3/B4's shapes; returns their instance's dtype and h, a
+    built width."""
     n_virt, K = mask_p.shape
     M, W = edge_rep.shape
-    _build.expect(M == n_virt * K and W % HID == 0, "edge_rep",
+    h = _build.require_width(w2.shape[-1], "edge_layer_flat")
+    _build.expect(M == n_virt * K and W % h == 0, "edge_rep",
                   edge_rep.shape)
     _build.expect(table.dim() == 2 and table.shape[1] == W, "table",
                   table.shape)
     _build.expect(rec_rows.shape == (n_virt, W), "rec_rows", rec_rows.shape)
     _build.expect(senders.shape == (M,), "senders", senders.shape)
-    _build.expect(w_e.shape == (HID, HID) and w2.shape == (HID, HID),
+    _build.expect(w_e.shape == (h, h) and w2.shape == (h, h),
                   "w_e/w2", (w_e.shape, w2.shape))
-    return _build.io_dtype("edge_rep", edge_rep)
+    return _build.io_dtype("edge_rep", edge_rep), h
 
 
 def _layer_cuda(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
@@ -386,7 +397,8 @@ def _layer_cuda(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
     dev = _build.require_cuda(edge_rep)
     n_virt, K = mask_p.shape
     W = edge_rep.shape[1]
-    dt = _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
+    dt, h = _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e,
+                         w2)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias,
                         w_e.reshape(-1), b0])
     edge_out = torch.empty_like(edge_rep)
@@ -397,10 +409,10 @@ def _layer_cuda(edge_rep, table, senders, rec_rows, mask_p, w_e, b0, w2,
                            ("rec_rows", rec_rows, dt),
                            ("mask_p", mask_p, f32), ("params", params, f32),
                            ("edge_out", edge_out, dt), ("virt", virt, dt))
-    lib = _lib()
+    lib = _lib(h)
     fn = (lib.nlt_edge_layer_bf16 if dt == torch.bfloat16
           else lib.nlt_edge_layer)
-    rc = fn(*ptrs, n_virt, K, W // HID, dev.index, _build.stream_of(dev))
+    rc = fn(*ptrs, n_virt, K, W // h, dev.index, _build.stream_of(dev))
     _build.check(lib, rc, "edge_layer_flat")
     _build.count_launch(edge_layer_flat, dt)
     return edge_out, virt
@@ -490,9 +502,10 @@ def edge_layer_bwd_chain(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
                                           mask_p, w_e, b0, w2, b2, ln_scale,
                                           ln_bias, d_edge_out, d_virt)
     dev = _build.require_cuda(edge_rep)
+    _build.require_bwd_width(w2.shape[-1], "edge_layer_flat_bwd")
     n_virt, K = mask_p.shape
     M, W = edge_rep.shape
-    dt = _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
+    dt, _ = _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
     _build.expect(d_virt.shape == (n_virt, W), "d_virt", d_virt.shape)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias,
                         w_e.reshape(-1), b0])

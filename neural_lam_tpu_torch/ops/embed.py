@@ -24,6 +24,12 @@ JAX kernel with `out_dtype=bfloat16` does; the backward reads x and d_out
 in bf16 and stores dx in bf16, its weight and vector gradients fp32, as
 the JAX backward kernel does. `embed_grid_flat.launches_bf16` and
 `embed_grid_flat_bwd.launches_bf16` count their launches.
+
+Widths: the forward kernel takes h = w1's width at every width it is
+built for (`_build.WIDTHS`: 32, 64, 128), from that width's library; any
+other h raises on a CUDA tensor. The backward kernel is built for h = 64
+only and raises at any other h on a CUDA tensor. The plain versions take
+any width.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import torch.nn.functional as F
 from . import _build, library
 from .mlp import grads_through, layer_norm
 
-HID = 64
+HID = 64  # the backward kernel's hidden width
 
 _P, _I, _LL, _IP = _build.P, _build.I, _build.LL, _build.IP
 _SIGNATURES = {"nlt_embed": [_P] * 3 + [_LL, _I, _I, _P],
@@ -46,8 +52,8 @@ _BWD_SIGNATURES = {"nlt_embed_bwd": [_P] * 5 + [_LL, _I, _I, _I, _P],
 MAX_D_IN = 128  # csrc/embed_bwd.cu stages x rows at up to 128 columns
 
 
-def _lib():
-    return _build.library("embed", _SIGNATURES)
+def _lib(h):
+    return _build.library("embed", _SIGNATURES, h)
 
 
 def _bwd_lib():
@@ -65,28 +71,29 @@ def embed_grid_flat_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
 
 
 def _check_embed(x_f, w0, w1, batch_size):
-    """The kernel's shapes: x_f (N, B*d_in), w0 (d_in, 64), w1 (64, 64);
-    its dtype (float32 or bfloat16)."""
+    """The kernel's shapes: x_f (N, B*d_in), w0 (d_in, h), w1 (h, h), h a
+    built width; its dtype (float32 or bfloat16) and h."""
     d_in = w0.shape[0]
+    h = _build.require_width(w1.shape[-1], "embed_grid_flat")
     _build.expect(x_f.shape[1] == batch_size * d_in, "x_f",
                   (x_f.shape, d_in))
-    _build.expect(w0.shape == (d_in, HID) and w1.shape == (HID, HID),
+    _build.expect(w0.shape == (d_in, h) and w1.shape == (h, h),
                   "w0/w1", (w0.shape, w1.shape))
-    return _build.io_dtype("x_f", x_f)
+    return _build.io_dtype("x_f", x_f), h
 
 
 def _embed_cuda(x_f, w0, b0, w1, b1, ln_scale, ln_bias, batch_size):
     dev = _build.require_cuda(x_f)
-    dt = _check_embed(x_f, w0, w1, batch_size)
+    dt, h = _check_embed(x_f, w0, w1, batch_size)
     N = x_f.shape[0]
     d_in = w0.shape[0]
     params = torch.cat([w0.reshape(-1), w1.reshape(-1), b0, b1, ln_scale,
                         ln_bias])
-    out = torch.empty((N, batch_size * HID), device=dev, dtype=dt)
+    out = torch.empty((N, batch_size * h), device=dev, dtype=dt)
     f32 = torch.float32
     ptrs = _build.pointers(dev, ("x_f", x_f, dt), ("params", params, f32),
                            ("out", out, dt))
-    lib = _lib()
+    lib = _lib(h)
     fn = lib.nlt_embed_bf16 if dt == torch.bfloat16 else lib.nlt_embed
     rc = fn(*ptrs, N * batch_size, d_in, dev.index, _build.stream_of(dev))
     _build.check(lib, rc, "embed_grid_flat")
@@ -135,6 +142,7 @@ def embed_grid_flat_bwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
         return embed_grid_flat_bwd_plain(x_f, w0, b0, w1, b1, ln_scale,
                                          ln_bias, batch_size, d_out, need_dx)
     dev = _build.require_cuda(x_f)
+    _build.require_bwd_width(w1.shape[-1], "embed_grid_flat_bwd")
     N, W_in = x_f.shape
     d_in = w0.shape[0]
     _build.expect(W_in == batch_size * d_in and d_in <= MAX_D_IN, "x_f",

@@ -37,6 +37,12 @@ enc_w0 pair takes the bf16 grid_emb_f as it is, and the o_w1 pair a
 widened copy of d_out (its D must be fp32; the JAX kernel widens d_out
 as it reads it). `grid_update_flat.launches_bf16` and
 `grid_update_flat_bwd.launches_bf16` count the bf16 instances' launches.
+
+Widths: the forward kernel takes h = w2's width at every width it is
+built for (`_build.WIDTHS`: 32, 64, 128), from that width's library, and
+any output width d_out; any other h raises on a CUDA tensor. The backward
+kernel is built for h = 64 and d_out <= 64 only and raises otherwise on a
+CUDA tensor. The plain versions take any width.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ import torch.nn.functional as F
 from . import _build, library, weight_grad
 from .mlp import grads_through, layer_norm
 
-HID = 64
+HID = 64  # the backward kernel's hidden width
+BWD_MAX_D_OUT = 64  # the backward kernel's widest output map
 
 _P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {"nlt_grid_update": [_P] * 7 + [_I] * 6 + [_P],
@@ -67,8 +74,8 @@ _VECS = ("enc_b0", "enc_b1", "enc_ls", "enc_lb", "b2", "e_ls", "e_lb",
 _KEYS = _MATS + _VECS + ("o_w1", "o_b1")
 
 
-def _lib():
-    return _build.library("grid_update", _SIGNATURES)
+def _lib(h):
+    return _build.library("grid_update", _SIGNATURES, h)
 
 
 def _bwd_lib():
@@ -166,21 +173,24 @@ def grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p, pp):
 
 
 def _check(table, senders, ew, grid_emb_f, mask_p, pp):
+    """K4's and B5/B6's shapes (any d_out >= 1); returns their instance's
+    dtype and h, a built width."""
     n_virt, K = mask_p.shape
     W = table.shape[1]
     d_out = pp["o_w1"].shape[1]
-    _build.expect(W % HID == 0 and ew.shape == (n_virt * K, HID), "ew",
+    h = _build.require_width(pp["w2"].shape[-1], "grid_update_flat")
+    _build.expect(W % h == 0 and ew.shape == (n_virt * K, h), "ew",
                   ew.shape)
     _build.expect(grid_emb_f.dim() == 2 and grid_emb_f.shape[1] == W
                   and grid_emb_f.shape[0] <= n_virt, "grid_emb_f",
                   grid_emb_f.shape)
     _build.expect(senders.shape == (n_virt * K,), "senders", senders.shape)
-    _build.expect(1 <= d_out <= 64, "d_out", d_out)
+    _build.expect(d_out >= 1, "d_out", d_out)
     for name in _MATS:
-        rows = 2 * HID if name == "a_w0" else HID
-        _build.expect(pp[name].shape == (rows, HID), name, pp[name].shape)
-    _build.expect(pp["o_w1"].shape[0] == HID, "o_w1", pp["o_w1"].shape)
-    return _build.io_dtype("table", table)
+        rows = 2 * h if name == "a_w0" else h
+        _build.expect(pp[name].shape == (rows, h), name, pp[name].shape)
+    _build.expect(pp["o_w1"].shape[0] == h, "o_w1", pp["o_w1"].shape)
+    return _build.io_dtype("table", table), h
 
 
 def _blob(pp):
@@ -191,9 +201,9 @@ def _blob(pp):
 def _grid_cuda(table, senders, ew, grid_emb_f, mask_p, params):
     dev = _build.require_cuda(table)
     pp = dict(zip(_KEYS, params))
-    dt = _check(table, senders, ew, grid_emb_f, mask_p, pp)
+    dt, h = _check(table, senders, ew, grid_emb_f, mask_p, pp)
     n_virt, K = mask_p.shape
-    B = table.shape[1] // HID
+    B = table.shape[1] // h
     d_out = pp["o_w1"].shape[1]
     blob = _blob(pp)
     out = torch.empty((n_virt, B * d_out), device=dev, dtype=dt)
@@ -203,7 +213,7 @@ def _grid_cuda(table, senders, ew, grid_emb_f, mask_p, params):
                            ("grid_emb_f", grid_emb_f, dt),
                            ("mask_p", mask_p, f32), ("params", blob, f32),
                            ("out", out, dt))
-    lib = _lib()
+    lib = _lib(h)
     fn = (lib.nlt_grid_update_bf16 if dt == torch.bfloat16
           else lib.nlt_grid_update)
     rc = fn(*ptrs, n_virt, grid_emb_f.shape[0], K, B, d_out, dev.index,
@@ -275,11 +285,11 @@ _PAIRS = (("enc_w0", "ge", "dt1p"), ("enc_w1", "t1", "dt2"),
 
 def _weight_pairs(node, slot, grid_emb_f, d_out, B):
     """The (X, D) pairs of `_PAIRS`, as views of the chain's scratch
-    (node (12, n_virt*B, 64), slot (2, n_virt*K*B, 64)) and the inputs;
+    (node (12, n_virt*B, h), slot (2, n_virt*K*B, h)) and the inputs;
     ge's pair over grid_emb_f's real rows only (a bf16 grid_emb_f as it
     is), dout's on d_out widened to fp32."""
     rows = dict(zip(_NODE + _SLOT, [*node, *slot]),
-                ge=grid_emb_f.view(-1, HID),
+                ge=grid_emb_f.view(-1, grid_emb_f.shape[1] // B),
                 dout=d_out.float().reshape(-1, d_out.shape[1] // B))
     return [(rows[x], rows[d][:rows[x].shape[0]]) for _, x, d in _PAIRS]
 
@@ -292,7 +302,8 @@ def grid_update_bwd_chain_plain(table, senders, ew, grid_emb_f, mask_p, pp,
     with its intermediates kept; d_x0, d_ew and d_grid_emb_f in their
     inputs' dtypes, each rounded once."""
     n_virt, K = mask_p.shape
-    B = table.shape[1] // HID
+    h = ew.shape[-1]
+    B = table.shape[1] // h
     vec_keys = _VECS + ("o_b1",)
     with torch.enable_grad():
         leaves = [t.detach().float().requires_grad_() for t in (
@@ -309,8 +320,8 @@ def grid_update_bwd_chain_plain(table, senders, ew, grid_emb_f, mask_p, pp,
             out, leaves + [act[k] for k in grad_of.values()]
             + [vecs[k] for k in vec_keys], d_out.float().reshape(out.shape))
     rows = dict(act, **dict(zip(grad_of, grads[3:])))
-    node = [rows[k].detach().reshape(-1, HID) for k in _NODE]
-    slot = [rows[k].detach().reshape(-1, HID) for k in _SLOT]
+    node = [rows[k].detach().reshape(-1, h) for k in _NODE]
+    slot = [rows[k].detach().reshape(-1, h) for k in _SLOT]
     return (grads[0].to(table.dtype), grads[1].to(ew.dtype),
             grads[2].to(grid_emb_f.dtype),
             dict(zip(vec_keys, grads[3 + len(grad_of):])),
@@ -327,11 +338,17 @@ def grid_update_bwd_chain(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
         return grid_update_bwd_chain_plain(table, senders, ew, grid_emb_f,
                                            mask_p, pp, d_out)
     dev = _build.require_cuda(table)
+    _build.require_bwd_width(pp["w2"].shape[-1], "grid_update_flat_bwd")
     _check(table, senders, ew, grid_emb_f, mask_p, pp)
     n_virt, K = mask_p.shape
     W = table.shape[1]
     B = W // HID
     d_o = pp["o_w1"].shape[1]
+    if d_o > BWD_MAX_D_OUT:
+        raise ValueError(
+            f"grid_update_flat_bwd: the backward kernel takes an output map "
+            f"of at most {BWD_MAX_D_OUT} columns, not {d_o} (ROADMAP.md "
+            "item 8c)")
     _build.expect(d_out.shape == (n_virt, B * d_o), "d_out", d_out.shape)
     dt = _build.io_dtype("table", table)
     params = _blob(pp)

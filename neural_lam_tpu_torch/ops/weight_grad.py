@@ -248,6 +248,8 @@ def xtd_sum(pairs):
     x0 = pairs[0][0]
     if x0.device.type == "cpu":
         return xtd_sum_plain(pairs)
+    for x, _ in pairs:
+        _build.require_bwd_width(x.shape[-1], "xtd_sum")
     blocks = n_blocks([x.shape[0] for x, _ in pairs], _build.require_cuda(x0))
     partial, pair_first = xtd_partials(pairs, blocks)
     return xtd_reduce(partial, pair_first, [d.shape[1] for _, d in pairs],

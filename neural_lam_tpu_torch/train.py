@@ -112,6 +112,7 @@ from .ensemble import evaluate_ensemble, spread_skill_ratio, step_generator
 from .graph.storage import load_or_build_graph
 from .models import MODELS
 from .models.ar_model import ModelArgs
+from .ops import _build
 from .parallel import distributed as dist
 from .parallel.collectives import reduce_gradients
 from .parallel.grid_sharded import check_scheme, spatialize_scheme
@@ -1000,6 +1001,11 @@ def main(input_args=None):
               f"backend {dist.world().backend}", flush=True)
     else:
         device = resolve_device(args.device)
+    if (args.eval is None and device.type == "cuda"
+            and args.hidden_layers == 1):
+        # kernel MLPs (`message_passing.kernel_mlp`): the backward kernels
+        # exist at width 64 only, so fail before the first step
+        _build.require_bwd_width(args.hidden_dim, "train.py --hidden_dim")
     mesh = make_mesh(n_space=n_space)
     if multihost:
         # the global batch: each data group reads --batch_size rows
