@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass (any failure exits non-zero, and no
-result line is printed), each printing its seconds:
+result line is printed), each printing its seconds (every torch.profiler
+breakdown below traces one call after a warm-up call):
 
 1. Build every CUDA kernel of the forecast and training paths from `csrc/`
    with nvcc (one process per source and hidden width, all started
-   together: the forward sources at widths 32, 64 and 128, the backward
-   sources at 64); print the build time and each library's ptxas
+   together: every source at widths 32, 64 and 128); print the build time
+   and each library's ptxas
    registers and spills (and, at width 64, per kernel
    for K1's three (d_in up to 64, up to 128, above), K2's, K3's, P1's,
    P2's and P3's per K, with the registers and spill of K2/K3/P1/P2/P3's
@@ -40,7 +41,8 @@ result line is printed), each printing its seconds:
    multiple of 16; K3 also at HiLAM's K=1 down[0] and non-identity up[0]
    sets (batch 4); K2, K3 and K4 (batch 4) and P1 and P2 (with and
    without messages) and P3 (batch 1 and 4) at every K from 1 to 8 on
-   seeded local graphs (K = 3, 5, 6, 7 do not divide their 16-row tiles);
+   seeded local graphs (K = 3, 5, 6, 7 do not divide their 16-row tiles;
+   each K held, not timed);
    K4 also at HiLAM's batch-4 m2g; P1-P3 (the batched route) at HiLAM's
    batch-1 shapes (P3 on m2m[0], P2 on m2g with and without messages and
    on g2m, P1 on down[0], down[1] and down[2] with and without messages)
@@ -55,15 +57,18 @@ result line is printed), each printing its seconds:
    it) and its products as `torch.mm` calls its library time; B3/B4 also
    at HiLAM's K=1 down[0] and folded up[0] sets (batch 4); B2, B3/B4 and
    B5/B6 also at every K from 1 to 8 on phase 3's seeded local graphs
-   (batch 4). B2, B3/B4 and B5/B6 run in two passes, a chain kernel and `xtd_sum` (the weight
+   (batch 4; held, not timed). B2, B3/B4 and B5/B6 run in two passes, a chain kernel and `xtd_sum` (the weight
    gradients): both passes' device times are printed apart, with their
-   sum. `xtd_sum` is also held against
+   sum, and their bound is max(the bytes of their inputs and outputs,
+   no scratch; the chain's two thirds of the FLOP on fp32 CUDA cores
+   plus the weight gradients' third as 3xTF32 on tensor cores, `ops_ms`).
+   `xtd_sum` is also held against
    `xtd_sum_plain` at the decoder's nine pairs, at B3/B4's two and at
    B2's one (same limit; two calls must give bit-identical outputs), with
    `torch.mm(X.t(), D)` over the same pairs timed as its library call,
    and swept over its blocks per SM at all three (1 up to what is resident,
-   each value checked against `xtd_sum_plain`, then timed in three
-   interleaved rounds); its reduce kernel (`xtd_reduce`) is held against
+   each value checked against `xtd_sum_plain`, then timed once); its
+   reduce kernel (`xtd_reduce`) is held against
    `xtd_reduce_plain` at the decoder's partials, with one `index_add`
    of the same partials into their pairs' rows timed as its library
    call.
@@ -209,9 +214,10 @@ result line is printed), each printing its seconds:
    0.1% not bit-equal, fp32 gradients within 1e-4 + 1e-4 * max|plain|;
    at the main-path shapes each is timed with its fp32 instance on the
    same values widened, its plain version and (xtd_sum, B1) its products
-   as torch calls, beside its bound (bf16 bytes, or operations: fp32 for
-   the chains, TF32 products on tensor cores for B1 and xtd_sum, two a
-   term where the A operand is a staged bf16 value). b. One AdamW step of
+   as torch calls, beside its bound (bf16 bytes, no scratch, or
+   operations: a chain's two thirds fp32 and its weight gradients' third
+   TF32, TF32 products on tensor cores for B1 and xtd_sum, two a term
+   where the A operand is a staged bf16 value). b. One AdamW step of
    the bf16 bench GraphLAM and HiLAM at batch 4 through
    `entry.train_steps`, the counters at 0 just before it: phase 7's
    launches on the bf16 counters (P1 fp32; B2's `xtd_sum` launch fp32,
@@ -413,11 +419,35 @@ result line is printed), each printing its seconds:
    port writes at --hidden_dim 128: `predict.main` for GraphLAM and
    HiLAM (`forecast_check`) and GraphLAM `--precision bf16`, and
    `train.main --eval val` against the plain path (1e-4 relative). d.
-   Width 48 raises in K1, K2, K4 and P2 (naming the built widths),
-   training at 128 (`train.main`) and the decoder's backward at 128
-   raise naming ROADMAP.md item 8c, with no launch. Its records are
+   Width 48 raises in K1, K2, K4 and P2, in every backward wrapper (B1,
+   B2, B3/B4, B5/B6, xtd_sum) and in training (`train.main`, before its
+   first step), naming the built widths, with no launch. Its records are
    named `<kernel>[bf16]@h<width>`, their launches those of 19c's runs
    (P2 at 128 runs on no bench path: every static set is flat there).
+
+20. The backward kernels at hidden widths 32 and 128 (each backward
+   source built once per width in phase 1). a. Each width-32 and
+   width-128 backward instance's ptxas registers and spill. b. At each
+   width, the bench GraphLAM and 4-level HiLAM built at that width: B1
+   (the training step's call), B2 (g2m), B3/B4 (m2m[0]), B5/B6 (m2g),
+   xtd_sum (the decoder's nine pairs) and xtd_reduce (their partials) at
+   GraphLAM's batch-4 training-step shapes, fp32 and bf16, against their
+   plain versions (fp32 every tensor within 1e-4 + 1e-4 * max|plain|,
+   bf16 outputs one bf16 ulp), two calls bit-identical, each timed beside
+   its plain version, its weight-gradient products as `torch.mm` (TF32
+   off) and its bound (as phase 12's); B3/B4 at HiLAM's m2m[0] and B5/B6 at its m2g held
+   too. B1 at d_in 160 (x in column chunks) at 32, 64 and 128, with and
+   without dx, and B5/B6 at output maps wider than the width (d_out 80
+   and 200 at 64, 34 at 32, 160 at 128), fp32 and bf16. c. `train.main`
+   for GraphLAM and HiLAM at batch 4, fp32 and `--precision bf16`, 4
+   AdamW steps each at 32 and 128 on a 268x238 MDP datastore, every
+   counter at 0 just before each step: launches a step equal to
+   `train_tables`'s (from `step_table`'s routes); the first step's
+   gradients on the same weights and batch, fp32 kernels vs plain within
+   1e-3 of each parameter's max abs, bf16 by phase 12's error size; per
+   step host ms and peak device memory, the last step's device busy ms (a
+   device-only profile). Its records are named `<kernel>[bf16]@h<width>`,
+   their launches those of 20c's steps.
 
 The last three lines are the `kernels` JSON, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}.
@@ -578,40 +608,53 @@ def unique_nbytes(tensors):
     return nbytes(*{(t.data_ptr(), t.numel()): t for t in tensors}.values())
 
 
-def xtd_sweep(torch, weight_grad, pairs, what, rounds=3):
+def wgrad_tf32(pairs, slot_rows=0, real_share=1.0):
+    """TF32 FLOP of xtd_sum's 3xTF32 products over `pairs`: three TF32
+    products a term, two where X is bf16; a pair whose X has `slot_rows`
+    rows (an edge set's slots, masked ones among them) at `real_share` of
+    its rows, the edges this run's mask holds. X is fp32 or bf16."""
+    return sum((2 if x.element_size() == 2 else 3) * 2.0 * x.shape[0]
+               * x.shape[1] * d.shape[1]
+               * (real_share if x.shape[0] == slot_rows else 1.0)
+               for x, d in pairs)
+
+
+def ops_ms(ops, peak_flops, peak_tf32):
+    """The operations bound in ms of ops = (fp32 FLOP on CUDA cores, TF32
+    FLOP on tensor cores), run one after the other: a backward kernel's
+    chain pass (two products a forward product, fp32) and its xtd_sum pass
+    (the third, `wgrad_tf32`)."""
+    return 1e3 * (ops[0] / peak_flops + ops[1] / peak_tf32)
+
+
+def xtd_sweep(torch, weight_grad, pairs, what):
     """xtd_sum's two kernels at each count of blocks per SM from 1 up to
     what is resident, on `pairs` (`what` names them): each held against
-    xtd_sum_plain (1e-4 + 1e-4 * max|plain|), then timed in `rounds`
-    interleaved rounds (queued, 10 calls each); prints each value's grid,
-    segments, times and median."""
+    xtd_sum_plain (1e-4 + 1e-4 * max|plain|), then timed once (queued, 10
+    calls); prints each value's grid, segments and time."""
     dev = pairs[0][0].device
     ns = [x.shape[0] for x, _ in pairs]
     widths = [d.shape[1] for _, d in pairs]
-    resident = weight_grad._occupancy(dev)[1]
+    h = pairs[0][0].shape[1]
+    resident = weight_grad._occupancy(dev, h)[1]
     values = range(1, resident + 1)
 
     def run(v):
         return weight_grad.xtd_reduce(*weight_grad.xtd_partials(
-            pairs, weight_grad.n_blocks(ns, dev, v)), widths)
+            pairs, weight_grad.n_blocks(ns, dev, h, v)), widths, h)
 
     want = weight_grad.xtd_sum_plain(pairs)
     for v in values:
         for a, b in zip(run(v), want):
             if not bool(((a - b).abs() <= 1e-4 + 1e-4 * b.abs().max()).all()):
                 fail(f"xtd_sum at {v} blocks per SM disagrees with plain")
-    times = {v: [] for v in values}
-    for _ in range(rounds):
-        for v in values:
-            times[v].append(cuda_ms(torch, lambda: run(v), 10))
     print(f"xtd_sum blocks per SM at {what} (shipped: "
-          f"{weight_grad.BLOCKS_PER_SM}; {resident} resident; {rounds} "
-          "interleaved rounds, ms):")
-    for v, ts in times.items():
-        blocks = weight_grad.n_blocks(ns, dev, v)
+          f"{weight_grad.BLOCKS_PER_SM}; {resident} resident; ms):")
+    for v in values:
+        ms = cuda_ms(torch, lambda: run(v), 10)
+        blocks = weight_grad.n_blocks(ns, dev, h, v)
         n_seg = len(weight_grad.segments(ns, blocks))
-        print(f"  {v}: {blocks} blocks, {n_seg} segments; "
-              f"{', '.join(f'{t:.4f}' for t in ts)}; median "
-              f"{sorted(ts)[len(ts) // 2]:.4f}")
+        print(f"  {v}: {blocks} blocks, {n_seg} segments; {ms:.4f}")
 
 
 def read_yardstick(torch, pairs, what):
@@ -682,8 +725,29 @@ def as_tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def profile(torch, step, what, steps=3, top=12, cpu=True):
-    """Device time by kernel over `steps` calls of `step` (torch.profiler),
+def kernel_rows(torch, prof):
+    """(device us, calls, name) of each kernel in a torch.profiler trace,
+    largest first: device-side kernel events only (a host op's row, and a
+    user annotation's device range, e.g. "Optimizer.step#AdamW.step",
+    repeat the time of the kernels inside them; kernel names may hold "#"
+    too, as in "{lambda(float)#1}")."""
+    def dev_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+    def annotation(e):
+        return (getattr(e, "is_user_annotation", False)
+                or re.fullmatch(r"[\w.]+#[\w.]+", e.key) is not None)
+
+    return sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not annotation(e) and dev_us(e) > 0), reverse=True)
+
+
+def profile(torch, step, what, steps=1, top=12, cpu=True):
+    """Device time by kernel over `steps` calls of `step` (torch.profiler;
+    one call after a warm-up by default, which keeps the script inside
+    its time limit),
     and the device's busy share of the profiled window's wall time (the
     profiler's own host overhead lengthens that window; `cpu=False` traces
     the device alone, which costs the host less). Prints the seconds the
@@ -705,21 +769,7 @@ def profile(torch, step, what, steps=3, top=12, cpu=True):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
-    def dev_us(e):
-        v = getattr(e, "self_device_time_total", None)
-        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
-
-    # device-side kernel events only: a host op's row, and a user
-    # annotation's device range (e.g. "Optimizer.step#AdamW.step"), repeat
-    # the time of the kernels inside them (kernel names may hold "#" too,
-    # as in "{lambda(float)#1}")
-    def annotation(e):
-        return (getattr(e, "is_user_annotation", False)
-                or re.fullmatch(r"[\w.]+#[\w.]+", e.key) is not None)
-
-    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not annotation(e) and dev_us(e) > 0), reverse=True)
+    rows = kernel_rows(torch, prof)
     if not rows:
         print(f"profile of {what}: the profiler recorded no device time "
               "(device busy share not measured)")
@@ -2227,13 +2277,15 @@ def bf16_bwd_cases(torch, gm, rand):
     cotangents from `rand`: B1 at the training step's call (no dx) and
     with dx, B2 at g2m, B3/B4 at m2m[0], B5/B6 at m2g, and `xtd_sum` at
     B3/B4's and the decoder's pairs (from the bf16 chains). Each is
-    (kernel, module, args, replaces, source, bytes, FLOP, TF32 FLOP on
-    tensor cores (None: fp32 CUDA cores), library call or None). Bytes:
-    each input read and each output written once, in its dtype (B2's
-    fp32 X1 and DY scratch written once, as in phase 4); a 3xTF32 product
-    takes three TF32 products a term, two where its A operand is a staged
-    bf16 value (B1's t0 = x W0 and dW0 = x^T dt0, xtd_sum's bf16-X
-    pairs)."""
+    (kernel, module, args, replaces, source, bytes, FLOP, ops (fp32 FLOP
+    on CUDA cores, TF32 FLOP on tensor cores; `ops_ms`), library call or
+    None). Bytes: each input read and each output written once, in its
+    dtype (no scratch). Ops: B1's and xtd_sum's products on tensor cores;
+    a chain pass's two products a forward product on CUDA cores, its
+    weight gradients as its xtd_sum pass runs them (`wgrad_tf32`); a
+    3xTF32 product takes three TF32 products a term, two where its A
+    operand is a staged bf16 value (B1's t0 = x W0 and dW0 = x^T dt0,
+    xtd_sum's bf16-X pairs)."""
     from neural_lam_tpu_torch.ops import (
         edge_flat,
         embed,
@@ -2274,8 +2326,8 @@ def bf16_bwd_cases(torch, gm, rand):
             nbytes(x1, d1, *par1) + nbytes(*par1)
             + (nbytes(x1) if need_dx else 0),
             2.0 * rows * ((3 if need_dx else 2) * d_in * H + 3 * H * H),
-            2.0 * rows * (2 * 2 * d_in * H + 3 * 3 * H * H
-                          + (3 * d_in * H if need_dx else 0)), lib))
+            (0.0, 2.0 * rows * (2 * 2 * d_in * H + 3 * 3 * H * H
+                                + (3 * d_in * H if need_dx else 0))), lib))
     # B2 at g2m
     es = g.g2m
     nv, K = es.num_virt, es.dense_k
@@ -2288,12 +2340,13 @@ def bf16_bwd_cases(torch, gm, rand):
     # products, one torch.mm(X.float().t(), D) a pair of their bf16 chain
     # pass, as the fp32 column's (phase 4's xtd_sum cases)
     b2_pairs = edge_flat.edge_tail_bwd_chain(*a2)[4]
+    real = float(mask_p.sum())
+    fwd = 2.0 * real * BATCH * H * H
     cases.append((
         "edge_tail_sum_flat_bwd", edge_flat, a2, f"{pef}:526",
         csrc + "edge_flat_bwd.cu",
-        nbytes(*a2) + M * (W + H) * 2 + nv * W * 2 + nbytes(*tail)
-        + 2 * M * W * 4,
-        3 * 2.0 * float(mask_p.sum()) * BATCH * H * H, None,
+        nbytes(*a2) + M * (W + H) * 2 + nv * W * 2 + nbytes(*tail),
+        3 * fwd, (2 * fwd, wgrad_tf32(b2_pairs, M * BATCH, real / M)),
         lambda: [torch.mm(x.float().t(), d) for x, d in b2_pairs]))
     # B3/B4 at m2m[0]
     es = g.m2m[0]
@@ -2305,11 +2358,12 @@ def bf16_bwd_cases(torch, gm, rand):
     a3 = (rand(M, W), rand(es.num_send, W), es.senders, rand(nv, W),
           mask_p) + par3 + (rand(M, W), rand(nv, W))
     b3_pairs = edge_flat.edge_layer_bwd_chain(*a3)[4]
+    fwd = 2.0 * M * BATCH * 2 * H * H
     cases.append((
         "edge_layer_flat_bwd", edge_flat, a3, f"{pef}:846",
         csrc + "edge_flat_bwd.cu",
         nbytes(*a3) + 2 * M * W * 2 + nv * W * 2 + nbytes(*par3),
-        3 * 2.0 * M * BATCH * 2 * H * H, None,
+        3 * fwd, (2 * fwd, wgrad_tf32(b3_pairs)),
         lambda: [torch.mm(x.float().t(), d) for x, d in b3_pairs]))
     # B5/B6 at m2g
     es = g.m2g
@@ -2321,13 +2375,15 @@ def bf16_bwd_cases(torch, gm, rand):
     a5 = (rand(es.num_send, W), es.senders, rand(nv * K, H),
           rand(n_grid, W), mask_p, pp, rand(nv, BATCH * d_out))
     dec_pairs = grid_update.grid_update_bwd_chain(*a5)[4]
+    real = float(mask_p.sum())
+    fwd = (2.0 * nv * BATCH * (7 * H * H + H * d_out)
+           + 2.0 * real * BATCH * H * H)
     cases.append((
         "grid_update_flat_bwd", grid_update, a5, f"{pgu}:752",
         csrc + "grid_update_bwd.cu",
         nbytes(*a5[:5], a5[6], *pp.values()) + nv * K * (W + H) * 2
-        + n_grid * W * 2 + nbytes(*pp.values()),
-        3 * (2.0 * nv * BATCH * (7 * H * H + H * d_out)
-             + 2.0 * float(mask_p.sum()) * BATCH * H * H), None,
+        + n_grid * W * 2 + nbytes(*pp.values()), 3 * fwd,
+        (2 * fwd, wgrad_tf32(dec_pairs, nv * K * BATCH, real / (nv * K))),
         lambda: [torch.mm(x.float().t(), d) for x, d in dec_pairs]))
     for pairs, label in ((b3_pairs, f"{pef}:846 (B3/B4's two pairs at "
                           "m2m[0], dW_e's X bf16)"),
@@ -2341,8 +2397,7 @@ def bf16_bwd_cases(torch, gm, rand):
             unique_nbytes([t for p in pairs for t in p])
             + sum(H * d.shape[1] * 4 for _, d in pairs),
             sum(2.0 * x.shape[0] * H * d.shape[1] for x, d in pairs),
-            sum((2 if x.dtype == bf else 3) * 2.0 * x.shape[0] * H
-                * d.shape[1] for x, d in pairs),
+            (0.0, wgrad_tf32(pairs)),
             lambda pairs=pairs: [torch.mm(x.float().t(), d)
                                  for x, d in pairs]))
     return cases
@@ -2371,7 +2426,7 @@ def bf16_bwd_phase(torch, np, gm, counts_bf16, records, peak_flops,
 
     # a. the bf16 backward instances at the main-path shapes ...
     with torch.no_grad():
-        for (name, mod, args, replaces, source, bytes_, flops, tf32,
+        for (name, mod, args, replaces, source, bytes_, flops, ops,
              lib) in bf16_bwd_cases(torch, gm, rand):
             share, err = bf16_bwd_check(torch, counts_bf16, name, mod, args,
                                         "its main-path shape")
@@ -2382,8 +2437,7 @@ def bf16_bwd_phase(torch, np, gm, counts_bf16, records, peak_flops,
             plain_ms = cuda_ms(torch, lambda: plain(*args), 3)
             lib_ms = None if lib is None else cuda_ms(torch, lib, 10)
             t_bytes = bytes_ / peak_bw * 1e3
-            t_ops = 1e3 * (tf32 / peak_tf32 if tf32 is not None
-                           else flops / peak_flops)
+            t_ops = ops_ms(ops, peak_flops, peak_tf32)
             bound = max(t_bytes, t_ops)
             print(f"{name} [bf16] at {replaces}: bf16 outputs within one "
                   f"bf16 ulp of its plain version ({share:.5f} not "
@@ -2394,10 +2448,9 @@ def bf16_bwd_phase(torch, np, gm, counts_bf16, records, peak_flops,
                   f"{plain_ms:.4f} ms, library "
                   + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
                   + f", bound {bound:.4f} ms (bytes {bytes_ / 1e6:.1f} MB: "
-                  f"{t_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP"
-                  + (f" as {tf32 / flops:.2f} TF32 products a term on "
-                     "tensor cores" if tf32 is not None else " fp32")
-                  + f": {t_ops:.4f} ms)")
+                  f"{t_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP as "
+                  f"{ops[0] / 1e9:.2f} fp32 and {ops[1] / 1e9:.2f} TF32: "
+                  f"{t_ops:.4f} ms)")
             if "(with dx)" in replaces or (
                     name == "xtd_sum" and "decoder" not in replaces):
                 continue  # printed, not recorded
@@ -2646,10 +2699,10 @@ PORT_KERNELS = ("embed_kernel", "embed_bwd_kernel", "edge_tc_kernel",
                 "xtd_sum_kernel", "xtd_reduce_kernel")
 
 
-def step_stats(torch, trainer, batch, what, n=5, prof_steps=2):
+def step_stats(torch, trainer, batch, what, n=5):
     """(host ms, the median of n synchronised training steps after one,
     peak memory above the live set in bytes, device busy ms a step from a
-    profile of prof_steps steps, or None) of `trainer` on `batch`."""
+    profile of one step, or None) of `trainer` on `batch`."""
     trainer.train_step(batch)
     torch.cuda.synchronize()
     live = torch.cuda.memory_allocated()
@@ -2662,8 +2715,8 @@ def step_stats(torch, trainer, batch, what, n=5, prof_steps=2):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     above = torch.cuda.max_memory_allocated() - live
-    prof = profile(torch, lambda: trainer.train_step(batch), what,
-                   steps=prof_steps, top=6, cpu=False)
+    prof = profile(torch, lambda: trainer.train_step(batch), what, top=6,
+                   cpu=False)
     return sorted(times)[n // 2] * 1e3, above, prof[0] if prof else None
 
 
@@ -2681,7 +2734,7 @@ def remat_phase(torch, counts, counts_bf16, reset_counts):
         return dict(counts(), **{k + "[bf16]": n
                                  for k, n in counts_bf16().items()})
 
-    def case(net, ds, ar, what, n, prof_steps):
+    def case(net, ds, ar, what):
         """Both ways on the same weights and batch: (loss, launches,
         gradients) each, with their step stats printed."""
         trainer, dm = entry.make_trainer(net, ds, BATCH, ar, seed=0)
@@ -2701,11 +2754,10 @@ def remat_phase(torch, counts, counts_bf16, reset_counts):
             tag = "remat" if remat else "no remat"
             net.args = dataclasses.replace(net.args, remat=remat)
             host, above, busy = step_stats(
-                torch, trainer, batch, f"{what} {tag} train step", n,
-                prof_steps)
+                torch, trainer, batch, f"{what} {tag} train step", 3)
             stats.append(f"{tag}: busy "
                          f"{'not measured' if busy is None else f'{busy:.3f}'}"
-                         f" ms, host {host:.3f} ms (median of {n}), peak "
+                         f" ms, host {host:.3f} ms (median of 3), peak "
                          f"{above / 2**30:.3f} GiB above the live set")
             out[remat] = (loss, got, grads)
             net.zero_grad(set_to_none=True)
@@ -2740,13 +2792,13 @@ def remat_phase(torch, counts, counts_bf16, reset_counts):
 
     t0 = time.time()
     gm, gds = entry.build_model(**BENCH, device="cuda")
-    g0, g1 = case(gm, gds, 4, "GraphLAM fp32", 3, 2)
+    g0, g1 = case(gm, gds, 4, "GraphLAM fp32")
     fp32_check(g0, g1, "GraphLAM fp32")
     del g1
     print(f"phase 13a, GraphLAM fp32: {time.time() - t0:.1f} s")
     gm16 = copy.copy(gm)  # the same weights on the bf16 path
     gm16.compute_dtype = torch.bfloat16
-    k0, k1 = case(gm16, gds, 4, "GraphLAM bf16", 3, 2)
+    k0, k1 = case(gm16, gds, 4, "GraphLAM bf16")
     scale = {k: float(v.abs().max()) or 1.0 for k, v in g0.items()}
 
     def vec(gr):
@@ -2762,7 +2814,7 @@ def remat_phase(torch, counts, counts_bf16, reset_counts):
     torch.cuda.empty_cache()
     print(f"phase 13a, GraphLAM bf16: {time.time() - t0:.1f} s")
     hm, hds = entry.build_model(**BENCH, device="cuda", model="hi_lam")
-    h0, h1 = case(hm, hds, 2, "HiLAM fp32", 3, 1)
+    h0, h1 = case(hm, hds, 2, "HiLAM fp32")
     fp32_check(h0, h1, "HiLAM fp32")
     del hm, hds, h0, h1
     gc.collect()
@@ -5039,15 +5091,9 @@ def export_phase(torch, np, counts, counts_bf16, reset_counts):
 NEW_WIDTHS = (32, 128)  # phase 19's hidden widths beside 64
 
 
-def width_build(_build):
-    """19a: the forward libraries at widths 32 and 128 (one nvcc per
-    source and width, all started together; from `main` phase 1 has built
-    them already), their seconds, and each kernel instance's ptxas
-    registers and spill."""
-    t0 = time.time()
-    libs = _build.build_all(_build.FORWARD, widths=NEW_WIDTHS)
-    print(f"phase 19a: {len(libs)} forward libraries at widths "
-          f"{NEW_WIDTHS} ready in {time.time() - t0:.1f} s")
+def usage_lines(_build, libs):
+    """Each kernel instance's ptxas registers and spill in the build logs
+    of `libs` (build_all's keys)."""
     for key in libs:
         log = _build.build_log(key)
         found = re.findall(r"Compiling entry function '(\w+)'.*?\n(.*?Used "
@@ -5062,14 +5108,27 @@ def width_build(_build):
                   "bytes of spill")
 
 
-def fp32_check(torch, counts, name, mod, args, what):
+def width_build(_build):
+    """19a: the forward libraries at widths 32 and 128 (one nvcc per
+    source and width, all started together; from `main` phase 1 has built
+    them already), their seconds, and each kernel instance's ptxas
+    registers and spill."""
+    t0 = time.time()
+    libs = _build.build_all(_build.FORWARD, widths=NEW_WIDTHS)
+    print(f"phase 19a: {len(libs)} forward libraries at widths "
+          f"{NEW_WIDTHS} ready in {time.time() - t0:.1f} s")
+    usage_lines(_build, libs)
+
+
+def fp32_check(torch, counts, name, mod, args, what, per_tensor=False):
     """The fp32 instance of kernel `name` (in `mod`) against its plain
-    version within 1e-4 + 1e-4 * |plain| (phase 3's limit), two calls
-    bit-identical; returns the max abs error."""
+    version within 1e-4 + 1e-4 * |plain| (phase 3's limit; `per_tensor`:
+    within 1e-4 + 1e-4 * each output tensor's max |plain|, phase 4's),
+    two calls bit-identical; returns the max abs error."""
     kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
     before = counts()[name]
-    got, again = as_tuple(kern(*args)), as_tuple(kern(*args))
-    want = as_tuple(plain(*args))
+    got, again = flat_outputs(kern(*args)), flat_outputs(kern(*args))
+    want = flat_outputs(plain(*args))
     torch.cuda.synchronize()
     if counts()[name] != before + 2:
         fail(f"{name} at {what}: its kernel did not run")
@@ -5083,7 +5142,8 @@ def fp32_check(torch, counts, name, mod, args, what):
         if a.shape != b.shape or not torch.isfinite(a).all():
             fail(f"{name} at {what}: bad output {tuple(a.shape)}")
         gap = (a - b).abs()
-        if not bool((gap <= 1e-4 + 1e-4 * b.abs()).all()):
+        scale = b.abs().max() if per_tensor else b.abs()
+        if not bool((gap <= 1e-4 + 1e-4 * scale).all()):
             fail(f"{name} at {what}: kernel and plain disagree, max abs err "
                  f"{float(gap.max()):.3e}")
         err = max(err, float(gap.max()))
@@ -5418,28 +5478,37 @@ def width_cli_phase(torch, np, counts, counts_bf16, reset_counts,
         if not (math.isfinite(v) and abs(v - w) <= 1e-4 * abs(w)):
             fail("train.main --eval val --hidden_dim 128: kernels and plain "
                  "path disagree")
-        # training at 128 on the card raises before its first step
+        # training at 48 (no library) on the card raises before its first
+        # step, naming the built widths
         reset_counts()
+        argv48 = [a if a != "128" else "48" for a in val_argv[:-2]]
         try:
-            quiet(train.main, val_argv[:-2] + ["--epochs", "1",
-                                               "--run_name", "train128"])
+            quiet(train.main, argv48 + ["--epochs", "1", "--run_name",
+                                        "train48"])
         except ValueError as e:
-            if "8c" not in str(e):
-                fail(f"train.main --hidden_dim 128: raised {e!r}, which does "
-                     "not name ROADMAP.md item 8c")
-            print(f"train.main --hidden_dim 128 (training) raises: {e}")
+            if "32, 64, 128" not in str(e):
+                fail(f"train.main --hidden_dim 48: raised {e!r}, which does "
+                     "not name the built widths")
+            print(f"train.main --hidden_dim 48 (training) raises: {e}")
         else:
-            fail("train.main --hidden_dim 128 trained on the card")
+            fail("train.main --hidden_dim 48 trained on the card")
         if any(counts().values()):
-            fail(f"train.main --hidden_dim 128: launches {counts()} before "
+            fail(f"train.main --hidden_dim 48: launches {counts()} before "
                  "it raised")
 
 
 def width_raises(torch, np, counts, reset_counts):
     """19d: hidden width 48 (no library) raises ValueError on the card,
-    naming the built widths, in K1, K2, K4 and P2 (each module's check),
-    with no launch; a backward kernel at 128 raises naming item 8c."""
-    from neural_lam_tpu_torch.ops import edge, edge_flat, embed, grid_update
+    naming the built widths, in K1, K2, K4 and P2 (each module's check)
+    and in every backward wrapper (B1, B2, B3/B4, B5/B6, xtd_sum), with no
+    launch."""
+    from neural_lam_tpu_torch.ops import (
+        edge,
+        edge_flat,
+        embed,
+        grid_update,
+        weight_grad,
+    )
     from neural_lam_tpu_torch.ops.message_passing import EdgeSet
 
     h, B, K = 48, 4, 2
@@ -5484,17 +5553,37 @@ def width_raises(torch, np, counts, reset_counts):
             fail(f"{name} ran at hidden 48")
         if any(counts().values()):
             fail(f"{name} at hidden 48 counted launches {counts()}")
-    h = 128
-    try:
-        grid_update.grid_update_flat_bwd(
-            r(20, B * h), es.senders, r(M, h), r(20, B * h), mask_p, dec(h),
-            r(nv, B * 17))
-    except ValueError as e:
-        if "8c" not in str(e):
-            fail(f"grid_update_flat_bwd at hidden 128 raised {e!r}")
-        print(f"grid_update_flat_bwd at hidden 128 raises: {e}")
-    else:
-        fail("grid_update_flat_bwd ran at hidden 128")
+    # the backward kernels at hidden 48: each wrapper raises naming the
+    # built widths, with no launch
+    dec48 = dec(h)
+    bwd_calls = {
+        "embed_grid_flat_bwd": lambda: embed.embed_grid_flat_bwd(
+            r(20, B * 5), r(5, h), r(h), r(h, h), r(h), r(h), r(h), B,
+            r(20, B * h), False),
+        "edge_tail_sum_flat_bwd": lambda: edge_flat.edge_tail_sum_flat_bwd(
+            r(20, B * h), es.senders, r(M, h), r(nv, B * h), mask_p, *tail,
+            r(nv, B * h)),
+        "edge_layer_flat_bwd": lambda: edge_flat.edge_layer_flat_bwd(
+            r(M, B * h), r(20, B * h), es.senders, r(nv, B * h), mask_p,
+            r(h, h), r(h), *tail, None, r(nv, B * h)),
+        "grid_update_flat_bwd": lambda: grid_update.grid_update_flat_bwd(
+            r(20, B * h), es.senders, r(M, h), r(20, B * h), mask_p, dec48,
+            r(nv, B * 17)),
+        "xtd_sum": lambda: weight_grad.xtd_sum([(r(64, h), r(64, 17))]),
+    }
+    for name, call in bwd_calls.items():
+        reset_counts()
+        try:
+            call()
+        except ValueError as e:
+            if "32, 64, 128" not in str(e):
+                fail(f"{name} at hidden 48 raised {e!r}, which does not "
+                     "name the built widths")
+            print(f"{name} at hidden 48 raises: {e}")
+        else:
+            fail(f"{name} ran at hidden 48")
+        if any(counts().values()):
+            fail(f"{name} at hidden 48 counted launches {counts()}")
 
 
 def widths_phase(torch, np, counts, counts_bf16, reset_counts,
@@ -5553,6 +5642,500 @@ def widths_phase(torch, np, counts, counts_bf16, reset_counts,
     print(f"phase 19: {time.time() - t0:.1f} s")
 
 
+# phase 20: the backward kernels at hidden widths 32 and 128
+
+
+def bwd_width_build(_build):
+    """20a: registers and spill of each backward library at widths 32 and
+    128 (built with every other library in phase 1)."""
+    usage_lines(_build, _build.build_all(_build.BACKWARD, widths=NEW_WIDTHS))
+
+
+def bwd_main_path_cases(torch, gm, hm, rand, dt):
+    """The backward kernels' cases at the training-step shapes of the
+    bench GraphLAM `gm` and 4-level HiLAM `hm` at batch 4 (hidden width h
+    of both; inputs of `dt` from `rand`): B1 at the step's call (no dx),
+    B2 at g2m, B3/B4 at m2m[0], B5/B6 at m2g, xtd_sum at the decoder's
+    pairs and xtd_reduce at their partials (GraphLAM's, timed), and B3/B4
+    at HiLAM's m2m[0] and B5/B6 at its m2g (checked). Each is (kernel,
+    module, args, replaces, source, bytes, FLOP, ops (fp32 FLOP on CUDA
+    cores, TF32 FLOP on tensor cores; `ops_ms`), library call or None,
+    timed). Bytes: each input read and each output written once in its
+    dtype (no scratch). Ops: B1's and xtd_sum's products on tensor cores;
+    a chain pass's two products a forward product on CUDA cores, its
+    weight gradients (the third) as its xtd_sum pass runs them
+    (`wgrad_tf32`); a 3xTF32 product takes three TF32 products a term,
+    two where its A operand is a staged bf16 value."""
+    from neural_lam_tpu_torch.ops import (
+        edge_flat,
+        embed,
+        grid_update,
+        weight_grad,
+    )
+
+    h = gm.args.hidden_dim
+    bf = dt == torch.bfloat16
+    isz = 2 if bf else 4
+    a = 2 if bf else 3
+    W = BATCH * h
+    pef = "neural_lam_tpu/ops/pallas_edge_flat.py"
+    pgu = "neural_lam_tpu/ops/pallas_grid_update.py"
+    csrc = "neural_lam_tpu_torch/csrc/"
+    cases = []
+    g = gm.graph
+    emb = gm.grid_embedder
+    d_in = emb.layers[0].w.shape[0]
+    n_grid = g.num_grid_nodes
+    rows = n_grid * BATCH
+    par1 = tuple(t.detach() for t in (emb.layers[0].w, emb.layers[0].b,
+                                      emb.layers[1].w, emb.layers[1].b,
+                                      emb.ln.scale, emb.ln.bias))
+    x1, d1 = rand(n_grid, BATCH * d_in), rand(n_grid, W)
+    xw, dw = x1.view(-1, d_in), d1.view(-1, h)
+    w0b, w1b = par1[0].to(dt), par1[2].to(dt)
+    cases.append((
+        "embed_grid_flat_bwd", embed, (x1,) + par1 + (BATCH, d1, False),
+        "neural_lam_tpu/ops/pallas_embed.py:111", csrc + "embed_bwd.cu",
+        nbytes(x1, d1, *par1) + nbytes(*par1),
+        2.0 * rows * (2 * d_in * h + 3 * h * h),
+        (0.0, 2.0 * rows * (2 * a * d_in * h + 3 * 3 * h * h)),
+        lambda: [torch.mm(xw, w0b), torch.mm(dw, w1b), torch.mm(dw, w1b.t()),
+                 torch.mm(dw.t(), dw), torch.mm(xw.t(), dw)], True))
+
+    def pair_mms(pairs):
+        return lambda: [torch.mm(x.float().t(), d) for x, d in pairs]
+
+    def b3_case(net, es, lay, what, timed):
+        nv, K = es.num_virt, es.dense_k
+        M = nv * K
+        par3 = mlp_first(lay) + mlp_tail(lay)
+        a3 = (rand(M, W), rand(es.num_send, W), es.senders, rand(nv, W),
+              es.mask.view(nv, K)) + par3 + (rand(M, W), rand(nv, W))
+        pairs = edge_flat.edge_layer_bwd_chain(*a3)[4]
+        fwd = 2.0 * M * BATCH * 2 * h * h  # at every slot, as K3
+        return ("edge_layer_flat_bwd", edge_flat, a3, f"{pef}:846{what}",
+                csrc + "edge_flat_bwd.cu",
+                nbytes(*a3) + 2 * M * W * isz + nv * W * isz
+                + nbytes(*par3), 3 * fwd, (2 * fwd, wgrad_tf32(pairs)),
+                pair_mms(pairs), timed)
+
+    def b5_case(net, what, timed):
+        es = net.graph.m2g
+        nv, K = es.num_virt, es.dense_k
+        pp = {k: v.detach() for k, v in
+              grid_update.pack_grid_update_params(net).items()}
+        d_out = pp["o_w1"].shape[1]
+        n_g = net.graph.num_grid_nodes
+        a5 = (rand(es.num_send, W), es.senders, rand(nv * K, h),
+              rand(n_g, W), es.mask.view(nv, K), pp, rand(nv, BATCH * d_out))
+        pairs = grid_update.grid_update_bwd_chain(*a5)[4]
+        real = float(es.mask.sum())
+        fwd = (2.0 * nv * BATCH * (7 * h * h + h * d_out)
+               + 2.0 * real * BATCH * h * h)
+        return ("grid_update_flat_bwd", grid_update, a5, f"{pgu}:752{what}",
+                csrc + "grid_update_bwd.cu",
+                nbytes(*a5[:5], a5[6], *pp.values()) + nv * K * (W + h) * isz
+                + n_g * W * isz + nbytes(*pp.values()), 3 * fwd,
+                (2 * fwd, wgrad_tf32(pairs, nv * K * BATCH, real / (nv * K))),
+                pair_mms(pairs), timed), pairs
+
+    es = g.g2m
+    nv, K = es.num_virt, es.dense_k
+    M = nv * K
+    mask_p = es.mask.view(nv, K)
+    tail = mlp_tail(gm.g2m_gnn.edge_mlp)
+    a2 = (rand(es.num_send, W), es.senders, rand(M, h), rand(nv, W),
+          mask_p) + tail + (rand(nv, W),)
+    b2_pairs = edge_flat.edge_tail_bwd_chain(*a2)[4]
+    real = float(mask_p.sum())
+    fwd = 2.0 * real * BATCH * h * h
+    cases.append((
+        "edge_tail_sum_flat_bwd", edge_flat, a2, f"{pef}:526",
+        csrc + "edge_flat_bwd.cu",
+        nbytes(*a2) + M * (W + h) * isz + nv * W * isz + nbytes(*tail),
+        3 * fwd, (2 * fwd, wgrad_tf32(b2_pairs, M * BATCH, real / M)),
+        pair_mms(b2_pairs), True))
+    cases.append(b3_case(gm, g.m2m[0], gm.processor[0].edge_mlp, "", True))
+    b5, dec_pairs = b5_case(gm, "", True)
+    cases.append(b5)
+    cases.append((
+        "xtd_sum", weight_grad, (dec_pairs,),
+        f"{pgu}:752 (the decoder's nine pairs)", csrc + "weight_grad.cu",
+        unique_nbytes([t for p in dec_pairs for t in p])
+        + sum(h * d.shape[1] * 4 for _, d in dec_pairs),
+        sum(2.0 * x.shape[0] * h * d.shape[1] for x, d in dec_pairs),
+        (0.0, wgrad_tf32(dec_pairs)), pair_mms(dec_pairs), True))
+    partial, pair_first = weight_grad.xtd_partials(
+        dec_pairs, weight_grad.n_blocks(
+            [x.shape[0] for x, _ in dec_pairs], dec_pairs[0][0].device, h))
+    widths = [d.shape[1] for _, d in dec_pairs]
+    red_elems = sum((b - a_) * h * w for a_, b, w
+                    in zip(pair_first, pair_first[1:], widths))
+    seg_pair = torch.repeat_interleave(
+        torch.arange(len(widths), device="cuda"),
+        torch.tensor([b - a_ for a_, b in zip(pair_first, pair_first[1:])],
+                     device="cuda"))
+    red_zeros = torch.zeros(len(widths), h * h, device="cuda")
+    if not bf:  # one instance: its partials are fp32 in either path
+        cases.append((
+            "xtd_reduce", weight_grad, (partial, pair_first, widths, h),
+            f"{pgu}:752 (the decoder's {pair_first[-1]} partials)",
+            csrc + "weight_grad.cu", 4 * (red_elems + h * sum(widths)),
+            float(red_elems), (float(red_elems), 0.0),
+            lambda: red_zeros.index_add(0, seg_pair,
+                                        partial[:pair_first[-1]]), True))
+    hg = hm.graph
+    cases.append(b3_case(hm, hg.m2m[0],
+                         hm.mesh_up_same_gnns[0][0].edge_mlp,
+                         " (HiLAM m2m[0])", False))
+    cases.append(b5_case(hm, " (HiLAM m2g)", False)[0])
+    return cases
+
+
+
+def bwd_check(torch, counts, counts_bf16, name, mod, args, dt, what):
+    """`fp32_check` (per tensor) or `bf16_bwd_check` by dtype: (rule, max
+    abs)."""
+    if dt == torch.bfloat16:
+        share, err = bf16_bwd_check(torch, counts_bf16, name, mod, args,
+                                    what)
+        return (f"bf16 outputs within one bf16 ulp ({share:.5f} not "
+                "bit-equal), fp32 gradients within 1e-4 + 1e-4*max"), err
+    err = fp32_check(torch, counts, name, mod, args, what, per_tensor=True)
+    return "within 1e-4 + 1e-4*max|plain| per tensor", err
+
+
+def bwd_width_kernel_cases(torch, h, counts, counts_bf16, records, peaks):
+    """20b at hidden width h: each backward kernel's fp32 and bf16
+    instances at the training-step shapes of the bench GraphLAM and
+    4-level HiLAM built at that width (`bwd_main_path_cases`), against
+    their plain versions, two calls bit-identical; GraphLAM's timed beside
+    the plain version, the products as torch.mm (TF32 off) and the bound,
+    one record a kernel instance, named `<kernel>[bf16]@h<h>`."""
+    from neural_lam_tpu_torch import entry
+
+    peak_flops, peak_tf32, peak_bw = peaks
+    t0 = time.time()
+    cfg = dict(BENCH, hidden_dim=h)
+    gm, _ = entry.build_model(**cfg, device="cuda")
+    hm, _ = entry.build_model(**cfg, device="cuda", model="hi_lam")
+    print(f"hidden {h}: bench GraphLAM and 4-level HiLAM built in "
+          f"{time.time() - t0:.1f} s")
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device="cuda").manual_seed(20)
+
+            def rand(*shape):
+                return torch.randn(*shape, device="cuda",
+                                   generator=gen).to(dt)
+
+            bf = dt == torch.bfloat16
+            for (name, mod, args, replaces, source, bytes_, flops, ops,
+                 lib, timed) in bwd_main_path_cases(torch, gm, hm, rand, dt):
+                at = f"hidden {h}, {replaces}"
+                rule, err = bwd_check(torch, counts, counts_bf16, name, mod,
+                                      args, dt, at)
+                tag = f"{name}{'[bf16]' if bf else ''}@h{h}"
+                if not timed:
+                    print(f"{tag} at {replaces}: {rule}, max abs err "
+                          f"{err:.3e}, two calls bit-identical")
+                    continue
+                kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
+                ms = cuda_ms(torch, lambda: kern(*args), 10)
+                plain_ms = cuda_ms(torch, lambda: plain(*args), 2)
+                lib_ms = cuda_ms(torch, lib, 10)
+                t_bytes = bytes_ / peak_bw * 1e3
+                t_ops = ops_ms(ops, peak_flops, peak_tf32)
+                bound = max(t_bytes, t_ops)
+                print(f"{tag}: {rule}, max abs err {err:.3e}, two calls "
+                      f"bit-identical; kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({bytes_ / 1e6:.1f} MB: "
+                      f"{t_bytes:.4f} ms; {flops / 1e9:.2f} GFLOP as "
+                      f"{ops[0] / 1e9:.2f} fp32 and {ops[1] / 1e9:.2f} TF32: "
+                      f"{t_ops:.4f} ms)")
+                records.append({
+                    "name": tag, "route": "cuda", "source": source,
+                    "replaces": replaces.split(" (")[0], "launches": None,
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound,
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": lib_ms})
+    del gm, hm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bwd_wide_cases(torch, np, counts, counts_bf16):
+    """20b: B1 at d_in 160 (x staged in column chunks) and B5/B6 at output
+    maps wider than the width, fp32 and bf16, on seeded inputs: d_in 160
+    at h 32, 64 and 128 (20,000 node rows, batch 4); B5/B6 on a seeded
+    local graph (20,000 receivers, K = 4 among 6,561 senders, batch 4) at
+    d_out 80 and 200 (h 64), 34 (h 32) and 160 (h 128); against their
+    plain versions, two calls bit-identical."""
+    from neural_lam_tpu_torch.ops import embed, grid_update
+    from neural_lam_tpu_torch.ops.message_passing import EdgeSet
+
+    rng = np.random.default_rng(20)
+    n_rec, n_send, K = 20000, 6561, 4
+    centre = (np.arange(n_rec) * n_send // n_rec)[:, None]
+    send = np.clip(centre + rng.integers(-4, 5, (n_rec, K)), 0,
+                   n_send - 1).reshape(-1)
+    es = EdgeSet.from_local(
+        send, np.repeat(np.arange(n_rec), K),
+        rng.standard_normal((K * n_rec, 3)).astype(np.float32), n_send,
+        n_rec, device="cuda", build_transpose=False)
+    nv = es.num_virt
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for dt in (torch.float32, torch.bfloat16):
+        def rand(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, device="cuda",
+                                        generator=gen)).to(dt)
+
+        def w(*shape):
+            return torch.randn(*shape, device="cuda",
+                               generator=gen) / shape[0] ** 0.5
+
+        tag = "[bf16]" if dt == torch.bfloat16 else ""
+        for h in (32, 64, 128):
+            d_in = 160
+            par = (w(d_in, h), 0.1 * w(h, 1)[:, 0], w(h, h), 0.1 * w(h, 1)[:, 0],
+                   1 + 0.1 * w(h, 1)[:, 0], 0.1 * w(h, 1)[:, 0])
+            for need_dx in (False, True):
+                args = (rand(n_rec, BATCH * d_in),) + par + (
+                    BATCH, rand(n_rec, BATCH * h), need_dx)
+                rule, err = bwd_check(torch, counts, counts_bf16,
+                                      "embed_grid_flat_bwd", embed, args, dt,
+                                      f"d_in {d_in}, hidden {h}")
+                print(f"embed_grid_flat_bwd{tag}@h{h} at d_in {d_in} "
+                      f"({'with' if need_dx else 'no'} dx): {rule}, max abs "
+                      f"err {err:.3e}, two calls bit-identical")
+        for h, d_out in ((64, 80), (64, 200), (32, 34), (128, 160)):
+            pp = {k: w(2 * h if k == "a_w0" else h, h)
+                  for k in grid_update._MATS}
+            pp.update({k: 0.1 * w(h, 1)[:, 0] for k in grid_update._VECS})
+            for k in ("enc_ls", "e_ls", "a_ls"):
+                pp[k] = 1 + pp[k]
+            pp.update(o_w1=w(h, d_out), o_b1=0.1 * w(d_out, 1)[:, 0])
+            a5 = (rand(n_send, BATCH * h), es.senders, rand(nv * K, h),
+                  rand(n_rec, BATCH * h), es.mask.view(nv, K), pp,
+                  rand(nv, BATCH * d_out))
+            rule, err = bwd_check(torch, counts, counts_bf16,
+                                  "grid_update_flat_bwd", grid_update, a5,
+                                  dt, f"d_out {d_out}, hidden {h}")
+            print(f"grid_update_flat_bwd{tag}@h{h} at d_out {d_out} (local "
+                  f"graph K={K}, {nv} rows, batch 4): {rule}, max abs err "
+                  f"{err:.3e}, two calls bit-identical")
+
+
+def busy_ms_of(torch, fn):
+    """(fn(), device busy ms of the call): the device time of its kernels
+    in a device-only torch.profiler trace, or None when the profiler saw
+    none."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    us = sum(r[0] for r in kernel_rows(torch, prof))
+    return out, (us / 1e3 if us else None)
+
+
+def train_tables(net, B, bf):
+    """(fp32 counts, bf16 counts) of a training step (ar_steps 1) of `net`
+    at batch B, from `step_table`'s forward launches (`train_table`): in
+    bf16, every kernel on the bf16 counters but P1 and B2's xtd_sum and
+    reduce launches (its pair is the chain's fp32 X1, DY)."""
+    fwd = step_table(net, B)[0]
+    t = train_table(fwd)
+    if not bf:
+        return t, {}
+    n_b2 = fwd["edge_tail_sum_flat"]
+    want16 = {k: n for k, n in t.items() if k != "edge_tail"}
+    want16["xtd_sum"] = want16["xtd_reduce"] = t["xtd_sum"] - n_b2
+    return {"edge_tail": fwd["edge_tail"], "xtd_sum": n_b2,
+            "xtd_reduce": n_b2}, want16
+
+
+def bwd_width_training(torch, np, counts, counts_bf16, reset_counts,
+                       plain_kernels, launched):
+    """20c: `train.main` at hidden 32 and 128 for GraphLAM and HiLAM at
+    batch 4, fp32 and `--precision bf16`, 4 AdamW steps each on a
+    268x238 MDP datastore. Every counter at 0 just before each step: its
+    launches equal `train_tables`'s. Before the first step, its gradients
+    on the same weights and batch: fp32, kernel path against plain path
+    within 1e-3 of each parameter's max abs (phase 7's limit); bf16, the
+    kernel path's error against the fp32 gradients the plain bf16 path's
+    size (phase 12's `error_size`). Per step: host ms (synchronised) and
+    peak device memory; the last step's device busy ms from a device-only
+    profile."""
+    import tempfile
+    from pathlib import Path
+
+    from neural_lam_tpu_torch import train
+
+    L = BENCH["processor_layers"]
+    real_step = train.Trainer.train_step
+    with tempfile.TemporaryDirectory(prefix="nlt_bwd_widths_") as tmp:
+        root = Path(tmp)
+        t0 = time.time()
+        cfg = write_mdp_datastore(root, np)
+        print(f"MDP datastore written in {time.time() - t0:.1f} s")
+        for h in NEW_WIDTHS:
+            for kind, graph in (("graph_lam", "multiscale"),
+                                ("hi_lam", "hierarchical")):
+                for bf in (False, True):
+                    what = (f"train.main {kind} --hidden_dim {h}"
+                            + (" --precision bf16" if bf else ""))
+                    rec = {"n": 0, "lines": []}
+
+                    def step(self, batch, rec=rec, what=what, bf=bf, h=h):
+                        net = self.model
+                        rec["want"] = train_tables(net, batch[0].shape[0],
+                                                   bf)
+                        if rec["n"] == 0:
+                            grads_check(torch, net, batch, bf,
+                                        plain_kernels, what)
+                        reset_counts()
+                        torch.cuda.reset_peak_memory_stats()
+                        live = torch.cuda.memory_allocated()
+                        torch.cuda.synchronize()
+                        t_in = time.perf_counter()
+                        if rec["n"] < 3:
+                            loss, busy = real_step(self, batch), None
+                            torch.cuda.synchronize()
+                        else:  # the last step under a device-only profile
+                            loss, busy = busy_ms_of(
+                                torch, lambda: real_step(self, batch))
+                        host = (time.perf_counter() - t_in) * 1e3
+                        c32, c16 = counts(), counts_bf16()
+                        peak = torch.cuda.max_memory_allocated()
+                        want32, want16 = rec["want"]
+                        if (any(c32[k] != want32.get(k, 0) for k in c32)
+                                or any(c16[k] != want16.get(k, 0)
+                                       for k in c16)):
+                            fail(f"{what} step {rec['n'] + 1}: launches "
+                                 f"{c32} (fp32), {c16} (bf16); want "
+                                 f"{want32}, {want16}")
+                        for k, n in c32.items():
+                            if n and k not in FWD + BATCHED:
+                                key = f"{k}@h{h}"
+                                launched[key] = launched.get(key, 0) + n
+                        for k, n in c16.items():
+                            if n and k not in FWD + BATCHED:
+                                key = f"{k}[bf16]@h{h}"
+                                launched[key] = launched.get(key, 0) + n
+                        rec["n"] += 1
+                        rec["lines"].append(
+                            f"step {rec['n']}: loss {float(loss):.6f}, host "
+                            f"{host:.1f} ms"
+                            + ("" if busy is None else
+                               f" (under the profiler), device busy "
+                               f"{busy:.1f} ms")
+                            + f", peak {peak / 2**30:.3f} GiB "
+                            f"({(peak - live) / 2**30:.3f} above the live "
+                            f"{live / 2**30:.3f})")
+                        if not math.isfinite(float(loss)):
+                            fail(f"{what}: loss {float(loss)}")
+                        return loss
+
+                    argv = ["--config_path", str(cfg), "--model", kind,
+                            "--graph", graph, "--hidden_dim", str(h),
+                            "--processor_layers", str(L), "--batch_size",
+                            str(BATCH), "--ar_steps_train", "1",
+                            "--ar_steps_eval", "1", "--val_interval", "1000",
+                            "--max_steps", "4", "--seed", "0",
+                            "--num_workers", "0", "--save_dir",
+                            str(root / "models"), "--run_name",
+                            f"{kind}_{h}_{int(bf)}"]
+                    if bf:
+                        argv += ["--precision", "bf16"]
+                    t1 = time.time()
+                    train.Trainer.train_step = step
+                    try:
+                        quiet(train.main, argv)
+                    finally:
+                        train.Trainer.train_step = real_step
+                    torch.cuda.synchronize()
+                    if rec["n"] != 4:
+                        fail(f"{what}: {rec['n']} steps, want 4")
+                    want32, want16 = rec["want"]
+                    print(f"{what} ({time.time() - t1:.1f} s): launches a "
+                          f"step { {k: n for k, n in want32.items() if n} }"
+                          + (f" fp32, {want16} bf16" if bf else "")
+                          + "; " + "; ".join(rec["lines"]))
+                    gc.collect()
+                    torch.cuda.empty_cache()
+
+
+def grads_check(torch, net, batch, bf, plain_kernels, what):
+    """One training step's gradients of `net` on `batch`: fp32, kernel
+    path against plain path within 1e-3 of each parameter's max abs; bf16,
+    the kernel path's error against the fp32 gradients (`copy_with_dtype`
+    on the same weights) the plain bf16 path's size."""
+
+    def grads(m):
+        m.zero_grad(set_to_none=True)
+        m.training_loss(batch).backward()
+        out = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return out
+
+    g_k = grads(net)
+    with plain_kernels():
+        g_p = grads(net)
+    if not bf:
+        worst = max((float((g_k[k] - g_p[k]).abs().max())
+                     / max(float(g_p[k].abs().max()), 1e-30), k)
+                    for k in g_p)
+        print(f"{what}: first-step gradients, kernels vs plain on the card: "
+              f"worst max abs gap / max abs {worst[0]:.3e} ({worst[1]}; "
+              f"limit 1e-3), {len(g_p)} parameters")
+        if not worst[0] <= 1e-3:
+            fail(f"{what}: kernel-path and plain-path gradients disagree")
+        return
+    g_32 = grads(copy_with_dtype(net, None))
+    scale = {k: float(v.abs().max()) or 1.0 for k, v in g_32.items()}
+
+    def vec(gr):
+        return torch.cat([(gr[k] / scale[k]).flatten() for k in g_32])
+
+    error_size(torch, f"{what} first-step gradients (each parameter's over "
+               f"its fp32 max abs, {len(g_32)} parameters)", vec(g_k),
+               vec(g_p), vec(g_32))
+
+
+def bwd_widths_phase(torch, np, counts, counts_bf16, reset_counts,
+                     plain_kernels, records, peaks):
+    """Phase 20 (see the module doc)."""
+    from neural_lam_tpu_torch.ops import _build
+
+    t0 = time.time()
+    bwd_width_build(_build)
+    print(f"phase 20a: {time.time() - t0:.1f} s")
+    first = len(records)
+    for h in NEW_WIDTHS:
+        t1 = time.time()
+        bwd_width_kernel_cases(torch, h, counts, counts_bf16, records, peaks)
+        print(f"phase 20b (hidden {h}): {time.time() - t1:.1f} s")
+    t1 = time.time()
+    bwd_wide_cases(torch, np, counts, counts_bf16)
+    print(f"phase 20b (B1 at d_in 160, B5/B6's output widths): "
+          f"{time.time() - t1:.1f} s")
+    t1 = time.time()
+    launched = {}
+    bwd_width_training(torch, np, counts, counts_bf16, reset_counts,
+                       plain_kernels, launched)
+    print(f"phase 20c: {time.time() - t1:.1f} s; launches on the training "
+          f"paths {launched}")
+    for rec in records[first:]:
+        rec["launches"] = launched.get(rec["name"], 0)
+        if not rec["launches"]:
+            fail(f"{rec['name']}: no launch on phase 20's training paths")
+    print(f"phase 20: {time.time() - t0:.1f} s")
+
+
 def copy_with_dtype(net, dtype):
     """A shallow copy of `net` that computes in `dtype` (None: fp32) on the
     same weights and graph."""
@@ -5604,7 +6187,7 @@ def main():
         print(f"phase {what}: {now - phase_t0[0]:.1f} s")
         phase_t0[0] = now
 
-    # 1. build (the forward sources at every width: phase 19's too)
+    # 1. build (every source at every width: phases 19 and 20 too)
     t0 = time.time()
     libs = _build.build_all(widths=_build.WIDTHS)
     print(f"kernel build: {time.time() - t0:.1f} s for {len(libs)} libraries "
@@ -5769,9 +6352,8 @@ def main():
         fwd_bytes = nbytes(*args) + n_virt * W * 4
         fwd_flops = 2.0 * real * BATCH * H * H
         bwd_args = args + (rand(n_virt, W),)
-        # the chain's scratch (X1, DY: (M*B, 64) each) written once
         bwd_bytes = (nbytes(*bwd_args) + M * (W + H) * 4 + n_virt * W * 4
-                     + nbytes(*tail) + 2 * M * W * 4)
+                     + nbytes(*tail))
         return ((args, fwd_bytes, fwd_flops),
                 (bwd_args, bwd_bytes, 3 * fwd_flops))
 
@@ -5902,11 +6484,12 @@ def main():
     # xtd_sum's reduce kernel at the decoder's partials
     partial, pair_first = weight_grad.xtd_partials(
         xtd_pairs, weight_grad.n_blocks([x.shape[0] for x, _ in xtd_pairs],
-                                        xtd_pairs[0][0].device))
+                                        xtd_pairs[0][0].device, H))
     widths = [d.shape[1] for _, d in xtd_pairs]
     red_elems = sum((b - a) * H * w for a, b, w
                     in zip(pair_first, pair_first[1:], widths))
-    cases.append(("xtd_reduce", weight_grad, (partial, pair_first, widths),
+    cases.append(("xtd_reduce", weight_grad,
+                  (partial, pair_first, widths, H),
                   f"{pgu}:752 (the decoder's {pair_first[-1]} partials)",
                   4 * (red_elems + H * sum(widths)), float(red_elems)))
     # its library call: every pair's segments added into the pair's row in
@@ -5918,7 +6501,7 @@ def main():
         torch.tensor([b - a for a, b in zip(pair_first, pair_first[1:])],
                      device="cuda"))
     red_zeros = torch.zeros(len(widths), H * H, device="cuda")
-    library["xtd_reduce"] = lambda partial, pair_first, widths: (
+    library["xtd_reduce"] = lambda partial, pair_first, widths, h: (
         red_zeros.index_add(0, seg_pair, partial[:pair_first[-1]]))
 
     # K3 and B3/B4 at HiLAM's new shapes: K=1 (down[0]) and a virtual-row
@@ -6102,6 +6685,12 @@ def main():
                     fail(f"{kname}: kernel and plain disagree on output {i}"
                          f", max abs err {float(gap.max()):.3e}")
                 err = max(err, float(gap.max()))
+            if "(local graph K=" in replaces:
+                # the K sweep: each K held, not timed (the main-path
+                # shapes are)
+                print(f"{kname} at {replaces[replaces.index('(') + 1:-1]}: "
+                      f"max_abs_err {err:.3e} (not timed)")
+                continue
             ms = cuda_ms(torch, lambda: kern(*args), 10 if bwd else 20)
             call_ms = cuda_ms(torch, lambda: kern(*args), 10 if bwd else 20,
                               queued=False)
@@ -6119,6 +6708,14 @@ def main():
                 fp32_note = (f"; fp32 CUDA-core bound "
                              f"{max(t_bytes, t_ops):.4f} ms")
                 t_ops = 3 * flops / peak_tf32 * 1e3
+            elif kname in ("edge_tail_sum_flat_bwd", "edge_layer_flat_bwd",
+                           "grid_update_flat_bwd"):
+                # a chain pass (two thirds, fp32 CUDA cores), then its
+                # xtd_sum pass (the weight gradients' third, 3xTF32 on
+                # fp32 pairs)
+                fp32_note = (f"; fp32 CUDA-core bound "
+                             f"{max(t_bytes, t_ops):.4f} ms")
+                t_ops = ops_ms((2 * flops / 3, flops), peak_flops, peak_tf32)
             bound_ms = max(t_bytes, t_ops)
             case_ms[kname, replaces] = ms
             rule = ("1e-4 + 1e-4*max|plain| per tensor" if bwd
@@ -6503,6 +7100,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     phase_end("19 (the forward kernels at hidden widths 32 and 128)")
+
+    # 20. the backward kernels at hidden widths 32 and 128
+    bwd_widths_phase(torch, np, counts, counts_bf16, reset_counts,
+                     plain_kernels, records,
+                     (peak_flops, peak_tf32, peak_bw))
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_end("20 (the backward kernels at hidden widths 32 and 128)")
 
     print(json.dumps({"kernels": records}))
     print(smi_line())

@@ -2,18 +2,17 @@
 //
 // NLT_H is the hidden width a library is compiled for (`-DNLT_H=<h>`, one
 // library a width: ops/_build.py); 64 when the compiler is given none.
-// The backward sources are built at 64 only.
+// Every source, forward and backward, is built at each width.
 //
-// Work split used by the 64-wide helpers (the backward kernels): one warp
-// owns whole 64-wide rows; lane l holds features 2l and 2l+1 of each row
-// as a float2. A row of the flat (rows, B*64) layout for batch element b
-// is 64 contiguous floats at column b*64, so each row load or store is 256
-// contiguous bytes. Matrix products x @ w (w stored (in, out) row-major,
+// Work split of the width-H row helpers (`Cols`): one warp owns whole
+// H-wide rows; lane l holds the NLT_C = H/32 consecutive features NLT_C*l
+// .. of each row. A row of the flat (rows, B*H) layout for batch element
+// b is H contiguous floats at column b*H, so each row load or store is one
+// coalesced access. Matrix products x @ w (w stored (in, out) row-major,
 // as the parameters are) stage the warp's input rows in shared memory and
-// read each input value as a broadcast: every lane accumulates its two
-// output columns over all inputs (`nlt_mm64`). LayerNorm statistics are
-// fp32 warp-shuffle sums. The width-H helpers (`Cols`, K4's) split a row
-// the same way at NLT_C = H/32 columns a lane.
+// read each input value as a broadcast: every lane accumulates its NLT_C
+// output columns over all inputs (`cols_mm`). LayerNorm statistics are
+// fp32 warp-shuffle sums.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,10 +33,6 @@ __device__ __forceinline__ float nlt_silu(float x) {
   return x / (1.0f + expf(-x));
 }
 
-__device__ __forceinline__ float2 nlt_silu2(float2 v) {
-  return make_float2(nlt_silu(v.x), nlt_silu(v.y));
-}
-
 __device__ __forceinline__ float2 nlt_add2(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
 }
@@ -48,7 +43,8 @@ __device__ __forceinline__ float nlt_warp_sum(float v) {
   return v;
 }
 
-// Row load/store of this lane's two features of a 64-wide row.
+// This lane's float2 at index 2*lane of a row (a fragment's two columns
+// where `lane` is a quad index).
 __device__ __forceinline__ float2 nlt_ld2(const float* __restrict__ row,
                                           int lane) {
   return reinterpret_cast<const float2*>(row)[lane];
@@ -94,59 +90,11 @@ struct Io<__nv_bfloat16> {
   }
 };
 
-// Row load/store of this lane's two features of a 64-wide row of T.
-template <typename T>
-__device__ __forceinline__ float2 nlt_ld2t(const T* __restrict__ row,
-                                           int lane) {
-  return Io<T>::ld2(row + 2 * lane);
-}
-
-template <typename T>
-__device__ __forceinline__ void nlt_st2t(T* row, int lane, float2 v) {
-  Io<T>::st2(row + 2 * lane, v);
-}
-
-// acc[r] += xs[r*ldx + k] * w[k, 2*lane .. 2*lane+1] for k < nk.
-// xs: R staged input rows in shared memory; w: (nk, 64) row-major, shared.
-template <int R>
-__device__ __forceinline__ void nlt_mm64(const float* __restrict__ xs,
-                                         int ldx,
-                                         const float* __restrict__ w, int nk,
-                                         int lane, float2 (&acc)[R]) {
-  const float2* wl = reinterpret_cast<const float2*>(w) + lane;
-#pragma unroll 4
-  for (int k = 0; k < nk; ++k) {
-    const float2 wv = wl[k * (NLT_H / 2)];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float xv = xs[r * ldx + k];
-      acc[r].x = fmaf(xv, wv.x, acc[r].x);
-      acc[r].y = fmaf(xv, wv.y, acc[r].y);
-    }
-  }
-}
-
-template <int R>
-__device__ __forceinline__ void nlt_fill(float2 (&acc)[R], float2 v) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = v;
-}
-
-// LayerNorm of one 64-wide row held as a float2 per lane; fp32 statistics.
-__device__ __forceinline__ float2 nlt_layer_norm(float2 y, float2 scale,
-                                                 float2 bias) {
-  const float mean = nlt_warp_sum(y.x + y.y) * (1.0f / NLT_H);
-  const float cx = y.x - mean, cy = y.y - mean;
-  const float var = nlt_warp_sum(cx * cx + cy * cy) * (1.0f / NLT_H);
-  const float inv = rsqrtf(var + NLT_LN_EPS);
-  return make_float2(cx * inv * scale.x + bias.x, cy * inv * scale.y + bias.y);
-}
-
-// ---------------------------------------- width-H rows (K4) ----------
+// ---------------------------------------------------- width-H rows ----
 //
 // Lane l holds the NLT_C = H/32 consecutive features NLT_C*l .. of a row:
-// a float at width 32, a float2 at 64 (the 64-wide helpers' split), a
-// float4 at 128, so a row load or store is one coalesced access.
+// a float at width 32, a float2 at 64, a float4 at 128, so a row load or
+// store is one coalesced access.
 
 constexpr int NLT_C = NLT_H / 32;
 
@@ -210,6 +158,37 @@ __device__ __forceinline__ Cols cols_ldt(const T* __restrict__ row,
   }
 }
 
+// This lane's features stored into the row of T at `row` (a bf16 value
+// rounded once, to nearest even).
+template <typename T>
+__device__ __forceinline__ void cols_stt(T* row, int lane, const Cols& c) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    cols_st(reinterpret_cast<float*>(row), lane, c);
+  } else {
+    T* p = row + NLT_C * lane;
+    if constexpr (NLT_C == 1) {
+      Io<T>::st(p, c.v[0]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NLT_C; i += 2)
+        Io<T>::st2(p + i, make_float2(c.v[i], c.v[i + 1]));
+    }
+  }
+}
+
+// This lane's features of the fp32 row at p, stored streaming (evict
+// first): scratch rows that a later pass reads once.
+__device__ __forceinline__ void cols_stcs(float* p, int lane, const Cols& c) {
+  p += NLT_C * lane;
+  if constexpr (NLT_C == 4)
+    __stcs(reinterpret_cast<float4*>(p),
+           make_float4(c.v[0], c.v[1], c.v[2], c.v[3]));
+  else if constexpr (NLT_C == 2)
+    __stcs(reinterpret_cast<float2*>(p), make_float2(c.v[0], c.v[1]));
+  else
+    __stcs(p, c.v[0]);
+}
+
 __device__ __forceinline__ Cols cols_add(const Cols& a, const Cols& b) {
   Cols c;
 #pragma unroll
@@ -250,8 +229,7 @@ __device__ __forceinline__ void cols_fill(Cols (&acc)[R], const Cols& v) {
   for (int r = 0; r < R; ++r) acc[r] = v;
 }
 
-// LayerNorm of one H-wide row held as Cols per lane; fp32 statistics, in
-// nlt_layer_norm's order of operations at width 64.
+// LayerNorm of one H-wide row held as Cols per lane; fp32 statistics.
 __device__ __forceinline__ Cols cols_layer_norm(const Cols& y,
                                                 const Cols& scale,
                                                 const Cols& bias) {

@@ -244,6 +244,20 @@ struct GlobalW {
   }
 };
 
+// B(k, n) = W[n, k] of an (rows, H) weight in device memory: its
+// transpose, zero from W's row `rows` on, split at each use.
+struct GlobalWT {
+  const float* w;
+  int rows;
+  __device__ __forceinline__ float ld(int k, int n) const {
+    return n < rows ? __ldg(w + n * NLT_H + k) : 0.f;
+  }
+  __device__ __forceinline__ uint4 operator()(int c, int n, int, int,
+                                              int) const {
+    return split_pair(ld(c, n), ld(c + 4, n));
+  }
+};
+
 // A staged value of T as a TF32 operand: float by split_fast; a bf16
 // value is its own big half (8 mantissa bits), its small half zero.
 __device__ __forceinline__ void split_a(float x, uint32_t& big,
@@ -259,7 +273,8 @@ __device__ __forceinline__ void split_a(__nv_bfloat16 x, uint32_t& big,
 // acc[q] += A @ B over k steps ks < nks, in 3xTF32: A the 16-row tile `a`
 // of TA (ld columns, swizzled: `staged_at`) at columns 8ks.., split at
 // each use (`split_a`; a bf16 A has no small half, so two products a
-// term); B from the reader wb (SmemW, FragW, FragF32 or GlobalW) at the
+// term); B from the reader wb (SmemW, FragW, FragF32, GlobalW or
+// GlobalWT) at the
 // 8-column tiles q0 + q, q < NQ.
 template <typename TA = float, class WB, int NQ>
 __device__ __forceinline__ void tile_mma(const float* a, int ld, int nks,

@@ -1,7 +1,8 @@
 // Weight gradients as X^T D for a list of (X, D) pairs, in two launches.
 //
-// X is (n, 64) and D (n, d) with d <= 64, both row-major in device memory;
-// each pair's result is the (64, d) sum over its rows of x^T d. Written for
+// X is (n, H) and D (n, d) with d <= H, both row-major in device memory;
+// each pair's result is the (H, d) sum over its rows of x^T d (a wider D
+// comes as column chunks, each a pair: ops/weight_grad.py). Written for
 // the backward kernels whose weight gradients are such sums: the decoder
 // backward (B5/B6, csrc/grid_update_bwd.cu) writes its nine activation /
 // gradient pairs to device memory, the processor edge layer's (B3/B4,
@@ -25,7 +26,7 @@
 //   pairs' rows, laid end to end, are cut into one even, contiguous share
 //   per block. A share that crosses a pair boundary is cut into segments,
 //   one per (block, pair); the caller builds the segment list
-//   (ops/weight_grad.py::segments) and each segment writes one (64, d)
+//   (ops/weight_grad.py::segments) and each segment writes one (H, d)
 //   partial matrix.
 // - Async ring. A block stages kTile rows of X and D at a time in a ring of
 //   kStages shared-memory stages filled with cp.async (16-byte copies that
@@ -37,16 +38,20 @@
 //   tf32(x - big), and big*big + big*small + small*big summed, which keeps
 //   fp32 accuracy (one TF32 product keeps ~3 digits; the helpers are in
 //   tc_common.cuh). The result is A^T B
-//   with A(i, r) = X[r, i] read column-wise from the staged X: each of the
-//   8 warps owns a 32x32 quarter of the 64x64 result over half of each
-//   staged tile's rows, so that each split fragment feeds four (A) or two
-//   (B) products, and skips the 8-column tiles at or past d; the two warps
-//   of a quarter add their sums once per segment. The staged rows are
-//   padded to 72 floats, so the fragment reads (lane g = lane/4, t =
-//   lane%4 at row t, column g) hit 32 distinct banks. A tile's products
-//   are summed in fresh accumulators and added to the segment's sums in
-//   fp32 (see xtd_sum_kernel). With 64 accumulators a lane the kernel
-//   takes 128 registers: two blocks, 16 warps, per SM.
+//   with A(i, r) = X[r, i] read column-wise from the staged X: each warp
+//   owns a 32x32 block of the HxH result (`kQuads` of them) over one of
+//   `kKg` row groups of each staged tile, so that each split fragment
+//   feeds four (A) or two (B) products, and skips the 8-column tiles at or
+//   past d; the warps of a block add their sums once per segment, in a
+//   fixed order. At width 64, 8 warps: 4 blocks x 2 row groups of 16 rows
+//   of a 32-row tile. At 32, 8 warps: 1 block x 8 row groups of 8 rows of
+//   a 64-row tile. At 128, 16 warps: 16 blocks x 1 row group, one block an
+//   SM. The staged rows are padded to H + 8 floats, so the fragment reads
+//   (lane g = lane/4, t = lane%4 at row t, column g) hit 32 distinct
+//   banks. A tile's products are summed in fresh accumulators and added to
+//   the segment's sums in fp32 (see xtd_sum_kernel). With 64 accumulators
+//   a lane the kernel takes 128 registers: two blocks, 16 warps, per SM at
+//   widths 32 and 64.
 // - A second kernel sums each pair's partials in segment order (no float
 //   atomics: the same inputs give bit-identical outputs).
 // - bf16 X (the bf16 training path: B3's dW_e pair reads the bf16 edge
@@ -64,14 +69,22 @@
 namespace {
 
 constexpr int kMaxPairs = 16;
-constexpr int kThreads = 256;     // 8 warps
 constexpr int kNq = 4;           // 8-column tiles of a warp's 32 columns
-constexpr int kTile = 32;        // rows per stage
+constexpr int kSide = NLT_H / 32;        // 32x32 blocks a side
+constexpr int kQuads = kSide * kSide;    // 32x32 blocks of the result
+constexpr int kWarps = NLT_H > 64 ? 16 : 8;
+constexpr int kKg = kWarps / kQuads;     // row groups of a staged tile
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = NLT_H < 64 ? 64 : 32;  // rows per stage
+constexpr int kGroupRows = kTile / kKg;  // rows of a row group
 constexpr int kStages = 4;       // ring depth
 constexpr int kLd = NLT_H + 8;   // padded row stride of a staged tile
 constexpr int kStage = 2 * kTile * kLd;  // floats per stage (X, then D)
 constexpr int HH = NLT_H * NLT_H;
 constexpr size_t kSmem = sizeof(float) * kStages * kStage;
+static_assert(kKg >= 1 && kGroupRows % 8 == 0, "row groups of 8k rows");
+static_assert((kKg - 1) * (2 * kNq * 4 * 32) * kQuads <= kStages * kStage,
+              "the row groups' sums fit in the ring");
 
 struct Pairs {
   const void* x[kMaxPairs];  // float, or bf16 where xbf's bit p is set
@@ -92,7 +105,7 @@ __device__ __forceinline__ void load_tile(float* st, const void* X, bool xb,
     __nv_bfloat16* xh = reinterpret_cast<__nv_bfloat16*>(xs);
     const __nv_bfloat16* Xh = static_cast<const __nv_bfloat16*>(X);
     for (int i = tid; i < kTile * NLT_H / 8; i += kThreads) {
-      const int rr = i >> 3, c = 8 * (i & 7);
+      const int rr = i / (NLT_H / 8), c = 8 * (i % (NLT_H / 8));
       const bool ok = r + rr < r1;
       const long long row = ok ? r + rr : r;
       cp_async16(xh + rr * kLd + c, Xh + row * NLT_H + c, ok);
@@ -101,7 +114,7 @@ __device__ __forceinline__ void load_tile(float* st, const void* X, bool xb,
     const float* Xf = static_cast<const float*>(X);
 #pragma unroll
     for (int i = tid; i < kTile * NLT_H / 4; i += kThreads) {
-      const int rr = i >> 4, c = 4 * (i & 15);
+      const int rr = i / (NLT_H / 4), c = 4 * (i % (NLT_H / 4));
       const bool ok = r + rr < r1;
       const long long row = ok ? r + rr : r;
       cp_async16(xs + rr * kLd + c, Xf + row * NLT_H + c, ok);
@@ -138,7 +151,8 @@ __device__ __forceinline__ void split_x(__nv_bfloat16 x, uint32_t& big,
 }
 
 // c[m][q] += the 16x8 tile (32*mi + 16*m .., 32*ni + 8*q ..) of X^T D over
-// rows kk0 .. kk0+15 of the staged tile, m < 2, q < NQ, in 3xTF32 (two
+// rows kk0 .. kk0+kGroupRows-1 of the staged tile, m < 2, q < NQ, in
+// 3xTF32 (two
 // TF32 products a term for a bf16 X, TX); a template on NQ so that the
 // products are straight-line code that the compiler can interleave (each
 // term's products go to 2*NQ independent accumulators). Fragments (g =
@@ -155,7 +169,7 @@ __device__ __forceinline__ void tile_mma(const float* st, int mi, int ni,
                  32 * mi + g;
   const float* ds = st + kTile * kLd + (kk0 + t) * kLd + 32 * ni + g;
 #pragma unroll
-  for (int kk = 0; kk < kTile / 2; kk += 8) {
+  for (int kk = 0; kk < kGroupRows; kk += 8) {
     uint32_t ab[2][4], as[2][4];
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
@@ -196,17 +210,18 @@ __device__ __forceinline__ void tile_mma(const float* st, int mi, int ni,
 
 // seg: (n_seg, 3) int64 rows (pair, first row, end row); block b sums the
 // segments block_first[b] .. block_first[b+1]-1 and writes segment s's
-// (64, d) partial row-major at partial + s*HH. Warp w owns the 32x32
-// quarter (w/2 % 2, w % 2) of the result over rows 16*(w/4) .. of each
-// staged tile; the two warps of a quarter add their sums at the end of a
-// segment.
-__global__ void __launch_bounds__(kThreads, 2)
+// (H, d) partial row-major at partial + s*HH. Warp w owns the 32x32 block
+// (w % kQuads) / kSide, (w % kQuads) % kSide of the result over rows
+// kGroupRows * (w / kQuads) .. of each staged tile; the warps of a block
+// add their sums at the end of a segment, in row-group order.
+__global__ void __launch_bounds__(kThreads, NLT_H > 64 ? 1 : 2)
     xtd_sum_kernel(const Pairs pp, const long long* __restrict__ seg,
                    const int* __restrict__ block_first,
                    float* __restrict__ partial) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int mi = (warp >> 1) & 1, ni = warp & 1, kg = warp >> 2;
+  const int quad = warp % kQuads, kg = warp / kQuads;
+  const int mi = quad / kSide, ni = quad % kSide;
   const int s_end = block_first[blockIdx.x + 1];
   for (int s = block_first[blockIdx.x]; s < s_end; ++s) {
     const int p = (int)seg[3 * s];
@@ -247,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       // 4's limit (chip_smoke.py).
       float c[2][kNq][4] = {};
       const float* st = smem + (t % kStages) * kStage;
-      const int kk0 = kg * (kTile / 2);
+      const int kk0 = kg * kGroupRows;
       using bf16 = __nv_bfloat16;
       switch (xb ? nq + 4 : nq) {
         case 4: tile_mma<4, float>(st, mi, ni, kk0, lane, c); break;
@@ -268,9 +283,11 @@ __global__ void __launch_bounds__(kThreads, 2)
           for (int e = 0; e < 4; ++e) acc[m][q][e] += c[m][q][e];
     }
     cp_async_wait<0>();
-    __syncthreads();  // the stages are free: stage 0 takes the k-group sums
-    float* red = smem + (warp & 3) * (2 * kNq * 4 * 32) + lane;
-    if (kg == 1) {
+    __syncthreads();  // the stages are free: they take the groups' sums
+    // row group j >= 1 of quad q writes slot (j - 1) * kQuads + q
+    constexpr int kSlot = 2 * kNq * 4 * 32;
+    if (kg > 0) {
+      float* red = smem + ((kg - 1) * kQuads + quad) * kSlot + lane;
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -281,6 +298,16 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     __syncthreads();
     if (kg == 0) {
+      for (int j = 1; j < kKg; ++j) {
+        const float* red = smem + ((j - 1) * kQuads + quad) * kSlot + lane;
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int q = 0; q < kNq; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[m][q][e] += red[((m * kNq + q) * 4 + e) * 32];
+      }
       float* dst = partial + (size_t)s * HH;
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
@@ -291,8 +318,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int jj = j + (e & 1);
-            const float v = acc[m][q][e] + red[((m * kNq + q) * 4 + e) * 32];
-            if (jj < dw) dst[(i + 8 * (e >> 1)) * dw + jj] = v;
+            if (jj < dw) dst[(i + 8 * (e >> 1)) * dw + jj] = acc[m][q][e];
           }
         }
       }
@@ -303,12 +329,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 struct Reduce {
   int first[kMaxPairs + 1];  // pair p's segments: first[p] .. first[p+1]-1
-  int off[kMaxPairs];        // pair p's (64, d) result at out + off[p]
+  int off[kMaxPairs];        // pair p's (H, d) result at out + off[p]
   int dw[kMaxPairs];
 };
 
 // out[off[p] + e] = sum over pair p's segments s, in order, of
-// partial[s*HH + e], for e < 64*d. Grid (HH / 256, n_pairs).
+// partial[s*HH + e], for e < H*d. Grid (HH / 256, n_pairs).
 __global__ void __launch_bounds__(256)
     xtd_reduce_kernel(const Reduce rr, const float* __restrict__ partial,
                       float* __restrict__ out) {
@@ -332,9 +358,9 @@ extern "C" int nlt_xtd_sum_occupancy(int device, int* sms, int* per_sm) {
 
 // X^T D partial sums for n_pairs pairs: xs[p], ds[p] device pointers (X
 // 16-byte aligned, float or, where bit p of xbf is set, bf16; D fp32,
-// 16-byte aligned when d % 4 == 0, else 4-byte), dws[p] in 1..64 the width
+// 16-byte aligned when d % 4 == 0, else 4-byte), dws[p] in 1..H the width
 // of D; seg (n_seg, 3) and block_first (n_blocks + 1) device arrays from
-// ops/weight_grad.py::segments. partial: (n_seg, 64*64).
+// ops/weight_grad.py::segments. partial: (n_seg, H*H).
 extern "C" int nlt_xtd_sum(const long long* xs, const long long* ds,
                            const int* dws, int n_pairs, int xbf,
                            const long long* seg, const int* block_first,
@@ -364,7 +390,7 @@ extern "C" int nlt_xtd_sum(const long long* xs, const long long* ds,
 
 // Each pair's sum of its segments' partials: first[0..n_pairs] the prefix
 // count of segments per pair (host array), dws[p] D's width; out holds the
-// (64, dws[p]) results one after another, row-major.
+// (H, dws[p]) results one after another, row-major.
 extern "C" int nlt_xtd_reduce(const float* partial, const int* first,
                               const int* dws, int n_pairs, float* out,
                               int device, void* stream) {

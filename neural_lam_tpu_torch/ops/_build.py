@@ -2,17 +2,16 @@
 
 Each `csrc/<name>.cu` compiles on its own into a plain-C shared library
 (`nvcc -gencode arch=compute_90a,code=sm_90a -shared`), once per hidden
-width it is built for (`-DNLT_H=<h>`: the forward sources at 32, 64 and
-128, `WIDTHS`; the backward sources at 64 only), named after the source,
+width it is built for (`-DNLT_H=<h>`: every source, forward and
+backward, at 32, 64 and 128, `WIDTHS`), named after the source,
 the width and the hash of its sources and flags, under
 `neural_lam_tpu_torch/_kernels/` (listed in .gitignore). A library is
 built at first use of its width and rebuilt when a source's hash changes;
 `build_all` starts one nvcc per source and width at once. Nothing is
 compiled when the package is imported.
 
-A width with no library raises (`require_width`), and so does a backward
-kernel at any width but 64 (`require_bwd_width`: ROADMAP.md item 8c);
-neither falls back to the plain versions.
+A width with no library raises (`require_width`); nothing falls back to
+the plain versions.
 
 The C entry points take device pointers, sizes and a stream as plain
 values; every launch returns `cudaGetLastError()` and the Python wrapper
@@ -37,10 +36,9 @@ NVCC_FLAGS = [
 ]
 SOURCES = ("embed", "edge_flat", "grid_update", "edge",
            "embed_bwd", "edge_flat_bwd", "grid_update_bwd", "weight_grad")
-# the forward sources (K1-K4, P1-P3), built at every width of WIDTHS; the
-# others at 64 only
-FORWARD = SOURCES[:4]
-WIDTHS = (32, 64, 128)
+# the forward sources (K1-K4, P1-P3) and the backward ones (B1-B6, xtd_sum)
+FORWARD, BACKWARD = SOURCES[:4], SOURCES[4:]
+WIDTHS = (32, 64, 128)  # every source is built at each
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -48,7 +46,7 @@ LL = ctypes.c_longlong
 IP = ctypes.POINTER(ctypes.c_int)
 
 _LIBS: dict[tuple, ctypes.CDLL] = {}  # (source, width) -> library
-_GRIDS: dict[tuple, int] = {}  # (backward entry, *sizes, device) -> blocks
+_GRIDS: dict[tuple, int] = {}  # (library, entry, *sizes, device) -> blocks
 _INCLUDE = re.compile(r'^\s*#include\s+"([\w.]+)"', re.MULTILINE)
 
 
@@ -77,24 +75,13 @@ def _headers(name: str) -> list[Path]:
 
 
 def require_width(h: int, what: str) -> int:
-    """`h` if the forward kernels have a library at hidden width h, else
+    """`h` if the kernels have a library at hidden width h, else
     ValueError naming the built widths (no plain fallback on the card)."""
     if h not in WIDTHS:
         raise ValueError(
-            f"{what}: no kernel library at hidden width {h}; the forward "
-            f"kernels are built for widths {', '.join(map(str, WIDTHS))} "
-            "(other widths: ROADMAP.md item 8d)")
-    return h
-
-
-def require_bwd_width(h: int, what: str) -> int:
-    """`h` if it is 64, the one width the backward kernels are built for,
-    else ValueError naming ROADMAP.md item 8c."""
-    if h != 64:
-        raise ValueError(
-            f"{what}: the backward kernels are built for hidden width 64 "
-            f"only, not {h} (ROADMAP.md item 8c); training on the card "
-            "needs width 64")
+            f"{what}: no kernel library at hidden width {h}; the kernels "
+            f"are built for widths {', '.join(map(str, WIDTHS))} (other "
+            "widths: ROADMAP.md item 8d)")
     return h
 
 
@@ -106,8 +93,6 @@ def nvcc_flags(width: int) -> list[str]:
 def _check_source(name: str, width: int) -> None:
     if name not in SOURCES:
         raise ValueError(f"no kernel source {name!r}")
-    if width != 64 and name not in FORWARD:
-        require_bwd_width(width, f"csrc/{name}.cu")
     require_width(width, f"csrc/{name}.cu")
 
 
@@ -161,12 +146,10 @@ def _finish(key: str, job) -> None:
 
 
 def build_all(names=SOURCES, widths=(64,)) -> dict[str, Path]:
-    """Build every stale library of `names` at each of `widths` (the
-    backward sources at 64 only: they are skipped at other widths), one
-    nvcc per source and width, all started together. Returns {lib_key:
-    library path}."""
-    pairs = [(n, w) for w in widths for n in names
-             if w == 64 or n in FORWARD]
+    """Build every stale library of `names` at each of `widths`, one nvcc
+    per source and width, all started together. Returns {lib_key: library
+    path}."""
+    pairs = [(n, w) for w in widths for n in names]
     jobs = {lib_key(n, w): _start(n, w) for n, w in pairs}
     errors = []
     for key, job in jobs.items():
@@ -290,7 +273,7 @@ def run_bwd(lib: ctypes.CDLL, fn_name: str, ptrs: list, sizes: list,
     atomics). Returns the (n_params,) sum."""
     import torch
 
-    key = (fn_name, *sizes, device.index)
+    key = (lib._name, fn_name, *sizes, device.index)
     grid = _GRIDS.get(key)
     if grid is None:
         out = ctypes.c_int(0)

@@ -42,11 +42,10 @@ JAX kernel sums dW_e from its fp32 d_x0 while it stores the d_gathered
 that the sender fold sums in bf16. `<wrapper>.launches_bf16` counts the
 bf16 instances' launches.
 
-Widths: the forward kernels take h = w2's width at every width they are
-built for (`_build.WIDTHS`: 32, 64, 128), from that width's library; any
-other h raises on a CUDA tensor. The backward kernels are built for h = 64
-only and raise at any other h on a CUDA tensor. The plain versions take
-any width.
+Widths: the forward and backward kernels take h = w2's width at every
+width they are built for (`_build.WIDTHS`: 32, 64, 128), from that
+width's library; any other h raises on a CUDA tensor. The plain versions
+take any width.
 """
 
 from __future__ import annotations
@@ -56,8 +55,6 @@ import torch.nn.functional as F
 
 from . import _build, library, weight_grad
 from .mlp import grads_through, layer_norm
-
-HID = 64  # the backward kernels' hidden width
 
 _P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {
@@ -81,8 +78,8 @@ def _lib(h):
     return _build.library("edge_flat", _SIGNATURES, h)
 
 
-def _bwd_lib():
-    return _build.library("edge_flat_bwd", _BWD_SIGNATURES)
+def _bwd_lib(h):
+    return _build.library("edge_flat_bwd", _BWD_SIGNATURES, h)
 
 
 def _masked_slot_sum(msg, mask_p):
@@ -156,12 +153,13 @@ _tail_fwd = library.define(
     cpu=edge_tail_sum_flat_plain, cuda=_tail_cuda, fake=_tail_fake)
 
 
-def _check_tail(table, senders, ew, rec_rows, mask_p, w2):
+def _check_tail(table, senders, ew, rec_rows, mask_p, w2,
+                what="edge_tail_sum_flat"):
     """K2's and B2's shapes; returns their instance's dtype and h, a built
     width."""
     n_virt, K = mask_p.shape
     W = table.shape[1]
-    h = _build.require_width(w2.shape[-1], "edge_tail_sum_flat")
+    h = _build.require_width(w2.shape[-1], what)
     _build.expect(ew.shape == (n_virt * K, h), "ew", ew.shape)
     _build.expect(W % h == 0 and rec_rows.shape == (n_virt, W),
                   "rec_rows", rec_rows.shape)
@@ -233,19 +231,19 @@ def edge_tail_bwd_chain(table, senders, ew, rec_rows, mask_p, w2, b2,
                                          mask_p, w2, b2, ln_scale, ln_bias,
                                          d_virt)
     dev = _build.require_cuda(table)
-    _build.require_bwd_width(w2.shape[-1], "edge_tail_sum_flat_bwd")
     n_virt, K = mask_p.shape
     W = table.shape[1]
-    dt, _ = _check_tail(table, senders, ew, rec_rows, mask_p, w2)
+    dt, h = _check_tail(table, senders, ew, rec_rows, mask_p, w2,
+                        "edge_tail_sum_flat_bwd")
     _build.expect(d_virt.shape == (n_virt, W), "d_virt", d_virt.shape)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias])
     d_virt = d_virt.contiguous()
     M = n_virt * K
     f32, i32 = torch.float32, torch.int32
     d_x0 = torch.empty((M, W), device=dev, dtype=dt)
-    d_ew = torch.empty((M, HID), device=dev, dtype=dt)
+    d_ew = torch.empty((M, h), device=dev, dtype=dt)
     d_rec = torch.empty((n_virt, W), device=dev, dtype=dt)
-    x1 = torch.empty((M * (W // HID), HID), device=dev, dtype=f32)
+    x1 = torch.empty((M * (W // h), h), device=dev, dtype=f32)
     dy = torch.empty_like(x1)
     ptrs = _build.pointers(dev, ("table", table, dt),
                            ("senders", senders, i32), ("ew", ew, dt),
@@ -254,11 +252,12 @@ def edge_tail_bwd_chain(table, senders, ew, rec_rows, mask_p, w2, b2,
                            ("d_virt", d_virt, dt), ("d_x0", d_x0, dt),
                            ("d_ew", d_ew, dt), ("d_rec", d_rec, dt),
                            ("x1", x1, f32), ("dy", dy, f32))
-    g = _build.run_bwd(_bwd_lib(), "nlt_edge_tail_sum_bwd" + _build.suffix(dt),
-                       ptrs, [n_virt, K, W // HID], 3 * HID, dev,
+    g = _build.run_bwd(_bwd_lib(h),
+                       "nlt_edge_tail_sum_bwd" + _build.suffix(dt), ptrs,
+                       [n_virt, K, W // h], 3 * h, dev,
                        "edge_tail_sum_flat_bwd")
     _build.count_launch(edge_tail_sum_flat_bwd, dt)
-    d_b2, d_ls, d_lb = g.view(3, HID)
+    d_b2, d_ls, d_lb = g.view(3, h)
     return d_x0, d_ew, d_rec, (d_b2, d_ls, d_lb), _tail_pairs(x1, dy)
 
 
@@ -375,12 +374,13 @@ def edge_layer_flat_plain(edge_rep, table, senders, rec_rows, mask_p, w_e,
     return tuple(t.to(edge_rep.dtype) for t in outs)
 
 
-def _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2):
+def _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2,
+                 what="edge_layer_flat"):
     """K3's and B3/B4's shapes; returns their instance's dtype and h, a
     built width."""
     n_virt, K = mask_p.shape
     M, W = edge_rep.shape
-    h = _build.require_width(w2.shape[-1], "edge_layer_flat")
+    h = _build.require_width(w2.shape[-1], what)
     _build.expect(M == n_virt * K and W % h == 0, "edge_rep",
                   edge_rep.shape)
     _build.expect(table.dim() == 2 and table.shape[1] == W, "table",
@@ -502,13 +502,16 @@ def edge_layer_bwd_chain(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
                                           mask_p, w_e, b0, w2, b2, ln_scale,
                                           ln_bias, d_edge_out, d_virt)
     dev = _build.require_cuda(edge_rep)
-    _build.require_bwd_width(w2.shape[-1], "edge_layer_flat_bwd")
     n_virt, K = mask_p.shape
     M, W = edge_rep.shape
-    dt, _ = _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2)
+    dt, h = _check_layer(edge_rep, table, senders, rec_rows, mask_p, w_e, w2,
+                         "edge_layer_flat_bwd")
     _build.expect(d_virt.shape == (n_virt, W), "d_virt", d_virt.shape)
+    # K3's blob; at width 128 W_e^T after it, which the kernel reads from
+    # device memory (csrc/edge_flat_bwd.cu)
     params = torch.cat([w2.reshape(-1), b2, ln_scale, ln_bias,
-                        w_e.reshape(-1), b0])
+                        w_e.reshape(-1), b0]
+                       + ([w_e.t().reshape(-1)] if h > 64 else []))
     d_virt = d_virt.contiguous()
     f32, i32 = torch.float32, torch.int32
     d_x0 = torch.empty_like(edge_rep)
@@ -517,7 +520,7 @@ def edge_layer_bwd_chain(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
               if dt == torch.bfloat16 else None)
     d_e = torch.empty_like(edge_rep)
     d_rec = torch.empty((n_virt, W), device=dev, dtype=dt)
-    x1 = torch.empty((M * (W // HID), HID), device=dev, dtype=f32)
+    x1 = torch.empty((M * (W // h), h), device=dev, dtype=f32)
     dy = torch.empty_like(x1)
     ptrs = _build.pointers(dev, ("edge_rep", edge_rep, dt),
                            ("table", table, dt), ("senders", senders, i32),
@@ -534,11 +537,11 @@ def edge_layer_bwd_chain(edge_rep, table, senders, rec_rows, mask_p, w_e, b0,
                 _build.pointers(dev, ("d_x0_f", d_x0_f, f32))[0])
     ptrs += _build.pointers(dev, ("d_e", d_e, dt), ("d_rec", d_rec, dt),
                             ("x1", x1, f32), ("dy", dy, f32))
-    g = _build.run_bwd(_bwd_lib(), "nlt_edge_layer_bwd" + _build.suffix(dt),
-                       ptrs, [n_virt, K, W // HID], 4 * HID, dev,
+    g = _build.run_bwd(_bwd_lib(h), "nlt_edge_layer_bwd" + _build.suffix(dt),
+                       ptrs, [n_virt, K, W // h], 4 * h, dev,
                        "edge_layer_flat_bwd")
     _build.count_launch(edge_layer_flat_bwd, dt)
-    d_b2, d_ls, d_lb, d_b0 = g.view(4, HID)
+    d_b2, d_ls, d_lb, d_b0 = g.view(4, h)
     return (d_e, d_x0, d_rec, (d_b0, d_b2, d_ls, d_lb),
             _layer_pairs(edge_rep, d_x0 if d_x0_f is None else d_x0_f, x1,
                          dy))

@@ -25,11 +25,10 @@ in bf16 and stores dx in bf16, its weight and vector gradients fp32, as
 the JAX backward kernel does. `embed_grid_flat.launches_bf16` and
 `embed_grid_flat_bwd.launches_bf16` count their launches.
 
-Widths: the forward kernel takes h = w1's width at every width it is
-built for (`_build.WIDTHS`: 32, 64, 128), from that width's library; any
-other h raises on a CUDA tensor. The backward kernel is built for h = 64
-only and raises at any other h on a CUDA tensor. The plain versions take
-any width.
+Widths: both kernels take h = w1's width at every width they are built
+for (`_build.WIDTHS`: 32, 64, 128), from that width's library, and any
+d_in; any other h raises on a CUDA tensor. The plain versions take any
+width.
 """
 
 from __future__ import annotations
@@ -40,8 +39,6 @@ import torch.nn.functional as F
 from . import _build, library
 from .mlp import grads_through, layer_norm
 
-HID = 64  # the backward kernel's hidden width
-
 _P, _I, _LL, _IP = _build.P, _build.I, _build.LL, _build.IP
 _SIGNATURES = {"nlt_embed": [_P] * 3 + [_LL, _I, _I, _P],
                "nlt_embed_bf16": [_P] * 3 + [_LL, _I, _I, _P]}
@@ -49,15 +46,14 @@ _BWD_SIGNATURES = {"nlt_embed_bwd": [_P] * 5 + [_LL, _I, _I, _I, _P],
                    "nlt_embed_bwd_grid": [_LL, _I, _I, _IP],
                    "nlt_embed_bwd_bf16": [_P] * 5 + [_LL, _I, _I, _I, _P],
                    "nlt_embed_bwd_bf16_grid": [_LL, _I, _I, _IP]}
-MAX_D_IN = 128  # csrc/embed_bwd.cu stages x rows at up to 128 columns
 
 
 def _lib(h):
     return _build.library("embed", _SIGNATURES, h)
 
 
-def _bwd_lib():
-    return _build.library("embed_bwd", _BWD_SIGNATURES)
+def _bwd_lib(h):
+    return _build.library("embed_bwd", _BWD_SIGNATURES, h)
 
 
 def embed_grid_flat_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
@@ -70,11 +66,11 @@ def embed_grid_flat_plain(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
     return layer_norm(y, ln_scale, ln_bias).reshape(N, -1).to(x_f.dtype)
 
 
-def _check_embed(x_f, w0, w1, batch_size):
-    """The kernel's shapes: x_f (N, B*d_in), w0 (d_in, h), w1 (h, h), h a
-    built width; its dtype (float32 or bfloat16) and h."""
+def _check_embed(x_f, w0, w1, batch_size, what="embed_grid_flat"):
+    """The kernels' shapes: x_f (N, B*d_in), w0 (d_in, h), w1 (h, h), h a
+    built width; their dtype (float32 or bfloat16) and h."""
     d_in = w0.shape[0]
-    h = _build.require_width(w1.shape[-1], "embed_grid_flat")
+    h = _build.require_width(w1.shape[-1], what)
     _build.expect(x_f.shape[1] == batch_size * d_in, "x_f",
                   (x_f.shape, d_in))
     _build.expect(w0.shape == (d_in, h) and w1.shape == (h, h),
@@ -131,7 +127,8 @@ def embed_grid_flat_bwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
                         batch_size: int, d_out, need_dx: bool = True):
     """Backward of `embed_grid_flat` from d_out (N, B*h): (d_x | None,
     d_w0, d_b0, d_w1, d_b1, d_ln_scale, d_ln_bias). d_x is computed only
-    when `need_dx` (the first predict step's input needs none).
+    when `need_dx` (the first predict step's input needs none). Any d_in,
+    at each built width h.
 
     Replaces pallas_embed.py::_embed_bwd_kernel (via _embed_bwd). Its
     products, the weight gradients' included, run on tensor cores in
@@ -142,15 +139,10 @@ def embed_grid_flat_bwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
         return embed_grid_flat_bwd_plain(x_f, w0, b0, w1, b1, ln_scale,
                                          ln_bias, batch_size, d_out, need_dx)
     dev = _build.require_cuda(x_f)
-    _build.require_bwd_width(w1.shape[-1], "embed_grid_flat_bwd")
-    N, W_in = x_f.shape
+    dt, h = _check_embed(x_f, w0, w1, batch_size, "embed_grid_flat_bwd")
+    N = x_f.shape[0]
     d_in = w0.shape[0]
-    _build.expect(W_in == batch_size * d_in and d_in <= MAX_D_IN, "x_f",
-                  (x_f.shape, d_in))
-    _build.expect(w0.shape == (d_in, HID) and w1.shape == (HID, HID),
-                  "w0/w1", (w0.shape, w1.shape))
-    _build.expect(d_out.shape == (N, batch_size * HID), "d_out", d_out.shape)
-    dt = _build.io_dtype("x_f", x_f)
+    _build.expect(d_out.shape == (N, batch_size * h), "d_out", d_out.shape)
     params = torch.cat([w0.reshape(-1), w1.reshape(-1), b0, b1, ln_scale,
                         ln_bias])
     d_out = d_out.contiguous()
@@ -159,13 +151,13 @@ def embed_grid_flat_bwd(x_f, w0, b0, w1, b1, ln_scale, ln_bias,
     ptrs = _build.pointers(dev, ("x_f", x_f, dt), ("d_out", d_out, dt),
                            ("params", params, f32))
     ptrs.append(None if d_x is None else d_x.data_ptr())
-    g = _build.run_bwd(_bwd_lib(), "nlt_embed_bwd" + _build.suffix(dt), ptrs,
-                       [N * batch_size, d_in], params.numel(), dev,
+    g = _build.run_bwd(_bwd_lib(h), "nlt_embed_bwd" + _build.suffix(dt),
+                       ptrs, [N * batch_size, d_in], params.numel(), dev,
                        "embed_grid_flat_bwd")
     _build.count_launch(embed_grid_flat_bwd, dt)
-    n0, n1 = d_in * HID, HID * HID
-    v = g[n0 + n1:].view(4, HID)
-    return (d_x, g[:n0].view(d_in, HID), v[0], g[n0:n0 + n1].view(HID, HID),
+    n0, n1 = d_in * h, h * h
+    v = g[n0 + n1:].view(4, h)
+    return (d_x, g[:n0].view(d_in, h), v[0], g[n0:n0 + n1].view(h, h),
             v[1], v[2], v[3])
 
 

@@ -38,10 +38,9 @@ widened copy of d_out (its D must be fp32; the JAX kernel widens d_out
 as it reads it). `grid_update_flat.launches_bf16` and
 `grid_update_flat_bwd.launches_bf16` count the bf16 instances' launches.
 
-Widths: the forward kernel takes h = w2's width at every width it is
-built for (`_build.WIDTHS`: 32, 64, 128), from that width's library, and
-any output width d_out; any other h raises on a CUDA tensor. The backward
-kernel is built for h = 64 and d_out <= 64 only and raises otherwise on a
+Widths: the forward and backward kernels take h = w2's width at every
+width they are built for (`_build.WIDTHS`: 32, 64, 128), from that
+width's library, and any output width d_out; any other h raises on a
 CUDA tensor. The plain versions take any width.
 """
 
@@ -52,9 +51,6 @@ import torch.nn.functional as F
 
 from . import _build, library, weight_grad
 from .mlp import grads_through, layer_norm
-
-HID = 64  # the backward kernel's hidden width
-BWD_MAX_D_OUT = 64  # the backward kernel's widest output map
 
 _P, _I, _IP = _build.P, _build.I, _build.IP
 _SIGNATURES = {"nlt_grid_update": [_P] * 7 + [_I] * 6 + [_P],
@@ -78,8 +74,8 @@ def _lib(h):
     return _build.library("grid_update", _SIGNATURES, h)
 
 
-def _bwd_lib():
-    return _build.library("grid_update_bwd", _BWD_SIGNATURES)
+def _bwd_lib(h):
+    return _build.library("grid_update_bwd", _BWD_SIGNATURES, h)
 
 
 def pack_grid_update_params(model) -> dict:
@@ -172,13 +168,14 @@ def grid_update_flat_plain(table, senders, ew, grid_emb_f, mask_p, pp):
                                   pp).to(table.dtype)
 
 
-def _check(table, senders, ew, grid_emb_f, mask_p, pp):
+def _check(table, senders, ew, grid_emb_f, mask_p, pp,
+           what="grid_update_flat"):
     """K4's and B5/B6's shapes (any d_out >= 1); returns their instance's
     dtype and h, a built width."""
     n_virt, K = mask_p.shape
     W = table.shape[1]
     d_out = pp["o_w1"].shape[1]
-    h = _build.require_width(pp["w2"].shape[-1], "grid_update_flat")
+    h = _build.require_width(pp["w2"].shape[-1], what)
     _build.expect(W % h == 0 and ew.shape == (n_virt * K, h), "ew",
                   ew.shape)
     _build.expect(grid_emb_f.dim() == 2 and grid_emb_f.shape[1] == W
@@ -268,8 +265,8 @@ def grid_update_flat_bwd_plain(table, senders, ew, grid_emb_f, mask_p, pp,
 
 
 # Scratch rows of the chain pass (csrc/grid_update_bwd.cu): the node
-# tensors, each (n_virt*B, 64) with row v*B + b, in this order; and the
-# slot tensors X1 = silu(x0) and DX2, each (n_virt*K*B, 64) with row
+# tensors, each (n_virt*B, h) with row v*B + b, in this order; and the
+# slot tensors X1 = silu(x0) and DX2, each (n_virt*K*B, h) with row
 # (v*K + k)*B + b. "d" marks a gradient: dt1p is d t1p.
 _NODE = ("t1", "gr", "agg", "u1", "ro", "y",
          "dt1p", "dt2", "drec", "du0p", "du2", "dy0p")
@@ -338,23 +335,17 @@ def grid_update_bwd_chain(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
         return grid_update_bwd_chain_plain(table, senders, ew, grid_emb_f,
                                            mask_p, pp, d_out)
     dev = _build.require_cuda(table)
-    _build.require_bwd_width(pp["w2"].shape[-1], "grid_update_flat_bwd")
-    _check(table, senders, ew, grid_emb_f, mask_p, pp)
+    dt, h = _check(table, senders, ew, grid_emb_f, mask_p, pp,
+                   "grid_update_flat_bwd")
     n_virt, K = mask_p.shape
     W = table.shape[1]
-    B = W // HID
+    B = W // h
     d_o = pp["o_w1"].shape[1]
-    if d_o > BWD_MAX_D_OUT:
-        raise ValueError(
-            f"grid_update_flat_bwd: the backward kernel takes an output map "
-            f"of at most {BWD_MAX_D_OUT} columns, not {d_o} (ROADMAP.md "
-            "item 8c)")
     _build.expect(d_out.shape == (n_virt, B * d_o), "d_out", d_out.shape)
-    dt = _build.io_dtype("table", table)
     params = _blob(pp)
     aw0 = pp["a_w0"]
-    mats_t = [pp["enc_w0"], pp["enc_w1"], pp["w_i"], pp["w2"], aw0[:HID],
-              aw0[HID:], pp["a_w1"], pp["o_w0"]]
+    mats_t = [pp["enc_w0"], pp["enc_w1"], pp["w_i"], pp["w2"], aw0[:h],
+              aw0[h:], pp["a_w1"], pp["o_w0"]]
     tparams = torch.cat([m.t().reshape(-1) for m in mats_t]
                         + [pp["o_w1"].t().reshape(-1)])
     d_out = d_out.contiguous()
@@ -362,8 +353,8 @@ def grid_update_bwd_chain(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
     d_x0 = torch.empty((n_virt * K, W), device=dev, dtype=dt)
     d_ew = torch.empty_like(ew)
     d_ge = torch.empty_like(grid_emb_f)
-    node = torch.empty((len(_NODE), n_virt * B, HID), device=dev, dtype=f32)
-    slot = torch.empty((len(_SLOT), n_virt * K * B, HID), device=dev,
+    node = torch.empty((len(_NODE), n_virt * B, h), device=dev, dtype=f32)
+    slot = torch.empty((len(_SLOT), n_virt * K * B, h), device=dev,
                        dtype=f32)
     ptrs = _build.pointers(dev, ("table", table, dt),
                            ("senders", senders, i32), ("ew", ew, dt),
@@ -373,12 +364,13 @@ def grid_update_bwd_chain(table, senders, ew, grid_emb_f, mask_p, pp, d_out):
                            ("d_x0", d_x0, dt), ("d_ew", d_ew, dt),
                            ("d_ge", d_ge, dt), ("node", node, f32),
                            ("slot", slot, f32))
-    n_vec = len(_VECS) * HID
-    g = _build.run_bwd(_bwd_lib(), "nlt_grid_update_bwd" + _build.suffix(dt),
-                       ptrs, [n_virt, grid_emb_f.shape[0], K, B, d_o],
+    n_vec = len(_VECS) * h
+    g = _build.run_bwd(_bwd_lib(h),
+                       "nlt_grid_update_bwd" + _build.suffix(dt), ptrs,
+                       [n_virt, grid_emb_f.shape[0], K, B, d_o],
                        n_vec + d_o, dev, "grid_update_flat_bwd")
     _build.count_launch(grid_update_flat_bwd, dt)
-    vecs = {k: g[i * HID:(i + 1) * HID] for i, k in enumerate(_VECS)}
+    vecs = {k: g[i * h:(i + 1) * h] for i, k in enumerate(_VECS)}
     vecs["o_b1"] = g[n_vec:]
     return d_x0, d_ew, d_ge, vecs, _weight_pairs(node, slot, grid_emb_f,
                                                  d_out, B)

@@ -1,19 +1,23 @@
 """Weight gradients as sums of row products: X^T @ D for a list of pairs.
 
-A backward pass whose weight gradients are sums over rows of X (n, 64)
-times D (n, d), d <= 64, writes the pairs out and hands them to `xtd_sum`,
-which computes all of them in two launches of `csrc/weight_grad.cu`. Two
-callers take their weight gradients this way: the decoder backward (B5/B6,
-`ops/grid_update.py::grid_update_flat_bwd`, nine pairs) and the processor
-edge layer's backward (B3/B4, `ops/edge_flat.py::edge_layer_flat_bwd`, two
-pairs: dW2 and dW_e). The JAX kernels they replace
+A backward pass whose weight gradients are sums over rows of X (n, h)
+times D (n, d) writes the pairs out and hands them to `xtd_sum`, which
+computes all of them in two launches of `csrc/weight_grad.cu` (its
+library at hidden width h, `_build.WIDTHS`). A D wider than h (the
+decoder's o_w1 pair at d_out > h) is taken as column chunks of h, each a
+pair of its own (copied contiguous, `column_chunks`), and their results
+are joined. Three callers take their weight gradients this way: the
+decoder backward (B5/B6, `ops/grid_update.py::grid_update_flat_bwd`, nine
+pairs), the processor edge layer's backward (B3/B4,
+`ops/edge_flat.py::edge_layer_flat_bwd`, two pairs: dW2 and dW_e) and the
+g2m edge tail's (B2, one: dW2). The JAX kernels they replace
 (pallas_grid_update.py::_grid_update_bwd_kernel, ::_grid_update_win_bwd_kernel,
 pallas_edge_flat.py::_layer_bwd_kernel, ::_layer_bwd_win_kernel) sum the
 same products inside their own bodies.
 
 The pairs' rows, end to end, are cut into one even share per block of a
 persistent grid (`BLOCKS_PER_SM` blocks on each SM); `segments` cuts each
-share at the pair boundaries, and each segment's (64, d) partial matrix is
+share at the pair boundaries, and each segment's (h, d) partial matrix is
 written apart (`xtd_partials`, the main kernel). `xtd_reduce` (a second,
 small kernel) sums each pair's partials in segment order: no float
 atomics, so a run repeats itself bit for bit. `xtd_sum.launches` counts
@@ -35,9 +39,8 @@ import torch
 
 from . import _build
 
-HID = 64
 MAX_PAIRS = 16  # csrc/weight_grad.cu's kMaxPairs
-TILE = 32  # csrc/weight_grad.cu's kTile: rows per stage of the ring
+TILE = 32  # rows per block at least (csrc/weight_grad.cu's kTile at 64)
 # Blocks of the persistent grid per SM (capped at what is resident).
 BLOCKS_PER_SM = 2
 
@@ -49,17 +52,37 @@ _SIGNATURES = {
     "nlt_xtd_reduce": [_P, _IP, _IP, _I, _P, _I, _P],
     "nlt_xtd_sum_occupancy": [_I, _IP, _IP],
 }
-_OCCUPANCY: dict[int, tuple[int, int]] = {}  # device -> (SMs, blocks per SM)
+# (device, width) -> (SMs, blocks per SM)
+_OCCUPANCY: dict[tuple, tuple[int, int]] = {}
 _SEGMENTS: dict[tuple, tuple] = {}  # (rows, blocks, device) -> tensors
 
 
-def _lib():
-    return _build.library("weight_grad", _SIGNATURES)
+def _lib(h):
+    return _build.library("weight_grad", _SIGNATURES, h)
 
 
 def xtd_sum_plain(pairs):
     """Plain PyTorch version of `xtd_sum` (a bf16 X widened to fp32)."""
     return tuple(x.float().t() @ d for x, d in pairs)
+
+
+def column_chunks(pairs):
+    """The pairs with every D wider than X cut into column chunks of X's
+    width h, each a (X, D[:, c0:c0 + h]) pair with that chunk copied
+    contiguous (a D no wider than h as it is); and, per pair, how many
+    chunks it became."""
+    out, counts = [], []
+    for x, d in pairs:
+        h = x.shape[-1]
+        if d.shape[1] <= h:
+            out.append((x, d))
+            counts.append(1)
+            continue
+        chunks = [(x, d[:, c0:c0 + h].contiguous())
+                  for c0 in range(0, d.shape[1], h)]
+        out += chunks
+        counts.append(len(chunks))
+    return out, counts
 
 
 def segments(ns, n_blocks):
@@ -87,24 +110,25 @@ def segments(ns, n_blocks):
     return out
 
 
-def _occupancy(dev):
-    """(SMs, resident blocks of the main kernel per SM) of `dev`, asked of
-    the library once per device."""
-    occ = _OCCUPANCY.get(dev.index)
+def _occupancy(dev, h):
+    """(SMs, resident blocks of the main kernel per SM) of `dev` at width
+    h, asked of the library once per device and width."""
+    occ = _OCCUPANCY.get((dev.index, h))
     if occ is None:
-        lib = _lib()
+        lib = _lib(h)
         sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
         _build.check(lib, lib.nlt_xtd_sum_occupancy(
             dev.index, ctypes.byref(sms), ctypes.byref(per_sm)), "xtd_sum")
-        occ = _OCCUPANCY[dev.index] = (sms.value, per_sm.value)
+        occ = _OCCUPANCY[dev.index, h] = (sms.value, per_sm.value)
     return occ
 
 
-def n_blocks(ns, dev, per_sm=BLOCKS_PER_SM):
-    """Blocks of the persistent grid for pairs of ns[p] rows: SMs x
-    min(per_sm, resident blocks per SM), and no more than one per TILE
-    rows. `xtd_sum` takes BLOCKS_PER_SM; chip_smoke.py sweeps `per_sm`."""
-    sms, resident = _occupancy(dev)
+def n_blocks(ns, dev, h, per_sm=BLOCKS_PER_SM):
+    """Blocks of the persistent grid for pairs of ns[p] rows at width h:
+    SMs x min(per_sm, resident blocks per SM), and no more than one per
+    TILE rows. `xtd_sum` takes BLOCKS_PER_SM; chip_smoke.py sweeps
+    `per_sm`."""
+    sms, resident = _occupancy(dev, h)
     return max(1, min(sms * min(per_sm, resident), -(-sum(ns) // TILE)))
 
 
@@ -130,19 +154,23 @@ def _segment_tensors(ns, blocks, dev):
 
 
 def _check(pairs, blocks):
+    """The pairs' shapes, dtypes and alignment for one launch; returns
+    their width h, a built width."""
     _build.expect(1 <= len(pairs) <= MAX_PAIRS, "number of pairs", len(pairs))
     _build.expect(blocks >= 1, "blocks", blocks)
+    h = _build.require_width(pairs[0][0].shape[-1], "xtd_sum")
     for i, (x, d) in enumerate(pairs):
-        _build.expect(x.dim() == 2 and x.shape[1] == HID, f"X[{i}]",
+        _build.expect(x.dim() == 2 and x.shape[1] == h, f"X[{i}]",
                       tuple(x.shape))
         _build.expect(d.dim() == 2 and d.shape[0] == x.shape[0]
-                      and 1 <= d.shape[1] <= HID, f"D[{i}]", tuple(d.shape))
+                      and 1 <= d.shape[1] <= h, f"D[{i}]", tuple(d.shape))
         _build.io_dtype(f"X[{i}]", x)
         _build.expect(x.data_ptr() % 16 == 0, f"X[{i}] alignment",
                       x.data_ptr())
         align = 16 if d.shape[1] % 4 == 0 else 4
         _build.expect(d.data_ptr() % align == 0, f"D[{i}] alignment",
                       d.data_ptr())
+    return h
 
 
 def _pair_first(segs, n_pairs):
@@ -157,23 +185,25 @@ def _pair_first(segs, n_pairs):
 
 def xtd_partials_plain(pairs, blocks):
     """Plain PyTorch version of `xtd_partials`."""
+    h = pairs[0][0].shape[-1]
     segs = segments([x.shape[0] for x, _ in pairs], blocks)
-    partial = pairs[0][0].new_zeros((max(1, len(segs)), HID * HID))
+    partial = pairs[0][0].new_zeros((max(1, len(segs)), h * h))
     for s, (_, p, lo, hi) in enumerate(segs):
         x, d = pairs[p]
-        partial[s, :HID * d.shape[1]] = (
+        partial[s, :h * d.shape[1]] = (
             x[lo:hi].float().t() @ d[lo:hi]).reshape(-1)
     return partial, _pair_first(segs, len(pairs))
 
 
 def xtd_partials(pairs, blocks):
     """The main kernel over `blocks` blocks (`segments`): (partial (n_seg,
-    64*64), whose row s holds segment s's (64, d) partial matrix
-    row-major; pair_first, the prefix count of segments per pair)."""
+    h*h), whose row s holds segment s's (h, d) partial matrix row-major;
+    pair_first, the prefix count of segments per pair). X (n, h), D (n, d)
+    with d <= h."""
     if pairs[0][0].device.type == "cpu":
         return xtd_partials_plain(pairs, blocks)
     dev = _build.require_cuda(pairs[0][0])
-    _check(pairs, blocks)
+    h = _check(pairs, blocks)
     f32 = torch.float32
     ptrs = _build.pointers(dev, *((f"{n}[{i}]", t, x.dtype if n == "X"
                                    else f32)
@@ -183,11 +213,11 @@ def xtd_partials(pairs, blocks):
               if x.dtype == torch.bfloat16)
     ns = [x.shape[0] for x, _ in pairs]
     seg, block_first, pair_first = _segment_tensors(ns, blocks, dev)
-    partial = torch.empty((max(1, pair_first[-1]), HID * HID), device=dev,
+    partial = torch.empty((max(1, pair_first[-1]), h * h), device=dev,
                           dtype=f32)
     if pair_first[-1]:
         n = len(pairs)
-        lib = _lib()
+        lib = _lib(h)
         rc = lib.nlt_xtd_sum(
             (_build.LL * n)(*ptrs[0::2]), (_build.LL * n)(*ptrs[1::2]),
             (ctypes.c_int * n)(*(d.shape[1] for _, d in pairs)), n, xbf,
@@ -206,54 +236,69 @@ def _launch_dtype(pairs):
     return torch.float32
 
 
-def xtd_reduce_plain(partial, pair_first, widths):
+def xtd_reduce_plain(partial, pair_first, widths, h):
     """Plain PyTorch version of `xtd_reduce`."""
-    return tuple(partial[a:b, :HID * d].sum(dim=0).view(HID, d)
+    return tuple(partial[a:b, :h * d].sum(dim=0).view(h, d)
                  for a, b, d in zip(pair_first, pair_first[1:], widths))
 
 
-def xtd_reduce(partial, pair_first, widths, dtype=torch.float32):
-    """Each pair's (64, d) sum of its segments' partials (rows
-    pair_first[p] .. pair_first[p+1]-1 of `partial`), in segment order, in
-    one launch on a CUDA tensor, counted on the counter of `dtype`, the
-    instance of the `xtd_partials` launch it finishes."""
+def xtd_reduce(partial, pair_first, widths, h, dtype=torch.float32):
+    """Each pair's (h, d) sum of its segments' partials (rows
+    pair_first[p] .. pair_first[p+1]-1 of `partial`, (n_seg, h*h), h the
+    pairs' width), in segment order, in one launch on a CUDA tensor,
+    counted on the counter of `dtype`, the instance of the `xtd_partials`
+    launch it finishes."""
     if partial.device.type == "cpu":
-        return xtd_reduce_plain(partial, pair_first, widths)
+        return xtd_reduce_plain(partial, pair_first, widths, h)
     dev = _build.require_cuda(partial)
+    h = _build.require_width(h, "xtd_reduce")
     n = len(widths)
     _build.expect(len(pair_first) == n + 1 and pair_first[0] == 0
                   and partial.shape[0] >= pair_first[-1]
-                  and partial.shape[1] == HID * HID, "partial",
-                  (tuple(partial.shape), pair_first))
+                  and partial.shape[1] == h * h
+                  and all(1 <= d <= h for d in widths), "partial",
+                  (tuple(partial.shape), pair_first, widths))
     (ptr,) = _build.pointers(dev, ("partial", partial, torch.float32))
-    out = torch.empty(HID * sum(widths), device=dev, dtype=torch.float32)
-    lib = _lib()
+    out = torch.empty(h * sum(widths), device=dev, dtype=torch.float32)
+    lib = _lib(h)
     rc = lib.nlt_xtd_reduce(ptr, (ctypes.c_int * (n + 1))(*pair_first),
                             (ctypes.c_int * n)(*widths), n, out.data_ptr(),
                             dev.index, _build.stream_of(dev))
     _build.check(lib, rc, "xtd_reduce")
     _build.count_launch(xtd_reduce, dtype)
-    return tuple(m.view(HID, d)
-                 for m, d in zip(out.split([HID * d for d in widths]), widths))
+    return tuple(m.view(h, d)
+                 for m, d in zip(out.split([h * d for d in widths]), widths))
 
 
 def xtd_sum(pairs):
-    """X^T @ D, summed over the rows, for each (X (n, 64), D (n, d)) pair
-    with 1 <= d <= 64 (X fp32 or bf16, D fp32): a tuple of fp32 (64, d)
-    matrices. On a CUDA device two launches for all pairs (`xtd_partials`
-    over `n_blocks` blocks, then `xtd_reduce`).
+    """X^T @ D, summed over the rows, for each (X (n, h), D (n, d)) pair
+    (X fp32 or bf16, D fp32, h a built width, any d >= 1): a tuple of fp32
+    (h, d) matrices. On a CUDA device two launches for all pairs
+    (`xtd_partials` over `n_blocks` blocks, then `xtd_reduce`), a D wider
+    than h taken as column chunks (`column_chunks`), and two more for
+    every MAX_PAIRS pairs past the first.
 
     Bound by the bytes of the pairs on the card (each row of X and D read
     once); see csrc/weight_grad.cu."""
     x0 = pairs[0][0]
     if x0.device.type == "cpu":
         return xtd_sum_plain(pairs)
-    for x, _ in pairs:
-        _build.require_bwd_width(x.shape[-1], "xtd_sum")
-    blocks = n_blocks([x.shape[0] for x, _ in pairs], _build.require_cuda(x0))
-    partial, pair_first = xtd_partials(pairs, blocks)
-    return xtd_reduce(partial, pair_first, [d.shape[1] for _, d in pairs],
-                      _launch_dtype(pairs))
+    dev = _build.require_cuda(x0)
+    h = _build.require_width(x0.shape[-1], "xtd_sum")
+    chunks, counts = column_chunks(pairs)
+    mats = []
+    for i in range(0, len(chunks), MAX_PAIRS):
+        group = chunks[i:i + MAX_PAIRS]
+        blocks = n_blocks([x.shape[0] for x, _ in group], dev, h)
+        partial, pair_first = xtd_partials(group, blocks)
+        mats += xtd_reduce(partial, pair_first,
+                           [d.shape[1] for _, d in group], h,
+                           _launch_dtype(group))
+    out = []
+    for n in counts:
+        out.append(mats[0] if n == 1 else torch.cat(mats[:n], dim=1))
+        mats = mats[n:]
+    return tuple(out)
 
 
 xtd_sum.launches = 0

@@ -1003,9 +1003,9 @@ def main(input_args=None):
         device = resolve_device(args.device)
     if (args.eval is None and device.type == "cuda"
             and args.hidden_layers == 1):
-        # kernel MLPs (`message_passing.kernel_mlp`): the backward kernels
-        # exist at width 64 only, so fail before the first step
-        _build.require_bwd_width(args.hidden_dim, "train.py --hidden_dim")
+        # kernel MLPs (`message_passing.kernel_mlp`): the kernels exist at
+        # the built widths only, so fail before the first step
+        _build.require_width(args.hidden_dim, "train.py --hidden_dim")
     mesh = make_mesh(n_space=n_space)
     if multihost:
         # the global batch: each data group reads --batch_size rows

@@ -93,7 +93,7 @@ def test_partials_and_reduce_compose_to_xtd_sum(monkeypatch):
     assert torch.equal(partial, want_p[0]) and first == want_p[1]
     assert first[0] == 0 and first[-1] == partial.shape[0]
     assert partial.shape[1] == H * H
-    got = weight_grad.xtd_reduce(partial, first, widths)
+    got = weight_grad.xtd_reduce(partial, first, widths, H)
     want = weight_grad.xtd_sum_plain(pairs)
     for g, w, d in zip(got, want, widths):
         assert g.shape == (H, d)

@@ -13,10 +13,11 @@ with numpy:
   CPU route (Pallas off);
 * a JAX checkpoint at h = 128, converted, through the port's predict CLI
   against the JAX predict CLI;
-* the host logic, which needs no CUDA: a library a source and width (its
-  name and nvcc flags), the raise at an unbuilt width (48) in the build
-  and in each forward kernel's shape check, the backward kernels' raise
-  at any width but 64, and the train CLI's raise before its first step.
+* the host logic, which needs no CUDA: a library a source and width,
+  forward and backward (its name and nvcc flags), the raise at an unbuilt
+  width (48) in the build, in each forward kernel's shape check and in
+  each backward wrapper, and the train CLI's raise at 48 before its first
+  step (and no raise at 32 and 128).
 
 Tolerances as at h = 64: atol = rtol = 1e-4 for a kernel (sums in
 another order on each side; the JAX kernels fold the LayerNorm's mean
@@ -74,6 +75,7 @@ from neural_lam_tpu_torch.ops import (
     edge_flat,
     embed,
     grid_update,
+    weight_grad,
 )
 from neural_lam_tpu_torch.ops import message_passing as tmp
 from neural_lam_tpu_torch.ops.message_passing import EdgeSet
@@ -116,42 +118,67 @@ def _tail(rng, h):
 
 
 def test_a_library_per_source_and_width():
-    """Each forward source has a library at 32, 64 and 128: the width is in
-    its name, its nvcc flags and its hash; the backward sources at 64
-    only. Nothing is built (no nvcc here)."""
+    """Each source, forward and backward, has a library at 32, 64 and 128:
+    the width is in its name, its nvcc flags and its hash. Nothing is
+    built (no nvcc here)."""
     assert _build.WIDTHS == (32, 64, 128)
     assert set(_build.FORWARD) == {"embed", "edge_flat", "grid_update",
                                    "edge"}
+    assert set(_build.BACKWARD) == set(_build.SOURCES) - set(_build.FORWARD)
     for name in _build.SOURCES:
-        widths = _build.WIDTHS if name in _build.FORWARD else (64,)
-        paths = {w: _build.lib_path(name, w) for w in widths}
+        paths = {w: _build.lib_path(name, w) for w in _build.WIDTHS}
         for w, p in paths.items():
             assert p.name.startswith(f"libnlt_{name}_h{w}-"), p.name
             assert f"-DNLT_H={w}" in _build.nvcc_flags(w)
             assert _build.lib_key(name, w) == (
                 name if w == 64 else f"{name}@{w}")
-        assert len({p.name for p in paths.values()}) == len(widths)
+        assert len({p.name for p in paths.values()}) == len(_build.WIDTHS)
     assert _build.lib_path("edge") == _build.lib_path("edge", 64)
 
 
 @pytest.mark.parametrize("width", [48, 16, 256])
 def test_unbuilt_width_raises(width):
-    """A width with no library raises, naming the built widths; so does a
-    backward source at any width but 64 (naming ROADMAP.md item 8c)."""
+    """A width with no library raises, naming the built widths, for a
+    forward and a backward source alike."""
     with pytest.raises(ValueError, match="32, 64, 128"):
         _build.require_width(width, "k")
     with pytest.raises(ValueError, match="32, 64, 128"):
         _build.lib_path("edge_flat", width)
+    with pytest.raises(ValueError, match="32, 64, 128"):
+        _build.lib_path("edge_flat_bwd", width)
     assert _build.require_width(128, "k") == 128
 
 
 @pytest.mark.parametrize("width", [32, 128])
 def test_backward_raises_off_64(width):
-    with pytest.raises(ValueError, match="item 8c"):
-        _build.require_bwd_width(width, "k")
-    with pytest.raises(ValueError, match="item 8c"):
-        _build.lib_path("edge_flat_bwd", width)
-    assert _build.require_bwd_width(64, "k") == 64
+    """The backward sources have libraries at 32 and 128 as at 64 (no
+    width-64-only rule is left: `require_bwd_width` is gone), and width 48
+    raises in each, naming the built widths."""
+    assert not hasattr(_build, "require_bwd_width")
+    for name in _build.BACKWARD:
+        assert _build.lib_path(name, width).name.startswith(
+            f"libnlt_{name}_h{width}-")
+        with pytest.raises(ValueError, match="32, 64, 128"):
+            _build.lib_path(name, 48)
+
+
+@pytest.mark.parametrize("width", _build.WIDTHS)
+@pytest.mark.parametrize("name", _build.BACKWARD)
+def test_backward_library_per_width(name, width):
+    """Each backward library of each width: its name holds the source and
+    the width, its flags `-DNLT_H=<width>`, its key `<source>@<width>`
+    (the source alone at 64), and its hash differs from the other widths'
+    (nothing is built)."""
+    path = _build.lib_path(name, width)
+    assert path.name.startswith(f"libnlt_{name}_h{width}-")
+    assert path.parent == _build.BUILD_DIR
+    assert f"-DNLT_H={width}" in _build.nvcc_flags(width)
+    assert _build.lib_key(name, width) == (
+        name if width == 64 else f"{name}@{width}")
+    assert _build._split_key(_build.lib_key(name, width)) == (name, width)
+    others = {_build.lib_path(name, w).name for w in _build.WIDTHS
+              if w != width}
+    assert path.name not in others
 
 
 def _shape_checks(h):
@@ -200,9 +227,10 @@ def test_kernel_shape_checks_take_built_widths(index):
 
 
 def test_train_cli_raises_at_128_on_cuda(monkeypatch):
-    """`train.py` at --hidden_dim 128 on CUDA raises before its first step,
-    naming item 8c; with --eval, or with MLPs the kernels do not take
-    (--hidden_layers 2), it goes on (stopped here at the next step)."""
+    """`train.py` on CUDA at --hidden_dim 48 (no library) raises before
+    its first step, naming the built widths; at 128 and 32, and with
+    --eval or with MLPs the kernels do not take (--hidden_layers 2), it
+    goes on (stopped here at the next step)."""
     monkeypatch.setattr(train, "resolve_device",
                         lambda d: torch.device("cuda"))
 
@@ -213,14 +241,62 @@ def test_train_cli_raises_at_128_on_cuda(monkeypatch):
         raise Past
 
     monkeypatch.setattr(train, "make_mesh", past)
-    argv = ["--config_path", "unused.yaml", "--hidden_dim", "128"]
-    with pytest.raises(ValueError, match="item 8c"):
+    argv = ["--config_path", "unused.yaml", "--hidden_dim", "48"]
+    with pytest.raises(ValueError, match="32, 64, 128"):
         train.main(argv)
     for extra in (["--eval", "val"], ["--hidden_layers", "2"]):
         with pytest.raises(Past):
             train.main(argv + extra)
-    with pytest.raises(Past):
-        train.main(["--config_path", "unused.yaml", "--hidden_dim", "64"])
+    for h in ("128", "32", "64"):
+        with pytest.raises(Past):
+            train.main(["--config_path", "unused.yaml", "--hidden_dim", h])
+
+
+def _bwd_calls(h):
+    """Each backward wrapper (B1, B2, B3/B4, B5/B6, xtd_sum) on meta
+    tensors at width h: its device check passes (patched), so its shape
+    and width checks run before it loads a library."""
+    B, K, nv = 4, 2, 8
+    M = nv * K
+
+    def r(*shape):
+        return torch.empty(*shape, device="meta")
+
+    senders = torch.zeros(M, dtype=torch.int32, device="meta")
+    mask_p = r(nv, K)
+    tail = (r(h, h), r(h), r(h), r(h))
+    pp = {k: r(2 * h if k == "a_w0" else h, h) for k in grid_update._MATS}
+    pp.update({k: r(h) for k in grid_update._VECS}, o_w1=r(h, 90),
+              o_b1=r(90))
+    return [
+        lambda: embed.embed_grid_flat_bwd(
+            r(20, B * 5), r(5, h), r(h), r(h, h), r(h), r(h), r(h), B,
+            r(20, B * h), False),
+        lambda: edge_flat.edge_tail_bwd_chain(
+            r(20, B * h), senders, r(M, h), r(nv, B * h), mask_p, *tail,
+            r(nv, B * h)),
+        lambda: edge_flat.edge_layer_bwd_chain(
+            r(M, B * h), r(20, B * h), senders, r(nv, B * h), mask_p,
+            r(h, h), r(h), *tail, None, r(nv, B * h)),
+        lambda: grid_update.grid_update_bwd_chain(
+            r(20, B * h), senders, r(M, h), r(20, B * h), mask_p, pp,
+            r(nv, B * 90)),
+        lambda: weight_grad.xtd_sum([(r(64, h), r(64, 90))]),
+    ]
+
+
+@pytest.mark.parametrize("index", range(5))
+def test_backward_wrappers_raise_at_48(index, monkeypatch):
+    """Each backward wrapper on a tensor of the card at width 48 raises
+    naming the built widths before it loads a library or launches (the
+    card's device check stood in for by a patch, on meta tensors)."""
+    def no_build(*a, **kw):
+        raise AssertionError("a kernel library was requested")
+
+    monkeypatch.setattr(_build, "require_cuda", lambda t: t.device)
+    monkeypatch.setattr(_build, "library", no_build)
+    with pytest.raises(ValueError, match="32, 64, 128"):
+        _bwd_calls(48)[index]()
 
 
 # ---------------------------------------------------- kernels against JAX
